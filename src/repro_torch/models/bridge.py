@@ -1,0 +1,38 @@
+"""Carry parameter and cache trees across from the JAX package.
+
+The JAX package keeps its parameters as nested dicts of arrays with the
+stacked ``layers`` axis; the port keeps the same tree of tensors.  The
+trees cross as numpy (``jax.tree.map(np.asarray, params)`` on the JAX
+side), so the port never imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.layers import tree_map
+
+
+def _tensor(a, device) -> torch.Tensor:
+    # a copy: the port writes its pool in place, and np.asarray of a JAX
+    # array is a read-only view of JAX's own buffer
+    a = np.array(a, order="C", copy=True)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16: same bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device=None) -> dict:
+    """Nested dict of numpy arrays -> the same dict of tensors on
+    ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def cache_from_numpy(tree, device=None) -> dict:
+    """The paged pool ({"k", "v"} of [NL, num_blocks, bs, KVH, hd]) from
+    numpy, as ``params_from_numpy``."""
+    return params_from_numpy(tree, device)

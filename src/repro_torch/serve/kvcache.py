@@ -1,0 +1,291 @@
+"""Paged KV cache for the serving engine: a fixed pool of fixed-size KV
+*blocks* plus a free-list ``BlockAllocator``.
+
+A request owns only the blocks its sequence actually touches (its *block
+table* maps logical block k to a physical pool index), so the same bytes
+admit far more concurrent requests than fixed ``max_seq`` rows; the serve
+engine preempts under block pressure instead of rejecting at admission.
+
+Physical block 0 is reserved as a scratch block: idle decode lanes point
+their whole table at it, so the fused decode step's unconditional
+write-at-``pos`` lands somewhere harmless.  The masked decode attention
+never reads a position ``> pos``, and sequential writes mean a freshly
+extended block is only ever read at offsets that were just written —
+stale bytes in recycled blocks are unreachable.
+
+The host-side logic is the JAX package's (``serve/kvcache.py``);
+``positions()`` and ``block_tables()`` return tensors on the cache's
+device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import registry
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``.  On the card the copy goes
+    through pinned memory without blocking, so it queues behind the work
+    already on the stream instead of waiting for it."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class BlockAllocationError(RuntimeError):
+    """Misuse of the allocator (double alloc, freeing foreign blocks)."""
+
+
+class BlockAllocator:
+    """Free-list allocator over a fixed pool of KV blocks.
+
+    Blocks are identified by their physical pool index; index 0 is
+    reserved (the scratch block) and never handed out.  Each owner
+    (request id) holds an ordered list of blocks — its block table.
+
+    Invariants (property-tested in tests/test_paged_kvcache.py, and on
+    this copy in tests/test_torch_serve.py):
+      * a physical block is owned by at most one request at a time;
+      * ``len(free) + sum(owned) == num_blocks - 1`` always;
+      * block tables of live requests never alias;
+      * allocating for an id that already owns blocks raises.
+
+    Out-of-memory is a *signal*, not an error: ``alloc``/``extend``
+    return ``None`` when the pool cannot satisfy the request, and the
+    caller (the serve scheduler) reacts — defer admission, or preempt a
+    victim and retry.
+    """
+
+    RESERVED = 1        # physical block 0 = scratch
+
+    def __init__(self, num_blocks: int):
+        if num_blocks < self.RESERVED + 1:
+            raise ValueError(f"need at least {self.RESERVED + 1} blocks, "
+                             f"got {num_blocks}")
+        self.num_blocks = num_blocks
+        self._free = list(range(self.RESERVED, num_blocks))  # min-heap
+        heapq.heapify(self._free)
+        self._owned: dict[str, list[int]] = {}
+
+    # -- introspection ----------------------------------------------------
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - self.RESERVED
+
+    def owners(self) -> list[str]:
+        return list(self._owned)
+
+    def blocks_of(self, request_id: str) -> list[int]:
+        return list(self._owned.get(request_id, ()))
+
+    # -- alloc / extend / free --------------------------------------------
+    def alloc(self, request_id: str, n: int) -> Optional[list[int]]:
+        """Allocate ``n`` blocks for a new owner; ``None`` if the pool
+        cannot satisfy it (nothing is allocated partially)."""
+        if request_id in self._owned:
+            raise BlockAllocationError(
+                f"{request_id!r} already owns {len(self._owned[request_id])} "
+                f"blocks — free before re-allocating")
+        if n < 1:
+            raise ValueError(f"alloc needs n >= 1, got {n}")
+        if n > len(self._free):
+            return None
+        blocks = [heapq.heappop(self._free) for _ in range(n)]
+        self._owned[request_id] = blocks
+        return list(blocks)
+
+    def extend(self, request_id: str, n: int = 1) -> Optional[list[int]]:
+        """Append ``n`` more blocks to an existing owner's table;
+        ``None`` on OOM (the preemption trigger)."""
+        if request_id not in self._owned:
+            raise BlockAllocationError(f"{request_id!r} owns no blocks")
+        if n < 1:
+            raise ValueError(f"extend needs n >= 1, got {n}")
+        if n > len(self._free):
+            return None
+        blocks = [heapq.heappop(self._free) for _ in range(n)]
+        self._owned[request_id].extend(blocks)
+        return list(blocks)
+
+    def free(self, request_id: str) -> int:
+        """Return ALL of an owner's blocks to the free list."""
+        blocks = self._owned.pop(request_id, None)
+        if blocks is None:
+            raise BlockAllocationError(f"{request_id!r} owns no blocks")
+        for b in blocks:
+            heapq.heappush(self._free, b)
+        return len(blocks)
+
+
+@dataclasses.dataclass
+class Lane:
+    """One row of the fused decode batch.  A lane is compute residency
+    (a seat in the [B, ...] decode step); KV memory residency is the
+    block table behind it."""
+    index: int
+    request_id: Optional[str] = None
+    pos: int = 0
+    done: bool = True
+
+
+class PagedKVCache:
+    """Paged KV pool + decode-lane bookkeeping.
+
+    Per-request block tables (``block_tables()`` → ``[lanes, max_blocks]``
+    int32, scratch-0 for unallocated entries), ``assign(request_id,
+    seq_len)`` which reserves the blocks the sequence's prefill will
+    touch, and ``ensure(lane_index, pos)`` which lazily extends the table
+    one block at a time as decode advances (``False`` = pool exhausted:
+    the caller's preemption trigger).
+    """
+
+    def __init__(self, cfg, lanes: int, max_seq: int, *,
+                 block_size: int = 16, num_blocks: int | None = None,
+                 device=None):
+        if not registry.supports_paged(cfg):
+            raise ValueError(
+                f"paged serving not supported for family {cfg.family!r}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.block_size = block_size
+        self.max_blocks = -(-max_seq // block_size)       # ceil
+        self.has_blocks = registry.paged_has_blocks(cfg)
+        if num_blocks is None:
+            # full backing: every lane can hold max_seq (pressure — and
+            # preemption — require an explicit smaller pool)
+            num_blocks = lanes * self.max_blocks + BlockAllocator.RESERVED
+        self.num_blocks = num_blocks
+        self.allocator = BlockAllocator(num_blocks)
+        if self.has_blocks and self.allocator.usable_blocks < self.max_blocks:
+            raise ValueError(
+                f"pool of {num_blocks} blocks cannot hold one max_seq="
+                f"{max_seq} request ({self.max_blocks} blocks of "
+                f"{block_size}) — a lone request would deadlock")
+        self.device = resolve_device(device)
+        self.cache = registry.init_paged_cache(cfg, lanes, num_blocks,
+                                               block_size, self.device)
+        self.slots = [Lane(i) for i in range(lanes)]
+        self._free_heap = list(range(lanes))
+        self._by_request: dict[str, Lane] = {}
+        self._tables = np.zeros((lanes, self.max_blocks), np.int32)
+
+    # -- lane surface ------------------------------------------------------
+    @property
+    def free_count(self) -> int:
+        return len(self._free_heap)
+
+    def free_slots(self) -> list[Lane]:
+        return [self.slots[i] for i in sorted(self._free_heap)]
+
+    def positions(self) -> torch.Tensor:
+        """Each lane's next write position, [lanes] int32 on the device."""
+        return to_device(np.array([s.pos for s in self.slots], np.int32),
+                         self.device)
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([not s.done for s in self.slots])
+
+    def active_count(self) -> int:
+        return len(self.slots) - len(self._free_heap)
+
+    # -- paged assignment --------------------------------------------------
+    def blocks_for(self, seq_len: int) -> int:
+        """Blocks the prefill of a ``seq_len``-token sequence (plus the
+        first decode write at position seq_len-1) will touch."""
+        if not self.has_blocks:
+            return 0
+        return max(1, -(-seq_len // self.block_size))
+
+    def assign(self, request_id: str, seq_len: int = 1) -> Optional[Lane]:
+        """Claim a lane AND the blocks its prefill needs; ``None`` if
+        either is unavailable (nothing is claimed partially)."""
+        if request_id in self._by_request:
+            raise ValueError(
+                f"request_id {request_id!r} is already assigned to lane "
+                f"{self._by_request[request_id].index}")
+        if seq_len > self.max_seq:
+            raise ValueError(f"seq_len {seq_len} exceeds max_seq "
+                             f"{self.max_seq}")
+        if not self._free_heap:
+            return None
+        if self.has_blocks:
+            blocks = self.allocator.alloc(request_id,
+                                          self.blocks_for(seq_len))
+            if blocks is None:
+                return None
+        else:
+            blocks = []
+        lane = self.slots[heapq.heappop(self._free_heap)]
+        lane.request_id = request_id
+        lane.pos = 0
+        lane.done = False
+        self._by_request[request_id] = lane
+        self._tables[lane.index, :] = 0
+        for k, b in enumerate(blocks):
+            self._tables[lane.index, k] = b
+        return lane
+
+    def ensure(self, lane_index: int, pos: int) -> bool:
+        """Make sure the block holding position ``pos`` is allocated for
+        the lane's request; ``False`` = pool exhausted (preempt or
+        stall).  Decode advances one position at a time, so at most one
+        new block is needed per call."""
+        if not self.has_blocks:
+            return True
+        lane = self.slots[lane_index]
+        if lane.done:
+            raise BlockAllocationError(f"lane {lane_index} is free")
+        need = pos // self.block_size
+        owned = self.allocator.blocks_of(lane.request_id)
+        if need < len(owned):
+            return True
+        if need >= self.max_blocks:
+            raise BlockAllocationError(
+                f"position {pos} exceeds lane capacity "
+                f"{self.max_blocks * self.block_size}")
+        new = self.allocator.extend(lane.request_id, need - len(owned) + 1)
+        if new is None:
+            return False
+        for k, b in enumerate(new):
+            self._tables[lane_index, len(owned) + k] = b
+        return True
+
+    def release(self, lane: Lane) -> None:
+        """Free the lane and every block behind it (the preemption /
+        completion / failure path all route through here, so blocks can
+        never leak)."""
+        if lane.request_id is not None:
+            self._by_request.pop(lane.request_id, None)
+            if self.has_blocks and self.allocator.blocks_of(lane.request_id):
+                self.allocator.free(lane.request_id)
+        lane.request_id = None
+        lane.done = True
+        lane.pos = 0
+        self._tables[lane.index, :] = 0
+        heapq.heappush(self._free_heap, lane.index)
+
+    def block_tables(self) -> torch.Tensor:
+        """Current tables as a tensor [lanes, max_blocks] int32 on the
+        device — one argument of the fused paged decode step."""
+        return to_device(self._tables.copy(), self.device)
+
+    def reset_lane(self, cache, lane_index: int):
+        """Zero a lane's per-lane (non-block) state in ``cache`` before
+        prefill — recurrent SSM state survives release (there are no
+        blocks to recycle), so a recycled lane must not leak its previous
+        occupant's state into the next request."""
+        return registry.reset_paged_lane(self.cfg, cache, lane_index)

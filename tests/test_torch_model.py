@@ -1,0 +1,106 @@
+"""The port's configs and dense model against the JAX package: config
+dataclasses, parameter trees, and ``decode_step_paged`` logits and pool
+on bridged weights, in f32, over several steps with mixed positions and
+scattered block tables."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import reduce_cfg
+from repro.configs import get_config as jax_get_config
+from repro.models import registry as jax_registry
+from repro_torch.configs import get_config
+from repro_torch.models import bridge, registry, transformer
+
+ARCHS = ["qwen2-0.5b", "smollm-360m"]
+# f32 summation order differs between XLA's and PyTorch's CPU matmuls
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def port_cfg(jcfg):
+    """The port's config with the same fields as a (reduced) JAX config."""
+    return get_config(jcfg.name).with_overrides(
+        **{f.name: getattr(jcfg, f.name)
+           for f in dataclasses.fields(jcfg)})
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_equal_jax(arch):
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(jax_get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_tree_equals_jax(arch):
+    jcfg = reduce_cfg(jax_get_config(arch))
+    cfg = port_cfg(jcfg)
+    shapes = jax.tree.map(lambda s: tuple(s.shape),
+                          jax_registry.param_shapes(jcfg))
+    params = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    assert jax.tree.map(lambda t: tuple(t.shape), params) == shapes
+    assert all(t.dtype == torch.float32
+               for t in jax.tree.leaves(params))       # cfg.param_dtype
+
+
+def _setup(arch, B=3, bs=4, max_blocks=4):
+    jcfg = reduce_cfg(jax_get_config(arch), dtype="float32")
+    jparams = jax_registry.init_params(jcfg, jax.random.PRNGKey(0))
+    num_blocks = 1 + B * max_blocks
+    jcache = jax_registry.init_paged_cache(jcfg, B, num_blocks, bs)
+    cfg = port_cfg(jcfg)
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
+    cache = bridge.cache_from_numpy(jax.tree.map(np.asarray, jcache),
+                                    device="cpu")
+    # scattered physical blocks: lane i owns a shuffled slice of the pool
+    perm = 1 + np.random.RandomState(0).permutation(B * max_blocks)
+    tables = perm.reshape(B, max_blocks).astype(np.int32)
+    return jcfg, jparams, jcache, cfg, params, cache, tables
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_paged_matches_jax(arch):
+    jcfg, jparams, jcache, cfg, params, cache, tables = _setup(arch)
+    B = tables.shape[0]
+    rs = np.random.RandomState(1)
+    pos = np.array([0, 3, 7], np.int32)         # lanes at mixed positions
+    step = jax.jit(lambda p, c, t, q, bt: jax_registry.decode_step_paged(
+        p, jcfg, c, t, q, bt, None))
+    for _ in range(6):
+        toks = rs.randint(0, cfg.vocab_size, size=(B, 1)).astype(np.int32)
+        jl, jcache = step(jparams, jcache, jnp.asarray(toks),
+                          jnp.asarray(pos), jnp.asarray(tables))
+        logits, cache = registry.decode_step_paged(
+            params, cfg, cache, torch.from_numpy(toks),
+            torch.from_numpy(pos), torch.from_numpy(tables))
+        assert logits.dtype == torch.float32
+        assert logits.shape == (B, 1, cfg.vocab_size)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(cache[key].numpy(),
+                                       np.asarray(jcache[key]), **TOL)
+        pos = pos + rs.randint(1, 3, size=B).astype(np.int32)
+
+
+def test_cast_once_equals_per_op_casts():
+    """Weights cast to bf16 at load give the same bf16 decode as f32
+    weights cast inside each op (attn_qkv, mlp_apply, unembed)."""
+    _, _, _, cfg, params, _, tables = _setup("qwen2-0.5b")
+    cfg = cfg.with_overrides(dtype="bfloat16")
+    B = tables.shape[0]
+    toks = torch.tensor([[5], [9], [200]], dtype=torch.int32)
+    pos = torch.tensor([0, 2, 5], dtype=torch.int32)
+    outs = []
+    for p in (params, registry.cast_params(cfg, params)):
+        cache = transformer.init_paged_cache(cfg, B, 13, 4, "cpu")
+        logits, cache = registry.decode_step_paged(
+            p, cfg, cache, toks, pos, torch.from_numpy(tables))
+        outs.append((logits, cache["k"]))
+    assert registry.cast_params(cfg, params)["layers"]["ln1"].dtype == \
+        torch.float32                           # norm scales stay f32
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
