@@ -36,7 +36,8 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # storage-type codes understood by the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches = {"rmsnorm_fwd": 0, "flash_decode": 0}
+launches = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
+            "flash_decode": 0}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -45,6 +46,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, scale, y, n, d, eps, dtype, vec, stream
     "repro_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, scale, g, dx, part, n, d, rows_per_block, eps, dtype, vec, stream
+    "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, dtype, vec, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
     # q, k, v, lengths, out, B, S, H, KVH, hd, dtype, vec, stream
     "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],

@@ -4,11 +4,27 @@ Dispatch is by the device of the tensor and nothing else: a CPU tensor
 goes to the kernel's plain PyTorch version (the CPU tests' path); a CUDA
 tensor goes to the hand-written kernel, which launches or raises.  There
 is no fallback from a CUDA tensor to the plain version.
+
+``rmsnorm`` and ``flash_attention`` are ``torch.autograd.Function``s, the
+counterparts of the JAX package's ``jax.custom_vjp``s (``ops.py``):
+rmsnorm's backward is a kernel too, and its dscale partials are summed
+here, as the JAX ``ops.py`` sums them; flash attention's backward
+recomputes through the oracle ``ref.flash_attention_ref`` and takes its
+autograd gradient, as the JAX ``ops.py`` takes ``jax.vjp`` of the oracle.
+Under ``torch.no_grad()`` each is one forward launch and nothing else.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import flash_decode as _fd_kernel
 from repro_torch.kernels.decode_attention import flash_decode_plain
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _fa_kernel
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd as _rms_bwd_kernel
+from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd as _rms_fwd_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd_plain
 
@@ -23,11 +39,67 @@ def flash_decode(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
                       logit_cap=logit_cap)
 
 
+# ---------------------------------------------------------------------------
+# flash attention (forward kernel; backward through the oracle)
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal)
+        return _fa_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The recompute materialises f32 scores [B, H, Sq, Sk] and their
+        # softmax: at smollm-360m's training shape (B=8, S=1024, H=15)
+        # ~0.5 GB a tensor and a few GB transient per layer, freed before
+        # the next layer's backward.  That fits the card's 80 GB; a
+        # backward kernel is queued in ROADMAP.md.
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = ref.flash_attention_ref(*leaves, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(o, leaves, g)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# fused rmsnorm (forward and backward kernels)
+# ---------------------------------------------------------------------------
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        if x.device.type == "cpu":
+            return rmsnorm_fwd_plain(x, scale, eps)
+        return _rms_fwd_kernel(x.contiguous(), scale.contiguous(), eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        g = g.to(x.dtype)
+        if x.device.type == "cpu":
+            dx, part = rmsnorm_bwd_plain(x, scale, g, ctx.eps)
+        else:
+            dx, part = _rms_bwd_kernel(x.contiguous(), scale.contiguous(),
+                                       g.contiguous(), ctx.eps)
+        return dx, torch.sum(part, dim=0).to(scale.dtype), None
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
-    """x: [..., D]; scale: [D] -> x's shape and dtype (forward only)."""
+    """x: [..., D]; scale: [D] (read as f32) -> x's shape and dtype."""
     shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    if x.device.type == "cpu":
-        return rmsnorm_fwd_plain(x2, scale, eps).reshape(shape)
-    return _rms_fwd_kernel(x2.contiguous(), scale.contiguous(),
-                           eps).reshape(shape)
+    y = _RMSNorm.apply(x.reshape(-1, shape[-1]), scale.float(), eps)
+    return y.reshape(shape)

@@ -1,4 +1,5 @@
-"""Carry parameter and cache trees across from the JAX package.
+"""Carry parameter, cache and optimizer-state trees across from the JAX
+package.
 
 The JAX package keeps its parameters as nested dicts of arrays with the
 stacked ``layers`` axis; the port keeps the same tree of tensors.  The
@@ -36,3 +37,20 @@ def cache_from_numpy(tree, device=None) -> dict:
     """The paged pool ({"k", "v"} of [NL, num_blocks, bs, KVH, hd]) from
     numpy, as ``params_from_numpy``."""
     return params_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(state, device=None):
+    """An AdamW state (step, mu, nu) from numpy — the JAX package's
+    ``AdamWState`` after ``jax.tree.map(np.asarray, ...)``, or any triple
+    in that order — as the port's ``train.optimizer.AdamWState`` on
+    ``device`` (default ``cuda``); the step is an int32 scalar tensor and
+    the moments f32."""
+    from repro_torch.train.optimizer import AdamWState
+    step, mu, nu = state
+    dev = resolve_device(device)
+    moments = lambda tree: tree_map(  # noqa: E731
+        lambda a: _tensor(a, dev).float(), tree)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        mu=moments(mu), nu=moments(nu))

@@ -10,9 +10,9 @@ Conventions, as in the JAX package:
   scans over it; the port loops over it).
 * Compute dtype is ``cfg.dtype`` (bf16 by default); softmax, norms and
   accumulations are f32.
-* ``rmsnorm`` and ``decode_attention`` go through ``kernels/ops.py``: the
-  hand-written kernels for tensors on the card, their plain versions on
-  the CPU.
+* ``rmsnorm``, ``attention_dispatch`` and ``decode_attention`` go
+  through ``kernels/ops.py``: the hand-written kernels for tensors on the
+  card, their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -67,6 +67,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_from_leaves(pairs):
+    """The nested dict holding each (path, leaf) pair of ``pairs`` — the
+    inverse of ``tree_leaves``."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def init_tree(spec_tree, generator: torch.Generator,
               param_dtype: torch.dtype = torch.float32):
     """Materialize a parameter tree from a PSpec tree, on the generator's
@@ -94,13 +106,8 @@ def init_tree(spec_tree, generator: torch.Generator,
                         device=device)
         return (v * std).to(dtype)
 
-    out: dict = {}
-    for path, spec in tree_leaves(spec_tree):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = make(spec)
-    return out
+    return tree_from_leaves((path, make(spec))
+                            for path, spec in tree_leaves(spec_tree))
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +136,28 @@ def softcap(x, cap: float):
     if cap and cap > 0.0:
         return (torch.tanh(x / cap) * cap).to(x.dtype)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Causal self-attention
+# ---------------------------------------------------------------------------
+
+def attention_dispatch(cfg, q, k, v, *, causal: bool = True):
+    """Attention for the forward pass: q [B,Sq,H,hd], k/v [B,Sk,KVH,hd].
+
+    Every ported ``cfg.attention_impl`` ("xla", "xla_blockskip",
+    "pallas") goes through ``ops.flash_attention``: the kernel on the
+    card, its plain version on the CPU.  The JAX package's "xla" scan and
+    the block-skip schedule compute the same function; ring attention and
+    a logit softcap, which the kernel lacks, raise (queued in ROADMAP)."""
+    if cfg.attention_impl == "ring":
+        raise NotImplementedError(
+            "attention_impl='ring' is not ported (collectives slice)")
+    if cfg.logit_softcap:
+        raise NotImplementedError(
+            f"logit_softcap={cfg.logit_softcap}: the flash_attention kernel "
+            f"has no logit cap yet")
+    return ops.flash_attention(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-"""Uniform model API across families (the entries the serve path calls).
+"""Uniform model API across families (the entries the train and serve
+paths call) + analytical parameter/FLOP counts.
 
 Only the dense family is ported; the others raise ``NotImplementedError``
 naming the family."""
 from __future__ import annotations
 
+import math
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
@@ -24,6 +26,46 @@ def init_params(cfg, generator):
 
 def cast_params(cfg, params):
     return module_for(cfg).cast_params(cfg, params)
+
+
+def loss_fn(params, cfg, batch):
+    return module_for(cfg).loss_fn(params, cfg, batch)
+
+
+def forward(params, cfg, batch):
+    return module_for(cfg).forward(params, cfg, batch["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# Analytical counts (model FLOPs)
+# ---------------------------------------------------------------------------
+
+def param_count(cfg: ModelConfig) -> int:
+    from repro_torch.models.layers import tree_leaves
+    return sum(math.prod(spec.shape)
+               for _, spec in tree_leaves(module_for(cfg).param_spec(cfg)))
+
+
+def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,
+                include_attention: bool = True, seq_len: int = 0,
+                decode_cache_len: int = 0) -> float:
+    """Canonical 6·N·D (train) / 2·N·D (inference) + the attention term,
+    as the JAX package's ``registry.model_flops`` counts them for a dense
+    model: 2·2·S²·H·hd per layer per sequence for scores and values,
+    halved by the causal mask, times 3 in training; for decode, the
+    cache length per produced token."""
+    flops = (6.0 if training else 2.0) * param_count(cfg) * tokens
+    if include_attention and cfg.num_heads:
+        hd = cfg.resolved_head_dim()
+        if seq_len:
+            batch = tokens / max(seq_len, 1)
+            per_layer = 2 * 2 * seq_len * seq_len * cfg.num_heads * hd / 2
+            flops += (3.0 if training else 1.0) * batch * cfg.num_layers \
+                * per_layer
+        if decode_cache_len:
+            flops += tokens * cfg.num_layers * (
+                2 * 2 * decode_cache_len * cfg.num_heads * hd)
+    return float(flops)
 
 
 # ---------------------------------------------------------------------------

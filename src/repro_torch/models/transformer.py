@@ -1,13 +1,17 @@
 """Decoder-only transformer LM, dense GQA family (qwen2-0.5b, smollm-360m):
-the paged decode path of the JAX package's ``models/transformer.py``.
+the training forward, the loss and the paged decode path of the JAX
+package's ``models/transformer.py``.
 
 Layers are stacked on a leading ``layers`` axis, as in the JAX package,
 and run by a Python loop over the layer index where the JAX package uses
-``jax.lax.scan``.
+``jax.lax.scan``.  ``cfg.remat_policy="full"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant) where the JAX package wraps
+the scanned body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -84,6 +88,72 @@ def unembed(params, cfg: ModelConfig, x):
     else:
         logits = torch.matmul(x, params["lm_head"].to(x.dtype))
     return L.softcap(logits.float(), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill) + loss
+# ---------------------------------------------------------------------------
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` as the layer's checkpoint policy runs it.  "full" keeps only
+    the layer's inputs and recomputes its forward in the backward (every
+    kernel of the layer launches again there); it applies only while
+    autograd records."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (only 'none' "
+            f"and 'full')")
+
+    def checkpointed(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the layer draws no random numbers: no RNG state to stash
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return checkpointed
+
+
+def _layer_fwd(cfg: ModelConfig, x, lp, positions):
+    h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
+    q, k, v = L.attn_qkv(lp["attn"], h, positions, cfg)
+    o = L.attention_dispatch(cfg, q, k, v, causal=True)
+    x = x + L.attn_out(lp["attn"], o)
+    h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
+    return x + L.mlp_apply(lp["mlp"], h)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens):
+    """tokens [B, S] -> (final normed hidden [B,S,D], aux loss: 0 for the
+    dense family)."""
+    _check_ported(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    body = _remat(lambda x_, lp_: _layer_fwd(cfg, x_, lp_, positions), cfg)
+    for li in range(cfg.num_layers):
+        x = body(x, _layer_params(params["layers"], li))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps), aux
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """tokens [B, S] -> (logits [B, S, V] f32, aux loss)."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    return unembed(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross entropy on the plain path (f32 logits
+    [B, S, V]); returns (loss, {"nll", "aux"})."""
+    from repro_torch.train.losses import plain_xent
+    if cfg.loss_impl != "plain":
+        raise NotImplementedError(
+            f"loss_impl={cfg.loss_impl!r} is not ported (only 'plain')")
+    logits, aux = forward(params, cfg, batch["tokens"])
+    nll = plain_xent(logits, batch["labels"])
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

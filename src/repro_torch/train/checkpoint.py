@@ -1,0 +1,192 @@
+"""Asynchronous checkpointing driven by the progress engine (the port of
+the JAX package's ``train/checkpoint.py``, with the same on-disk layout).
+
+A checkpoint save is the paper's Figure 1(c) multi-wait-block task:
+(1) device→host copy (wait on the card), (2) serialize+write (wait on
+storage I/O), (3) fsync+atomic-commit rename.  Every stage advances from
+the engine's poll loop while training computes.
+
+Stage 1 differs from the JAX package, where arrays are immutable: the
+port's optimizer updates the parameters and moments in place on the same
+CUDA stream.  So ``save_async`` itself enqueues every device→host copy
+(into pinned host buffers, ``non_blocking=True``) on the current stream
+and records a CUDA event after them: any update enqueued later on that
+stream runs after the copies, and stage 2 starts once ``event.query()``
+says they are done.  CPU tensors are cloned inside ``save_async``.
+
+Layout (the JAX package's): ``step_N.tmp/`` holds one ``.npy`` per leaf,
+named by the ``/``-joined path of dict keys (``.field`` for a named
+tuple's field, the index for a list) with ``/`` replaced by ``__``, and a
+``manifest.json`` {"step", "leaves": {path: file}}; every file is fsynced
+before the directory is renamed to ``step_N/``, so a crash mid-save never
+corrupts the latest checkpoint, and ``latest_step`` only ever sees
+committed directories.  bf16 leaves are written as f32 (numpy has no
+bf16; the widening is exact) and cast back by ``restore``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import DONE, NOPROGRESS, ProgressEngine, Stream
+from repro_torch.core.futures import io_pool
+from repro_torch.core.request import Request
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _map_with_paths(fn: Callable[[str, Any], Any], tree, prefix=()):
+    """``fn(path, leaf)`` over a tree of dicts, named tuples, lists and
+    tuples, keeping its structure; paths as the JAX package names them."""
+    if isinstance(tree, dict):
+        return {k: _map_with_paths(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*[_map_with_paths(fn, getattr(tree, f),
+                                            prefix + ("." + f,))
+                            for f in tree._fields])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_paths(fn, v, prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(prefix), tree)
+
+
+def _flat_with_paths(tree) -> list[tuple[str, Any]]:
+    out: list[tuple[str, Any]] = []
+    _map_with_paths(lambda name, leaf: out.append((name, leaf)), tree)
+    return out
+
+
+def _to_host(leaf):
+    """Stage 1 for one leaf: a host copy that later in-place updates of
+    ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA)."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf)
+    t = leaf.detach()
+    if t.is_cuda:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+    return t.clone()
+
+
+def _to_numpy(host) -> np.ndarray:
+    if isinstance(host, np.ndarray):
+        return host
+    if host.dtype == torch.bfloat16:
+        host = host.float()
+    return host.numpy()
+
+
+class AsyncCheckpointer:
+    """Engine-driven async checkpoint save/restore."""
+
+    def __init__(self, directory: str, engine: ProgressEngine,
+                 stream: Optional[Stream] = None, keep: int = 3):
+        self.dir = directory
+        self.engine = engine
+        self.stream = stream
+        self.keep = keep
+        self.last_save_s: float | None = None   # save_async -> commit
+        os.makedirs(directory, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    def save_async(self, step: int, tree: Any) -> Request:
+        """Returns a Request completing at atomic commit."""
+        t0 = time.perf_counter()
+        req = Request(tag=f"ckpt-{step}")
+        tmp = os.path.join(self.dir, f"step_{step}.tmp")
+        final = os.path.join(self.dir, f"step_{step}")
+        # stage 1 launch: device→host copies enqueued NOW, before any
+        # later in-place update on this stream
+        flat = _flat_with_paths(tree)
+        with torch.no_grad():
+            leaves = [(name, _to_host(leaf)) for name, leaf in flat]
+        event = None
+        if any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
+               for _, leaf in flat):
+            event = torch.cuda.Event()
+            event.record()
+        state = {"phase": "d2h", "fut": None}
+
+        def write():
+            os.makedirs(tmp, exist_ok=True)
+            manifest = {}
+            for name, host in leaves:
+                fname = name.replace("/", "__") + ".npy"
+                with open(os.path.join(tmp, fname), "wb") as f:
+                    np.save(f, _to_numpy(host))
+                    f.flush()
+                    os.fsync(f.fileno())
+                manifest[name] = fname
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump({"step": step, "leaves": manifest}, f)
+                f.flush()
+                os.fsync(f.fileno())
+
+        def poll(thing) -> str:
+            if state["phase"] == "d2h":
+                if event is None or event.query():
+                    state["fut"] = io_pool().submit(write)
+                    state["phase"] = "write"
+                return NOPROGRESS
+            if state["fut"].done():
+                exc = state["fut"].exception()
+                if exc is not None:
+                    req.fail(exc)
+                    return DONE
+                # stage 3: atomic commit
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                self._gc()
+                self.last_save_s = time.perf_counter() - t0
+                req.complete(step)
+                return DONE
+            return NOPROGRESS
+
+        self.engine.async_start(poll, None, self.stream)
+        return req
+
+    def save_blocking(self, step: int, tree: Any) -> int:
+        req = self.save_async(step, tree)
+        return self.engine.wait(req, self.stream, timeout=600)
+
+    # ------------------------------------------------------------------
+    def latest_step(self) -> Optional[int]:
+        steps = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and not name.endswith(".tmp") \
+                    and os.path.exists(os.path.join(self.dir, name, "manifest.json")):
+                steps.append(int(name.split("_")[1]))
+        return max(steps) if steps else None
+
+    def restore(self, step: int, like: Any, device=None) -> Any:
+        """The tree saved at ``step``, shaped and typed like ``like``, on
+        ``device`` (default: each leaf of ``like``'s own device)."""
+        path = os.path.join(self.dir, f"step_{step}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)["leaves"]
+
+        def load(name, leaf_like):
+            arr = np.load(os.path.join(path, manifest[name]))
+            t = torch.from_numpy(arr)
+            dev = device if device is not None else leaf_like.device
+            return t.to(device=dev, dtype=leaf_like.dtype)
+
+        return _map_with_paths(load, like)
+
+    def _gc(self):
+        all_steps = sorted(
+            int(n.split("_")[1]) for n in os.listdir(self.dir)
+            if n.startswith("step_") and not n.endswith(".tmp"))
+        for s in all_steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s}"), ignore_errors=True)

@@ -1,0 +1,97 @@
+"""AdamW with a cosine schedule and global-norm clipping: the math of the
+JAX package's ``train/optimizer.py``, leaf by leaf, in plain PyTorch.
+
+Differences from the JAX package, by design:
+
+* ``apply`` updates the parameters and the moments IN PLACE (no second
+  copy of a 1.4 GB tree at smollm-360m) and returns the same dicts.  A
+  caller that must keep the old values copies them first: the
+  checkpointer does, on the same CUDA stream, before the next update.
+* The moments are f32 whatever the parameters' dtype (the JAX moments
+  become f32 after the first step; here they start so).
+
+``torch.optim.AdamW`` is not used: its schedule, clipping and decay
+differ.  ``init_shards``/``apply_shards`` (FSDP) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.models.layers import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor          # int32 scalar on the parameters' device
+    mu: Any
+    nu: Any
+
+
+def init(params) -> AdamWState:
+    first = next(t for _, t in tree_leaves(params))
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=first.device),
+        mu=tree_map(zeros, params),
+        nu=tree_map(zeros, params),
+    )
+
+
+def schedule(cfg: AdamWConfig, step):
+    """Linear warmup, then cosine decay to ``min_lr_ratio``; f32 tensor."""
+    step = step.float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def global_norm(tree):
+    sq = sum(torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree))
+    return torch.sqrt(sq)
+
+
+@torch.no_grad()
+def apply(cfg: AdamWConfig, state: AdamWState, params, grads):
+    """One AdamW step, IN PLACE on ``params`` and the moments.  Returns
+    (params, new_state, metrics) with metrics {"grad_norm", "lr"} as f32
+    tensors on the device (read them after the step's work is done)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    stepf = step.float()
+    b1c = 1 - torch.pow(cfg.b1, stepf)
+    b2c = 1 - torch.pow(cfg.b2, stepf)
+    g_leaves = dict(tree_leaves(grads))
+    m_leaves = dict(tree_leaves(state.mu))
+    v_leaves = dict(tree_leaves(state.nu))
+    for path, p in tree_leaves(params):
+        g = g_leaves[path].float() * scale
+        m, v = m_leaves[path], v_leaves[path]
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        mhat = m / b1c
+        vhat = v / b2c
+        pf = p.float()
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+        p.copy_((pf - lr * delta).to(p.dtype))
+    return params, AdamWState(step, state.mu, state.nu), \
+        {"grad_norm": gnorm, "lr": lr}

@@ -79,3 +79,87 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     k = torch.randn(2, 8, 2, 256, device="cuda")
     with pytest.raises(ValueError, match="hd=256"):
         flash_decode(q, k, k, torch.ones(2, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("N,D", [(1, 960), (8, 896), (33, 960), (8192, 960),
+                                 (5, 100), (70, 16384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, D, dtype):
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
+    g = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
+    s = torch.randn(D, generator=cuda, device="cuda") + 1.0
+    before = _lib.launches["rmsnorm_bwd"]
+    dx, part = rmsnorm_bwd(x, s, g, 1e-5)
+    torch.cuda.synchronize()
+    assert _lib.launches["rmsnorm_bwd"] == before + 1
+    want_dx, want_part = rmsnorm_bwd_plain(x, s, g, 1e-5)
+    assert part.shape == want_part.shape and part.dtype == torch.float32
+    torch.testing.assert_close(dx, want_dx, **TOLS[dtype])
+    torch.testing.assert_close(part.sum(0), want_part.sum(0), atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", [
+    (2, 1024, 1024, 15, 5, 64),    # smollm-360m heads (G=3)
+    (1, 256, 512, 6, 3, 64),       # GQA, Sk > Sq
+    (2, 128, 128, 8, 2, 128),      # hd=128
+    (1, 384, 384, 3, 1, 64),       # MQA, odd head count
+    (1, 1000, 1000, 6, 3, 64),     # ragged: not a multiple of the tiles
+    (2, 37, 101, 4, 2, 32),        # ragged, Sk > Sq, hd=32
+    (1, 5, 5, 2, 1, 16),           # shorter than one tile
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KVH, hd,
+                                              causal, dtype):
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.randn(B, Sq, H, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    before = _lib.launches["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _lib.launches["flash_attention"] == before + 1
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, causal=causal), **TOLS[dtype])
+
+
+def test_training_ops_gradients_on_the_card(cuda):
+    """ops.rmsnorm and ops.flash_attention backward on the card (kernels)
+    against the CPU (plain versions), in f32."""
+    from repro_torch.kernels import _lib, ops
+    x = torch.randn(2, 64, 96, generator=cuda, device="cuda")
+    s = torch.randn(96, generator=cuda, device="cuda") + 1.0
+    q = torch.randn(2, 100, 6, 32, generator=cuda, device="cuda")
+    k = torch.randn(2, 100, 2, 32, generator=cuda, device="cuda")
+    v = torch.randn(2, 100, 2, 32, generator=cuda, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, s, q, k, v)]
+        xl, sl, ql, kl, vl = leaves
+        y = ops.rmsnorm(xl, sl, 1e-5)
+        o = ops.flash_attention(ql, kl, vl, causal=True)
+        ((y ** 2).sum() + (o ** 3).sum()).backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    assert _lib.launches["rmsnorm_bwd"] > 0
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x = torch.randn(8, 64, device="cuda")
+    with pytest.raises(ValueError, match="g must be"):
+        rmsnorm_bwd(x, torch.ones(64, device="cuda"), x.bfloat16())
+    q = torch.randn(1, 8, 2, 24, device="cuda")
+    with pytest.raises(ValueError, match="hd=24"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 64, device="cuda")
+    k = torch.randn(1, 4, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        flash_attention(q, k, k, causal=True)

@@ -9,6 +9,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the training slice's modules: each must be imported by the probe and
+# scanned by the AST check
+TRAIN_SLICE = ["repro_torch.train.train_loop", "repro_torch.train.optimizer",
+               "repro_torch.train.checkpoint", "repro_torch.train.losses",
+               "repro_torch.data.pipeline",
+               "repro_torch.distributed.fault_tolerance",
+               "repro_torch.launch.train",
+               "repro_torch.kernels.flash_attention"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -21,6 +29,7 @@ bad = sorted(n for n in sys.modules
              or n == "repro" or n.startswith("repro."))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("BAD", bad)
+print("LOADED", sorted(n for n in sys.modules if n.startswith("repro_torch")))
 """
 
 
@@ -30,8 +39,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["MODULES"]) >= 20          # every submodule was imported
+    assert int(lines["MODULES"]) >= 30          # every submodule was imported
     assert lines["BAD"] == "[]"
+    loaded = lines["LOADED"]
+    assert all(f"'{m}'" in loaded for m in TRAIN_SLICE), loaded
 
 
 def _imported(path: Path) -> list[str]:
@@ -45,7 +56,10 @@ def _imported(path: Path) -> list[str]:
 
 
 def test_no_jax_or_repro_import_in_the_sources():
-    assert len(SOURCES) >= 20
+    assert len(SOURCES) >= 30
+    scanned = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+               for p in SOURCES if PORT in p.parents}
+    assert set(TRAIN_SLICE) <= scanned
     for path in SOURCES:
         for name in _imported(path):
             top = name.split(".")[0]

@@ -104,3 +104,76 @@ def test_cast_once_equals_per_op_casts():
         torch.float32                           # norm scales stay f32
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# The training forward, loss and gradients
+# ---------------------------------------------------------------------------
+
+def _train_setup(remat, B=2, S=24):
+    jcfg = reduce_cfg(jax_get_config("smollm-360m"), dtype="float32",
+                      remat_policy=remat)
+    jparams = jax_registry.init_params(jcfg, jax.random.PRNGKey(1))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
+    rs = np.random.RandomState(2)
+    toks = rs.randint(0, jcfg.vocab_size, size=(B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    return jcfg, jparams, port_cfg(jcfg), params, batch
+
+
+def test_forward_and_loss_match_jax():
+    jcfg, jparams, cfg, params, batch = _train_setup("full")
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    jlogits, _ = jax_registry.forward(jparams, jcfg, jbatch)
+    logits, aux = registry.forward(params, cfg, tbatch)
+    assert logits.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    jloss, jm = jax_registry.loss_fn(jparams, jcfg, jbatch)
+    loss, m = registry.loss_fn(params, cfg, tbatch)
+    np.testing.assert_allclose(float(loss), float(jloss), **TOL)
+    np.testing.assert_allclose(float(m["nll"]), float(jm["nll"]), **TOL)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_gradients_match_jax(remat):
+    """Every leaf of the port's autograd gradient against jax.grad of the
+    JAX loss, from the same bridged weights; under "full" each layer is
+    checkpointed and recomputed in the backward."""
+    jcfg, jparams, cfg, params, batch = _train_setup(remat)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jgrads = jax.grad(lambda p: jax_registry.loss_fn(p, jcfg, jbatch)[0])(
+        jparams)
+    leaves = [t.requires_grad_() for t in jax.tree.leaves(params)]
+    loss, _ = registry.loss_fn(params, cfg,
+                               {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    jleaves = jax.tree.leaves(jgrads)
+    assert len(grads) == len(jleaves)
+    for g, jg in zip(grads, jleaves):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), **TOL)
+
+
+def test_unported_training_options_raise():
+    _, _, cfg, params, batch = _train_setup("none", S=8)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for over in (dict(remat_policy="dots"), dict(remat_policy="subblock"),
+                 dict(loss_impl="chunked_vocab"),
+                 dict(attention_impl="ring"), dict(logit_softcap=30.0)):
+        with pytest.raises(NotImplementedError):
+            with torch.enable_grad():
+                registry.loss_fn(params, cfg.with_overrides(**over), tbatch)
+
+
+def test_model_flops_and_param_count_match_jax():
+    for arch in ARCHS:
+        jcfg = jax_get_config(arch)
+        cfg = get_config(arch)
+        assert registry.param_count(cfg) == jax_registry.param_count(jcfg)
+        for kw in (dict(training=True, seq_len=1024),
+                   dict(training=False, decode_cache_len=512),
+                   dict(training=True, include_attention=False)):
+            assert registry.model_flops(cfg, 8192, **kw) == \
+                jax_registry.model_flops(jcfg, 8192, **kw)
