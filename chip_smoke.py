@@ -7,30 +7,34 @@ Phases; any failure raises and the script exits non-zero:
 
 1. build   — nvcc builds the kernel library from ``src/repro_torch/csrc``
              for sm_90a (commands and seconds printed);
-2. kernels — each hand-written kernel against its plain PyTorch version
-             on the card, at the serve and train paths' shapes, in bf16
-             and f32, with the tolerance stated; timed with the profiler
-             and CUDA events beside its bound and, where one exists, one
-             PyTorch library call (a yardstick only);
+2. kernels — each of the five hand-written kernels against its plain
+             PyTorch version on the card, at the serve and train paths'
+             shapes, in bf16 and f32, with the tolerance stated; timed
+             with the profiler and CUDA events beside its bound and,
+             where one exists, one PyTorch library call (a yardstick
+             only);
 3. serve   — the port's serving launcher (``repro_torch.launch.serve``)
-             at full qwen2-0.5b width: 16 requests through 8 lanes on
-             the progress engine, caller-driven and then with two
-             progress workers.  Launch counters are zeroed just before
+             at full qwen2-0.5b width (16 requests through 8 lanes,
+             caller-driven and then with two progress workers) and at
+             full mamba2-1.3b width (16 requests through 8 lanes,
+             caller-driven).  Launch counters are zeroed just before
              and read just after each run, and must show every fused
-             decode/prefill call went through both kernels.  Between
-             the two runs, fused decode calls are timed: host wall clock
-             (unprofiled) against device busy time (profiled);
+             decode/prefill call went through its kernels and no
+             training kernel.  After each caller-driven run one fused
+             decode call is timed: host wall clock (unprofiled) against
+             device busy time (profiled);
 4. train   — the port's training launcher (``repro_torch.launch.train``)
-             at full smollm-360m width: 6 steps of batch 8 x 1024 tokens,
-             caller-driven and then with two progress workers, each from
-             a fresh checkpoint directory.  The launch counters must show
-             every step went through rmsnorm_fwd, rmsnorm_bwd and
-             flash_attention as many times as the step's derivation says;
-             the final async checkpoint must restore to the same tensors.
-             Between the two runs, one step is timed as in phase 3;
-5. check   — full-width f32 decode steps, and one full-width two-layer
-             f32 train step, on the card (kernels) against the same steps
-             on the CPU (plain versions).
+             at full smollm-360m width (caller-driven and then with two
+             progress workers, each from a fresh checkpoint directory;
+             the final async checkpoint must restore to the same
+             tensors) and at full mamba2-1.3b width (caller-driven,
+             checked alike): 6 steps of batch 8 x 1024 tokens.  The launch
+             counters must show every step went through its kernels as
+             many times as ``kernel_launches_per_step`` derives; after
+             each caller-driven run one step is timed as in phase 3;
+5. check   — full-width f32 decode steps and one full-width two-layer
+             f32 train step of each family, on the card (kernels)
+             against the same steps on the CPU (plain versions).
 
 Prints the card's name and power limit, then one JSON line of kernel
 figures, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -67,6 +71,14 @@ ARCH = "qwen2-0.5b"
 LANES, MAX_SEQ, BLOCK = 8, 1024, 16
 MIN_PROMPT, MAX_PROMPT, MAX_NEW, REQUESTS = 16, 256, 32, 16
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 6
+# the mamba2 paths: serve 16 requests through 8 lanes (each lane serves
+# two, so recycled lanes are zeroed on the card); train as the dense path
+# (8 x 1024 tokens, 6 steps)
+MAMBA = "mamba2-1.3b"
+M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW, M_REQUESTS, M_MAX_SEQ = 16, 64, 16, 16, 128
+MAMBA_D = 2048                      # mamba2-1.3b's d_model: its norms' width
+SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
+            torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
 
 
@@ -186,13 +198,23 @@ def check_close(name, got, want, dtype, tol=None) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# the row key of a norm kernel's figures at a path's shape other than its
+# main one, by (N == LANES, D)
+SHAPE_KEYS = {(False, 960): "train_shape",
+              (True, MAMBA_D): "serve_mamba_shape",
+              (False, MAMBA_D): "train_mamba_shape"}
+
+
 def kernel_rmsnorm(gen) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_fwd_plain
     row = None
-    # the serve path's (qwen2-0.5b: decode, prefill chunk) and the train
-    # path's (smollm-360m: the whole batch) shapes
+    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b: a
+    # fused call) and the train paths' (smollm-360m, mamba2-1.3b: the
+    # whole batch) shapes
     for N, D, eps in ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
-                      (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5)):
+                      (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5),
+                      (LANES, MAMBA_D, 1e-5),
+                      (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             s = torch.randn(D, generator=gen, device="cuda") + 1.0
@@ -213,17 +235,19 @@ def kernel_rmsnorm(gen) -> dict:
                 f"err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
                 f"{fmt(paced)}; bound {bound:.6f} ms (bytes)")
-            fig = dict(shape=f"x [{N}, {D}] {str(dtype)[6:]}",
+            if dtype != torch.bfloat16:
+                continue
+            fig = dict(shape=f"x [{N}, {D}] bfloat16",
                        max_abs_err=err, ms=dev["kernel"],
                        plain_ms=dev["plain"], ms_source=source,
                        bound_ms=bound, bound_by="bytes",
                        library_ms=dev["F.rms_norm"])
-            if N == LANES and dtype == torch.bfloat16:     # the serve path
+            if (N, D) == (LANES, 896):                      # the serve path
                 row = dict(name="rmsnorm_fwd", route="cuda",
                            source="src/repro_torch/csrc/rmsnorm.cu",
                            replaces="src/repro/kernels/rmsnorm.py:41", **fig)
-            elif D == 960 and dtype == torch.bfloat16:     # the train path
-                row["train_shape"] = fig
+            elif D != 896:
+                row[SHAPE_KEYS[N == LANES, D]] = fig
     return row
 
 
@@ -284,7 +308,8 @@ def kernel_flash_decode(gen) -> dict:
 def kernel_rmsnorm_bwd(gen) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
     eps, row = 1e-5, None
-    for N, D in ((TRAIN_BATCH * TRAIN_SEQ, 960), (LANES, 896)):
+    for N, D in ((TRAIN_BATCH * TRAIN_SEQ, 960), (LANES, 896),
+                 (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D), (LANES, MAMBA_D)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             g = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
@@ -310,14 +335,18 @@ def kernel_rmsnorm_bwd(gen) -> dict:
                 f"dscale {ds_err:.3e} (atol/rtol 1e-3); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call {fmt(paced)}; bound "
                 f"{bound:.6f} ms (bytes); no single PyTorch call computes it")
-            if N == TRAIN_BATCH * TRAIN_SEQ and dtype == torch.bfloat16:
+            if N == LANES or dtype != torch.bfloat16:
+                continue
+            fig = dict(shape=f"x, g [{N}, {D}] bfloat16",
+                       max_abs_err=err, ms=dev["kernel"],
+                       plain_ms=dev["plain"], ms_source=source,
+                       bound_ms=bound, bound_by="bytes", library_ms=None)
+            if D == 960:                                   # the train path
                 row = dict(name="rmsnorm_bwd", route="cuda",
                            source="src/repro_torch/csrc/rmsnorm.cu",
-                           replaces="src/repro/kernels/rmsnorm.py:61",
-                           shape=f"x, g [{N}, {D}] bfloat16",
-                           max_abs_err=err, ms=dev["kernel"],
-                           plain_ms=dev["plain"], ms_source=source,
-                           bound_ms=bound, bound_by="bytes", library_ms=None)
+                           replaces="src/repro/kernels/rmsnorm.py:61", **fig)
+            else:
+                row[SHAPE_KEYS[False, D]] = fig
     return row
 
 
@@ -390,48 +419,154 @@ def kernel_flash_attention(gen) -> dict:
     return row
 
 
+def kernel_ssd_chunk(gen) -> dict:
+    """ssd_chunk against its plain version at the mamba2 train path's
+    shape (x [B*nc, Q, nh, hp] = [32, 256, 64, 64], ds 128), the three
+    shapes of tests/test_kernels.py:136-139 and a ragged one-chunk
+    sequence (Q = 1000), each with dt in f32 (as the model feeds it) and
+    in x's dtype (as tests/test_kernels.py feeds it)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    B = TRAIN_BATCH * TRAIN_SEQ // 256
+    train_shape = (B, 256, 64, 64, 128)
+    shapes = (train_shape, (1, 64, 8, 32, 32), (2, 128, 16, 64, 64),
+              (1, 256, 8, 64, 128), (2, 1000, 8, 64, 128))
+    row = None
+    for shape in shapes:
+        Bc, Q, nh, hp, ds = shape
+        for dtype, dt_dtype in ((torch.bfloat16, torch.float32),
+                                (torch.bfloat16, torch.bfloat16),
+                                (torch.float32, torch.float32)):
+            x = torch.randn(Bc, Q, nh, hp, generator=gen, device="cuda")
+            b = torch.randn(Bc, Q, ds, generator=gen, device="cuda")
+            c = torch.randn(Bc, Q, ds, generator=gen, device="cuda")
+            dt = F.softplus(torch.randn(Bc, Q, nh, generator=gen,
+                                        device="cuda")) * 0.1
+            a_log = torch.rand(nh, generator=gen, device="cuda") * 2.0
+            args = (x.to(dtype), b.to(dtype), c.to(dtype), dt.to(dt_dtype),
+                    a_log)
+            got = ssd_chunk(*args)
+            torch.cuda.synchronize()
+            want = ssd_chunk_plain(*args)
+            tol = SSD_TOLS[dtype]
+            err = check_close("ssd_chunk y", got[0], want[0], dtype)
+            st_err = check_close("ssd_chunk states", got[1], want[1], dtype,
+                                 dict(atol=tol["states"], rtol=tol["states"]))
+            dec_err = check_close("ssd_chunk decay", got[2], want[2], dtype,
+                                  dict(atol=tol["decay"], rtol=tol["decay"]))
+            label = (f"kernel ssd_chunk B={Bc} Q={Q} nh={nh} hp={hp} ds={ds} "
+                     f"{str(dtype)[6:]} dt {str(dt_dtype)[6:]}: max abs err "
+                     f"y {err:.3e} (atol/rtol {TOLS[dtype]['atol']}), states "
+                     f"{st_err:.3e} ({tol['states']}), decay {dec_err:.3e} "
+                     f"({tol['decay']})")
+            timed = (shape == train_shape and dt_dtype == torch.float32) or \
+                (Q == 1000 and dtype == torch.bfloat16
+                 and dt_dtype == torch.float32)
+            if not timed:
+                log(label)
+                continue
+            es = args[0].element_size()
+            nbytes = (2 * x.numel() + 2 * b.numel()) * es \
+                + dt.numel() * args[3].element_size() \
+                + 4 * (nh + got[1].numel() + got[2].numel())
+            pairs = Q * (Q + 1) // 2            # the causal (i, j) pairs
+            flops = 2 * Bc * (pairs * ds + pairs * nh * hp
+                              + Q * nh * hp * ds)
+            copies = [tuple(t.clone() for t in args)
+                      for _ in range(copies_for(nbytes))]
+            fns = {"kernel": ssd_chunk, "plain": ssd_chunk_plain}
+            dev, paced, source = measure(fns, copies, dev_iters=10,
+                                         paced_iters=20)
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[dtype]
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"{label}; device ms ({source}) {fmt(dev)}; back-to-back ms "
+                f"per call {fmt(paced)}; bound {bound:.6f} ms ({by}: "
+                f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); no single "
+                f"PyTorch call computes it")
+            if shape == train_shape and dtype == torch.bfloat16:
+                row = dict(name="ssd_chunk", route="cuda",
+                           source="src/repro_torch/csrc/ssd_chunk.cu",
+                           replaces="src/repro/kernels/ssd_scan.py:79",
+                           shape=f"x [{Bc}, {Q}, {nh}, {hp}] bfloat16, b/c "
+                                 f"[{Bc}, {Q}, {ds}], dt float32",
+                           max_abs_err=err, ms=dev["kernel"],
+                           plain_ms=dev["plain"], ms_source=source,
+                           bound_ms=bound, bound_by=by, library_ms=None)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serve path
 # ---------------------------------------------------------------------------
 
-def serve(workers: int):
+# per arch: (requests, min prompt, max prompt, new tokens, max_seq) and the
+# full width its config must have
+SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
+              MAMBA: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
+                      M_MAX_SEQ)}
+
+
+def full_width(cfg) -> tuple:
+    if cfg.family == "ssm":
+        return (cfg.num_layers, cfg.d_model, cfg.ssm.d_state,
+                cfg.ssm.head_dim, cfg.ssm.expand, cfg.ssm.chunk_size,
+                cfg.vocab_size, cfg.tie_embeddings)
+    return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
+            cfg.tie_embeddings)
+
+
+FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True),
+              TRAIN_ARCH: (32, 960, 15, 5, 64, 2560, 49152, True),
+              MAMBA: (48, 2048, 128, 64, 2, 256, 50280, True)}
+
+
+def serve(workers: int, arch: str = ARCH):
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.layers import tree_leaves
-    argv = ["--arch", ARCH, "--scale", "full", "--device", "cuda",
-            "--slots", str(LANES), "--max-seq", str(MAX_SEQ),
-            "--kv-block-size", str(BLOCK), "--requests", str(REQUESTS),
-            "--min-prompt", str(MIN_PROMPT), "--max-prompt", str(MAX_PROMPT),
-            "--max-new", str(MAX_NEW), "--progress-workers", str(workers)]
+    requests, min_prompt, max_prompt, max_new, max_seq = SERVE_RUNS[arch]
+    argv = ["--arch", arch, "--scale", "full", "--device", "cuda",
+            "--slots", str(LANES), "--max-seq", str(max_seq),
+            "--kv-block-size", str(BLOCK), "--requests", str(requests),
+            "--min-prompt", str(min_prompt), "--max-prompt", str(max_prompt),
+            "--max-new", str(max_new), "--progress-workers", str(workers)]
     args = serve_mod.build_parser().parse_args(argv)
     _lib.reset_launches()
     report = serve_mod.run(args)
     launches = dict(_lib.launches)
     srv, cfg = report.server, report.server.cfg
-    log(f"serve [{workers} progress workers] " + "\n  ".join(report.format()))
+    log(f"serve {arch} [{workers} progress workers] "
+        + "\n  ".join(report.format()))
     calls = report.steps + report.prefill_calls
-    # under no_grad the training kernels must not launch at all
-    want = {"rmsnorm_fwd": calls * (2 * cfg.num_layers + 1),
-            "rmsnorm_bwd": 0, "flash_attention": 0,
-            "flash_decode": calls * cfg.num_layers}
-    log(f"serve launches {launches}, expected {want} for {calls} fused calls")
+    NL = cfg.num_layers
+    # under no_grad the training kernels must not launch at all; the ssm
+    # family has one block norm a layer and no attention
+    want = dict.fromkeys(launches, 0)
+    if cfg.family == "ssm":
+        want["rmsnorm_fwd"] = calls * (NL + 1)
+    else:
+        want.update(rmsnorm_fwd=calls * (2 * NL + 1),
+                    flash_decode=calls * NL)
+    log(f"serve launches {launches}, expected {want} for {calls} fused calls "
+        f"({want['rmsnorm_fwd'] // max(calls, 1)} rmsnorm_fwd a call)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     short = [r.request_id for r in report.requests
-             if len(r.out_tokens) != MAX_NEW or r.done_req.failed]
+             if len(r.out_tokens) != max_new or r.done_req.failed]
     if short:
-        raise AssertionError(f"requests without {MAX_NEW} tokens: {short}")
+        raise AssertionError(f"requests without {max_new} tokens: {short}")
     off = [p for p, t in [*tree_leaves(srv.params),
                           *tree_leaves(srv.slots.cache)]
            if t.device.type != "cuda"]
     if off:
         raise AssertionError(f"tensors off the card: {off}")
-    if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-            cfg.d_ff, cfg.vocab_size) != (24, 896, 14, 2, 4864, 151936):
-        raise AssertionError(f"not the full qwen2-0.5b width: {cfg}")
+    if full_width(cfg) != FULL_WIDTH[arch]:
+        raise AssertionError(f"not the full {arch} width: {cfg}")
     lat = report.latency
-    log(f"serve summary [{workers} workers]: decode steps {report.steps}, "
-        f"prefill calls {report.prefill_calls}, "
+    log(f"serve summary {arch} [{workers} workers]: decode steps "
+        f"{report.steps}, prefill calls {report.prefill_calls}, "
         f"{report.tokens / report.wall_s:.2f} tokens/s, mean decode step "
         f"{srv.mean_step_ms():.3f} ms, wall {report.wall_s:.3f} s, TTFT p50 "
         f"{lat.ttft_ms_p50:.1f} ms p99 {lat.ttft_ms_p99:.1f} ms")
@@ -472,16 +607,19 @@ def time_breakdown(srv, calls: int = 10) -> None:
     torch.cuda.synchronize()
     wall = wall_ms()
     by_name, wall_profiled = profile_kernels(wall_ms)
-    log(f"time: fused decode call (8 lanes, 24 layers): wall {wall:.3f} ms "
-        f"({wall_profiled:.3f} ms under the profiler), "
-        + busy_text(by_name, calls, wall, "call", 6))
+    log(f"time: fused decode call ({cfg.name}, {LANES} lanes, "
+        f"{cfg.num_layers} layers): wall {wall:.3f} ms ({wall_profiled:.3f} "
+        f"ms under the profiler), " + busy_text(by_name, calls, wall, "call", 6))
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the train path
 # ---------------------------------------------------------------------------
 
-def train(workers: int):
+def train(workers: int, arch: str = TRAIN_ARCH):
+    """One full-width run of the train launcher.  It ends with an async
+    checkpoint of the last step (the Trainer's rule), which must restore
+    to the same tensors."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import train as train_mod
     from repro_torch.models import registry
@@ -489,7 +627,7 @@ def train(workers: int):
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")  # no resume
     try:
         args = train_mod.build_parser().parse_args([
-            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--arch", arch, "--scale", "full", "--device", "cuda",
             "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir])
         torch.cuda.reset_peak_memory_stats()
@@ -497,17 +635,14 @@ def train(workers: int):
         report = train_mod.run(args, log_every=1, progress_workers=workers)
         launches = dict(_lib.launches)
         cfg, tr = report.cfg, report.trainer
-        if (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
-                cfg.tie_embeddings, cfg.rms_norm_eps, cfg.dtype,
-                cfg.param_dtype, cfg.remat_policy) != (
-                32, 960, 15, 5, 64, 2560, 49152, True, 1e-5, "bfloat16",
-                "float32", "full"):
-            raise AssertionError(f"not the full smollm-360m width: {cfg}")
+        if full_width(cfg) != FULL_WIDTH[arch] or (
+                cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
+                cfg.remat_policy) != (1e-5, "bfloat16", "float32", "full"):
+            raise AssertionError(f"not the full {arch} width: {cfg}")
         per_step = train_mod.kernel_launches_per_step(cfg)
         want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-        log(f"train launches {launches}, expected {want} ({per_step} per "
-            f"step x {TRAIN_STEPS} steps)")
+        log(f"train {arch} launches {launches}, expected {want} ({per_step} "
+            f"per step x {TRAIN_STEPS} steps)")
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
         losses = [m["loss"] for m in report.log]
@@ -519,11 +654,19 @@ def train(workers: int):
                if t.device.type != "cuda"]
         if off or tr.opt_state.step.device.type != "cuda":
             raise AssertionError(f"tensors off the card: {off}")
+        peak = torch.cuda.max_memory_allocated()
+        total = torch.cuda.get_device_properties(0).total_memory
+        if peak > 0.9 * total:
+            raise AssertionError(f"peak device memory {peak / 2**30:.2f} GiB "
+                                 f"is within 10% of the card's "
+                                 f"{total / 2**30:.2f} GiB")
         latest = tr.ckpt.latest_step()
         if latest != TRAIN_STEPS - 1:
             raise AssertionError(f"last committed checkpoint {latest}")
         state = {"params": tr.params, "opt_state": tr.opt_state}
+        t0 = time.perf_counter()
         back = tr.ckpt.restore(latest, state, device="cuda")
+        restore_s = time.perf_counter() - t0
         diff = [p for (p, a), (_, b) in zip(tree_leaves(back["params"]),
                                             tree_leaves(tr.params))
                 if not torch.equal(a, b)]
@@ -535,20 +678,22 @@ def train(workers: int):
         if diff or not torch.equal(back["opt_state"].step,
                                    tr.opt_state.step):
             raise AssertionError(f"checkpoint restores other values: {diff}")
+        del back, state
+        ckpt_text = (f"checkpoint of step {latest} committed "
+                     f"{tr.ckpt.last_save_s:.3f} s after save_async and "
+                     f"restored equal in {restore_s:.3f} s")
         steps_s = [m["step_time_s"] for m in report.log[1:]]
         mean_s = sum(steps_s) / len(steps_s)
         tokens = TRAIN_BATCH * TRAIN_SEQ
         flops = registry.model_flops(cfg, tokens, training=True,
                                      seq_len=TRAIN_SEQ)
-        log(f"train [{workers} progress workers]: losses "
+        log(f"train {arch} [{workers} progress workers]: losses "
             f"{[round(x, 6) for x in losses]}; mean step {mean_s * 1e3:.3f} "
             f"ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
             f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
             f"{tokens / mean_s:.1f} tokens/s, model {flops / mean_s / 1e12:.2f} "
             f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step by registry.model_flops); "
-            f"checkpoint of step {latest} committed {tr.ckpt.last_save_s:.3f} "
-            f"s after save_async and restored equal; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+            f"{ckpt_text}; peak device memory {peak / 2**30:.2f} GiB; wall "
             f"{report.wall_s:.3f} s")
         return launches, report
     finally:
@@ -580,9 +725,10 @@ def train_time_breakdown(report, steps: int = 3) -> None:
     wall_ms()
     wall = wall_ms()
     by_name, wall_profiled = profile_kernels(wall_ms)
-    log(f"time: train step (smollm-360m, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
-        f"32 layers, remat full): wall {wall:.3f} ms ({wall_profiled:.3f} ms "
-        f"under the profiler), " + busy_text(by_name, steps, wall, "step", 8))
+    log(f"time: train step ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+        f"{cfg.num_layers} layers, remat {cfg.remat_policy}): wall "
+        f"{wall:.3f} ms ({wall_profiled:.3f} ms under the profiler), "
+        + busy_text(by_name, steps, wall, "step", 8))
 
 
 # ---------------------------------------------------------------------------
@@ -628,25 +774,35 @@ def reference_check() -> None:
         f"1e-3), greedy tokens equal")
 
 
-def leaf_errors(label, names, got, want, limit) -> float:
-    """Per leaf, ``max|got - want|`` over ``max|want|``; raises if any leaf
-    is not finite or its share exceeds ``limit``.  Returns the worst."""
-    worst = 0.0
-    for name, a, b in zip(names, got, want):
-        share = float((a - b).abs().max() / b.abs().max())
-        if not torch.isfinite(a).all() or not share <= limit:
+def shares(got, want) -> list[float]:
+    """Per leaf, ``max|got - want|`` over ``max|want|``."""
+    return [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(got, want)]
+
+
+def leaf_errors(label, names, got, want, limit, spacing=None) -> list[float]:
+    """``shares(got, want)``; raises if any leaf is not finite or its error
+    exceeds ``limit`` of its largest entry plus, where given,
+    ``spacing[i]``: the f32 spacing of the values the compared quantities
+    were taken from, below which no difference of them can be told
+    apart."""
+    out = shares(got, want)
+    for i, (name, a, b, share) in enumerate(zip(names, got, want, out)):
+        top = float(b.abs().max())
+        floor = spacing[i] if spacing is not None else 0.0
+        if not torch.isfinite(a).all() or not share * top <= limit * top + floor:
             raise AssertionError(
                 f"{label} {'/'.join(name)}: card vs CPU max abs err "
-                f"{float((a - b).abs().max()):.3e}, {share:.3e} of the "
-                f"leaf's largest entry (limit {limit:g})")
-        worst = max(worst, share)
-    return worst
+                f"{share * top:.3e}, {share:.3e} of the leaf's largest entry "
+                f"(limit {limit:g}" + (f" plus {floor:.3e}" if floor else "")
+                + ")")
+    return out
 
 
-def train_reference_check() -> None:
-    """One f32 train step of a two-layer smollm-360m at full width (B=2,
-    S=128) on the card (kernels) and on the CPU (plain versions), from the
-    same weights and batch.  Both sides are f32 with TF32 off: only the
+def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128) -> None:
+    """One f32 train step of a two-layer ``arch`` at full width (B=2,
+    S=``seq``) on the card (kernels) and on the CPU (plain versions), from
+    the same weights and batch.  Both sides are f32 with TF32 off: only the
     order of the sums differs (cuBLAS and the kernels' tiles against the
     CPU's).  Each stage is held to its own inputs, with a limit scaled to
     each leaf, since a typical gradient entry (~1e-3) is smaller than any
@@ -655,31 +811,49 @@ def train_reference_check() -> None:
     - loss: |a - b| <= 1e-5 |b|;
     - gradients: max|a - b| <= 1e-4 max|b| per leaf;
     - AdamW update (new - old): the card's optimizer and the CPU's, each
-      applied to the card's gradients, max|a - b| <= 1e-4 max|b| per leaf.
+      applied to the card's gradients, max|a - b| <= 1e-4 max|b| per
+      leaf plus one f32 spacing of the leaf's largest updated parameter:
+      new - old cannot resolve less, and for a norm scale near 1 after a
+      step of ~6e-4 one rounding of new to the neighbouring f32 (1.2e-7)
+      is already 1.8e-4 of the step.
       The two end-to-end steps' updates are not compared entry by entry:
       the first step's mhat / sqrt(vhat) is g / (|g| + eps), which sends a
       gradient entry within summation noise of 0 to either sign of a full
-      step."""
+      step.
+
+    Beside the three worst gradient leaves it prints their noise: how far
+    the card's own gradients move when every weight moves to a
+    neighbouring f32 in a random direction.  A leaf whose card-vs-CPU
+    error is of that size differs by the f32 rounding of its sums, not
+    by a fault of either side."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models.layers import (tree_from_leaves, tree_leaves,
                                            tree_map)
     from repro_torch.train import optimizer as opt_mod
-    cfg = get_config(TRAIN_ARCH).with_overrides(num_layers=2, dtype="float32")
+    cfg = get_config(arch).with_overrides(num_layers=2, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = {"cuda": registry.init_params(cfg, gen)}
     params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
     names = [p for p, _ in tree_leaves(params["cpu"])]
     rs = np.random.RandomState(4)
-    toks = rs.randint(0, cfg.vocab_size, size=(2, 129)).astype(np.int32)
-    loss, grads = {}, {}
+    toks = rs.randint(0, cfg.vocab_size, size=(2, seq + 1)).astype(np.int32)
+    loss, grads, batch = {}, {}, {}
     for dev in ("cuda", "cpu"):
-        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
-                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        batch[dev] = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                      "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
         leaves = [t.requires_grad_() for _, t in tree_leaves(params[dev])]
-        out, _ = registry.loss_fn(params[dev], cfg, batch)
+        out, _ = registry.loss_fn(params[dev], cfg, batch[dev])
         grads[dev] = torch.autograd.grad(out, leaves)
         loss[dev] = float(out.detach())
+    ngen = torch.Generator(device="cuda").manual_seed(7)
+    nudged = [torch.nextafter(t.detach(), torch.where(
+        torch.rand(t.shape, generator=ngen, device="cuda") < 0.5,
+        -math.inf, math.inf)).requires_grad_()
+        for _, t in tree_leaves(params["cuda"])]
+    out, _ = registry.loss_fn(tree_from_leaves(zip(names, nudged)), cfg,
+                              batch["cuda"])
+    noise = shares(torch.autograd.grad(out, nudged), grads["cuda"])
     ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
     update, gnorm = {}, {}
     for dev in ("cuda", "cpu"):
@@ -690,21 +864,87 @@ def train_reference_check() -> None:
                                   params[dev], gtree)      # in place
         update[dev] = [(t.detach() - o).cpu()
                        for (_, t), o in zip(tree_leaves(new), old)]
+        if dev == "cpu":
+            tops = [t.detach().abs().max() for _, t in tree_leaves(new)]
+            spacing = [float(torch.nextafter(m, m + 1) - m) for m in tops]
         gnorm[dev] = float(m["grad_norm"])
     la, lb = loss["cuda"], loss["cpu"]
     if not math.isfinite(la) or not abs(la - lb) <= 1e-5 * abs(lb):
         raise AssertionError(f"card loss {la} vs CPU loss {lb}")
-    g_worst = leaf_errors("gradient", names,
-                          [g.cpu() for g in grads["cuda"]], grads["cpu"], 1e-4)
-    u_worst = leaf_errors("AdamW update", names, update["cuda"],
-                          update["cpu"], 1e-4)
-    log(f"check: full-width two-layer f32 train step, card kernels vs CPU "
-        f"plain versions (B=2, S=128): loss {la:.7f} vs {lb:.7f} (rel err "
+    g_err = leaf_errors("gradient", names,
+                        [g.cpu() for g in grads["cuda"]], grads["cpu"], 1e-4)
+    u_worst = max(leaf_errors("AdamW update", names, update["cuda"],
+                              update["cpu"], 1e-4, spacing))
+    top3 = sorted(range(len(names)), key=lambda i: -g_err[i])[:3]
+    log(f"check: full-width two-layer {arch} f32 train step, card kernels "
+        f"vs CPU plain versions (B=2, S={seq}): loss {la:.7f} vs {lb:.7f} (rel err "
         f"{abs(la - lb) / abs(lb):.3e}, limit 1e-5); worst leaf of "
         f"{len(names)}, max abs err over the leaf's largest entry: "
-        f"gradients {g_worst:.3e} (limit 1e-4), AdamW update from the same "
-        f"gradients {u_worst:.3e} (limit 1e-4; grad norm {gnorm['cuda']:.6f} "
-        f"vs {gnorm['cpu']:.6f})")
+        f"gradients {g_err[top3[0]]:.3e} (limit 1e-4), AdamW update from the "
+        f"same gradients {u_worst:.3e} (limit 1e-4 plus one f32 spacing of "
+        f"the leaf's largest parameter; grad norm {gnorm['cuda']:.6f} vs "
+        f"{gnorm['cpu']:.6f}); worst gradient leaves, card vs CPU (noise: "
+        f"card vs card, every weight moved by one f32 ulp): "
+        + "; ".join(f"{'/'.join(names[i])} {g_err[i]:.3e} (noise "
+                    f"{noise[i]:.3e})" for i in top3))
+
+
+def mamba_decode_check(steps: int = 4) -> None:
+    """Four f32 decode steps of a two-layer mamba2-1.3b at full width, 8
+    lanes, on the card (kernels) and on the CPU (plain versions), from the
+    same weights and tokens; lane 0 is left out of ``fed`` at step 2.  The
+    logits are held as the dense decode check holds them (atol/rtol 1e-3,
+    greedy tokens equal), every state leaf to max|a - b| <= 1e-4 max|b|,
+    and lane 0's state must not move at step 2, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_map
+    cfg = get_config(MAMBA).with_overrides(num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = registry.init_params(cfg, gen)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    B = LANES
+    caches = {dev: registry.init_paged_cache(cfg, B, 1, BLOCK, dev)
+              for dev in ("cuda", "cpu")}
+    tables = torch.zeros(B, 1, dtype=torch.int32)
+    rs = np.random.RandomState(6)
+    pos = np.zeros(B, np.int32)
+    worst, state_worst = 0.0, 0.0
+    for step in range(steps):
+        toks = torch.from_numpy(
+            rs.randint(0, cfg.vocab_size, size=(B, 1)).astype(np.int32))
+        fed = torch.ones(B, dtype=torch.bool)
+        fed[0] = step != 2
+        p = torch.from_numpy(pos)
+        before = caches["cuda"]["h"][:, 0].clone()
+        got, caches["cuda"] = registry.decode_step_paged(
+            params, cfg, caches["cuda"], toks.cuda(), p.cuda(), tables.cuda(),
+            fed.cuda())
+        want, caches["cpu"] = registry.decode_step_paged(
+            cpu_params, cfg, caches["cpu"], toks, p, tables, fed)
+        got = got.cpu()
+        if got.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(got).all():
+            raise AssertionError(f"bad logits {tuple(got.shape)}")
+        err = (got - want).abs()
+        if (err > 1e-3 + 1e-3 * want.abs()).any():
+            raise AssertionError(f"card vs CPU mamba logits differ: max abs "
+                                 f"err {float(err.max()):.3e}")
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError("card vs CPU mamba greedy tokens differ")
+        if step == 2 and not torch.equal(caches["cuda"]["h"][:, 0], before):
+            raise AssertionError("an unfed lane's state moved")
+        worst = max(worst, float(err.max()))
+        names = sorted(caches["cpu"])
+        state_worst = max(state_worst, *leaf_errors(
+            "mamba decode state", [(n,) for n in names],
+            [caches["cuda"][n].cpu() for n in names],
+            [caches["cpu"][n] for n in names], 1e-4))
+        pos = pos + fed.numpy().astype(np.int32)
+    log(f"check: full-width two-layer mamba2-1.3b f32 decode, card kernels "
+        f"vs CPU plain versions, {steps} steps x {B} lanes (lane 0 unfed at "
+        f"step 2, its state unmoved): max abs logit err {worst:.3e} "
+        f"(atol/rtol 1e-3), greedy tokens equal; worst state leaf "
+        f"{state_worst:.3e} of its largest entry (limit 1e-4)")
 
 
 def main() -> int:
@@ -732,36 +972,55 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [kernel_rmsnorm(gen), kernel_flash_decode(gen),
-            kernel_rmsnorm_bwd(gen), kernel_flash_attention(gen)]
+            kernel_rmsnorm_bwd(gen), kernel_flash_attention(gen),
+            kernel_ssd_chunk(gen)]
     log(f"kernels phase done at {time.perf_counter() - t_start:.1f} s")
 
-    serve_launches, srv = serve(workers=0)
+    # each path is driven with the launch counts set to 0 just before it
+    # and read just after (inside serve() and train())
+    runs = {}
+    runs["serve"], srv = serve(workers=0)
     time_breakdown(srv)
     del srv
     serve(workers=2)
+    runs["serve_mamba"], srv = serve(workers=0, arch=MAMBA)
+    time_breakdown(srv)
+    del srv
     log(f"serve phase done at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
-    train_launches, report = train(workers=0)
+    runs["train"], report = train(workers=0)
     train_time_breakdown(report)
     del report
     torch.cuda.empty_cache()
     train(workers=2)
+    torch.cuda.empty_cache()
+    runs["train_mamba"], report = train(workers=0, arch=MAMBA)
+    train_time_breakdown(report)
+    del report
+    torch.cuda.empty_cache()
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
-    # path and summed (rmsnorm_fwd runs on both)
+    # path and summed: launches_serve and launches_train count both
+    # families, the *_mamba keys the mamba2 run alone
     for row in rows:
-        row["launches_serve"] = serve_launches[row["name"]]
-        row["launches_train"] = train_launches[row["name"]]
+        n = {k: v[row["name"]] for k, v in runs.items()}
+        row["launches_serve"] = n["serve"] + n["serve_mamba"]
+        row["launches_serve_mamba"] = n["serve_mamba"]
+        row["launches_train"] = n["train"] + n["train_mamba"]
+        row["launches_train_mamba"] = n["train_mamba"]
         row["launches"] = row["launches_serve"] + row["launches_train"]
-    log(f"launches: serve run {serve_launches}, train run {train_launches}")
+    log(f"launches: {runs}")
     reference_check()
     train_reference_check()
+    mamba_decode_check()
+    train_reference_check(MAMBA, seq=512)   # two chunks of 256
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     keys = ["name", "route", "source", "replaces", "launches",
-            "launches_serve", "launches_train", "shape", "max_abs_err", "ms",
-            "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
-            "train_shape"]
+            "launches_serve", "launches_serve_mamba", "launches_train",
+            "launches_train_mamba", "shape", "max_abs_err", "ms", "plain_ms",
+            "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
+            "serve_mamba_shape", "train_mamba_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -10,6 +10,7 @@ from repro_torch.configs.base import (
 
 # Import every architecture module so registration side effects run.
 from repro_torch.configs import (  # noqa: F401
+    mamba2_1_3b,
     qwen2_0_5b,
     smollm_360m,
 )

@@ -37,7 +37,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, "ssd_chunk": 0}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -54,6 +54,12 @@ _SIGNATURES = {
     # q, k, v, lengths, out, B, S, H, KVH, hd, dtype, vec, stream
     "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    # x, b, c, dt, a_log, y, states, decay, cum, scratch, B, Q, nh, hp, ds,
+    # dtype, dt_dtype, vec, stream
+    "repro_ssd_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _P],
+    # Q -> scratch floats per (chunk, head)
+    "repro_ssd_chunk_scratch": [_I],
 }
 
 

@@ -5,13 +5,15 @@ goes to the kernel's plain PyTorch version (the CPU tests' path); a CUDA
 tensor goes to the hand-written kernel, which launches or raises.  There
 is no fallback from a CUDA tensor to the plain version.
 
-``rmsnorm`` and ``flash_attention`` are ``torch.autograd.Function``s, the
-counterparts of the JAX package's ``jax.custom_vjp``s (``ops.py``):
-rmsnorm's backward is a kernel too, and its dscale partials are summed
-here, as the JAX ``ops.py`` sums them; flash attention's backward
-recomputes through the oracle ``ref.flash_attention_ref`` and takes its
-autograd gradient, as the JAX ``ops.py`` takes ``jax.vjp`` of the oracle.
-Under ``torch.no_grad()`` each is one forward launch and nothing else.
+``rmsnorm``, ``flash_attention`` and ``ssd_chunk`` are
+``torch.autograd.Function``s, the counterparts of the JAX package's
+``jax.custom_vjp``s (``ops.py``): rmsnorm's backward is a kernel too, and
+its dscale partials are summed here, as the JAX ``ops.py`` sums them;
+flash attention's and ssd_chunk's backwards recompute through the
+oracles ``ref.flash_attention_ref`` and ``ref.ssd_chunk_ref`` and take
+their autograd gradients, as the JAX ``ops.py`` takes ``jax.vjp`` of the
+oracle.  Under ``torch.no_grad()`` each is one forward launch and
+nothing else.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm_bwd as _rms_bwd_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd as _rms_fwd_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_fwd_plain
+from repro_torch.kernels.ssd_scan import ssd_chunk as _ssd_kernel
+from repro_torch.kernels.ssd_scan import ssd_chunk_plain
 
 
 def flash_decode(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
@@ -103,3 +107,35 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     shape = x.shape
     y = _RMSNorm.apply(x.reshape(-1, shape[-1]), scale.float(), eps)
     return y.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk (forward kernel; backward through the oracle)
+# ---------------------------------------------------------------------------
+
+class _SSDChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a_log):
+        ctx.save_for_backward(x, b, c, dt, a_log)
+        if x.device.type == "cpu":
+            return ssd_chunk_plain(x, b, c, dt, a_log)
+        return _ssd_kernel(x.contiguous(), b.contiguous(), c.contiguous(),
+                           dt.contiguous(), a_log.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, gy, gstates, gdecay):
+        # The recompute materialises f32 [B, Q, Q, nh] tensors: at
+        # mamba2-1.3b's training shape (B*nc=32, Q=256, nh=64) 0.54 GB
+        # each, a few GB transient per layer, freed before the next
+        # layer's backward.
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            outs = ref.ssd_chunk_ref(*leaves)
+            return torch.autograd.grad(outs, leaves, (gy, gstates, gdecay))
+
+
+def ssd_chunk(x, b, c, dt, a_log):
+    """x: [B,Q,nh,hp]; b, c: [B,Q,ds]; dt: [B,Q,nh]; a_log: [nh] ->
+    (y [B,Q,nh,hp] in x's dtype, states [B,nh,hp,ds] f32, decay_total
+    [B,nh] f32)."""
+    return _SSDChunk.apply(x, b, c, dt, a_log)

@@ -72,9 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(arch: str, scale: str):
+    """``arch`` at ``scale``: the example scales shrink the SSM too, as
+    the JAX launchers do."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg.with_overrides(**SCALES[scale]) if SCALES[scale] else cfg
+    overrides = dict(SCALES[scale])
+    if overrides and cfg.ssm:
+        overrides["ssm"] = cfg.ssm.__class__(d_state=16, expand=2,
+                                             head_dim=16, chunk_size=16)
+    return cfg.with_overrides(**overrides) if overrides else cfg
 
 
 @dataclasses.dataclass

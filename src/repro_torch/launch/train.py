@@ -103,20 +103,29 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
 
 
 def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
-    """Launches of each kernel in one ``make_train_step`` step of the dense
-    model.  Per microbatch the forward runs two rmsnorms per layer plus
-    the final norm and one attention per layer; the backward runs one
-    rmsnorm backward per forward rmsnorm (attention's backward is the
-    oracle's autograd, no kernel).  Under ``remat_policy="full"`` each
-    layer's forward runs again in the backward: non-reentrant
-    checkpointing recomputes until every tensor the layer saved is back,
-    and the layer's last product saves its inputs, so the whole layer."""
+    """Launches of each kernel in one ``make_train_step`` step.  Under
+    ``remat_policy="full"`` each layer's forward runs again in the
+    backward (``again`` = 1): non-reentrant checkpointing recomputes until
+    every tensor the layer saved is back, and the layer's last product
+    saves its inputs, so the whole layer.  Per microbatch:
+
+    * dense: the forward runs two rmsnorms per layer plus the final norm
+      and one attention per layer; the backward one rmsnorm backward per
+      forward rmsnorm (attention's backward is the oracle's autograd, no
+      kernel);
+    * ssm: one rmsnorm per layer plus the final norm and one ssd_chunk
+      per layer (all chunks at once; its backward is the oracle's
+      autograd); the gated per-head norm is inline, not the kernel."""
+    from repro_torch.kernels import _lib
     NL = cfg.num_layers
     again = 1 if cfg.remat_policy == "full" else 0
-    per = {"rmsnorm_fwd": (2 + 2 * again) * NL + 1,
-           "rmsnorm_bwd": 2 * NL + 1,
-           "flash_attention": (1 + again) * NL,
-           "flash_decode": 0}
+    per = dict.fromkeys(_lib.launches, 0)
+    if cfg.family == "ssm":
+        per.update(rmsnorm_fwd=(1 + again) * NL + 1, rmsnorm_bwd=NL + 1,
+                   ssd_chunk=(1 + again) * NL)
+    else:
+        per.update(rmsnorm_fwd=(2 + 2 * again) * NL + 1,
+                   rmsnorm_bwd=2 * NL + 1, flash_attention=(1 + again) * NL)
     return {k: v * microbatches for k, v in per.items()}
 
 

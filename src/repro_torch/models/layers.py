@@ -34,7 +34,7 @@ from repro_torch.kernels import ops
 class PSpec:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"        # normal | zeros | ones | embed
+    init: str = "normal"        # normal | zeros | ones | embed | ssm_a | ssm_dt
     fan_in: int | None = None   # overrides fan-in for "normal"
     dtype: Any = None           # overrides param dtype (a torch.dtype)
 
@@ -93,6 +93,18 @@ def init_tree(spec_tree, generator: torch.Generator,
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=dtype, device=device)
+        if spec.init == "ssm_a":
+            # A_log: log(uniform in [1, 16))
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device)
+            return torch.log(1.0 + 15.0 * u).to(dtype)
+        if spec.init == "ssm_dt":
+            # dt_bias: inverse softplus of a log-uniform dt in [1e-3, 1e-1]
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            u = torch.rand(spec.shape, generator=generator,
+                           dtype=torch.float32, device=device)
+            dt = torch.exp(u * (hi - lo) + lo)
+            return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
         if spec.init == "embed":
             std = 0.02
         elif spec.init == "normal":

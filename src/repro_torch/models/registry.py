@@ -1,17 +1,17 @@
 """Uniform model API across families (the entries the train and serve
 paths call) + analytical parameter/FLOP counts.
 
-Only the dense family is ported; the others raise ``NotImplementedError``
-naming the family."""
+The dense and ssm families are ported; the others raise
+``NotImplementedError`` naming the family."""
 from __future__ import annotations
 
 import math
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba, transformer
 
-_MODULES = {"dense": transformer}
+_MODULES = {"dense": transformer, "ssm": mamba}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:
@@ -49,12 +49,19 @@ def param_count(cfg: ModelConfig) -> int:
 def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,
                 include_attention: bool = True, seq_len: int = 0,
                 decode_cache_len: int = 0) -> float:
-    """Canonical 6·N·D (train) / 2·N·D (inference) + the attention term,
-    as the JAX package's ``registry.model_flops`` counts them for a dense
-    model: 2·2·S²·H·hd per layer per sequence for scores and values,
-    halved by the causal mask, times 3 in training; for decode, the
-    cache length per produced token."""
+    """Canonical 6·N·D (train) / 2·N·D (inference) + the kernel terms, as
+    the JAX package's ``registry.model_flops`` counts them for the dense
+    and ssm families: attention 2·2·S²·H·hd per layer per sequence for
+    scores and values, halved by the causal mask, times 3 in training,
+    and for decode the cache length per produced token; SSD 2·Q·nh·hp
+    (intra-chunk) + 4·nh·hp·ds (state and output) per token per layer,
+    times 3 in training."""
     flops = (6.0 if training else 2.0) * param_count(cfg) * tokens
+    if include_attention and cfg.ssm is not None and seq_len:
+        _, nh, hp, ds = mamba.dims(cfg)
+        per_tok = 2 * cfg.ssm.chunk_size * nh * hp + 4 * nh * hp * ds
+        flops += (3.0 if training else 1.0) * tokens * cfg.num_layers \
+            * per_tok
     if include_attention and cfg.num_heads:
         hd = cfg.resolved_head_dim()
         if seq_len:

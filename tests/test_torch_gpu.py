@@ -163,3 +163,75 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     k = torch.randn(1, 4, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention(q, k, k, causal=True)
+
+
+def _ssd_inputs(gen, B, Q, nh, hp, ds, dtype, dt_dtype):
+    """tests/test_kernels.py:149-154's distributions, on the card."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, b, c = randn(B, Q, nh, hp), randn(B, Q, ds), randn(B, Q, ds)
+    dt = torch.nn.functional.softplus(randn(B, Q, nh)) * 0.1
+    a_log = torch.rand(nh, generator=gen, device="cuda") * 2.0
+    return (x.to(dtype), b.to(dtype), c.to(dtype), dt.to(dt_dtype), a_log)
+
+
+@pytest.mark.parametrize("B,Q,nh,hp,ds", [
+    (32, 256, 64, 64, 128),    # mamba2-1.3b training: B*nc = 8*1024/256
+    (1, 64, 8, 32, 32),        # tests/test_kernels.py:136-139
+    (2, 128, 16, 64, 64),
+    (1, 256, 8, 64, 128),
+    (2, 1000, 8, 64, 128),     # ragged one-chunk sequence: Q = S
+    (3, 37, 5, 16, 16),        # shorter than one tile, odd head count
+    (1, 300, 2, 128, 256),     # the largest hp and ds, three prefix levels
+])
+@pytest.mark.parametrize("dtype,dt_f32", [(torch.float32, True),
+                                          (torch.bfloat16, False),
+                                          (torch.bfloat16, True)])
+def test_ssd_chunk_kernel_matches_plain(cuda, B, Q, nh, hp, ds, dtype,
+                                        dt_f32):
+    """dt in x's dtype (as tests/test_kernels.py feeds it) and in f32 (as
+    the model feeds it); the limits of tests/test_kernels.py:155-162."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    args = _ssd_inputs(cuda, B, Q, nh, hp, ds, dtype,
+                       torch.float32 if dt_f32 else dtype)
+    before = _lib.launches["ssd_chunk"]
+    y, st, dec = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert _lib.launches["ssd_chunk"] == before + 1
+    wy, wst, wdec = ssd_chunk_plain(*args)
+    assert y.dtype == dtype and st.dtype == dec.dtype == torch.float32
+    torch.testing.assert_close(y, wy, **TOLS[dtype])
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(st, wst, atol=tol, rtol=tol)
+    torch.testing.assert_close(dec, wdec, atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_chunk_op_backward_on_the_card(cuda):
+    """ops.ssd_chunk forward (kernel) and backward (through the oracle) on
+    the card against the CPU (plain version), in f32, over two chunks'
+    worth of rows."""
+    from repro_torch.kernels import ops
+    args = _ssd_inputs(cuda, 2, 100, 4, 32, 32, torch.float32, torch.float32)
+    cot = [torch.randn(s, generator=cuda, device="cuda")
+           for s in ((2, 100, 4, 32), (2, 4, 32, 32), (2, 4))]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in args]
+        outs = ops.ssd_chunk(*leaves)
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(
+            outs, leaves, [c.to(dev) for c in cot])]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_chunk_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    x, b, c, dt, a_log = _ssd_inputs(cuda, 1, 8, 2, 16, 16, torch.float32,
+                                     torch.float32)
+    with pytest.raises(ValueError, match="hp=24"):
+        ssd_chunk(torch.zeros(1, 8, 2, 24, device="cuda"), b, c, dt, a_log)
+    with pytest.raises(ValueError, match="dt dtype"):
+        ssd_chunk(x, b, c, dt.half(), a_log)
+    with pytest.raises(ValueError, match="a_log dtype"):
+        ssd_chunk(x, b, c, dt, a_log.double())

@@ -17,6 +17,7 @@ from repro.kernels.flash_attention import \
     flash_attention as jax_flash_attention
 from repro.kernels.rmsnorm import rmsnorm_bwd as jax_rmsnorm_bwd
 from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm_fwd
+from repro.kernels.ssd_scan import ssd_chunk as jax_ssd_chunk
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (flash_decode,
@@ -26,6 +27,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.rmsnorm import (BWD_BLOCK_ROWS, rmsnorm_bwd,
                                          rmsnorm_bwd_plain, rmsnorm_fwd,
                                          rmsnorm_fwd_plain)
+from repro_torch.kernels.ref import prefix_sum
+from repro_torch.kernels.ssd_scan import ssd_chunk
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -247,6 +250,98 @@ def test_flash_decode_plain_empty_sequence_is_zero():
 
 
 # ---------------------------------------------------------------------------
+# ssd_chunk and the SSD op's gradient
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, Q, nh, hp, ds, seed):
+    """tests/test_kernels.py:149-154's distributions, made with numpy."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, Q, nh, hp).astype(np.float32)
+    b = rs.randn(B, Q, ds).astype(np.float32)
+    c = rs.randn(B, Q, ds).astype(np.float32)
+    dt = (np.logaddexp(rs.randn(B, Q, nh), 0.0) * 0.1).astype(np.float32)
+    a_log = rs.uniform(0.0, 2.0, size=(nh,)).astype(np.float32)
+    return x, b, c, dt, a_log
+
+
+def _ssd_close(got, want, dtype):
+    """tests/test_kernels.py:155-162: y at the kernel tolerance, the
+    states at 3e-2 (bf16) / 3e-5 (f32), the decay at 1e-5."""
+    (y, st, dec), (wy, wst, wdec) = got, want
+    close(y, wy, dtype)
+    tol = 3e-2 if dtype == "bfloat16" else 3e-5
+    np.testing.assert_allclose(st.numpy(), np.asarray(wst), atol=tol, rtol=tol)
+    np.testing.assert_allclose(dec.numpy(), np.asarray(wdec), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,Q,nh,hp,ds", [
+    (1, 64, 8, 32, 32),
+    (2, 128, 16, 64, 64),
+    (1, 256, 8, 64, 128),    # mamba2-1.3b-like chunk
+    (2, 100, 4, 32, 64),     # Q not a multiple of the kernel's 64-row tile
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dt_f32", [False, True])
+def test_ssd_chunk_plain_matches_pallas(B, Q, nh, hp, ds, dtype, dt_f32):
+    """dt in x's dtype (as tests/test_kernels.py feeds it) and in f32 (as
+    the model feeds it, after an f32 softplus)."""
+    arrays = _ssd_inputs(B, Q, nh, hp, ds, seed=B * Q + nh)
+    xj, xt = both(arrays[0], dtype)
+    bj, bt = both(arrays[1], dtype)
+    cj, ct = both(arrays[2], dtype)
+    dtj, dtt = both(arrays[3], "float32" if dt_f32 else dtype)
+    alj, alt = both(arrays[4], "float32")
+    want = jax_ssd_chunk(xj, bj, cj, dtj, alj, block_h=max(nh // 2, 1),
+                         interpret=True)
+    got = ops.ssd_chunk(xt, bt, ct, dtt, alt)
+    assert got[0].dtype == xt.dtype and got[0].shape == (B, Q, nh, hp)
+    assert got[1].dtype == torch.float32 and got[1].shape == (B, nh, hp, ds)
+    assert got[2].dtype == torch.float32 and got[2].shape == (B, nh)
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("N", [1, 16, 17, 100, 256, 1000])
+def test_prefix_sum_is_jnp_cumsum_bit_for_bit(N):
+    """ssd_chunk's prefix sum adds in the order XLA's CPU backend gives
+    jnp.cumsum (the JAX oracle's and the Pallas kernel's prefix sum)."""
+    rs = np.random.RandomState(N)
+    a = (-np.logaddexp(rs.randn(2, N, 5), 0.0) * 0.7).astype(np.float32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(a), axis=1))
+    np.testing.assert_array_equal(prefix_sum(torch.from_numpy(a)).numpy(),
+                                  want)
+
+
+def test_ssd_chunk_op_grad_matches_jax():
+    """The backward recomputes through the oracle, as the JAX custom VJP
+    does (repro.kernels.ops.ssd_chunk): the vector-Jacobian product of
+    random cotangents, for every input, within 1e-4 in f32."""
+    arrays = _ssd_inputs(2, 64, 4, 16, 16, seed=11)
+    rs = np.random.RandomState(12)
+    cot = (rs.randn(2, 64, 4, 16).astype(np.float32),
+           rs.randn(2, 4, 16, 16).astype(np.float32),
+           rs.randn(2, 4).astype(np.float32))
+    _, vjp = jax.vjp(lambda *a: jax_ops.ssd_chunk(*a, True),
+                     *map(jnp.asarray, arrays))
+    want = vjp(tuple(map(jnp.asarray, cot)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    outs = ops.ssd_chunk(*leaves)
+    got = torch.autograd.grad(outs, leaves, tuple(map(torch.from_numpy, cot)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_chunk_under_no_grad_records_nothing():
+    x = torch.randn(1, 8, 2, 16, requires_grad=True)
+    b = torch.randn(1, 8, 16)
+    with torch.no_grad():
+        y, st, dec = ops.ssd_chunk(x, b, b, torch.rand(1, 8, 2),
+                                   torch.zeros(2))
+    assert y.grad_fn is None and st.grad_fn is None and dec.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
 # no silent fallback: the CUDA wrappers refuse what is not on the card
 # ---------------------------------------------------------------------------
 
@@ -265,6 +360,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q4 = torch.randn(1, 8, 2, 16)
     with pytest.raises(ValueError, match="flash_attention"):
         flash_attention(q4, q4, q4)
+    bc = torch.randn(1, 8, 16)
+    with pytest.raises(ValueError, match="ssd_chunk"):
+        ssd_chunk(q4, bc, bc, torch.rand(1, 8, 2), torch.zeros(2))
 
 
 def test_ops_dispatch_non_cpu_tensor_to_the_kernel():
@@ -281,6 +379,10 @@ def test_ops_dispatch_non_cpu_tensor_to_the_kernel():
     q4 = torch.empty(1, 8, 2, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(q4, q4, q4)
+    bc = torch.empty(1, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_chunk(q4, bc, bc, torch.empty(1, 8, 2, device="meta"),
+                      torch.empty(2, device="meta"))
 
 
 def test_new_cuda_wrappers_raise_for_the_card_without_cuda():

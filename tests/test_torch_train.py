@@ -402,7 +402,7 @@ def test_kernel_launches_per_step_as_derived(monkeypatch, remat, mb):
     version (ops dispatches to exactly one of the two per launch)."""
     from repro_torch.kernels import ops
     calls = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_attention": 0,
-             "flash_decode": 0}
+             "flash_decode": 0, "ssd_chunk": 0}
 
     def counting(name, fn):
         def wrapped(*args, **kw):
@@ -413,7 +413,8 @@ def test_kernel_launches_per_step_as_derived(monkeypatch, remat, mb):
     for name, attr in (("rmsnorm_fwd", "rmsnorm_fwd_plain"),
                        ("rmsnorm_bwd", "rmsnorm_bwd_plain"),
                        ("flash_attention", "flash_attention_plain"),
-                       ("flash_decode", "flash_decode_plain")):
+                       ("flash_decode", "flash_decode_plain"),
+                       ("ssd_chunk", "ssd_chunk_plain")):
         monkeypatch.setattr(ops, attr, counting(name, getattr(ops, attr)))
     _, cfg = _tiny_cfgs()
     cfg = cfg.with_overrides(remat_policy=remat, num_layers=3)
