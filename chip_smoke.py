@@ -105,6 +105,13 @@ def time_ms(fn, args_list, iters: int = 200) -> float:
 NO_PROFILER: list = []      # set once the profiler has recorded nothing
 
 
+def kernel_key(name: str) -> str:
+    """A device event's name without its argument list, cut to 60
+    characters (the port's kernels live in an anonymous namespace, whose
+    parentheses are not an argument list)."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0][-60:]
+
+
 def profile_kernels(run):
     """Device time in us per kernel name over ``run()``, from
     ``torch.profiler``, and ``run()``'s result.  Empty when the profiler
@@ -116,7 +123,7 @@ def profile_kernels(run):
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.name.split("(")[0][-60:]
+            key = kernel_key(e.name)
             by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     if not by_name and not NO_PROFILER:
         NO_PROFILER.append(True)
@@ -167,10 +174,13 @@ def busy_text(by_name: dict, n: int, wall: float, unit: str, top: int) -> str:
     if not by_name:
         return "device busy not measured (no profiler events)"
     busy = sum(by_name.values()) / n / 1e3
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ours = [(k.split("::")[-1], v) for k, v in ranked if "repro_torch::" in k]
     return (f"device busy {busy:.3f} ms, device idle share "
             f"{1 - busy / wall:.3f}; top device time per {unit}: "
-            + "; ".join(f"{k} {v / n / 1e3:.4f} ms" for k, v in ranked))
+            + "; ".join(f"{k} {v / n / 1e3:.4f} ms" for k, v in ranked[:top])
+            + f"; the port's kernels per {unit}: "
+            + "; ".join(f"{k} {v / n / 1e3:.4f} ms" for k, v in ours))
 
 
 def copies_for(nbytes: int, iters: int = 200) -> int:
@@ -252,10 +262,16 @@ def kernel_rmsnorm(gen) -> dict:
 
 
 def kernel_flash_decode(gen) -> dict:
-    from repro_torch.kernels.decode_attention import (flash_decode,
+    from repro_torch.kernels.decode_attention import (decode_split_keys,
+                                                      decode_splits,
+                                                      flash_decode,
                                                       flash_decode_plain)
     B, H, KVH, hd = LANES, 14, 2, 64
     S = -(-MAX_SEQ // BLOCK) * BLOCK          # the serve phase's view length
+    split_keys, splits = decode_split_keys(B, KVH, S), decode_splits(B, KVH, S)
+    grid = (f"{splits * KVH * B} CTAs ({splits} splits of {split_keys} keys "
+            f"x {KVH} KV heads x {B} sequences) + combine "
+            f"{-(-B * H * hd // 128)} CTAs")
     row = None
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
@@ -285,17 +301,20 @@ def kernel_flash_decode(gen) -> dict:
                "sdpa": sdpa}
         dev, paced, source = measure(fns, args)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+        kv_bytes = 2 * valid * KVH * hd * es
         log(f"kernel flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} "
             f"{str(dtype)[6:]} (sum lengths {valid}): max abs err {err:.3e} "
-            f"(atol/rtol {TOLS[dtype]['atol']}); device ms ({source}) "
-            f"{fmt(dev)}; back-to-back ms per call {fmt(paced)}; bound "
-            f"{bound:.6f} ms (bytes)")
+            f"(atol/rtol {TOLS[dtype]['atol']}); grid {grid}; device ms "
+            f"({source}) {fmt(dev)}; back-to-back ms per call {fmt(paced)}; "
+            f"bound {bound:.6f} ms (bytes); kernel "
+            f"{kv_bytes / dev['kernel'] / 1e6:.1f} GB/s of valid K/V bytes "
+            f"({kv_bytes / 1e6:.3f} MB)")
         if dtype == torch.bfloat16:                          # the serve path
             row = dict(name="flash_decode", route="cuda",
                        source="src/repro_torch/csrc/flash_decode.cu",
                        replaces="src/repro/kernels/decode_attention.py:80",
                        shape=f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KVH}, "
-                             f"{hd}] bfloat16",
+                             f"{hd}] bfloat16", grid=grid,
                        max_abs_err=err, ms=dev["kernel"],
                        plain_ms=dev["plain"], ms_source=source,
                        bound_ms=bound,
@@ -396,10 +415,13 @@ def kernel_flash_attention(gen) -> dict:
                 t_ops = flops / PEAK_FLOPS[dtype]
                 bound = max(t_bytes, t_ops) * 1e3
                 by = "bytes" if t_bytes >= t_ops else "operations"
+                n_q = -(-Sq // 64)
+                grid = (f"{n_q * H * B} CTAs ({n_q} query tiles of 64 x {H} "
+                        f"heads x {B} sequences)")
                 log(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
                     f"KVH={KVH} hd={hd} causal={causal} {str(dtype)[6:]}: "
                     f"max abs err {err:.3e} (atol/rtol "
-                    f"{TOLS[dtype]['atol']}); device ms ({source}) "
+                    f"{TOLS[dtype]['atol']}); grid {grid}; device ms ({source}) "
                     f"{fmt(dev)}; "
                     f"back-to-back ms per call {fmt(paced)}; bound "
                     f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
@@ -412,6 +434,7 @@ def kernel_flash_attention(gen) -> dict:
                                replaces="src/repro/kernels/flash_attention.py:96",
                                shape=f"q [{B}, {Sq}, {H}, {hd}], k/v [{B}, "
                                      f"{Sk}, {KVH}, {hd}] causal bfloat16",
+                               grid=grid,
                                max_abs_err=err, ms=dev["kernel"],
                                plain_ms=dev["plain"], ms_source=source,
                                bound_ms=bound, bound_by=by,
@@ -1018,8 +1041,8 @@ def main() -> int:
 
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_serve_mamba", "launches_train",
-            "launches_train_mamba", "shape", "max_abs_err", "ms", "plain_ms",
-            "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
+            "launches_train_mamba", "shape", "grid", "max_abs_err", "ms",
+            "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
             "serve_mamba_shape", "train_mamba_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

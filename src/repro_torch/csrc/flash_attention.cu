@@ -15,27 +15,38 @@
 // What bounds it on the H100: operations.  At the training shape of
 // smollm-360m (B=8, S=1024, H=15, KVH=5, hd=64, causal, bf16) the two
 // products are ~16 GFLOP, ~16 us at 989 TFLOP/s, against ~42 MB of q, k,
-// v and o, ~13 us at 3.35 TB/s.
+// v and o, ~13 us at 3.35 TB/s.  Only wgmma reaches that rate.
 //
-// What the design does about it: one CTA of 4 warps per (64-query tile,
-// head, sequence); the TPU's sequential kv grid axis becomes a loop over
-// 64-key tiles inside the CTA, which stops at the diagonal under `causal`.
-// q, k and v tiles are staged in shared memory with 16-byte loads; in
-// bf16 both products run on the tensor cores (WMMA m16n16k16, bf16 in,
-// f32 out), in f32 on the FMA units (the TPU kernel's f32 dot; TF32 would
-// not hold the f32 tolerance).  Each warp owns 16 query rows: their
-// scores, softmax statistics and f32 output rows in shared memory; the
-// softmax gives two lanes to a row, so its max and sum are one shuffle
-// each.  The output rows are rescaled by exp(m_prev - m_new) before each
-// P.V product is accumulated into them.  Any Sq and Sk (the ragged edge
-// is masked here; the Pallas wrapper asserts Sq % block_q == 0, :89),
-// hd <= 128 a multiple of 16.  Query tiles are scheduled in reverse
-// order, so under `causal` the longest tiles start first.
-// Known limits of this first version: no cp.async/TMA double buffering,
-// no wgmma, and the q fragments are reloaded from shared memory per key
-// tile.
-#include <mma.h>
-
+// What the bf16 design does about it: one CTA is one warpgroup (128
+// threads) per (64-query tile, head, sequence); the TPU's sequential kv
+// grid axis becomes a loop over 64-key tiles, which stops at the diagonal
+// under `causal`; query tiles go in reverse order, so the longest start
+// first.  Both products run on wgmma (m64n64k16, bf16 in, f32 out), whose
+// register layouts are documented, so S, P and O never leave registers
+// inside the key loop:
+//   - Q (loaded once per CTA) and each K tile sit in shared memory in the
+//     128-byte-swizzled layout wgmma reads through descriptors (rows of 64
+//     bf16; hd < 64 is zero-padded to 64, 64 < hd <= 128 to two column
+//     blocks of 64), and S = Q.K^T accumulates in registers;
+//   - the softmax works on S in registers: each row's values sit in the
+//     four threads of a quad, so its max and sum are two shuffles; the
+//     scores are scaled by log2(e)/sqrt(hd) in one multiply and go through
+//     exp2f; O is rescaled in registers;
+//   - P is rounded to bf16 straight into wgmma's A-register layout (the
+//     f32 accumulator pairs of S are the A fragment's bf16 pairs), and
+//     O += P.V takes V from shared memory as an MN-major B operand (the
+//     transpose flag), one m64n64 product per 64 columns of V;
+//   - K/V tiles go through a ring of two stages filled with 16-byte
+//     cp.async copies: tile t+1 is in flight while the tensor cores work
+//     on tile t;
+//   - ~41 KB of shared memory and 127 registers a thread at hd <= 64 let
+//     four CTAs share an SM (~81 KB and 190 registers at hd <= 128: two).
+// Any Sq and Sk (ragged rows and padded columns are zero-filled by the
+// copies and masked), hd any multiple of 16 up to 128.
+//
+// The f32 path runs on the FMA units (the TPU kernel's f32 dot; TF32
+// would not hold the f32 tolerance), with S, P and O in shared memory:
+// off the main path, and faster than the library's f32 attention.
 #include <cmath>
 
 #include "common.cuh"
@@ -43,13 +54,320 @@
 namespace repro_torch {
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kBQ = 64;        // queries per CTA
 constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
+constexpr int kThreads = 128;  // one warpgroup; 4 warps x 16 query rows
 constexpr int kMaxHd = 128;
 constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma with S, P and O in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;           // K/V ring
+constexpr int kBlock = 64 * 128;     // bytes of a [64 rows][64 bf16] column block
+
+// Shared memory: Q, then K and V of each stage, each [64 rows][HDP] as
+// HDP / 64 column blocks of kBlock bytes, 1024-byte aligned (the swizzle
+// pattern repeats every 8 rows of 128 bytes).
+template <int HDP>
+struct Bf16Smem {
+  static constexpr int kTile = kBlock * (HDP / 64);
+  static constexpr int kTotal = kTile * (1 + 2 * kStages) + 1024;  // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled where !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A [64][hd] tile of a [*, row_stride] bf16 tensor into `tile` (HDP
+// columns, swizzled: the 16-byte chunk c of row r lands at chunk c ^ (r %
+// 8) of the row's 128 bytes).  Rows at or past `valid` and columns at or
+// past hd are zero.
+template <int HDP>
+__device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat16* src,
+                                                int64_t row_stride, int valid, int hd) {
+  constexpr int kChunks = HDP / 8;                   // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks, c = i % kChunks;
+    const uint32_t dst = tile + (c / 8) * kBlock + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    const bool ok = r < valid && c * 8 < hd;
+    cp_async16(dst, ok ? src + r * row_stride + c * 8 : src, ok);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand starting at
+// `addr`: 8-row groups 1024 bytes apart.  The same 1024 serves as the
+// leading offset, which a K-major operand does not use and an MN-major one
+// of 64 columns (one swizzle atom wide) does not reach either way.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator across the wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64x64] += A[64x16] . B[16x64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64x64] += A[64x16] . B[16x64], A in registers (bf16 pairs), B MN-major
+// in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Accumulator layout of m64n64 (PTX ISA, wgmma register fragments): thread
+// (warp w, lane) holds rows 16w + lane/4 (i = 0) and +8 (i = 1), columns
+// 8j + 2(lane%4) + e, j < 8, e < 2, in d[4j + 2i + e].
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+                            int KVH, int hd, float scale_log2, int causal) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  using L = Bf16Smem<HDP>;
+  constexpr int kNB = HDP / 64;        // column blocks of 64
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // longest tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t q_stride = static_cast<int64_t>(H) * hd;     // between positions
+  const int64_t kv_stride = static_cast<int64_t>(KVH) * hd;
+  const __nv_bfloat16* qb =
+      q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
+  const __nv_bfloat16* kb =
+      k + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
+  const __nv_bfloat16* vb =
+      v + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
+
+  const int shift = Sk - Sq;   // query i sits at key position i + shift
+  // causal: the tile's last query sees keys up to q0 + kBQ - 1 + shift
+  const int kv_end = causal ? min(Sk, q0 + kBQ + shift) : Sk;
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  // group 0: Q and the first K/V tile
+  load_tile_sw128<HDP>(qs, qb, q_stride, Sq - q0, hd);
+  load_tile_sw128<HDP>(base + L::kTile, kb, kv_stride, Sk, hd);
+  load_tile_sw128<HDP>(base + 2 * L::kTile, vb, kv_stride, Sk, hd);
+  cp_async_commit();
+
+  float o[kNB][32];
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};              // this thread's part of each row's sum
+  const int row0 = 16 * warp + (lane >> 2);   // local row of i = 0
+  const int col0 = 2 * (lane & 3);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    const int st = t & 1;
+    const uint32_t ks = base + L::kTile * (1 + 2 * st);
+    const uint32_t vs = ks + L::kTile;
+    if (t + 1 < n_tiles) {   // tile t+1 into the other stage, freed at the end of t-1
+      const uint32_t kn = base + L::kTile * (1 + 2 * (st ^ 1));
+      const int64_t off = static_cast<int64_t>(k0 + kBK) * kv_stride;
+      load_tile_sw128<HDP>(kn, kb + off, kv_stride, Sk - k0 - kBK, hd);
+      load_tile_sw128<HDP>(kn + L::kTile, vb + off, kv_stride, Sk - k0 - kBK, hd);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();      // all but the newest group: tile t has landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q K^T
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBlock + (kk % 4) * 32;
+      wgmma_ss(s, sw128_desc(qs + off), sw128_desc(ks + off));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // online softmax in the log2 domain, on the registers
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0 + shift);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = s[4 * j + 2 * i + e] * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * j + col0 + e;
+            const int qpos = q0 + row0 + 8 * i;
+            if (key >= Sk || (causal && key > qpos + shift)) x = kNegInf;
+          }
+          s[4 * j + 2 * i + e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[4 * j + 2 * i + e] - m[i]);
+          s[4 * j + 2 * i + e] = p;
+          rs[i] += p;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[nb][4 * j + 2 * i] *= corr[i];
+          o[nb][4 * j + 2 * i + 1] *= corr[i];
+        }
+
+    // P as bf16 A fragments: keys 16kk..16kk+15 are S columns j = 2kk, 2kk+1
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);   // row, keys 2t..
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);   // row + 8
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);   // row, keys 8 + 2t..
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);   // row + 8
+    }
+
+    // O += P V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+        wgmma_rs(o[nb], pa[kk], sw128_desc(vs + nb * kBlock + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int nb = 0; nb < kNB; ++nb) fence_regs(o[nb]);
+    __syncthreads();         // stage st is free for the copy of tile t+2
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+  __nv_bfloat16* ob =
+      out + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
+#pragma unroll
+  for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + 8 * i;
+        const int c = nb * 64 + 8 * j + col0;
+        if (q0 + r < Sq && c < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + r * q_stride + c) = __floats2bfloat162_rn(
+              o[nb][4 * j + 2 * i] * inv[i], o[nb][4 * j + 2 * i + 1] * inv[i]);
+        }
+      }
+}
+
+template <int HDP>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                int Sk, int H, int KVH, int hd, int causal, cudaStream_t stream) {
+  constexpr int smem = Bf16Smem<HDP>::kTotal;
+  auto kernel = flash_attention_bf16_kernel<HDP>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(hd)));
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
+      KVH, hd, scale_log2, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA units, S, P and O in shared memory
+// ---------------------------------------------------------------------------
 
 __host__ __device__ inline size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
@@ -61,25 +379,22 @@ struct Layout {
   size_t q, k, v, s, p, o, m, l, c, total;
 };
 
-template <typename T>
-__host__ __device__ inline Layout layout_for(int hd) {
+__host__ __device__ inline Layout layout_f32(int hd) {
   Layout L;
-  constexpr bool kF32 = sizeof(T) == 4;
-  // bf16 rows padded by 16 bytes (WMMA needs ldm % 8 == 0 and 32-byte
-  // aligned tile starts); f32 K rows padded by one element, so the FMA
-  // path's per-lane key reads hit distinct banks.
-  L.ldq = kF32 ? hd : hd + 8;
-  L.ldk = kF32 ? hd + 1 : hd + 8;
-  L.ldv = kF32 ? hd : hd + 8;
+  // K rows padded by one element, so the per-lane key reads hit distinct
+  // banks
+  L.ldq = hd;
+  L.ldk = hd + 1;
+  L.ldv = hd;
   L.lds = kBK + 4;
-  L.ldp = kF32 ? kBK + 4 : kBK + 8;
+  L.ldp = kBK + 4;
   L.ldo = hd + 4;
   size_t off = 0;
-  L.q = off; off = align128(off + sizeof(T) * kBQ * L.ldq);
-  L.k = off; off = align128(off + sizeof(T) * kBK * L.ldk);
-  L.v = off; off = align128(off + sizeof(T) * kBK * L.ldv);
+  L.q = off; off = align128(off + sizeof(float) * kBQ * L.ldq);
+  L.k = off; off = align128(off + sizeof(float) * kBK * L.ldk);
+  L.v = off; off = align128(off + sizeof(float) * kBK * L.ldv);
   L.s = off; off = align128(off + sizeof(float) * kBQ * L.lds);
-  L.p = off; off = align128(off + sizeof(T) * kBQ * L.ldp);
+  L.p = off; off = align128(off + sizeof(float) * kBQ * L.ldp);
   L.o = off; off = align128(off + sizeof(float) * kBQ * L.ldo);
   L.m = off; off += sizeof(float) * kBQ;
   L.l = off; off += sizeof(float) * kBQ;
@@ -90,53 +405,31 @@ __host__ __device__ inline Layout layout_for(int hd) {
 
 // rows x hd tile of a [*, row_stride] tensor into shared memory [rows][ld];
 // rows at or past `valid` are zero.
-template <typename T, bool kVec>
-__device__ inline void load_tile(T* dst, int ld, const T* src,
-                                 int64_t row_stride, int valid, int hd,
-                                 int rows) {
+template <bool kVec>
+__device__ inline void load_tile(float* dst, int ld, const float* src, int64_t row_stride,
+                                 int valid, int hd, int rows) {
   if (kVec) {
-    constexpr int kV = 16 / sizeof(T);
-    const int vpr = hd / kV;
+    const int vpr = hd / 4;
     for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-      const int r = i / vpr, c = (i - r * vpr) * kV;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (r < valid) raw = *reinterpret_cast<const uint4*>(src + r * row_stride + c);
-      if (sizeof(T) == 2) {
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;   // ld % 8 == 0
-      } else {
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kV; ++j) dst[r * ld + c + j] = e[j];
-      }
+      const int r = i / vpr, c = (i - r * vpr) * 4;
+      float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < valid) raw = *reinterpret_cast<const float4*>(src + r * row_stride + c);
+      dst[r * ld + c] = raw.x;
+      dst[r * ld + c + 1] = raw.y;
+      dst[r * ld + c + 2] = raw.z;
+      dst[r * ld + c + 3] = raw.w;
     }
   } else {
     for (int i = threadIdx.x; i < rows * hd; i += kThreads) {
       const int r = i / hd, c = i - r * hd;
-      dst[r * ld + c] = r < valid ? src[r * row_stride + c] : from_f32<T>(0.f);
+      dst[r * ld + c] = r < valid ? src[r * row_stride + c] : 0.f;
     }
   }
 }
 
-// S[16 rows of this warp][kBK] = Q K^T (unscaled), f32.
-__device__ inline void scores(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
-                              float* ss, const Layout& L, int hd, int warp) {
-  for (int n = 0; n < kBK / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < hd; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, qs + warp * 16 * L.ldq + kk, L.ldq);
-      wmma::load_matrix_sync(b, ks + n * 16 * L.ldk + kk, L.ldk);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(ss + warp * 16 * L.lds + n * 16, acc, L.lds,
-                            wmma::mem_row_major);
-  }
-}
-
-__device__ inline void scores(const float* qs, const float* ks, float* ss,
-                              const Layout& L, int hd, int warp) {
+// S[16 rows of this warp][kBK] = Q K^T (unscaled)
+__device__ inline void scores(const float* qs, const float* ks, float* ss, const Layout& L,
+                              int hd, int warp) {
   const int lane = threadIdx.x & 31;
   float acc[16][2];
 #pragma unroll
@@ -159,38 +452,9 @@ __device__ inline void scores(const float* qs, const float* ks, float* ss,
   }
 }
 
-// O[16 rows of this warp] = O * corr + P V, f32 in shared memory.
-__device__ inline void accumulate_pv(const __nv_bfloat16* ps,
-                                     const __nv_bfloat16* vs, float* os,
-                                     const float* corr, const Layout& L,
-                                     int hd, int warp) {
-  const int lane = threadIdx.x & 31;
-  float* o0 = os + warp * 16 * L.ldo;
-  {
-    // two lanes per row, as in the softmax
-    const float c = corr[warp * 16 + (lane >> 1)];
-    float* orow = o0 + (lane >> 1) * L.ldo;
-    for (int col = lane & 1; col < hd; col += 2) orow[col] *= c;
-  }
-  __syncwarp();
-  for (int j = 0; j < hd; j += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, o0 + j, L.ldo, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, ps + warp * 16 * L.ldp + kk, L.ldp);
-      wmma::load_matrix_sync(b, vs + kk * L.ldv + j, L.ldv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(o0 + j, acc, L.ldo, wmma::mem_row_major);
-  }
-}
-
-__device__ inline void accumulate_pv(const float* ps, const float* vs,
-                                     float* os, const float* corr,
-                                     const Layout& L, int hd, int warp) {
+// O[16 rows of this warp] = O * corr + P V
+__device__ inline void accumulate_pv(const float* ps, const float* vs, float* os,
+                                     const float* corr, const Layout& L, int hd, int warp) {
   const int lane = threadIdx.x & 31;
   float* o0 = os + warp * 16 * L.ldo;
   const float* p0 = ps + warp * 16 * L.ldp;
@@ -208,19 +472,18 @@ __device__ inline void accumulate_pv(const float* ps, const float* vs,
   }
 }
 
-template <typename T, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int KVH, int hd, float scale,
-                       int causal) {
+flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ out, int Sq,
+                           int Sk, int H, int KVH, int hd, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout_for<T>(hd);
-  T* qs = reinterpret_cast<T*>(smem + L.q);
-  T* ks = reinterpret_cast<T*>(smem + L.k);
-  T* vs = reinterpret_cast<T*>(smem + L.v);
+  const Layout L = layout_f32(hd);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* ks = reinterpret_cast<float*>(smem + L.k);
+  float* vs = reinterpret_cast<float*>(smem + L.v);
   float* ss = reinterpret_cast<float*>(smem + L.s);
-  T* ps = reinterpret_cast<T*>(smem + L.p);
+  float* ps = reinterpret_cast<float*>(smem + L.p);
   float* os = reinterpret_cast<float*>(smem + L.o);
   float* m_s = reinterpret_cast<float*>(smem + L.m);
   float* l_s = reinterpret_cast<float*>(smem + L.l);
@@ -235,11 +498,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int64_t q_stride = static_cast<int64_t>(H) * hd;     // between positions
   const int64_t kv_stride = static_cast<int64_t>(KVH) * hd;
-  const T* qb = q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
-  const T* kb = k + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
-  const T* vb = v + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
+  const float* qb = q + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
+  const float* kb = k + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
+  const float* vb = v + static_cast<int64_t>(b) * Sk * kv_stride + static_cast<int64_t>(kvh) * hd;
 
-  load_tile<T, kVec>(qs, L.ldq, qb, q_stride, min(kBQ, Sq - q0), hd, kBQ);
+  load_tile<kVec>(qs, L.ldq, qb, q_stride, min(kBQ, Sq - q0), hd, kBQ);
   for (int i = tid; i < kBQ * L.ldo; i += kThreads) os[i] = 0.f;
   if (tid < kBQ) {
     m_s[tid] = kNegInf;
@@ -254,8 +517,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();   // the previous tile's K/V reads are done
-    load_tile<T, kVec>(ks, L.ldk, kb + k0 * kv_stride, kv_stride, Sk - k0, hd, kBK);
-    load_tile<T, kVec>(vs, L.ldv, vb + k0 * kv_stride, kv_stride, Sk - k0, hd, kBK);
+    load_tile<kVec>(ks, L.ldk, kb + k0 * kv_stride, kv_stride, Sk - k0, hd, kBK);
+    load_tile<kVec>(vs, L.ldv, vb + k0 * kv_stride, kv_stride, Sk - k0, hd, kBK);
     __syncthreads();
 
     scores(qs, ks, ss, L, hd, warp);
@@ -263,7 +526,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax over this warp's 16 rows: two lanes per row, each
     // over every other key of the tile, so a row's max and sum take one
-    // shuffle each (not a 5-step warp reduction per row)
+    // shuffle each
     {
       const int r = warp * 16 + (lane >> 1);
       const int h = lane & 1;
@@ -284,12 +547,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // and lane h == 0 writes it only after that shuffle
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, m_loc);
-      T* prow = ps + r * L.ldp;
+      float* prow = ps + r * L.ldp;
       float psum = 0.f;
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) {
         const float pv = expf(sv[i] - m_new);
-        prow[2 * i + h] = from_f32<T>(pv);
+        prow[2 * i + h] = pv;
         psum += pv;
       }
       psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -305,32 +568,27 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = out + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
+  float* ob = out + (static_cast<int64_t>(b) * Sq + q0) * q_stride + static_cast<int64_t>(h) * hd;
   const int valid = min(kBQ, Sq - q0);
   for (int i = tid; i < valid * hd; i += kThreads) {
     const int r = i / hd, c = i - r * hd;
-    ob[r * q_stride + c] = from_f32<T>(os[r * L.ldo + c] / fmaxf(l_s[r], 1e-30f));
+    ob[r * q_stride + c] = os[r * L.ldo + c] / fmaxf(l_s[r], 1e-30f);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KVH, int hd, int causal, int vec,
-           cudaStream_t stream) {
-  const Layout L = layout_for<T>(hd);
-  auto kernel = vec ? flash_attention_kernel<T, true> : flash_attention_kernel<T, false>;
-  // above 48 KB a kernel must opt in to dynamic shared memory (once is
-  // enough; setting it again is cheap)
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+               int Sk, int H, int KVH, int hd, int causal, int vec, cudaStream_t stream) {
+  const Layout L = layout_f32(hd);
+  auto kernel = vec ? flash_attention_f32_kernel<true> : flash_attention_f32_kernel<false>;
+  // above 48 KB a kernel must opt in to dynamic shared memory
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KVH, hd,
-      scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Sq, Sk, H, KVH, hd, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,25 +597,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // q, out: [B, Sq, H, hd]; k, v: [B, Sk, KVH, hd], all contiguous and of
 // storage type `dtype`.  hd <= 128 and a multiple of 16; H a multiple of
-// KVH; under `causal`, Sq <= Sk.  `vec` != 0 selects 16-byte loads (the
-// caller checked the alignment).  Returns cudaGetLastError() after the
-// launch.
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Sk, int H, int KVH, int hd,
-                                     int causal, int dtype, int vec,
-                                     void* stream) {
+// KVH; under `causal`, Sq <= Sk.  `vec` != 0 says every pointer is 16-byte
+// aligned: the f32 path then takes 16-byte loads, and the bf16 path needs
+// it.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
+                                     int B, int Sq, int Sk, int H, int KVH, int hd,
+                                     int causal, int dtype, int vec, void* stream) {
   using namespace repro_torch;
-  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || hd < 16 ||
-      hd > kMaxHd || hd % 16 != 0 || (causal && Sq > Sk) || H > 65535 ||
-      B > 65535) {
+  if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || hd < 16 || hd > kMaxHd ||
+      hd % 16 != 0 || (causal && Sq > Sk) || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch<float>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, vec, s);
+    case kF32: return launch_f32(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, vec, s);
     case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, vec, s);
+      if (!vec) return static_cast<int>(cudaErrorMisalignedAddress);
+      return hd <= 64 ? launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, s)
+                      : launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -51,9 +51,10 @@ _SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, dtype, vec, stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P],
-    # q, k, v, lengths, out, B, S, H, KVH, hd, dtype, vec, stream
-    "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+    # q, k, v, lengths, out, scratch, B, S, H, KVH, hd, split_keys, dtype,
+    # vec, stream
+    "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
     # x, b, c, dt, a_log, y, states, decay, cum, scratch, B, Q, nh, hp, ds,
     # dtype, dt_dtype, vec, stream
     "repro_ssd_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -4,8 +4,10 @@ and its plain PyTorch version.
 ``flash_attention`` is the port of the TPU kernel of the same name
 (``src/repro/kernels/flash_attention.py``): GQA without repeating K/V,
 the causal mask aligned bottom-right, key tiles above the diagonal
-skipped.  It takes any Sq and Sk (the Pallas wrapper asserts both are
-multiples of its blocks).  ``kernels/ops.py`` picks between the two
+skipped.  In bf16 both products run on Hopper's wgmma with S, P and O in
+registers and a two-stage ring of K/V copies; f32 runs on the FMA units.
+It takes any Sq and Sk (the Pallas wrapper asserts both are multiples of
+its blocks).  ``kernels/ops.py`` picks between the two
 versions by the device of the tensor, and gives both one backward.
 """
 from __future__ import annotations
@@ -73,6 +75,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
                  f"{MAX_HEAD_DIM}")
     _lib.require(not causal or Sq <= Sk, name,
                  f"causal attention needs Sq <= Sk, got {Sq} > {Sk}")
+    if q.dtype == torch.bfloat16:
+        # the bf16 kernel copies 16-byte chunks: a view that starts off a
+        # 16-byte boundary is copied to a fresh (aligned) tensor first
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     vec = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     rc = _lib.lib().repro_flash_attention(

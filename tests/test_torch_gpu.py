@@ -52,19 +52,30 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     (3, 37, 15, 5, 64),        # smollm-360m heads, odd S
     (2, 2048, 8, 1, 128),      # MQA, hd=128
     (2, 100, 6, 3, 36),        # bf16 rows of 72 bytes: the scalar-load path
+    (64, 256, 16, 4, 64),      # B*KVH alone fills the card: one split
+    (2, 300, 16, 1, 128),      # G=16, hd=128
+    (1, 40000, 8, 1, 64),      # splits of three key tiles each
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda, B, S, H, KVH, hd, dtype):
-    from repro_torch.kernels.decode_attention import (flash_decode,
+    """Random lengths, and in front of them S, 1, a split boundary, one
+    past it and 0 (no valid key: zeros)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.decode_attention import (decode_split_keys,
+                                                      flash_decode,
                                                       flash_decode_plain)
     q = torch.randn(B, H, hd, generator=cuda, device="cuda").to(dtype)
     k = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
     v = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
     lengths = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda",
                             dtype=torch.int32)
-    lengths[0] = S                              # one full-length sequence
+    sk = decode_split_keys(B, KVH, S)
+    edges = [S, 1, min(sk, S), min(sk + 1, S), 0][:B]
+    lengths[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+    before = _lib.launches["flash_decode"]
     got = flash_decode(q, k, v, lengths)
     torch.cuda.synchronize()
+    assert _lib.launches["flash_decode"] == before + 1
     torch.testing.assert_close(got, flash_decode_plain(q, k, v, lengths),
                                **TOLS[dtype])
 
@@ -109,6 +120,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, D, dtype):
     (1, 1000, 1000, 6, 3, 64),     # ragged: not a multiple of the tiles
     (2, 37, 101, 4, 2, 32),        # ragged, Sk > Sq, hd=32
     (1, 5, 5, 2, 1, 16),           # shorter than one tile
+    (4, 256, 256, 32, 8, 64),      # 512 CTAs: more than two a SM
+    *[(1, 77, 133, 4, 2, hd) for hd in range(16, 129, 16)],  # every hd
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -126,6 +139,23 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KVH, hd,
     assert _lib.launches["flash_attention"] == before + 1
     torch.testing.assert_close(
         got, flash_attention_plain(q, k, v, causal=causal), **TOLS[dtype])
+
+
+def test_flash_attention_takes_unaligned_bf16_views(cuda):
+    """The bf16 kernel copies 16-byte chunks; a view that starts off a
+    16-byte boundary is copied first and gives the same output."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    base = torch.randn(2 * 64 * 4 * 32 + 1, generator=cuda,
+                       device="cuda").to(torch.bfloat16)
+    q = base[1:].view(2, 64, 4, 32)              # 2 bytes past the start
+    assert q.data_ptr() % 16 != 0
+    k = torch.randn(2, 64, 2, 32, generator=cuda,
+                    device="cuda").to(torch.bfloat16)
+    got = flash_attention(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_attention_plain(q, k, k),
+                               **TOLS[torch.bfloat16])
 
 
 def test_training_ops_gradients_on_the_card(cuda):
@@ -163,6 +193,28 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     k = torch.randn(1, 4, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="Sq <= Sk"):
         flash_attention(q, k, k, causal=True)
+
+
+def test_attention_kernels_do_not_synchronise(cuda):
+    """Neither wrapper waits for the card: lengths stay on it, scratch is
+    torch.empty, and nothing is read back."""
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(8, 14, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.randn(8, 1024, 2, 64, device="cuda", dtype=torch.bfloat16)
+    lengths = torch.randint(1, 1025, (8,), device="cuda", dtype=torch.int32)
+    qa = torch.randn(2, 256, 6, 64, device="cuda", dtype=torch.bfloat16)
+    ka = torch.randn(2, 256, 2, 64, device="cuda", dtype=torch.bfloat16)
+    flash_decode(q, kv, kv, lengths)          # builds and loads the library
+    flash_attention(qa, ka, ka)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flash_decode(q, kv, kv, lengths)
+        flash_attention(qa, ka, ka)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def _ssd_inputs(gen, B, Q, nh, hp, ds, dtype, dt_dtype):

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``chip_kernel_ab.py`` import neither JAX nor anything of the JAX package
+``repro``."""
 import ast
 import os
 import subprocess
@@ -8,7 +9,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "chip_kernel_ab.py"]
 # the training slice's modules: each must be imported by the probe and
 # scanned by the AST check
 TRAIN_SLICE = ["repro_torch.train.train_loop", "repro_torch.train.optimizer",

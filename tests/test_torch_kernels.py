@@ -20,8 +20,11 @@ from repro.kernels.rmsnorm import rmsnorm_fwd as jax_rmsnorm_fwd
 from repro.kernels.ssd_scan import ssd_chunk as jax_ssd_chunk
 from repro_torch import resolve_device
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import (flash_decode,
-                                                  flash_decode_plain)
+from repro_torch.kernels.decode_attention import (CARD_SMS, KEY_TILE,
+                                                  decode_split_keys,
+                                                  decode_splits, flash_decode,
+                                                  flash_decode_plain,
+                                                  flash_decode_split_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import (BWD_BLOCK_ROWS, rmsnorm_bwd,
@@ -247,6 +250,57 @@ def test_flash_decode_plain_empty_sequence_is_zero():
     k = torch.randn(2, 8, 2, 16)
     out = flash_decode_plain(q, k, k, torch.tensor([0, 3], dtype=torch.int32))
     assert torch.all(out[0] == 0) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("S,split_keys,lens", [
+    (512, 64, [0, 64, 65, 512]),      # length 0, on a boundary, one past, S
+    (512, 128, [1, 127, 128, 300]),   # empty splits behind every length
+    (1024, 64, [1000, 5, 129, 1024]),
+    (1024, 1024, [3, 1023, 0, 640]),  # one split
+])
+def test_flash_decode_split_plain_matches_pallas(S, split_keys, lens):
+    """The CUDA kernel's split partials and their combine, in plain
+    PyTorch, against the JAX package's flash_decode (interpret mode) and,
+    where a key is valid, its oracle."""
+    rs = np.random.RandomState(S + split_keys)
+    B, H, KVH, hd = 4, 14, 2, 64
+    qj, qt = both(rs.randn(B, H, hd).astype(np.float32), "float32")
+    kj, kt = both(rs.randn(B, S, KVH, hd).astype(np.float32), "float32")
+    vj, vt = both(rs.randn(B, S, KVH, hd).astype(np.float32), "float32")
+    lengths = np.asarray(lens, np.int32)
+    out = flash_decode_split_plain(qt, kt, vt, torch.from_numpy(lengths),
+                                   split_keys=split_keys)
+    assert out.shape == (B, H, hd) and torch.isfinite(out).all()
+    expected = jax_flash_decode(qj, kj, vj, jnp.asarray(lengths),
+                                block_k=256, interpret=True)
+    close(out, expected, "float32")
+    seen = lengths > 0                 # the -inf oracle gives NaN at length 0
+    oracle = np.asarray(jax_ref.decode_attention_ref(qj, kj, vj,
+                                                     jnp.asarray(lengths)))
+    close(out[torch.from_numpy(seen)], oracle[seen], "float32")
+    assert torch.all(out[torch.from_numpy(~seen)] == 0)
+
+
+@pytest.mark.parametrize("B,KVH,S", [(8, 2, 1024), (64, 4, 256), (64, 2, 1024),
+                                     (1, 1, 40000), (3, 5, 37), (2, 1, 2048),
+                                     (1, 1, 1)])
+def test_decode_split_rule(B, KVH, S):
+    """Keys per split: a multiple of the kernel's key tile, from the shapes
+    alone; the splits cover S with no empty tail split, and B*KVH*splits
+    is at most about two CTAs a SM and, for a long cache, at least one (one
+    split once B*KVH covers the SMs)."""
+    sk = decode_split_keys(B, KVH, S)
+    n = decode_splits(B, KVH, S)
+    assert sk % KEY_TILE == 0 and sk >= KEY_TILE
+    assert (n - 1) * sk < S <= n * sk
+    if B * KVH >= CARD_SMS:
+        assert n == 1
+    else:
+        assert B * KVH * n <= 2 * CARD_SMS + B * KVH
+        if S >= 2 * CARD_SMS * KEY_TILE:
+            assert B * KVH * n >= CARD_SMS
+    if (B, KVH, S) == (8, 2, 1024):    # qwen2-0.5b's serve shape
+        assert (sk, n) == (64, 16)
 
 
 # ---------------------------------------------------------------------------
