@@ -106,10 +106,11 @@ NO_PROFILER: list = []      # set once the profiler has recorded nothing
 
 
 def kernel_key(name: str) -> str:
-    """A device event's name without its argument list, cut to 60
-    characters (the port's kernels live in an anonymous namespace, whose
-    parentheses are not an argument list)."""
-    return name.replace("(anonymous namespace)::", "").split("(")[0][-60:]
+    """A device event's name without its argument list (the port's kernels
+    live in an anonymous namespace, whose parentheses are not an argument
+    list), cut to 60 characters unless it is one of the port's kernels."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name if "repro_torch::" in name else name[-60:]
 
 
 def profile_kernels(run):
@@ -216,7 +217,8 @@ SHAPE_KEYS = {(False, 960): "train_shape",
 
 
 def kernel_rmsnorm(gen) -> dict:
-    from repro_torch.kernels.rmsnorm import rmsnorm_fwd, rmsnorm_fwd_plain
+    from repro_torch.kernels.rmsnorm import (rmsnorm_fwd, rmsnorm_fwd_path,
+                                             rmsnorm_fwd_plain)
     row = None
     # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b: a
     # fused call) and the train paths' (smollm-360m, mamba2-1.3b: the
@@ -241,13 +243,15 @@ def kernel_rmsnorm(gen) -> dict:
             dev, paced, source = measure(fns, args)
             bound = max(nbytes / HBM_BYTES_PER_S,
                         4 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
-            log(f"kernel rmsnorm_fwd N={N} D={D} {str(dtype)[6:]}: max abs "
+            log(f"kernel rmsnorm_fwd N={N} D={D} {str(dtype)[6:]} (path "
+                f"{rmsnorm_fwd_path(D, dtype)}): max abs "
                 f"err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
                 f"{fmt(paced)}; bound {bound:.6f} ms (bytes)")
             if dtype != torch.bfloat16:
                 continue
             fig = dict(shape=f"x [{N}, {D}] bfloat16",
+                       path=rmsnorm_fwd_path(D, dtype),
                        max_abs_err=err, ms=dev["kernel"],
                        plain_ms=dev["plain"], ms_source=source,
                        bound_ms=bound, bound_by="bytes",
@@ -448,7 +452,8 @@ def kernel_ssd_chunk(gen) -> dict:
     shapes of tests/test_kernels.py:136-139 and a ragged one-chunk
     sequence (Q = 1000), each with dt in f32 (as the model feeds it) and
     in x's dtype (as tests/test_kernels.py feeds it)."""
-    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    from repro_torch.kernels.ssd_scan import (ssd_chunk, ssd_chunk_plain,
+                                              ssd_grid, ssd_head_block)
     B = TRAIN_BATCH * TRAIN_SEQ // 256
     train_shape = (B, 256, 64, 64, 128)
     shapes = (train_shape, (1, 64, 8, 32, 32), (2, 128, 16, 64, 64),
@@ -503,7 +508,26 @@ def kernel_ssd_chunk(gen) -> dict:
             t_ops = flops / PEAK_FLOPS[dtype]
             bound = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
-            log(f"{label}; device ms ({source}) {fmt(dev)}; back-to-back ms "
+            # the device time of each of the call's two launches
+            calls = 10
+            by_name, _ = profile_kernels(lambda: [
+                ssd_chunk(*copies[i % len(copies)]) for i in range(calls)])
+            split = {k.split("::")[-1]: v / calls / 1e3
+                     for k, v in by_name.items() if "repro_torch::" in k}
+            if dtype == torch.bfloat16:
+                hb = ssd_head_block(Bc, Q, nh)
+                n_y, n_state = ssd_grid(Bc, Q, nh, hp, ds)
+                grid = (f"{n_y + n_state} CTAs ({n_y} y: {-(-Q // 64)} query "
+                        f"tiles of 64 x {-(-nh // hb)} blocks of {hb} heads x "
+                        f"{Bc} chunks; {n_state} state) + prefix sums "
+                        f"{-(-nh // 4) * Bc} CTAs")
+            else:
+                grid = (f"{(-(-Q // 64) + 1) * nh * Bc} CTAs + prefix sums "
+                        f"{-(-nh // 4) * Bc} CTAs")
+            log(f"{label}; grid {grid}; device ms ({source}) {fmt(dev)}; "
+                f"launches: " + (", ".join(f"{k} {v:.4f}" for k, v in
+                                           split.items()) or "not measured")
+                + f"; back-to-back ms "
                 f"per call {fmt(paced)}; bound {bound:.6f} ms ({by}: "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); no single "
                 f"PyTorch call computes it")
@@ -513,6 +537,7 @@ def kernel_ssd_chunk(gen) -> dict:
                            replaces="src/repro/kernels/ssd_scan.py:79",
                            shape=f"x [{Bc}, {Q}, {nh}, {hp}] bfloat16, b/c "
                                  f"[{Bc}, {Q}, {ds}], dt float32",
+                           grid=grid, launch_split_ms=split,
                            max_abs_err=err, ms=dev["kernel"],
                            plain_ms=dev["plain"], ms_source=source,
                            bound_ms=bound, bound_by=by, library_ms=None)
@@ -1041,7 +1066,8 @@ def main() -> int:
 
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_serve_mamba", "launches_train",
-            "launches_train_mamba", "shape", "grid", "max_abs_err", "ms",
+            "launches_train_mamba", "shape", "grid", "launch_split_ms",
+            "path", "max_abs_err", "ms",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
             "serve_mamba_shape", "train_mamba_shape"]
     print(smi)

@@ -50,6 +50,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -65,106 +66,15 @@ constexpr float kNegInf = -1e30f;
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 2;           // K/V ring
-constexpr int kBlock = 64 * 128;     // bytes of a [64 rows][64 bf16] column block
 
 // Shared memory: Q, then K and V of each stage, each [64 rows][HDP] as
-// HDP / 64 column blocks of kBlock bytes, 1024-byte aligned (the swizzle
+// HDP / 64 column blocks of kSw128Block bytes, 1024-byte aligned (the swizzle
 // pattern repeats every 8 rows of 128 bytes).
 template <int HDP>
 struct Bf16Smem {
-  static constexpr int kTile = kBlock * (HDP / 64);
+  static constexpr int kTile = kSw128Block * (HDP / 64);
   static constexpr int kTotal = kTile * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled where !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A [64][hd] tile of a [*, row_stride] bf16 tensor into `tile` (HDP
-// columns, swizzled: the 16-byte chunk c of row r lands at chunk c ^ (r %
-// 8) of the row's 128 bytes).  Rows at or past `valid` and columns at or
-// past hd are zero.
-template <int HDP>
-__device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat16* src,
-                                                int64_t row_stride, int valid, int hd) {
-  constexpr int kChunks = HDP / 8;                   // 16-byte chunks per row
-#pragma unroll
-  for (int it = 0; it < 64 * kChunks / kThreads; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const uint32_t dst = tile + (c / 8) * kBlock + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-    const bool ok = r < valid && c * 8 < hd;
-    cp_async16(dst, ok ? src + r * row_stride + c * 8 : src, ok);
-  }
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand starting at
-// `addr`: 8-row groups 1024 bytes apart.  The same 1024 serves as the
-// leading offset, which a K-major operand does not use and an MN-major one
-// of 64 columns (one swizzle atom wide) does not reach either way.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads of an accumulator across the wait
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64x64] += A[64x16] . B[16x64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64x64] += A[64x16] . B[16x64], A in registers (bf16 pairs), B MN-major
-// in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // Accumulator layout of m64n64 (PTX ISA, wgmma register fragments): thread
 // (warp w, lane) holds rows 16w + lane/4 (i = 0) and +8 (i = 1), columns
@@ -204,9 +114,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   // group 0: Q and the first K/V tile
-  load_tile_sw128<HDP>(qs, qb, q_stride, Sq - q0, hd);
-  load_tile_sw128<HDP>(base + L::kTile, kb, kv_stride, Sk, hd);
-  load_tile_sw128<HDP>(base + 2 * L::kTile, vb, kv_stride, Sk, hd);
+  load_tile_sw128<HDP, kThreads>(qs, qb, q_stride, Sq - q0, hd);
+  load_tile_sw128<HDP, kThreads>(base + L::kTile, kb, kv_stride, Sk, hd);
+  load_tile_sw128<HDP, kThreads>(base + 2 * L::kTile, vb, kv_stride, Sk, hd);
   cp_async_commit();
 
   float o[kNB][32];
@@ -227,12 +137,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     if (t + 1 < n_tiles) {   // tile t+1 into the other stage, freed at the end of t-1
       const uint32_t kn = base + L::kTile * (1 + 2 * (st ^ 1));
       const int64_t off = static_cast<int64_t>(k0 + kBK) * kv_stride;
-      load_tile_sw128<HDP>(kn, kb + off, kv_stride, Sk - k0 - kBK, hd);
-      load_tile_sw128<HDP>(kn + L::kTile, vb + off, kv_stride, Sk - k0 - kBK, hd);
+      load_tile_sw128<HDP, kThreads>(kn, kb + off, kv_stride, Sk - k0 - kBK, hd);
+      load_tile_sw128<HDP, kThreads>(kn + L::kTile, vb + off, kv_stride, Sk - k0 - kBK, hd);
     }
     cp_async_commit();
     cp_async_wait<1>();      // all but the newest group: tile t has landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
 
     // S = Q K^T
@@ -242,7 +152,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBlock + (kk % 4) * 32;
+      const uint32_t off = (kk / 4) * kSw128Block + (kk % 4) * 32;
       wgmma_ss(s, sw128_desc(qs + off), sw128_desc(ks + off));
     }
     wgmma_commit();
@@ -315,7 +225,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nb = 0; nb < kNB; ++nb)
-        wgmma_rs(o[nb], pa[kk], sw128_desc(vs + nb * kBlock + kk * 16 * 128));
+        wgmma_rs(o[nb], pa[kk], sw128_desc(vs + nb * kSw128Block + kk * 16 * 128));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll

@@ -11,16 +11,27 @@
 // is the number of decode lanes (8), so a call moves ~30 KB and its time is
 // launch latency, not bandwidth.
 //
-// What the design does about it: one CTA of 128 threads per row reads the
-// row from device memory with 16-byte vector loads (8 bf16 or 4 f32 a
-// load) when D allows it, reduces the sum of squares with warp shuffles,
-// reads its own entries of the row again for the second pass (they are
-// in L1/L2 by then, so device memory sees the row once) and writes the
-// row once.  Nothing of the row is kept in shared memory, so D has no
-// upper limit.  D need not be a power of two (qwen2-0.5b: 896,
-// smollm-360m: 960) and any N >= 1 is taken: the grid is N rows, so there
-// is no 256-row block and no tail to mask, unlike the TPU kernel whose
-// wrapper asserts N % 256 == 0.
+// What the design does about it: keep as many bytes in flight as the row
+// allows and read each byte once.  Two paths of one kernel, chosen by D
+// and the storage type alone (kernels/rmsnorm.py::rmsnorm_fwd_path):
+//   - rows (D a multiple of 16 bytes, at most 256 bytes of the row a
+//     lane: D <= 4096 in bf16, 2048 in f32): at large N one warp per row,
+//     eight rows a CTA, the sum of squares taken with shuffles alone (no
+//     barrier); at small N (the serve path's 8 rows) one row a CTA of four
+//     warps, each thread's scale entries loaded with its row chunks and
+//     one shared-memory add across the warps.  Each thread issues all its
+//     16-byte loads of the row before it uses any, so the row is in flight
+//     at once, and keeps them in registers: the output is formed from the
+//     registers (no second read of the row), with scale read as float4s.
+//     Threads past the row's last 16-byte chunk (D = 896 and 960 do not
+//     fill every lane's last load) are masked;
+//   - CTA (wider rows, or D not a multiple of 16 bytes): one CTA of 128
+//     threads per row reads the row with 16-byte loads where D allows,
+//     reduces through shared memory, and reads its own entries again for
+//     the second pass (from L1/L2).  D has no upper limit.
+// Any N >= 1 (the last CTA of the rows path masks its missing rows), and
+// D need not be a power of two (qwen2-0.5b: 896, smollm-360m: 960), unlike
+// the TPU kernel whose wrapper asserts N % 256 == 0.
 //
 // rmsnorm_bwd: with inv = rsqrt(mean(x^2) + eps) and xhat = x * inv,
 // dx = inv * (g*s - xhat * mean(g*s*xhat)) in x's storage type, and
@@ -48,7 +59,111 @@ namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kRowWarps = 8;        // rows a CTA of the rows path takes at large N
+constexpr int kSmallWarps = 4;      // warps a row takes at small N
+constexpr int kMaxRowChunks = 16;   // 16-byte chunks of the row a lane holds at large N
+constexpr int kSms = 132;           // the H100's SMs
 
+// the rows path: the row in registers.  Large N: one warp per row, eight
+// rows a CTA.  Small N (kSmall): one row a CTA of kSmallWarps warps, and
+// each thread's scale entries are loaded with its row chunks, before the
+// reduction: a lone row's bytes come from device memory (the serve path's
+// scale rows are cold there), and four warps keep more of them in flight
+// than one, and wait for one round trip, not two.
+template <typename T, int NCH, bool kSmall>
+__global__ void __launch_bounds__(kRowWarps * 32)
+rmsnorm_fwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                        T* __restrict__ y, int n, int d, float eps) {
+  constexpr int kV = 16 / sizeof(T);        // elements per 16-byte load
+  constexpr int kS4 = kV / 4;               // float4s of scale per chunk
+  constexpr int kT = kSmall ? 32 * kSmallWarps : 32;   // threads per row
+  const int r = threadIdx.x % kT;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kT) + threadIdx.x / kT;
+  if (row >= n) return;
+  const int nch = d / kV;
+  const uint4* xv = reinterpret_cast<const uint4*>(x + row * d);
+  const float4* sv = reinterpret_cast<const float4*>(scale);
+  uint4 raw[NCH];
+  float4 sc[kSmall ? NCH * kS4 : 1];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const int c = r + kT * k;
+    raw[k] = c < nch ? xv[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if constexpr (kSmall) {
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = r + kT * k;
+#pragma unroll
+      for (int q = 0; q < kS4; ++q)
+        sc[k * kS4 + q] = c < nch ? sv[c * kS4 + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const T* e = reinterpret_cast<const T*>(&raw[k]);
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const float f = to_f32<T>(e[j]);
+      ss += f * f;
+    }
+  }
+  ss = warp_sum(ss);
+  if constexpr (kSmall) {
+    __shared__ float partial[kSmallWarps];
+    if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    ss = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSmallWarps; ++w) ss += partial[w];
+  }
+  const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+  uint4* yv = reinterpret_cast<uint4*>(y + row * d);
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    const int c = r + kT * k;
+    if (c < nch) {
+      const T* a = reinterpret_cast<const T*>(&raw[k]);
+      uint4 out;
+      T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int q = 0; q < kS4; ++q) {
+        const float4 s4 = kSmall ? sc[k * kS4 + q] : sv[c * kS4 + q];
+        e[4 * q] = from_f32<T>(to_f32<T>(a[4 * q]) * inv * s4.x);
+        e[4 * q + 1] = from_f32<T>(to_f32<T>(a[4 * q + 1]) * inv * s4.y);
+        e[4 * q + 2] = from_f32<T>(to_f32<T>(a[4 * q + 2]) * inv * s4.z);
+        e[4 * q + 3] = from_f32<T>(to_f32<T>(a[4 * q + 3]) * inv * s4.w);
+      }
+      yv[c] = out;
+    }
+  }
+}
+
+// The rows path's launch: small N (fewer rows than two large-N CTAs a SM)
+// takes a CTA a row, large N eight rows a CTA; NCH covers the row's chunks.
+template <typename T, bool kSmall>
+void launch_rows(const T* x, const float* scale, T* y, int n, int d, float eps,
+                 cudaStream_t stream) {
+  constexpr int kT = kSmall ? 32 * kSmallWarps : 32;
+  const int per = (d / (16 / static_cast<int>(sizeof(T))) + kT - 1) / kT;
+  const int threads = kSmall ? kT : kRowWarps * 32;
+  const int blocks = kSmall ? n : (n + kRowWarps - 1) / kRowWarps;
+  if (per <= 1) {
+    rmsnorm_fwd_rows_kernel<T, 1, kSmall><<<blocks, threads, 0, stream>>>(x, scale, y, n, d, eps);
+  } else if (per <= 2) {
+    rmsnorm_fwd_rows_kernel<T, 2, kSmall><<<blocks, threads, 0, stream>>>(x, scale, y, n, d, eps);
+  } else if (per <= 4) {
+    rmsnorm_fwd_rows_kernel<T, 4, kSmall><<<blocks, threads, 0, stream>>>(x, scale, y, n, d, eps);
+  } else if constexpr (!kSmall) {  // a small-N row is at most 4 chunks a thread
+    if (per <= 8)
+      rmsnorm_fwd_rows_kernel<T, 8, false><<<blocks, threads, 0, stream>>>(x, scale, y, n, d, eps);
+    else
+      rmsnorm_fwd_rows_kernel<T, 16, false><<<blocks, threads, 0, stream>>>(x, scale, y, n, d, eps);
+  }
+}
+
+// the CTA path: one CTA per row, any D
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
@@ -106,16 +221,25 @@ rmsnorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// path: 1 = rows (the caller checked that d fits it), 0 = CTA
 template <typename T>
-void launch(const void* x, const float* scale, void* y, int n, int d,
-            float eps, int vec, cudaStream_t stream) {
-  if (vec) {
-    rmsnorm_fwd_kernel<T, true><<<n, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), scale, static_cast<T*>(y), d, eps);
+int launch(const void* x, const float* scale, void* y, int n, int d, float eps, int path,
+           cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (path == 1) {
+    if (d % kV != 0 || d / kV > 32 * kMaxRowChunks) return static_cast<int>(cudaErrorInvalidValue);
+    if (n >= 2 * kSms * kRowWarps)
+      launch_rows<T, false>(xt, scale, yt, n, d, eps, stream);
+    else
+      launch_rows<T, true>(xt, scale, yt, n, d, eps, stream);
+  } else if (d % kV == 0) {
+    rmsnorm_fwd_kernel<T, true><<<n, kThreads, 0, stream>>>(xt, scale, yt, d, eps);
   } else {
-    rmsnorm_fwd_kernel<T, false><<<n, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), scale, static_cast<T*>(y), d, eps);
+    rmsnorm_fwd_kernel<T, false><<<n, kThreads, 0, stream>>>(xt, scale, yt, d, eps);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kBwdThreads = 128;
@@ -235,22 +359,23 @@ void launch_bwd(const void* x, const float* scale, const void* g, void* dx,
 }  // namespace
 }  // namespace repro_torch
 
-// x, y: [n, d] contiguous, storage type `dtype`; scale: [d] f32.
-// `vec` != 0 selects 16-byte loads (the caller checked d and alignment).
-// Returns cudaGetLastError() after the launch.
+// x, y: [n, d] contiguous, storage type `dtype`, 16-byte aligned; scale:
+// [d] f32, 16-byte aligned.  `path`: 1 the rows path (d a multiple of 16
+// bytes, at most kMaxRowChunks 16-byte chunks a lane), 0 the CTA path (any
+// d): kernels/rmsnorm.py::rmsnorm_fwd_path.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* y,
-                                 int n, int d, float eps, int dtype, int vec,
+                                 int n, int d, float eps, int dtype, int path,
                                  void* stream) {
   using namespace repro_torch;
-  if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || d < 1 || (path != 0 && path != 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   switch (dtype) {
-    case kF32: launch<float>(x, sc, y, n, d, eps, vec, s); break;
-    case kBF16: launch<__nv_bfloat16>(x, sc, y, n, d, eps, vec, s); break;
+    case kF32: return launch<float>(x, sc, y, n, d, eps, path, s);
+    case kBF16: return launch<__nv_bfloat16>(x, sc, y, n, d, eps, path, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // x, g, dx: [n, d] contiguous, storage type `dtype`; scale: [d] f32;

@@ -44,7 +44,7 @@ _lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, scale, y, n, d, eps, dtype, vec, stream
+    # x, scale, y, n, d, eps, dtype, path, stream
     "repro_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     # x, scale, g, dx, part, n, d, rows_per_block, eps, dtype, vec, stream
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
@@ -55,11 +55,11 @@ _SIGNATURES = {
     # vec, stream
     "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
-    # x, b, c, dt, a_log, y, states, decay, cum, scratch, B, Q, nh, hp, ds,
-    # dtype, dt_dtype, vec, stream
-    "repro_ssd_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # x, b, c, dt, a_log, y, states, decay, work, B, Q, nh, hp, ds,
+    # head_block, dtype, dt_dtype, vec, stream
+    "repro_ssd_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _P],
-    # Q -> scratch floats per (chunk, head)
+    # Q -> work-space floats per (chunk, head)
     "repro_ssd_chunk_scratch": [_I],
 }
 

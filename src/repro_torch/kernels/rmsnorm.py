@@ -20,6 +20,21 @@ rmsnorm_fwd_plain = ref.rmsnorm_ref
 # partials (the C entry point refuses any other value).
 BWD_BLOCK_ROWS = 32
 
+# Widest row the forward kernel's rows path holds in registers: 16 16-byte
+# chunks a lane, 32 lanes.
+ROW_PATH_MAX_BYTES = 16 * 16 * 32
+
+
+def rmsnorm_fwd_path(D: int, dtype) -> str:
+    """The forward kernel's path for rows of D entries of ``dtype``, from
+    those alone: ``"rows"`` (one warp per row, the row in registers) when D
+    is a whole number of 16-byte chunks and at most ``ROW_PATH_MAX_BYTES``
+    (D <= 4096 in bf16, 2048 in f32), else ``"cta"`` (one CTA per row, any
+    D)."""
+    nbytes = D * dtype.itemsize
+    fits = nbytes % 16 == 0 and nbytes <= ROW_PATH_MAX_BYTES
+    return "rows" if fits else "cta"
+
 
 def rmsnorm_fwd(x, scale, eps: float = 1e-6):
     """x: [N, D] f32/bf16 on the card; scale: [D] f32 -> [N, D] in x's
@@ -27,12 +42,14 @@ def rmsnorm_fwd(x, scale, eps: float = 1e-6):
     name = "rmsnorm_fwd"
     _check(name, x, scale)
     N, D = x.shape
+    # the kernel reads 16-byte chunks: a view that starts off a 16-byte
+    # boundary is copied to a fresh (aligned) tensor first
+    x, scale = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, scale))
     y = torch.empty_like(x)
-    vec = (D % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0
-           and y.data_ptr() % 16 == 0)
+    path = rmsnorm_fwd_path(D, x.dtype)
     rc = _lib.lib().repro_rmsnorm_fwd(
         x.data_ptr(), scale.data_ptr(), y.data_ptr(), N, D, float(eps),
-        _lib.DTYPE_CODES[x.dtype], int(vec), _lib.stream_of(x))
+        _lib.DTYPE_CODES[x.dtype], int(path == "rows"), _lib.stream_of(x))
     _lib.check(rc, name)
     _lib.launches[name] += 1
     return y

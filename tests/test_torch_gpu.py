@@ -31,8 +31,14 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("N,D", [(1, 896), (8, 896), (13, 960), (2048, 896),
-                                 (5, 100), (3, 16384)])
+@pytest.mark.parametrize("N,D", [
+    (1, 896), (8, 896), (13, 960), (2048, 896), (5, 100), (3, 16384),
+    # mamba2-1.3b's width and twice it, at the train path's N and at an N
+    # the rows path's 8 rows a CTA do not divide; 2048 and 4096 are the
+    # rows path's widest rows in f32 and bf16, 2052 and 4104 the next D
+    # up (the CTA path)
+    *[(N, D) for D in (2048, 4096, 2052, 4104) for N in (8192, 8189)],
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     from repro_torch.kernels import _lib

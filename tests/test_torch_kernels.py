@@ -28,10 +28,13 @@ from repro_torch.kernels.decode_attention import (CARD_SMS, KEY_TILE,
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import (BWD_BLOCK_ROWS, rmsnorm_bwd,
+                                         rmsnorm_fwd_path,
                                          rmsnorm_bwd_plain, rmsnorm_fwd,
                                          rmsnorm_fwd_plain)
 from repro_torch.kernels.ref import prefix_sum
-from repro_torch.kernels.ssd_scan import ssd_chunk
+from repro_torch.kernels.ssd_scan import (MAX_HEAD_BLOCK, ssd_chunk,
+                                          ssd_grid, ssd_head_block,
+                                          ssd_states_bf16_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -353,6 +356,75 @@ def test_ssd_chunk_plain_matches_pallas(B, Q, nh, hp, ds, dtype, dt_f32):
     assert got[1].dtype == torch.float32 and got[1].shape == (B, nh, hp, ds)
     assert got[2].dtype == torch.float32 and got[2].shape == (B, nh)
     _ssd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,Q,nh,hp,ds", [
+    (1, 64, 8, 32, 32),
+    (2, 128, 16, 64, 64),
+    (1, 256, 8, 64, 128),    # mamba2-1.3b-like chunk
+    (2, 100, 4, 32, 64),
+])
+def test_ssd_states_without_low_part_match_pallas(B, Q, nh, hp, ds):
+    """The bf16 kernel's state takes the decayed x as one bf16 operand
+    (no low part): that rounding, emulated in plain PyTorch, still holds
+    the states to the Pallas kernel (interpret mode) at
+    tests/test_kernels.py's bf16 tolerance of the states, 3e-2."""
+    arrays = _ssd_inputs(B, Q, nh, hp, ds, seed=B * Q + nh + 1)
+    xj, xt = both(arrays[0], "bfloat16")
+    bj, bt = both(arrays[1], "bfloat16")
+    cj, _ = both(arrays[2], "bfloat16")
+    dtj, dtt = both(arrays[3], "float32")
+    alj, alt = both(arrays[4], "float32")
+    _, want, _ = jax_ssd_chunk(xj, bj, cj, dtj, alj, block_h=max(nh // 2, 1),
+                               interpret=True)
+    got = ssd_states_bf16_plain(xt, bt, dtt, alt)
+    assert got.dtype == torch.float32 and got.shape == (B, nh, hp, ds)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-2,
+                               rtol=3e-2)
+
+
+# every shape of tests/test_torch_gpu.py::test_ssd_chunk_kernel_matches_plain
+SSD_GPU_SHAPES = [(32, 256, 64, 64, 128), (1, 64, 8, 32, 32),
+                  (2, 128, 16, 64, 64), (1, 256, 8, 64, 128),
+                  (2, 1000, 8, 64, 128), (3, 37, 5, 16, 16),
+                  (1, 300, 2, 128, 256)]
+
+
+@pytest.mark.parametrize("B,Q,nh,hp,ds", SSD_GPU_SHAPES)
+def test_ssd_head_block_rule(B, Q, nh, hp, ds):
+    """The heads a y CTA shares its S tiles over: from the shapes alone,
+    between 1 and the kernel's 8, at most nh (odd nh too: the last block
+    is ragged), and halved only while the y CTAs number fewer than two a
+    SM; the mamba2-1.3b training shape gets the TPU kernel's 8 heads and
+    fills the card's 132 SMs."""
+    hb = ssd_head_block(B, Q, nh)
+    assert hb == ssd_head_block(B, Q, nh)
+    assert 1 <= hb <= min(MAX_HEAD_BLOCK, nh)
+    n_y, n_state = ssd_grid(B, Q, nh, hp, ds)
+    assert n_y == B * -(-Q // 64) * -(-nh // hb)
+    assert n_state == B * nh * -(-hp // 64) * -(-ds // 128)
+    if hb < min(MAX_HEAD_BLOCK, nh):
+        assert B * -(-Q // 64) * -(-nh // (2 * hb)) < 2 * 132
+    if (B, Q, nh) == (32, 256, 64):
+        assert hb == 8 and n_y >= 132 and n_y + n_state >= 2 * 132
+
+
+@pytest.mark.parametrize("D,dtype,path", [
+    (896, torch.bfloat16, "rows"), (960, torch.bfloat16, "rows"),
+    (2048, torch.bfloat16, "rows"), (4096, torch.bfloat16, "rows"),
+    (4104, torch.bfloat16, "cta"), (4100, torch.bfloat16, "cta"),
+    (100, torch.bfloat16, "cta"), (16384, torch.bfloat16, "cta"),
+    (896, torch.float32, "rows"), (960, torch.float32, "rows"),
+    (2048, torch.float32, "rows"), (2052, torch.float32, "cta"),
+    (4096, torch.float32, "cta"), (100, torch.float32, "rows"),
+    (101, torch.float32, "cta"),
+])
+def test_rmsnorm_fwd_path_rule(D, dtype, path):
+    """The forward kernel's path, from D and the dtype alone: the rows path
+    (a warp a row, the row in registers) up to 256 bytes a lane of whole
+    16-byte chunks (bf16 D <= 4096, f32 D <= 2048), the CTA path past that
+    boundary and for a row that is not whole 16-byte chunks."""
+    assert rmsnorm_fwd_path(D, dtype) == path
 
 
 @pytest.mark.parametrize("N", [1, 16, 17, 100, 256, 1000])
