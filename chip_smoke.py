@@ -36,10 +36,11 @@ Phases; any failure raises and the script exits non-zero:
              f32 train step of each family, on the card (kernels)
              against the same steps on the CPU (plain versions).
 
-Prints the card's name and power limit, then one JSON line of kernel
-figures, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
-non-zero without a result when CUDA is missing, and when run outside a
-checkout of the repository (it imports ``src/repro_torch``).
+Prints the versions of torch, CUDA and Python first, and at the end the
+card's name and power limit, then one JSON line of kernel figures, then
+``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
+without a result when CUDA is missing, and when run outside a checkout
+of the repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
@@ -113,10 +114,11 @@ def kernel_key(name: str) -> str:
     return name if "repro_torch::" in name else name[-60:]
 
 
-def profile_kernels(run):
+def profile_kernels(run, counts: dict | None = None):
     """Device time in us per kernel name over ``run()``, from
     ``torch.profiler``, and ``run()``'s result.  Empty when the profiler
-    records no device time: some machines give it no CUPTI access."""
+    records no device time: some machines give it no CUPTI access.
+    ``counts``, if given, gets the number of events per kernel name."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = run()
@@ -126,6 +128,8 @@ def profile_kernels(run):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             key = kernel_key(e.name)
             by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+            if counts is not None:
+                counts[key] = counts.get(key, 0) + 1
     if not by_name and not NO_PROFILER:
         NO_PROFILER.append(True)
         log("profiler: no device events on this machine; every 'device ms' "
@@ -139,8 +143,9 @@ def device_ms(fn, args_list, iters: int = 50) -> tuple[float, str]:
     From ``"profiler"``: the summed duration of the CUDA kernels the
     profiler records over ``iters`` calls, which excludes the gaps while
     the host enqueues (at these sizes most of the wall time).  Without
-    profiler events, from ``"cuda_events"``: ``time_ms``'s back-to-back
-    time, gaps included."""
+    profiler events, or when the profiler dropped some (a kernel's count
+    of events not a multiple of ``iters``), from ``"cuda_events"``:
+    ``time_ms``'s back-to-back time, gaps included."""
     for a in args_list[:3]:
         fn(*a)
     torch.cuda.synchronize()
@@ -149,8 +154,9 @@ def device_ms(fn, args_list, iters: int = 50) -> tuple[float, str]:
         for i in range(iters):
             fn(*args_list[i % len(args_list)])
 
-    by_name, _ = profile_kernels(run)
-    if not by_name:
+    counts: dict[str, int] = {}
+    by_name, _ = profile_kernels(run, counts)
+    if not by_name or any(n % iters for n in counts.values()):
         return time_ms(fn, args_list, iters), "cuda_events"
     return sum(by_name.values()) / iters / 1e3, "profiler"
 
@@ -328,6 +334,21 @@ def kernel_flash_decode(gen) -> dict:
     return row
 
 
+def fused_rms_norm_backward(x, g, w, eps):
+    """The yardstick of ``rmsnorm_bwd``: one PyTorch call that gives dx and
+    the whole dweight, ``aten._fused_rms_norm_backward``, and the ``rstd``
+    it reads (from ``aten._fused_rms_norm``, so outside any timed window);
+    None and the reason where the card's torch has no CUDA kernel for it."""
+    D = x.shape[1]
+    try:
+        rstd = torch.ops.aten._fused_rms_norm(x, [D], w, eps)[1]
+        torch.ops.aten._fused_rms_norm_backward(g, x, [D], rstd, w,
+                                                [True, True])
+    except (AttributeError, NotImplementedError, RuntimeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return rstd, ""
+
+
 def kernel_rmsnorm_bwd(gen) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
     eps, row = 1e-5, None
@@ -347,23 +368,45 @@ def kernel_rmsnorm_bwd(gen) -> dict:
                                  dict(atol=1e-3, rtol=1e-3))
             es = x.element_size()
             nbytes = 3 * x.numel() * es + part.numel() * 4 + D * 4
-            args = [(x.clone(), s, g.clone()) for _ in range(copies_for(nbytes))]
-            fns = {"kernel": lambda a, b, c: rmsnorm_bwd(a, b, c, eps),
-                   "plain": lambda a, b, c: rmsnorm_bwd_plain(a, b, c, eps)}
+            w = s.to(dtype)     # the library takes weight in x's dtype
+            rstd, why = fused_rms_norm_backward(x, g, w, eps)
+            args = [(x.clone(), s, g.clone(), rstd, w)
+                    for _ in range(copies_for(nbytes))]
+            fns = {"kernel": lambda a, b, c, *_: rmsnorm_bwd(a, b, c, eps),
+                   "plain": lambda a, b, c, *_: rmsnorm_bwd_plain(a, b, c,
+                                                                  eps),
+                   # like with like: the caller's sum of the partials
+                   # (kernels/ops.py) beside the library's whole dweight
+                   "kernel+sum": lambda a, b, c, *_: rmsnorm_bwd(
+                       a, b, c, eps)[1].sum(0)}
+            if rstd is not None:
+                fns["library"] = lambda a, _b, c, r, w_: \
+                    torch.ops.aten._fused_rms_norm_backward(
+                        c, a, [D], r, w_, [True, True])
+                lib_dx = fns["library"](*args[0])[0]
+                lib_text = (f"library aten._fused_rms_norm_backward: dx max "
+                            f"abs diff from the plain version "
+                            f"{float((lib_dx.float() - want_dx.float()).abs().max()):.3e}"
+                            f" (weight in {str(dtype)[6:]})")
+            else:
+                lib_text = (f"no single PyTorch call computes it on this "
+                            f"card (aten._fused_rms_norm_backward: {why})")
             dev, paced, source = measure(fns, args)
             bound = max(nbytes / HBM_BYTES_PER_S,
                         12 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
             log(f"kernel rmsnorm_bwd N={N} D={D} {str(dtype)[6:]}: max abs "
                 f"err dx {err:.3e} (atol/rtol {TOLS[dtype]['atol']}), summed "
                 f"dscale {ds_err:.3e} (atol/rtol 1e-3); device ms "
-                f"({source}) {fmt(dev)}; back-to-back ms per call {fmt(paced)}; bound "
-                f"{bound:.6f} ms (bytes); no single PyTorch call computes it")
+                f"({source}) {fmt(dev)}; back-to-back ms per call "
+                f"{fmt(paced)}; bound {bound:.6f} ms (bytes); {lib_text}")
             if N == LANES or dtype != torch.bfloat16:
                 continue
             fig = dict(shape=f"x, g [{N}, {D}] bfloat16",
                        max_abs_err=err, ms=dev["kernel"],
+                       ms_with_sum=dev["kernel+sum"],
                        plain_ms=dev["plain"], ms_source=source,
-                       bound_ms=bound, bound_by="bytes", library_ms=None)
+                       bound_ms=bound, bound_by="bytes",
+                       library_ms=dev.get("library"))
             if D == 960:                                   # the train path
                 row = dict(name="rmsnorm_bwd", route="cuda",
                            source="src/repro_torch/csrc/rmsnorm.cu",
@@ -996,6 +1039,13 @@ def mamba_decode_check(steps: int = 4) -> None:
 
 
 def main() -> int:
+    # first, so that whatever fails after it leaves a trace on stdout
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]}")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository (no "
+              f"src/repro_torch); nothing was run", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -1004,12 +1054,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    log(f"card {torch.cuda.get_device_name(0)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-        f"{sys.version.split()[0]}; card {torch.cuda.get_device_name(0)}")
 
     info = _lib.build()
     for cmd in info.commands:
@@ -1067,7 +1116,7 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_serve_mamba", "launches_train",
             "launches_train_mamba", "shape", "grid", "launch_split_ms",
-            "path", "max_abs_err", "ms",
+            "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
             "serve_mamba_shape", "train_mamba_shape"]
     print(smi)

@@ -46,13 +46,22 @@
 // ~12 flops per element; at the training shape [8192, 960] bf16 that is
 // 47 MB, ~14 us at 3.35 TB/s.
 //
-// What the design does about it: each CTA first gives one warp per row
-// (16-byte loads, warp-shuffle sums) and keeps the row's inv and
-// mean(g*s*xhat) in shared memory; then each thread owns 16 bytes of
-// columns and walks the CTA's rows, so the loads of x and g are
-// coalesced along a row (their second read hits L2), dx is written once,
-// and the thread's dscale partial stays in registers until one store.
-// Any N >= 1 (the last CTA takes the ragged rest) and any D.
+// What the design does about it: read x and g once, and keep enough of
+// them in flight.  On the rows path (D a whole number of 16-byte chunks,
+// at most 4 chunks a lane over 8 warps: D <= 8192 in bf16, 4096 in f32) a
+// CTA of 8 warps takes 32 rows, and a group of P warps (the fewest that
+// hold a row in 4 chunks a lane: one warp at D = 960 bf16, two at 2048)
+// owns one row at a time: all its 16-byte loads of x and g are issued
+// before any is used, the row's two sums are taken with shuffles (and one
+// shared-memory exchange between a group's warps), and dx is formed from
+// the registers and written once.  A thread's columns are the same for
+// every row it takes, so its part of g*xhat stays in registers across its
+// rows; the groups' sums are added in shared memory in a fixed order at
+// the end.  Scale is read once per CTA, as float4s, into shared memory.
+// The general path (any other D or alignment) takes two passes: a warp per
+// row for the row's sums, then column-owning threads walk the rows again
+// (from L2).
+// Any N >= 1 (the last CTA takes the ragged rest).
 #include "common.cuh"
 
 namespace repro_torch {
@@ -242,18 +251,196 @@ int launch(const void* x, const float* scale, void* y, int n, int d, float eps, 
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int kBwdThreads = 128;
-constexpr int kBwdRows = 32;     // rows per CTA (kernels/rmsnorm.py: BWD_BLOCK_ROWS)
+constexpr int kBwdRows = 32;        // rows per CTA (kernels/rmsnorm.py: BWD_BLOCK_ROWS)
+constexpr int kBwdThreads = 256;    // the rows path's CTA: 8 warps
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdChunks = 4;       // 16-byte chunks of a row a lane holds, at most
+constexpr int kBwdMaxGroup = 8;     // warps a row takes, at most
+
+// Named barrier `id` (1..15) over the `count` threads of one group.
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// The rows path: groups of P warps, G = 8 / P groups a CTA, each group
+// owning one row at a time (rows grp, grp + G, ... of the CTA's kBwdRows).
+// A thread t of a group owns the row's 16-byte chunks t + 32P*k, k < NCH,
+// the same columns for every row it takes.  Every x and g load of the row
+// is issued before any is used; the sums of x^2 and g*s*x are taken with
+// shuffles and, for P > 1, one exchange through shared memory on the
+// group's named barrier; dx is formed from the registers and written once,
+// and g*xhat is added into registers that stay with the thread across its
+// rows.  At the end the
+// groups' sums are added in shared memory in group order (no atomics) and
+// written as the CTA's row of partials.  Scale is read once per CTA into
+// shared memory, as float4s.  Dynamic shared memory: G * d floats, the
+// scale row first, then the groups' partials over it once every row is
+// done (at most 32 KB: d <= 32P * kBwdChunks * kV).
+template <typename T, int NCH, int P>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                        const T* __restrict__ g, T* __restrict__ dx,
+                        float* __restrict__ part, int n, int d, float eps) {
+  extern __shared__ float4 smem4[];           // scale [d], then partials [G][d]
+  __shared__ float xch[2][kBwdWarps][2];      // P > 1: each warp's two sums
+  constexpr int kV = 16 / sizeof(T);          // elements per 16-byte chunk
+  constexpr int kS4 = kV / 4;                 // float4s of scale per chunk
+  constexpr int G = kBwdWarps / P;
+  constexpr int kT = 32 * P;                  // threads per row
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp / P;
+  const int t = threadIdx.x % kT;
+  const int row0 = blockIdx.x * kBwdRows;
+  const int rows = min(kBwdRows, n - row0);
+  const int nch = d / kV;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  const float4* sv = reinterpret_cast<const float4*>(scale);
+  for (int i = threadIdx.x; i < d / 4; i += kBwdThreads) smem4[i] = sv[i];
+
+  float acc[NCH * kV];
+#pragma unroll
+  for (int j = 0; j < NCH * kV; ++j) acc[j] = 0.f;
+  __syncthreads();                            // the scale row is in
+
+  int it = 0;
+  for (int r = grp; r < rows; r += G, ++it) {
+    const int64_t off = static_cast<int64_t>(row0 + r) * nch;
+    const uint4* xv = reinterpret_cast<const uint4*>(x) + off;
+    const uint4* gv = reinterpret_cast<const uint4*>(g) + off;
+    uint4 xr[NCH], gr[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = t + kT * k;
+      xr[k] = c < nch ? xv[c] : make_uint4(0u, 0u, 0u, 0u);
+      gr[k] = c < nch ? gv[c] : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float ss = 0.f, gsx = 0.f;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = min(t + kT * k, nch - 1);   // masked chunks hold zeros
+      const T* xe = reinterpret_cast<const T*>(&xr[k]);
+      const T* ge = reinterpret_cast<const T*>(&gr[k]);
+#pragma unroll
+      for (int q = 0; q < kS4; ++q) {
+        const float4 s4 = smem4[c * kS4 + q];
+        const float sq[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float xf = to_f32<T>(xe[4 * q + j]);
+          ss += xf * xf;
+          gsx += to_f32<T>(ge[4 * q + j]) * sq[j] * xf;
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    gsx = warp_sum(gsx);
+    if constexpr (P > 1) {
+      // slot it & 1: a warp writes slot s again only after the group's
+      // next barrier, which every warp reaches after reading slot s
+      float(*slot)[2] = xch[it & 1];
+      if ((threadIdx.x & 31) == 0) {
+        slot[warp][0] = ss;
+        slot[warp][1] = gsx;
+      }
+      group_sync(1 + grp, kT);
+      ss = 0.f;
+      gsx = 0.f;
+#pragma unroll
+      for (int w = 0; w < P; ++w) {
+        ss += slot[grp * P + w][0];
+        gsx += slot[grp * P + w][1];
+      }
+    }
+    const float inv = rsqrtf(ss * inv_d + eps);
+    const float mean = inv * gsx * inv_d;       // mean(g*s*xhat)
+    uint4* dv = reinterpret_cast<uint4*>(dx) + off;
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = t + kT * k;
+      if (c < nch) {
+        const T* xe = reinterpret_cast<const T*>(&xr[k]);
+        const T* ge = reinterpret_cast<const T*>(&gr[k]);
+        uint4 out;
+        T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int q = 0; q < kS4; ++q) {
+          const float4 s4 = smem4[c * kS4 + q];
+          const float sq[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int e = 4 * q + j;
+            const float xh = to_f32<T>(xe[e]) * inv;
+            const float gf = to_f32<T>(ge[e]);
+            oe[e] = from_f32<T>(inv * (gf * sq[j] - xh * mean));
+            acc[k * kV + e] += gf * xh;
+          }
+        }
+        dv[c] = out;
+      }
+    }
+  }
+
+  // the CTA's row of dscale partials: the groups' sums in group order
+  float4* pv = reinterpret_cast<float4*>(part + static_cast<int64_t>(blockIdx.x) * d);
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = t + kT * k;
+      if (c < nch) {
+#pragma unroll
+        for (int q = 0; q < kS4; ++q) {
+          const float* a = acc + k * kV + 4 * q;
+          pv[c * kS4 + q] = make_float4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+  } else {
+    __syncthreads();                          // the scale row is done with
+    float4* red = smem4 + static_cast<int64_t>(grp) * (d / 4);
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const int c = t + kT * k;
+      if (c < nch) {
+#pragma unroll
+        for (int q = 0; q < kS4; ++q) {
+          const float* a = acc + k * kV + 4 * q;
+          red[c * kS4 + q] = make_float4(a[0], a[1], a[2], a[3]);
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < d / 4; i += kBwdThreads) {
+      float4 sum = smem4[i];
+#pragma unroll
+      for (int w = 1; w < G; ++w) {
+        const float4 v = smem4[w * (d / 4) + i];
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      pv[i] = sum;
+    }
+  }
+}
+
+// The general path: any d, and rows too wide for the rows path.  One CTA
+// of kBwdGenThreads per kBwdRows rows: a warp per row forms the row's inv
+// and mean(g*s*xhat) into shared memory, then each thread owns a run of
+// columns and walks the rows (x and g read again, from L2), writing dx and
+// one partial per column.
+constexpr int kBwdGenThreads = 128;
 
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdGenThreads)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const T* __restrict__ g, T* __restrict__ dx,
                    float* __restrict__ part, int n, int d, float eps) {
   __shared__ float inv_s[kBwdRows];
   __shared__ float mean_s[kBwdRows];     // mean(g*s*xhat) of the row
   constexpr int kV = 16 / sizeof(T);
-  constexpr int kWarps = kBwdThreads / 32;
+  constexpr int kWarps = kBwdGenThreads / 32;
   const int row0 = blockIdx.x * kBwdRows;
   const int rows = min(kBwdRows, n - row0);
   const int lane = threadIdx.x & 31;
@@ -297,7 +484,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   // Phase 2: each thread owns a run of columns and walks the rows.
   float* pr = part + static_cast<int64_t>(blockIdx.x) * d;
   if (kVec) {
-    for (int c = threadIdx.x; c < d / kV; c += kBwdThreads) {
+    for (int c = threadIdx.x; c < d / kV; c += kBwdGenThreads) {
       float acc[kV], sc[kV];
 #pragma unroll
       for (int j = 0; j < kV; ++j) {
@@ -330,7 +517,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       }
     }
   } else {
-    for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+    for (int c = threadIdx.x; c < d; c += kBwdGenThreads) {
       const float sc = scale[c];
       float acc = 0.f;
       for (int r = 0; r < rows; ++r) {
@@ -345,15 +532,51 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-template <typename T>
-void launch_bwd(const void* x, const float* scale, const void* g, void* dx,
-                float* part, int n, int d, float eps, int vec,
-                cudaStream_t stream) {
+// The rows path's launch for group width P: NCH covers the row's chunks.
+template <typename T, int P>
+void launch_bwd_rows(const T* x, const float* scale, const T* g, T* dx, float* part,
+                     int n, int d, float eps, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const int per = (d / kV + 32 * P - 1) / (32 * P);
   const int nb = (n + kBwdRows - 1) / kBwdRows;
-  auto kernel = vec ? rmsnorm_bwd_kernel<T, true> : rmsnorm_bwd_kernel<T, false>;
-  kernel<<<nb, kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(x), scale, static_cast<const T*>(g),
-      static_cast<T*>(dx), part, n, d, eps);
+  const size_t smem = static_cast<size_t>(kBwdWarps / P) * d * sizeof(float);
+  if (per <= 1)
+    rmsnorm_bwd_rows_kernel<T, 1, P><<<nb, kBwdThreads, smem, stream>>>(
+        x, scale, g, dx, part, n, d, eps);
+  else if (per <= 2)
+    rmsnorm_bwd_rows_kernel<T, 2, P><<<nb, kBwdThreads, smem, stream>>>(
+        x, scale, g, dx, part, n, d, eps);
+  else
+    rmsnorm_bwd_rows_kernel<T, kBwdChunks, P><<<nb, kBwdThreads, smem, stream>>>(
+        x, scale, g, dx, part, n, d, eps);
+}
+
+// Warps a row takes on the rows path: the fewest that hold the row in
+// kBwdChunks chunks a lane; 0 when even kBwdMaxGroup warps do not.
+int bwd_group(int nch) {
+  for (int p = 1; p <= kBwdMaxGroup; p *= 2)
+    if (nch <= 32 * p * kBwdChunks) return p;
+  return 0;
+}
+
+template <typename T>
+void launch_bwd(const void* xp, const float* scale, const void* gp, void* dxp,
+                float* part, int n, int d, float eps, int vec, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xp);
+  const T* g = static_cast<const T*>(gp);
+  T* dx = static_cast<T*>(dxp);
+  const int p = vec && d % kV == 0 ? bwd_group(d / kV) : 0;
+  switch (p) {
+    case 1: launch_bwd_rows<T, 1>(x, scale, g, dx, part, n, d, eps, stream); return;
+    case 2: launch_bwd_rows<T, 2>(x, scale, g, dx, part, n, d, eps, stream); return;
+    case 4: launch_bwd_rows<T, 4>(x, scale, g, dx, part, n, d, eps, stream); return;
+    case 8: launch_bwd_rows<T, 8>(x, scale, g, dx, part, n, d, eps, stream); return;
+    default: break;
+  }
+  const int nb = (n + kBwdRows - 1) / kBwdRows;
+  auto kernel = vec && d % kV == 0 ? rmsnorm_bwd_kernel<T, true> : rmsnorm_bwd_kernel<T, false>;
+  kernel<<<nb, kBwdGenThreads, 0, stream>>>(x, scale, g, dx, part, n, d, eps);
 }
 
 }  // namespace
@@ -381,7 +604,10 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* scale, void* y,
 // x, g, dx: [n, d] contiguous, storage type `dtype`; scale: [d] f32;
 // part: [ceil(n / rows_per_block), d] f32, one row per CTA.
 // `rows_per_block` must equal kBwdRows (the caller's BWD_BLOCK_ROWS).
-// `vec` != 0 selects 16-byte loads (the caller checked d and alignment).
+// `vec` != 0: x, g, dx, part and scale are 16-byte aligned, so a d that is
+// a whole number of 16-byte chunks takes the rows path (up to kBwdMaxGroup
+// warps a row of kBwdChunks chunks a lane) and any other d the general
+// path's 16-byte loads where d allows.
 // Returns cudaGetLastError() after the launch.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale,
                                  const void* g, void* dx, void* part, int n,

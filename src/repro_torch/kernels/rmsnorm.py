@@ -89,8 +89,7 @@ def rmsnorm_bwd(x, scale, g, eps: float = 1e-6):
     nb = -(-N // BWD_BLOCK_ROWS)
     dx = torch.empty_like(x)
     part = torch.empty(nb, D, dtype=torch.float32, device=x.device)
-    vec = (D % (16 // x.element_size()) == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x, g, dx, part)))
+    vec = all(t.data_ptr() % 16 == 0 for t in (x, scale, g, dx, part))
     rc = _lib.lib().repro_rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
         part.data_ptr(), N, D, BWD_BLOCK_ROWS, float(eps),

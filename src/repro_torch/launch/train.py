@@ -104,10 +104,12 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
 
 def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
     """Launches of each kernel in one ``make_train_step`` step.  Under
-    ``remat_policy="full"`` each layer's forward runs again in the
-    backward (``again`` = 1): non-reentrant checkpointing recomputes until
-    every tensor the layer saved is back, and the layer's last product
-    saves its inputs, so the whole layer.  Per microbatch:
+    every checkpoint policy but "none" (the port runs only "full" and, in
+    the ssm family, "subblock" and "attn_only" as "full") each layer's
+    forward runs again in the backward (``again`` = 1): non-reentrant
+    checkpointing recomputes until every tensor the layer saved is back,
+    and the layer's last product saves its inputs, so the whole layer.
+    Per microbatch:
 
     * dense: the forward runs two rmsnorms per layer plus the final norm
       and one attention per layer; the backward one rmsnorm backward per
@@ -118,7 +120,7 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
       autograd); the gated per-head norm is inline, not the kernel."""
     from repro_torch.kernels import _lib
     NL = cfg.num_layers
-    again = 1 if cfg.remat_policy == "full" else 0
+    again = 0 if cfg.remat_policy == "none" else 1
     per = dict.fromkeys(_lib.launches, 0)
     if cfg.family == "ssm":
         per.update(rmsnorm_fwd=(1 + again) * NL + 1, rmsnorm_bwd=NL + 1,

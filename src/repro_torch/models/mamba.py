@@ -246,6 +246,19 @@ def state_spec(cfg: ModelConfig, layers: int, batch: int):
 # Full LM
 # ---------------------------------------------------------------------------
 
+def _remat(fn, cfg: ModelConfig):
+    """The JAX ``mamba._remat``'s mapping of the checkpoint policy: "none"
+    runs ``fn`` as it is, and every policy but "dots" ("full", and the
+    dense family's "subblock" and "attn_only", which a block without
+    attention has no part for) checkpoints the whole layer, as
+    ``transformer._remat``'s "full" does."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError("remat_policy='dots' is not ported")
+    return T._remat(fn, cfg.with_overrides(remat_policy="full"))
+
+
 def forward_hidden(params, cfg: ModelConfig, tokens):
     """tokens [B, S] -> (final normed hidden [B,S,D], aux loss 0)."""
     x = T.embed_tokens(params, cfg, tokens)
@@ -253,7 +266,7 @@ def forward_hidden(params, cfg: ModelConfig, tokens):
     def body(x_, bp, nrm):
         return x_ + block_forward(bp, cfg, L.rmsnorm(x_, nrm, cfg.rms_norm_eps))
 
-    body = T._remat(body, cfg)
+    body = _remat(body, cfg)
     for li in range(cfg.num_layers):
         x = body(x, T._layer_params(params["blocks"], li),
                  params["block_norms"][li])
@@ -269,11 +282,9 @@ def forward(params, cfg: ModelConfig, tokens):
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """Mean next-token cross entropy (f32 logits [B, S, V]); returns
-    (loss, {"nll", "aux"})."""
+    (loss, {"nll", "aux"}).  Plain for every ``cfg.loss_impl``: the JAX
+    ``mamba.loss_fn`` reads no ``loss_impl`` either."""
     from repro_torch.train.losses import plain_xent
-    if cfg.loss_impl != "plain":
-        raise NotImplementedError(
-            f"loss_impl={cfg.loss_impl!r} is not ported (only 'plain')")
     logits, aux = forward(params, cfg, batch["tokens"])
     nll = plain_xent(logits, batch["labels"])
     return nll + aux, {"nll": nll, "aux": aux}

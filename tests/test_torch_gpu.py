@@ -98,8 +98,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         flash_decode(q, k, k, torch.ones(2, dtype=torch.int32, device="cuda"))
 
 
-@pytest.mark.parametrize("N,D", [(1, 960), (8, 896), (33, 960), (8192, 960),
-                                 (5, 100), (70, 16384)])
+@pytest.mark.parametrize("N,D", [
+    (1, 960), (8, 896), (33, 960), (8192, 960), (5, 100), (70, 16384),
+    # the mamba2-1.3b paths, and N that 32-row CTAs do not divide
+    (8192, 2048), (8, 2048), (8191, 960), (8191, 2048),
+    # the rows path's wider groups (4 and 8 warps a row, chunks masked)
+    # up to its widest row, 8192 in bf16, and the next D up (general path)
+    (100, 4096), (100, 4104), (40, 8192), (40, 8200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, D, dtype):
     from repro_torch.kernels import _lib
@@ -184,6 +189,21 @@ def test_training_ops_gradients_on_the_card(cuda):
     assert _lib.launches["rmsnorm_bwd"] > 0
     for got, want in zip(grads["cuda"], grads["cpu"]):
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_rmsnorm_bwd_kernel_takes_an_unaligned_scale(cuda):
+    """A scale that starts off a 16-byte boundary sends a D the rows path
+    would take to the general path's scalar loads."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    x = torch.randn(64, 960, generator=cuda, device="cuda")
+    g = torch.randn(64, 960, generator=cuda, device="cuda")
+    s = (torch.randn(961, generator=cuda, device="cuda") + 1.0)[1:]
+    assert s.data_ptr() % 16 != 0
+    dx, part = rmsnorm_bwd(x, s, g, 1e-5)
+    want_dx, want_part = rmsnorm_bwd_plain(x, s, g, 1e-5)
+    torch.testing.assert_close(dx, want_dx, **TOLS[torch.float32])
+    torch.testing.assert_close(part.sum(0), want_part.sum(0), atol=1e-3,
+                               rtol=1e-3)
 
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda):

@@ -103,8 +103,8 @@ def test_model_flops_and_param_count_match_jax():
 # training forward, loss and gradients
 # ---------------------------------------------------------------------------
 
-def _train_setup(remat, S, B=2):
-    jcfg, cfg = tiny(remat_policy=remat)
+def _train_setup(remat, S, B=2, **kw):
+    jcfg, cfg = tiny(remat_policy=remat, **kw)
     jparams = jax_registry.init_params(jcfg, jax.random.PRNGKey(1))
     params = bridge.params_from_numpy(np_tree(jparams), device="cpu")
     rs = np.random.RandomState(S)
@@ -130,31 +130,45 @@ def test_forward_and_loss_match_jax(S):
     np.testing.assert_allclose(float(m["nll"]), float(jloss), **TOL)
 
 
-@pytest.mark.parametrize("S", [32, 12])
-@pytest.mark.parametrize("remat", ["none", "full"])
-def test_gradients_match_jax(remat, S):
-    """Every leaf of the port's autograd gradient against jax.grad of the
-    JAX loss; ops.ssd_chunk's backward recomputes through the oracle, and
-    under "full" each layer is checkpointed and recomputed."""
-    jcfg, jparams, cfg, params, batch = _train_setup(remat, S)
+def _grads_match_jax(jcfg, jparams, cfg, params, batch):
+    """The port's loss and every leaf of its autograd gradient against
+    the JAX loss and jax.grad of it, on one batch."""
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jgrads = jax.grad(lambda p: jax_registry.loss_fn(p, jcfg, jbatch)[0])(
-        jparams)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jax_registry.loss_fn(p, jcfg, jbatch)[0])(jparams)
     leaves = [t.requires_grad_() for t in jax.tree.leaves(params)]
     loss, _ = registry.loss_fn(params, cfg, {k: torch.from_numpy(v)
                                              for k, v in batch.items()})
     grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
     jleaves = jax.tree.leaves(jgrads)
     assert len(grads) == len(jleaves) == 16
     for g, jg in zip(grads, jleaves):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), **TOL)
 
 
+# "subblock" and "attn_only": the JAX mamba._remat checkpoints the whole
+# layer under every policy but "none" and "dots", and so does the port
+@pytest.mark.parametrize("S", [32, 12])
+@pytest.mark.parametrize("remat", ["none", "full", "subblock", "attn_only"])
+def test_gradients_match_jax(remat, S):
+    """The loss and every leaf of the port's autograd gradient against
+    jax.grad of the JAX loss; ops.ssd_chunk's backward recomputes through
+    the oracle, and under every policy but "none" each layer is
+    checkpointed and recomputed."""
+    _grads_match_jax(*_train_setup(remat, S))
+
+
+def test_loss_impl_is_plain_xent_as_jax():
+    """The JAX ``mamba.loss_fn`` reads no ``loss_impl``: under
+    "chunked_vocab" the port's loss and gradients equal the JAX ones."""
+    _grads_match_jax(*_train_setup("none", 32, loss_impl="chunked_vocab"))
+
+
 def test_unported_training_options_raise():
     _, _, cfg, params, batch = _train_setup("none", 8)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for over in (dict(remat_policy="dots"), dict(loss_impl="chunked_vocab"),
-                 dict(family="hybrid")):
+    for over in (dict(remat_policy="dots"), dict(family="hybrid")):
         with pytest.raises(NotImplementedError):
             with torch.enable_grad():
                 registry.loss_fn(params, cfg.with_overrides(**over), tbatch)
@@ -308,8 +322,10 @@ def test_trainer_matches_jax_trainer(tmp_path):
     assert log[-1]["loss"] < log[0]["loss"]
 
 
+# "subblock" and "attn_only" recompute the whole layer, as "full" does
 @pytest.mark.parametrize("remat,mb", [("none", 1), ("full", 1), ("none", 2),
-                                      ("full", 2)])
+                                      ("full", 2), ("subblock", 1),
+                                      ("attn_only", 1)])
 def test_kernel_launches_per_step_as_derived(monkeypatch, remat, mb):
     """The ssm family's per-step launch counts, which chip_smoke.py
     asserts on the card, held against the calls the CPU path makes to
@@ -341,7 +357,10 @@ def test_kernel_launches_per_step_as_derived(monkeypatch, remat, mb):
              for k, v in SyntheticLM(64, 16, 4, seed=1).sample().items()}
     step(params, opt.init(params), batch)
     assert calls == train_launch.kernel_launches_per_step(cfg, mb)
-    assert calls["ssd_chunk"] == (2 if remat == "full" else 1) * 3 * mb
+    assert calls["ssd_chunk"] == (1 if remat == "none" else 2) * 3 * mb
+    if remat != "none":
+        assert calls == train_launch.kernel_launches_per_step(
+            cfg.with_overrides(remat_policy="full"), mb)
 
 
 def test_launchers_shrink_the_ssm_and_run_on_the_cpu(tmp_path, capsys):
