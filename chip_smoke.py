@@ -15,14 +15,18 @@ Phases; any failure raises and the script exits non-zero:
              only);
 3. serve   — the port's serving launcher (``repro_torch.launch.serve``)
              at full qwen2-0.5b width (16 requests through 8 lanes,
-             caller-driven and then with two progress workers) and at
-             full mamba2-1.3b width (16 requests through 8 lanes,
-             caller-driven).  Launch counters are zeroed just before
-             and read just after each run, and must show every fused
-             decode/prefill call went through its kernels and no
-             training kernel.  After each caller-driven run one fused
-             decode call is timed: host wall clock (unprofiled) against
-             device busy time (profiled);
+             caller-driven, and then with two progress workers at 6 of
+             its 24 layers), at full mamba2-1.3b width (16 requests
+             through 8 lanes, caller-driven) and at full qwen2.5-3b
+             width with int8 K/V (as qwen2-0.5b, caller-driven).  Launch
+             counters are zeroed just before and read just after each
+             run, and must show every fused decode/prefill call went
+             through its kernels and no training kernel.  After each
+             caller-driven run one fused decode call is timed: host wall
+             clock (unprofiled) against device busy time (profiled).
+             On the qwen2.5-3b engine's weights: the slot cache against
+             the paged pool (bf16 and int8 K/V), and int8 weights
+             (``decode_step_q``) against bf16;
 4. train   — the port's training launcher (``repro_torch.launch.train``)
              at full smollm-360m width (caller-driven and then with two
              progress workers, each from a fresh checkpoint directory;
@@ -31,10 +35,21 @@ Phases; any failure raises and the script exits non-zero:
              checked alike): 6 steps of batch 8 x 1024 tokens.  The launch
              counters must show every step went through its kernels as
              many times as ``kernel_launches_per_step`` derives; after
-             each caller-driven run one step is timed as in phase 3;
-5. check   — full-width f32 decode steps and one full-width two-layer
-             f32 train step of each family, on the card (kernels)
-             against the same steps on the CPU (plain versions).
+             each caller-driven run one step is timed as in phase 3.
+             Then qwen2.5-3b at full width through ``make_train_step``
+             (vocab-chunked loss, "subblock" remat, 4 steps of 8 x 1024
+             tokens; at step 0 the chunked loss equals the plain one);
+6. remat   — one forward and backward of full-width smollm-360m under
+             each checkpoint policy, and of mamba2-1.3b (8 layers) under
+             "full" and "dots": the same gradients as "full", the derived
+             launches, each policy's time and peak memory;
+7. check   — full-width f32 decode steps (qwen2.5-3b with int8 K/V at 2
+             layers) and one full-width two-layer f32 train step of each
+             family, on the card (kernels) against the same steps on the
+             CPU (plain versions); then the event and task classes on
+             the card (``TaskQueue``, ``TaskGraph``, ``CompletionWatcher``
+             and ``EventQueue`` over CUDA events, driven by the engine,
+             no poll synchronizing).
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -44,6 +59,8 @@ of the repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import gc
+import itertools
 import json
 import math
 import shutil
@@ -78,6 +95,15 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 6
 MAMBA = "mamba2-1.3b"
 M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW, M_REQUESTS, M_MAX_SEQ = 16, 64, 16, 16, 128
 MAMBA_D = 2048                      # mamba2-1.3b's d_model: its norms' width
+# qwen2.5-3b: served with int8 K/V as qwen2-0.5b is served (8 lanes, 16
+# requests), trained with the vocab-chunked loss and "subblock" remat for
+# 4 steps of 8 x 1024 tokens
+QWEN3B, Q3_D, Q3_TRAIN_STEPS = "qwen2.5-3b", 2048, 4
+POLICIES = ("full", "none", "subblock", "attn_only", "dots")
+# the two-worker qwen2-0.5b serve run is cut to this depth (of 24) to keep
+# the whole run near its time budget; the caller-driven run keeps 24
+SERVE_WORKERS_LAYERS = 6
+MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
             torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
@@ -217,22 +243,25 @@ def check_close(name, got, want, dtype, tol=None) -> float:
 
 # the row key of a norm kernel's figures at a path's shape other than its
 # main one, by (N == LANES, D)
-SHAPE_KEYS = {(False, 960): "train_shape",
-              (True, MAMBA_D): "serve_mamba_shape",
-              (False, MAMBA_D): "train_mamba_shape"}
+SHAPE_KEYS = {(False, 960, 1e-5): "train_shape",
+              (True, MAMBA_D, 1e-5): "serve_mamba_shape",
+              (False, MAMBA_D, 1e-5): "train_mamba_shape",
+              (True, Q3_D, 1e-6): "serve_qwen2_5_3b_shape",
+              (False, Q3_D, 1e-6): "train_qwen2_5_3b_shape"}
 
 
 def kernel_rmsnorm(gen) -> dict:
     from repro_torch.kernels.rmsnorm import (rmsnorm_fwd, rmsnorm_fwd_path,
                                              rmsnorm_fwd_plain)
     row = None
-    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b: a
-    # fused call) and the train paths' (smollm-360m, mamba2-1.3b: the
-    # whole batch) shapes
+    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b and
+    # qwen2.5-3b: a fused call) and the train paths' (smollm-360m,
+    # mamba2-1.3b, qwen2.5-3b: the whole batch) shapes
     for N, D, eps in ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
                       (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5),
                       (LANES, MAMBA_D, 1e-5),
-                      (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5)):
+                      (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
+                      (LANES, Q3_D, 1e-6), (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             s = torch.randn(D, generator=gen, device="cuda") + 1.0
@@ -249,7 +278,7 @@ def kernel_rmsnorm(gen) -> dict:
             dev, paced, source = measure(fns, args)
             bound = max(nbytes / HBM_BYTES_PER_S,
                         4 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
-            log(f"kernel rmsnorm_fwd N={N} D={D} {str(dtype)[6:]} (path "
+            log(f"kernel rmsnorm_fwd N={N} D={D} eps={eps} {str(dtype)[6:]} (path "
                 f"{rmsnorm_fwd_path(D, dtype)}): max abs "
                 f"err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
@@ -267,7 +296,7 @@ def kernel_rmsnorm(gen) -> dict:
                            source="src/repro_torch/csrc/rmsnorm.cu",
                            replaces="src/repro/kernels/rmsnorm.py:41", **fig)
             elif D != 896:
-                row[SHAPE_KEYS[N == LANES, D]] = fig
+                row[SHAPE_KEYS[N == LANES, D, eps]] = fig
     return row
 
 
@@ -276,14 +305,18 @@ def kernel_flash_decode(gen) -> dict:
                                                       decode_splits,
                                                       flash_decode,
                                                       flash_decode_plain)
-    B, H, KVH, hd = LANES, 14, 2, 64
-    S = -(-MAX_SEQ // BLOCK) * BLOCK          # the serve phase's view length
-    split_keys, splits = decode_split_keys(B, KVH, S), decode_splits(B, KVH, S)
-    grid = (f"{splits * KVH * B} CTAs ({splits} splits of {split_keys} keys "
-            f"x {KVH} KV heads x {B} sequences) + combine "
-            f"{-(-B * H * hd // 128)} CTAs")
+    S = -(-MAX_SEQ // BLOCK) * BLOCK          # the serve phases' view length
     row = None
-    for dtype in (torch.bfloat16, torch.float32):
+    # the qwen2-0.5b serve path's heads (G = 7, hd 64), then qwen2.5-3b's
+    # (G = 8, hd 128)
+    for (B, H, KVH, hd), dtype in itertools.product(
+            ((LANES, 14, 2, 64), (LANES, 16, 2, 128)),
+            (torch.bfloat16, torch.float32)):
+        split_keys = decode_split_keys(B, KVH, S)
+        splits = decode_splits(B, KVH, S)
+        grid = (f"{splits * KVH * B} CTAs ({splits} splits of {split_keys} "
+                f"keys x {KVH} KV heads x {B} sequences) + combine "
+                f"{-(-B * H * hd // 128)} CTAs")
         q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
         k = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
@@ -319,18 +352,23 @@ def kernel_flash_decode(gen) -> dict:
             f"bound {bound:.6f} ms (bytes); kernel "
             f"{kv_bytes / dev['kernel'] / 1e6:.1f} GB/s of valid K/V bytes "
             f"({kv_bytes / 1e6:.3f} MB)")
-        if dtype == torch.bfloat16:                          # the serve path
+        if dtype != torch.bfloat16:
+            continue
+        fig = dict(shape=f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KVH}, "
+                         f"{hd}] bfloat16", grid=grid,
+                   max_abs_err=err, ms=dev["kernel"],
+                   plain_ms=dev["plain"], ms_source=source,
+                   bound_ms=bound,
+                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S
+                   >= flops / PEAK_FLOPS[dtype] else "operations",
+                   library_ms=dev["sdpa"])
+        if row is None:                                     # the serve path
             row = dict(name="flash_decode", route="cuda",
                        source="src/repro_torch/csrc/flash_decode.cu",
                        replaces="src/repro/kernels/decode_attention.py:80",
-                       shape=f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KVH}, "
-                             f"{hd}] bfloat16", grid=grid,
-                       max_abs_err=err, ms=dev["kernel"],
-                       plain_ms=dev["plain"], ms_source=source,
-                       bound_ms=bound,
-                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                       >= flops / PEAK_FLOPS[dtype] else "operations",
-                       library_ms=dev["sdpa"])
+                       **fig)
+        else:
+            row["serve_qwen2_5_3b_shape"] = fig
     return row
 
 
@@ -351,9 +389,11 @@ def fused_rms_norm_backward(x, g, w, eps):
 
 def kernel_rmsnorm_bwd(gen) -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
-    eps, row = 1e-5, None
-    for N, D in ((TRAIN_BATCH * TRAIN_SEQ, 960), (LANES, 896),
-                 (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D), (LANES, MAMBA_D)):
+    row = None
+    for N, D, eps in ((TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5), (LANES, 896, 1e-5),
+                      (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
+                      (LANES, MAMBA_D, 1e-5),
+                      (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             g = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
@@ -394,7 +434,7 @@ def kernel_rmsnorm_bwd(gen) -> dict:
             dev, paced, source = measure(fns, args)
             bound = max(nbytes / HBM_BYTES_PER_S,
                         12 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
-            log(f"kernel rmsnorm_bwd N={N} D={D} {str(dtype)[6:]}: max abs "
+            log(f"kernel rmsnorm_bwd N={N} D={D} eps={eps} {str(dtype)[6:]}: max abs "
                 f"err dx {err:.3e} (atol/rtol {TOLS[dtype]['atol']}), summed "
                 f"dscale {ds_err:.3e} (atol/rtol 1e-3); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
@@ -412,7 +452,7 @@ def kernel_rmsnorm_bwd(gen) -> dict:
                            source="src/repro_torch/csrc/rmsnorm.cu",
                            replaces="src/repro/kernels/rmsnorm.py:61", **fig)
             else:
-                row[SHAPE_KEYS[False, D]] = fig
+                row[SHAPE_KEYS[False, D, eps]] = fig
     return row
 
 
@@ -421,9 +461,11 @@ def kernel_flash_attention(gen) -> dict:
                                                      flash_attention_plain)
     row = None
     shapes = ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64),  # the train path
-              (2, 1000, 1000, 6, 3, 64))                       # ragged
+              (2, 1000, 1000, 6, 3, 64),                       # ragged
+              # qwen2.5-3b's train path (G = 8, hd 128), causal only
+              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128))
     for B, Sq, Sk, H, KVH, hd in shapes:
-        for causal in (True, False):
+        for causal in (True, False) if hd == 64 else (True,):
             for dtype in (torch.bfloat16, torch.float32):
                 q = torch.randn(B, Sq, H, hd, generator=gen,
                                 device="cuda").to(dtype)
@@ -474,18 +516,22 @@ def kernel_flash_attention(gen) -> dict:
                     f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                     f"{nbytes / 1e6:.1f} MB); kernel "
                     f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s")
-                if (Sq == TRAIN_SEQ and causal
-                        and dtype == torch.bfloat16):  # the train path
+                if Sq != TRAIN_SEQ or not causal or dtype != torch.bfloat16:
+                    continue
+                fig = dict(shape=f"q [{B}, {Sq}, {H}, {hd}], k/v [{B}, "
+                                 f"{Sk}, {KVH}, {hd}] causal bfloat16",
+                           grid=grid,
+                           max_abs_err=err, ms=dev["kernel"],
+                           plain_ms=dev["plain"], ms_source=source,
+                           bound_ms=bound, bound_by=by,
+                           library_ms=dev["sdpa"])
+                if row is None:                         # the train path
                     row = dict(name="flash_attention", route="cuda",
                                source="src/repro_torch/csrc/flash_attention.cu",
                                replaces="src/repro/kernels/flash_attention.py:96",
-                               shape=f"q [{B}, {Sq}, {H}, {hd}], k/v [{B}, "
-                                     f"{Sk}, {KVH}, {hd}] causal bfloat16",
-                               grid=grid,
-                               max_abs_err=err, ms=dev["kernel"],
-                               plain_ms=dev["plain"], ms_source=source,
-                               bound_ms=bound, bound_by=by,
-                               library_ms=dev["sdpa"])
+                               **fig)
+                else:
+                    row["train_qwen2_5_3b_shape"] = fig
     return row
 
 
@@ -594,6 +640,7 @@ def kernel_ssd_chunk(gen) -> dict:
 # per arch: (requests, min prompt, max prompt, new tokens, max_seq) and the
 # full width its config must have
 SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
+              QWEN3B: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
               MAMBA: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
                       M_MAX_SEQ)}
 
@@ -609,13 +656,17 @@ def full_width(cfg) -> tuple:
 
 
 FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True),
+              QWEN3B: (36, 2048, 16, 2, 128, 11008, 151936, True),
               TRAIN_ARCH: (32, 960, 15, 5, 64, 2560, 49152, True),
               MAMBA: (48, 2048, 128, 64, 2, 256, 50280, True)}
 
 
-def serve(workers: int, arch: str = ARCH):
+def serve(workers: int, arch: str = ARCH, **cfg_overrides):
+    """One full-width run of the serve launcher; ``cfg_overrides`` set
+    config fields the launcher has no flags for (``kv_cache_dtype``)."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import transformer
     from repro_torch.models.layers import tree_leaves
     requests, min_prompt, max_prompt, max_new, max_seq = SERVE_RUNS[arch]
     argv = ["--arch", arch, "--scale", "full", "--device", "cuda",
@@ -624,9 +675,11 @@ def serve(workers: int, arch: str = ARCH):
             "--min-prompt", str(min_prompt), "--max-prompt", str(max_prompt),
             "--max-new", str(max_new), "--progress-workers", str(workers)]
     args = serve_mod.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
-    report = serve_mod.run(args)
+    report = serve_mod.run(args, **cfg_overrides)
     launches = dict(_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
     srv, cfg = report.server, report.server.cfg
     log(f"serve {arch} [{workers} progress workers] "
         + "\n  ".join(report.format()))
@@ -653,14 +706,26 @@ def serve(workers: int, arch: str = ARCH):
            if t.device.type != "cuda"]
     if off:
         raise AssertionError(f"tensors off the card: {off}")
-    if full_width(cfg) != FULL_WIDTH[arch]:
+    depth = cfg_overrides.get("num_layers", FULL_WIDTH[arch][0])
+    if full_width(cfg) != (depth,) + FULL_WIDTH[arch][1:]:
         raise AssertionError(f"not the full {arch} width: {cfg}")
     lat = report.latency
+    pool = sum(t.numel() * t.element_size() for t in srv.slots.cache.values())
+    pool_text = f"pool {pool / 2**20:.1f} MiB"
+    if cfg.kv_cache_dtype == "int8":
+        spec = transformer.paged_cache_spec(
+            cfg.with_overrides(kv_cache_dtype="bf16"), LANES,
+            srv.slots.num_blocks, BLOCK)
+        bf16 = sum(math.prod(v.shape) * 2 for v in spec.values())
+        pool_text = (f"int8 K/V pool {pool / 2**20:.1f} MiB (values and "
+                     f"scales) against {bf16 / 2**20:.1f} MiB in bf16, "
+                     f"{pool / bf16:.4f} of it")
     log(f"serve summary {arch} [{workers} workers]: decode steps "
         f"{report.steps}, prefill calls {report.prefill_calls}, "
         f"{report.tokens / report.wall_s:.2f} tokens/s, mean decode step "
         f"{srv.mean_step_ms():.3f} ms, wall {report.wall_s:.3f} s, TTFT p50 "
-        f"{lat.ttft_ms_p50:.1f} ms p99 {lat.ttft_ms_p99:.1f} ms")
+        f"{lat.ttft_ms_p50:.1f} ms p99 {lat.ttft_ms_p99:.1f} ms; {pool_text}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
     return launches, srv
 
 
@@ -804,8 +869,13 @@ def train_time_breakdown(report, steps: int = 3) -> None:
     batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
              SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
              .sample().items()}
-    state = {"p": tr.params, "o": tr.opt_state}
+    step_breakdown(cfg, step, {"p": tr.params, "o": tr.opt_state}, batch,
+                   steps)
 
+
+def step_breakdown(cfg, step, state, batch, steps: int, warm: bool = True):
+    """Host wall clock of ``steps`` unprofiled train steps against the
+    device time the profiler records over as many profiled steps."""
     def wall_ms() -> float:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -813,24 +883,33 @@ def train_time_breakdown(report, steps: int = 3) -> None:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    wall_ms()
+    if warm:
+        wall_ms()
     wall = wall_ms()
     by_name, wall_profiled = profile_kernels(wall_ms)
     log(f"time: train step ({cfg.name}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
-        f"{cfg.num_layers} layers, remat {cfg.remat_policy}): wall "
-        f"{wall:.3f} ms ({wall_profiled:.3f} ms under the profiler), "
-        + busy_text(by_name, steps, wall, "step", 8))
+        f"{cfg.num_layers} layers, remat {cfg.remat_policy}, loss "
+        f"{cfg.loss_impl}): wall {wall:.3f} ms ({wall_profiled:.3f} ms under "
+        f"the profiler), " + busy_text(by_name, steps, wall, "step", 8))
 
 
 # ---------------------------------------------------------------------------
 # phase 5: full-width f32 decode, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
 
-def reference_check() -> None:
+def reference_check(arch: str = ARCH, **over) -> None:
+    """f32 paged decode steps at ``arch``'s full width (``over``: fewer
+    layers, int8 K/V) on the card and on the CPU from the same weights:
+    logits within atol/rtol 1e-3 and the same greedy tokens.  With int8
+    K/V the two sides' K/V differ by f32 rounding before they are
+    rounded to int8, so an entry on the edge of a step lands one step
+    (|x|max/127 of its row) apart; the int8 entries must be at most one
+    step apart, and the logits are held to atol 5e-2 (what one step of a
+    K or V entry moves a logit by here) and rtol 1e-3."""
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models.layers import tree_map
-    cfg = get_config(ARCH).with_overrides(dtype="float32")
+    cfg = get_config(arch).with_overrides(dtype="float32", **over)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = registry.init_params(cfg, gen)
     cpu_params = tree_map(lambda t: t.cpu(), params)
@@ -841,6 +920,7 @@ def reference_check() -> None:
     rs = np.random.RandomState(2)
     pos = rs.randint(0, 8, size=B).astype(np.int32)
     worst = 0.0
+    atol = 5e-2 if cfg.kv_cache_dtype == "int8" else 1e-3
     for step in range(4):
         toks = torch.from_numpy(
             rs.randint(0, cfg.vocab_size, size=(B, 1)).astype(np.int32))
@@ -853,16 +933,31 @@ def reference_check() -> None:
         if got.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(got).all():
             raise AssertionError(f"bad logits {tuple(got.shape)}")
         err = (got - want).abs()
-        if (err > 1e-3 + 1e-3 * want.abs()).any():
+        if (err > atol + 1e-3 * want.abs()).any():
             raise AssertionError(f"card vs CPU logits differ: max abs err "
                                  f"{float(err.max()):.3e}")
         if not torch.equal(got.argmax(-1), want.argmax(-1)):
             raise AssertionError("card vs CPU greedy tokens differ")
         worst = max(worst, float(err.max()))
         pos = pos + 1 + step
-    log(f"check: full-width f32 decode, card kernels vs CPU plain versions, "
-        f"4 steps x {B} lanes: max abs logit err {worst:.3e} (atol/rtol "
-        f"1e-3), greedy tokens equal")
+    int8_text = ""
+    if cfg.kv_cache_dtype == "int8":
+        # the card's and the CPU's K/V differ by f32 rounding, so an entry
+        # on the edge of a quantization step may land one step apart
+        off = [int((caches["cuda"][k].cpu() != caches["cpu"][k]).sum())
+               for k in ("k", "v")]
+        steps_apart = max(int((caches["cuda"][k].cpu().int()
+                               - caches["cpu"][k].int()).abs().max())
+                          for k in ("k", "v"))
+        int8_text = (f"; int8 K/V entries that differ card vs CPU: "
+                     f"{sum(off)} of {2 * caches['cpu']['k'].numel()}, at "
+                     f"most {steps_apart} quantization step apart")
+        if steps_apart > 1:
+            raise AssertionError("int8 K/V more than one step apart")
+    log(f"check: full-width f32 decode ({arch}, {cfg.num_layers} layers, K/V "
+        f"{cfg.kv_cache_dtype}), card kernels vs CPU plain versions, "
+        f"4 steps x {B} lanes: max abs logit err {worst:.3e} (atol {atol:g}, "
+        f"rtol 1e-3), greedy tokens equal{int8_text}")
 
 
 def shares(got, want) -> list[float]:
@@ -1038,6 +1133,344 @@ def mamba_decode_check(steps: int = 4) -> None:
         f"{state_worst:.3e} of its largest entry (limit 1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: qwen2.5-3b at full width — decode paths, int8 weights, training,
+# checkpoint policies, and the event classes on the card
+# ---------------------------------------------------------------------------
+
+def decode_paths_check(srv, steps: int = 16) -> None:
+    """The slot path (``decode_step``, max_seq the paged view's length)
+    against the paged path, on the served engine's bf16 weights, with bf16
+    and int8 K/V: the same tokens at the same positions (lanes at
+    staggered starts) must give the same logits.  The paged view holds
+    the slot row's values, so they are expected bit for bit; the largest
+    difference is printed either way, and a difference beyond the bf16
+    kernel tolerance fails."""
+    from repro_torch.models import registry
+    nb = -(-MAX_SEQ // BLOCK)
+    rs = np.random.RandomState(7)
+    tables = torch.from_numpy((1 + rs.permutation(LANES * nb)).reshape(
+        LANES, nb).astype(np.int32)).cuda()
+    toks = rs.randint(0, srv.cfg.vocab_size, size=(steps, LANES, 1))
+    start = rs.randint(0, min(64, nb * BLOCK - steps), size=LANES)
+    texts = []
+    for kv in ("bf16", "int8"):
+        cfg = srv.cfg.with_overrides(kv_cache_dtype=kv)
+        slot = registry.init_cache(cfg, LANES, nb * BLOCK, "cuda")
+        pool = registry.init_paged_cache(cfg, LANES, 1 + LANES * nb, BLOCK,
+                                         "cuda")
+        worst, bitwise = 0.0, True
+        for i in range(steps):
+            t = torch.from_numpy(toks[i].astype(np.int32)).cuda()
+            p = torch.from_numpy((start + i).astype(np.int32)).cuda()
+            a, slot = registry.decode_step(srv.params, cfg, slot, t, p)
+            b, pool = registry.decode_step_paged(srv.params, cfg, pool, t, p,
+                                                 tables)
+            if a.shape != (LANES, 1, cfg.vocab_size) or \
+                    not torch.isfinite(a).all():
+                raise AssertionError(f"bad slot-path logits {tuple(a.shape)}")
+            bitwise &= torch.equal(a, b)
+            worst = max(worst, float((a - b).abs().max()))
+            check_close(f"slot vs paged decode ({kv} K/V)", a, b,
+                        torch.bfloat16)
+        texts.append(f"{kv} K/V " + ("bit for bit equal" if bitwise else
+                                     f"max abs logit diff {worst:.3e}"))
+        del slot, pool
+    log(f"check: {srv.cfg.name} full-width decode, slot cache vs paged pool, "
+        f"{steps} steps x {LANES} lanes, bf16 weights: " + "; ".join(texts))
+
+
+def int8_weights_check(srv, steps: int = 8) -> None:
+    """``registry.decode_step_q`` (int8 weights from ``quantize_tree``,
+    dequantized at use: the JAX package's ``serve_step_q``) against
+    ``decode_step`` on the bf16 weights they were made from, the same
+    tokens fed to both: the largest logit difference and the share of
+    greedy tokens that agree are printed; no limit is set for them."""
+    from repro_torch.models import registry
+    from repro_torch.serve import quantization as qz
+    cfg = srv.cfg.with_overrides(kv_cache_dtype="bf16")
+    q = qz.quantize_tree(srv.params)
+    bf16 = qz.quantized_bytes(srv.params)
+    caches = [registry.init_cache(cfg, LANES, 64, "cuda") for _ in range(2)]
+    rs = np.random.RandomState(8)
+    worst, agree = 0.0, 0
+    for i in range(steps):
+        t = torch.from_numpy(rs.randint(0, cfg.vocab_size, (LANES, 1))
+                             .astype(np.int32)).cuda()
+        p = torch.full((LANES,), i, dtype=torch.int32, device="cuda")
+        a, caches[0] = registry.decode_step(srv.params, cfg, caches[0], t, p)
+        b, caches[1] = registry.decode_step_q(q, cfg, caches[1], t, p)
+        if not torch.isfinite(b).all():
+            raise AssertionError("int8-weight logits are not finite")
+        worst = max(worst, float((a - b).abs().max()))
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+    log(f"check: {cfg.name} full-width decode on int8 weights "
+        f"(decode_step_q) vs the bf16 weights, {steps} steps x {LANES} "
+        f"lanes: max abs logit diff {worst:.3e}, greedy tokens agree "
+        f"{agree}/{steps * LANES}; weights {qz.quantized_bytes(q) / 2**30:.3f}"
+        f" GiB in int8 against {bf16 / 2**30:.3f} GiB in bf16")
+
+
+def train_qwen3b():
+    """qwen2.5-3b at full width through ``make_train_step``: the
+    vocab-chunked loss, "subblock" remat, f32 master params and moments,
+    bf16 compute, 4 steps of 8 x 1024 tokens.  At step 0 the chunked loss
+    must equal the plain loss on the same batch (no_grad forwards; both
+    round the logits to bf16, but the plain path takes one product over
+    the whole vocabulary and one log-sum-exp, so |a - b| <= 1e-4 |b|).
+    Not the Trainer: its checkpoint of the last step would be ~37 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    cfg = get_config(QWEN3B).with_overrides(loss_impl="chunked_vocab",
+                                            remat_policy="subblock")
+    if full_width(cfg) != FULL_WIDTH[QWEN3B] or (
+            cfg.dtype, cfg.param_dtype, cfg.loss_vocab_chunk) != (
+            "bfloat16", "float32", 8192):
+        raise AssertionError(f"not the full {QWEN3B} width: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt_state = opt_mod.init(params)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=5)
+    batches = [{k: torch.from_numpy(v.copy()).cuda()
+                for k, v in src.sample().items()}
+               for _ in range(Q3_TRAIN_STEPS)]
+    with torch.no_grad():
+        chunked = float(registry.loss_fn(params, cfg, batches[0])[0])
+        plain = float(registry.loss_fn(
+            params, cfg.with_overrides(loss_impl="plain"), batches[0])[0])
+    check_peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(chunked) or abs(chunked - plain) > 1e-4 * abs(plain):
+        raise AssertionError(f"chunked loss {chunked} vs plain {plain}")
+    step = train_mod.make_train_step(cfg, opt_mod.AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=10))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_mod.kernel_launches_per_step(cfg)
+    want = {k: v * Q3_TRAIN_STEPS for k, v in per_step.items()}
+    log(f"train {QWEN3B} launches {launches}, expected {want} ({per_step} "
+        f"per step x {Q3_TRAIN_STEPS} steps)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad loss trajectory {losses}")
+    mean_s = sum(times[1:]) / len(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = registry.model_flops(cfg, tokens, training=True,
+                                 seq_len=TRAIN_SEQ)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"train {QWEN3B} (chunked_vocab loss, remat subblock, "
+        f"{registry.param_count(cfg) / 1e9:.3f} B params): step-0 loss "
+        f"chunked {chunked:.7f} vs plain {plain:.7f} (rel diff "
+        f"{abs(chunked - plain) / abs(plain):.3e}, limit 1e-4; peak device "
+        f"memory of the two no_grad losses {check_peak / 2**30:.2f} GiB); "
+        f"losses {[round(x, 6) for x in losses]}; mean step "
+        f"{mean_s * 1e3:.3f} ms (steps 1-{Q3_TRAIN_STEPS - 1}; step 0 "
+        f"{times[0] * 1e3:.3f} ms), {tokens / mean_s:.1f} tokens/s, model "
+        f"{flops / mean_s / 1e12:.2f} TFLOP/s ({flops / 1e12:.2f} TFLOP a "
+        f"step by registry.model_flops); peak device memory "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB")
+    step_breakdown(cfg, step, {"p": params, "o": opt_state}, batches[0], 1,
+                   warm=False)
+    return launches
+
+
+def remat_check(arch: str = TRAIN_ARCH, policies=POLICIES,
+                layers: int | None = None) -> dict:
+    """One forward and backward of ``arch`` at full width (``layers``
+    deep where given) under each checkpoint policy, from the same weights
+    and batch (8 x 1024 tokens, bf16 compute, f32 weights): the gradients
+    must equal the first policy's ("full"), expected bit for bit, else
+    within 1e-4 of each leaf's largest entry (the limit of the card-vs-CPU
+    gradient checks); the launches must be ``kernel_launches_per_step``'s.
+    Prints each policy's time (a second pass, once the allocator holds its
+    blocks) and its peak device memory above what was allocated before it
+    (the weights, and the first policy's gradients)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_leaves
+    cfg0 = get_config(arch)
+    if layers:
+        cfg0 = cfg0.with_overrides(num_layers=layers)
+    params = registry.init_params(
+        cfg0, torch.Generator(device="cuda").manual_seed(11))
+    names = [p for p, _ in tree_leaves(params)]
+    leaves = [t.requires_grad_() for _, t in tree_leaves(params)]
+    batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
+             SyntheticLM(cfg0.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=12)
+             .sample().items()}
+
+    def grads_of(cfg):
+        loss, _ = registry.loss_fn(params, cfg, batch)
+        return torch.autograd.grad(loss, leaves)
+
+    grads_of(cfg0.with_overrides(remat_policy=policies[0]))     # warm-up
+    ref, texts, total = None, [], dict.fromkeys(_lib.launches, 0)
+    for policy in policies:
+        cfg = cfg0.with_overrides(remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _lib.reset_launches()
+        grads = grads_of(cfg)
+        torch.cuda.synchronize()
+        launches = dict(_lib.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        # timed again once the allocator holds the policy's blocks
+        t0 = time.perf_counter()
+        grads_of(cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = train_mod.kernel_launches_per_step(cfg)
+        if launches != want:
+            raise AssertionError(f"{arch} remat {policy}: launch counts "
+                                 f"{launches} != {want}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        if ref is None:
+            ref, same = grads, "the reference"
+        elif all(torch.equal(a, b) for a, b in zip(grads, ref)):
+            same = f"gradients equal {policies[0]}'s bit for bit"
+        else:
+            worst = max(leaf_errors(f"{arch} remat {policy} gradient", names,
+                                    grads, ref, 1e-4))
+            same = (f"gradients within {worst:.3e} of each leaf's largest "
+                    f"entry of {policies[0]}'s (limit 1e-4)")
+        texts.append(f"{policy}: {ms:.3f} ms, peak {peak / 2**30:.2f} GiB "
+                     f"above the resident weights, launches {launches}, "
+                     f"{same}")
+        del grads
+    log(f"check: {arch} full width ({cfg0.num_layers} layers), one forward "
+        f"and backward of {TRAIN_BATCH}x{TRAIN_SEQ} tokens under each "
+        f"checkpoint policy:\n  " + "\n  ".join(texts))
+    return total
+
+
+def events_check(launches: int = 6) -> None:
+    """The event and task classes on the card: ``launches`` products on a
+    side stream, each followed by a recorded ``torch.cuda.Event``; a
+    ``TaskQueue`` (head-only polls) over the first four events and a
+    ``TaskGraph`` diamond (a -> b, c -> d) over the last four, whose
+    ``ready_fn``s call ``Event.query()``; a ``CompletionWatcher`` on every
+    task's request emits into an ``EventQueue``; all driven by
+    ``ProgressEngine.progress()``.  Every synchronize is made to raise
+    while the engine is driven, and some poll must find its event not yet
+    done (the host ran ahead of the card)."""
+    from repro_torch.core import (CompletionWatcher, EventQueue,
+                                  ProgressEngine, TaskGraph, TaskQueue)
+    eng = ProgressEngine()
+    side = torch.cuda.Stream()
+    x = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    events, outs = [], []
+    with torch.cuda.stream(side):
+        for _ in range(launches):
+            outs.append(x @ x)
+            ev = torch.cuda.Event()
+            ev.record(side)
+            events.append(ev)
+    polls = {"queue": [0] * 4, "graph": dict.fromkeys("abcd", 0)}
+    pending_seen, early = [0], []
+
+    def ready(ev, count):
+        def fn():
+            count()
+            done = ev.query()
+            pending_seen[0] += not done
+            return done
+        return fn
+
+    def bump(table, key):
+        def count():
+            table[key] += 1
+            # head-only: a queued task is polled only once every task
+            # before it has completed
+            if table is polls["queue"] and not all(
+                    r.is_complete for r in qreqs[:key]):
+                early.append(key)
+        return count
+
+    q = TaskQueue(eng)
+    g = TaskGraph(eng)
+    evq = EventQueue()
+    w = CompletionWatcher(eng)
+    qreqs: list = []
+    qreqs += [q.submit(ready(events[i], bump(polls["queue"], i)),
+                      on_complete=lambda i=i: f"q{i}") for i in range(4)]
+    ga = g.add(ready(events[2], bump(polls["graph"], "a")),
+               on_complete=lambda: "a")
+    gb = g.add(ready(events[3], bump(polls["graph"], "b")), deps=[ga],
+               on_complete=lambda: "b")
+    gc = g.add(ready(events[4], bump(polls["graph"], "c")), deps=[ga],
+               on_complete=lambda: "c")
+    gd = g.add(ready(events[5], bump(polls["graph"], "d")), deps=[gb, gc],
+               on_complete=lambda: "d")
+    for r in (*qreqs, ga, gb, gc, gd):
+        w.watch(r, lambda r_: evq.emit(r_.value()))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a poll synchronized")
+
+    saved = (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+             torch.cuda.Stream.synchronize)
+    torch.cuda.synchronize = torch.cuda.Event.synchronize = \
+        torch.cuda.Stream.synchronize = refuse
+    sweeps, deadline = 0, time.perf_counter() + 60
+    try:
+        while (q.pending or g.pending or w.pending) and \
+                time.perf_counter() < deadline:
+            eng.progress()
+            sweeps += 1
+    finally:
+        (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+         torch.cuda.Stream.synchronize) = saved
+    order = evq.drain()
+    if q.pending or g.pending or w.pending:
+        raise AssertionError("the tasks did not complete within 60 s")
+    queue_order = [v for v in order if v.startswith("q")]
+    graph_order = [v for v in order if not v.startswith("q")]
+    if queue_order != ["q0", "q1", "q2", "q3"] or graph_order[0] != "a" or \
+            graph_order[-1] != "d" or sorted(graph_order) != list("abcd"):
+        raise AssertionError(f"completion order {order}")
+    if not pending_seen[0]:
+        raise AssertionError("no poll found its event pending")
+    if early:
+        raise AssertionError(f"queued tasks {early} polled before the tasks "
+                             f"ahead of them completed")
+    if not all(e.query() for e in events):
+        raise AssertionError("an event is not done after its task completed")
+    log(f"check: events and task classes on the card, {launches} products "
+        f"of 4096x4096 f32 on a side stream: {sweeps} progress sweeps, "
+        f"{pending_seen[0]} polls found their event pending, none "
+        f"synchronized; completion order {order}; queue polls "
+        f"{polls['queue']} (head only), graph polls {polls['graph']}")
+    del outs
+
+
+def free() -> None:
+    """Drop what an ended phase left behind (its engines hold reference
+    cycles) and hand the cached blocks back, before the next phase."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     # first, so that whatever fails after it leaves a trace on stdout
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -1079,46 +1512,73 @@ def main() -> int:
     runs["serve"], srv = serve(workers=0)
     time_breakdown(srv)
     del srv
-    serve(workers=2)
+    serve(workers=2, num_layers=SERVE_WORKERS_LAYERS)
     runs["serve_mamba"], srv = serve(workers=0, arch=MAMBA)
     time_breakdown(srv)
     del srv
+    free()
+    runs["serve_qwen2_5_3b"], srv = serve(workers=0, arch=QWEN3B,
+                                          kv_cache_dtype="int8")
+    time_breakdown(srv)
+    decode_paths_check(srv)
+    int8_weights_check(srv)
+    del srv
     log(f"serve phase done at {time.perf_counter() - t_start:.1f} s")
-    torch.cuda.empty_cache()
+    free()
     runs["train"], report = train(workers=0)
     train_time_breakdown(report)
     del report
-    torch.cuda.empty_cache()
+    free()
     train(workers=2)
-    torch.cuda.empty_cache()
+    free()
     runs["train_mamba"], report = train(workers=0, arch=MAMBA)
     train_time_breakdown(report)
     del report
-    torch.cuda.empty_cache()
+    free()
+    runs["train_qwen2_5_3b"] = train_qwen3b()
+    free()
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
+    remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
+                                        layers=MAMBA_DOTS_LAYERS)]
+    runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
+    free()
+    log(f"remat phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
-    # path and summed: launches_serve and launches_train count both
-    # families, the *_mamba keys the mamba2 run alone
+    # path and summed: launches_serve and launches_train count every
+    # family, the *_mamba and *_qwen2_5_3b keys those runs alone, and
+    # launches_remat the checkpoint-policy runs (smollm-360m's five, and
+    # mamba2's "full" and "dots")
     for row in rows:
         n = {k: v[row["name"]] for k, v in runs.items()}
-        row["launches_serve"] = n["serve"] + n["serve_mamba"]
+        row["launches_serve"] = (n["serve"] + n["serve_mamba"]
+                                 + n["serve_qwen2_5_3b"])
         row["launches_serve_mamba"] = n["serve_mamba"]
-        row["launches_train"] = n["train"] + n["train_mamba"]
+        row["launches_serve_qwen2_5_3b"] = n["serve_qwen2_5_3b"]
+        row["launches_train"] = (n["train"] + n["train_mamba"]
+                                 + n["train_qwen2_5_3b"])
         row["launches_train_mamba"] = n["train_mamba"]
-        row["launches"] = row["launches_serve"] + row["launches_train"]
+        row["launches_train_qwen2_5_3b"] = n["train_qwen2_5_3b"]
+        row["launches_remat"] = n["remat"]
+        row["launches"] = (row["launches_serve"] + row["launches_train"]
+                           + row["launches_remat"])
     log(f"launches: {runs}")
     reference_check()
+    reference_check(QWEN3B, num_layers=2, kv_cache_dtype="int8")
     train_reference_check()
     mamba_decode_check()
     train_reference_check(MAMBA, seq=512)   # two chunks of 256
+    events_check()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     keys = ["name", "route", "source", "replaces", "launches",
-            "launches_serve", "launches_serve_mamba", "launches_train",
-            "launches_train_mamba", "shape", "grid", "launch_split_ms",
+            "launches_serve", "launches_serve_mamba",
+            "launches_serve_qwen2_5_3b", "launches_train",
+            "launches_train_mamba", "launches_train_qwen2_5_3b",
+            "launches_remat", "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
-            "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms", "train_shape",
-            "serve_mamba_shape", "train_mamba_shape"]
+            "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
+            "train_shape", "serve_mamba_shape", "train_mamba_shape",
+            "serve_qwen2_5_3b_shape", "train_qwen2_5_3b_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

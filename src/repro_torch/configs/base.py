@@ -96,6 +96,17 @@ class ModelConfig:
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ------------------------------------------------------------------
+    # Analytical parameter / FLOP counts (used for roofline MODEL_FLOPS)
+    # ------------------------------------------------------------------
+    def param_count(self) -> int:
+        from repro_torch.models import registry
+        return registry.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import registry
+        return registry.param_count(self, active_only=True)
+
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 

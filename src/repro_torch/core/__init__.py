@@ -22,6 +22,8 @@ from repro_torch.core.request import (
     request_of,
 )
 from repro_torch.core.executor import ProgressExecutor
+from repro_torch.core.task_class import TaskGraph, TaskQueue
+from repro_torch.core.events import CompletionWatcher, EventQueue
 from repro_torch.core.futures import chain, io_future, torch_future
 from repro_torch.core.continuations import (
     DEFERRED,
@@ -50,6 +52,8 @@ __all__ = [
     "CancelledError", "CompletionCounter", "GeneralizedRequest",
     "PollRequest", "Request", "request_of",
     "ProgressExecutor",
+    "TaskGraph", "TaskQueue",
+    "CompletionWatcher", "EventQueue",
     "INLINE", "DEFERRED", "Continuation", "ContinuationQueue",
     "chain", "io_future", "torch_future",
     "stats",

@@ -109,7 +109,10 @@ class ServeReport:
         ]
 
 
-def run(args) -> ServeReport:
+def run(args, **cfg_overrides) -> ServeReport:
+    """Serve as the command line asks; ``cfg_overrides`` replace fields of
+    the ``ModelConfig`` that the JAX launcher has no flags for either
+    (e.g. ``kv_cache_dtype="int8"``)."""
     from repro_torch import resolve_device
     from repro_torch.core import ProgressEngine, ProgressExecutor
     from repro_torch.core import stats as stats_mod
@@ -117,7 +120,7 @@ def run(args) -> ServeReport:
     from repro_torch.serve.engine import GenRequest, ServeEngine
 
     device = resolve_device(args.device)
-    cfg = make_config(args.arch, args.scale)
+    cfg = make_config(args.arch, args.scale).with_overrides(**cfg_overrides)
     gen = torch.Generator(device=device).manual_seed(0)
     eng = ProgressEngine()
     executor = None

@@ -103,31 +103,40 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
 
 
 def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
-    """Launches of each kernel in one ``make_train_step`` step.  Under
-    every checkpoint policy but "none" (the port runs only "full" and, in
-    the ssm family, "subblock" and "attn_only" as "full") each layer's
-    forward runs again in the backward (``again`` = 1): non-reentrant
-    checkpointing recomputes until every tensor the layer saved is back,
-    and the layer's last product saves its inputs, so the whole layer.
-    Per microbatch:
+    """Launches of each kernel in one ``make_train_step`` step, per
+    microbatch.  A checkpointed region runs its forward again in the
+    backward: non-reentrant checkpointing recomputes until every tensor
+    the region saved is back, and each region's last product saves an
+    input that only the whole region recomputes, so every kernel in it
+    launches twice.  The dispatcher never sees the kernels' launches
+    (ctypes), so under "dots" they run again too: only the matrix
+    products' outputs are kept.
 
     * dense: the forward runs two rmsnorms per layer plus the final norm
       and one attention per layer; the backward one rmsnorm backward per
       forward rmsnorm (attention's backward is the oracle's autograd, no
-      kernel);
+      kernel).  "full" and "dots" recompute the whole layer (both norms
+      and the attention), "subblock" the two sub-blocks around the
+      attention (both norms, not the attention), "attn_only" the
+      attention alone;
     * ssm: one rmsnorm per layer plus the final norm and one ssd_chunk
       per layer (all chunks at once; its backward is the oracle's
-      autograd); the gated per-head norm is inline, not the kernel."""
+      autograd); the gated per-head norm is inline, not the kernel.
+      Every policy but "none" recomputes the whole layer."""
     from repro_torch.kernels import _lib
     NL = cfg.num_layers
-    again = 0 if cfg.remat_policy == "none" else 1
+    policy = cfg.remat_policy
     per = dict.fromkeys(_lib.launches, 0)
     if cfg.family == "ssm":
+        again = 0 if policy == "none" else 1
         per.update(rmsnorm_fwd=(1 + again) * NL + 1, rmsnorm_bwd=NL + 1,
                    ssd_chunk=(1 + again) * NL)
     else:
-        per.update(rmsnorm_fwd=(2 + 2 * again) * NL + 1,
-                   rmsnorm_bwd=2 * NL + 1, flash_attention=(1 + again) * NL)
+        norms_again = policy in ("full", "dots", "subblock")
+        attn_again = policy in ("full", "dots", "attn_only")
+        per.update(rmsnorm_fwd=(2 + 2 * norms_again) * NL + 1,
+                   rmsnorm_bwd=2 * NL + 1,
+                   flash_attention=(1 + attn_again) * NL)
     return {k: v * microbatches for k, v in per.items()}
 
 

@@ -26,16 +26,29 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _leaf(a, device):
+    # the JAX package's QuantizedTensor after jax.tree.map(np.asarray, ...)
+    # is still a (q, scale) named tuple: it becomes the port's
+    if getattr(a, "_fields", None) == ("q", "scale"):
+        from repro_torch.serve.quantization import QuantizedTensor
+        return QuantizedTensor(_tensor(a.q, device), _tensor(a.scale, device))
+    return _tensor(a, device)
+
+
 def params_from_numpy(tree, device=None) -> dict:
     """Nested dict of numpy arrays -> the same dict of tensors on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``).  Padded heads and an untied
+    ``lm_head`` are leaves like any other; int8 weights
+    (``quantize_tree``'s (q, scale) pairs) become the port's
+    ``QuantizedTensor``."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _tensor(a, dev), tree)
+    return tree_map(lambda a: _leaf(a, dev), tree)
 
 
 def cache_from_numpy(tree, device=None) -> dict:
-    """The paged pool ({"k", "v"} of [NL, num_blocks, bs, KVH, hd]) from
-    numpy, as ``params_from_numpy``."""
+    """A slot cache or paged pool ({"k", "v"}, and with int8 K/V also
+    {"k_scale", "v_scale"}; or the ssm family's state) from numpy, as
+    ``params_from_numpy``."""
     return params_from_numpy(tree, device)
 
 

@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -122,6 +123,75 @@ def init_tree(spec_tree, generator: torch.Generator,
                             for path, spec in tree_leaves(spec_tree))
 
 
+def zeros_tree(spec_tree, device):
+    """Zeros of every leaf of a PSpec tree (each spec carries its dtype),
+    on ``device``: the caches."""
+    return tree_from_leaves(
+        (path, torch.zeros(spec.shape, dtype=spec.dtype, device=device))
+        for path, spec in tree_leaves(spec_tree))
+
+
+def unstack_layers(tree) -> list:
+    """The per-layer trees of a stacked tree ([L, ...] leaves), as views:
+    one ``unbind`` a leaf, whose backward stacks the L layers' gradients
+    once.  Indexing one layer at a time would make each layer's backward
+    fill and add a full [L, ...] gradient per leaf (L² layer-sized adds
+    a step); the gradients are the same values."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def shapes_tree(spec_tree, param_dtype: torch.dtype = torch.float32):
+    """The tree of a PSpec tree as tensors on the ``meta`` device: shapes
+    and dtypes, no storage (the JAX package's ``ShapeDtypeStruct`` tree)."""
+    return tree_from_leaves(
+        (path, torch.empty(spec.shape, dtype=spec.dtype or param_dtype,
+                           device="meta"))
+        for path, spec in tree_leaves(spec_tree))
+
+
+# ---------------------------------------------------------------------------
+# Checkpointing (the JAX package's jax.checkpoint and its policies)
+# ---------------------------------------------------------------------------
+
+# The matrix products, as they reach the dispatcher (``matmul`` and
+# ``einsum`` decompose into these).  The kernels of ``kernels/ops.py``
+# launch through ctypes, so the dispatcher sees only their ``torch.empty``
+# outputs: those are never saved, and a recompute launches the kernel
+# into a fresh buffer.
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _save_dots)
+
+
+def checkpoint(fn, *args, dots: bool = False):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant) while
+    autograd records, and plainly otherwise.  Only the inputs are kept and
+    the forward runs again in the backward; with ``dots`` the outputs of
+    the matrix products are kept too and only the rest is recomputed, as
+    ``jax.checkpoint_policies.checkpoint_dots`` keeps them."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {"context_fn": _dots_context} if dots else {}
+    # the models draw no random numbers: no RNG state to stash
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Norms / positional embeddings / activations
 # ---------------------------------------------------------------------------
@@ -193,8 +263,23 @@ def decode_attention(q, k_cache, v_cache, pos, *, logit_cap: float = 0.0):
 # Attention block (params + apply), GQA + optional bias + RoPE
 # ---------------------------------------------------------------------------
 
+def padded_heads(cfg) -> tuple[int, int]:
+    """(H, KVH) after optional padding to a multiple of cfg.pad_heads_to.
+
+    Padding both H and KVH changes the GQA q→kv grouping, so this is an
+    architecture variant (as in the JAX package), not a transform that
+    keeps the model's function."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    p = cfg.pad_heads_to
+    if not p or not H:
+        return H, KVH
+    pad = lambda n: ((n + p - 1) // p) * p  # noqa: E731
+    return pad(H), pad(KVH)
+
+
 def attn_spec(cfg, layers: int | None = None):
-    D, H, KVH = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    D = cfg.d_model
+    H, KVH = padded_heads(cfg)
     hd = cfg.resolved_head_dim()
     L = (layers,) if layers is not None else ()
     lax = ("layers",) if layers is not None else ()

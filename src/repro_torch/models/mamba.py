@@ -1,6 +1,7 @@
 """Mamba2 (SSD — state-space duality) blocks and LM, the ssm family
-(mamba2-1.3b): the training forward, the loss and the paged decode path
-of the JAX package's ``models/mamba.py``.  [arXiv:2405.21060]
+(mamba2-1.3b): the JAX package's ``models/mamba.py`` — the training
+forward under every checkpoint policy, the loss, and decode on the slot
+cache and on the paged (per-lane) state.  [arXiv:2405.21060]
 
 As in the JAX package, z/x/B/C/dt have separate projections and convs
 per component, and the chunked SSD is the intra-chunk quadratic form
@@ -248,15 +249,14 @@ def state_spec(cfg: ModelConfig, layers: int, batch: int):
 
 def _remat(fn, cfg: ModelConfig):
     """The JAX ``mamba._remat``'s mapping of the checkpoint policy: "none"
-    runs ``fn`` as it is, and every policy but "dots" ("full", and the
+    runs ``fn`` as it is, "dots" checkpoints the whole layer keeping the
+    matrix products' outputs, and every other policy ("full", and the
     dense family's "subblock" and "attn_only", which a block without
-    attention has no part for) checkpoints the whole layer, as
-    ``transformer._remat``'s "full" does."""
+    attention has no part for) checkpoints the whole layer."""
     if cfg.remat_policy == "none":
         return fn
-    if cfg.remat_policy == "dots":
-        raise NotImplementedError("remat_policy='dots' is not ported")
-    return T._remat(fn, cfg.with_overrides(remat_policy="full"))
+    dots = cfg.remat_policy == "dots"
+    return lambda *args: L.checkpoint(fn, *args, dots=dots)
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens):
@@ -267,9 +267,9 @@ def forward_hidden(params, cfg: ModelConfig, tokens):
         return x_ + block_forward(bp, cfg, L.rmsnorm(x_, nrm, cfg.rms_norm_eps))
 
     body = _remat(body, cfg)
-    for li in range(cfg.num_layers):
-        x = body(x, T._layer_params(params["blocks"], li),
-                 params["block_norms"][li])
+    for bp, nrm in zip(L.unstack_layers(params["blocks"]),
+                       params["block_norms"].unbind(0)):
+        x = body(x, bp, nrm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
@@ -291,6 +291,42 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 
 # ---------------------------------------------------------------------------
+# Slot-cache decode: the cache is the recurrent state [NL, B, ...] (O(1)
+# in the sequence), one row per slot.
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
+    return state_spec(cfg, cfg.num_layers, batch)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    return L.zeros_tree(cache_spec(cfg, batch, max_seq), device)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    return L.shapes_tree(cache_spec(cfg, batch, max_seq))
+
+
+def reset_cache_lane(cfg: ModelConfig, cache, lane_index: int):
+    """Slot-cache lane reset: the slot cache is the state tree, so a
+    recycled slot is zeroed exactly like a recycled paged lane."""
+    return reset_paged_lane(cfg, cache, lane_index)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, fed=None):
+    """tokens [B,1] -> (logits [B,1,V] f32, cache) on the slot cache;
+    ``pos`` is unused.  A lane not in ``fed`` keeps its state bit for bit."""
+    x, cache = decode_hidden(params, cfg, cache, tokens, pos, fed)
+    return T.unembed(params, cfg, x), cache
+
+
+def decode_hidden(params, cfg: ModelConfig, cache, tokens, pos, fed=None):
+    """Slot-cache decode step up to (and including) the final norm; the
+    state is updated in place, as on the paged path."""
+    return decode_hidden_paged(params, cfg, cache, tokens, pos, None, fed)
+
+
+# ---------------------------------------------------------------------------
 # Paged decode: the O(1) recurrent state has no sequence blocks to page;
 # the "paged" cache is per-lane state [NL, lanes, ...].  What the
 # continuous-batching engine needs from an SSM family is fed-masking: the
@@ -309,9 +345,8 @@ def paged_cache_spec(cfg: ModelConfig, lanes: int, num_blocks: int,
 
 def init_paged_cache(cfg: ModelConfig, lanes: int, num_blocks: int,
                      block_size: int, device):
-    spec = paged_cache_spec(cfg, lanes, num_blocks, block_size)
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for k, s in spec.items()}
+    return L.zeros_tree(paged_cache_spec(cfg, lanes, num_blocks, block_size),
+                        device)
 
 
 def reset_paged_lane(cfg: ModelConfig, cache, lane_index: int):
@@ -349,11 +384,10 @@ def decode_hidden_paged(params, cfg: ModelConfig, cache, tokens, pos, tables,
     layer's new state is written over the old in place (the serve engine
     never has a prefill and a decode step in flight together)."""
     x = T.embed_tokens(params, cfg, tokens)
-    for li in range(cfg.num_layers):
+    for li, bp in enumerate(L.unstack_layers(params["blocks"])):
         st = {k: v[li] for k, v in cache.items()}
         h = L.rmsnorm(x, params["block_norms"][li], cfg.rms_norm_eps)
-        y, new_st = block_decode(T._layer_params(params["blocks"], li), cfg,
-                                 st, h)
+        y, new_st = block_decode(bp, cfg, st, h)
         if fed is not None:
             new_st = masked_state(fed, new_st, st)
         for k, v in new_st.items():

@@ -1,8 +1,8 @@
 """Uniform model API across families (the entries the train and serve
 paths call) + analytical parameter/FLOP counts.
 
-The dense and ssm families are ported; the others raise
-``NotImplementedError`` naming the family."""
+The dense and ssm families are ported; the others (moe, vlm, hybrid,
+audio) raise ``NotImplementedError`` naming the family."""
 from __future__ import annotations
 
 import math
@@ -37,13 +37,78 @@ def forward(params, cfg, batch):
 
 
 # ---------------------------------------------------------------------------
+# Slot-cache decode (one max_seq row per lane; see serve/kvcache.SlotCache)
+# ---------------------------------------------------------------------------
+
+def decode_step(params, cfg, cache, tokens, pos, fed=None):
+    """``fed`` [B] bool (optional): lanes not fed a real token this call
+    — the ssm family freezes their recurrent state; the dense family
+    ignores it (its KV writes are safe)."""
+    return module_for(cfg).decode_step(params, cfg, cache, tokens, pos, fed)
+
+
+def decode_hidden(params, cfg, cache, tokens, pos, fed=None):
+    """Decode up to the final norm (no unembed)."""
+    return module_for(cfg).decode_hidden(params, cfg, cache, tokens, pos,
+                                         fed)
+
+
+def decode_step_q(qparams, cfg, cache, tokens, pos, fed=None):
+    """``decode_step`` on int8 weights: the tree of ``quantize_tree`` is
+    dequantized to the compute dtype, then decoded — the body of the JAX
+    package's ``serve_step_q`` (``launch/steps.py``)."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.serve.quantization import dequantize_tree
+    params = dequantize_tree(qparams, torch_dtype(cfg.dtype))
+    return decode_step(params, cfg, cache, tokens, pos, fed)
+
+
+def init_cache(cfg, batch, max_seq, device):
+    return module_for(cfg).init_cache(cfg, batch, max_seq, device)
+
+
+def cache_shapes(cfg, batch, max_seq):
+    """The slot cache's leaves as ``meta`` tensors (shapes and dtypes)."""
+    return module_for(cfg).cache_shapes(cfg, batch, max_seq)
+
+
+def reset_cache_lane(cfg, cache, lane_index):
+    """Zero one lane's recurrent state in the slot cache (ssm family) — a
+    recycled slot must not leak its previous occupant's state.  No-op for
+    the dense family (KV rows are position-indexed and overwritten before
+    the mask exposes them)."""
+    m = module_for(cfg)
+    if hasattr(m, "reset_cache_lane"):
+        return m.reset_cache_lane(cfg, cache, lane_index)
+    return cache
+
+
+# ---------------------------------------------------------------------------
 # Analytical counts (model FLOPs)
 # ---------------------------------------------------------------------------
 
-def param_count(cfg: ModelConfig) -> int:
+def _spec_leaves_with_path(cfg):
     from repro_torch.models.layers import tree_leaves
+    return [("/".join(path), spec)
+            for path, spec in tree_leaves(module_for(cfg).param_spec(cfg))]
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of ``cfg``'s tree.  ``active_only`` counts the experts a
+    token reaches in the JAX package; no ported family has experts, so
+    here it counts every parameter."""
+    del active_only
     return sum(math.prod(spec.shape)
-               for _, spec in tree_leaves(module_for(cfg).param_spec(cfg)))
+               for _, spec in _spec_leaves_with_path(cfg))
+
+
+def non_embedding_param_count(cfg: ModelConfig,
+                              active_only: bool = False) -> int:
+    """``param_count`` without the embedding and the untied ``lm_head``."""
+    del active_only
+    return sum(math.prod(spec.shape)
+               for path, spec in _spec_leaves_with_path(cfg)
+               if "embed" not in path.split("/")[-1] and "lm_head" not in path)
 
 
 def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,

@@ -1,12 +1,16 @@
-"""Decoder-only transformer LM, dense GQA family (qwen2-0.5b, smollm-360m):
-the training forward, the loss and the paged decode path of the JAX
-package's ``models/transformer.py``.
+"""Decoder-only transformer LM, dense GQA family (qwen2-0.5b, qwen2.5-3b,
+smollm-360m, llama3-405b): the JAX package's ``models/transformer.py``
+without its MoE and vision parts — the training forward under every
+checkpoint policy, the plain and the vocab-chunked loss, head padding,
+and decode on the slot cache and on the paged pool, with K/V in the
+compute dtype or in int8 with per-position scales.
 
 Layers are stacked on a leading ``layers`` axis, as in the JAX package,
 and run by a Python loop over the layer index where the JAX package uses
-``jax.lax.scan``.  ``cfg.remat_policy="full"`` checkpoints each layer
-(``torch.utils.checkpoint``, non-reentrant) where the JAX package wraps
-the scanned body in ``jax.checkpoint``.
+``jax.lax.scan``.  ``cfg.remat_policy`` checkpoints with
+``torch.utils.checkpoint`` (non-reentrant) where the JAX package uses
+``jax.checkpoint`` (``layers.checkpoint``).  The caches are updated in
+place where the JAX package returns new ones.
 """
 from __future__ import annotations
 
@@ -18,13 +22,10 @@ from repro_torch.models import layers as L
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.pad_heads_to:
+    if cfg.family != "dense" or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family without head padding is "
-            f"ported (family={cfg.family!r})")
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported")
+            f"{cfg.name}: only the dense family is ported "
+            f"(family={cfg.family!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -95,34 +96,50 @@ def unembed(params, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 
 def _remat(fn, cfg: ModelConfig):
-    """``fn`` as the layer's checkpoint policy runs it.  "full" keeps only
-    the layer's inputs and recomputes its forward in the backward (every
-    kernel of the layer launches again there); it applies only while
-    autograd records."""
-    if cfg.remat_policy == "none":
+    """``fn`` (a whole layer) as the checkpoint policy runs it: "full"
+    keeps only the layer's inputs and recomputes its forward in the
+    backward, "dots" keeps the matrix products' outputs too; "none",
+    "subblock" and "attn_only" run it as it is ("subblock" and
+    "attn_only" checkpoint inside the layer, ``_layer_fwd``)."""
+    if cfg.remat_policy in ("none", "subblock", "attn_only"):
         return fn
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (only 'none' "
-            f"and 'full')")
-
-    def checkpointed(*args):
-        if not torch.is_grad_enabled():
-            return fn(*args)
-        # the layer draws no random numbers: no RNG state to stash
-        return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
-
-    return checkpointed
+    dots = cfg.remat_policy == "dots"
+    return lambda *args: L.checkpoint(fn, *args, dots=dots)
 
 
 def _layer_fwd(cfg: ModelConfig, x, lp, positions):
+    if cfg.remat_policy == "subblock":
+        return _layer_fwd_subblock(cfg, x, lp, positions)
     h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
     q, k, v = L.attn_qkv(lp["attn"], h, positions, cfg)
-    o = L.attention_dispatch(cfg, q, k, v, causal=True)
+    if cfg.remat_policy == "attn_only":
+        # recompute only the attention in the backward: the projections
+        # and the MLP keep their residuals
+        o = L.checkpoint(lambda q_, k_, v_: L.attention_dispatch(
+            cfg, q_, k_, v_, causal=True), q, k, v)
+    else:
+        o = L.attention_dispatch(cfg, q, k, v, causal=True)
     x = x + L.attn_out(lp["attn"], o)
     h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
     return x + L.mlp_apply(lp["mlp"], h)
+
+
+def _layer_fwd_subblock(cfg: ModelConfig, x, lp, positions):
+    """Checkpoint the projection and MLP sub-blocks but not the attention,
+    which keeps its residuals and is not run again in the backward."""
+    def qkv_fn(x_, lp_):
+        h = L.rmsnorm(x_, lp_["ln1"], cfg.rms_norm_eps)
+        return L.attn_qkv(lp_["attn"], h, positions, cfg)
+
+    q, k, v = L.checkpoint(qkv_fn, x, lp)
+    o = L.attention_dispatch(cfg, q, k, v, causal=True)
+
+    def rest_fn(x_, o_, lp_):
+        x_ = x_ + L.attn_out(lp_["attn"], o_)
+        h = L.rmsnorm(x_, lp_["ln2"], cfg.rms_norm_eps)
+        return x_ + L.mlp_apply(lp_["mlp"], h)
+
+    return L.checkpoint(rest_fn, x, o, lp)
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens):
@@ -132,8 +149,8 @@ def forward_hidden(params, cfg: ModelConfig, tokens):
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = _remat(lambda x_, lp_: _layer_fwd(cfg, x_, lp_, positions), cfg)
-    for li in range(cfg.num_layers):
-        x = body(x, _layer_params(params["layers"], li))
+    for lp in L.unstack_layers(params["layers"]):
+        x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
@@ -145,78 +162,115 @@ def forward(params, cfg: ModelConfig, tokens):
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Mean next-token cross entropy on the plain path (f32 logits
-    [B, S, V]); returns (loss, {"nll", "aux"})."""
-    from repro_torch.train.losses import plain_xent
-    if cfg.loss_impl != "plain":
-        raise NotImplementedError(
-            f"loss_impl={cfg.loss_impl!r} is not ported (only 'plain')")
+    """Mean next-token cross entropy; returns (loss, {"nll", "aux"}).
+    ``cfg.loss_impl="chunked_vocab"`` without a logit softcap goes through
+    ``chunked_vocab_xent`` over the unembedding table (``embed`` when
+    tied, ``lm_head`` read transposed when not) and never builds the
+    [B, S, V] logits; every other case is the plain f32 logits path, as
+    in the JAX ``loss_fn``."""
+    from repro_torch.train.losses import chunked_vocab_xent, plain_xent
+    labels = batch["labels"]
+    if cfg.loss_impl == "chunked_vocab" and not cfg.logit_softcap:
+        x, aux = forward_hidden(params, cfg, batch["tokens"])
+        if cfg.tie_embeddings:
+            nll = chunked_vocab_xent(x, params["embed"], labels,
+                                     cfg.loss_vocab_chunk, False)
+        else:
+            nll = chunked_vocab_xent(x, params["lm_head"], labels,
+                                     cfg.loss_vocab_chunk, True)
+        return nll + aux, {"nll": nll, "aux": aux}
     logits, aux = forward(params, cfg, batch["tokens"])
-    nll = plain_xent(logits, batch["labels"])
+    nll = plain_xent(logits, labels)
     return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
-# Paged KV cache + decode (block-table-indexed attention)
+# KV caches + decode
 # ---------------------------------------------------------------------------
 #
-# A shared pool of fixed-size blocks [num_blocks, block_size] per layer;
-# each decode lane carries a block *table* [max_blocks] of physical pool
-# indices.  Per step the new token's K/V is written at (table[pos//bs],
-# pos%bs) and attention runs over the table-gathered view
-# [B, max_blocks*block_size, KVH, hd] through the flash_decode kernel with
-# lengths = pos + 1: positions past pos are masked, so stale bytes in
-# recycled blocks (and the shared scratch block 0 behind unallocated table
+# Two layouts of the same K/V.  The slot cache holds one max_seq row per
+# lane, [NL, B, max_seq, KVH, hd].  The paged pool holds fixed-size
+# blocks, [NL, num_blocks, block_size, KVH, hd], and each lane carries a
+# block *table* [max_blocks] of physical block indices: the new token's
+# K/V is written at (table[pos//bs], pos%bs) and attention runs over the
+# table-gathered view [B, max_blocks*block_size, KVH, hd].  Either way
+# attention reads entries 0..pos of a lane (flash_decode with lengths =
+# pos + 1): positions past pos are masked, so stale bytes in recycled
+# blocks (and the shared scratch block 0 behind unallocated table
 # entries) are unreachable.
+#
+# ``kv_cache_dtype="int8"`` stores K/V as int8 with one f32 scale per
+# (position, KV head), ``k_scale``/``v_scale`` [..., KVH, 1], written like
+# the values; attention reads them dequantized to the compute dtype.
 
 PAGED_HAS_BLOCKS = True     # per-position KV: sequences occupy pool blocks
+
+
+def _kv_spec(cfg: ModelConfig, lead: tuple, lead_axes: tuple):
+    NL = cfg.num_layers
+    _, KVH = L.padded_heads(cfg)
+    hd = cfg.resolved_head_dim()
+    axes = ("layers",) + lead_axes + ("act_kv_heads", "head_dim")
+    shape = (NL,) + lead + (KVH, hd)
+    if cfg.kv_cache_dtype == "int8":
+        s_axes = axes[:-1] + (None,)
+        s_shape = shape[:-1] + (1,)
+        return {
+            "k": L.PSpec(shape, axes, init="zeros", dtype=torch.int8),
+            "v": L.PSpec(shape, axes, init="zeros", dtype=torch.int8),
+            "k_scale": L.PSpec(s_shape, s_axes, init="zeros",
+                               dtype=torch.float32),
+            "v_scale": L.PSpec(s_shape, s_axes, init="zeros",
+                               dtype=torch.float32),
+        }
+    dt = L.torch_dtype(cfg.dtype)
+    return {"k": L.PSpec(shape, axes, init="zeros", dtype=dt),
+            "v": L.PSpec(shape, axes, init="zeros", dtype=dt)}
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
+    """The slot cache: [NL, batch, max_seq, KVH, hd] per leaf.  KVH is the
+    padded head count (the JAX package sizes it from ``num_kv_heads``,
+    so its decode under a padding that changes KVH fails on a shape)."""
+    _check_ported(cfg)
+    return _kv_spec(cfg, (batch, max_seq), ("cache_batch", "cache_seq"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    return L.zeros_tree(cache_spec(cfg, batch, max_seq), device)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
+    return L.shapes_tree(cache_spec(cfg, batch, max_seq))
 
 
 def paged_cache_spec(cfg: ModelConfig, lanes: int, num_blocks: int,
                      block_size: int):
     _check_ported(cfg)
-    NL, KVH = cfg.num_layers, cfg.num_kv_heads
-    hd = cfg.resolved_head_dim()
-    axes = ("layers", None, "cache_seq", "act_kv_heads", "head_dim")
-    shape = (NL, num_blocks, block_size, KVH, hd)
-    dt = L.torch_dtype(cfg.dtype)
-    return {
-        "k": L.PSpec(shape, axes, init="zeros", dtype=dt),
-        "v": L.PSpec(shape, axes, init="zeros", dtype=dt),
-    }
+    return _kv_spec(cfg, (num_blocks, block_size), (None, "cache_seq"))
 
 
 def init_paged_cache(cfg: ModelConfig, lanes: int, num_blocks: int,
                      block_size: int, device):
-    spec = paged_cache_spec(cfg, lanes, num_blocks, block_size)
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for k, s in spec.items()}
+    return L.zeros_tree(paged_cache_spec(cfg, lanes, num_blocks, block_size),
+                        device)
 
 
 def reset_paged_lane(cfg: ModelConfig, cache, lane_index: int):
-    # nothing lane-indexed to clear: blocks are overwritten before the
-    # masked attention can reach them
+    # nothing lane-indexed to clear, scales included: blocks are
+    # overwritten before the masked attention can reach them
     return cache
 
 
-def paged_scatter(kc, vc, k_new, v_new, tables, pos):
-    """Write one token's K/V [B, KVH, hd] into the pool at
-    (table[pos//bs], pos%bs), IN PLACE (the JAX version is functional).
-
-    In place is safe because the serve engine never has a prefill and a
-    decode step in flight together (``_prefill_active`` and
-    ``_decode_inflight`` exclude each other), a failed prefill or step
-    frees the blocks it wrote, and masked positions are unreachable.
-    Lanes whose table entry is the scratch block (idle lanes) land at
-    physical block 0 — never gathered by a live table, so the duplicate
-    writes are harmless."""
-    B = k_new.shape[0]
-    bs = kc.shape[1]
-    phys = tables[torch.arange(B, device=tables.device), pos // bs]
-    off = pos % bs
-    kc[phys, off] = k_new
-    vc[phys, off] = v_new
-    return kc, vc
+def _quantize_kv(t):
+    """t: [B,KVH,hd] -> (int8 [B,KVH,hd], f32 scale [B,KVH,1]): max|t|/127
+    per (lane, head), then t / scale rounded half to even, as the JAX
+    ``_quantize_kv``."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-12)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _paged_view(pool, tables):
@@ -227,25 +281,61 @@ def _paged_view(pool, tables):
     return v.reshape((B, nb * v.shape[2]) + tuple(v.shape[3:]))
 
 
-def _layer_decode_paged(cfg: ModelConfig, x, lp, kc, vc, pos, tables):
-    """One decoded token through one layer against the paged pool.
-    x: [B,1,D]; kc/vc: [num_blocks, bs, KVH, hd]; tables: [B, max_blocks]."""
-    h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
-    q, k_new, v_new = L.attn_qkv(lp["attn"], h, pos[:, None], cfg)
-    kc, vc = paged_scatter(kc, vc, k_new[:, 0], v_new[:, 0], tables, pos)
-    k_use = _paged_view(kc, tables)
-    v_use = _paged_view(vc, tables)
-    o = L.decode_attention(q, k_use, v_use, pos, logit_cap=cfg.logit_softcap)
-    x = x + L.attn_out(lp["attn"], o)
-    h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
-    y = L.mlp_apply(lp["mlp"], h)
-    return x + y, kc, vc
+def _decode_hidden(params, cfg: ModelConfig, cache, tokens, pos, write, view):
+    """One decoded token through every layer and the final norm.  Per
+    layer ``write(pool, new)`` stores the token's K/V [B, KVH, hd] (or its
+    int8 values and scales) IN PLACE in that layer's cache leaf, and
+    ``view(pool)`` gives the [B, S, KVH, ...] the attention reads.
+
+    In place is safe because the serve engine never has a prefill and a
+    decode step in flight together (``_prefill_active`` and
+    ``_decode_inflight`` exclude each other), a failed prefill or step
+    frees the blocks it wrote, and masked positions are unreachable."""
+    x = embed_tokens(params, cfg, tokens)
+    int8 = cfg.kv_cache_dtype == "int8"
+    dt = L.torch_dtype(cfg.dtype)
+    for li, lp in enumerate(L.unstack_layers(params["layers"])):
+        c = {k: v[li] for k, v in cache.items()}
+        h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
+        q, k_new, v_new = L.attn_qkv(lp["attn"], h, pos[:, None], cfg)
+        kv = []
+        for name, new in (("k", k_new[:, 0]), ("v", v_new[:, 0])):
+            if int8:
+                vals, scale = _quantize_kv(new)
+                write(c[name], vals)
+                write(c[name + "_scale"], scale)
+                kv.append((view(c[name]).float()
+                           * view(c[name + "_scale"])).to(dt))
+            else:
+                write(c[name], new)
+                kv.append(view(c[name]))
+        o = L.decode_attention(q, kv[0], kv[1], pos,
+                               logit_cap=cfg.logit_softcap)
+        x = x + L.attn_out(lp["attn"], o)
+        h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], h)
+    return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
-def _layer_params(tree, li: int):
-    if isinstance(tree, dict):
-        return {k: _layer_params(v, li) for k, v in tree.items()}
-    return tree[li]
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, fed=None):
+    """tokens [B,1], pos [B] -> (logits [B,1,V] f32, cache) on the slot
+    cache, updated in place and returned.  ``fed`` is unused: a lane's KV
+    write lands at its own ``pos`` and is overwritten before the mask
+    can expose it."""
+    x, cache = decode_hidden(params, cfg, cache, tokens, pos, fed)
+    return unembed(params, cfg, x), cache
+
+
+def decode_hidden(params, cfg: ModelConfig, cache, tokens, pos, fed=None):
+    """Slot-cache decode step up to (and including) the final norm."""
+    del fed
+    rows = torch.arange(tokens.shape[0], device=pos.device)
+
+    def write(pool, new):
+        pool[rows, pos] = new
+
+    return _decode_hidden(params, cfg, cache, tokens, pos, write,
+                          lambda pool: pool), cache
 
 
 def decode_step_paged(params, cfg: ModelConfig, cache, tokens, pos, tables,
@@ -261,12 +351,16 @@ def decode_step_paged(params, cfg: ModelConfig, cache, tokens, pos, tables,
 
 def decode_hidden_paged(params, cfg: ModelConfig, cache, tokens, pos, tables,
                         fed=None):
-    """Paged decode step up to (and including) the final norm."""
+    """Paged decode step up to (and including) the final norm.  Lanes
+    whose table entry is the scratch block (idle lanes) write to physical
+    block 0, which no live table gathers."""
     del fed
-    x = embed_tokens(params, cfg, tokens)
-    for li in range(cfg.num_layers):
-        lp = _layer_params(params["layers"], li)
-        x, _, _ = _layer_decode_paged(cfg, x, lp, cache["k"][li],
-                                      cache["v"][li], pos, tables)
-    x = L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
-    return x, cache
+    rows = torch.arange(tokens.shape[0], device=tables.device)
+    bs = next(iter(cache.values())).shape[2]
+    phys, off = tables[rows, pos // bs], pos % bs
+
+    def write(pool, new):
+        pool[phys, off] = new
+
+    return _decode_hidden(params, cfg, cache, tokens, pos, write,
+                          lambda pool: _paged_view(pool, tables)), cache

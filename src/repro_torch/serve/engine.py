@@ -202,12 +202,24 @@ class ServeEngine:
                  executor: Optional[ProgressExecutor] = None,
                  continuation_policy: str = DEFERRED,
                  continuation_max_drain: int = 64,
+                 cache_mode: str = "paged",
                  kv_block_size: int = 16,
                  kv_blocks: int | None = None,
                  prefill_chunk: int = 8,
                  device=None):
         if continuation_policy not in POLICIES:
             raise ValueError(f"continuation_policy must be one of {POLICIES}")
+        if cache_mode == "slots":
+            raise ValueError(
+                "cache_mode='slots' was retired, as in the JAX engine: "
+                "the engine serves from the paged pool only (paged is "
+                "strictly more capable — same bytes, block granularity; "
+                "SlotCache and registry.decode_step remain for direct "
+                "use).  Drop the kwarg, or size the pool with "
+                "kv_block_size/kv_blocks to mimic fixed lanes "
+                "(kv_blocks = batch_slots * max_seq // kv_block_size + 1)")
+        if cache_mode != "paged":
+            raise ValueError("cache_mode must be 'paged'")
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")

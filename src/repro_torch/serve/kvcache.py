@@ -1,10 +1,14 @@
-"""Paged KV cache for the serving engine: a fixed pool of fixed-size KV
-*blocks* plus a free-list ``BlockAllocator``.
+"""KV cache backends: fixed slots and paged blocks.
 
-A request owns only the blocks its sequence actually touches (its *block
-table* maps logical block k to a physical pool index), so the same bytes
-admit far more concurrent requests than fixed ``max_seq`` rows; the serve
-engine preempts under block pressure instead of rejecting at admission.
+* ``SlotCache`` — the fixed-slot baseline: B monolithic rows of the
+  model cache, one request per row (``registry.decode_step``).  Memory
+  for a request is ``max_seq`` positions whatever its length.
+* ``PagedKVCache`` — the serving engine's: a fixed pool of fixed-size KV
+  *blocks* plus a free-list ``BlockAllocator``.  A request owns only the
+  blocks its sequence actually touches (its *block table* maps logical
+  block k to a physical pool index), so the same bytes admit far more
+  concurrent requests than fixed ``max_seq`` rows; the serve engine
+  preempts under block pressure instead of rejecting at admission.
 
 Physical block 0 is reserved as a scratch block: idle decode lanes point
 their whole table at it, so the fused decode step's unconditional
@@ -38,6 +42,79 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class Slot:
+    index: int
+    request_id: Optional[str] = None
+    pos: int = 0              # next write position == #valid tokens
+    done: bool = True
+
+
+class SlotCache:
+    """Fixed-slot cache: one monolithic ``max_seq`` row per request.
+
+    Free slots are tracked in a min-heap (``assign`` is O(log B)) and
+    live request ids in a dict, so assigning an id that is already
+    resident raises instead of silently occupying two slots with the
+    same stream.
+    """
+
+    def __init__(self, cfg, batch_slots: int, max_seq: int, device=None):
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self.cache = registry.init_cache(cfg, batch_slots, max_seq,
+                                         self.device)
+        self.slots = [Slot(i) for i in range(batch_slots)]
+        self._free_heap = list(range(batch_slots))   # already sorted
+        self._by_request: dict[str, Slot] = {}
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free_heap)
+
+    def free_slots(self) -> list[Slot]:
+        return [self.slots[i] for i in sorted(self._free_heap)]
+
+    def assign(self, request_id: str) -> Optional[Slot]:
+        if request_id in self._by_request:
+            raise ValueError(
+                f"request_id {request_id!r} is already assigned to slot "
+                f"{self._by_request[request_id].index}")
+        if not self._free_heap:
+            return None
+        slot = self.slots[heapq.heappop(self._free_heap)]
+        slot.request_id = request_id
+        slot.pos = 0
+        slot.done = False
+        self._by_request[request_id] = slot
+        return slot
+
+    def release(self, slot: Slot) -> None:
+        if slot.request_id is not None:
+            self._by_request.pop(slot.request_id, None)
+        slot.request_id = None
+        slot.done = True
+        slot.pos = 0
+        heapq.heappush(self._free_heap, slot.index)
+
+    def positions(self) -> torch.Tensor:
+        """Each slot's next write position, [B] int32 on the device."""
+        return to_device(np.array([s.pos for s in self.slots], np.int32),
+                         self.device)
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([not s.done for s in self.slots])
+
+    def active_count(self) -> int:
+        return len(self.slots) - len(self._free_heap)
+
+    def reset_lane(self, cache, slot_index: int):
+        """Zero a slot's recurrent state (ssm family) before it serves a
+        new request; nothing for the dense family."""
+        return registry.reset_cache_lane(self.cfg, cache, slot_index)
 
 
 class BlockAllocationError(RuntimeError):

@@ -60,6 +60,7 @@ def test_rmsnorm_kernel_matches_plain(cuda, N, D, dtype):
     (2, 100, 6, 3, 36),        # bf16 rows of 72 bytes: the scalar-load path
     (64, 256, 16, 4, 64),      # B*KVH alone fills the card: one split
     (2, 300, 16, 1, 128),      # G=16, hd=128
+    (8, 1024, 16, 2, 128),     # qwen2.5-3b serve shape (G=8, hd=128)
     (1, 40000, 8, 1, 64),      # splits of three key tiles each
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -127,6 +128,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, N, D, dtype):
     (2, 1024, 1024, 15, 5, 64),    # smollm-360m heads (G=3)
     (1, 256, 512, 6, 3, 64),       # GQA, Sk > Sq
     (2, 128, 128, 8, 2, 128),      # hd=128
+    (2, 1024, 1024, 16, 2, 128),   # qwen2.5-3b heads (G=8, hd=128)
     (1, 384, 384, 3, 1, 64),       # MQA, odd head count
     (1, 1000, 1000, 6, 3, 64),     # ragged: not a multiple of the tiles
     (2, 37, 101, 4, 2, 32),        # ragged, Sk > Sq, hd=32

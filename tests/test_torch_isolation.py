@@ -22,6 +22,11 @@ TRAIN_SLICE = ["repro_torch.train.train_loop", "repro_torch.train.optimizer",
 # the mamba2 slice's modules, likewise
 MAMBA_SLICE = ["repro_torch.models.mamba", "repro_torch.kernels.ssd_scan",
                "repro_torch.configs.mamba2_1_3b"]
+# the options slice's modules (events, task classes, configs, int8 weights)
+OPTIONS_SLICE = ["repro_torch.core.events", "repro_torch.core.task_class",
+                 "repro_torch.configs.shapes", "repro_torch.configs.qwen2_5_3b",
+                 "repro_torch.configs.llama3_405b",
+                 "repro_torch.serve.quantization"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -47,7 +52,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert int(lines["MODULES"]) >= 30          # every submodule was imported
     assert lines["BAD"] == "[]"
     loaded = lines["LOADED"]
-    assert all(f"'{m}'" in loaded for m in TRAIN_SLICE + MAMBA_SLICE), loaded
+    assert all(f"'{m}'" in loaded
+               for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE), loaded
 
 
 def _imported(path: Path) -> list[str]:
@@ -64,7 +70,7 @@ def test_no_jax_or_repro_import_in_the_sources():
     assert len(SOURCES) >= 30
     scanned = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                for p in SOURCES if PORT in p.parents}
-    assert set(TRAIN_SLICE + MAMBA_SLICE) <= scanned
+    assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE) <= scanned
     for path in SOURCES:
         for name in _imported(path):
             top = name.split(".")[0]

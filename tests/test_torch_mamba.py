@@ -166,9 +166,11 @@ def test_loss_impl_is_plain_xent_as_jax():
 
 
 def test_unported_training_options_raise():
+    """The hybrid family still raises; "dots" is ported
+    (tests/test_torch_options.py)."""
     _, _, cfg, params, batch = _train_setup("none", 8)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for over in (dict(remat_policy="dots"), dict(family="hybrid")):
+    for over in (dict(family="hybrid"),):
         with pytest.raises(NotImplementedError):
             with torch.enable_grad():
                 registry.loss_fn(params, cfg.with_overrides(**over), tbatch)
