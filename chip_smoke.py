@@ -49,7 +49,25 @@ Phases; any failure raises and the script exits non-zero:
              CPU (plain versions); then the event and task classes on
              the card (``TaskQueue``, ``TaskGraph``, ``CompletionWatcher``
              and ``EventQueue`` over CUDA events, driven by the engine,
-             no poll synchronizing).
+             no poll synchronizing);
+8. collectives — the user-space collectives (``repro_torch.collectives``)
+             on the card: every op × algorithm at 2, 3, 4 and 8 ranks,
+             chunks 1 and 4, round batch 1 and auto, one-shot and
+             persistent; int32 bit for bit against the plain reference,
+             f32 and bf16 bit for bit against the same schedule on the
+             CPU, no synchronize; compressed_allreduce, a P2P channel
+             and a persistent allreduce restarted 20 times (no new
+             allocation); the polls that found a round pending; then a
+             256 MiB ring allreduce beside a chain of bf16 GEMMs, each
+             stream's busy time and their overlap (printed);
+9. train_dp — the train launcher data-parallel at full smollm-360m
+             width: 4 ranks on the card (``--devices 4 --collective-backend
+             user``, ring, 4 chunks, 32 MiB buckets), 6 steps of 8 x 1024
+             tokens under the Trainer, launch counts, the checkpoint
+             restored equal, the losses within a stated tolerance of the
+             single-card run's; one step's time, the reducer's device
+             time and its overlap; step 0's reduced gradient against the
+             single-card gradient (full width bf16, and two layers f32).
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -816,28 +834,7 @@ def train(workers: int, arch: str = TRAIN_ARCH):
             raise AssertionError(f"peak device memory {peak / 2**30:.2f} GiB "
                                  f"is within 10% of the card's "
                                  f"{total / 2**30:.2f} GiB")
-        latest = tr.ckpt.latest_step()
-        if latest != TRAIN_STEPS - 1:
-            raise AssertionError(f"last committed checkpoint {latest}")
-        state = {"params": tr.params, "opt_state": tr.opt_state}
-        t0 = time.perf_counter()
-        back = tr.ckpt.restore(latest, state, device="cuda")
-        restore_s = time.perf_counter() - t0
-        diff = [p for (p, a), (_, b) in zip(tree_leaves(back["params"]),
-                                            tree_leaves(tr.params))
-                if not torch.equal(a, b)]
-        for name in ("mu", "nu"):
-            diff += [(name, p) for (p, a), (_, b) in zip(
-                tree_leaves(getattr(back["opt_state"], name)),
-                tree_leaves(getattr(tr.opt_state, name)))
-                if not torch.equal(a, b)]
-        if diff or not torch.equal(back["opt_state"].step,
-                                   tr.opt_state.step):
-            raise AssertionError(f"checkpoint restores other values: {diff}")
-        del back, state
-        ckpt_text = (f"checkpoint of step {latest} committed "
-                     f"{tr.ckpt.last_save_s:.3f} s after save_async and "
-                     f"restored equal in {restore_s:.3f} s")
+        ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1)
         steps_s = [m["step_time_s"] for m in report.log[1:]]
         mean_s = sum(steps_s) / len(steps_s)
         tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -854,6 +851,32 @@ def train(workers: int, arch: str = TRAIN_ARCH):
         return launches, report
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def checkpoint_check(tr, last: int) -> str:
+    """The Trainer's final async checkpoint must be step ``last`` and
+    restore to the same tensors; returns the line that says so."""
+    from repro_torch.models.layers import tree_leaves
+    latest = tr.ckpt.latest_step()
+    if latest != last:
+        raise AssertionError(f"last committed checkpoint {latest}")
+    state = {"params": tr.params, "opt_state": tr.opt_state}
+    t0 = time.perf_counter()
+    back = tr.ckpt.restore(latest, state, device="cuda")
+    restore_s = time.perf_counter() - t0
+    diff = [p for (p, a), (_, b) in zip(tree_leaves(back["params"]),
+                                        tree_leaves(tr.params))
+            if not torch.equal(a, b)]
+    for name in ("mu", "nu"):
+        diff += [(name, p) for (p, a), (_, b) in zip(
+            tree_leaves(getattr(back["opt_state"], name)),
+            tree_leaves(getattr(tr.opt_state, name)))
+            if not torch.equal(a, b)]
+    if diff or not torch.equal(back["opt_state"].step, tr.opt_state.step):
+        raise AssertionError(f"checkpoint restores other values: {diff}")
+    return (f"checkpoint of step {latest} committed "
+            f"{tr.ckpt.last_save_s:.3f} s after save_async and restored "
+            f"equal in {restore_s:.3f} s")
 
 
 def train_time_breakdown(report, steps: int = 3) -> None:
@@ -1425,22 +1448,12 @@ def events_check(launches: int = 6) -> None:
     for r in (*qreqs, ga, gb, gc, gd):
         w.watch(r, lambda r_: evq.emit(r_.value()))
 
-    def refuse(*_a, **_k):
-        raise AssertionError("a poll synchronized")
-
-    saved = (torch.cuda.synchronize, torch.cuda.Event.synchronize,
-             torch.cuda.Stream.synchronize)
-    torch.cuda.synchronize = torch.cuda.Event.synchronize = \
-        torch.cuda.Stream.synchronize = refuse
     sweeps, deadline = 0, time.perf_counter() + 60
-    try:
+    with no_sync():
         while (q.pending or g.pending or w.pending) and \
                 time.perf_counter() < deadline:
             eng.progress()
             sweeps += 1
-    finally:
-        (torch.cuda.synchronize, torch.cuda.Event.synchronize,
-         torch.cuda.Stream.synchronize) = saved
     order = evq.drain()
     if q.pending or g.pending or w.pending:
         raise AssertionError("the tasks did not complete within 60 s")
@@ -1462,6 +1475,460 @@ def events_check(launches: int = 6) -> None:
         f"synchronized; completion order {order}; queue polls "
         f"{polls['queue']} (head only), graph polls {polls['graph']}")
     del outs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the user-space collectives on the card
+# ---------------------------------------------------------------------------
+
+COLL_NS = (2, 3, 4, 8)
+COLL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+COLL_CHUNKS = (1, 4)
+COLL_BATCHES = (1, None)            # per-round dispatch, and auto
+
+
+def coll_cases(n: int) -> list:
+    """(op, algorithm, global payload shape) of the collectives phase at
+    n ranks: every allreduce schedule (n = 3 falls back to ring for the
+    power-of-two ones), ring and halving/doubling reduce-scatter and
+    all-gather, Bruck all-to-all."""
+    from repro_torch.collectives import schedules as S
+    cases = [("allreduce", a, (n * 2, 3, 1000)) for a in S.ALGORITHMS]
+    cases += [(op, a, shape) for op, shape in
+              (("reduce_scatter", (n * 2, 2, n * 64)),
+               ("allgather", (n * 2, 2, 96)))
+              for a in ("ring", "halving_doubling")]
+    cases.append(("alltoall", "bruck", (n * n, 96)))
+    return cases
+
+
+def plain_collective(op: str, x: torch.Tensor, n: int) -> torch.Tensor:
+    """The plain reference of an int32 collective: the stacked sum, a
+    slice of it, the concatenation, the block transpose."""
+    v = x.unflatten(0, (n, -1))
+    if op == "allreduce":
+        return v.sum(0, keepdim=True, dtype=x.dtype).expand_as(v).flatten(0, 1)
+    if op == "reduce_scatter":
+        s = v.sum(0, dtype=x.dtype)
+        w = s.shape[-1] // n
+        return torch.stack([s[..., r * w:(r + 1) * w]
+                            for r in range(n)]).flatten(0, 1)
+    if op == "allgather":
+        g = torch.cat(list(v), dim=-1)
+        return g.expand((n,) + tuple(g.shape)).flatten(0, 1)
+    return v.transpose(0, 1).flatten(0, 1)
+
+
+def run_collective(coll, op, alg, x, mesh, chunks, batch, persistent):
+    """One collective through the one-shot op or a persistent handle."""
+    import warnings
+    kw = dict(chunks=chunks, round_batch=batch)
+    if op != "alltoall":
+        kw["algorithm"] = alg
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the n = 3 ring fallbacks
+        if persistent:
+            h = getattr(coll, op + "_init")(x, mesh, "x", **kw)
+            out = h.start(x).wait(timeout=120)
+            h.close()
+            return out
+        return getattr(coll, "i" + op)(x, mesh, "x", **kw).wait(timeout=120)
+
+
+class no_sync:
+    """Every synchronize raises inside the block: the engine polls CUDA
+    events there, it never blocks on them."""
+
+    def __enter__(self):
+        self.saved = (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+                      torch.cuda.Stream.synchronize)
+
+        def refuse(*_a, **_k):
+            raise AssertionError("a poll synchronized the card")
+
+        torch.cuda.synchronize = torch.cuda.Event.synchronize = \
+            torch.cuda.Stream.synchronize = refuse
+
+    def __exit__(self, *exc):
+        (torch.cuda.synchronize, torch.cuda.Event.synchronize,
+         torch.cuda.Stream.synchronize) = self.saved
+
+
+def collectives_phase() -> dict:
+    """Every op × algorithm at n ∈ {2, 3, 4, 8} ranks on the card, chunks
+    {1, 4}, round batch {1, auto}, one-shot and persistent: int32 bit for
+    bit against the plain reference, f32 and bf16 bit for bit against the
+    same schedule on the CPU.  Then compressed_allreduce against its CPU
+    run, a P2P channel restarted 20 times, and a persistent allreduce
+    restarted 20 times with no new allocation.  Returns the count of
+    polls that found a round still running."""
+    from repro_torch.collectives import compression as C
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.collectives.p2p import P2P
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    eng = ProgressEngine()
+    coll, host = NB.UserCollectives(eng), NB.UserCollectives(ProgressEngine())
+    gen = torch.Generator().manual_seed(11)
+    runs, t0 = 0, time.perf_counter()
+    for n in COLL_NS:
+        mesh, cmesh = make_mesh((n,), ("x",), "cuda"), \
+            make_mesh((n,), ("x",), "cpu")
+        for op, alg, shape in coll_cases(n):
+            for dt in COLL_DTYPES:
+                if dt == torch.int32:
+                    xc = torch.randint(-8, 8, shape, generator=gen,
+                                       dtype=torch.int32)
+                else:
+                    xc = torch.randn(shape, generator=gen).to(dt)
+                x = xc.cuda()
+                for chunks, batch, persistent in itertools.product(
+                        COLL_CHUNKS, COLL_BATCHES, (False, True)):
+                    with no_sync():
+                        got = run_collective(coll, op, alg, x, mesh, chunks,
+                                             batch, persistent)
+                    want = plain_collective(op, xc, n) if dt == torch.int32 \
+                        else run_collective(host, op, alg, xc, cmesh, chunks,
+                                            batch, persistent)
+                    if got.device.type != "cuda" or not torch.equal(
+                            got.cpu(), want):
+                        raise AssertionError(
+                            f"{op}/{alg} n={n} {dt} chunks={chunks} round "
+                            f"batch={batch} persistent={persistent}: the card "
+                            f"differs from the "
+                            + ("plain reference" if dt == torch.int32
+                               else "CPU run"))
+                    runs += 1
+    grid_s = time.perf_counter() - t0
+    # compressed_allreduce, int8 on the wire, against its CPU run
+    xc = torch.randn(4, 8, 3000, generator=gen)
+    got = C.compressed_allreduce(xc.cuda(), 2048).cpu()
+    want = C.compressed_allreduce(xc, 2048)
+    comp_err = float((got - want).abs().max())
+    if comp_err > 1e-6 * float(want.abs().max()):
+        raise AssertionError(f"compressed_allreduce card vs CPU {comp_err}")
+    # a P2P channel restarted 20 times
+    p2p = P2P(eng)
+    mesh4 = make_mesh((4,), ("x",), "cuda")
+    chan = p2p.channel_init(torch.zeros(4, 4096, device="cuda"), mesh4, "x")
+    for i in range(20):
+        x = torch.randn(4, 4096, generator=gen).cuda()
+        with no_sync():
+            chan.send.start(x)
+            got = chan.recv.start().wait(timeout=60)
+        if not torch.equal(got, torch.roll(x, 1, 0)):
+            raise AssertionError(f"p2p channel start {i}: not the hop")
+    p2p.close()
+    # a persistent allreduce restarted 20 times: no new allocation
+    x = torch.randint(-8, 8, (8, 1 << 23), generator=gen,
+                      dtype=torch.int32).cuda()
+    want = plain_collective("allreduce", x, 4)
+    h = coll.allreduce_init(x, mesh4, "x", chunks=4, round_batch=1)
+    mem = []
+    out = None
+    for _ in range(20):
+        with no_sync():
+            out = h.start(x).wait(timeout=60)
+        mem.append(torch.cuda.memory_allocated())
+        if not torch.equal(out, want):
+            raise AssertionError("persistent restart: wrong result")
+    if len(set(mem)) != 1:
+        raise AssertionError(f"persistent restarts allocated: {mem}")
+    h.close()
+    coll.close()
+    host.close()
+    st, pending = coll.stream, coll.pending_polls
+    log(f"collectives: {runs} runs on the card ({len(COLL_NS)} rank counts x "
+        f"9 op/algorithm pairs x 3 dtypes x chunks {COLL_CHUNKS} x round "
+        f"batch {COLL_BATCHES} x one-shot/persistent) in {grid_s:.1f} s, "
+        f"int32 bit for bit against the plain reference, f32 and bf16 bit "
+        f"for bit against the CPU run, no synchronize; compressed_allreduce "
+        f"[4, 8, 3000] card vs CPU max abs diff {comp_err:.3e}; P2P channel "
+        f"restarted 20 times; persistent ring allreduce [8, 8388608] int32 "
+        f"(4 ranks, 4 chunks) restarted 20 times, memory_allocated "
+        f"{mem[0]} B after every start; collective stream: {st.polls} polls, "
+        f"{st.completions} completions; {pending} polls of a round's CUDA "
+        f"event found the round still running")
+    return pending
+
+
+def stream_busy(prof) -> tuple[dict, float, float]:
+    """Per CUDA stream, the busy time in ms (the union of its kernels'
+    intervals) from a profiler run; the time two or more streams were
+    busy at once; the time any stream was busy."""
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+
+    def union(iv):
+        out = []
+        for s, t in sorted(iv):
+            if out and s <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], t)
+            else:
+                out.append([s, t])
+        return out
+
+    merged = {k: union(v) for k, v in spans.items()}
+    busy = {k: sum(t - s for s, t in v) / 1e3 for k, v in merged.items()}
+    edges = sorted([(s, 1) for v in merged.values() for s, _ in v]
+                   + [(t, -1) for v in merged.values() for _, t in v])
+    both, any_busy, depth, last = 0.0, 0.0, 0, None
+    for x, d in edges:
+        if depth >= 2:
+            both += x - last
+        if depth >= 1:
+            any_busy += x - last
+        depth += d
+        last = x
+    return busy, both / 1e3, any_busy / 1e3
+
+
+def overlap_phase() -> int:
+    """A 256 MiB f32 ring allreduce at n = 4 on the collective stream,
+    then a chain of bf16 GEMMs on the compute stream, the engine
+    progressing the rounds between them; the profiler's busy time of each
+    stream and the time both were busy.  Printed, not asserted.  Returns
+    the count of polls that found a round still running."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    coll = NB.UserCollectives(ProgressEngine())
+    mesh = make_mesh((4,), ("x",), "cuda")
+    x = torch.randn(4, 16 << 20, device="cuda")            # 256 MiB
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    # the products' outputs are made up front: a cudaMalloc inside the
+    # chain would synchronize the card
+    outs = torch.empty(24, 8192, 8192, device="cuda", dtype=torch.bfloat16)
+    want = x.sum(0, keepdim=True)
+
+    def run(gemms: int):
+        req = coll.iallreduce(x, mesh, "x", chunks=4, round_batch=1)
+        for i in range(gemms):
+            torch.matmul(a, a, out=outs[i])
+            coll.engine.progress(coll.stream)
+        return req.wait(timeout=120)
+
+    run(2)                                       # warm: carries, cuBLAS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(0)
+    torch.cuda.synchronize()
+    alone = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = run(24)
+        torch.cuda.synchronize()
+    if not torch.allclose(out[:1], want, rtol=1e-5, atol=1e-4):
+        raise AssertionError("overlap allreduce: wrong sum")
+    busy, both, any_busy = stream_busy(prof)
+    roles = stream_roles(prof)
+    coll.close()
+    if len(busy) < 2:
+        log(f"overlap: 256 MiB f32 ring allreduce (4 ranks, 4 chunks) alone "
+            f"{alone:.3f} ms wall; {coll.pending_polls} polls found a round "
+            f"running; device busy per stream not measured (the profiler "
+            f"recorded {len(busy)} stream(s))")
+        return coll.pending_polls
+    coll_ms = sum(v for k, v in busy.items() if roles[k] == "collective")
+    log(f"overlap: 256 MiB f32 ring allreduce (4 ranks, 4 chunks, per-round "
+        f"dispatch) alone {alone:.3f} ms wall; beside 24 bf16 8192^3 GEMMs: "
+        f"device busy (ms) "
+        + ", ".join(f"{roles[k]} stream {v:.3f}" for k, v in busy.items())
+        + f", any stream {any_busy:.3f}; both busy at once {both:.3f} ms"
+        + (f" ({both / coll_ms:.3f} of the collective stream's busy time)"
+           if coll_ms else "")
+        + f"; {coll.pending_polls} polls found a round running")
+    return coll.pending_polls
+
+
+# ---------------------------------------------------------------------------
+# phase 9: data-parallel training on the user-space collectives
+# ---------------------------------------------------------------------------
+
+DP_RANKS, DP_CHUNKS = 4, 4
+DP_LOSS_ATOL = 5e-2          # bf16: the ranks' GEMMs see 2 rows, not 8
+DP_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}   # relative L2
+
+
+def train_dp(single_losses: list):
+    """``launch.train`` data-parallel at full smollm-360m width: 4 ranks
+    on the card, 8 x 1024 tokens (2 sequences a rank), ring, 4 chunks,
+    32 MiB buckets, 6 steps under the Trainer, the last step checkpointed
+    and restored equal; every loss finite and the trajectory within
+    ``DP_LOSS_ATOL`` of the single-card run's."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_dp_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir,
+            "--devices", str(DP_RANKS), "--mesh", f"{DP_RANKS}x1",
+            "--collective-backend", "user", "--collective-algorithm", "ring",
+            "--collective-chunks", str(DP_CHUNKS)])
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        report = train_mod.run(args, log_every=1)
+        launches = dict(_lib.launches)
+        cfg, tr = report.cfg, report.trainer
+        if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+            raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+        want = {k: v * TRAIN_STEPS for k, v in
+                train_mod.kernel_launches_per_step(cfg, DP_RANKS).items()}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        losses = [m["loss"] for m in report.log]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"bad loss trajectory {losses}")
+        diff = max(abs(a - b) for a, b in zip(losses, single_losses))
+        if diff > DP_LOSS_ATOL:
+            raise AssertionError(f"data-parallel losses {losses} vs the "
+                                 f"single card's {single_losses}")
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1)
+        steps_s = [m["step_time_s"] for m in report.log[1:]]
+        mean_s = sum(steps_s) / len(steps_s)
+        issue = tr.reduce_issue_s[1:]
+        red = report.reducer
+        log(f"train_dp {TRAIN_ARCH} ({DP_RANKS} ranks on the card, "
+            f"{red.algorithm}, {red.chunks} chunks, "
+            f"{red.bucket_bytes >> 20} MiB buckets): launches {launches}; "
+            f"losses {[round(v, 6) for v in losses]} (single card "
+            f"{[round(v, 6) for v in single_losses]}, max diff {diff:.3e}, "
+            f"limit {DP_LOSS_ATOL}); mean step {mean_s * 1e3:.3f} ms (steps "
+            f"1-{TRAIN_STEPS - 1}; step 0 "
+            f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; reducer "
+            f"{report.reduce_dispatches} dispatch units a step, host time "
+            f"to issue {sum(issue) / len(issue) * 1e3:.3f} ms a step; "
+            f"{ckpt_text}; peak device memory {peak / 2**30:.2f} GiB")
+        return launches, report
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+
+
+def stream_roles(prof) -> dict:
+    """Stream id -> "compute" (it ran a GEMM) or "collective"."""
+    names: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names.setdefault(e.device_resource_id, set()).add(e.name.lower())
+    return {k: "compute" if any(g in nm for nm in v for g in GEMM_NAMES)
+            else "collective" for k, v in names.items()}
+
+
+def dp_time_breakdown(report, steps: int = 2) -> None:
+    """One data-parallel step's time, on the trained weights and one
+    fixed batch: host wall clock of unprofiled steps; from the profiler
+    the device busy time (any stream) and idle share, the collective
+    stream's busy time (the reducer's device time) and the share of it
+    during which the compute stream was busy too."""
+    from repro_torch.collectives.overlap import EngineGradReducer
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt_mod
+    tr, cfg = report.trainer, report.cfg
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    reducer = EngineGradReducer(make_mesh((DP_RANKS, 1), ("data", "model"),
+                                          "cuda"), "data",
+                                engine=ProgressEngine(), chunks=DP_CHUNKS)
+    grad_fn = train_mod.make_rank_grads(cfg, DP_RANKS)
+    batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+    state = {"p": tr.params, "o": tr.opt_state}
+
+    def run(k=steps):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            _, g = grad_fn(state["p"], batch)
+            reduction = reducer.iallreduce_tree(g)
+            del g
+            grads = reduction.wait(timeout=600)
+            state["p"], state["o"], _ = opt_mod.apply(ocfg, state["o"],
+                                                      state["p"], grads)
+            del grads
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(1)
+    wall = run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    reducer.close()
+    busy, both, any_busy = stream_busy(prof)
+    roles = stream_roles(prof)
+    if not busy:
+        log(f"time: train_dp step wall {wall:.3f} ms; device busy not "
+            f"measured (no profiler events)")
+        return
+    coll = sum(v for k, v in busy.items() if roles[k] == "collective")
+    log(f"time: train_dp step ({TRAIN_ARCH}, {DP_RANKS} ranks, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens): wall {wall:.3f} ms "
+        f"({wall_prof:.3f} ms under the profiler), device busy (any stream) "
+        f"{any_busy / steps:.3f} ms, device idle share "
+        f"{1 - any_busy / steps / wall:.3f}; per stream (ms a step) "
+        + ", ".join(f"{roles[k]} {v / steps:.3f}" for k, v in busy.items())
+        + f"; the reducer's device time {coll / steps:.3f} ms a step, "
+        f"{both / steps:.3f} ms of it with the compute stream busy too "
+        f"({both / coll if coll else 0:.3f} overlapped)")
+
+
+def dp_gradient_check(layers: int | None = None) -> None:
+    """Step 0's reduced mean gradient of the data-parallel path (4 ranks'
+    ``make_rank_grads``, the engine grad reducer's ring) against the
+    single-card gradient of the whole batch, on the same weights and
+    batch: full width in bf16, or ``layers`` layers in f32; relative L2
+    over every leaf within ``DP_GRAD_RTOL``."""
+    from repro_torch.collectives.overlap import EngineGradReducer
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers, dtype="float32")
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=5)
+             .sample().items()}
+    leaves = [t.requires_grad_(True) for _, t in tree_leaves(params)]
+    loss, _ = registry.loss_fn(params, cfg, batch)
+    single = [g.float() for g in torch.autograd.grad(loss, leaves)]
+    reducer = EngineGradReducer(make_mesh((DP_RANKS, 1), ("data", "model"),
+                                          "cuda"), "data",
+                                engine=ProgressEngine(), chunks=DP_CHUNKS)
+    mets, stacked = train_mod.make_rank_grads(cfg, DP_RANKS)(params, batch)
+    reduced = reducer.allreduce_tree(stacked, timeout=600)
+    reducer.close()
+    del stacked
+    num = sum(float(((a - b) ** 2).sum()) for a, (_, b)
+              in zip(single, tree_leaves(reduced)))
+    den = sum(float((a ** 2).sum()) for a in single)
+    rel = math.sqrt(num / den)
+    limit = DP_GRAD_RTOL[cfg.dtype]
+    dloss = abs(float(mets["loss"].mean()) - float(loss.detach()))
+    log(f"check: train_dp step-0 gradient, {DP_RANKS} ranks reduced vs the "
+        f"single card ({cfg.num_layers} layers, {cfg.dtype}): relative L2 "
+        f"{rel:.3e} (limit {limit}); loss {float(loss.detach()):.7f}, "
+        f"ranks' mean "
+        f"diff {dloss:.3e}")
+    if not rel <= limit:
+        raise AssertionError(f"data-parallel gradient off by {rel:.3e}")
 
 
 def free() -> None:
@@ -1527,6 +1994,7 @@ def main() -> int:
     free()
     runs["train"], report = train(workers=0)
     train_time_breakdown(report)
+    single_losses = [m["loss"] for m in report.log]
     del report
     free()
     train(workers=2)
@@ -1538,6 +2006,21 @@ def main() -> int:
     runs["train_qwen2_5_3b"] = train_qwen3b()
     free()
     log(f"train phase done at {time.perf_counter() - t_start:.1f} s")
+    pending = collectives_phase()
+    free()
+    pending += overlap_phase()
+    free()
+    if pending <= 0:
+        raise AssertionError("no poll found a round of a collective running")
+    log(f"collectives phase done at {time.perf_counter() - t_start:.1f} s")
+    runs["train_dp"], report = train_dp(single_losses)
+    dp_time_breakdown(report)
+    del report
+    free()
+    dp_gradient_check()
+    dp_gradient_check(layers=2)
+    free()
+    log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
     remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
                                         layers=MAMBA_DOTS_LAYERS)]
     runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
@@ -1559,8 +2042,9 @@ def main() -> int:
         row["launches_train_mamba"] = n["train_mamba"]
         row["launches_train_qwen2_5_3b"] = n["train_qwen2_5_3b"]
         row["launches_remat"] = n["remat"]
+        row["launches_train_dp"] = n["train_dp"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
-                           + row["launches_remat"])
+                           + row["launches_remat"] + n["train_dp"])
     log(f"launches: {runs}")
     reference_check()
     reference_check(QWEN3B, num_layers=2, kv_cache_dtype="int8")
@@ -1574,7 +2058,7 @@ def main() -> int:
             "launches_serve", "launches_serve_mamba",
             "launches_serve_qwen2_5_3b", "launches_train",
             "launches_train_mamba", "launches_train_qwen2_5_3b",
-            "launches_remat", "shape", "grid", "launch_split_ms",
+            "launches_remat", "launches_train_dp", "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
             "train_shape", "serve_mamba_shape", "train_mamba_shape",

@@ -1,0 +1,62 @@
+"""User-level collectives (paper §4.7) — the port's import surface, as
+the JAX package's ``repro.collectives`` (without the FSDP classes yet).
+
+* ``CollectiveSpec`` — the frozen config record (backend, algorithm,
+  chunks, round_batch) every surface takes: ``TrainLoopConfig``,
+  ``UserCollectiveStep``, the train launcher, every factory below.
+* one-shot nonblocking ops: ``iallreduce`` / ``ireduce_scatter`` /
+  ``iallgather`` / ``ialltoall`` ``(x, mesh, axis, *, spec=None, ...)``.
+* persistent handle factories: ``allreduce_init`` /
+  ``reduce_scatter_init`` / ``allgather_init`` / ``alltoall_init`` and
+  the p2p family ``channel_init`` / ``send_init`` / ``recv_init``, all
+  ``(like, mesh, axis, *, spec=None, epoch=None, stream=None,
+  engine=None, ...)``.
+* overlap machinery: ``EngineGradReducer`` (replicated gradients).
+
+Meshes come from ``repro_torch.launch.mesh``: every rank of an axis lives
+on the mesh's one device, a payload is rank-stacked on its leading dim.
+``schedules`` is re-exported as ``S``.
+"""
+from repro_torch.collectives import schedules as S
+from repro_torch.collectives.nonblocking import (
+    CollectiveRequest,
+    CollectiveSpec,
+    MembershipEpoch,
+    MembershipError,
+    PersistentCollective,
+    UserCollectives,
+    allgather_init,
+    allreduce_init,
+    alltoall_init,
+    default_collectives,
+    iallgather,
+    iallreduce,
+    ialltoall,
+    ireduce_scatter,
+    reduce_scatter_init,
+    spec_from_legacy,
+)
+from repro_torch.collectives.overlap import EngineGradReducer
+from repro_torch.collectives.p2p import (
+    P2P,
+    P2PChannel,
+    PersistentRecv,
+    PersistentSend,
+    channel_init,
+    default_p2p,
+    recv_init,
+    send_init,
+)
+
+__all__ = [
+    "S",
+    "CollectiveRequest", "CollectiveSpec", "MembershipEpoch",
+    "MembershipError", "PersistentCollective", "UserCollectives",
+    "spec_from_legacy", "default_collectives",
+    "iallreduce", "ireduce_scatter", "iallgather", "ialltoall",
+    "allreduce_init", "reduce_scatter_init", "allgather_init",
+    "alltoall_init",
+    "EngineGradReducer",
+    "P2P", "P2PChannel", "PersistentRecv", "PersistentSend",
+    "default_p2p", "channel_init", "send_init", "recv_init",
+]

@@ -1,0 +1,400 @@
+"""Computation/communication overlap (paper §2.3–§2.4): the port of the
+JAX package's ``collectives/overlap.py`` up to its FSDP classes.
+
+* ``allreduce_tree`` / ``microbatched_grad_fn`` — bucketed gradient
+  reduction with the user schedules, on rank-stacked trees;
+* ``EngineGradReducer`` — DDP-style bucketed allreduce driven by the
+  progress engine: persistent per-bucket schedules whose rounds run on
+  the collective CUDA stream while the caller keeps computing;
+* ``collective_matmul_ag`` / ``collective_matmul_rs`` — all-gather→matmul
+  and matmul→reduce-scatter as ring loops that multiply the resident
+  chunk while the next one moves (Wang et al.'s collective matmul).
+
+Trees are nested dicts (keys in sorted order, as ``jax.tree.flatten``
+visits them), lists and tuples; a rank-stacked leaf is ``[n, *shape]``,
+rank r's value in row r.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.collectives import schedules as S
+
+
+def tree_flatten(tree):
+    """(leaves, unflatten): the leaves in ``jax.tree.flatten`` order and
+    the function that rebuilds the tree's structure from new leaves."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        subs = [tree_flatten(v) for v in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    sizes = [len(s[0]) for s in subs]
+
+    def unflatten(leaves):
+        out, off = [], 0
+        for (_, rebuild), size in zip(subs, sizes):
+            out.append(rebuild(leaves[off:off + size]))
+            off += size
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return [leaf for s in subs for leaf in s[0]], unflatten
+
+
+# ---------------------------------------------------------------------------
+# Bucketed gradient reduction
+# ---------------------------------------------------------------------------
+
+def _buckets(leaves, bucket_bytes: int, nbytes: Callable) -> list:
+    """Per-dtype buckets of leaf indices, each closed once it holds
+    ``bucket_bytes`` (one open bucket per dtype, so interleaved dtypes
+    still coalesce)."""
+    buckets, open_buckets, order = [], {}, []
+    for i, leaf in enumerate(leaves):
+        dt = leaf.dtype
+        if dt not in open_buckets:
+            open_buckets[dt] = [[], 0]
+            order.append(dt)
+        cur = open_buckets[dt]
+        cur[0].append(i)
+        cur[1] += nbytes(leaf)
+        if cur[1] >= bucket_bytes:
+            buckets.append(cur[0])
+            open_buckets[dt] = [[], 0]
+    for dt in order:
+        if open_buckets[dt][0]:
+            buckets.append(open_buckets[dt][0])
+    return buckets
+
+
+def bucket_tree(tree, bucket_bytes: int = 1 << 25):
+    """Partition tree leaves into ~``bucket_bytes`` buckets (DDP-style):
+    lists of leaf indices in ``tree_flatten`` order, one dtype each (a
+    mixed concat would promote).  Non-tensor leaves raise."""
+    leaves, _ = tree_flatten(tree)
+    for i, leaf in enumerate(leaves):
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(
+                f"bucket_tree: leaf {i} is {type(leaf).__name__}, not a "
+                f"tensor; bucketed reduction needs tensor leaves (wrap "
+                f"scalars in torch.as_tensor)")
+    return _buckets(leaves, bucket_bytes,
+                    lambda leaf: leaf.numel() * leaf.element_size())
+
+
+def allreduce_tree(grads, algorithm: str = "psum",
+                   bucket_bytes: int = 1 << 25):
+    """Reduce a tree of rank-stacked gradients ``[n, *shape]`` across the
+    ranks: every row becomes the sum.  ``psum`` is the plain sum; other
+    names run the user schedules of ``schedules`` on per-dtype buckets
+    (each in its leaves' own dtype)."""
+    leaves, unflatten = tree_flatten(grads)
+    if algorithm == "psum":
+        return unflatten([g.sum(0, keepdim=True).expand_as(g).clone()
+                          for g in leaves])
+    fn = S.ALGORITHMS[algorithm]
+    n = leaves[0].shape[0]
+    red = [None] * len(leaves)
+    for bucket in _buckets(leaves, bucket_bytes,
+                           lambda g: g[0].numel() * g.element_size()):
+        flat = fn(torch.cat([leaves[i].reshape(n, -1) for i in bucket], -1))
+        off = 0
+        for i in bucket:
+            size = leaves[i][0].numel()
+            red[i] = flat[:, off:off + size].reshape(leaves[i].shape)
+            off += size
+    return unflatten(red)
+
+
+def microbatched_grad_fn(loss_fn: Callable, num_microbatches: int,
+                         ranks: int | None = None,
+                         algorithm: str = "psum",
+                         bucket_bytes: int = 1 << 25):
+    """``grad_fn(params, batch) -> (loss, grads)``: splits the batch into
+    microbatches and accumulates f32 gradients of ``loss_fn(params, mb)
+    -> (loss, aux)``, then averages.  With ``ranks`` the batch's leading
+    dim is first split over that many ranks, each rank's gradients are
+    stacked ``[n, *shape]`` and reduced with ``allreduce_tree`` (every
+    row the sum), and the loss is the ranks' mean."""
+    from repro_torch.models.layers import tree_from_leaves, tree_leaves
+
+    def local(params, batch):
+        paths, leaves = zip(*tree_leaves(params))
+
+        def split(x):
+            B = x.shape[0]
+            assert B % num_microbatches == 0, (B, num_microbatches)
+            return x.reshape((num_microbatches, B // num_microbatches)
+                             + tuple(x.shape[1:]))
+
+        mbs = {k: split(v) for k, v in batch.items()}
+        loss, acc = 0.0, None
+        for i in range(num_microbatches):
+            with torch.enable_grad():
+                ps = [p.detach().requires_grad_(True) for p in leaves]
+                lv, _ = loss_fn(tree_from_leaves(zip(paths, ps)),
+                                {k: v[i] for k, v in mbs.items()})
+                g = torch.autograd.grad(lv, ps)
+            loss = loss + lv.detach()
+            acc = [x.float() for x in g] if acc is None else \
+                [a + x.float() for a, x in zip(acc, g)]
+        inv = 1.0 / num_microbatches
+        return loss * inv, tree_from_leaves(
+            zip(paths, [a * inv for a in acc]))
+
+    def grad_fn(params, batch):
+        if ranks is None:
+            return local(params, batch)
+        per = {k: v.reshape((ranks, v.shape[0] // ranks) + tuple(v.shape[1:]))
+               for k, v in batch.items()}
+        outs = [local(params, {k: v[r] for k, v in per.items()})
+                for r in range(ranks)]
+        stacked = {}
+        for path, _ in tree_leaves(outs[0][1]):
+            node = [o[1] for o in outs]
+            for k in path:
+                node = [t[k] for t in node]
+            stacked[path] = torch.stack(node)
+        grads = allreduce_tree(tree_from_leaves(stacked.items()), algorithm,
+                               bucket_bytes)
+        loss = torch.stack([o[0] for o in outs]).mean()
+        return loss, grads
+
+    return grad_fn
+
+
+# ---------------------------------------------------------------------------
+# Engine-driven bucketed gradient reduction (paper §4.7 at the host level)
+# ---------------------------------------------------------------------------
+
+def _flatten_bucket(leaves, n: int) -> torch.Tensor:
+    """Stacked per-rank leaves [n, *shape] -> one [n, bucket] payload."""
+    return torch.cat([g.reshape(n, -1) for g in leaves], dim=-1)
+
+
+def _unflatten_bucket(flat, shapes: tuple, scale: float, n: int):
+    """Reduced [n, bucket] payload (every row the cross-rank sum) back
+    into reduced leaves [*shape] (row 0, multiplied by ``scale``)."""
+    del n
+    out, off = [], 0
+    for shape in shapes:
+        size = 1
+        for s in shape:
+            size *= s
+        leaf = flat[0, off:off + size].reshape(shape)
+        out.append(leaf * scale if scale != 1.0 else leaf)
+        off += size
+    return out
+
+
+class TreeReduction:
+    """Handle for an in-flight engine-driven gradient reduction: one
+    nonblocking collective request per bucket plus the reassembly plan.
+    ``issue_s`` is the host time its issue took."""
+
+    def __init__(self, reducer: "EngineGradReducer", requests, buckets,
+                 shapes, dtypes, unflatten, num_leaves: int,
+                 issue_s: float = 0.0):
+        self.reducer = reducer
+        self.requests = requests
+        self._buckets = buckets
+        self._shapes = shapes
+        self._dtypes = dtypes
+        self._unflatten = unflatten
+        self._num_leaves = num_leaves
+        self.issue_s = issue_s
+
+    @property
+    def is_complete(self) -> bool:
+        return all(r.is_complete for r in self.requests)
+
+    def wait(self, timeout: float | None = None):
+        """Drive the engine until every bucket reduced; returns the
+        reduced gradient tree (one copy of each leaf, on the stream that
+        was current at issue).  ``timeout`` is one overall deadline."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for req in self.requests:
+            remaining = None if deadline is None else \
+                max(0.0, deadline - time.monotonic())
+            req.wait(timeout=remaining)
+        n = self.reducer.axis_size
+        scale = (1.0 / n) if self.reducer.mean else 1.0
+        red = [None] * self._num_leaves
+        for req, bucket in zip(self.requests, self._buckets):
+            shapes = tuple(self._shapes[i] for i in bucket)
+            leaves = _unflatten_bucket(req.value(), shapes, scale, n)
+            for i, leaf in zip(bucket, leaves):
+                red[i] = leaf.to(self._dtypes[i])
+        return self._unflatten(red)
+
+
+class EngineGradReducer:
+    """DDP-style bucketed gradient allreduce driven by the progress
+    engine.
+
+    Input gradients are rank-stacked trees — each leaf ``[axis_size,
+    *shape]``, rank i's local gradient in row i.  ``iallreduce_tree``
+    flattens the leaves into ~``bucket_bytes`` (per rank) buckets and
+    starts one chunk-pipelined persistent allreduce per bucket, so the
+    reductions progress on the collective stream while the caller keeps
+    computing.  ``mean=True`` multiplies by 1/axis_size on reassembly.
+
+    Buckets reduce through **persistent schedules**: the first step
+    builds one ``PersistentCollective`` per (bucket ordinal, shape,
+    dtype) and every later step re-``start``s it (MPI
+    ``Allreduce_init``/``Start`` across the step loop), reusing its
+    carries.  ``round_batch`` (None = auto from the bucket size) fuses
+    consecutive rounds per dispatch."""
+
+    def __init__(self, mesh, axis: str, *, engine=None, collectives=None,
+                 algorithm: str = "ring", chunks: int = 4,
+                 bucket_bytes: int = 1 << 25, mean: bool = True,
+                 executor=None, round_batch: int | None = None,
+                 epoch=None, spec=None):
+        from repro_torch.collectives import nonblocking as NB
+        if spec is not None:
+            algorithm = spec.algorithm
+            chunks = spec.chunks
+            round_batch = spec.round_batch
+        self.mesh = mesh
+        self.axis = axis
+        self.axis_size = dict(mesh.shape)[axis]
+        self._algorithm_pref = algorithm
+        self.algorithm = S.resolve_algorithm(algorithm, self.axis_size)
+        self.chunks = chunks
+        self.bucket_bytes = bucket_bytes
+        self.mean = mean
+        self.round_batch = round_batch
+        self.epoch = epoch
+        self.remeshes = 0
+        self._own_coll = collectives is None
+        self.coll = collectives if collectives is not None else \
+            NB.UserCollectives(engine, executor=executor, name="gradreduce",
+                               epoch=epoch)
+        # (bucket ordinal, payload shape, dtype) -> PersistentCollective:
+        # two same-shaped buckets in one step need two handles
+        self._persistent: dict = {}
+
+    def _handle(self, ordinal: int, flat):
+        key = (ordinal, tuple(flat.shape), flat.dtype)
+        handle = self._persistent.get(key)
+        if handle is None:
+            # warmup=False: the first start makes the carries
+            handle = self.coll.allreduce_init(
+                flat, self.mesh, self.axis, algorithm=self.algorithm,
+                chunks=self.chunks, round_batch=self.round_batch,
+                warmup=False, epoch=self.epoch)
+            self._persistent[key] = handle
+        return handle
+
+    @property
+    def dispatches_per_step(self) -> int:
+        """Dispatch units a step's reduction costs (every bucket's
+        chunks × rounds after fusion)."""
+        return sum(h.dispatches_per_start for h in self._persistent.values())
+
+    def remesh(self, mesh, axis: str | None = None) -> "EngineGradReducer":
+        """Adopt the survivors' mesh: the old handles close (the stacked
+        payload's leading dim changes) and fresh ones build on the next
+        ``iallreduce_tree``."""
+        for handle in self._persistent.values():
+            handle.close()
+        self._persistent.clear()
+        self.mesh = mesh
+        if axis is not None:
+            self.axis = axis
+        self.axis_size = dict(mesh.shape)[self.axis]
+        self.algorithm = S.resolve_algorithm(self._algorithm_pref,
+                                             self.axis_size)
+        self.remeshes += 1
+        return self
+
+    def iallreduce_tree(self, stacked_grads) -> TreeReduction:
+        """Issue the bucketed reduction; returns at once."""
+        t0 = time.perf_counter()
+        leaves, unflatten = tree_flatten(stacked_grads)
+        n = self.axis_size
+        shapes = [tuple(g.shape[1:]) for g in leaves]
+        dtypes = [g.dtype for g in leaves]
+        buckets = _buckets(leaves, self.bucket_bytes,
+                           lambda g: (g.numel() // max(1, g.shape[0]))
+                           * g.element_size())
+        requests = []
+        for bi, bucket in enumerate(buckets):
+            flat = _flatten_bucket([leaves[i] for i in bucket], n)
+            handle = self._handle(bi, flat)
+            if handle.active is not None and not handle.active.is_complete:
+                # overlapping tree reductions: a one-shot issue rather
+                # than a second start of an active handle
+                requests.append(self.coll.iallreduce(
+                    flat, self.mesh, self.axis, algorithm=self.algorithm,
+                    chunks=self.chunks, round_batch=self.round_batch))
+            else:
+                requests.append(handle.start(flat))
+        return TreeReduction(self, requests, buckets, shapes, dtypes,
+                             unflatten, len(leaves),
+                             time.perf_counter() - t0)
+
+    def allreduce_tree(self, stacked_grads, timeout: float | None = None):
+        """Blocking convenience: issue + engine-driven wait."""
+        return self.iallreduce_tree(stacked_grads).wait(timeout=timeout)
+
+    def close(self) -> None:
+        for handle in self._persistent.values():
+            handle.close()
+        self._persistent.clear()
+        if self._own_coll:
+            self.coll.close()
+
+
+# ---------------------------------------------------------------------------
+# Collective matmul (all-gather / reduce-scatter fused into the GEMM loop)
+# ---------------------------------------------------------------------------
+
+def collective_matmul_ag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y = all_gather(x) @ w`` without materializing the gather, on
+    rank-stacked operands: x ``[n, m, K]`` (rank r's rows), w ``[n, K,
+    n_local]`` (rank r's columns) -> ``[n, n*m, n_local]``.  Each of the
+    n steps multiplies the resident chunk while the ring ships the next."""
+    n, m = x.shape[0], x.shape[1]
+    if n == 1:
+        return x @ w
+    out = x.new_zeros((n, n, m, w.shape[-1]))
+    table = S.rank_offsets(n, x.device)
+    cur = x
+    for step in range(n):
+        part = cur @ w                          # compute the resident chunk
+        pos = table[-step % n]
+        idx = pos.view(n, 1, 1, 1).expand(n, 1, m, w.shape[-1])
+        out.scatter_(1, idx, part.unsqueeze(1))
+        if step != n - 1:
+            cur = S.ring_shift(cur, 1)          # ship the next chunk
+    return out.reshape(n, n * m, w.shape[-1])
+
+
+def collective_matmul_rs(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``reduce_scatter(x @ w)`` over rows with the contraction sharded,
+    rank-stacked: x ``[n, M, k_local]``, w ``[n, k_local, N]`` -> ``[n,
+    M/n, N]`` (rank r keeps rows r·M/n:(r+1)·M/n fully reduced)."""
+    n = x.shape[0]
+    if n == 1:
+        return x @ w
+    partial_y = x @ w                           # [n, M, N] partial sums
+    assert partial_y.shape[1] % n == 0
+    red = S.ring_reduce_scatter(partial_y.movedim(1, -1))   # [n, N, M/n]
+    return red.movedim(-1, 1)
+
+
+def ag_matmul_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``all_gather(x, tiled) @ w`` on rank-stacked operands."""
+    n = x.shape[0]
+    gathered = x.reshape(1, n * x.shape[1], x.shape[2])
+    return gathered @ w

@@ -33,9 +33,17 @@ def _on_cuda(tensors) -> bool:
                for t in _leaves(tensors))
 
 
+def _host_ready(tensors) -> bool:
+    """Leaves that are not tensors but answer ``is_ready()`` (a host
+    stand-in for device work, as a JAX array answers it) must say so."""
+    return all(t.is_ready() for t in _leaves(tensors)
+               if not isinstance(t, torch.Tensor) and hasattr(t, "is_ready"))
+
+
 def torch_future(engine: ProgressEngine, tensors: Any,
                  stream: Optional[Stream] = None,
-                 on_complete: Callable[[Any], None] | None = None) -> Request:
+                 on_complete: Callable[[Any], None] | None = None,
+                 on_pending: Callable[[], None] | None = None) -> Request:
     """Request completing when the work queued so far on the current CUDA
     stream — the work that produces ``tensors`` — has finished.
 
@@ -43,7 +51,9 @@ def torch_future(engine: ProgressEngine, tensors: Any,
     ``torch.cuda.Event`` on the current stream and polls ``query()``
     (never ``synchronize``), so the engine interleaves other subsystems
     while the card runs.  A tree holding no CUDA tensor is ready at the
-    first poll.  The watched tensors ride along as the task's ``state``.
+    first poll, unless a leaf's ``is_ready()`` still says no.  The
+    watched tensors ride along as the task's ``state``; ``on_pending``, if
+    given, runs at each poll that finds the work still running.
     """
     req = Request(tag="torch")
     event = None
@@ -52,11 +62,13 @@ def torch_future(engine: ProgressEngine, tensors: Any,
         event.record()
 
     def poll(thing) -> str:
-        if event is None or event.query():
+        if (event is None or event.query()) and _host_ready(tensors):
             if on_complete is not None:
                 on_complete(tensors)
             req.complete(tensors)
             return DONE
+        if on_pending is not None:
+            on_pending()
         return NOPROGRESS
 
     engine.async_start(poll, tensors, stream)

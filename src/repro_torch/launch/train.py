@@ -1,22 +1,33 @@
-"""Training launcher of the port: one card, the trainer on the progress
-engine.
+"""Training launcher of the port: the trainer on the progress engine,
+native on one card or data-parallel over ranks that share it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --scale full --global-batch 8 --seq 1024 --steps 6   # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 4 \
+        --collective-backend user --scale full --global-batch 8 \
+        --seq 1024 --steps 6                   # 4 ranks on the card
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-        --scale tiny --steps 6                 # plain versions, on the CPU
+        --scale tiny --steps 6 [--devices 4 --collective-backend user]
 
-The single-card native path of the JAX package's ``repro.launch.train``:
-synthetic data prefetched on the engine, a forward + backward + AdamW
-step (``make_train_step``, the body of the JAX ``build_cell`` train step,
-with microbatch accumulation and the bf16 cast), async checkpoints and
-the step watchdog on the same engine.  Batches move to the card from
-pinned host memory.  Weights are random, drawn from seed 0 by a
-``torch.Generator`` on the device.  A run with background progress
-workers goes through ``run(args, progress_workers=N)``.  The mesh, FSDP,
-pipeline, user-collective and elastic flags wait for their slices.
-Training resumes from ``--ckpt-dir``: remove ``<ckpt-dir>/<arch>`` to
-start over.
+The JAX package's ``repro.launch.train``, its native and data-parallel
+user-backend paths: synthetic data prefetched on the engine, a forward +
+backward + AdamW step (``make_train_step``, the body of the JAX
+``build_cell`` train step, with microbatch accumulation and the bf16
+cast), async checkpoints and the step watchdog on the same engine.
+
+``--devices N --collective-backend user`` runs N data-parallel ranks on
+a single-controller mesh (``--mesh Nx1``; a model axis above 1 waits for
+the FSDP slice): each rank's gradients on its slice of the batch,
+stacked f32 ``[N, *shape]`` (``make_rank_grads``), are reduced by an
+``EngineGradReducer`` — persistent bucketed user-space allreduces whose
+rounds run on their own CUDA stream, driven by the same engine — and
+AdamW steps on the mean.  The native backend computes the same mean
+gradient inside one step.  Batches move to the card from pinned host
+memory.  Weights are random, drawn from seed 0 by a ``torch.Generator``
+on the device.  A run with background progress workers goes through
+``run(args, progress_workers=N)``.  The FSDP, pipeline and elastic flags
+wait for their slices.  Training resumes from ``--ckpt-dir``: remove
+``<ckpt-dir>/<arch>`` to start over.
 """
 from __future__ import annotations
 
@@ -43,7 +54,61 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--cast-bf16", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--devices", type=int, default=0,
+                    help="data-parallel ranks, all on the one --device "
+                         "(0: one)")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 4x1 -> (data=4, model=1); model must be 1")
+    ap.add_argument("--collective-backend", default="native",
+                    choices=["native", "user"],
+                    help="native: the gradient mean inside the step; user: "
+                         "nonblocking user-space collectives on the "
+                         "progress engine")
+    ap.add_argument("--collective-chunks", type=int, default=4,
+                    help="chunk pipelining factor of the user backend")
+    ap.add_argument("--collective-algorithm", default="ring",
+                    help="user-backend allreduce schedule "
+                         "(ring/bidir/recursive_doubling/halving_doubling)")
+    ap.add_argument("--collective-round-batch", type=int, default=0,
+                    help="rounds per dispatch in the user backend (0 = "
+                         "auto from the bucket size)")
     return ap
+
+
+def mesh_shape(args) -> tuple:
+    """(data, model) from ``--mesh`` or ``--devices``; a model axis above
+    1 raises (tensor parallelism and FSDP are ROADMAP §1 item 6)."""
+    if args.mesh:
+        shape = tuple(int(v) for v in args.mesh.split("x"))
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh {args.mesh}: want DATAxMODEL")
+        if args.devices and shape[0] * shape[1] != args.devices:
+            raise SystemExit(f"--mesh {args.mesh} does not hold "
+                             f"--devices {args.devices} ranks")
+    else:
+        shape = (max(args.devices, 1), 1)
+    if shape[1] != 1:
+        raise SystemExit(
+            f"--mesh {args.mesh}: a model axis above 1 needs FSDP or tensor "
+            f"parallelism, not ported yet (ROADMAP §1 item 6)")
+    return shape
+
+
+def _compute_params(cfg, cast_params_bf16: bool):
+    """``params -> params`` the model reads: with ``cast_params_bf16`` the
+    f32 masters cast to the compute dtype (1-D leaves such as norm scales
+    stay f32), else the masters themselves."""
+    from repro_torch.models.layers import torch_dtype, tree_map
+    cdt = torch_dtype(cfg.dtype)
+
+    def model_params(params):
+        if not cast_params_bf16:
+            return params
+        return tree_map(lambda p: p.to(cdt)
+                        if p.dtype == torch.float32 and p.dim() > 1 else p,
+                        params)
+
+    return model_params
 
 
 def make_train_step(cfg, ocfg, *, microbatches: int = 1,
@@ -57,18 +122,10 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
     stay f32) and the gradients land on the f32 masters.  Metrics are
     0-d tensors on the device: {"nll", "aux", "loss", "grad_norm", "lr"}."""
     from repro_torch.models import registry
-    from repro_torch.models.layers import (torch_dtype, tree_from_leaves,
-                                           tree_leaves, tree_map)
+    from repro_torch.models.layers import tree_from_leaves, tree_leaves
     from repro_torch.train import optimizer as opt
 
-    cdt = torch_dtype(cfg.dtype)
-
-    def model_params(params):
-        if not cast_params_bf16:
-            return params
-        return tree_map(lambda p: p.to(cdt)
-                        if p.dtype == torch.float32 and p.dim() > 1 else p,
-                        params)
+    model_params = _compute_params(cfg, cast_params_bf16)
 
     def train_step(params, opt_state, batch):
         paths, leaves = zip(*tree_leaves(params))
@@ -100,6 +157,42 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
+    """``grad_fn(params, batch) -> (stacked_metrics, stacked_grads)``: the
+    loss and gradients of ``registry.loss_fn`` on each rank's contiguous
+    slice of the batch, one rank after the other, each rank's gradients
+    written as f32 into row r of ``[ranks, *shape]`` leaves (the JAX
+    launcher's ``v[None].astype(f32)``); metrics ``[ranks]``.  The bf16
+    cast as in ``make_train_step``."""
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_from_leaves, tree_leaves
+
+    model_params = _compute_params(cfg, cast_params_bf16)
+
+    def grad_fn(params, batch):
+        paths, leaves = zip(*tree_leaves(params))
+        for t in leaves:
+            t.requires_grad_(True)
+        per = batch["tokens"].shape[0] // ranks
+        stacked, mets = None, []
+        for r in range(ranks):
+            local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
+            loss, m = registry.loss_fn(model_params(params), cfg, local)
+            grads = torch.autograd.grad(loss, leaves)
+            if stacked is None:
+                stacked = [torch.empty((ranks,) + tuple(g.shape),
+                                       dtype=torch.float32, device=g.device)
+                           for g in grads]
+            for dst, g in zip(stacked, grads):
+                dst[r].copy_(g)
+            del grads
+            mets.append({k: v.detach() for k, v in dict(m, loss=loss).items()})
+        stacked_mets = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+        return stacked_mets, tree_from_leaves(zip(paths, stacked))
+
+    return grad_fn
 
 
 def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
@@ -147,6 +240,8 @@ class TrainReport:
     log: list                      # Trainer.metrics_log
     wall_s: float                  # Trainer.run, host clock
     tokens_per_step: int
+    reducer: object = None         # the user backend's EngineGradReducer
+    reduce_dispatches: int = 0     # its dispatch units a step
 
     def format(self) -> list[str]:
         if not self.log:
@@ -160,27 +255,45 @@ class TrainReport:
                 f"final loss {self.log[-1]['loss']:.6f}"]
 
 
-def run(args, **loop_overrides) -> TrainReport:
+def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     """Train as the command line asks; ``loop_overrides`` replace fields
     of the ``TrainLoopConfig`` (e.g. ``progress_workers=2``,
-    ``log_every=1``)."""
+    ``log_every=1``).  ``config`` replaces the ``--arch``/``--scale``
+    ModelConfig and ``params`` the seeded weights (tests hand in bridged
+    ones)."""
     from repro_torch import resolve_device
+    from repro_torch.collectives.nonblocking import CollectiveSpec
     from repro_torch.core import ProgressEngine
     from repro_torch.data.pipeline import PrefetchPipeline, SyntheticLM
     from repro_torch.launch.serve import make_config
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
-    from repro_torch.train.train_loop import Trainer, TrainLoopConfig
+    from repro_torch.train.train_loop import (Trainer, TrainLoopConfig,
+                                              UserCollectiveStep)
 
     device = resolve_device(args.device)
-    cfg = make_config(args.arch, args.scale)
+    cfg = config if config is not None else make_config(args.arch,
+                                                        args.scale)
     if args.global_batch % args.microbatches:
         raise SystemExit(f"--global-batch {args.global_batch} is not a "
                          f"multiple of --microbatches {args.microbatches}")
+    data, _ = mesh_shape(args)
+    user_backend = args.collective_backend == "user"
+    if user_backend and args.microbatches > 1:
+        raise SystemExit("--collective-backend user does not compose with "
+                         "--microbatches yet")
+    if args.global_batch % data:
+        raise SystemExit(f"--global-batch {args.global_batch} does not "
+                         f"split over {data} ranks")
+    spec = CollectiveSpec(backend=args.collective_backend,
+                          algorithm=args.collective_algorithm,
+                          chunks=args.collective_chunks,
+                          round_batch=args.collective_round_batch or None)
     ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5,
                                total_steps=max(args.steps, 10))
-    params = registry.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0))
+    if params is None:
+        params = registry.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0))
     opt_state = opt_mod.init(params)
 
     eng = ProgressEngine()
@@ -196,26 +309,57 @@ def run(args, **loop_overrides) -> TrainReport:
     train_step = make_train_step(cfg, ocfg, microbatches=args.microbatches,
                                  cast_params_bf16=args.cast_bf16)
 
+    def to_device(batch):
+        return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
     def step_fn(params, opt_state, batch):
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
-        return train_step(params, opt_state, batch)
+        return train_step(params, opt_state, to_device(batch))
+
+    split, reducer = None, None
+    if user_backend:
+        from repro_torch.collectives.overlap import EngineGradReducer
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((data, 1), ("data", "model"), device)
+        rank_grads = make_rank_grads(cfg, data,
+                                     cast_params_bf16=args.cast_bf16)
+
+        def grad_fn(params, batch):
+            return rank_grads(params, to_device(batch))
+
+        def apply_fn(params, opt_state, grads, stacked_mets):
+            params, opt_state, om = opt_mod.apply(ocfg, opt_state, params,
+                                                  grads)
+            mets = {k: v.mean() for k, v in stacked_mets.items()}
+            return params, opt_state, dict(mets, **om)
+
+        reducer = EngineGradReducer(mesh, "data", engine=eng, spec=spec,
+                                    mean=True)
+        split = UserCollectiveStep(grad_fn, apply_fn, reducer, spec=spec)
+        print(f"collective backend: user ({reducer.algorithm}, "
+              f"chunks={args.collective_chunks}, round_batch="
+              f"{args.collective_round_batch or 'auto'}, persistent "
+              f"schedules per bucket) over {mesh}")
 
     loop_cfg = TrainLoopConfig(**{
         "total_steps": args.steps, "checkpoint_every": 10,
         "checkpoint_dir": os.path.join(args.ckpt_dir, args.arch),
-        "log_every": 5, **loop_overrides})
+        "log_every": 5, "collective_spec": spec, **loop_overrides})
     hooks = [lambda s, m: print(
         f"step {s:4d} loss={m['loss']:.4f} "
         f"{m['step_time_s'] * 1e3:.0f}ms", flush=True)]
     trainer = Trainer(step_fn, params, opt_state, pipe, loop_cfg,
-                      engine=eng, hooks=hooks)
+                      engine=eng, hooks=hooks, split_step=split)
     t0 = time.perf_counter()
+    dispatches = 0
     try:
         log = trainer.run()
     finally:
         pipe.close()
+        if reducer is not None:
+            dispatches = reducer.dispatches_per_step
+            reducer.close()
     return TrainReport(trainer, cfg, log, time.perf_counter() - t0,
-                       args.global_batch * args.seq)
+                       args.global_batch * args.seq, reducer, dispatches)
 
 
 def main(argv=None) -> int:

@@ -13,9 +13,14 @@ The loop body is the paper's Figure 4(b) pattern:
 ``torch_future`` (a CUDA event polled by the engine) replaces the JAX
 package's ``jax_future``, and the metrics are read with ``.item()`` only
 after the engine wait, so the host never syncs on the card inside the
-step.  The split-step collective backends (``UserCollectiveStep``,
-``FsdpStep``), ``epoch`` and ``remesh_fn`` wait for the collectives and
-elastic slices.
+step.
+
+The user collective backend runs a split step (``UserCollectiveStep``):
+per-rank gradients stacked on a leading rank dim, reduced by an
+``EngineGradReducer`` whose persistent bucketed allreduces progress on
+the collective stream of the same engine, then the optimizer.
+``FsdpStep``, ``epoch`` and ``remesh_fn`` (ZeRO sharding and elastic
+recovery) raise until their slice (ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
@@ -23,8 +28,10 @@ import dataclasses
 import os
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
+from repro_torch.collectives.nonblocking import CollectiveSpec, \
+    spec_from_legacy
 from repro_torch.core import ProgressEngine, ProgressExecutor, \
     global_engine, torch_future
 from repro_torch.core.request import Request
@@ -48,6 +55,90 @@ class TrainLoopConfig:
     # >0: that many background progress workers drive prefetch/checkpoint/
     # watchdog tasks (§4.4); 0: the overlap window self-progresses
     progress_workers: int = 0
+    # gradient-reduction configuration: ONE CollectiveSpec covers the
+    # backend ("native": the reduction is inside the step; "user":
+    # nonblocking user-space collectives on the progress engine, which
+    # needs a split step, see ``UserCollectiveStep``), algorithm, chunk
+    # count and round batching.  The collective_* fields are the
+    # deprecated spelling: accepted (a DeprecationWarning fires once) and
+    # mirrored from the resolved spec.
+    collective_spec: "CollectiveSpec | None" = None
+    collective_backend: "str | None" = None
+    collective_algorithm: "str | None" = None
+    collective_chunks: "int | None" = None
+    collective_round_batch: "int | None" = None
+
+    _DEFAULT_SPEC = CollectiveSpec(backend="native", algorithm="ring",
+                                   chunks=4, round_batch=0)
+
+    def __post_init__(self):
+        spec = self.collective_spec
+        legacy = (("backend", self.collective_backend),
+                  ("algorithm", self.collective_algorithm),
+                  ("chunks", self.collective_chunks),
+                  ("round_batch", self.collective_round_batch))
+        if spec is not None:
+            # mirrored legacy fields (a dataclasses.replace round-trip)
+            # must agree with the spec; a conflicting one is a config bug
+            for name, val in legacy:
+                if val is not None and val != getattr(spec, name):
+                    raise ValueError(
+                        f"TrainLoopConfig: collective_spec.{name}="
+                        f"{getattr(spec, name)!r} conflicts with legacy "
+                        f"collective_{name}={val!r}; pass one, not both")
+        else:
+            spec = spec_from_legacy(
+                None, surface="TrainLoopConfig",
+                backend=self.collective_backend,
+                algorithm=self.collective_algorithm,
+                chunks=self.collective_chunks,
+                round_batch=self.collective_round_batch,
+                default=self._DEFAULT_SPEC)
+        self.collective_spec = spec
+        self.collective_backend = spec.backend
+        self.collective_algorithm = spec.algorithm
+        self.collective_chunks = spec.chunks
+        self.collective_round_batch = spec.round_batch
+
+
+def _check_spec(spec) -> None:
+    if spec is not None and not isinstance(spec, CollectiveSpec):
+        raise TypeError(
+            f"spec must be a CollectiveSpec, got {type(spec).__name__} "
+            f"(legacy kwargs belong on TrainLoopConfig)")
+
+
+@dataclasses.dataclass
+class UserCollectiveStep:
+    """Split train step for the engine-driven collective backend.
+
+    ``grad_fn(params, batch) -> (stacked_metrics, stacked_grads)`` —
+    per-rank metrics and f32 gradients stacked on a leading rank dim;
+    ``reducer`` (an ``EngineGradReducer``) allreduces the gradients on
+    the collective stream while the engine also progresses prefetch and
+    checkpoint tasks; ``apply_fn(params, opt_state, grads,
+    stacked_metrics) -> (params, opt_state, metrics)`` finishes the step.
+    ``spec`` records the reducer's ``CollectiveSpec``."""
+    grad_fn: Callable
+    apply_fn: Callable
+    reducer: Any
+    spec: "CollectiveSpec | None" = None
+
+    def __post_init__(self):
+        _check_spec(self.spec)
+
+
+@dataclasses.dataclass
+class FsdpStep:
+    """Split train step for ZeRO-style FSDP (the JAX package's record).
+    The ``Trainer`` refuses it until the FSDP slice (ROADMAP §1 item 6)."""
+    grad_fn: Callable
+    apply_fn: Callable
+    reducer: Any
+    spec: "CollectiveSpec | None" = None
+
+    def __post_init__(self):
+        _check_spec(self.spec)
 
 
 class Trainer:
@@ -55,15 +146,32 @@ class Trainer:
                  pipeline, cfg: TrainLoopConfig,
                  engine: Optional[ProgressEngine] = None,
                  hooks: list[Callable[[int, dict], None]] | None = None,
-                 split_step=None):
+                 split_step: "UserCollectiveStep | None" = None,
+                 epoch=None, remesh_fn: Callable | None = None):
         """``step_fn(params, opt_state, batch) -> (params, opt_state,
-        metrics)`` dispatches one step (metrics: 0-d tensors).  Only the
-        native path is ported: a ``split_step`` raises."""
-        if split_step is not None:
+        metrics)`` dispatches one step (metrics: 0-d tensors).  With a
+        ``split_step`` (the user collective backend) each step is its
+        ``grad_fn``, the engine-driven reduction and its ``apply_fn``;
+        the config's backend follows the split step, and a "user"
+        backend without one raises.  ``FsdpStep``, ``epoch`` and
+        ``remesh_fn`` raise (ROADMAP §1 item 6)."""
+        if isinstance(split_step, FsdpStep) or epoch is not None \
+                or remesh_fn is not None:
             raise NotImplementedError(
-                "split-step backends (UserCollectiveStep/FsdpStep) are not "
-                "ported yet (collectives slice)")
+                "FsdpStep, epoch and remesh_fn (FSDP and elastic recovery) "
+                "are not ported yet (ROADMAP §1 item 6)")
+        if split_step is not None and cfg.collective_backend != "user":
+            cfg = dataclasses.replace(
+                cfg,
+                collective_spec=dataclasses.replace(cfg.collective_spec,
+                                                    backend="user"),
+                collective_backend="user")
+        elif split_step is None and cfg.collective_backend == "user":
+            raise ValueError(
+                "collective_backend='user' requires a split_step "
+                "(UserCollectiveStep with grad_fn/apply_fn/reducer)")
         self.step_fn = step_fn
+        self.split_step = split_step
         self.params = params
         self.opt_state = opt_state
         self.pipeline = pipeline
@@ -75,6 +183,8 @@ class Trainer:
         self.watchdog = StepWatchdog(self.engine, cfg.watchdog_limit_s,
                                      on_hang=self._on_hang)
         self.start_step = 0
+        self.reduce_issue_s: list[float] = []   # host time to issue each
+        #                                         step's reduction
         self.metrics_log: list[dict] = []
         self._pending_ckpt: Request | None = None
         self._hung = False
@@ -82,6 +192,19 @@ class Trainer:
     # ------------------------------------------------------------------
     def _on_hang(self):
         self._hung = True
+
+    def _split_step_once(self, batch):
+        """Split-step grad dispatch, the engine-driven bucketed
+        reduction, then the optimizer; returns the metrics."""
+        ss = self.split_step
+        stacked_metrics, grads = ss.grad_fn(self.params, batch)
+        reduction = ss.reducer.iallreduce_tree(grads)
+        self.reduce_issue_s.append(reduction.issue_s)
+        del grads
+        grads = reduction.wait(timeout=self.cfg.watchdog_limit_s)
+        self.params, self.opt_state, metrics = ss.apply_fn(
+            self.params, self.opt_state, grads, stacked_metrics)
+        return metrics
 
     def maybe_resume(self):
         if not self.cfg.resume:
@@ -118,9 +241,16 @@ class Trainer:
             batch = self.pipeline.next_batch()     # warm path: no block
             t0 = time.monotonic()
             self.watchdog.arm()
-            # dispatch: returns once the step's kernels are queued
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
+            if self.split_step is not None:
+                # engine-driven collective backend: local gradients, the
+                # nonblocking bucketed allreduce on the collective stream
+                # (the engine overlaps it with prefetch/checkpoint work),
+                # then the optimizer
+                metrics = self._split_step_once(batch)
+            else:
+                # dispatch: returns once the step's kernels are queued
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
             loss_req = torch_future(self.engine, metrics)
 
             # overlap window: drive collated progress until the card is

@@ -315,3 +315,81 @@ def test_ssd_chunk_refuses_what_it_does_not_take(cuda):
         ssd_chunk(x, b, c, dt.half(), a_log)
     with pytest.raises(ValueError, match="a_log dtype"):
         ssd_chunk(x, b, c, dt, a_log.double())
+
+
+# ---------------------------------------------------------------------------
+# the user-space collectives on the card
+# ---------------------------------------------------------------------------
+
+def _collective(coll, op, alg, x, mesh, chunks, batch, persistent):
+    import warnings
+    kw = dict(chunks=chunks, round_batch=batch)
+    if op != "alltoall":
+        kw["algorithm"] = alg
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")           # n = 3: ring fallbacks
+        if persistent:
+            h = getattr(coll, op + "_init")(x, mesh, "x", **kw)
+            out = h.start(x).wait(timeout=120)
+            h.close()
+            return out
+        return getattr(coll, "i" + op)(x, mesh, "x", **kw).wait(timeout=120)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_collectives_on_the_card_equal_their_cpu_run(cuda, n):
+    """Every op × algorithm, chunks 1 and 4, round batch 1 and auto,
+    one-shot and persistent: the card's result equals the CPU run's bit
+    for bit, in int32, f32 and bf16."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    coll = NB.UserCollectives(ProgressEngine())
+    host = NB.UserCollectives(ProgressEngine())
+    mesh, cmesh = make_mesh((n,), ("x",), "cuda"), make_mesh((n,), ("x",),
+                                                             "cpu")
+    cases = [("allreduce", a, (n * 2, 3, 100)) for a in NB.S.ALGORITHMS]
+    cases += [(op, a, shape) for op, shape in
+              (("reduce_scatter", (n * 2, 2, n * 16)),
+               ("allgather", (n * 2, 2, 24)))
+              for a in ("ring", "halving_doubling")]
+    cases.append(("alltoall", "bruck", (n * n, 24)))
+    gen = torch.Generator().manual_seed(n)
+    for op, alg, shape in cases:
+        for dt in (torch.int32, torch.float32, torch.bfloat16):
+            xc = torch.randint(-8, 8, shape, generator=gen, dtype=dt) \
+                if dt == torch.int32 else torch.randn(shape,
+                                                      generator=gen).to(dt)
+            for chunks in (1, 4):
+                for batch in (1, None):
+                    for persistent in (False, True):
+                        got = _collective(coll, op, alg, xc.cuda(), mesh,
+                                          chunks, batch, persistent)
+                        want = _collective(host, op, alg, xc, cmesh, chunks,
+                                           batch, persistent)
+                        assert got.is_cuda and torch.equal(got.cpu(), want), \
+                            (op, alg, dt, chunks, batch, persistent)
+    coll.close()
+    host.close()
+    assert coll.failed == 0
+
+
+def test_persistent_restart_allocates_nothing_on_the_card(cuda):
+    """A persistent allreduce owns its carries: after its first start,
+    restarts leave ``torch.cuda.memory_allocated`` where it was (the
+    result of the last start held)."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    coll = NB.UserCollectives(ProgressEngine())
+    mesh = make_mesh((4,), ("x",), "cuda")
+    x = torch.randint(-8, 8, (8, 1 << 16), device="cuda", dtype=torch.int32)
+    want = x.unflatten(0, (4, 2)).sum(0, dtype=torch.int32).repeat(4, 1)
+    h = coll.allreduce_init(x, mesh, "x", chunks=4, round_batch=1)
+    mem = []
+    for _ in range(10):
+        out = h.start(x).wait(timeout=60)
+        mem.append(torch.cuda.memory_allocated())
+        assert torch.equal(out, want)
+    assert len(set(mem)) == 1, mem
+    coll.close()

@@ -28,6 +28,15 @@ OPTIONS_SLICE = ["repro_torch.core.events", "repro_torch.core.task_class",
                  "repro_torch.configs.llama3_405b",
                  "repro_torch.serve.quantization"]
 
+# the collectives slice's modules
+COLLECTIVES_SLICE = ["repro_torch.collectives",
+                     "repro_torch.collectives.schedules",
+                     "repro_torch.collectives.compression",
+                     "repro_torch.collectives.nonblocking",
+                     "repro_torch.collectives.p2p",
+                     "repro_torch.collectives.overlap",
+                     "repro_torch.launch.mesh"]
+
 _PROBE = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -53,7 +62,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert lines["BAD"] == "[]"
     loaded = lines["LOADED"]
     assert all(f"'{m}'" in loaded
-               for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE), loaded
+               for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
+               + COLLECTIVES_SLICE), loaded
 
 
 def _imported(path: Path) -> list[str]:
@@ -70,7 +80,9 @@ def test_no_jax_or_repro_import_in_the_sources():
     assert len(SOURCES) >= 30
     scanned = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                for p in SOURCES if PORT in p.parents}
-    assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE) <= scanned
+    assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
+               + COLLECTIVES_SLICE[1:]) <= scanned
+    assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):
             top = name.split(".")[0]

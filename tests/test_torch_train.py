@@ -344,10 +344,15 @@ def test_trainer_with_progress_workers_trains_the_same(tmp_path):
 
 
 def test_trainer_refuses_split_steps(tmp_path):
-    with pytest.raises(NotImplementedError):
-        Trainer(None, {}, None, None,
-                TrainLoopConfig(checkpoint_dir=str(tmp_path)),
-                engine=ProgressEngine(), split_step=object())
+    """The user backend's UserCollectiveStep is ported (see
+    test_torch_dp_train.py); FsdpStep, epoch and remesh_fn wait for the
+    FSDP and elastic slice and still raise."""
+    from repro_torch.train.train_loop import FsdpStep
+    cfg = TrainLoopConfig(checkpoint_dir=str(tmp_path))
+    for kw in ({"split_step": FsdpStep(None, None, None)},
+               {"epoch": object()}, {"remesh_fn": lambda *a: None}):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            Trainer(None, {}, None, None, cfg, engine=ProgressEngine(), **kw)
 
 
 # ---------------------------------------------------------------------------
