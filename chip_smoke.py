@@ -67,7 +67,23 @@ Phases; any failure raises and the script exits non-zero:
              restored equal, the losses within a stated tolerance of the
              single-card run's; one step's time, the reducer's device
              time and its overlap; step 0's reduced gradient against the
-             single-card gradient (full width bf16, and two layers f32).
+             single-card gradient (full width bf16, and two layers f32);
+10. parallel — FSDP at full smollm-360m width (``--devices 4 --fsdp``,
+             4 MiB buckets, ring, 4 chunks, 6 steps of 8 x 1024 tokens) on
+             the user backend (``FsdpStep`` on the ``FsdpReducer``) and the
+             native one: launch counts, the checkpoint restored equal, the
+             losses against native FSDP, data-parallel and the single
+             card within limits stated before the run; one step's device
+             time per stream; step 0's gather bit for bit.  Elastic: 2 of
+             4 ranks killed at step 2 of 5 (data-parallel and FSDP, 4
+             layers) against a checkpoint-and-restart on the survivors;
+             the watchdog failing a hung start once.  Pipeline: 1F1B at
+             S = 4, M = 8 on 4 stage CUDA streams, bit for bit against the
+             sequential cells, its measured bubble; ``--pipeline 1f1b
+             --mesh 2x4`` through the launcher.
+
+``python3 chip_smoke.py --only parallel`` runs the build, the single-card
+and data-parallel train runs and phase 10 alone, and prints no result.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -855,8 +871,9 @@ def train(workers: int, arch: str = TRAIN_ARCH):
 
 def checkpoint_check(tr, last: int) -> str:
     """The Trainer's final async checkpoint must be step ``last`` and
-    restore to the same tensors; returns the line that says so."""
-    from repro_torch.models.layers import tree_leaves
+    restore to the same tensors (a parameter tree, or FSDP's list of
+    shard stacks); returns the line that says so."""
+    from repro_torch.collectives.overlap import tree_flatten
     latest = tr.ckpt.latest_step()
     if latest != last:
         raise AssertionError(f"last committed checkpoint {latest}")
@@ -864,13 +881,13 @@ def checkpoint_check(tr, last: int) -> str:
     t0 = time.perf_counter()
     back = tr.ckpt.restore(latest, state, device="cuda")
     restore_s = time.perf_counter() - t0
-    diff = [p for (p, a), (_, b) in zip(tree_leaves(back["params"]),
-                                        tree_leaves(tr.params))
+    diff = [i for i, (a, b) in enumerate(zip(tree_flatten(back["params"])[0],
+                                             tree_flatten(tr.params)[0]))
             if not torch.equal(a, b)]
     for name in ("mu", "nu"):
-        diff += [(name, p) for (p, a), (_, b) in zip(
-            tree_leaves(getattr(back["opt_state"], name)),
-            tree_leaves(getattr(tr.opt_state, name)))
+        diff += [(name, i) for i, (a, b) in enumerate(zip(
+            tree_flatten(getattr(back["opt_state"], name))[0],
+            tree_flatten(getattr(tr.opt_state, name))[0]))
             if not torch.equal(a, b)]
     if diff or not torch.equal(back["opt_state"].step, tr.opt_state.step):
         raise AssertionError(f"checkpoint restores other values: {diff}")
@@ -1931,6 +1948,594 @@ def dp_gradient_check(layers: int | None = None) -> None:
         raise AssertionError(f"data-parallel gradient off by {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: parallel training — FSDP, elastic recovery, the 1F1B pipeline
+# ---------------------------------------------------------------------------
+
+FSDP_BUCKET = 4 << 20        # the launcher's default --fsdp-bucket-bytes
+# limits (PERF.md states them beside the predictions).  The bf16
+# trajectory amplifies the f32 sum-order difference between the ring and
+# the plain sum as it amplifies the single card's against data-parallel,
+# so user vs native FSDP losses share that limit, and the sum order
+# alone is held at step 0 (FSDP_RS_RTOL)
+FSDP_NATIVE_ATOL = DP_LOSS_ATOL    # user vs native FSDP losses
+FSDP_RS_RTOL = 1e-6          # step 0's reduce-scatter, user vs native, rel L2
+FSDP_DP_ATOL = 1e-3          # vs the data-parallel run: same rank gradients
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_KILL = 4, 5, 2
+ELASTIC_LOSS_ATOL = 1e-3     # chaos vs restart, held only if two identical
+#                              restarts already differ (atomics)
+PIPE_S, PIPE_M, PIPE_MB, PIPE_STEPS = 4, 8, 8, 5
+
+
+def train_fsdp(backend: str):
+    """``launch.train --devices 4 --fsdp`` at full smollm-360m width: 4
+    ranks on the card, 8 x 1024 tokens, 4 MiB buckets, ring, 4 chunks, 6
+    steps under the Trainer (``FsdpStep`` on the ``FsdpReducer`` for the
+    user backend; the native pair in the step otherwise), launch counts;
+    the user run's last checkpoint restored equal."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_fsdp_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir,
+            "--devices", str(DP_RANKS), "--mesh", f"{DP_RANKS}x1", "--fsdp",
+            "--fsdp-bucket-bytes", str(FSDP_BUCKET),
+            "--collective-backend", backend, "--collective-algorithm", "ring",
+            "--collective-chunks", str(DP_CHUNKS)])
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launches()
+        with no_sync():
+            report = train_mod.run(args, log_every=1)
+        launches = dict(_lib.launches)
+        cfg, tr = report.cfg, report.trainer
+        if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+            raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+        want = {k: v * TRAIN_STEPS for k, v in
+                train_mod.kernel_launches_per_step(cfg, DP_RANKS).items()}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        losses = [m["loss"] for m in report.log]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"bad loss trajectory {losses}")
+        if any(s.device.type != "cuda" for s in tr.params):
+            raise AssertionError("shards off the card")
+        peak = torch.cuda.max_memory_allocated()
+        steps_s = [m["step_time_s"] for m in report.log[1:]]
+        mean_s = sum(steps_s) / len(steps_s)
+        text = f"fsdp {backend}: {report.layout.num_buckets} buckets"
+        if backend == "user":
+            red = report.reducer
+            text += (f", prefetch overlap {red.prefetch_overlap:.3f} over "
+                     f"{red.gathers} chained gathers, "
+                     f"{report.reduce_dispatches} dispatch units a step "
+                     f"(reduce-scatters and all-gathers); "
+                     + checkpoint_check(tr, TRAIN_STEPS - 1))
+        log(f"train_fsdp {TRAIN_ARCH} ({DP_RANKS} ranks on the card, "
+            f"{FSDP_BUCKET >> 20} MiB buckets, ring, {DP_CHUNKS} chunks): "
+            f"launches {launches}; losses {[round(v, 6) for v in losses]}; "
+            f"mean step {mean_s * 1e3:.3f} ms (steps 1-{TRAIN_STEPS - 1}; "
+            f"step 0 {report.log[0]['step_time_s'] * 1e3:.3f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; {text}; peak "
+            f"device memory {peak / 2**30:.2f} GiB")
+        return launches, report, losses
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def hold_losses(name: str, got: list, want: list, limit: float) -> None:
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    log(f"check: {name}: max loss diff {diff:.3e} (limit {limit})")
+    if not diff <= limit:
+        raise AssertionError(f"{name}: {got} vs {want}")
+
+
+def fsdp_time_breakdown(report, steps: int = 2) -> None:
+    """One FSDP step's time, on the trained shards and one fixed batch, as
+    the Trainer runs it (gather waited, rank passes, reduce-scatter,
+    sharded AdamW, the next gather chained off the optimizer's futures):
+    host wall clock; from the profiler the device busy time and idle
+    share, the collective stream's busy time (reduce-scatters and
+    all-gathers) and the share of it during which the compute stream was
+    busy too."""
+    from repro_torch.collectives.overlap import FsdpReducer
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt_mod
+    tr, cfg = report.trainer, report.cfg
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), "cuda")
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    grad_fn, apply_fn, _, _ = train_mod.build_fsdp_programs(
+        cfg, ocfg, mesh, report.layout)
+    red = FsdpReducer(mesh, "data", engine=ProgressEngine(),
+                      chunks=DP_CHUNKS, bucket_bytes=FSDP_BUCKET)
+    batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+    state = {"s": tr.params, "o": tr.opt_state, "g": None}
+
+    def run(k=steps):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            pending = state["g"] or red.igather(state["s"])
+            flats = pending.wait(timeout=600)
+            smets, fg = grad_fn(flats, batch)
+            del flats
+            gs = red.ireduce_scatter(fg).wait(timeout=600)
+            del fg
+            state["s"], state["o"], _ = apply_fn(state["s"], state["o"], gs,
+                                                 smets)
+            del gs
+            state["g"] = red.igather(state["s"], after=[
+                red.future(sh) for sh in state["s"]])
+        state["g"].wait(timeout=600)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(1)
+    wall = run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    dispatches = red.dispatches_per_step
+    red.close()
+    busy, both, any_busy = stream_busy(prof)
+    roles = stream_roles(prof)
+    if not busy:
+        log(f"time: train_fsdp step wall {wall:.3f} ms; device busy not "
+            f"measured (no profiler events)")
+        return
+    coll = sum(v for k, v in busy.items() if roles[k] == "collective")
+    log(f"time: train_fsdp step ({TRAIN_ARCH}, {DP_RANKS} ranks, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens): wall {wall:.3f} ms "
+        f"({wall_prof:.3f} ms under the profiler), device busy (any stream) "
+        f"{any_busy / steps:.3f} ms, device idle share "
+        f"{1 - any_busy / steps / wall:.3f}; per stream (ms a step) "
+        + ", ".join(f"{roles[k]} {v / steps:.3f}" for k, v in busy.items())
+        + f"; reduce-scatters + all-gathers {coll / steps:.3f} ms of device "
+        f"time a step ({dispatches} dispatch units), {both / steps:.3f} ms "
+        f"of it with the compute stream busy too "
+        f"({both / coll if coll else 0:.3f} overlapped)")
+
+
+def fsdp_gather_check() -> None:
+    """Step 0's collectives: the ``FsdpReducer``'s cold-start chained
+    all-gather of the seeded weights' shards (what the FSDP run's first
+    step waits for) — every row of every bucket bit for bit
+    ``FsdpLayout.flatten_bucket`` of the weights; then the ranks'
+    gradients on step 0's batch reduce-scattered by the reducer's ring
+    against the native sum over the rank dim, relative L2 within
+    ``FSDP_RS_RTOL`` (f32: the two add in another order)."""
+    from repro_torch.collectives.overlap import (FsdpLayout, FsdpReducer,
+                                                 tree_flatten)
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    cfg = get_config(TRAIN_ARCH)
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), "cuda")
+    layout = FsdpLayout(params, DP_RANKS, FSDP_BUCKET)
+    shards = layout.shard_params(params, mesh)
+    red = FsdpReducer(mesh, "data", engine=ProgressEngine(),
+                      chunks=DP_CHUNKS, bucket_bytes=FSDP_BUCKET)
+    with no_sync():
+        flats = red.gather(shards, timeout=600)
+    leaves, _ = tree_flatten(params)
+    bad = [b for b in range(layout.num_buckets)
+           if not torch.equal(flats[b], layout.flatten_bucket(leaves, b)
+                              .expand(DP_RANKS, -1))]
+    del params, leaves
+    log(f"check: fsdp step-0 gather, {layout.num_buckets} buckets of "
+        f"{sum(layout.widths)} values x {DP_RANKS} rows: "
+        f"{'bit for bit' if not bad else f'buckets {bad} differ'} against "
+        f"FsdpLayout.flatten_bucket")
+    if bad:
+        raise AssertionError(f"gathered flats differ in buckets {bad}")
+    grad_fn, _, _, rs_fn = train_mod.build_fsdp_programs(
+        cfg, opt_mod.AdamWConfig(), mesh, layout)
+    batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=5)
+             .sample().items()}
+    _, flat_g = grad_fn(flats, batch)
+    del flats
+    with no_sync():
+        user = red.ireduce_scatter(flat_g).wait(timeout=600)
+    red.close()
+    native = rs_fn(flat_g)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(user, native))
+    den = sum(float((b ** 2).sum()) for b in native)
+    rel = math.sqrt(num / den)
+    same = all(torch.equal(a, b) for a, b in zip(user, native))
+    log(f"check: fsdp step-0 reduce-scatter, ring ({DP_CHUNKS} chunks) vs "
+        f"the native sum over the rank dim: relative L2 {rel:.3e} (limit "
+        f"{FSDP_RS_RTOL}){', bit for bit' if same else ''}")
+    if not rel <= FSDP_RS_RTOL:
+        raise AssertionError(f"fsdp reduce-scatter off by {rel:.3e}")
+
+
+class _ListPipe:
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def next_batch(self):
+        return self.batches.pop(0)
+
+
+def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool):
+    """Five steps at full width and ``ELASTIC_LAYERS`` layers on 4 ranks
+    of the card.  ``chaos``: one Trainer with a membership epoch and a
+    ``remesh_fn``; its hook invalidates the epoch down to 2 survivors
+    after step ``ELASTIC_KILL`` - 1, so step ``ELASTIC_KILL`` fails, is
+    remeshed (FSDP: unsharded and re-sharded for 2 ranks) and retried.
+    Otherwise the restart: ``ELASTIC_KILL`` steps on 4 ranks, then a new
+    Trainer on 2 ranks from that state.  Returns (losses, final
+    parameter leaves, the recovery's figures)."""
+    from repro_torch.collectives.nonblocking import (CollectiveSpec,
+                                                     MembershipEpoch)
+    from repro_torch.collectives.overlap import (EngineGradReducer,
+                                                 FsdpLayout, FsdpReducer,
+                                                 tree_flatten)
+    from repro_torch.core import ProgressEngine
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import (FsdpStep, Trainer,
+                                              TrainLoopConfig,
+                                              UserCollectiveStep)
+    spec = CollectiveSpec(backend="user", algorithm="ring", chunks=DP_CHUNKS)
+
+    def state_for(mesh, params, mu=None, nu=None, step=None):
+        if not fsdp:
+            return None, params, opt_mod.init(params) if mu is None else \
+                opt_mod.AdamWState(step, mu, nu)
+        layout = FsdpLayout(params, dict(mesh.shape)["data"], FSDP_BUCKET)
+        shards = layout.shard_params(params, mesh)
+        if mu is None:
+            return layout, shards, opt_mod.init_shards(shards)
+        return layout, shards, opt_mod.AdamWState(
+            step, layout.shard_params(mu, mesh), layout.shard_params(nu, mesh))
+
+    def apply_dp(params, opt_state, grads, sm):
+        params, opt_state, om = opt_mod.apply(ocfg, opt_state, params, grads)
+        return params, opt_state, dict({k: v.mean() for k, v in sm.items()},
+                                       **om)
+
+    def split_for(layout, mesh, reducer):
+        if not fsdp:
+            return UserCollectiveStep(
+                train_mod.make_rank_grads(cfg, dict(mesh.shape)["data"]),
+                apply_dp, reducer, spec=spec)
+        g, a, _, _ = train_mod.build_fsdp_programs(cfg, ocfg, mesh, layout)
+        return FsdpStep(g, a, reducer, spec=spec)
+
+    def reducer_for(mesh, eng, epoch=None):
+        if fsdp:
+            return FsdpReducer(mesh, "data", engine=eng, spec=spec,
+                               bucket_bytes=FSDP_BUCKET, epoch=epoch)
+        return EngineGradReducer(mesh, "data", engine=eng, spec=spec,
+                                 epoch=epoch)
+
+    def trainer(layout, mesh, params, state, bs, tmp, **kw):
+        eng = kw.pop("engine", None) or ProgressEngine()
+        red = kw.pop("reducer", None) or reducer_for(mesh, eng)
+        losses = kw.pop("losses")
+        hooks = [lambda s, m: losses.append(m["loss"])] + kw.pop("hooks", [])
+        tr = Trainer(None, params, state, _ListPipe(bs), TrainLoopConfig(
+            total_steps=len(bs), checkpoint_every=10 ** 6,
+            checkpoint_dir=tmp, log_every=1, resume=False,
+            collective_spec=spec), engine=eng,
+            split_step=split_for(layout, mesh, red), hooks=hooks, **kw)
+        with no_sync():
+            tr.run()
+        red.close()
+        return tr
+
+    def unshard(layout, params, state):
+        if not fsdp:
+            return params, state.mu, state.nu
+        return (layout.unshard_params(params), layout.unshard_params(state.mu),
+                layout.unshard_params(state.nu))
+
+    mesh4 = elastic.remesh(4, prefer_model=1, device="cuda")
+    params = tree_map(torch.clone, params0)
+    layout, p, st = state_for(mesh4, params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    losses, info = [], {}
+    try:
+        if chaos:
+            eng = ProgressEngine()
+            epoch = MembershipEpoch(mesh=mesh4)
+            red = reducer_for(mesh4, eng, epoch)
+            box = {"layout": layout}
+
+            def remesh_fn(exc, params_, state_):
+                t0 = time.perf_counter()
+                new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
+                                          device="cuda")
+                red.remesh(new_mesh, "data")
+                full, mu, nu = unshard(box["layout"], params_, state_)
+                box["layout"], p2, st2 = state_for(new_mesh, full, mu, nu,
+                                                   state_.step)
+                split = split_for(box["layout"], new_mesh, red)
+                info["remesh_ms"] = (time.perf_counter() - t0) * 1e3
+                return split, p2, st2
+
+            def kill(s, m):
+                if s == ELASTIC_KILL - 1:
+                    epoch.invalidate(survivors=2, reason="chaos kill")
+
+            tr = trainer(layout, mesh4, p, st, batches, tmp, engine=eng,
+                         reducer=red, losses=losses, hooks=[kill],
+                         epoch=epoch, remesh_fn=remesh_fn)
+            if tr.recoveries != 1 or red.remeshes != 1:
+                raise AssertionError(f"recoveries {tr.recoveries}, remeshes "
+                                     f"{red.remeshes}")
+            info["failed_starts"] = red.coll.failed
+            info["step_ms"] = [m["step_time_s"] * 1e3
+                               for m in tr.metrics_log]
+            final = tr.params
+            final_layout = box["layout"]
+        else:
+            trA = trainer(layout, mesh4, p, st, batches[:ELASTIC_KILL],
+                          tmp + "/a", losses=losses)
+            mesh2 = elastic.remesh(2, prefer_model=1, device="cuda")
+            full, mu, nu = unshard(layout, trA.params, trA.opt_state)
+            final_layout, p2, st2 = state_for(mesh2, full, mu, nu,
+                                              trA.opt_state.step)
+            del trA
+            trB = trainer(final_layout, mesh2, p2, st2,
+                          batches[ELASTIC_KILL:], tmp + "/b", losses=losses)
+            final = trB.params
+        if fsdp:
+            final = final_layout.unshard_params(final)
+        return losses, [t.detach().clone() for t in tree_flatten(final)[0]], info
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def elastic_phase() -> None:
+    """Kill 2 of 4 ranks at step ``ELASTIC_KILL`` of ``ELASTIC_STEPS``,
+    data-parallel and FSDP, at full width and ``ELASTIC_LAYERS`` layers;
+    the trajectory from the kill on against a checkpoint-and-restart on
+    the 2 survivors: bit for bit when two identical restarts agree bit
+    for bit, else within ``ELASTIC_LOSS_ATOL``.  Then the watchdog on a
+    hung step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    cfg = get_config(TRAIN_ARCH).with_overrides(num_layers=ELASTIC_LAYERS)
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=2,
+                               total_steps=ELASTIC_STEPS)
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=5))
+    batches = [{k: torch.from_numpy(v.copy()).cuda()
+                for k, v in next(it).items()} for _ in range(ELASTIC_STEPS)]
+    params0 = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    for fsdp in (False, True):
+        name = "fsdp" if fsdp else "data-parallel"
+        ref1 = elastic_run(fsdp, cfg, ocfg, params0, batches, chaos=False)
+        ref2 = elastic_run(fsdp, cfg, ocfg, params0, batches, chaos=False)
+        free()
+        chaos = elastic_run(fsdp, cfg, ocfg, params0, batches, chaos=True)
+        same = ref1[0] == ref2[0] and all(
+            torch.equal(a, b) for a, b in zip(ref1[1], ref2[1]))
+        exact = chaos[0] == ref1[0] and all(
+            torch.equal(a, b) for a, b in zip(chaos[1], ref1[1]))
+        pdiff = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(chaos[1], ref1[1]))
+        info = chaos[2]
+        steps = info["step_ms"]
+        after = steps[ELASTIC_KILL + 1:]
+        log(f"elastic {name} ({ELASTIC_LAYERS} layers, {DP_RANKS} -> 2 ranks "
+            f"at step {ELASTIC_KILL} of {ELASTIC_STEPS}): 1 recovery, "
+            f"{info['failed_starts']} in-flight start(s) failed; remesh + "
+            f"re-shard {info['remesh_ms']:.3f} ms, the recovered step "
+            f"{steps[ELASTIC_KILL]:.3f} ms (failed attempt, remesh, retry; "
+            f"steps on 4 ranks {[round(v, 3) for v in steps[1:ELASTIC_KILL]]}"
+            f" ms, after it on 2 {[round(v, 3) for v in after]} ms); two "
+            f"identical restarts {'agree' if same else 'differ'} bit for "
+            f"bit; chaos vs restart losses {[round(v, 6) for v in chaos[0]]} "
+            f"vs {[round(v, 6) for v in ref1[0]]}, "
+            f"{'bit for bit' if exact else 'not bit for bit'}, max param "
+            f"diff {pdiff:.3e}")
+        if same and not exact:
+            raise AssertionError(f"elastic {name}: the chaos run differs "
+                                 f"from a deterministic restart")
+        if not same:
+            hold_losses(f"elastic {name} chaos vs restart", chaos[0],
+                        ref1[0], ELASTIC_LOSS_ATOL)
+        del ref1, ref2, chaos
+        free()
+    watchdog_check()
+
+
+def watchdog_check() -> None:
+    """A persistent reduce-scatter of a card payload started on an armed
+    step that hangs (nobody progresses the collective stream): the
+    watchdog's poll fires once, invalidates the epoch, and the in-flight
+    start fails with a retryable MembershipError exactly once; rebuilt,
+    the handle sums right."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.core import ProgressEngine
+    from repro_torch.distributed.fault_tolerance import StepWatchdog
+    from repro_torch.launch.mesh import make_mesh
+    eng = ProgressEngine()
+    coll = NB.UserCollectives(eng, name="watchdog")
+    epoch = NB.MembershipEpoch(n_devices=DP_RANKS)
+    clock = {"t": 0.0}
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), "cuda")
+    x = torch.arange(DP_RANKS * 4096, dtype=torch.int32,
+                     device="cuda").reshape(DP_RANKS, 4096)
+    h = coll.reduce_scatter_init(x, mesh, "data", chunks=DP_CHUNKS,
+                                 warmup=False, epoch=epoch)
+    hung = []
+    wd = StepWatchdog(eng, limit=5.0, clock=lambda: clock["t"], epoch=epoch,
+                      on_hang=lambda: hung.append(clock["t"]))
+    with no_sync():
+        wd.arm()
+        req = h.start(x)
+        pending = not req.is_complete
+        clock["t"] = 6.0
+        eng.poll_subsystems()
+        eng.poll_subsystems()
+        epoch_after = epoch.version
+        failed = req.failed and isinstance(req.exception, NB.MembershipError)
+        failed_starts = coll.failed
+        h.rebuild(mesh)
+        out = h.start(x).wait(timeout=60)
+    ok = torch.equal(out, x.sum(0).reshape(DP_RANKS, -1))
+    coll.close()
+    log(f"check: watchdog on a hung step: start pending when it fired "
+        f"{pending}, fired {wd.fired} time(s), epoch version {epoch_after}, "
+        f"the start failed with MembershipError {failed}, failed starts "
+        f"{failed_starts}; rebuilt handle sums {'right' if ok else 'WRONG'}")
+    if not (pending and hung and wd.fired == 1 and epoch_after == 1
+            and failed and failed_starts == 1 and ok):
+        raise AssertionError("the watchdog did not fail the hung start once")
+
+
+def pipeline_phase() -> None:
+    """1F1B at S = 4, M = 8 on 4 stage CUDA streams of the card (the
+    launcher's residual-MLP stages): the forward equal to ``gpipe``'s, the
+    loss and gradients of ``PIPE_STEPS`` steps bit for bit against the
+    sequential per-stage computation on the card, one blocking wait a
+    call; the bubble measured from ``last_step_timing`` against
+    ``bubble_fraction(4, 8)``.  Then ``launch.train --pipeline 1f1b
+    --mesh 2x4`` with the grad reducer over the data axis."""
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed import pipeline as pl
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    S, M, mb = PIPE_S, PIPE_M, PIPE_MB
+    d, h = train_mod.PIPE_D_MODEL, train_mod.PIPE_D_HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = {"w1": torch.randn((S, d, h), generator=gen, device="cuda") * .3,
+              "w2": torch.randn((S, h, d), generator=gen, device="cuda") * .3}
+    xs = torch.randn((M, mb, d), generator=gen, device="cuda")
+    ts = torch.randn((M, mb, d), generator=gen, device="cuda")
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    sched = pl.PipelineSchedule(
+        train_mod.pipe_stage_fn, make_mesh((S,), ("stage",), "cuda"),
+        "stage", S, loss_fn=train_mod.pipe_loss_fn, engine=eng, executor=ex,
+        name="chip")
+    out, bubbles, windows = [], [], []
+    with no_sync():
+        ys = sched.apply(params, xs, timeout=300)
+        for _ in range(PIPE_STEPS):
+            out.append(sched.step(params, xs, ts, timeout=300))
+            bubbles.append(sched.last_step_timing["bubble"])
+            windows.append(sched.last_step_timing["window_s"] * 1e3)
+    stats = sched.stats()
+    streams = len({id(c) for c in sched.cuda_streams})
+    # the sequential reference on the card: the same cells, one
+    # microbatch at a time, on the default stream
+    stage = [{k: v[s] for k, v in params.items()} for s in range(S)]
+    keys = sorted(params)
+    acc = [[torch.zeros_like(stage[s][k]) for k in keys] for s in range(S)]
+    scale = torch.tensor(1.0 / M, dtype=torch.float32, device="cuda")
+    seq_losses = []
+    for m in range(M):
+        x, stash = xs[m], []
+        for s in range(S - 1):
+            stash.append(x)
+            x = sched._fwd(stage[s], x)
+        lm, dx, acc[S - 1] = sched._last_bwd(stage[S - 1], x, ts[m], scale,
+                                             acc[S - 1])
+        seq_losses.append(lm)
+        for s in range(S - 2, -1, -1):
+            dx, acc[s] = sched._bwd(stage[s], stash[s], dx, acc[s])
+    seq_loss = seq_losses[0]
+    for lm in seq_losses[1:]:
+        seq_loss = seq_loss + lm
+    seq_loss = seq_loss * scale
+    seq_grads = {k: torch.stack([acc[s][i] for s in range(S)])
+                 for i, k in enumerate(keys)}
+    exact = all(torch.equal(loss, seq_loss) and all(
+        torch.equal(g[k], seq_grads[k]) for k in keys) for loss, g in out)
+    gp = pl.gpipe(train_mod.pipe_stage_fn, make_mesh((S,), ("stage",),
+                                                     "cuda"), "stage", S)
+    gp_same = torch.equal(ys, gp(params, xs))
+    sched.close()
+    ex.shutdown(drain=True, timeout=120)
+    analytic = pl.bubble_fraction(S, M, "1f1b")
+    later = bubbles[1:]
+    log(f"pipeline 1f1b S={S} M={M} (mb {mb}, d_model {d}, hidden {h}, "
+        f"{streams} stage CUDA streams): measured bubble "
+        f"{sum(later) / len(later):.4f} (steps 1-{PIPE_STEPS - 1}: "
+        f"{[round(b, 4) for b in later]}; step 0 {bubbles[0]:.4f}) vs "
+        f"analytic {analytic:.4f}; step window "
+        f"{[round(w, 3) for w in windows]} ms; loss and gradients vs "
+        f"sequential on the card "
+        f"{'bit for bit' if exact else 'NOT bit for bit'} over "
+        f"{PIPE_STEPS} steps; forward vs gpipe "
+        f"{'bit for bit' if gp_same else 'DIFFERS'}; blocking waits "
+        f"{stats['blocking_waits']} for {PIPE_STEPS + 1} calls; hops "
+        f"{stats['hop_starts']}, p2p completions "
+        f"{stats['p2p_stream_completions']}")
+    if not (exact and gp_same and streams == S
+            and stats["blocking_waits"] == PIPE_STEPS + 1
+            and stats["p2p_issued"] == stats["p2p_completed"] > 0):
+        raise AssertionError(f"1f1b on the card failed its checks: {stats}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_pipe_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--device", "cuda", "--pipeline", "1f1b", "--mesh", "2x4",
+            "--devices", "8", "--microbatches", str(M), "--global-batch",
+            str(mb), "--steps", "4", "--ckpt-dir", ckpt_dir])
+        with no_sync():
+            report = train_mod.run(args, log_every=1)
+        losses = [m["loss"] for m in report.log]
+        steps_ms = [round(m["step_time_s"] * 1e3, 3) for m in report.log]
+        waits = [r.blocking_waits for r in report.rows]
+        log(f"pipeline launcher --pipeline 1f1b --mesh 2x4: losses "
+            f"{[round(v, 6) for v in losses]}, step ms {steps_ms}, reducer "
+            f"over data={report.reducer.axis_size} "
+            f"({report.reduce_dispatches} dispatch units a step), blocking "
+            f"waits per row {waits}")
+        if len(losses) != 4 or not all(map(math.isfinite, losses)) \
+                or waits != [4, 4] or report.reducer.axis_size != 2:
+            raise AssertionError("the 1f1b launcher run failed its checks")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def parallel_phase(single_losses: list, dp_losses: list) -> dict:
+    """Phase 10: FSDP (user and native), the step-0 gather, the elastic
+    recovery and the pipeline; returns the FSDP user run's launches."""
+    launches, report, losses = train_fsdp("user")
+    hold_losses("train_fsdp vs the single card", losses, single_losses,
+                DP_LOSS_ATOL)
+    hold_losses("train_fsdp vs train_dp", losses, dp_losses, FSDP_DP_ATOL)
+    fsdp_time_breakdown(report)
+    del report
+    free()
+    _, report, native = train_fsdp("native")
+    del report
+    free()
+    hold_losses("train_fsdp user vs native", losses, native,
+                FSDP_NATIVE_ATOL)
+    fsdp_gather_check()
+    free()
+    elastic_phase()
+    free()
+    pipeline_phase()
+    free()
+    return launches
+
+
 def free() -> None:
     """Drop what an ended phase left behind (its engines hold reference
     cycles) and hand the cached blocks back, before the next phase."""
@@ -1938,7 +2543,7 @@ def free() -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv: list) -> int:
     # first, so that whatever fails after it leaves a trace on stdout
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
@@ -1949,6 +2554,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
+        return 2
+    if argv not in ([], ["--only", "parallel"]):
+        print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
+              f"--only parallel the single-card and data-parallel train "
+              f"runs and phase 10)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1966,6 +2576,23 @@ def main() -> int:
     log(f"build: {info.path.name} in {info.seconds:.1f} s"
         + ("" if info.commands else " (already built)"))
     _lib.lib()
+
+    if argv:
+        # a partial run (phase 10 and the runs it compares with); it
+        # prints no result line
+        _, report = train(workers=0)
+        single_losses = [m["loss"] for m in report.log]
+        del report
+        free()
+        _, report = train_dp(single_losses)
+        dp_losses = [m["loss"] for m in report.log]
+        del report
+        free()
+        launches = parallel_phase(single_losses, dp_losses)
+        log(f"partial run: launches of the FSDP run {launches}; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [kernel_rmsnorm(gen), kernel_flash_decode(gen),
@@ -2014,6 +2641,7 @@ def main() -> int:
         raise AssertionError("no poll found a round of a collective running")
     log(f"collectives phase done at {time.perf_counter() - t_start:.1f} s")
     runs["train_dp"], report = train_dp(single_losses)
+    dp_losses = [m["loss"] for m in report.log]
     dp_time_breakdown(report)
     del report
     free()
@@ -2021,6 +2649,8 @@ def main() -> int:
     dp_gradient_check(layers=2)
     free()
     log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
+    runs["train_fsdp"] = parallel_phase(single_losses, dp_losses)
+    log(f"parallel phase done at {time.perf_counter() - t_start:.1f} s")
     remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
                                         layers=MAMBA_DOTS_LAYERS)]
     runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
@@ -2043,8 +2673,10 @@ def main() -> int:
         row["launches_train_qwen2_5_3b"] = n["train_qwen2_5_3b"]
         row["launches_remat"] = n["remat"]
         row["launches_train_dp"] = n["train_dp"]
+        row["launches_train_fsdp"] = n["train_fsdp"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
-                           + row["launches_remat"] + n["train_dp"])
+                           + row["launches_remat"] + n["train_dp"]
+                           + n["train_fsdp"])
     log(f"launches: {runs}")
     reference_check()
     reference_check(QWEN3B, num_layers=2, kv_cache_dtype="int8")
@@ -2058,7 +2690,8 @@ def main() -> int:
             "launches_serve", "launches_serve_mamba",
             "launches_serve_qwen2_5_3b", "launches_train",
             "launches_train_mamba", "launches_train_qwen2_5_3b",
-            "launches_remat", "launches_train_dp", "shape", "grid", "launch_split_ms",
+            "launches_remat", "launches_train_dp", "launches_train_fsdp",
+            "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
             "train_shape", "serve_mamba_shape", "train_mamba_shape",
@@ -2073,4 +2706,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -11,7 +11,8 @@ the JAX package's ``repro.collectives`` (without the FSDP classes yet).
   the p2p family ``channel_init`` / ``send_init`` / ``recv_init``, all
   ``(like, mesh, axis, *, spec=None, epoch=None, stream=None,
   engine=None, ...)``.
-* overlap machinery: ``EngineGradReducer`` (replicated gradients).
+* overlap machinery: ``EngineGradReducer`` (replicated gradients) and
+  the ZeRO-sharded ``FsdpReducer`` / ``FsdpLayout``.
 
 Meshes come from ``repro_torch.launch.mesh``: every rank of an axis lives
 on the mesh's one device, a payload is rank-stacked on its leading dim.
@@ -36,7 +37,13 @@ from repro_torch.collectives.nonblocking import (
     reduce_scatter_init,
     spec_from_legacy,
 )
-from repro_torch.collectives.overlap import EngineGradReducer
+from repro_torch.collectives.overlap import (
+    EngineGradReducer,
+    FsdpGather,
+    FsdpLayout,
+    FsdpReducer,
+    FsdpReduction,
+)
 from repro_torch.collectives.p2p import (
     P2P,
     P2PChannel,
@@ -57,6 +64,7 @@ __all__ = [
     "allreduce_init", "reduce_scatter_init", "allgather_init",
     "alltoall_init",
     "EngineGradReducer",
+    "FsdpGather", "FsdpLayout", "FsdpReducer", "FsdpReduction",
     "P2P", "P2PChannel", "PersistentRecv", "PersistentSend",
     "default_p2p", "channel_init", "send_init", "recv_init",
 ]

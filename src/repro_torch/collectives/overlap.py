@@ -1,5 +1,5 @@
 """Computation/communication overlap (paper §2.3–§2.4): the port of the
-JAX package's ``collectives/overlap.py`` up to its FSDP classes.
+JAX package's ``collectives/overlap.py``.
 
 * ``allreduce_tree`` / ``microbatched_grad_fn`` — bucketed gradient
   reduction with the user schedules, on rank-stacked trees;
@@ -16,12 +16,15 @@ rank r's value in row r.
 """
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from typing import Callable
 
 import torch
 
 from repro_torch.collectives import schedules as S
+from repro_torch.core import debug
 
 
 def tree_flatten(tree):
@@ -348,6 +351,390 @@ class EngineGradReducer:
         return self.iallreduce_tree(stacked_grads).wait(timeout=timeout)
 
     def close(self) -> None:
+        for handle in self._persistent.values():
+            handle.close()
+        self._persistent.clear()
+        if self._own_coll:
+            self.coll.close()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-style FSDP on persistent reduce-scatter / all-gather handles
+# ---------------------------------------------------------------------------
+
+class FsdpLayout:
+    """Flat-bucket layout for ZeRO-style parameter sharding.
+
+    Computed once from a parameter-tree template: leaves (in
+    ``tree_flatten`` order) are grouped into per-dtype buckets
+    (:func:`bucket_tree` — one concatenated payload per bucket, never
+    mixing dtypes), each bucket's flat width padded up to a multiple of
+    the data-axis size ``n`` so rank ``r`` owns the contiguous block
+    ``r`` of the flat bucket — exactly the block placement the ring and
+    halving/doubling reduce-scatter schedules (and the plain sum over
+    the rank dim) produce."""
+
+    def __init__(self, params, n: int, bucket_bytes: int = 1 << 25):
+        leaves, self._unflatten = tree_flatten(params)
+        self.n = n
+        self.shapes = [tuple(leaf.shape) for leaf in leaves]
+        self.dtypes = [leaf.dtype for leaf in leaves]
+        self.sizes = [int(leaf.numel()) for leaf in leaves]
+        self.buckets = bucket_tree(params, bucket_bytes)
+        self.widths = []                 # padded flat width, multiple of n
+        self.totals = []                 # unpadded flat width
+        for bucket in self.buckets:
+            total = sum(self.sizes[i] for i in bucket)
+            self.totals.append(total)
+            self.widths.append(-(-total // n) * n)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.buckets)
+
+    def bucket_dtype(self, b: int):
+        return self.dtypes[self.buckets[b][0]]
+
+    def flatten_bucket(self, leaves, b: int) -> torch.Tensor:
+        """Full (unstacked) leaves -> the padded flat bucket ``[W]``."""
+        idx = self.buckets[b]
+        dt = self.bucket_dtype(b)
+        parts = [leaves[i].reshape(-1).to(dt) for i in idx]
+        pad = self.widths[b] - self.totals[b]
+        if pad:
+            parts.append(parts[0].new_zeros((pad,)))
+        return torch.cat(parts)
+
+    def unflatten(self, flats):
+        """Flat buckets ``[W]`` (one per bucket) -> the parameter tree; the
+        leaves are views of the flats."""
+        out = [None] * len(self.shapes)
+        for b, flat in enumerate(flats):
+            off = 0
+            for i in self.buckets[b]:
+                out[i] = flat[off:off + self.sizes[i]].view(self.shapes[i])
+                off += self.sizes[i]
+        return self._unflatten(out)
+
+    def shard_params(self, params, mesh=None, axis: str = "data"):
+        """Full params -> list of ``[n, W/n]`` shard stacks (row ``r`` is
+        rank ``r``'s block — ZeRO-3 resident state), on ``mesh``'s device
+        (default: the leaves' own).  ``axis`` names the data axis, whose
+        size must be the layout's ``n``."""
+        if mesh is not None and dict(mesh.shape)[axis] != self.n:
+            raise ValueError(f"mesh axis {axis!r} has "
+                             f"{dict(mesh.shape)[axis]} ranks, the layout "
+                             f"{self.n}")
+        leaves, _ = tree_flatten(params)
+        out = []
+        for b in range(self.num_buckets):
+            flat = self.flatten_bucket(leaves, b)
+            if mesh is not None:
+                flat = flat.to(mesh.device)
+            out.append(flat.reshape(self.n, self.widths[b] // self.n))
+        return out
+
+    def unshard_params(self, shards):
+        """Shard stacks ``[n, W/n]`` -> the full parameter tree (views of
+        the stacks; for checkpointing, eval and re-sharding — the
+        training path gathers through the engine instead)."""
+        return self.unflatten([s.reshape(-1) for s in shards])
+
+
+class FsdpReduction:
+    """In-flight bucketed gradient reduce-scatter: one nonblocking
+    collective request per flat bucket; ``wait`` returns the reduced
+    shard stacks ``[n, W/n]`` (row ``r`` = rank ``r``'s grad-sum block,
+    unscaled — the optimizer applies the 1/n data-parallel mean)."""
+
+    def __init__(self, requests):
+        self.requests = requests
+
+    @property
+    def is_complete(self) -> bool:
+        return all(r.is_complete for r in self.requests)
+
+    def wait(self, timeout: float | None = None):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for req in self.requests:
+            remaining = None if deadline is None else \
+                max(0.0, deadline - time.monotonic())
+            out.append(req.wait(timeout=remaining))
+        return out
+
+
+class FsdpGather:
+    """In-flight chained parameter prefetch (the §4.6 continuation
+    pattern): one persistent all-gather start per flat bucket, each
+    start *chained* as a continuation instead of issued eagerly.
+
+    Two chain shapes:
+
+    * ``after=None`` — bucket ``i+1``'s start is attached to bucket
+      ``i``'s completion: a self-propagating prefetch train that
+      progresses on the collective stream while the caller computes.
+    * ``after=[req, ...]`` (one request-like per bucket, e.g.
+      ``FsdpReducer.future``s over the optimizer's updated shards) —
+      bucket ``i``'s start fires when its *compute future* completes
+      (a CUDA event recorded after the optimizer on the compute stream),
+      so the gather for the next step begins the moment its shards are
+      written, behind whatever the card still runs.
+
+    ``blocked_s`` / ``window_s`` give the prefetch-overlap accounting:
+    the fraction of the gather window the caller did *not* spend blocked
+    in ``wait`` is communication hidden behind compute."""
+
+    def __init__(self, reducer: "FsdpReducer", shards, after=None):
+        if after is not None and len(after) != len(shards):
+            raise ValueError(
+                f"after must carry one request per bucket: "
+                f"{len(after)} != {len(shards)}")
+        self.reducer = reducer
+        self._shards = shards
+        self._after = after
+        self._reqs: list = [None] * len(shards)
+        self._exc: BaseException | None = None
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self._t_done: float | None = None
+        self.blocked_s = 0.0
+        if not shards:
+            self._t_done = self._t0
+        elif after is None:
+            self._start(0)
+        else:
+            q = reducer.coll.queue
+            for i, fut in enumerate(after):
+                q.attach(fut, functools.partial(self._on_upstream, i),
+                         on_error=functools.partial(self._on_failed, i))
+
+    # -- chain links (run inline on whichever thread progresses) ----------
+    def _start(self, i: int) -> None:
+        try:
+            req = self.reducer._start_gather(i, self._shards[i])
+        except BaseException as exc:  # noqa: BLE001 - surfaced by wait()
+            with self._lock:
+                self._exc = exc
+            return
+        with self._lock:
+            self._reqs[i] = req
+        if self._after is None and i + 1 < len(self._shards):
+            self.reducer.coll.queue.attach(
+                req, lambda _req: self._start(i + 1),
+                on_error=functools.partial(self._on_failed, i))
+
+    def _on_upstream(self, i: int, _req) -> None:
+        self._start(i)
+
+    def _on_failed(self, i: int, req) -> None:
+        with self._lock:
+            if self._exc is None:
+                self._exc = req.exception or RuntimeError(
+                    f"fsdp gather {i} failed")
+
+    # -- waiting -----------------------------------------------------------
+    def _drive_until(self, cond, deadline) -> None:
+        from repro_torch.core.continuations import DEFERRED
+        coll = self.reducer.coll
+        eng, s, q = coll.engine, coll.stream, coll.queue
+        while not cond():
+            ex = eng.executor
+            owned = ex is not None and ex.running and ex.owns(s)
+            made = 0 if owned else eng.progress(s)
+            if q.policy == DEFERRED:
+                made += q.drain()
+            if cond():
+                return
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError("fsdp gather wait timed out")
+            if not made:
+                time.sleep(20e-6)
+
+    def wait(self, timeout: float | None = None):
+        """Drive the engine until every bucket gathered; returns the
+        gathered flat buckets ``[n, W]`` (every row a full copy).  Time
+        spent blocked here is accumulated into ``blocked_s``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for i in range(len(self._shards)):
+            t = time.monotonic()
+            self._drive_until(
+                lambda: self._reqs[i] is not None or self._exc is not None,
+                deadline)
+            with self._lock:
+                req, exc = self._reqs[i], self._exc
+            if req is None:
+                raise exc
+            remaining = None if deadline is None else \
+                max(0.0, deadline - time.monotonic())
+            out.append(req.wait(timeout=remaining))
+            self.blocked_s += time.monotonic() - t
+        if self._t_done is None:
+            self._t_done = time.monotonic()
+            self.reducer._note_gather(self)
+        return out
+
+    @property
+    def window_s(self) -> float:
+        end = self._t_done if self._t_done is not None else time.monotonic()
+        return max(end - self._t0, 1e-9)
+
+    @property
+    def overlap_fraction(self) -> float:
+        """Fraction of the gather window hidden behind caller compute."""
+        return max(0.0, min(1.0, 1.0 - self.blocked_s / self.window_s))
+
+
+class FsdpReducer:
+    """ZeRO-style FSDP communication on the progress engine.
+
+    Where :class:`EngineGradReducer` allreduces full gradients (every
+    rank ends with every element), this reducer keeps optimizer state
+    and parameters *sharded* over the data axis and moves half the wire
+    bytes per step:
+
+    * ``ireduce_scatter(flat_grads)`` — per-bucket stacked gradients
+      ``[n, W]`` through persistent ``reduce_scatter_init`` handles; the
+      reduced block lands on its owning rank as ``[n, W/n]``.
+    * ``igather(shards, after=...)`` — persistent ``allgather_init``
+      starts for the next step's full params, chained as continuations
+      off compute futures (:class:`FsdpGather`), so gather rounds
+      progress on the collective stream while the card still runs the
+      optimizer.
+
+    Handles are cached per (op, bucket ordinal, payload shape, dtype) —
+    the MPI ``*_init``/``Start`` persistent pattern — and register under
+    the membership ``epoch`` like every other persistent collective, so
+    a membership change fails in-flight FSDP starts exactly once and
+    ``remesh`` rebuilds on the survivors.  Works on any mesh whose
+    ``axis`` names the data dimension; other mesh axes (``model``)
+    replicate, so the payloads carry one row per data rank."""
+
+    def __init__(self, mesh, axis: str = "data", *, engine=None,
+                 collectives=None, spec=None, algorithm: str = "ring",
+                 chunks: int = 4, bucket_bytes: int = 1 << 25,
+                 executor=None, round_batch: int | None = None,
+                 epoch=None):
+        from repro_torch.collectives import nonblocking as NB
+        if spec is None:
+            spec = NB.CollectiveSpec(backend="user", algorithm=algorithm,
+                                     chunks=chunks, round_batch=round_batch)
+        self.mesh = mesh
+        self.axis = axis
+        self.axis_size = dict(mesh.shape)[axis]
+        self._spec_pref = spec
+        self.spec = spec.resolve(self.axis_size)
+        self.bucket_bytes = bucket_bytes
+        self.epoch = epoch
+        self.remeshes = 0
+        self._own_coll = collectives is None
+        self.coll = collectives if collectives is not None else \
+            NB.UserCollectives(engine, executor=executor, name="fsdp",
+                               epoch=epoch)
+        self._persistent: dict = {}
+        debug.track_handle(self, "FsdpReducer")
+        # prefetch-overlap accounting (totals across completed gathers)
+        self.gathers = 0
+        self.gather_blocked_s = 0.0
+        self.gather_window_s = 0.0
+
+    # -- persistent handles ------------------------------------------------
+    def _handle(self, kind: str, ordinal: int, like):
+        key = (kind, ordinal, tuple(like.shape), like.dtype)
+        handle = self._persistent.get(key)
+        if handle is None:
+            init = self.coll.reduce_scatter_init if kind == "rs" \
+                else self.coll.allgather_init
+            handle = init(like, self.mesh, self.axis, spec=self.spec,
+                          warmup=False, epoch=self.epoch)
+            self._persistent[key] = handle
+        return handle
+
+    def _start_gather(self, ordinal: int, shard):
+        handle = self._handle("ag", ordinal, shard)
+        if handle.active is not None and not handle.active.is_complete:
+            return self.coll.iallgather(shard, self.mesh, self.axis,
+                                        spec=self.spec)
+        return handle.start(shard)
+
+    def _note_gather(self, gather: FsdpGather) -> None:
+        self.gathers += 1
+        self.gather_blocked_s += gather.blocked_s
+        self.gather_window_s += gather.window_s
+
+    @property
+    def prefetch_overlap(self) -> float:
+        """Aggregate overlap fraction across all completed gathers."""
+        if self.gather_window_s <= 0.0:
+            return 0.0
+        return max(0.0, min(1.0, 1.0 - self.gather_blocked_s
+                            / self.gather_window_s))
+
+    @property
+    def dispatches_per_step(self) -> int:
+        """Dispatch units a step's reduce-scatters and gathers cost (every
+        bucket's chunks × rounds after fusion)."""
+        return sum(h.dispatches_per_start for h in self._persistent.values())
+
+    # -- the two FSDP collectives -----------------------------------------
+    def ireduce_scatter(self, flat_grads) -> FsdpReduction:
+        """Issue one persistent reduce-scatter per flat grad bucket
+        ``[n, W]``; returns immediately."""
+        # close() clears the handle cache but nothing else marks the
+        # reducer unusable — the debug tracker refuses a closed reducer
+        debug.handle_check_open(self, "ireduce_scatter", kind="FsdpReducer")
+        requests = []
+        for bi, g in enumerate(flat_grads):
+            handle = self._handle("rs", bi, g)
+            if handle.active is not None and not handle.active.is_complete:
+                requests.append(self.coll.ireduce_scatter(
+                    g, self.mesh, self.axis, spec=self.spec))
+            else:
+                requests.append(handle.start(g))
+        return FsdpReduction(requests)
+
+    def igather(self, shards, after=None) -> FsdpGather:
+        """Chained param prefetch over the shard stacks ``[n, W/n]``;
+        see :class:`FsdpGather` for the two chain shapes."""
+        debug.handle_check_open(self, "igather", kind="FsdpReducer")
+        return FsdpGather(self, shards, after=after)
+
+    def future(self, tensors):
+        """A compute future on the reducer's own collective stream: a CUDA
+        event recorded now on the current (compute) stream, polled by the
+        engine — the right upstream for ``igather``'s ``after=`` chain,
+        since waiting the gather progresses exactly this stream."""
+        from repro_torch.core.futures import torch_future
+        return torch_future(self.coll.engine, tensors, self.coll.stream)
+
+    def gather(self, shards, timeout: float | None = None):
+        """Blocking convenience: chained issue + engine-driven wait."""
+        return self.igather(shards).wait(timeout=timeout)
+
+    # -- lifecycle ---------------------------------------------------------
+    def remesh(self, mesh, axis: str | None = None) -> "FsdpReducer":
+        """Adopt the survivors' mesh: close the stale handles (payload
+        shapes carry the old axis size), re-resolve the spec for the new
+        axis size, and let fresh handles build lazily.  The *caller*
+        re-shards params/optimizer state for the new axis size (shard
+        widths change) — ``FsdpLayout`` + ``shard_params`` on the
+        unsharded tree."""
+        debug.handle_event(self, "rebuild", kind="FsdpReducer",
+                           complete_probe=lambda: True)
+        for handle in self._persistent.values():
+            handle.close()
+        self._persistent.clear()
+        self.mesh = mesh
+        if axis is not None:
+            self.axis = axis
+        self.axis_size = dict(mesh.shape)[self.axis]
+        self.spec = self._spec_pref.resolve(self.axis_size)
+        self.remeshes += 1
+        return self
+
+    def close(self) -> None:
+        debug.handle_event(self, "close", kind="FsdpReducer")
         for handle in self._persistent.values():
             handle.close()
         self._persistent.clear()

@@ -1,0 +1,69 @@
+"""Elastic scaling: rebuild the mesh after membership changes and restore
+the latest checkpoint onto it (the port of the JAX package's
+``distributed/elastic.py``).
+
+Checkpoints store full (unsharded) tensors, so restoring onto a smaller
+or larger mesh is a placement decision: the sharding rules are resolved
+again against the new mesh.  On the port's single-controller mesh every
+rank lives on the mesh's one device, so the restored tensors are the
+full tensors on that device, returned beside the spec tree the rules
+give for the new mesh (a spec a dim cannot take raises, as in JAX).
+Combined with ``AsyncCheckpointer``'s atomic commits, a membership loss
+costs at most the work since the last committed step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.sharding import axis_rules, merged_rules, spec_tree
+
+
+def largest_pof2(n: int) -> int:
+    if n < 1:
+        raise ValueError(f"largest_pof2 needs n >= 1, got {n}")
+    return 1 << (n.bit_length() - 1)
+
+
+def plan_mesh(n_devices: int, *, prefer_model: int = 16) -> tuple[tuple, tuple]:
+    """Pick a (data, model) mesh for an arbitrary surviving device count.
+
+    Keeps the model axis at `prefer_model` when divisible (TP degree is a
+    property of the model, not of the incident), otherwise the largest
+    power-of-two that fits."""
+    if n_devices < 1:
+        # total membership loss is not a mesh-planning problem; surface
+        # the survivor count instead of largest_pof2's shift-count error
+        raise ValueError(
+            f"plan_mesh: cannot build a mesh for {n_devices} surviving "
+            f"device(s); at least 1 is required")
+    n = largest_pof2(n_devices)
+    model = prefer_model
+    while model > 1 and n % model:
+        model //= 2
+    return (n // model, model), ("data", "model")
+
+
+def remesh(n_devices: Optional[int] = None, prefer_model: int = 16,
+           device=None):
+    """The survivors' ``(data, model)`` mesh of ranks on ``device``
+    (``cuda`` unless the caller asks for another).  ``n_devices`` is the
+    surviving rank count (default 1: the one card)."""
+    n = n_devices if n_devices is not None else 1
+    if n < 1:
+        raise ValueError(
+            f"remesh: cannot rebuild a mesh for {n} surviving "
+            f"device(s); at least 1 is required")
+    shape, axes = plan_mesh(n, prefer_model=prefer_model)
+    return make_mesh(shape, axes, device)
+
+
+def reshard_restore(checkpointer, step: int, like_tree, axes_tree, new_mesh,
+                    rules_overrides=None):
+    """Restore checkpoint ``step`` onto ``new_mesh``: ``(tree, specs)``,
+    the full tensors on the mesh's device and their spec tree resolved
+    for the new mesh."""
+    rules = merged_rules(rules_overrides)
+    with axis_rules(rules):
+        specs = spec_tree(axes_tree, like_tree, new_mesh)
+    return checkpointer.restore(step, like_tree, new_mesh.device), specs

@@ -11,7 +11,8 @@ Differences from the JAX package, by design:
   become f32 after the first step; here they start so).
 
 ``torch.optim.AdamW`` is not used: its schedule, clipping and decay
-differ.  ``init_shards``/``apply_shards`` (FSDP) are not ported yet.
+differ.  ``init_shards``/``apply_shards`` are the ZeRO step over FSDP
+flat shard stacks, in place likewise.
 """
 from __future__ import annotations
 
@@ -53,6 +54,18 @@ def init(params) -> AdamWState:
     )
 
 
+def init_shards(shards) -> AdamWState:
+    """Optimizer state over FSDP flat shard stacks ``[n, W/n]``: mu/nu are
+    lists shaped like the stacks, f32 (ZeRO — each rank holds moments
+    only for the block it owns, row r)."""
+    zeros = lambda s: torch.zeros_like(s, dtype=torch.float32)  # noqa: E731
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=shards[0].device),
+        mu=[zeros(s) for s in shards],
+        nu=[zeros(s) for s in shards],
+    )
+
+
 def schedule(cfg: AdamWConfig, step):
     """Linear warmup, then cosine decay to ``min_lr_ratio``; f32 tensor."""
     step = step.float()
@@ -66,6 +79,47 @@ def schedule(cfg: AdamWConfig, step):
 def global_norm(tree):
     sq = sum(torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree))
     return torch.sqrt(sq)
+
+
+@torch.no_grad()
+def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
+                 *, grad_scale: float = 1.0):
+    """One AdamW step over flat shard stacks (the ZeRO step: each rank
+    updates only the parameter block it owns), IN PLACE on ``shards`` and
+    the moments.
+
+    ``shards``/``grad_shards`` are lists of rank-stacked ``[n, W/n]``
+    tensors, rank r's block in row r.  AdamW is elementwise, so flat
+    math equals per-leaf math given the same clip scale and schedule;
+    the one cross-rank quantity, the global grad norm, is each rank's
+    sum of squares over its blocks (the JAX package's local sum) then the
+    sum over the rank dim (its ``psum``).  ``grad_scale`` folds the
+    data-parallel mean into the step (reduce-scatter delivers sums).
+    Zero-padded bucket tails stay zero: grad 0 keeps mu/nu 0 and weight
+    decay multiplies a zero param.
+
+    Returns ``(shards, new_state, metrics)``."""
+    sq = sum(torch.sum(torch.square(g.float() * grad_scale),
+                       dim=tuple(range(1, g.dim())))
+             for g in grad_shards)
+    gnorm = torch.sqrt(sq.sum())
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    stepf = step.float()
+    b1c = 1 - torch.pow(cfg.b1, stepf)
+    b2c = 1 - torch.pow(cfg.b2, stepf)
+    for p, g, m, v in zip(shards, grad_shards, state.mu, state.nu):
+        g = g.float() * grad_scale * scale
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        mhat = m / b1c
+        vhat = v / b2c
+        pf = p.float()
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+        p.copy_((pf - lr * delta).to(p.dtype))
+    return shards, AdamWState(step, state.mu, state.nu), \
+        {"grad_norm": gnorm, "lr": lr}
 
 
 @torch.no_grad()

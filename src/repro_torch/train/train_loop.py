@@ -19,8 +19,13 @@ The user collective backend runs a split step (``UserCollectiveStep``):
 per-rank gradients stacked on a leading rank dim, reduced by an
 ``EngineGradReducer`` whose persistent bucketed allreduces progress on
 the collective stream of the same engine, then the optimizer.
-``FsdpStep``, ``epoch`` and ``remesh_fn`` (ZeRO sharding and elastic
-recovery) raise until their slice (ROADMAP §1 item 6).
+``FsdpStep`` runs ZeRO-style FSDP: the step's full parameters are
+all-gathered from flat shards (the next step's gathers chained off the
+optimizer's compute futures), the gradients reduce-scattered, and the
+optimizer steps on the shards.  With a membership ``epoch`` and a
+``remesh_fn`` a ``MembershipError`` raised mid-step (a dead peer, a hung
+step) is recovered within the step: rebuild on the survivors, retry the
+same batch.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import time
 from typing import Any, Callable, Optional
 
 from repro_torch.collectives.nonblocking import CollectiveSpec, \
-    spec_from_legacy
+    MembershipError, spec_from_legacy
 from repro_torch.core import ProgressEngine, ProgressExecutor, \
     global_engine, torch_future
 from repro_torch.core.request import Request
@@ -67,6 +72,11 @@ class TrainLoopConfig:
     collective_algorithm: "str | None" = None
     collective_chunks: "int | None" = None
     collective_round_batch: "int | None" = None
+    # pipeline-parallel schedule this loop runs under ("none", "gpipe",
+    # "1f1b") — a record field like collective_spec.backend: the
+    # launcher carries the machinery (a PipelineSchedule per data row),
+    # the config is what logs and stats report
+    pipeline: str = "none"
 
     _DEFAULT_SPEC = CollectiveSpec(backend="native", algorithm="ring",
                                    chunks=4, round_batch=0)
@@ -130,8 +140,23 @@ class UserCollectiveStep:
 
 @dataclasses.dataclass
 class FsdpStep:
-    """Split train step for ZeRO-style FSDP (the JAX package's record).
-    The ``Trainer`` refuses it until the FSDP slice (ROADMAP §1 item 6)."""
+    """Split train step for ZeRO-style FSDP on the user backend.
+
+    Parameters live as *flat shard stacks* (``FsdpLayout.shard_params``
+    — one ``[n, W/n]`` tensor per bucket, rank ``r`` owning row ``r``):
+
+    * ``grad_fn(gathered_flats, batch) -> (stacked_metrics,
+      flat_grads)`` — takes the all-gathered full flat buckets ``[n,
+      W]``, rank r's forward reading row r, and returns per-rank metrics
+      plus stacked f32 flat grad buckets ``[n, W]``;
+    * ``reducer`` (an :class:`~repro_torch.collectives.overlap.
+      FsdpReducer`) reduce-scatters the grad buckets — each rank
+      receives only its own block — and prefetches the next step's
+      params via continuation-chained persistent all-gathers;
+    * ``apply_fn(shards, opt_state, grad_shards, stacked_metrics) ->
+      (shards, opt_state, metrics)`` — the sharded optimizer step.
+
+    ``spec`` as in :class:`UserCollectiveStep`."""
     grad_fn: Callable
     apply_fn: Callable
     reducer: Any
@@ -146,20 +171,23 @@ class Trainer:
                  pipeline, cfg: TrainLoopConfig,
                  engine: Optional[ProgressEngine] = None,
                  hooks: list[Callable[[int, dict], None]] | None = None,
-                 split_step: "UserCollectiveStep | None" = None,
+                 split_step: "UserCollectiveStep | FsdpStep | None" = None,
                  epoch=None, remesh_fn: Callable | None = None):
         """``step_fn(params, opt_state, batch) -> (params, opt_state,
         metrics)`` dispatches one step (metrics: 0-d tensors).  With a
         ``split_step`` (the user collective backend) each step is its
         ``grad_fn``, the engine-driven reduction and its ``apply_fn``;
         the config's backend follows the split step, and a "user"
-        backend without one raises.  ``FsdpStep``, ``epoch`` and
-        ``remesh_fn`` raise (ROADMAP §1 item 6)."""
-        if isinstance(split_step, FsdpStep) or epoch is not None \
-                or remesh_fn is not None:
-            raise NotImplementedError(
-                "FsdpStep, epoch and remesh_fn (FSDP and elastic recovery) "
-                "are not ported yet (ROADMAP §1 item 6)")
+        backend without one raises.
+
+        ``epoch``: a collectives ``MembershipEpoch`` shared with the
+        reducer's persistent handles; the watchdog invalidates it when a
+        step hangs, so the in-flight reduction fails retryably instead
+        of deadlocking the loop.  ``remesh_fn(exc, params, opt_state) ->
+        (split_step, params, opt_state)`` rebuilds the split step on the
+        survivors' mesh; with it set, a ``MembershipError`` from the
+        step is recovered within the same step: rebuild, then retry the
+        step's batch (counted in ``recoveries``)."""
         if split_step is not None and cfg.collective_backend != "user":
             cfg = dataclasses.replace(
                 cfg,
@@ -169,7 +197,8 @@ class Trainer:
         elif split_step is None and cfg.collective_backend == "user":
             raise ValueError(
                 "collective_backend='user' requires a split_step "
-                "(UserCollectiveStep with grad_fn/apply_fn/reducer)")
+                "(UserCollectiveStep or FsdpStep with "
+                "grad_fn/apply_fn/reducer)")
         self.step_fn = step_fn
         self.split_step = split_step
         self.params = params
@@ -180,13 +209,17 @@ class Trainer:
         self.hooks = hooks or []
         self.ckpt = AsyncCheckpointer(cfg.checkpoint_dir, self.engine)
         self.straggler = StragglerDetector()
+        self.epoch = epoch
+        self.remesh_fn = remesh_fn
         self.watchdog = StepWatchdog(self.engine, cfg.watchdog_limit_s,
-                                     on_hang=self._on_hang)
+                                     on_hang=self._on_hang, epoch=epoch)
         self.start_step = 0
+        self.recoveries = 0
         self.reduce_issue_s: list[float] = []   # host time to issue each
         #                                         step's reduction
         self.metrics_log: list[dict] = []
         self._pending_ckpt: Request | None = None
+        self._pending_gather = None     # FsdpStep: chained param prefetch
         self._hung = False
 
     # ------------------------------------------------------------------
@@ -195,8 +228,35 @@ class Trainer:
 
     def _split_step_once(self, batch):
         """Split-step grad dispatch, the engine-driven bucketed
-        reduction, then the optimizer; returns the metrics."""
+        reduction, then the optimizer; returns the metrics.  Raises
+        ``MembershipError`` retryably (params not yet updated)."""
         ss = self.split_step
+        limit = self.cfg.watchdog_limit_s
+        if isinstance(ss, FsdpStep):
+            if self._pending_gather is None:
+                # cold start (or post-remesh): no prefetch in flight —
+                # issue the continuation-chained gather and wait it here
+                self._pending_gather = ss.reducer.igather(self.params)
+            flats = self._pending_gather.wait(timeout=limit)
+            self._pending_gather = None
+            stacked_metrics, flat_grads = ss.grad_fn(flats, batch)
+            del flats
+            reduction = ss.reducer.ireduce_scatter(flat_grads)
+            del flat_grads
+            grad_shards = reduction.wait(timeout=limit)
+            self.params, self.opt_state, metrics = ss.apply_fn(
+                self.params, self.opt_state, grad_shards, stacked_metrics)
+            # prefetch the next step's full params NOW: each bucket's
+            # persistent all-gather start is chained off that bucket's
+            # compute future (a CUDA event after the in-place optimizer,
+            # polled on the reducer's collective stream), so it fires on
+            # the first sweep of that stream after the optimizer's work —
+            # a worker's that owns the stream, or at the latest the next
+            # step's gather wait (§4.6 continuations)
+            self._pending_gather = ss.reducer.igather(
+                self.params, after=[ss.reducer.future(s)
+                                    for s in self.params])
+            return metrics
         stacked_metrics, grads = ss.grad_fn(self.params, batch)
         reduction = ss.reducer.iallreduce_tree(grads)
         self.reduce_issue_s.append(reduction.issue_s)
@@ -246,7 +306,25 @@ class Trainer:
                 # nonblocking bucketed allreduce on the collective stream
                 # (the engine overlaps it with prefetch/checkpoint work),
                 # then the optimizer
-                metrics = self._split_step_once(batch)
+                try:
+                    metrics = self._split_step_once(batch)
+                except MembershipError as exc:
+                    if self.remesh_fn is None:
+                        raise
+                    # membership changed mid-step (dead peer or hung
+                    # collective): rebuild the split step on survivors
+                    # and retry THIS step's batch.  Params were not yet
+                    # updated, so the retried step computes exactly what
+                    # a from-checkpoint restart at this step would.  An
+                    # in-flight FSDP prefetch died with the old epoch —
+                    # drop it; the retry re-gathers on the new mesh.
+                    self._pending_gather = None
+                    self.split_step, self.params, self.opt_state = \
+                        self.remesh_fn(exc, self.params, self.opt_state)
+                    self.recoveries += 1
+                    self._hung = False
+                    self.watchdog.arm()
+                    metrics = self._split_step_once(batch)
             else:
                 # dispatch: returns once the step's kernels are queued
                 self.params, self.opt_state, metrics = self.step_fn(

@@ -393,3 +393,104 @@ def test_persistent_restart_allocates_nothing_on_the_card(cuda):
         assert torch.equal(out, want)
     assert len(set(mem)) == 1, mem
     coll.close()
+
+
+# ---------------------------------------------------------------------------
+# parallel training on the card: FSDP handles, 1F1B streams, the watchdog
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_fsdp_reducer_on_the_card_equals_its_cpu_run(cuda, n):
+    """The ``FsdpReducer``'s persistent reduce-scatter and the chained
+    all-gather off a compute future on card payloads: int32 bit for bit
+    against the plain sum, f32 bit for bit against the same schedule on
+    the CPU."""
+    from repro_torch.collectives import CollectiveSpec, FsdpReducer
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    spec = CollectiveSpec(backend="user", chunks=4)
+    reds = {dev: FsdpReducer(make_mesh((n, 1), ("data", "model"), dev),
+                             "data", engine=ProgressEngine(), spec=spec)
+            for dev in ("cuda", "cpu")}
+    gen = torch.Generator().manual_seed(n)
+    gi = torch.randint(-100, 100, (n, 64 * n), generator=gen,
+                       dtype=torch.int32)
+    gf = torch.randn((n, 64 * n), generator=gen)
+    out = {dev: r.ireduce_scatter([gi.to(dev), gf.to(dev)]).wait(timeout=60)
+           for dev, r in reds.items()}
+    assert torch.equal(out["cuda"][0].cpu(), gi.sum(0).view(n, -1))
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    for dev, r in reds.items():
+        shards = [t.clone() for t in out[dev]]
+        full = r.igather(shards, after=[r.future(s) for s in shards]) \
+            .wait(timeout=60)
+        assert torch.equal(full[0].cpu(),
+                           shards[0].reshape(1, -1).expand(n, -1).cpu())
+        out[dev] = full
+        r.close()
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+
+
+def test_1f1b_on_stage_streams_equals_sequential(cuda):
+    """1F1B at S = 4, M = 8 on four stage CUDA streams: loss and
+    gradients bit for bit against the same cells run one microbatch at a
+    time on the default stream; the forward equal to ``gpipe``'s."""
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed import pipeline as pl
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_mesh
+    S, M, mb = 4, 8, 4
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = {"w1": torch.randn((S, 16, 32), generator=g, device="cuda"),
+              "w2": torch.randn((S, 32, 16), generator=g, device="cuda")}
+    xs = torch.randn((M, mb, 16), generator=g, device="cuda")
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    mesh = make_mesh((S,), ("stage",), "cuda")
+    sched = pl.PipelineSchedule(launch.pipe_stage_fn, mesh, "stage", S,
+                                loss_fn=launch.pipe_loss_fn, engine=eng,
+                                executor=ex)
+    loss, grads = sched.step(params, xs, xs, timeout=120)
+    ys = sched.apply(params, xs, timeout=120)
+    stage = [{k: v[s] for k, v in params.items()} for s in range(S)]
+    acc = [[torch.zeros_like(stage[s][k]) for k in ("w1", "w2")]
+           for s in range(S)]
+    scale = torch.tensor(1.0 / M, device="cuda")
+    total = None
+    for m in range(M):
+        x, stash = xs[m], []
+        for s in range(S - 1):
+            stash.append(x)
+            x = sched._fwd(stage[s], x)
+        lm, dx, acc[S - 1] = sched._last_bwd(stage[S - 1], x, xs[m], scale,
+                                             acc[S - 1])
+        total = lm if total is None else total + lm
+        for s in range(S - 2, -1, -1):
+            dx, acc[s] = sched._bwd(stage[s], stash[s], dx, acc[s])
+    assert torch.equal(loss, total * scale)
+    for i, k in enumerate(("w1", "w2")):
+        assert torch.equal(grads[k], torch.stack([a[i] for a in acc]))
+    assert torch.equal(ys, pl.gpipe(launch.pipe_stage_fn, mesh, "stage",
+                                    S)(params, xs))
+    assert len({id(c) for c in sched.cuda_streams}) == S
+    sched.close()
+    ex.shutdown(drain=True, timeout=60)
+
+
+def test_fsdp_launcher_on_the_card_matches_native(cuda, tmp_path):
+    """``launch.train --devices 4 --fsdp`` at the tiny scale on the card:
+    the user backend's losses within 1e-3 of the native backend's."""
+    from repro_torch.launch import train as launch
+    losses = {}
+    for backend in ("native", "user"):
+        args = launch.build_parser().parse_args([
+            "--device", "cuda", "--scale", "tiny", "--steps", "4",
+            "--global-batch", "8", "--seq", "32", "--devices", "4", "--fsdp",
+            "--collective-backend", backend,
+            "--ckpt-dir", str(tmp_path / backend)])
+        losses[backend] = [m["loss"] for m in
+                           launch.run(args, log_every=1).log]
+    assert len(losses["user"]) == 4
+    assert max(abs(a - b) for a, b in zip(losses["user"],
+                                           losses["native"])) < 1e-3

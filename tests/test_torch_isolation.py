@@ -36,6 +36,9 @@ COLLECTIVES_SLICE = ["repro_torch.collectives",
                      "repro_torch.collectives.p2p",
                      "repro_torch.collectives.overlap",
                      "repro_torch.launch.mesh"]
+# the parallel-training slice's modules
+PARALLEL_SLICE = ["repro_torch.sharding", "repro_torch.distributed.elastic",
+                  "repro_torch.distributed.pipeline"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -63,7 +66,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     loaded = lines["LOADED"]
     assert all(f"'{m}'" in loaded
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
-               + COLLECTIVES_SLICE), loaded
+               + COLLECTIVES_SLICE + PARALLEL_SLICE), loaded
 
 
 def _imported(path: Path) -> list[str]:
@@ -81,7 +84,7 @@ def test_no_jax_or_repro_import_in_the_sources():
     scanned = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                for p in SOURCES if PORT in p.parents}
     assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
-               + COLLECTIVES_SLICE[1:]) <= scanned
+               + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE) <= scanned
     assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):

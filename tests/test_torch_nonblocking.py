@@ -464,8 +464,7 @@ class TestSurfaces:
 def test_collectives_import_surface_mirrors_jax():
     import repro.collectives as J
     import repro_torch.collectives as C
-    fsdp = {"FsdpGather", "FsdpLayout", "FsdpReducer", "FsdpReduction"}
-    assert set(C.__all__) == set(J.__all__) - fsdp
+    assert set(C.__all__) == set(J.__all__)
     for name in C.__all__:
         assert getattr(C, name) is not None, name
     assert C.CollectiveSpec is CollectiveSpec

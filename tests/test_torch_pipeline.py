@@ -1,0 +1,335 @@
+"""Pipeline parallelism of the port: the 1F1B grid and its analytic
+bubble, ``gpipe`` and the event-driven ``PipelineSchedule`` against the
+sequential per-stage computation (bit for bit in the port) and against
+the JAX package's ``gpipe``/``PipelineSchedule`` on the same numpy
+inputs (one JAX child with 4 host devices; ``JAX_TOL``, f32), the DAG's
+event-driven stats, and the launcher's ``--pipeline`` paths on the CPU."""
+import contextlib
+import io
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.distributed import pipeline as pl
+from tests._multidevice import run_with_devices
+
+M, D, H, MB = 8, 8, 16, 4
+SGD_STEPS, LR = 3, 0.05
+# the two libraries' f32 products and tanh differ in the last bits
+JAX_TOL = dict(rtol=1e-5, atol=1e-6)
+
+_JAX_CHILD = """
+import sys, warnings
+sys.path.insert(0, {root!r})
+warnings.simplefilter("ignore")
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.core import ProgressEngine, ProgressExecutor
+from repro.distributed import pipeline as pl
+
+M, d, h, mb = {M}, {D}, {H}, {MB}
+
+
+def stage_fn(p, x):
+    return x + jnp.tanh(x @ p["w1"]) @ p["w2"]
+
+
+def loss_fn(y, t):
+    return jnp.mean((y - t) ** 2)
+
+
+engine = ProgressEngine()
+ex = ProgressExecutor(engine, num_workers=2).start()
+engine.attach_executor(ex)
+res = {{}}
+for S in (2, 4):
+    rs = np.random.RandomState(S)
+    params = {{"w1": (rs.randn(S, d, h) * 0.3).astype(np.float32),
+              "w2": (rs.randn(S, h, d) * 0.3).astype(np.float32)}}
+    xs = rs.randn(M, mb, d).astype(np.float32)
+    ts = rs.randn(M, mb, d).astype(np.float32)
+    for k, v in params.items():
+        res[f"{{S}}/init/{{k}}"] = v
+    res[f"{{S}}/xs"], res[f"{{S}}/ts"] = xs, ts
+    mesh = Mesh(np.array(jax.devices()[:S]), ("stage",))
+    sched = pl.PipelineSchedule(stage_fn, mesh, "stage", S, loss_fn=loss_fn,
+                                engine=engine, executor=ex, name=f"p{{S}}")
+    jp = jax.tree.map(jnp.asarray, params)
+    res[f"{{S}}/apply"] = sched.apply(jp, jnp.asarray(xs), timeout=300)
+    gp = pl.gpipe(stage_fn, mesh, "stage", S)
+    res[f"{{S}}/gpipe"] = gp(jax.device_put(jp, NamedSharding(mesh,
+                                                            P("stage"))),
+                             jnp.asarray(xs))
+    for step in range({steps}):
+        loss, grads = sched.step(jp, jnp.asarray(xs), jnp.asarray(ts),
+                                 timeout=300)
+        res[f"{{S}}/loss{{step}}"] = loss
+        for k in ("w1", "w2"):
+            res[f"{{S}}/grad{{step}}/{{k}}"] = grads[k]
+        jp = jax.tree.map(lambda p, g: p - {lr} * g, jp, grads)
+    sched.close()
+ex.shutdown(drain=True, timeout=120)
+np.savez({out!r}, **{{k: np.asarray(v) for k, v in res.items()}})
+print("SAVED", len(res))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("pipe") / "ref.npz"
+    root = str(Path(__file__).resolve().parents[1])
+    log = run_with_devices(_JAX_CHILD.format(
+        root=root, out=str(out), M=M, D=D, H=H, MB=MB, steps=SGD_STEPS,
+        lr=LR), n_devices=4, timeout=600)
+    assert "SAVED" in log
+    return dict(np.load(out))
+
+
+def stage_fn(p, x):
+    return x + torch.tanh(x @ p["w1"]) @ p["w2"]
+
+
+def loss_fn(y, t):
+    return torch.mean((y - t) ** 2)
+
+
+@pytest.fixture
+def executor():
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    yield eng, ex
+    ex.shutdown(drain=True, timeout=120)
+
+
+def schedule(S, eng, ex, name="p"):
+    from repro_torch.launch.mesh import make_mesh
+    return pl.PipelineSchedule(stage_fn, make_mesh((S,), ("stage",), "cpu"),
+                               "stage", S, loss_fn=loss_fn, engine=eng,
+                               executor=ex, name=name)
+
+
+def inputs(ref, S):
+    params = {k: torch.from_numpy(ref[f"{S}/init/{k}"]) for k in ("w1", "w2")}
+    return params, torch.from_numpy(ref[f"{S}/xs"]), \
+        torch.from_numpy(ref[f"{S}/ts"])
+
+
+def sequential_step(params, xs, ts, S):
+    """The unpipelined reference: one microbatch at a time through every
+    stage, each backward cell the schedule's own (the stage again on the
+    stashed activation, ``torch.autograd.grad``), the per-stage
+    accumulation in the same microbatch order and the same 1/M seed."""
+    sched = pl.PipelineSchedule.__new__(pl.PipelineSchedule)
+    sched.stage_fn, sched.loss_fn = stage_fn, loss_fn
+    stage = [{k: v[s] for k, v in params.items()} for s in range(S)]
+    keys = sorted(params)
+    acc = [[torch.zeros_like(stage[s][k]) for k in keys] for s in range(S)]
+    scale = torch.tensor(1.0 / M, dtype=torch.float32)
+    losses = []
+    for m in range(M):
+        x, stash = xs[m], []
+        for s in range(S - 1):
+            stash.append(x)
+            x = sched._fwd(stage[s], x)
+        lm, dx, acc[S - 1] = sched._last_bwd(stage[S - 1], x, ts[m], scale,
+                                             acc[S - 1])
+        losses.append(lm)
+        for s in range(S - 2, -1, -1):
+            dx, acc[s] = sched._bwd(stage[s], stash[s], dx, acc[s])
+    total = losses[0]
+    for lm in losses[1:]:
+        total = total + lm
+    grads = {k: torch.stack([acc[s][i] for s in range(S)])
+             for i, k in enumerate(keys)}
+    return total * scale, grads
+
+
+def test_bubble_fraction():
+    assert pl.bubble_fraction(4, 4) == 3 / 7
+    assert pl.bubble_fraction(1, 8) == 0.0
+    assert abs(pl.bubble_fraction(4, 28) - 3 / 31) < 1e-12
+    assert abs(pl.bubble_fraction(4, 8, "1f1b") - 0.2727) < 1e-4
+    assert pl.bubble_fraction(4, 4, "1f1b") == pl.bubble_fraction(4, 4)
+    assert pl.peak_activation_microbatches(4, 16, "gpipe") == 16
+    assert pl.peak_activation_microbatches(4, 16, "1f1b") == 4
+    assert pl.peak_activation_microbatches(8, 4, "1f1b") == 4
+    with pytest.raises(ValueError):
+        pl.bubble_fraction(4, 4, "interleaved")
+    with pytest.raises(ValueError):
+        pl.peak_activation_microbatches(4, 4, "zb-h1")
+
+
+@pytest.mark.parametrize("S,Mb", [(1, 4), (2, 4), (2, 8), (3, 5), (4, 4),
+                                  (4, 8), (4, 16)])
+def test_grid_realizes_analytic_bubble_as_jax(S, Mb):
+    """2(M+S-1) ticks, 2M cells per stage, peak stash min(S, M), the
+    measured idle share equal to ``bubble_fraction`` (0.2727 at S=4,
+    M=8), and the same cells, ticks and hops as the JAX package's grid."""
+    from repro.distributed import pipeline as jpl
+    g = pl._build_grid(S, Mb)
+    assert g.ticks == 2 * (Mb + S - 1)
+    assert len(g.ops) == 2 * S * Mb
+    measured = 1 - len(g.ops) / (S * g.ticks)
+    assert abs(measured - pl.bubble_fraction(S, Mb, "1f1b")) < 1e-12
+    assert g.peak_stash == pl.peak_activation_microbatches(S, Mb, "1f1b")
+    assert pl._build_grid(S, Mb, forward_only=True).ticks == Mb + S - 1
+    jg = jpl._build_grid(S, Mb)
+    assert [(o.stage, o.kind, o.mb, o.tick, o.src_hop) for o in g.ops] == \
+        [(o.stage, o.kind, o.mb, o.tick, o.src_hop) for o in jg.ops]
+    assert g.hop_edges == jg.hop_edges and g.hop_order == jg.hop_order
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_forward_matches_sequential_gpipe_and_jax(ref, executor, S):
+    """``apply`` (the forward-only DAG) bit for bit against the sequential
+    chain and the port's ``gpipe``; within ``JAX_TOL`` of JAX's."""
+    from repro_torch.launch.mesh import make_mesh
+    eng, ex = executor
+    params, xs, _ = inputs(ref, S)
+    sched = schedule(S, eng, ex)
+    ys = sched.apply(params, xs, timeout=300)
+    seq = []
+    for m in range(M):
+        x = xs[m]
+        for s in range(S):
+            x = stage_fn({k: v[s] for k, v in params.items()}, x)
+        seq.append(x)
+    assert torch.equal(ys, torch.stack(seq))
+    gp = pl.gpipe(stage_fn, make_mesh((S,), ("stage",), "cpu"), "stage", S)
+    assert torch.equal(ys, gp(params, xs))
+    np.testing.assert_allclose(ys.numpy(), ref[f"{S}/apply"], **JAX_TOL)
+    np.testing.assert_allclose(ys.numpy(), ref[f"{S}/gpipe"], **JAX_TOL)
+    sched.close()
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_1f1b_step_bitwise_sequential_and_near_jax(ref, executor, S):
+    """A 3-step SGD trajectory: the DAG's loss and gradients bit for bit
+    against the sequential computation at every step, and within
+    ``JAX_TOL`` of the JAX package's ``PipelineSchedule``; the only
+    blocking wait is the caller's, once a call; hops ran as persistent
+    p2p starts issued by executor workers."""
+    eng, ex = executor
+    params, xs, ts = inputs(ref, S)
+    sched = schedule(S, eng, ex)
+    p_dag = {k: v.clone() for k, v in params.items()}
+    p_seq = {k: v.clone() for k, v in params.items()}
+    for step in range(SGD_STEPS):
+        loss, grads = sched.step(p_dag, xs, ts, timeout=300)
+        sl, sg = sequential_step(p_seq, xs, ts, S)
+        assert loss.numpy().tobytes() == sl.numpy().tobytes(), step
+        for k in ("w1", "w2"):
+            assert torch.equal(grads[k], sg[k]), (step, k)
+            np.testing.assert_allclose(grads[k].numpy(),
+                                       ref[f"{S}/grad{step}/{k}"],
+                                       err_msg=f"{step}/{k}", **JAX_TOL)
+        np.testing.assert_allclose(loss.item(), ref[f"{S}/loss{step}"],
+                                   **JAX_TOL)
+        p_dag = {k: p_dag[k] - LR * grads[k] for k in p_dag}
+        p_seq = {k: p_seq[k] - LR * sg[k] for k in p_seq}
+    st = sched.stats()
+    assert st["blocking_waits"] == SGD_STEPS, st
+    assert st["p2p_stream_completions"] > 0
+    assert st["hop_starts"]["f"] > 0 and st["hop_starts"]["b"] > 0
+    assert st["p2p_issued"] == st["p2p_completed"] > 0, st
+    for chan in sched._chan.values():
+        inner = chan.persistent.active
+        assert inner is not None and \
+            inner.issue_thread in ex.worker_thread_idents()
+    timing = sched.last_step_timing
+    assert timing["cells"] == [2 * M] * S
+    assert timing["grid_ticks"] == 2 * (M + S - 1)
+    assert 0.0 <= timing["bubble"] < 1.0
+    sched.close()
+
+
+def test_gpipe_gradients_match_sequential(ref):
+    """Autograd through the port's ``gpipe`` tick loop: the gradients of
+    the mean microbatch loss equal the 1F1B DAG's sequential reference
+    within 1e-6 (the same math, summed in another order)."""
+    from repro_torch.launch.mesh import make_mesh
+    S = 4
+    params, xs, ts = inputs(ref, S)
+    gp = pl.gpipe(stage_fn, make_mesh((S,), ("stage",), "cpu"), "stage", S)
+    ps = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    ys = gp(ps, xs)
+    loss = torch.stack([loss_fn(ys[m], ts[m]) for m in range(M)]).mean()
+    g = torch.autograd.grad(loss, [ps["w1"], ps["w2"]])
+    sl, sg = sequential_step(params, xs, ts, S)
+    np.testing.assert_allclose(loss.item(), sl.item(), rtol=1e-6)
+    for got, k in zip(g, ("w1", "w2")):
+        np.testing.assert_allclose(got.numpy(), sg[k].numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+
+
+def test_failing_cell_fails_the_step_once(executor):
+    """A stage that raises fails the step's request (no hang); the next
+    step of the same schedule runs."""
+    eng, ex = executor
+    S = 2
+    calls = {"n": 0}
+
+    def flaky(p, x):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("stage blew up")
+        return stage_fn(p, x)
+
+    from repro_torch.launch.mesh import make_mesh
+    sched = pl.PipelineSchedule(flaky, make_mesh((S,), ("stage",), "cpu"),
+                                "stage", S, loss_fn=loss_fn, engine=eng,
+                                executor=ex, name="flaky")
+    g = torch.Generator().manual_seed(1)
+    params = {"w1": torch.randn(S, D, H, generator=g) * 0.3,
+              "w2": torch.randn(S, H, D, generator=g) * 0.3}
+    xs = torch.randn(M, MB, D, generator=g)
+    with pytest.raises(RuntimeError, match="stage blew up"):
+        sched.step(params, xs, xs, timeout=60)
+    loss, _ = sched.step(params, xs, xs, timeout=60)
+    assert torch.isfinite(loss)
+    sched.close()
+
+
+@pytest.mark.parametrize("kind,mesh", [("1f1b", "2x2"), ("1f1b", "1x4"),
+                                       ("gpipe", "1x4")])
+def test_launcher_pipeline_on_cpu(tmp_path, kind, mesh):
+    """``launch.train --pipeline {1f1b,gpipe} --mesh DxS`` on the CPU:
+    every step logged and finite; 1f1b rides the engine grad reducer
+    over the data axis with one blocking wait a step per row."""
+    from repro_torch.launch import train as launch
+    args = launch.build_parser().parse_args(
+        ["--device", "cpu", "--pipeline", kind, "--mesh", mesh,
+         "--microbatches", "4", "--steps", "4", "--global-batch", "4",
+         "--ckpt-dir", str(tmp_path)])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report = launch.run(args, log_every=1)
+    losses = [m["loss"] for m in report.log]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert report.trainer.cfg.pipeline == kind
+    D = int(mesh.split("x")[0])
+    if kind == "1f1b":
+        assert len(report.rows) == D
+        assert all(r.blocking_waits == 4 for r in report.rows)
+        assert report.reducer.axis_size == D
+        assert "pipe0 stats" in out.getvalue()
+    else:
+        assert report.reducer is None
+
+
+def test_launcher_pipeline_refusals(tmp_path):
+    from repro_torch.launch import train as launch
+    parse = launch.build_parser().parse_args
+    base = ["--device", "cpu", "--steps", "2", "--ckpt-dir", str(tmp_path)]
+    for extra, what in ((["--pipeline", "gpipe", "--mesh", "2x2"],
+                         "data dim 1"),
+                        (["--pipeline", "1f1b", "--mesh", "2x2",
+                          "--pipeline-stages", "4"], "contradicts"),
+                        (["--pipeline", "1f1b", "--mesh", "2x2",
+                          "--devices", "2"], "needs 4 ranks")):
+        with pytest.raises(SystemExit, match=what):
+            launch.run(parse(base + extra))

@@ -344,15 +344,25 @@ def test_trainer_with_progress_workers_trains_the_same(tmp_path):
 
 
 def test_trainer_refuses_split_steps(tmp_path):
-    """The user backend's UserCollectiveStep is ported (see
-    test_torch_dp_train.py); FsdpStep, epoch and remesh_fn wait for the
-    FSDP and elastic slice and still raise."""
+    """The Trainer refuses a "user" backend without a split step; it takes
+    both split steps (``UserCollectiveStep``, see test_torch_dp_train.py;
+    ``FsdpStep``, see test_torch_fsdp.py), a membership epoch and a
+    ``remesh_fn`` (test_torch_elastic.py), its config following the
+    split step's backend."""
+    from repro_torch.collectives.nonblocking import CollectiveSpec, \
+        MembershipEpoch
     from repro_torch.train.train_loop import FsdpStep
     cfg = TrainLoopConfig(checkpoint_dir=str(tmp_path))
-    for kw in ({"split_step": FsdpStep(None, None, None)},
-               {"epoch": object()}, {"remesh_fn": lambda *a: None}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Trainer(None, {}, None, None, cfg, engine=ProgressEngine(), **kw)
+    user = TrainLoopConfig(checkpoint_dir=str(tmp_path),
+                           collective_spec=CollectiveSpec(backend="user"))
+    with pytest.raises(ValueError, match="requires a split_step"):
+        Trainer(None, {}, None, None, user, engine=ProgressEngine())
+    epoch = MembershipEpoch(n_devices=4)
+    tr = Trainer(None, {}, None, None, cfg, engine=ProgressEngine(),
+                 split_step=FsdpStep(None, None, None), epoch=epoch,
+                 remesh_fn=lambda *a: None)
+    assert tr.cfg.collective_backend == "user" and tr.recoveries == 0
+    assert tr.watchdog.epoch is epoch
 
 
 # ---------------------------------------------------------------------------
