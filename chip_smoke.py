@@ -82,8 +82,27 @@ Phases; any failure raises and the script exits non-zero:
              sequential cells, its measured bubble; ``--pipeline 1f1b
              --mesh 2x4`` through the launcher.
 
+11. serve_sharded — the serve launcher at full qwen2-0.5b width on 4
+             model ranks of the card (``--devices 4 --model-shards 4``, the
+             16 requests through 8 lanes of phase 3) on the user backend
+             (a persistent all-gather, ring, 2 chunks: the main path; its
+             launches) and the native one: the same streams bit for bit,
+             one gather start a step; every fused call's concatenated
+             partial logits against the unsharded unembed, and the streams
+             against phase 3's, within limits stated before the run; one
+             call's device time per stream; two progress workers serve
+             the caller-driven streams (both at 6 of the 24 layers, as
+             in phase 3), and an executor never started serves; mamba2-1.3b
+             on 2 ranks, user = native; membership changes mid decode
+             (down to 2 ranks and to 1), mid prefill and by the watchdog
+             against a run without failure; ``--chaos-kill 2``; a lane
+             checkpointed after 40 tokens restored into a shifted pool
+             decodes on bit for bit.
+
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
-and data-parallel train runs and phase 10 alone, and prints no result.
+and data-parallel train runs and phase 10 alone, and prints no result;
+``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
+and phase 11.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -93,6 +112,7 @@ of the repository (it imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -695,19 +715,25 @@ FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True),
               MAMBA: (48, 2048, 128, 64, 2, 256, 50280, True)}
 
 
-def serve(workers: int, arch: str = ARCH, **cfg_overrides):
-    """One full-width run of the serve launcher; ``cfg_overrides`` set
-    config fields the launcher has no flags for (``kv_cache_dtype``)."""
+def serve(workers: int, arch: str = ARCH, extra: tuple = (),
+          requests: int | None = None, **cfg_overrides):
+    """One full-width run of the serve launcher; ``extra`` are more of its
+    flags (phase 11's sharding flags), ``requests`` cuts the requests of
+    ``SERVE_RUNS``, ``cfg_overrides`` set config fields the launcher has
+    no flags for (``kv_cache_dtype``).  Returns the launches, the closed
+    engine and the launcher's report."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer
     from repro_torch.models.layers import tree_leaves
-    requests, min_prompt, max_prompt, max_new, max_seq = SERVE_RUNS[arch]
+    n_req, min_prompt, max_prompt, max_new, max_seq = SERVE_RUNS[arch]
+    requests = requests or n_req
     argv = ["--arch", arch, "--scale", "full", "--device", "cuda",
             "--slots", str(LANES), "--max-seq", str(max_seq),
             "--kv-block-size", str(BLOCK), "--requests", str(requests),
             "--min-prompt", str(min_prompt), "--max-prompt", str(max_prompt),
-            "--max-new", str(max_new), "--progress-workers", str(workers)]
+            "--max-new", str(max_new), "--progress-workers", str(workers),
+            *extra]
     args = serve_mod.build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launches()
@@ -715,7 +741,7 @@ def serve(workers: int, arch: str = ARCH, **cfg_overrides):
     launches = dict(_lib.launches)
     peak = torch.cuda.max_memory_allocated()
     srv, cfg = report.server, report.server.cfg
-    log(f"serve {arch} [{workers} progress workers] "
+    log(f"serve {arch} [{workers} progress workers{' '.join(('',) + extra)}] "
         + "\n  ".join(report.format()))
     calls = report.steps + report.prefill_calls
     NL = cfg.num_layers
@@ -754,13 +780,14 @@ def serve(workers: int, arch: str = ARCH, **cfg_overrides):
         pool_text = (f"int8 K/V pool {pool / 2**20:.1f} MiB (values and "
                      f"scales) against {bf16 / 2**20:.1f} MiB in bf16, "
                      f"{pool / bf16:.4f} of it")
-    log(f"serve summary {arch} [{workers} workers]: decode steps "
+    log(f"serve summary {arch} [{workers} workers{' '.join(('',) + extra)}]: "
+        f"decode steps "
         f"{report.steps}, prefill calls {report.prefill_calls}, "
         f"{report.tokens / report.wall_s:.2f} tokens/s, mean decode step "
         f"{srv.mean_step_ms():.3f} ms, wall {report.wall_s:.3f} s, TTFT p50 "
         f"{lat.ttft_ms_p50:.1f} ms p99 {lat.ttft_ms_p99:.1f} ms; {pool_text}; "
         f"peak device memory {peak / 2**30:.2f} GiB")
-    return launches, srv
+    return launches, srv, report
 
 
 def time_breakdown(srv, calls: int = 10) -> None:
@@ -2536,6 +2563,405 @@ def parallel_phase(single_losses: list, dp_losses: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: parallel serving — vocab-sharded decode, membership recovery
+# ---------------------------------------------------------------------------
+
+SHARDS, SHARD_CHUNKS, MAMBA_SHARDS = 4, 2, 2
+# limits fixed before the first run (PERF.md states them beside the
+# predictions): the concatenated partial logits against the unsharded
+# unembed of the same hidden states (2 bf16 ulps of a logit under 16), and
+# the share of greedy tokens the sharded streams share with phase 3's
+SHARD_LOGITS_ATOL = 0.125
+SHARD_TOKEN_SHARE = 0.9
+# the recovery runs: 8 requests through the 8 lanes, prompts of 16 to 64
+# tokens, 16 new tokens each; their streams are held bit for bit against
+# a run without failure if two such runs agree bit for bit with the lanes
+# in other slots, else to this share of agreeing tokens
+RECOVERY_REQUESTS, RECOVERY_PROMPT, RECOVERY_NEW = 8, (16, 64), 16
+RECOVERY_TOKEN_SHARE = 0.75
+
+
+def streams(report) -> list:
+    return [list(r.out_tokens) for r in report.requests]
+
+
+def token_share(got: list, want: list) -> float:
+    """The share of greedy tokens, position by position, two runs agree on."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    return same / max(sum(len(w) for w in want), 1)
+
+
+def sharded_flags(n: int, backend: str) -> tuple:
+    flags = ("--devices", str(n), "--model-shards", str(n),
+             "--collective-backend", backend)
+    if backend == "user":
+        flags += ("--collective-chunks", str(SHARD_CHUNKS))
+    return flags
+
+
+def check_sharded(report, n: int, backend: str) -> None:
+    srv = report.server
+    if report.model_shards != n or srv._model_shards != n:
+        raise AssertionError(f"not {n} model ranks: {report.model_shards}")
+    if backend == "user" and report.starts != report.steps:
+        raise AssertionError(f"gather starts {report.starts} != decode "
+                             f"steps {report.steps}")
+    if not srv._rows_checked:
+        raise AssertionError("the gathered rows were never checked")
+
+
+def sharded_time_breakdown(srv, calls: int = 10) -> None:
+    """One sharded fused call on the served engine's weights and pool —
+    ``decode_hidden_paged``, the rank-stacked unembed, then a start of a
+    persistent user-space all-gather of the same spec, waited by polling —
+    host wall clock (unprofiled) against each stream's device busy time
+    and their overlap (profiled), as ``dp_time_breakdown`` reads them."""
+    from repro_torch.collectives.nonblocking import UserCollectives
+    from repro_torch.core import ProgressEngine
+    cfg, n = srv.cfg, srv._model_shards
+    rs = np.random.RandomState(3)
+    dev = srv.device
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (LANES, 1))
+                            .astype(np.int32)).to(dev)
+    pos = torch.from_numpy(rs.randint(MIN_PROMPT, MAX_PROMPT + MAX_NEW, LANES)
+                           .astype(np.int32)).to(dev)
+    nb = srv.slots.max_blocks
+    tables = (1 + torch.arange(LANES * nb, dtype=torch.int32,
+                               device=dev)).reshape(LANES, nb)
+    coll = UserCollectives(ProgressEngine(), name="breakdown")
+    like = torch.empty((n, LANES, cfg.vocab_size // n), device="meta")
+    h = coll.allgather_init(like, srv.mesh, srv.model_axis,
+                            spec=srv.collective_spec, warmup=True)
+
+    def step():
+        part, _ = srv._decode(srv.slots.cache, toks, pos, tables, None)
+        return h.start(part).wait(timeout=60)
+
+    def run(k=calls):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(2)
+    wall = run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    units = h.dispatches_per_start
+    h.close()
+    coll.close()
+    busy, both, any_busy = stream_busy(prof)
+    roles = stream_roles(prof)
+    head = (f"time: sharded fused call ({cfg.name}, {n} model ranks, "
+            f"{LANES} lanes, user all-gather ring {SHARD_CHUNKS} chunks, "
+            f"{units} dispatch units a start): wall {wall:.3f} ms "
+            f"({wall_prof:.3f} ms under the profiler)")
+    if not busy:
+        log(head + "; device busy not measured (no profiler events)")
+        return
+    coll_ms = sum(v for k, v in busy.items() if roles[k] == "collective")
+    log(head + f", device busy (any stream) {any_busy / calls:.3f} ms, "
+        f"device idle share {1 - any_busy / calls / wall:.3f}; per stream "
+        f"(ms a call) "
+        + ", ".join(f"{roles[k]} {v / calls:.3f}" for k, v in busy.items())
+        + f"; the gather's device time {coll_ms / calls:.3f} ms a call, "
+        f"{both / calls:.3f} ms of it with the compute stream busy too "
+        f"({both / coll_ms if coll_ms else 0:.3f} overlapped)")
+
+
+def direct_serve(cfg, params, prompts, *, n, backend="user", workers=0,
+                 start=True, epoch=None, kill=None, watchdog=False,
+                 survivors=None, prefill_chunk=8, reverse=False,
+                 max_new=RECOVERY_NEW):
+    """``ServeEngine`` on the launcher's weights, driven here so that a
+    membership change can land at a chosen point: ``kill(srv, reqs)``
+    polled between progress calls; then the epoch is invalidated down to
+    ``survivors``, or a step watchdog on a stepped clock fires.  Returns
+    the streams, the closed engine, its latency snapshot and the ms from
+    the kill to idle."""
+    from repro_torch.collectives.nonblocking import CollectiveSpec
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed.fault_tolerance import StepWatchdog
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, workers) if workers else None
+    if ex is not None and start:
+        ex.start()
+    mesh = make_mesh((n,), ("model",), "cuda") if n > 1 else None
+    srv = ServeEngine(cfg, params, eng, batch_slots=LANES, max_seq=MAX_SEQ,
+                      executor=ex, mesh=mesh, kv_block_size=BLOCK,
+                      collective_spec=CollectiveSpec(backend=backend,
+                                                     chunks=SHARD_CHUNKS),
+                      prefill_chunk=prefill_chunk, epoch=epoch)
+    reqs = [GenRequest(f"req{i}", p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in (reqs[::-1] if reverse else reqs):
+        srv.submit(r)
+    kill_ms = None
+    if kill is not None:
+        t0 = time.monotonic()
+        while not kill(srv, reqs):
+            eng.progress()
+            if time.monotonic() - t0 > 300:
+                raise AssertionError("the kill point was never reached")
+        t_kill = time.perf_counter()
+        if watchdog:
+            clock = {"t": 0.0}
+            wd = StepWatchdog(eng, limit=10.0, clock=lambda: clock["t"],
+                              epoch=epoch)
+            wd.arm()
+            clock["t"] = 11.0
+            eng.poll_subsystems()
+            if wd.fired != 1:
+                raise AssertionError("the watchdog did not fire")
+        else:
+            epoch.invalidate(survivors=survivors, reason="chaos")
+    srv.run_until_idle(timeout=600)
+    if kill is not None:
+        kill_ms = (time.perf_counter() - t_kill) * 1e3
+    lat = srv.latency_snapshot()
+    srv.close(timeout=60)
+    if ex is not None and ex.running:
+        ex.shutdown(drain=True, timeout=60)
+    if lat.completed != len(reqs) or lat.failed:
+        raise AssertionError(f"{lat.completed} of {len(reqs)} completed, "
+                             f"{lat.failed} failed")
+    return [list(r.out_tokens) for r in reqs], srv, lat, kill_ms
+
+
+def recovery_phase(cfg, params) -> None:
+    """Membership changes at full width on the user backend, 4 model
+    ranks, against a run of the same requests without failure: mid decode
+    down to 2 ranks (KV restored, not replayed) and down to 1 (the
+    unsharded fallback), mid prefill, and a watchdog-fired restart."""
+    from repro_torch.collectives.nonblocking import MembershipEpoch
+    rs = np.random.RandomState(11)
+    lo, hi = RECOVERY_PROMPT
+    prompts = [rs.randint(1, cfg.vocab_size - 1, size=rs.randint(lo, hi + 1))
+               .astype(np.int32) for _ in range(RECOVERY_REQUESTS)]
+    with no_sync():
+        ref, _, _, _ = direct_serve(cfg, params, prompts, n=SHARDS)
+        moved, _, _, _ = direct_serve(cfg, params, prompts, n=SHARDS,
+                                      reverse=True)
+    exact = moved == ref
+    log(f"check: recovery reference ({RECOVERY_REQUESTS} requests, 8 lanes): "
+        f"the same requests with every lane in another slot agree bit for "
+        f"bit: {exact}; the recovery runs are held "
+        + ("bit for bit" if exact
+           else f"to a share of {RECOVERY_TOKEN_SHARE} agreeing tokens"))
+
+    def out(k):
+        return lambda srv, reqs: sum(len(r.out_tokens) for r in reqs) >= k
+
+    def mid_prefill(srv, reqs):
+        if any(r.out_tokens for r in reqs):
+            raise AssertionError("a token came out before the kill")
+        return srv.sched.prefill_calls >= 2 and bool(srv._prefilling)
+
+    cases = [("mid decode -> 2 ranks", dict(kill=out(5), survivors=2)),
+             ("mid decode -> 1 rank (unsharded)",
+              dict(kill=out(5), survivors=1)),
+             ("mid prefill -> 2 ranks",
+              dict(kill=mid_prefill, survivors=2, prefill_chunk=2)),
+             ("watchdog restart", dict(kill=out(5), watchdog=True))]
+    for name, kw in cases:
+        epoch = MembershipEpoch(n_devices=SHARDS)
+        with no_sync():
+            got, srv, lat, kill_ms = direct_serve(cfg, params, prompts,
+                                                  n=SHARDS, epoch=epoch, **kw)
+        share = token_share(got, ref)
+        log(f"check: recovery {name}: remeshes {srv.remeshes}, model ranks "
+            f"after {srv._model_shards}, lanes checkpointed "
+            f"{srv.lanes_checkpointed}, restored {srv.lanes_restored}, "
+            f"{lat.completed} completed, {lat.failed} failed; rebuild "
+            f"{srv.recovery_s[0] * 1e3:.3f} ms, kill to idle {kill_ms:.1f} "
+            f"ms; {share:.4f} of the tokens agree with the run without "
+            f"failure")
+        if srv.remeshes != 1:
+            raise AssertionError(f"recovery {name}: {srv.remeshes} remeshes")
+        if name.startswith("mid decode") and not srv.lanes_restored:
+            raise AssertionError(f"recovery {name}: no lane was restored")
+        if (got != ref) if exact else share < RECOVERY_TOKEN_SHARE:
+            raise AssertionError(f"recovery {name}: streams differ")
+        del srv
+        free()
+
+
+def lane_round_trip(cfg, params, first: int = 40, more: int = 8) -> None:
+    """A decoding lane of the full-width pool checkpointed after ``first``
+    tokens and restored into a fresh pool whose block layout is shifted
+    (the lane keeps its row of the batch): ``more`` tokens decoded from
+    each, the logits equal bit for bit."""
+    from repro_torch.models import registry
+    from repro_torch.serve.kvcache import PagedKVCache, to_device
+    rs = np.random.RandomState(5)
+    toks = [np.full((LANES, 1), rs.randint(1, cfg.vocab_size), np.int32)
+            for _ in range(first + more)]
+    fed = np.arange(LANES) == 1
+
+    def feed(pool, start, count):
+        outs = []
+        for t in range(start, start + count):
+            if not pool.ensure(1, t):
+                raise AssertionError("pool exhausted")
+            out, pool.cache = registry.decode_step_paged(
+                params, cfg, pool.cache, to_device(toks[t], pool.device),
+                to_device(np.full((LANES,), t, np.int32), pool.device),
+                pool.block_tables(), to_device(fed, pool.device))
+            pool.slots[1].pos = t + 1
+            outs.append(out[1])
+        return torch.cat(outs)
+
+    pool = PagedKVCache(cfg, LANES, MAX_SEQ, block_size=BLOCK, device="cuda")
+    pool.assign("pad", seq_len=1)
+    if pool.assign("req", seq_len=1).index != 1:
+        raise AssertionError("lane 1 expected")
+    feed(pool, 0, first)
+    t0 = time.perf_counter()
+    ckpt = pool.checkpoint_lane(1)
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    pool2 = PagedKVCache(cfg, LANES, MAX_SEQ, block_size=BLOCK, device="cuda")
+    pool2.assign("other", seq_len=100)
+    if pool2.assign("req", seq_len=first + 1).index != 1:
+        raise AssertionError("lane 1 expected")
+    t0 = time.perf_counter()
+    pool2.restore_lane(pool2.cache, 1, ckpt)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if torch.equal(pool2.block_tables()[1], pool.block_tables()[1]):
+        raise AssertionError("the block layout did not shift")
+    want, got = feed(pool, first, more), feed(pool2, first, more)
+    nbytes = sum(a.nbytes for a in ckpt["blocks"].values())
+    log(f"check: lane round trip ({cfg.name} pool, {first} tokens, "
+        f"{nbytes / 2**20:.2f} MiB of f32 snapshot, checkpoint "
+        f"{ckpt_ms:.3f} ms, restore {restore_ms:.3f} ms): {more} more "
+        f"tokens' logits equal bit for bit: {torch.equal(got, want)}")
+    if not torch.equal(got, want):
+        raise AssertionError("the restored lane decodes differently")
+
+
+def unstarted_executor_check(cfg, params) -> None:
+    """An executor attached but never started: the engine drives every
+    serve stream inline (the collective stream's rounds too) and serves
+    the caller-driven streams."""
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    prompts = [np.arange(1, 17, dtype=np.int32),
+               np.arange(40, 60, dtype=np.int32)]
+    with no_sync():
+        want, _, _, _ = direct_serve(cfg, params, prompts, n=SHARDS,
+                                     max_new=8)
+        got, _, _, _ = direct_serve(cfg, params, prompts, n=SHARDS,
+                                    workers=2, start=False, max_new=8)
+    log(f"check: an executor attached, never started: served {got == want}")
+    if got != want:
+        raise AssertionError("the unstarted executor served other streams")
+
+
+def serve_sharded_phase(unsharded: list) -> dict:
+    """Phase 11.  qwen2-0.5b at full width on 4 model ranks of the card
+    (16 requests through 8 lanes, as phase 3): the user backend (ring,
+    2 chunks; the main path, its launches returned), the native backend
+    with every fused call's partial logits held against the unsharded
+    unembed, both against phase 3's streams (``unsharded``); two progress
+    workers (at 6 layers); an unstarted executor; mamba2-1.3b on 2 ranks; the recovery
+    cases; the launcher's ``--chaos-kill 2``; the lane round trip."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import registry, transformer
+    with no_sync():
+        launches, srv, report = serve(workers=0,
+                                      extra=sharded_flags(SHARDS, "user"))
+    check_sharded(report, SHARDS, "user")
+    user = streams(report)
+    del report
+    sharded_time_breakdown(srv)
+    cfg, params = srv.cfg, srv.params
+    del srv
+    free()
+    errs = []
+    real = registry.unembed_ranks
+
+    def held(params_, cfg_, x, n):
+        part = real(params_, cfg_, x, n)
+        full = transformer.unembed(params_, cfg_, x)
+        errs.append((part.permute(1, 0, 2).reshape(full.shape) - full)
+                    .abs().max())
+        return part
+
+    registry.unembed_ranks = held
+    try:
+        _, srv, report = serve(workers=0,
+                               extra=sharded_flags(SHARDS, "native"))
+    finally:
+        registry.unembed_ranks = real
+    check_sharded(report, SHARDS, "native")
+    native = streams(report)
+    del srv, report
+    err = float(torch.stack(errs).max())
+    share = token_share(user, unsharded)
+    log(f"check: sharded serve {ARCH} on {SHARDS} ranks: user == native bit "
+        f"for bit {user == native}; {len(errs)} fused calls' concatenated "
+        f"partial logits against the unsharded unembed: max abs err "
+        f"{err:.3e} (limit {SHARD_LOGITS_ATOL}); {share:.4f} of the greedy "
+        f"tokens agree with phase 3's unsharded run (limit "
+        f"{SHARD_TOKEN_SHARE})")
+    if user != native:
+        raise AssertionError("user and native sharded streams differ")
+    if err > SHARD_LOGITS_ATOL or share < SHARD_TOKEN_SHARE:
+        raise AssertionError("the sharded logits are off the unsharded ones")
+    free()
+    # two progress workers, at phase 3's two-worker depth, against the
+    # caller-driven run at that depth
+    depth = dict(num_layers=SERVE_WORKERS_LAYERS)
+    with no_sync():
+        _, srv, report = serve(workers=0, extra=sharded_flags(SHARDS, "user"),
+                               **depth)
+        caller = streams(report)
+        del srv, report
+        _, srv, report = serve(workers=2, extra=sharded_flags(SHARDS, "user"),
+                               **depth)
+    check_sharded(report, SHARDS, "user")
+    if streams(report) != caller:
+        raise AssertionError("executor-driven starts served other streams")
+    log(f"check: two progress workers (executor-driven starts) serve the "
+        f"caller-driven streams bit for bit ({SERVE_WORKERS_LAYERS} of "
+        f"{FULL_WIDTH[ARCH][0]} layers)")
+    del srv, report
+    free()
+    unstarted_executor_check(cfg, params)
+    free()
+    m = {}
+    for backend in ("user", "native"):
+        with no_sync() if backend == "user" else contextlib.nullcontext():
+            _, srv, report = serve(workers=0, arch=MAMBA, requests=LANES,
+                                   extra=sharded_flags(MAMBA_SHARDS, backend))
+        check_sharded(report, MAMBA_SHARDS, backend)
+        m[backend] = streams(report)
+        del srv, report
+        free()
+    log(f"check: sharded serve {MAMBA} on {MAMBA_SHARDS} ranks ({LANES} "
+        f"requests): user == native bit for bit {m['user'] == m['native']}")
+    if m["user"] != m["native"]:
+        raise AssertionError("mamba2 user and native sharded streams differ")
+    recovery_phase(cfg, params)
+    with no_sync():
+        _, srv, report = serve(
+            workers=0, requests=RECOVERY_REQUESTS,
+            extra=sharded_flags(SHARDS, "user") + (
+                "--chaos-kill", "2", "--min-prompt", "16",
+                "--max-prompt", "64"))
+    if report.remeshes != 1 or srv._model_shards != 2:
+        raise AssertionError(f"--chaos-kill 2: {report.remeshes} remeshes")
+    del srv, report
+    free()
+    lane_round_trip(cfg, params)
+    free()
+    return launches
+
+
 def free() -> None:
     """Drop what an ended phase left behind (its engines hold reference
     cycles) and hand the cached blocks back, before the next phase."""
@@ -2555,10 +2981,11 @@ def main(argv: list) -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    if argv not in ([], ["--only", "parallel"]):
+    if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
-              f"runs and phase 10)", file=sys.stderr)
+              f"runs and phase 10; --only serve-sharded phase 3's "
+              f"caller-driven qwen2-0.5b run and phase 11)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2577,6 +3004,18 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "serve-sharded"]:
+        # a partial run (phase 11 and the run it compares with); it prints
+        # no result line
+        _, srv, report = serve(workers=0)
+        unsharded = streams(report)
+        del srv, report
+        free()
+        launches = serve_sharded_phase(unsharded)
+        log(f"partial run: launches of the sharded serve run {launches}; "
+            f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv:
         # a partial run (phase 10 and the runs it compares with); it
         # prints no result line
@@ -2603,20 +3042,24 @@ def main(argv: list) -> int:
     # each path is driven with the launch counts set to 0 just before it
     # and read just after (inside serve() and train())
     runs = {}
-    runs["serve"], srv = serve(workers=0)
+    runs["serve"], srv, report = serve(workers=0)
+    unsharded = streams(report)
+    del report
     time_breakdown(srv)
     del srv
     serve(workers=2, num_layers=SERVE_WORKERS_LAYERS)
-    runs["serve_mamba"], srv = serve(workers=0, arch=MAMBA)
+    # the report holds its engine: drop both, or the weights and pool
+    # outlive the path (qwen2.5-3b's would crowd its training run)
+    runs["serve_mamba"], srv, report = serve(workers=0, arch=MAMBA)
     time_breakdown(srv)
-    del srv
+    del srv, report
     free()
-    runs["serve_qwen2_5_3b"], srv = serve(workers=0, arch=QWEN3B,
-                                          kv_cache_dtype="int8")
+    runs["serve_qwen2_5_3b"], srv, report = serve(workers=0, arch=QWEN3B,
+                                                  kv_cache_dtype="int8")
     time_breakdown(srv)
     decode_paths_check(srv)
     int8_weights_check(srv)
-    del srv
+    del srv, report
     log(f"serve phase done at {time.perf_counter() - t_start:.1f} s")
     free()
     runs["train"], report = train(workers=0)
@@ -2651,6 +3094,9 @@ def main(argv: list) -> int:
     log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
     runs["train_fsdp"] = parallel_phase(single_losses, dp_losses)
     log(f"parallel phase done at {time.perf_counter() - t_start:.1f} s")
+    runs["serve_sharded"] = serve_sharded_phase(unsharded)
+    free()
+    log(f"sharded serve phase done at {time.perf_counter() - t_start:.1f} s")
     remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
                                         layers=MAMBA_DOTS_LAYERS)]
     runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
@@ -2674,9 +3120,10 @@ def main(argv: list) -> int:
         row["launches_remat"] = n["remat"]
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
+        row["launches_serve_sharded"] = n["serve_sharded"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_remat"] + n["train_dp"]
-                           + n["train_fsdp"])
+                           + n["train_fsdp"] + n["serve_sharded"])
     log(f"launches: {runs}")
     reference_check()
     reference_check(QWEN3B, num_layers=2, kv_cache_dtype="int8")
@@ -2691,6 +3138,7 @@ def main(argv: list) -> int:
             "launches_serve_qwen2_5_3b", "launches_train",
             "launches_train_mamba", "launches_train_qwen2_5_3b",
             "launches_remat", "launches_train_dp", "launches_train_fsdp",
+            "launches_serve_sharded",
             "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",

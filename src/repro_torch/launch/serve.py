@@ -7,10 +7,24 @@
 
 Continuous batching on a paged KV cache (length-bucketed admission,
 chunked prefill interleaved with decode, preemption under block
-pressure), as the JAX package's ``repro.launch.serve``; its sharding and
-fault-tolerance flags are not ported yet.  Weights are random, drawn from
-seed 0 by a ``torch.Generator`` on the device, as the JAX launcher draws
-them from ``PRNGKey(0)``.
+pressure), as the JAX package's ``repro.launch.serve``.  Weights are
+random, drawn from seed 0 by a ``torch.Generator`` on the device, as the
+JAX launcher draws them from ``PRNGKey(0)``.
+
+Model-axis-sharded decode (vocab-parallel unembed) with the per-step
+logits all-gather native (a gather over the rank dim) or as a persistent
+user-space all-gather on the serve-collective stream; ``--devices N``
+puts N ranks on the one device, as the train launcher does:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --devices 4 --model-shards 4 --collective-backend user
+
+Fault tolerance: one ``MembershipEpoch`` shared by the heartbeat monitor
+(``--heartbeat-timeout``), the step watchdog (``--watchdog-limit``, armed
+while the launcher serves; the JAX launcher builds it unarmed) and the
+engine's persistent all-gather.  ``--chaos-kill N`` serves half the
+requests, invalidates the epoch down to the survivors, and serves the
+other half on the rebuilt mesh.
 """
 from __future__ import annotations
 
@@ -57,6 +71,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="fused prefill calls interleaved per admission "
                          "round before decode resumes")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks on the one device (0 = 1)")
+    ap.add_argument("--model-shards", type=int, default=0,
+                    help="shard decode over a 'model' mesh axis of this "
+                         "size (0 = unsharded)")
+    ap.add_argument("--collective-backend", default="native",
+                    choices=["native", "user"],   # -> one CollectiveSpec
+                    help="per-step logits all-gather: native (a gather "
+                         "over the rank dim), or persistent user-space "
+                         "allgather on the serve-collective stream")
+    ap.add_argument("--collective-chunks", type=int, default=1,
+                    help="chunk pipelining factor for the user backend")
+    ap.add_argument("--collective-round-batch", type=int, default=0,
+                    help="rounds fused per dispatch in the user backend "
+                         "(0 = auto from payload size)")
     ap.add_argument("--progress-workers", type=int, default=0,
                     help="N background progress threads (0 = caller-driven)")
     ap.add_argument("--continuation-policy", default="deferred",
@@ -66,6 +95,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--continuation-max-drain", type=int, default=64,
                     help="max continuations executed per drain (deferred "
                          "policy backpressure bound)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=0.0,
+                    help="enable a HeartbeatMonitor subsystem with this "
+                         "peer timeout in seconds (0 = off); a dead peer "
+                         "invalidates the membership epoch and the server "
+                         "drains, remeshes and re-admits")
+    ap.add_argument("--watchdog-limit", type=float, default=0.0,
+                    help="enable a StepWatchdog subsystem with this "
+                         "wall-clock limit in seconds on each serving run "
+                         "(0 = off)")
+    ap.add_argument("--chaos-kill", type=int, default=0,
+                    help="simulate the death of N ranks after half the "
+                         "requests finish (invalidates the membership "
+                         "epoch) and report the recovery")
     ap.add_argument("--stats", action="store_true",
                     help="print progress statistics after serving")
     return ap
@@ -94,16 +136,23 @@ class ServeReport:
     latency: object                # ServeLatencyStats
     sched: object                  # SchedulerStats
     stats: object                  # EngineStats
+    model_shards: int = 0          # the --model-shards asked for (0 = none)
+    backend: str = "native"
+    remeshes: int = 0              # membership changes applied
+    starts: int | None = None      # the user gather's starts (None: no handle)
 
     def format(self) -> list[str]:
         calls = self.steps + self.prefill_calls
+        shard = (f"model-shards={self.model_shards} backend={self.backend}"
+                 f", gather starts {self.starts}, remeshes {self.remeshes}; "
+                 if self.model_shards > 0 else "")
         return [
             f"served {len(self.requests)} requests, {self.tokens} tokens in "
             f"{self.steps} fused decode steps + {self.prefill_calls} fused "
-            f"prefill calls in {self.wall_s:.3f} s "
-            f"({self.tokens / self.wall_s:.1f} tokens/s, "
+            f"prefill calls in {self.wall_s:.3f} s [{shard}"
+            f"{self.tokens / self.wall_s:.1f} tokens/s, "
             f"{self.wall_s * 1e3 / max(calls, 1):.3f} ms per fused call, "
-            f"mean decode step {self.server.mean_step_ms():.3f} ms)",
+            f"mean decode step {self.server.mean_step_ms():.3f} ms]",
             self.latency.format(),
             self.sched.format(),
         ]
@@ -114,11 +163,27 @@ def run(args, **cfg_overrides) -> ServeReport:
     the ``ModelConfig`` that the JAX launcher has no flags for either
     (e.g. ``kv_cache_dtype="int8"``)."""
     from repro_torch import resolve_device
+    from repro_torch.collectives.nonblocking import (CollectiveSpec,
+                                                     MembershipEpoch)
     from repro_torch.core import ProgressEngine, ProgressExecutor
     from repro_torch.core import stats as stats_mod
+    from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
+                                                         StepWatchdog)
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import registry
     from repro_torch.serve.engine import GenRequest, ServeEngine
 
+    n_ranks = max(args.devices, 1)
+    if args.model_shards > n_ranks:
+        raise SystemExit(f"--model-shards {args.model_shards} > {n_ranks} "
+                         f"devices (use --devices)")
+    if args.model_shards <= 0 and args.collective_backend == "user":
+        raise SystemExit("--collective-backend user requires --model-shards "
+                         ">= 1 (the user backend is the sharded decode's "
+                         "logits all-gather)")
+    spec = CollectiveSpec(backend=args.collective_backend,
+                          chunks=args.collective_chunks,
+                          round_batch=args.collective_round_batch or None)
     device = resolve_device(args.device)
     cfg = make_config(args.arch, args.scale).with_overrides(**cfg_overrides)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -128,14 +193,34 @@ def run(args, **cfg_overrides) -> ServeReport:
         executor = ProgressExecutor(
             eng, args.progress_workers,
             continuation_max_drain=args.continuation_max_drain)
+    mesh = None
+    if args.model_shards > 0:
+        mesh = make_mesh((args.model_shards,), ("model",), device)
+    # fault tolerance: one membership epoch shared by the monitors and
+    # the serve engine's persistent collectives — a dead peer or a hung
+    # run fails in-flight starts retryably, and the engine drains,
+    # remeshes onto the survivors, and re-admits from the backlog
+    epoch = heartbeat = watchdog = None
+    if args.heartbeat_timeout > 0 or args.watchdog_limit > 0 \
+            or args.chaos_kill > 0:
+        epoch = MembershipEpoch(n_devices=n_ranks)
+        if args.heartbeat_timeout > 0:
+            heartbeat = HeartbeatMonitor(
+                eng, [f"rank{i}" for i in range(n_ranks)],
+                timeout=args.heartbeat_timeout, epoch=epoch)
+        if args.watchdog_limit > 0:
+            watchdog = StepWatchdog(eng, limit=args.watchdog_limit,
+                                    epoch=epoch)
     srv = ServeEngine(cfg, registry.init_params(cfg, gen), eng,
                       batch_slots=args.slots, max_seq=args.max_seq,
                       executor=executor,
                       continuation_policy=args.continuation_policy,
                       continuation_max_drain=args.continuation_max_drain,
+                      mesh=mesh, collective_spec=spec,
                       kv_block_size=args.kv_block_size,
                       kv_blocks=args.kv_blocks or None,
-                      prefill_chunk=args.prefill_chunk, device=device)
+                      prefill_chunk=args.prefill_chunk, epoch=epoch,
+                      device=device)
     if executor is not None:
         executor.start()
     rng = np.random.RandomState(1)
@@ -146,19 +231,46 @@ def run(args, **cfg_overrides) -> ServeReport:
                for _ in range(args.requests)]
     reqs = [GenRequest(f"req{i}", p, max_new_tokens=args.max_new)
             for i, p in enumerate(prompts)]
+
+    def serve(batch):
+        for r in batch:
+            srv.submit(r)
+        if watchdog is not None:
+            watchdog.arm()
+        srv.run_until_idle(timeout=600)
+        if watchdog is not None:
+            watchdog.disarm()
+
     t0 = time.perf_counter()
-    for r in reqs:
-        srv.submit(r)
-    srv.run_until_idle(timeout=600)
+    if args.chaos_kill > 0:
+        half = max(1, args.requests // 2)
+        serve(reqs[:half])
+        survivors = max(1, n_ranks - args.chaos_kill)
+        t_kill = time.perf_counter()
+        epoch.invalidate(survivors=survivors,
+                         reason=f"--chaos-kill {args.chaos_kill}")
+        serve(reqs[half:])
+        print(f"chaos: killed {args.chaos_kill} device(s) -> {survivors} "
+              f"survivors; remeshes={srv.remeshes}, second half served "
+              f"in {(time.perf_counter() - t_kill) * 1e3:.1f} ms")
+    else:
+        serve(reqs)
     wall = time.perf_counter() - t0
+    if heartbeat is not None:
+        for peer in heartbeat.alive:
+            heartbeat.beat(peer)
     snap = stats_mod.collect(eng, executor)   # before close drops the queue
     lat = srv.latency_snapshot()              # before close, too
     sched = srv.scheduler_snapshot()
+    starts = srv._ag_handle.starts if srv._ag_handle is not None else None
     srv.close(timeout=60)
     if executor is not None:
         executor.shutdown(drain=True, timeout=60)
     return ServeReport(srv, reqs, sum(len(r.out_tokens) for r in reqs),
-                       srv.steps, sched.prefill_calls, wall, lat, sched, snap)
+                       srv.steps, sched.prefill_calls, wall, lat, sched, snap,
+                       model_shards=args.model_shards,
+                       backend=args.collective_backend,
+                       remeshes=srv.remeshes, starts=starts)
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,10 @@
 """Uniform model API across families (the entries the train and serve
 paths call) + analytical parameter/FLOP counts.
 
-The dense and ssm families are ported; the others (moe, vlm, hybrid,
-audio) raise ``NotImplementedError`` naming the family."""
+The dense and ssm families are ported, each with every entry below,
+the vocab-parallel ``unembed_partial`` of sharded serving included; the
+others (moe, vlm, hybrid, audio) raise ``NotImplementedError`` naming
+the family."""
 from __future__ import annotations
 
 import math
@@ -172,3 +174,18 @@ def decode_hidden_paged(params, cfg, cache, tokens, pos, tables, fed=None):
 
 def reset_paged_lane(cfg, cache, lane_index):
     return module_for(cfg).reset_paged_lane(cfg, cache, lane_index)
+
+
+def unembed_partial(params, cfg, x, vocab_start, vocab_len):
+    """Vocab-parallel unembed slice (see ``transformer.unembed_partial``);
+    every ported family unembeds through the transformer's table."""
+    module_for(cfg)
+    return transformer.unembed_partial(params, cfg, x, vocab_start,
+                                       vocab_len)
+
+
+def unembed_ranks(params, cfg, x, n):
+    """All n ranks' ``unembed_partial`` slices stacked, [n, ..., V/n]
+    (see ``transformer.unembed_ranks``)."""
+    module_for(cfg)
+    return transformer.unembed_ranks(params, cfg, x, n)

@@ -3,7 +3,8 @@ smollm-360m, llama3-405b): the JAX package's ``models/transformer.py``
 without its MoE and vision parts — the training forward under every
 checkpoint policy, the plain and the vocab-chunked loss, head padding,
 and decode on the slot cache and on the paged pool, with K/V in the
-compute dtype or in int8 with per-position scales.
+compute dtype or in int8 with per-position scales, and the vocab-parallel
+unembed of sharded serving (``unembed_partial``, ``unembed_ranks``).
 
 Layers are stacked on a leading ``layers`` axis, as in the JAX package,
 and run by a Python loop over the layer index where the JAX package uses
@@ -19,6 +20,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding import shard_hint
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -88,6 +90,41 @@ def unembed(params, cfg: ModelConfig, x):
         logits = torch.matmul(x, params["embed"].to(x.dtype).t())
     else:
         logits = torch.matmul(x, params["lm_head"].to(x.dtype))
+    logits = L.softcap(logits.float(), cfg.logit_softcap)
+    return shard_hint(logits, "batch", "act_seq", "act_vocab")
+
+
+def unembed_partial(params, cfg: ModelConfig, x, vocab_start: int,
+                    vocab_len: int):
+    """Vocab-parallel unembed: f32 logits for ``vocab_len`` vocabulary
+    rows starting at ``vocab_start`` — one rank's slice of the
+    tensor-parallel output projection.  The full logits are the
+    rank-order concatenation of the slices.  Softcap is elementwise, so
+    slicing before it is exact."""
+    stop = vocab_start + vocab_len
+    if cfg.tie_embeddings:
+        w = params["embed"][vocab_start:stop]
+        logits = torch.matmul(x, w.to(x.dtype).t())
+    else:
+        w = params["lm_head"][:, vocab_start:stop]
+        logits = torch.matmul(x, w.to(x.dtype))
+    return L.softcap(logits.float(), cfg.logit_softcap)
+
+
+def unembed_ranks(params, cfg: ModelConfig, x, n: int):
+    """Every rank's ``unembed_partial`` at once: x [..., D] -> f32
+    [n, ..., V/n], row r the slice rank r of an n-way model axis computes
+    (vocabulary rows r·V/n .. (r+1)·V/n), as one batched product over the
+    table viewed [n, V/n, D] (tied) or [n, D, V/n] (``lm_head``)."""
+    V, D = cfg.vocab_size, x.shape[-1]
+    if V % n:
+        raise ValueError(f"vocab_size {V} is not divisible by {n} ranks")
+    if cfg.tie_embeddings:
+        w = params["embed"].view(n, V // n, D).transpose(1, 2)
+    else:
+        w = params["lm_head"].view(D, n, V // n).transpose(0, 1)
+    logits = torch.matmul(x.reshape(-1, D), w.to(x.dtype))
+    logits = logits.view((n,) + tuple(x.shape[:-1]) + (V // n,))
     return L.softcap(logits.float(), cfg.logit_softcap)
 
 

@@ -34,9 +34,45 @@ subsystem bridges streams + continuation drain into every
 ``engine.progress()`` call, so the classic ``while: engine.progress()``
 loop still serves traffic.
 
-This is the unsharded path of the JAX package's ``serve/engine.py``; its
-model-axis sharding, serve-side collectives and membership epochs are
-not ported yet.
+**Model-axis sharding + serve-side collectives.**  With a ``mesh`` the
+decode step is tensor-parallel on the output projection, as in the JAX
+package's ``serve/engine.py``.  The mesh is the port's single-controller
+one: its n model-axis ranks share one device.  Every JAX rank runs the
+same ``decode_hidden_paged`` over the replicated params and pool, so the
+port runs it once; then ``unembed_ranks`` computes every rank's
+vocabulary slice as one batched product, the rank-stacked partial logits
+``[n, B, V/n]``.  The full logits are the rank-order all-gather of that
+activation, ``[n, B, V]`` with every row the whole vocabulary, two ways:
+
+* ``collective_spec.backend="native"`` — a gather over the rank dim on
+  the compute stream;
+* ``collective_spec.backend="user"`` — a **persistent user-space
+  all-gather** (``allgather_init``/``start``) on a dedicated
+  serve-collective stream.  Decode's shapes are fixed, so the handle is
+  built and warmed once; every step is a ``start(partial)`` re-bind
+  whose completion feeds the detokenize continuation.  The gather rounds
+  are driven by the progress engine while the host stays free for the
+  admission and prefill of new arrivals; with an executor the ``start``
+  itself is executor-driven.
+
+Both sharded paths consume the same partial logits, so their greedy
+token streams are identical.  The greedy ids come from row 0, and the
+first gathered step of an engine checks that every row equals row 0.
+
+**Membership.**  With an ``epoch`` (a ``MembershipEpoch`` shared with the
+heartbeat monitor, the step watchdog and the persistent all-gather) a
+membership change fails the step, not the requests.  The epoch's
+listener only records the change; the admit path then drains, closes
+the old handle, checkpoints each decoding lane's KV prefix and per-lane
+state to the host (``PagedKVCache.checkpoint_lane``), rebuilds the mesh,
+the pool and the handle on the survivors (a lone survivor serves
+unsharded) and re-admits the residents with their KV restored rather
+than replayed.  Mid-prefill lanes replay.  The port writes the decode
+state in place, so a step that failed at its gather has already
+advanced it: dense lanes stay consistent (a checkpoint reads positions
+``0..pos-1`` only, and the replayed token rewrites ``pos``), but lanes
+with per-lane recurrent state (the ssm family) hold the failed step's
+token, and those replay instead of restoring.
 """
 from __future__ import annotations
 
@@ -50,6 +86,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.collectives.nonblocking import (CollectiveSpec,
+                                                 MembershipError,
+                                                 UserCollectives,
+                                                 spec_from_legacy)
 from repro_torch.core import DEFERRED, DONE, ProgressEngine, Request
 from repro_torch.core import debug
 from repro_torch.core.continuations import POLICIES, ContinuationQueue
@@ -89,6 +129,11 @@ class GenRequest:
     #                                preempts the oldest resident
     queued_s: float = 0.0          # total backlog wait across (re)admissions
     last_enqueued_at: float = 0.0
+    # membership change: host-side snapshot of the lane's KV prefix +
+    # per-lane state (PagedKVCache.checkpoint_lane), carried through the
+    # backlog so re-admission on the rebuilt mesh restores instead of
+    # replaying the whole prefix; None = replay from tokens
+    kv_ckpt: Optional[dict] = None
 
 
 class _BucketBacklog:
@@ -144,6 +189,16 @@ class _BucketBacklog:
 
     def __len__(self) -> int:
         return sum(len(dq) for dq in self._buckets.values())
+
+
+def allgather_ranks(part: torch.Tensor) -> torch.Tensor:
+    """The native all-gather of rank-stacked partial logits: ``[n, B, w]``
+    -> ``[n, B, n·w]``, row r the rank-order concatenation of every
+    rank's slice — one gather over the rank dim."""
+    n, B, w = part.shape
+    idx = torch.arange(n, device=part.device).repeat(n)
+    return (part.index_select(0, idx).view(n, n, B, w)
+            .permute(0, 2, 1, 3).reshape(n, B, n * w))
 
 
 def _quantiles(samples_ms: list[float]) -> tuple[float, float, float]:
@@ -202,13 +257,29 @@ class ServeEngine:
                  executor: Optional[ProgressExecutor] = None,
                  continuation_policy: str = DEFERRED,
                  continuation_max_drain: int = 64,
+                 mesh=None, model_axis: str = "model",
+                 collective_spec: CollectiveSpec | None = None,
+                 collective_backend: str | None = None,
+                 collective_chunks: int | None = None,
+                 collective_round_batch: int | None = None,
                  cache_mode: str = "paged",
                  kv_block_size: int = 16,
                  kv_blocks: int | None = None,
                  prefill_chunk: int = 8,
+                 epoch=None,
                  device=None):
         if continuation_policy not in POLICIES:
             raise ValueError(f"continuation_policy must be one of {POLICIES}")
+        spec = spec_from_legacy(collective_spec, surface="ServeEngine",
+                                backend=collective_backend,
+                                chunks=collective_chunks,
+                                round_batch=collective_round_batch)
+        if spec.user and mesh is None:
+            # silently serving the plain path while the operator believes
+            # they exercised user-space collectives is worse than an
+            # eager error
+            raise ValueError("collective backend 'user' requires a mesh "
+                             "(model-axis-sharded decode)")
         if cache_mode == "slots":
             raise ValueError(
                 "cache_mode='slots' was retired, as in the JAX engine: "
@@ -223,19 +294,33 @@ class ServeEngine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.slots = PagedKVCache(cfg, batch_slots, max_seq,
+                                  block_size=kv_block_size,
+                                  num_blocks=kv_blocks, mesh=mesh,
+                                  device=self.device)
         # weights move to the device and take the compute dtype once, here
         self.params = registry.cast_params(
             cfg, tree_map(lambda t: t.to(self.device), params))
         self.engine = engine
         self.executor = executor
-        self.slots = PagedKVCache(cfg, batch_slots, max_seq,
-                                  block_size=kv_block_size,
-                                  num_blocks=kv_blocks, device=self.device)
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self.collective_spec = spec
+        self._sharded = mesh is not None
+        self._model_shards = 1
         self.batch_slots = batch_slots
         self.max_seq = max_seq
         self.prefill_chunk = prefill_chunk
+        # retained for elastic rebuilds (_rebuild_for_survivors)
+        self._kv_block_size = kv_block_size
+        self._kv_blocks = kv_blocks
         self._arrivals: collections.deque[GenRequest] = collections.deque()
         self._active: dict[int, GenRequest] = {}
         # paged continuous batching: requests waiting for blocks/lanes,
@@ -257,11 +342,32 @@ class ServeEngine:
         self._prefill_active = False
         self._stopping = False
         self._closed = False
+        # membership (fault tolerance): the epoch's invalidation listener
+        # only RECORDS the change — it may run inside whatever subsystem
+        # poll fired the invalidation (often an executor worker), where a
+        # drain/rebuild would self-deadlock.  The heavy work happens on
+        # the admit path (_apply_membership_change).
+        self.epoch = epoch
+        self._membership_exc = None
+        self._remeshing = False
+        # a step failed by the change ran its decode: per-lane state
+        # written in place already holds that step's token
+        self._stale_lane_state = False
+        self.remeshes = 0
+        self.recovery_s: list[float] = []    # per remesh: drain + rebuild
+        self.lanes_checkpointed = 0
+        self.lanes_restored = 0
+        # the first gathered step checks every row against row 0
+        self._rows_checked = False
         # finished-request ledger for latency_snapshot (bounded: a
         # long-lived server must not grow per-request records forever)
         self._submitted = 0
         self._finished: collections.deque[tuple] = collections.deque(
             maxlen=4096)
+        self.coll = None
+        self._ag_handle = None
+        if self._sharded:
+            self._build_sharded_decode()
         self.admit_stream = engine.stream("serve-admit")
         self.decode_stream = engine.stream("serve-decode")
         # decode completions are delivered through this queue; its
@@ -272,10 +378,15 @@ class ServeEngine:
             name="serve-cont")
         self.continuation_max_drain = continuation_max_drain
         self._queue_adopted = False
-        # streams the caller-driven bridge polls (and the run_until_idle
-        # fallback drives inline when an executor is attached but not
-        # running)
+        # streams the caller-driven bridge polls: the serve pair plus
+        # (user backend) the collective stream — without an executor
+        # nobody else progresses the all-gather rounds, and with one that
+        # is NOT running the run_until_idle fallback drives these same
+        # streams inline (a running executor never routes through
+        # _poll_streams, so there is no contention)
         self._bridge_streams = [self.admit_stream, self.decode_stream]
+        if self.coll is not None:
+            self._bridge_streams.append(self.coll.stream)
         if executor is not None:
             executor.adopt(self.admit_stream)
             executor.adopt(self.decode_stream)
@@ -298,10 +409,49 @@ class ServeEngine:
         # not accumulate exception objects forever
         self.decode_errors: collections.deque[BaseException] = \
             collections.deque(maxlen=256)
+        if epoch is not None:
+            epoch.subscribe(self._on_epoch_invalidate)
+
+    # -- sharded decode construction --------------------------------------
+    def _build_sharded_decode(self) -> None:
+        """Validate the model axis and build the gather: nothing for the
+        native path (a gather over the rank dim in the step), or a
+        persistent user-space ``allgather_init`` handle of shape
+        ``[n, batch_slots, V/n]`` f32 on a dedicated serve-collective
+        stream, built and warmed once (decode shapes are fixed)."""
+        cfg, mesh, axis = self.cfg, self.mesh, self.model_axis
+        if axis not in dict(mesh.shape):
+            raise ValueError(f"mesh has no axis {axis!r}: {dict(mesh.shape)}")
+        n = dict(mesh.shape)[axis]
+        V = cfg.vocab_size
+        if V % n:
+            raise ValueError(
+                f"sharded serving needs vocab_size ({V}) divisible by the "
+                f"{axis!r} axis size ({n})")
+        self._model_shards = n
+        if not hasattr(registry.module_for(cfg), "decode_hidden_paged"):
+            raise ValueError(
+                f"sharded serving not supported for family {cfg.family!r}")
+        if self.collective_spec.user:
+            self.coll = UserCollectives(self.engine, executor=self.executor,
+                                        name="serve-coll", epoch=self.epoch)
+            like = torch.empty((n, self.batch_slots, V // n),
+                               dtype=torch.float32, device="meta")
+            self._ag_handle = self.coll.allgather_init(
+                like, mesh, axis, spec=self.collective_spec, warmup=True)
 
     def _decode(self, cache, toks, pos, tables, fed):
-        return registry.decode_step_paged(self.params, self.cfg, cache, toks,
-                                          pos, tables, fed)
+        """One fused paged call: logits [B, 1, V] unsharded; sharded, the
+        rank-stacked partial logits [n, B, V/n] of ``decode_hidden_paged``
+        then ``unembed_ranks`` (every JAX rank's ``local_step`` at once)."""
+        if not self._sharded:
+            return registry.decode_step_paged(self.params, self.cfg, cache,
+                                              toks, pos, tables, fed)
+        hid, cache = registry.decode_hidden_paged(self.params, self.cfg,
+                                                  cache, toks, pos, tables,
+                                                  fed)
+        return registry.unembed_ranks(self.params, self.cfg, hid[:, -1],
+                                      self._model_shards), cache
 
     # -- client API -------------------------------------------------------
     def submit(self, request: GenRequest) -> Request:
@@ -331,12 +481,16 @@ class ServeEngine:
                 # and silently halt all serving
                 pass
         made += self.continuations.drain(self.continuation_max_drain)
+        coll = self.coll                 # a rebuild swaps it concurrently
+        if coll is not None:
+            made += coll.queue.drain(self.continuation_max_drain)
         return made > 0
 
     # -- admission (event-scheduled, one-shot) ------------------------------
     def _schedule_admit(self) -> None:
         with self._lock:
-            pending = self._arrivals or self._backlog or self._prefilling
+            pending = (self._arrivals or self._backlog or self._prefilling
+                       or self._membership_exc is not None)
             if self._admit_scheduled or not pending:
                 return
             self._admit_scheduled = True
@@ -345,9 +499,21 @@ class ServeEngine:
     def _admit_task(self, thing) -> str:
         with self._lock:
             self._admit_scheduled = False
-        self._admit_paged()
+        self._admit()
         self._schedule_decode()
         return DONE                          # one-shot: nothing left to poll
+
+    def _admit(self) -> bool:
+        """Admission + one prefill chunk.  A pending membership change is
+        applied first — nothing may be admitted onto the old mesh.  The
+        unlocked read is benign: the flag is set under the lock, and an
+        invalidation racing past the check is caught by the decode gate
+        and the next admit pass."""
+        if self._membership_exc is not None:
+            self._apply_membership_change()
+            if self._membership_exc is not None:
+                return False         # in-flight work must drain first
+        return self._admit_paged()
 
     def _admit_paged(self) -> bool:
         """Continuous-batching admission: drain arrivals into the
@@ -396,9 +562,18 @@ class ServeEngine:
             cache = self.slots.cache
         try:
             for req in admitted:
+                idx = req.slot_index
                 # recycled lane: zero per-lane recurrent state (SSM) so
                 # the previous occupant cannot leak into this request
-                cache = self.slots.reset_lane(cache, req.slot_index)
+                cache = self.slots.reset_lane(cache, idx)
+                if req.kv_ckpt is not None:
+                    # migrated lane (membership change): restore the KV
+                    # prefix + per-lane state checkpointed off the old
+                    # mesh instead of replaying the whole prefix
+                    cache = self.slots.restore_lane(cache, idx, req.kv_ckpt)
+                    req.prefill_pos = len(req.replay) - 1
+                    req.kv_ckpt = None
+                    self.lanes_restored += 1
             cache, completed = self._prefill_chunk(cache)
         except BaseException as exc:  # noqa: BLE001
             # chunk failure: every mid-prefill replay is lost — fail those
@@ -424,7 +599,8 @@ class ServeEngine:
 
     def _prefill_chunk(self, cache):
         """Up to ``prefill_chunk`` fused paged calls over the pool; logits
-        are discarded — prefill only needs the KV side effect.  Lanes not
+        are discarded (and in sharded mode no gather is started) —
+        prefill only needs the KV side effect.  Lanes not
         being fed write scratch KV at their next position, which is
         overwritten before the mask can expose it (see
         models/transformer.py).  Returns the cache and the lanes whose
@@ -462,28 +638,37 @@ class ServeEngine:
             # nothing starves.
             busy = (self._decode_inflight is not None
                     or self._prefill_active)
-            launched = not busy and bool(self._active)
+            # membership pending: nothing launches on the old mesh — the
+            # admit path applies the change first.  With a step still in
+            # flight its own continuation funnels there; re-scheduling
+            # here too would spin the admit stream against it.
+            blocked = self._membership_exc is not None
+            launched = not busy and not blocked and bool(self._active)
             if launched:
-                step = self._launch_decode_locked()
+                step, agreq, cache = self._launch_decode_locked()
             # paged: prompts may still be mid-replay with no lane decoding
             # yet — keep the prefill chain alive (the admit task runs the
             # next chunk; _admit_scheduled bounds this to one outstanding
             # task)
-            reschedule = (not busy and not self._active
-                          and bool(self._prefilling))
+            reschedule = (not busy and not blocked
+                          and not self._active and bool(self._prefilling))
         if launched:
-            self._attach_step(step)
-        elif reschedule:
+            self._attach_step(step, agreq, cache)
+        elif reschedule or (blocked and not busy):
             self._schedule_admit()
 
-    def _launch_decode_locked(self) -> Request:
+    def _launch_decode_locked(self):
         """Dispatch one fused decode step; caller holds ``self._lock``.
+        Returns ``(step, agreq, cache)``.
 
-        The greedy token ids are taken on the card and copied to pinned
-        host memory without blocking; ``torch_future`` records a CUDA
-        event after that copy, and its one-shot readiness task on the
-        decode stream completes ``step`` once the event has passed — the
-        only place the device is polled, never synchronized.
+        Unsharded and native-sharded: ``_harvest`` takes the greedy ids on
+        the card and watches them through a CUDA event (one-shot readiness
+        task on the decode stream, never a synchronize) that completes
+        ``step``.  User backend: the step's partial logits are re-bound
+        into the persistent all-gather (``start``), and ``agreq``'s
+        completion (bridged by a continuation, ``_attach_step``) harvests
+        the gathered logits — the engine drives the gather rounds while
+        the card runs.
 
         Dispatch failure fails the request instead of wedging the stream
         (the failure continuation cleans up).  The caller attaches the
@@ -506,15 +691,38 @@ class ServeEngine:
                 self.slots.cache, to_device(toks, self.device),
                 self.slots.positions(), self.slots.block_tables(),
                 to_device(fed, self.device))
-            ids = torch.argmax(out[:, -1], dim=-1)
-            ids_host = ids.to("cpu", non_blocking=True)
+            agreq = None
+            if self._ag_handle is not None:      # user-space gather
+                agreq = self._ag_handle.start(out)
+            elif self._sharded:                  # native gather
+                out = allgather_ranks(out)
+            if agreq is None:
+                self._harvest(step, out, cache)
         except BaseException as exc:  # noqa: BLE001
             step.fail(exc)
-            return step
-        self._decode_inflight = (ids_host, cache)
-        torch_future(self.engine, (ids, ids_host), self.decode_stream,
-                     on_complete=lambda _: step.complete((ids_host, cache)))
-        return step
+            return step, None, None
+        self._decode_inflight = (out, cache)
+        return step, agreq, cache
+
+    def _harvest(self, step: Request, out, cache) -> None:
+        """Greedy ids of a step's logits — unsharded [B, 1, V], or
+        gathered [n, B, V] whose row 0 is the whole answer — taken on the
+        card and copied to pinned host memory without blocking;
+        ``torch_future`` completes ``step`` once that copy has passed.
+        The first gathered step also copies whether every row equals row
+        0, so that a wrong gather shows."""
+        logits = out[0] if self._sharded else out[:, -1]
+        ids = torch.argmax(logits, dim=-1)
+        ids_host = ids.to("cpu", non_blocking=True)
+        watched = [ids, ids_host]
+        rows_host = None
+        if self._sharded and not self._rows_checked:
+            rows = (out == out[:1]).all()
+            rows_host = rows.to("cpu", non_blocking=True)
+            watched += [rows, rows_host]
+        torch_future(self.engine, watched, self.decode_stream,
+                     on_complete=lambda _: step.complete(
+                         (ids_host, cache, rows_host)))
 
     # -- block pressure: preemption / re-admission (paged mode) -------------
     def _ensure_capacity_locked(self) -> None:
@@ -569,19 +777,37 @@ class ServeEngine:
         req.last_enqueued_at = time.monotonic()
         self._backlog.push(req)
 
-    def _attach_step(self, step: Request) -> None:
+    def _attach_step(self, step: Request, agreq=None, cache=None) -> None:
+        if agreq is not None:
+            # bridge the persistent all-gather into the step request:
+            # detokenize (below) stays identical across backends
+            def gathered(rq, step=step, cache=cache):
+                try:
+                    self._harvest(step, rq.value(), cache)
+                except BaseException as exc:  # noqa: BLE001
+                    step.fail(exc)
+
+            self.continuations.attach(
+                agreq, gathered,
+                on_error=lambda rq, step=step: step.fail(
+                    rq.exception
+                    or RuntimeError("serve all-gather failed")))
         self.continuations.attach(step, self._on_step_done,
                                   on_error=self._on_step_failed)
 
     def _on_step_done(self, step: Request) -> None:
         """Detokenize stage (a continuation): harvest the fused step,
         finish/complete requests, and chain the next decode step."""
-        ids, cache = step.value()
+        ids, cache, rows = step.value()
         try:
             # read OUTSIDE the lock: a raise here must take the failure
             # path, not wedge the server with _active full and no task
             # on any stream
             next_ids = ids.numpy()
+            if rows is not None and not bool(rows):
+                raise RuntimeError(
+                    "the gathered logits' rows differ from row 0: the "
+                    "all-gather is wrong")
         except BaseException as exc:  # noqa: BLE001
             self._fail_step(step, exc)
             return
@@ -593,6 +819,8 @@ class ServeEngine:
             self._decode_inflight = None
             self.slots.cache = cache
             self.steps += 1
+            if rows is not None:
+                self._rows_checked = True
             self.step_s += time.perf_counter() - self._step_t0
             finished = []
             for idx, req in list(self._active.items()):
@@ -618,7 +846,7 @@ class ServeEngine:
         # in-flight step must not both write the pool) join the batch
         # before the next launch.  Prefill runs outside the lock, so
         # releasing it first keeps submit() responsive during admission.
-        self._admit_paged()
+        self._admit()
         self._schedule_decode()                # chain the next step
         if freed:
             self._schedule_admit()             # the slot-free event
@@ -639,16 +867,167 @@ class ServeEngine:
                 return
             self._current_step = None
             self._decode_inflight = None
-            for idx, req in list(self._active.items()):
-                self._active.pop(idx)
-                # first_token_at stays as-is: a request that failed
-                # before its first token keeps None (null-propagated —
-                # counted by the snapshot, never faked into TTFT)
-                req.finished_at = time.monotonic()
-                self.slots.release(self.slots.slots[idx])
-                self._record_locked(req, failed=True)
-                req.done_req.fail(exc)
+            if (isinstance(exc, MembershipError)
+                    or self._membership_exc is not None):
+                # a membership change killed the STEP, not the requests:
+                # they stay resident until the admit path has drained and
+                # closed the old handle, then are checkpointed and
+                # requeued for the rebuilt mesh (no in-flight request is
+                # lost).  The step ran its decode, in place.
+                if self._membership_exc is None:
+                    self._membership_exc = exc
+                self._stale_lane_state = True
+            else:
+                for idx, req in list(self._active.items()):
+                    self._active.pop(idx)
+                    # first_token_at stays as-is: a request that failed
+                    # before its first token keeps None (null-propagated
+                    # — counted by the snapshot, never faked into TTFT)
+                    req.finished_at = time.monotonic()
+                    self.slots.release(self.slots.slots[idx])
+                    self._record_locked(req, failed=True)
+                    req.done_req.fail(exc)
         self._schedule_admit()
+
+    # -- membership changes (elastic fault tolerance) -----------------------
+    def _on_epoch_invalidate(self, epoch, exc) -> None:
+        """Epoch listener — runs inside whatever subsystem poll fired the
+        invalidation (often an executor worker), so it only records the
+        change and pokes the admit path; draining or rebuilding here
+        could deadlock the worker against its own stream."""
+        with self._lock:
+            if self._closed:
+                return
+            self._membership_exc = exc
+        self._schedule_admit()
+
+    def _requeue_residents_locked(self, stale_state: bool) -> int:
+        """Move every resident request (decoding or mid-prefill) back to
+        the queue for re-admission on the rebuilt mesh.  Decoding lanes
+        checkpoint their KV prefix + per-lane state to host memory
+        (block-table walk) so restore skips the replay — unless
+        ``stale_state`` (a failed step advanced the per-lane state in
+        place) and the pool has per-lane state: those replay, as do
+        mid-prefill lanes.  Caller holds ``self._lock``; no step is in
+        flight and ``replay = prompt + out_tokens`` resumes the exact
+        stream."""
+        now = time.monotonic()
+        moved = []
+        keep_state = not (stale_state and self.slots.has_lane_state)
+        for idx, req in list(self._active.items()):
+            self._active.pop(idx)
+            lane = self.slots.slots[idx]
+            req.kv_ckpt = None
+            if lane.pos > 0 and keep_state:
+                try:
+                    req.kv_ckpt = self.slots.checkpoint_lane(idx)
+                    self.lanes_checkpointed += 1
+                except Exception as ckpt_exc:   # fall back to full replay
+                    self.decode_errors.append(ckpt_exc)
+            self.slots.release(lane)
+            moved.append(req)
+        for idx, req in list(self._prefilling.items()):
+            self._prefilling.pop(idx)
+            req.kv_ckpt = None                  # partial prefix: replay
+            self.slots.release(self.slots.slots[idx])
+            moved.append(req)
+        for req in moved:
+            req.replay = np.concatenate([
+                np.asarray(req.prompt, np.int32),
+                np.asarray(req.out_tokens, np.int32)])
+            req.prefill_pos = 0
+            req.slot_index = -1
+            req.last_enqueued_at = now
+            self._backlog.push(req)
+        return len(moved)
+
+    def _apply_membership_change(self) -> None:
+        """Drain + rebuild after an epoch invalidation (admit path, no
+        lock held).  Bails while a step or prefill is in flight: their
+        completion/failure continuations funnel back here.  The old
+        gather handle and its collectives are closed first (their stream
+        drained, so no round still runs when the lanes are copied to the
+        host); then the residents are checkpointed and requeued under
+        the lock; then the mesh, the pool and the handle are rebuilt on
+        the survivors."""
+        with self._lock:
+            exc = self._membership_exc
+            if exc is None or self._remeshing:
+                return
+            if self._decode_inflight is not None or self._prefill_active:
+                return
+            self._remeshing = True
+        t0 = time.perf_counter()
+        try:
+            self._close_collectives()
+            with self._lock:
+                moved = self._requeue_residents_locked(self._stale_lane_state)
+                self._stale_lane_state = False
+            self._rebuild_for_survivors(exc)
+        except BaseException:
+            # keep _membership_exc set: the next admit pass retries the
+            # rebuild (residents are already requeued — idempotent)
+            with self._lock:
+                self._remeshing = False
+            raise
+        with self._lock:
+            self._remeshing = False
+            if self._membership_exc is exc:     # a FRESH invalidation
+                self._membership_exc = None     # during rebuild stays
+            self.remeshes += 1
+            self.recovery_s.append(time.perf_counter() - t0)
+        if moved:
+            self._schedule_admit()
+
+    def _close_collectives(self, timeout: float = 60.0) -> None:
+        """Close the gather handle and drain + release its collectives."""
+        handle, coll = self._ag_handle, self.coll
+        self._ag_handle = None
+        self.coll = None
+        # stop bridging the old collective stream BEFORE draining it
+        self._bridge_streams = [self.admit_stream, self.decode_stream]
+        if handle is not None:
+            handle.close()
+        if coll is not None:
+            coll.close(timeout=timeout)
+
+    def _rebuild_for_survivors(self, exc) -> None:
+        """Rebuild every mesh-dependent piece on the survivors: the mesh
+        (model axis shrunk to what survives — capped by the old degree
+        and the vocab divisibility rule), the pool and the persistent
+        all-gather handle.  Nothing resident survives in the pool:
+        requeued requests carry their prefix as a host checkpoint or as
+        replay tokens."""
+        from repro_torch.distributed import elastic
+        from repro_torch.launch.mesh import make_mesh
+        if self._sharded:
+            survivors = getattr(exc, "survivors", None)
+            if survivors is None:
+                survivors = self._model_shards
+            # plan_mesh validates survivors >= 1 and keeps the model
+            # degree when it still fits; vocab divisibility caps it below
+            shape, _axes = elastic.plan_mesh(
+                survivors, prefer_model=self._model_shards)
+            m = shape[1]
+            while m > 1 and self.cfg.vocab_size % m:
+                m //= 2
+            if m > 1:
+                self.mesh = make_mesh((m,), (self.model_axis,), self.device)
+            else:
+                # a lone survivor serves unsharded — there is nothing
+                # left to gather
+                self.mesh = None
+                self._sharded = False
+                self._model_shards = 1
+        self.slots = PagedKVCache(self.cfg, self.batch_slots, self.max_seq,
+                                  block_size=self._kv_block_size,
+                                  num_blocks=self._kv_blocks,
+                                  mesh=self.mesh, device=self.device)
+        if self._sharded:
+            self._build_sharded_decode()
+            if self.coll is not None:
+                self._bridge_streams = [self.admit_stream,
+                                        self.decode_stream, self.coll.stream]
 
     # -- latency accounting ------------------------------------------------
     def _record_locked(self, req: GenRequest, failed: bool) -> None:
@@ -711,7 +1090,8 @@ class ServeEngine:
         with self._lock:
             busy = (self._active or self._arrivals or self._prefill_active
                     or self._prefilling or len(self._backlog)
-                    or self._decode_inflight is not None)
+                    or self._decode_inflight is not None
+                    or self._membership_exc is not None)
         return not busy and self.continuations.ready == 0
 
     def run_until_idle(self, timeout: float = 120.0) -> None:
@@ -767,6 +1147,8 @@ class ServeEngine:
             self.executor.release_queue(self.continuations)
             self._queue_adopted = False
         self.continuations.close()
+        # drains the serve-collective stream and hands it back
+        self._close_collectives(timeout)
         if self._sub is not None:
             self.engine.unregister_subsystem(self._sub)
             self._sub = None

@@ -19,7 +19,9 @@ stale bytes in recycled blocks are unreachable.
 
 The host-side logic is the JAX package's (``serve/kvcache.py``);
 ``positions()`` and ``block_tables()`` return tensors on the cache's
-device.
+device.  ``checkpoint_lane``/``restore_lane`` carry one lane's KV prefix
+and per-lane state across pools as host numpy, keyed as the JAX pool
+keys them, so a snapshot of either package restores into the other's.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import registry
+from repro_torch.models.layers import tree_leaves
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -226,11 +229,15 @@ class PagedKVCache:
     touch, and ``ensure(lane_index, pos)`` which lazily extends the table
     one block at a time as decode advances (``False`` = pool exhausted:
     the caller's preemption trigger).
+
+    ``mesh`` is recorded and the pool lives on the mesh's device: every
+    model-axis rank of the port's single-controller mesh reads the one
+    pool (the JAX pool is replicated over the mesh).
     """
 
     def __init__(self, cfg, lanes: int, max_seq: int, *,
                  block_size: int = 16, num_blocks: int | None = None,
-                 device=None):
+                 mesh=None, device=None):
         if not registry.supports_paged(cfg):
             raise ValueError(
                 f"paged serving not supported for family {cfg.family!r}")
@@ -252,6 +259,12 @@ class PagedKVCache:
                 f"pool of {num_blocks} blocks cannot hold one max_seq="
                 f"{max_seq} request ({self.max_blocks} blocks of "
                 f"{block_size}) — a lone request would deadlock")
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cache = registry.init_paged_cache(cfg, lanes, num_blocks,
                                                block_size, self.device)
@@ -366,3 +379,109 @@ class PagedKVCache:
         blocks to recycle), so a recycled lane must not leak its previous
         occupant's state into the next request."""
         return registry.reset_paged_lane(self.cfg, cache, lane_index)
+
+    # -- per-lane checkpoint / restore (KV migration) ----------------------
+    # Leaf classification is by shape against the pool geometry: a leaf
+    # whose dims 1/2 are (num_blocks, block_size) is block-pooled KV
+    # (k/v and their int8 scales); a leaf whose dim 1 is the lane count is
+    # lane-indexed recurrent state (the ssm family's).  Block leaves are
+    # checked first so a coincidental lanes == num_blocks match cannot
+    # misfile pooled KV.
+
+    def _is_block_leaf(self, leaf) -> bool:
+        return (self.has_blocks and leaf.dim() >= 3
+                and leaf.shape[1] == self.num_blocks
+                and leaf.shape[2] == self.block_size)
+
+    def _is_lane_leaf(self, leaf) -> bool:
+        return leaf.dim() >= 2 and leaf.shape[1] == len(self.slots)
+
+    @property
+    def has_lane_state(self) -> bool:
+        """True iff the pool holds per-lane state (not block-pooled KV)
+        that a decode step overwrites in place."""
+        return any(self._is_lane_leaf(leaf) and not self._is_block_leaf(leaf)
+                   for _, leaf in tree_leaves(self.cache))
+
+    def _used_blocks(self, pos: int) -> int:
+        return -(-pos // self.block_size) if (self.has_blocks and pos) else 0
+
+    def checkpoint_lane(self, lane_index: int) -> dict:
+        """Snapshot one lane's KV prefix + per-lane state to host memory.
+
+        Walks the block table: for pooled leaves, gathers the lane's
+        owned physical blocks (positions ``0..pos-1`` live in the first
+        ``ceil(pos/block_size)`` table entries); for lane-indexed leaves,
+        captures the lane's row.  The result is plain numpy, keyed by the
+        leaf's path as ``jax.tree_util.keystr`` writes it (``['k']``), so
+        a membership change can carry a decoding request's KV onto a pool
+        rebuilt for the surviving mesh instead of replaying its whole
+        prefix.  bf16 leaves are kept as f32, which holds them exactly.
+        The copies to the host wait for the work queued on the pool."""
+        lane = self.slots[lane_index]
+        if lane.done:
+            raise BlockAllocationError(f"lane {lane_index} is free")
+        pos = lane.pos
+        used = self._used_blocks(pos)
+        table = torch.from_numpy(self._tables[lane_index, :used].copy()) \
+            .to(self.device)
+        blocks: dict[str, np.ndarray] = {}
+        state: dict[str, np.ndarray] = {}
+        for path, leaf in tree_leaves(self.cache):
+            key = keystr(path)
+            if self._is_block_leaf(leaf):
+                if used:
+                    blocks[key] = _to_host(leaf[:, table])
+            elif self._is_lane_leaf(leaf):
+                state[key] = _to_host(leaf[:, lane_index])
+        return {"pos": pos, "blocks": blocks, "state": state}
+
+    def restore_lane(self, cache, lane_index: int, ckpt: dict):
+        """Write a ``checkpoint_lane`` snapshot into this pool's ``cache``
+        for an already-``assign``ed lane (whose table must cover
+        ``ckpt['pos']`` positions — ``assign(request_id, seq_len=pos+1)``
+        guarantees that), in place.  Returns the cache and sets the
+        lane's position; the caller owns the engine-side bookkeeping."""
+        lane = self.slots[lane_index]
+        if lane.done:
+            raise BlockAllocationError(f"lane {lane_index} is free")
+        pos = int(ckpt["pos"])
+        used = self._used_blocks(pos)
+        if used and used > len(self.allocator.blocks_of(lane.request_id)):
+            raise BlockAllocationError(
+                f"lane {lane_index} owns too few blocks to restore "
+                f"{pos} positions")
+        table = torch.from_numpy(self._tables[lane_index, :used].copy()) \
+            .to(self.device)
+        for path, leaf in tree_leaves(cache):
+            key = keystr(path)
+            if used and key in ckpt["blocks"]:
+                leaf[:, table] = _from_host(ckpt["blocks"][key], leaf)
+            elif key in ckpt["state"]:
+                leaf[:, lane_index] = _from_host(ckpt["state"][key], leaf)
+        lane.pos = pos
+        return cache
+
+
+def keystr(path) -> str:
+    """A dict-tree path as ``jax.tree_util.keystr`` writes it:
+    ``('k',)`` -> ``"['k']"``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _from_host(a, like: torch.Tensor) -> torch.Tensor:
+    """A snapshot array (numpy, ml_dtypes' bf16 included) as a tensor of
+    ``like``'s dtype on its device."""
+    a = np.require(a, requirements=["C", "W"])   # a JAX array's is read-only
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bf16: same bits
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(like.device, like.dtype)

@@ -15,14 +15,23 @@ port's single-controller mesh every rank lives on one device, so a spec
 places nothing; it is what ``elastic.reshard_restore`` hands back beside
 the restored tensors, and it raises where the JAX resolution raises.
 
-``shard_hint``, ``logical_sharding`` and ``tree_shardings`` (the
-placement side) wait for the sharded-serve slice (ROADMAP §1 item 6).
+The placement side — ``logical_sharding``, ``tree_shardings`` and
+``shard_hint`` — resolves the same specs and places nothing either.
+There is no GSPMD to act on them: what a spec would place, the callers
+slice by hand, rank by rank.  The sharded serve engine computes each
+model-axis rank's vocabulary slice of the unembed explicitly
+(``models.transformer.unembed_ranks``) and gathers the slices with a
+collective.  ``shard_hint(x, *axes)`` resolves against the mesh of the
+innermost ``set_mesh`` block, returns ``x`` unchanged, and raises where
+``resolve_spec`` raises; outside any ``set_mesh`` block it does nothing,
+as the JAX ``shard_hint`` does outside a mesh context.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 MeshAxes = tuple[str, ...]
 Rules = Mapping[str, Sequence[MeshAxes]]
@@ -156,3 +165,63 @@ def spec_tree(tree_axes, tree_shapes, mesh, rules: Rules | None = None):
                                for a, s in zip(tree_axes, tree_shapes))
     raise TypeError(f"spec_tree: {type(tree_axes).__name__} is neither a "
                     f"logical-axis tuple nor a container")
+
+
+# ---------------------------------------------------------------------------
+# Placement: the resolved specs, and the current mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec tuple — what JAX's ``NamedSharding``
+    holds; ``tuple(jax_sharding.spec)`` equals ``spec``.  It places
+    nothing on the port's single-controller mesh."""
+    mesh: Any
+    spec: tuple
+
+
+def logical_sharding(logical_axes: Sequence[str | None], shape, mesh,
+                     rules: Rules | None = None) -> NamedSharding:
+    return NamedSharding(mesh, resolve_spec(logical_axes, shape, mesh, rules))
+
+
+def tree_shardings(tree_axes, tree_shapes, mesh, rules: Rules | None = None):
+    """Map a tree of logical-axis tuples and a matching tree of shapes to
+    a tree of :class:`NamedSharding`."""
+    if _is_axes(tree_axes):
+        return logical_sharding(tree_axes, tree_shapes, mesh, rules)
+    if isinstance(tree_axes, dict):
+        return {k: tree_shardings(v, tree_shapes[k], mesh, rules)
+                for k, v in tree_axes.items()}
+    if isinstance(tree_axes, (list, tuple)):
+        return type(tree_axes)(tree_shardings(a, s, mesh, rules)
+                               for a, s in zip(tree_axes, tree_shapes))
+    raise TypeError(f"tree_shardings: {type(tree_axes).__name__} is neither "
+                    f"a logical-axis tuple nor a container")
+
+
+def current_mesh():
+    """The mesh of the innermost ``set_mesh`` block, or None."""
+    return getattr(_local, "mesh", None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Make ``mesh`` the one ``shard_hint`` resolves against."""
+    prev = getattr(_local, "mesh", None)
+    _local.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _local.mesh = prev
+
+
+def shard_hint(x, *logical_axes: str | None):
+    """Check ``x``'s logical axes against the current mesh and return
+    ``x`` unchanged (the JAX ``shard_hint`` constrains the placement
+    there).  Outside a ``set_mesh`` block this is a no-op, so model code
+    is written once."""
+    mesh = current_mesh()
+    if mesh is not None:
+        resolve_spec(logical_axes, x.shape, mesh)
+    return x

@@ -102,6 +102,64 @@ def test_resolve_spec_and_spec_tree_match_jax(mesh_shape):
     assert shd.current_rules() is shd.DEFAULT_RULES
 
 
+SERVE_MESHES = [((1,), ("model",)), ((2,), ("model",)), ((4,), ("model",)),
+                ((2, 2), ("data", "model"))]
+
+
+@pytest.mark.parametrize("shape,names", SERVE_MESHES)
+def test_placement_side_matches_jax_named_shardings(shape, names):
+    """``logical_sharding`` and ``tree_shardings`` give the specs of the
+    JAX ``NamedSharding``s (``tuple(sharding.spec)``) on the serve
+    meshes, for the dense tree's params and paged pool and the logits;
+    ``shard_hint`` resolves against the ``set_mesh`` mesh, returns its
+    input unchanged and raises where ``resolve_spec`` raises."""
+    from jax.sharding import AbstractMesh
+    from repro import sharding as jshd
+    from repro.configs import get_config as jget
+    from repro.models import registry as jreg
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import shapes_tree, tree_map
+    mesh = make_mesh(shape, names, "cpu")
+    jmesh = AbstractMesh(shape, names)
+    cfg = get_config("qwen2-0.5b").with_overrides(**TINY)
+    jcfg = jget("qwen2-0.5b").with_overrides(**TINY)
+    cases = [(("batch", "act_seq", "act_vocab"), (8, 1, 256)),
+             (("vocab", "embed"), (256, 64)), (("embed", "vocab"), (64, 6)),
+             (("layers", None, "cache_seq", "act_kv_heads", "head_dim"),
+              (2, 9, 4, 2, 16))]
+    for axes, dims in cases:
+        got = shd.logical_sharding(axes, dims, mesh)
+        assert got.mesh is mesh
+        assert got.spec == tuple(jshd.logical_sharding(axes, dims,
+                                                       jmesh).spec)
+    spec = transformer.param_spec(cfg)
+    got = shd.tree_shardings(tree_map(lambda s: s.axes, spec),
+                             shapes_tree(spec), mesh)
+    want = jshd.tree_shardings(jreg.param_axes(jcfg), jreg.param_shapes(jcfg),
+                               jmesh)
+
+    def flat(t, path=()):
+        if isinstance(t, dict):
+            return {p: v for k, sub in t.items()
+                    for p, v in flat(sub, path + (k,)).items()}
+        return {path: tuple(t.spec)}
+    assert flat(got) == flat(want)
+    x = torch.zeros(8, 1, 256)
+    assert shd.current_mesh() is None
+    assert shd.shard_hint(x, "nope") is x          # no mesh: a no-op
+    with shd.set_mesh(mesh):
+        assert shd.current_mesh() is mesh
+        assert shd.shard_hint(x, "batch", "act_seq", "act_vocab") is x
+        assert transformer.unembed(
+            {"embed": torch.ones(256, 64)},
+            cfg.with_overrides(dtype="float32"),
+            torch.ones(8, 1, 64)).shape == (8, 1, 256)
+        with pytest.raises(KeyError):
+            shd.shard_hint(x, "batch", "act_seq", "nope")
+    assert shd.current_mesh() is None
+
+
 def test_reshard_restore_from_4x2_onto_2x2(tmp_path):
     """Save on a (4,2) mesh, lose half the ranks, restore onto (2,2):
     values identical on the new mesh's device, specs resolved for the

@@ -494,3 +494,99 @@ def test_fsdp_launcher_on_the_card_matches_native(cuda, tmp_path):
     assert len(losses["user"]) == 4
     assert max(abs(a - b) for a, b in zip(losses["user"],
                                            losses["native"])) < 1e-3
+
+
+def _serve_tokens_on_the_card(backend, n, workers=0, epoch=None, kill=None):
+    from repro_torch.collectives.nonblocking import CollectiveSpec
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+    import numpy as np
+    cfg = make_config("qwen2-0.5b", "tiny")
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, workers).start() if workers else None
+    srv = ServeEngine(cfg, params, eng, batch_slots=4, max_seq=64,
+                      executor=ex, epoch=epoch,
+                      mesh=make_mesh((n,), ("model",), "cuda"),
+                      collective_spec=CollectiveSpec(backend=backend,
+                                                     chunks=2))
+    rs = np.random.RandomState(0)
+    reqs = [GenRequest(f"r{i}", rs.randint(1, 500, size=rs.randint(2, 12))
+                       .astype(np.int32), max_new_tokens=6)
+            for i in range(6)]
+    for r in reqs:
+        srv.submit(r)
+    if kill is not None:
+        while sum(len(r.out_tokens) for r in reqs) < 5:
+            eng.progress()
+        epoch.invalidate(survivors=kill, reason="chaos")
+    srv.run_until_idle(timeout=120)
+    lat = srv.latency_snapshot()
+    starts = srv._ag_handle.starts if srv._ag_handle is not None else None
+    out = [list(r.out_tokens) for r in reqs], starts, srv.steps, srv.remeshes
+    srv.close(timeout=60)
+    if ex is not None:
+        ex.shutdown(drain=True, timeout=60)
+    assert lat.completed == 6 and lat.failed == 0
+    return out
+
+
+def test_sharded_serve_on_the_card_user_equals_native(cuda):
+    """Vocab-sharded serving on 4 model ranks of the card at the tiny
+    scale: the user backend's persistent all-gather (caller-driven and
+    executor-driven) serves the native gather's streams bit for bit, one
+    start a step; an epoch invalidated mid-decode remeshes once onto 2
+    ranks and serves the same streams."""
+    from repro_torch.collectives.nonblocking import MembershipEpoch
+    native, none, _, _ = _serve_tokens_on_the_card("native", 4)
+    user, starts, steps, _ = _serve_tokens_on_the_card("user", 4)
+    driven, _, _, _ = _serve_tokens_on_the_card("user", 4, workers=2)
+    assert none is None and user == native == driven
+    assert starts == steps > 0
+    chaos, _, _, remeshes = _serve_tokens_on_the_card(
+        "user", 4, epoch=MembershipEpoch(4), kill=2)
+    assert remeshes == 1 and chaos == native
+
+
+def test_lane_round_trip_on_the_card(cuda):
+    """A decoding lane checkpointed off the card after 10 tokens and
+    restored into a fresh pool with a shifted block layout decodes on bit
+    for bit as the uninterrupted lane."""
+    import numpy as np
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import registry
+    from repro_torch.serve.kvcache import PagedKVCache, to_device
+    cfg = make_config("qwen2-0.5b", "tiny")
+    params = registry.cast_params(cfg, registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))
+    rs = np.random.RandomState(1)
+    toks = [np.full((2, 1), rs.randint(1, 500), np.int32) for _ in range(14)]
+
+    def feed(pool, lane, start, count):
+        fed = np.array([i == lane for i in range(2)])
+        for t in range(start, start + count):
+            assert pool.ensure(lane, t)
+            out, pool.cache = registry.decode_step_paged(
+                params, cfg, pool.cache, to_device(toks[t], pool.device),
+                to_device(np.full((2,), t, np.int32), pool.device),
+                pool.block_tables(), to_device(fed, pool.device))
+            pool.slots[lane].pos = t + 1
+        return out[lane]
+
+    # the lane keeps its index (row 1 of the batch); its blocks move
+    pool = PagedKVCache(cfg, 2, 64, block_size=4, device="cuda")
+    pool.assign("pad", seq_len=1)
+    lane = pool.assign("req", seq_len=1).index
+    feed(pool, lane, 0, 10)
+    ckpt = pool.checkpoint_lane(lane)
+    pool2 = PagedKVCache(cfg, 2, 64, block_size=4, device="cuda")
+    pool2.assign("other", seq_len=9)
+    assert pool2.assign("req", seq_len=11).index == lane
+    pool2.restore_lane(pool2.cache, lane, ckpt)
+    assert not torch.equal(pool2.block_tables()[lane, :3],
+                           pool.block_tables()[lane, :3])
+    assert torch.equal(feed(pool2, lane, 10, 4), feed(pool, lane, 10, 4))

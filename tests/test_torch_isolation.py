@@ -39,6 +39,10 @@ COLLECTIVES_SLICE = ["repro_torch.collectives",
 # the parallel-training slice's modules
 PARALLEL_SLICE = ["repro_torch.sharding", "repro_torch.distributed.elastic",
                   "repro_torch.distributed.pipeline"]
+# the parallel-serving slice's modules
+SERVE_SLICE = ["repro_torch.serve.engine", "repro_torch.serve.kvcache",
+               "repro_torch.launch.serve", "repro_torch.models.registry",
+               "repro_torch.models.transformer"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -66,7 +70,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     loaded = lines["LOADED"]
     assert all(f"'{m}'" in loaded
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
-               + COLLECTIVES_SLICE + PARALLEL_SLICE), loaded
+               + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE), loaded
 
 
 def _imported(path: Path) -> list[str]:
@@ -84,7 +88,8 @@ def test_no_jax_or_repro_import_in_the_sources():
     scanned = {".".join(p.relative_to(PORT.parent).with_suffix("").parts)
                for p in SOURCES if PORT in p.parents}
     assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
-               + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE) <= scanned
+               + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE
+               + SERVE_SLICE) <= scanned
     assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):
