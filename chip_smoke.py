@@ -17,8 +17,9 @@ Phases; any failure raises and the script exits non-zero:
              at full qwen2-0.5b width (16 requests through 8 lanes,
              caller-driven, and then with two progress workers at 6 of
              its 24 layers), at full mamba2-1.3b width (16 requests
-             through 8 lanes, caller-driven) and at full qwen2.5-3b
-             width with int8 K/V (as qwen2-0.5b, caller-driven).  Launch
+             through 8 lanes, caller-driven, at 24 of its 48 layers) and
+             at full qwen2.5-3b width with int8 K/V (as qwen2-0.5b,
+             caller-driven, at 12 of its 36 layers).  Launch
              counters are zeroed just before and read just after each
              run, and must show every fused decode/prefill call went
              through its kernels and no training kernel.  After each
@@ -31,8 +32,9 @@ Phases; any failure raises and the script exits non-zero:
              at full smollm-360m width (caller-driven and then with two
              progress workers, each from a fresh checkpoint directory;
              the final async checkpoint must restore to the same
-             tensors) and at full mamba2-1.3b width (caller-driven,
-             checked alike): 6 steps of batch 8 x 1024 tokens.  The launch
+             tensors) and at full mamba2-1.3b width (caller-driven, at
+             24 of its 48 layers, checked alike): 6 steps of batch
+             8 x 1024 tokens.  The launch
              counters must show every step went through its kernels as
              many times as ``kernel_launches_per_step`` derives; after
              each caller-driven run one step is timed as in phase 3.
@@ -98,11 +100,27 @@ Phases; any failure raises and the script exits non-zero:
              against a run without failure; ``--chaos-kill 2``; a lane
              checkpointed after 40 tokens restored into a shifted pool
              decodes on bit for bit.
+12. moe    — granite-moe-3b-a800m at full width served (16 short
+             requests through 8 lanes over phase 3's 1024-position view,
+             caller-driven; its launches, one fused call timed, the slot
+             cache against the paged pool) and trained through the train
+             launcher (6 steps of 8 x 1024 tokens, "full" remat, the aux
+             loss of each step finite, the 40 GB checkpoint restored
+             equal leaf by leaf); grok-1-314b served at full widths at 2
+             of its 64 layers, every flash_decode launch with its logit
+             cap of 30; one granite MoE layer expert-parallel on 4 model
+             ranks, the user-space all-to-all against the native block
+             transpose and ``moe_apply``, bit for bit.  The kernels phase
+             holds both attention kernels with the cap at grok's heads
+             (cap 0: the uncapped kernel's bits) and the norms and
+             attention at granite's shapes; phase 7 holds granite's loss,
+             gradients and paged decode at 2 layers, card against CPU.
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
 ``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
-and phase 11.
+and phase 11; ``--only moe`` the build, the two attention kernels' checks
+and phase 12 with granite's card-against-CPU checks.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -158,6 +176,19 @@ POLICIES = ("full", "none", "subblock", "attn_only", "dots")
 # the whole run near its time budget; the caller-driven run keeps 24
 SERVE_WORKERS_LAYERS = 6
 MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
+# cut so that the whole run stays well inside its time limit with the MoE
+# phase: qwen2.5-3b's int8 K/V serve run (of 36 layers), mamba2-1.3b's
+# serve and train runs (of 48)
+Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 12, 24, 24
+# the MoE family: granite-moe-3b-a800m trained as smollm-360m is (6 steps
+# of 8 x 1024 tokens) and served with the mamba2 path's short requests
+# over phase 3's 1024-position view; grok-1-314b served at full widths at
+# the depth one card holds (its f32 weights beside the bf16 ones while
+# the engine casts them), through the logit-capped flash_decode
+GRANITE, GRANITE_D = "granite-moe-3b-a800m", 1536
+GROK, GROK_D, GROK_SERVE_LAYERS = "grok-1-314b", 6144, 2
+LOGIT_CAP = 30.0                    # grok-1's logit_softcap
+CAP_Q_SCALE = 8.0                   # capped kernel inputs: q scaled so scores reach the cap
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
             torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
@@ -301,21 +332,28 @@ SHAPE_KEYS = {(False, 960, 1e-5): "train_shape",
               (True, MAMBA_D, 1e-5): "serve_mamba_shape",
               (False, MAMBA_D, 1e-5): "train_mamba_shape",
               (True, Q3_D, 1e-6): "serve_qwen2_5_3b_shape",
-              (False, Q3_D, 1e-6): "train_qwen2_5_3b_shape"}
+              (False, Q3_D, 1e-6): "train_qwen2_5_3b_shape",
+              (True, GRANITE_D, 1e-6): "serve_granite_shape",
+              (False, GRANITE_D, 1e-6): "train_granite_shape",
+              (True, GROK_D, 1e-5): "serve_grok_shape"}
 
 
 def kernel_rmsnorm(gen) -> dict:
     from repro_torch.kernels.rmsnorm import (rmsnorm_fwd, rmsnorm_fwd_path,
                                              rmsnorm_fwd_plain)
     row = None
-    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b and
-    # qwen2.5-3b: a fused call) and the train paths' (smollm-360m,
-    # mamba2-1.3b, qwen2.5-3b: the whole batch) shapes
+    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b,
+    # qwen2.5-3b, granite-moe and grok-1: a fused call) and the train
+    # paths' (smollm-360m, mamba2-1.3b, qwen2.5-3b, granite-moe: the whole
+    # batch) shapes
     for N, D, eps in ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
                       (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5),
                       (LANES, MAMBA_D, 1e-5),
                       (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
-                      (LANES, Q3_D, 1e-6), (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6)):
+                      (LANES, Q3_D, 1e-6), (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6),
+                      (LANES, GRANITE_D, 1e-6),
+                      (TRAIN_BATCH * TRAIN_SEQ, GRANITE_D, 1e-6),
+                      (LANES, GROK_D, 1e-5)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             s = torch.randn(D, generator=gen, device="cuda") + 1.0
@@ -355,31 +393,52 @@ def kernel_rmsnorm(gen) -> dict:
 
 
 def kernel_flash_decode(gen) -> dict:
+    """flash_decode against its plain version at the serve paths' heads
+    (qwen2-0.5b G = 7 hd 64, qwen2.5-3b G = 8 hd 128, granite-moe G = 3
+    hd 64) and, with grok-1's logit cap, at grok's (G = 6, hd 128; q
+    scaled by ``CAP_Q_SCALE`` so that scores reach the cap).  A capped
+    row has no library figure (no single PyTorch call caps the scores),
+    and the same inputs with cap 0 must give the uncapped kernel's bits."""
     from repro_torch.kernels.decode_attention import (decode_split_keys,
                                                       decode_splits,
                                                       flash_decode,
                                                       flash_decode_plain)
     S = -(-MAX_SEQ // BLOCK) * BLOCK          # the serve phases' view length
     row = None
-    # the qwen2-0.5b serve path's heads (G = 7, hd 64), then qwen2.5-3b's
-    # (G = 8, hd 128)
-    for (B, H, KVH, hd), dtype in itertools.product(
-            ((LANES, 14, 2, 64), (LANES, 16, 2, 128)),
-            (torch.bfloat16, torch.float32)):
+    cases = (((LANES, 14, 2, 64), 0.0, None),
+             ((LANES, 16, 2, 128), 0.0, "serve_qwen2_5_3b_shape"),
+             ((LANES, 24, 8, 64), 0.0, "serve_granite_shape"),
+             ((LANES, 48, 8, 128), LOGIT_CAP, "serve_grok_shape"))
+    for ((B, H, KVH, hd), cap, key), dtype in itertools.product(
+            cases, (torch.bfloat16, torch.float32)):
         split_keys = decode_split_keys(B, KVH, S)
         splits = decode_splits(B, KVH, S)
         grid = (f"{splits * KVH * B} CTAs ({splits} splits of {split_keys} "
                 f"keys x {KVH} KV heads x {B} sequences) + combine "
                 f"{-(-B * H * hd // 128)} CTAs")
-        q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+        q = torch.randn(B, H, hd, generator=gen, device="cuda")
+        q = (q * CAP_Q_SCALE if cap else q).to(dtype)
         k = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
         lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
                                 dtype=torch.int32)
-        got = flash_decode(q, k, v, lengths)
+        got = flash_decode(q, k, v, lengths, logit_cap=cap)
         torch.cuda.synchronize()
         err = check_close("flash_decode", got,
-                          flash_decode_plain(q, k, v, lengths), dtype)
+                          flash_decode_plain(q, k, v, lengths, logit_cap=cap),
+                          dtype)
+        cap_text = ""
+        if cap:
+            bits = torch.equal(flash_decode(q, k, v, lengths, logit_cap=0.0),
+                               flash_decode(q, k, v, lengths))
+            moved = float((got.float() - flash_decode_plain(
+                q, k, v, lengths).float()).abs().max())
+            if not bits:
+                raise AssertionError("flash_decode with cap 0 is not the "
+                                     "uncapped kernel's bits")
+            cap_text = (f"; logit cap {cap:g}: the cap moves the output by up "
+                        f"to {moved:.3e}, cap 0 gives the uncapped kernel's "
+                        f"bits")
         es = q.element_size()
         valid = int(lengths.sum())
         nbytes = (2 * q.numel() * es + 2 * valid * KVH * hd * es + 4 * B)
@@ -394,35 +453,38 @@ def kernel_flash_decode(gen) -> dict:
                 q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True)
 
-        fns = {"kernel": flash_decode, "plain": flash_decode_plain,
-               "sdpa": sdpa}
+        fns = {"kernel": lambda *a: flash_decode(*a, logit_cap=cap),
+               "plain": lambda *a: flash_decode_plain(*a, logit_cap=cap)}
+        if not cap:
+            fns["sdpa"] = sdpa
         dev, paced, source = measure(fns, args)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
         kv_bytes = 2 * valid * KVH * hd * es
         log(f"kernel flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} "
-            f"{str(dtype)[6:]} (sum lengths {valid}): max abs err {err:.3e} "
-            f"(atol/rtol {TOLS[dtype]['atol']}); grid {grid}; device ms "
-            f"({source}) {fmt(dev)}; back-to-back ms per call {fmt(paced)}; "
-            f"bound {bound:.6f} ms (bytes); kernel "
+            f"{str(dtype)[6:]} logit_cap={cap:g} (sum lengths {valid}): max "
+            f"abs err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); grid {grid}; "
+            f"device ms ({source}) {fmt(dev)}; back-to-back ms per call "
+            f"{fmt(paced)}; bound {bound:.6f} ms (bytes); kernel "
             f"{kv_bytes / dev['kernel'] / 1e6:.1f} GB/s of valid K/V bytes "
-            f"({kv_bytes / 1e6:.3f} MB)")
+            f"({kv_bytes / 1e6:.3f} MB){cap_text}")
         if dtype != torch.bfloat16:
             continue
         fig = dict(shape=f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KVH}, "
-                         f"{hd}] bfloat16", grid=grid,
+                         f"{hd}] bfloat16"
+                   + (f", logit_cap {cap:g}" if cap else ""), grid=grid,
                    max_abs_err=err, ms=dev["kernel"],
                    plain_ms=dev["plain"], ms_source=source,
                    bound_ms=bound,
                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S
                    >= flops / PEAK_FLOPS[dtype] else "operations",
-                   library_ms=dev["sdpa"])
-        if row is None:                                     # the serve path
+                   library_ms=dev.get("sdpa"))
+        if key is None:                                     # the serve path
             row = dict(name="flash_decode", route="cuda",
                        source="src/repro_torch/csrc/flash_decode.cu",
                        replaces="src/repro/kernels/decode_attention.py:80",
                        **fig)
         else:
-            row["serve_qwen2_5_3b_shape"] = fig
+            row[key] = fig
     return row
 
 
@@ -447,7 +509,9 @@ def kernel_rmsnorm_bwd(gen) -> dict:
     for N, D, eps in ((TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5), (LANES, 896, 1e-5),
                       (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
                       (LANES, MAMBA_D, 1e-5),
-                      (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6)):
+                      (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6),
+                      (TRAIN_BATCH * TRAIN_SEQ, GRANITE_D, 1e-6),
+                      (LANES, GRANITE_D, 1e-6)):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             g = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
@@ -511,27 +575,57 @@ def kernel_rmsnorm_bwd(gen) -> dict:
 
 
 def kernel_flash_attention(gen) -> dict:
+    """flash_attention against its plain version at the train paths'
+    heads (smollm-360m, qwen2.5-3b, granite-moe), a ragged shape, and
+    with grok-1's logit cap at grok's heads (q and k scaled by
+    ``CAP_Q_SCALE`` ** 0.5 so that scores reach the cap; no library
+    figure, and cap 0 must give the uncapped kernel's bits)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     row = None
-    shapes = ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64),  # the train path
-              (2, 1000, 1000, 6, 3, 64),                       # ragged
+    # (B, Sq, Sk, H, KVH, hd), the causal flags, the cap, the row key
+    shapes = (((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64), (True, False),
+               0.0, None),                                    # the train path
+              ((2, 1000, 1000, 6, 3, 64), (True, False), 0.0, ""),  # ragged
               # qwen2.5-3b's train path (G = 8, hd 128), causal only
-              (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128))
-    for B, Sq, Sk, H, KVH, hd in shapes:
-        for causal in (True, False) if hd == 64 else (True,):
+              ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128), (True,), 0.0,
+               "train_qwen2_5_3b_shape"),
+              # granite-moe's train path (G = 3, hd 64)
+              ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 64), (True,), 0.0,
+               "train_granite_shape"),
+              # grok-1's heads (G = 6, hd 128) with its logit cap
+              ((2, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128), (True,), LOGIT_CAP,
+               "train_grok_shape"))
+    for (B, Sq, Sk, H, KVH, hd), causals, cap, key in shapes:
+        for causal in causals:
             for dtype in (torch.bfloat16, torch.float32):
-                q = torch.randn(B, Sq, H, hd, generator=gen,
-                                device="cuda").to(dtype)
-                k = torch.randn(B, Sk, KVH, hd, generator=gen,
-                                device="cuda").to(dtype)
+                amp = CAP_Q_SCALE ** 0.5 if cap else 1.0
+                q = (amp * torch.randn(B, Sq, H, hd, generator=gen,
+                                       device="cuda")).to(dtype)
+                k = (amp * torch.randn(B, Sk, KVH, hd, generator=gen,
+                                       device="cuda")).to(dtype)
                 v = torch.randn(B, Sk, KVH, hd, generator=gen,
                                 device="cuda").to(dtype)
-                got = flash_attention(q, k, v, causal=causal)
+                got = flash_attention(q, k, v, causal=causal, logit_cap=cap)
                 torch.cuda.synchronize()
                 err = check_close(
                     "flash_attention", got,
-                    flash_attention_plain(q, k, v, causal=causal), dtype)
+                    flash_attention_plain(q, k, v, causal=causal,
+                                          logit_cap=cap), dtype)
+                cap_text = ""
+                if cap:
+                    bits = torch.equal(
+                        flash_attention(q, k, v, causal=causal,
+                                        logit_cap=0.0),
+                        flash_attention(q, k, v, causal=causal))
+                    moved = float((got.float() - flash_attention_plain(
+                        q, k, v, causal=causal).float()).abs().max())
+                    if not bits:
+                        raise AssertionError("flash_attention with cap 0 is "
+                                             "not the uncapped kernel's bits")
+                    cap_text = (f"; logit cap {cap:g}: the cap moves the "
+                                f"output by up to {moved:.3e}, cap 0 gives "
+                                f"the uncapped kernel's bits")
                 es = q.element_size()
                 nbytes = (2 * q.numel() + 2 * k.numel()) * es
                 # (query, key) pairs the mask leaves: what this run computes
@@ -548,10 +642,11 @@ def kernel_flash_attention(gen) -> dict:
                         enable_gqa=True).transpose(1, 2)
 
                 fns = {"kernel": lambda a, b, c: flash_attention(
-                           a, b, c, causal=causal),
+                           a, b, c, causal=causal, logit_cap=cap),
                        "plain": lambda a, b, c: flash_attention_plain(
-                           a, b, c, causal=causal),
-                       "sdpa": sdpa}
+                           a, b, c, causal=causal, logit_cap=cap)}
+                if not cap:
+                    fns["sdpa"] = sdpa
                 dev, paced, source = measure(fns, args, dev_iters=20,
                                              paced_iters=50)
                 t_bytes = nbytes / HBM_BYTES_PER_S
@@ -562,30 +657,32 @@ def kernel_flash_attention(gen) -> dict:
                 grid = (f"{n_q * H * B} CTAs ({n_q} query tiles of 64 x {H} "
                         f"heads x {B} sequences)")
                 log(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
-                    f"KVH={KVH} hd={hd} causal={causal} {str(dtype)[6:]}: "
+                    f"KVH={KVH} hd={hd} causal={causal} logit_cap={cap:g} "
+                    f"{str(dtype)[6:]}: "
                     f"max abs err {err:.3e} (atol/rtol "
                     f"{TOLS[dtype]['atol']}); grid {grid}; device ms ({source}) "
                     f"{fmt(dev)}; "
                     f"back-to-back ms per call {fmt(paced)}; bound "
                     f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                     f"{nbytes / 1e6:.1f} MB); kernel "
-                    f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s")
-                if Sq != TRAIN_SEQ or not causal or dtype != torch.bfloat16:
+                    f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s{cap_text}")
+                if key == "" or not causal or dtype != torch.bfloat16:
                     continue
                 fig = dict(shape=f"q [{B}, {Sq}, {H}, {hd}], k/v [{B}, "
-                                 f"{Sk}, {KVH}, {hd}] causal bfloat16",
+                                 f"{Sk}, {KVH}, {hd}] causal bfloat16"
+                                 + (f", logit_cap {cap:g}" if cap else ""),
                            grid=grid,
                            max_abs_err=err, ms=dev["kernel"],
                            plain_ms=dev["plain"], ms_source=source,
                            bound_ms=bound, bound_by=by,
-                           library_ms=dev["sdpa"])
-                if row is None:                         # the train path
+                           library_ms=dev.get("sdpa"))
+                if key is None:                         # the train path
                     row = dict(name="flash_attention", route="cuda",
                                source="src/repro_torch/csrc/flash_attention.cu",
                                replaces="src/repro/kernels/flash_attention.py:96",
                                **fig)
                 else:
-                    row["train_qwen2_5_3b_shape"] = fig
+                    row[key] = fig
     return row
 
 
@@ -696,7 +793,11 @@ def kernel_ssd_chunk(gen) -> dict:
 SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
               QWEN3B: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
               MAMBA: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
-                      M_MAX_SEQ)}
+                      M_MAX_SEQ),
+              GRANITE: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
+                        MAX_SEQ),
+              GROK: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
+                     MAX_SEQ)}
 
 
 def full_width(cfg) -> tuple:
@@ -704,15 +805,22 @@ def full_width(cfg) -> tuple:
         return (cfg.num_layers, cfg.d_model, cfg.ssm.d_state,
                 cfg.ssm.head_dim, cfg.ssm.expand, cfg.ssm.chunk_size,
                 cfg.vocab_size, cfg.tie_embeddings)
+    moe = () if cfg.moe is None else (cfg.moe.num_experts, cfg.moe.top_k,
+                                      cfg.moe.expert_d_ff,
+                                      cfg.moe.group_size)
     return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
-            cfg.tie_embeddings)
+            cfg.tie_embeddings, cfg.logit_softcap) + moe
 
 
-FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True),
-              QWEN3B: (36, 2048, 16, 2, 128, 11008, 151936, True),
-              TRAIN_ARCH: (32, 960, 15, 5, 64, 2560, 49152, True),
-              MAMBA: (48, 2048, 128, 64, 2, 256, 50280, True)}
+FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True, 0.0),
+              QWEN3B: (36, 2048, 16, 2, 128, 11008, 151936, True, 0.0),
+              TRAIN_ARCH: (32, 960, 15, 5, 64, 2560, 49152, True, 0.0),
+              MAMBA: (48, 2048, 128, 64, 2, 256, 50280, True),
+              GRANITE: (32, GRANITE_D, 24, 8, 64, 512, 49155, True, 0.0,
+                        40, 8, 512, 512),
+              GROK: (64, GROK_D, 48, 8, 128, 32768, 131072, False, LOGIT_CAP,
+                     8, 2, 32768, 1024)}
 
 
 def serve(workers: int, arch: str = ARCH, extra: tuple = (),
@@ -781,7 +889,9 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
                      f"scales) against {bf16 / 2**20:.1f} MiB in bf16, "
                      f"{pool / bf16:.4f} of it")
     log(f"serve summary {arch} [{workers} workers{' '.join(('',) + extra)}]: "
-        f"decode steps "
+        f"{NL} of {FULL_WIDTH[arch][0]} layers"
+        + (f", logit cap {cfg.logit_softcap:g} in every flash_decode launch"
+           if cfg.logit_softcap else "") + "; decode steps "
         f"{report.steps}, prefill calls {report.prefill_calls}, "
         f"{report.tokens / report.wall_s:.2f} tokens/s, mean decode step "
         f"{srv.mean_step_ms():.3f} ms, wall {report.wall_s:.3f} s, TTFT p50 "
@@ -833,12 +943,15 @@ def time_breakdown(srv, calls: int = 10) -> None:
 # phase 4: the train path
 # ---------------------------------------------------------------------------
 
-def train(workers: int, arch: str = TRAIN_ARCH):
-    """One full-width run of the train launcher.  It ends with an async
-    checkpoint of the last step (the Trainer's rule), which must restore
-    to the same tensors."""
+def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None):
+    """One full-width run of the train launcher (at ``layers`` of the
+    config's depth, if given).  It ends with an async checkpoint of the
+    last step (the Trainer's rule), which must restore to the same
+    tensors."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
     from repro_torch.models import registry
     from repro_torch.models.layers import tree_leaves
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")  # no resume
@@ -847,14 +960,20 @@ def train(workers: int, arch: str = TRAIN_ARCH):
             "--arch", arch, "--scale", "full", "--device", "cuda",
             "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir])
+        config = None if layers is None else \
+            make_config(arch, "full").with_overrides(num_layers=layers)
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
-        report = train_mod.run(args, log_every=1, progress_workers=workers)
+        report = train_mod.run(args, config=config, log_every=1,
+                               progress_workers=workers)
         launches = dict(_lib.launches)
         cfg, tr = report.cfg, report.trainer
-        if full_width(cfg) != FULL_WIDTH[arch] or (
+        depth = layers or FULL_WIDTH[arch][0]
+        if full_width(cfg) != (depth,) + FULL_WIDTH[arch][1:] or (
                 cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
-                cfg.remat_policy) != (1e-5, "bfloat16", "float32", "full"):
+                cfg.remat_policy, cfg.loss_impl) != (
+                get_config(arch).rms_norm_eps, "bfloat16", "float32", "full",
+                "plain"):
             raise AssertionError(f"not the full {arch} width: {cfg}")
         per_step = train_mod.kernel_launches_per_step(cfg)
         want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
@@ -865,6 +984,15 @@ def train(workers: int, arch: str = TRAIN_ARCH):
         losses = [m["loss"] for m in report.log]
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"bad loss trajectory {losses}")
+        aux_text = ""
+        if cfg.moe is not None:
+            # the Switch aux loss of every logged step, summed over layers
+            auxes = [m["aux"] for m in report.log]
+            if not all(math.isfinite(a) and a > 0 for a in auxes):
+                raise AssertionError(f"bad aux losses {auxes}")
+            aux_text = (f"; aux losses {[round(a, 7) for a in auxes]} (of "
+                        f"the losses; {cfg.num_layers} layers x "
+                        f"{cfg.moe.aux_loss_weight:g} x a balance near 1)")
         off = [p for p, t in [*tree_leaves(tr.params),
                               *tree_leaves(tr.opt_state.mu),
                               *tree_leaves(tr.opt_state.nu)]
@@ -877,34 +1005,46 @@ def train(workers: int, arch: str = TRAIN_ARCH):
             raise AssertionError(f"peak device memory {peak / 2**30:.2f} GiB "
                                  f"is within 10% of the card's "
                                  f"{total / 2**30:.2f} GiB")
-        ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1)
+        # a state the card cannot hold twice restores one leaf at a time
+        # (granite-moe: 3.30 B parameters, 40 GB of f32 state)
+        state_bytes = sum(t.numel() * t.element_size() for _, t in
+                          [*tree_leaves(tr.params),
+                           *tree_leaves(tr.opt_state.mu),
+                           *tree_leaves(tr.opt_state.nu)])
+        ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1,
+                                     leafwise=state_bytes > total / 4)
         steps_s = [m["step_time_s"] for m in report.log[1:]]
         mean_s = sum(steps_s) / len(steps_s)
         tokens = TRAIN_BATCH * TRAIN_SEQ
         flops = registry.model_flops(cfg, tokens, training=True,
                                      seq_len=TRAIN_SEQ)
-        log(f"train {arch} [{workers} progress workers]: losses "
+        log(f"train {arch} [{workers} progress workers]: {cfg.num_layers} "
+            f"of {FULL_WIDTH[arch][0]} layers; losses "
             f"{[round(x, 6) for x in losses]}; mean step {mean_s * 1e3:.3f} "
             f"ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
             f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
             f"{tokens / mean_s:.1f} tokens/s, model {flops / mean_s / 1e12:.2f} "
             f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step by registry.model_flops); "
             f"{ckpt_text}; peak device memory {peak / 2**30:.2f} GiB; wall "
-            f"{report.wall_s:.3f} s")
+            f"{report.wall_s:.3f} s{aux_text}")
         return launches, report
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def checkpoint_check(tr, last: int) -> str:
+def checkpoint_check(tr, last: int, leafwise: bool = False) -> str:
     """The Trainer's final async checkpoint must be step ``last`` and
     restore to the same tensors (a parameter tree, or FSDP's list of
-    shard stacks); returns the line that says so."""
+    shard stacks); returns the line that says so.  ``leafwise`` restores
+    one leaf at a time, for a state the card cannot hold a second copy
+    of."""
     from repro_torch.collectives.overlap import tree_flatten
     latest = tr.ckpt.latest_step()
     if latest != last:
         raise AssertionError(f"last committed checkpoint {latest}")
     state = {"params": tr.params, "opt_state": tr.opt_state}
+    if leafwise:
+        return checkpoint_check_leafwise(tr, latest, state)
     t0 = time.perf_counter()
     back = tr.ckpt.restore(latest, state, device="cuda")
     restore_s = time.perf_counter() - t0
@@ -921,6 +1061,34 @@ def checkpoint_check(tr, last: int) -> str:
     return (f"checkpoint of step {latest} committed "
             f"{tr.ckpt.last_save_s:.3f} s after save_async and restored "
             f"equal in {restore_s:.3f} s")
+
+
+def checkpoint_check_leafwise(tr, latest: int, state) -> str:
+    """``tr.ckpt.restore`` of a one-leaf tree at each leaf's path (the
+    checkpoint names leaves by path) onto the card, one leaf at a time,
+    each against the trained leaf."""
+    from repro_torch.train.checkpoint import _flat_with_paths
+    diff, nbytes, t_restore = [], 0, 0.0
+    for name, leaf in _flat_with_paths(state):
+        parts = name.split("/")
+        like = leaf
+        for part in reversed(parts):
+            like = {part: like}
+        t0 = time.perf_counter()
+        back = tr.ckpt.restore(latest, like, device="cuda")
+        torch.cuda.synchronize()
+        t_restore += time.perf_counter() - t0
+        for part in parts:
+            back = back[part]
+        nbytes += back.numel() * back.element_size()
+        if not torch.equal(back, leaf.detach()):
+            diff.append(name)
+        del back
+    if diff:
+        raise AssertionError(f"checkpoint restores other values: {diff}")
+    return (f"checkpoint of step {latest} ({nbytes / 1e9:.2f} GB) committed "
+            f"{tr.ckpt.last_save_s:.3f} s after save_async and restored "
+            f"equal, one leaf at a time, in {t_restore:.3f} s")
 
 
 def train_time_breakdown(report, steps: int = 3) -> None:
@@ -2962,6 +3130,148 @@ def serve_sharded_phase(unsharded: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family — granite-moe-3b-a800m served and trained at
+# full width, grok-1-314b served at full widths, expert parallelism
+# ---------------------------------------------------------------------------
+
+def expert_parallel_phase(n: int = 4) -> None:
+    """One granite-moe MoE layer at full width on ``n`` model ranks of the
+    card: x [8, 1024, 1536] bf16 is 16 groups of 512 tokens for 40
+    experts of capacity 128, so each all-to-all moves the
+    [16, 40, 128, 1536] bf16 dispatched tensor (252 MB).  ``moe_apply``,
+    the expert-parallel path on the native block transpose and on the
+    user-space Bruck all-to-all must agree bit for bit; then the two
+    all-to-alls alone, user and native, profiled: the user rounds' device
+    time (on the streams the native transposes never use) and dispatch
+    units, against the native transposes' device time."""
+    from repro_torch.collectives.nonblocking import UserCollectives
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    cfg = get_config(GRANITE)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = layers.tree_map(lambda t: t.to(torch.bfloat16),
+                        layers.init_tree(layers.moe_spec(cfg), gen))
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, GRANITE_D, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    mesh = make_mesh((n,), ("model",), "cuda")
+    coll = UserCollectives(ProgressEngine(), name="moe_a2a")
+    reqs = []
+    issue = coll.ialltoall
+
+    def counted(*a, **kw):
+        reqs.append(issue(*a, **kw))
+        return reqs[-1]
+
+    coll.ialltoall = counted
+    try:
+        with torch.no_grad():
+            y_ref, aux_ref = layers.moe_apply(p, x, cfg)
+            y_nat, aux_nat = layers.moe_apply_expert_parallel(p, x, cfg, mesh)
+            y_usr, aux_usr = layers.moe_apply_expert_parallel(p, x, cfg, mesh,
+                                                              coll=coll)
+            torch.cuda.synchronize()
+            if not (torch.equal(y_ref, y_nat) and torch.equal(y_nat, y_usr)
+                    and torch.equal(aux_ref, aux_nat)
+                    and torch.equal(aux_nat, aux_usr)):
+                raise AssertionError(
+                    "expert-parallel MoE differs from moe_apply: max abs "
+                    f"diff native {float((y_nat - y_ref).abs().max()):.3e}, "
+                    f"user {float((y_usr - y_ref).abs().max()):.3e}")
+            if not torch.isfinite(y_ref.float()).all():
+                raise AssertionError("MoE output is not finite")
+            units = sum(r.rounds_total for r in reqs)
+            xg, dispatch, _, _ = layers._moe_route(p, x, cfg)
+            xe = layers._moe_dispatch(dispatch, xg).contiguous()
+
+            def pair(c):
+                fwd = layers.moe_dispatch_alltoall(xe, mesh, "model", coll=c)
+                back = layers.moe_dispatch_alltoall(fwd, mesh, "model",
+                                                    reverse=True, coll=c)
+                return fwd, back
+
+            fwd, back = pair(coll)
+            if not (torch.equal(fwd, xe) and torch.equal(back, xe)):
+                raise AssertionError("the all-to-all round trip moved values")
+            # the native pair runs on the current stream alone: CUDA
+            # events time it.  The user pair runs under the profiler:
+            # its payload and reassembly copies on the current stream
+            # (the default stream, whose CUPTI id is below those of the
+            # streams made later), its rounds on the collective stream
+            iters = 5
+            pair(None)
+            nat_ms = time_ms(lambda: pair(None), [()], iters)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                pair(None)
+            torch.cuda.synchronize()
+            nat_wall = (time.perf_counter() - t0) * 1e3 / iters
+            pair(coll)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    pair(coll)
+                torch.cuda.synchronize()
+                usr_wall = (time.perf_counter() - t0) * 1e3 / iters
+            usr_busy = stream_busy(prof)[0]
+            default = torch.cuda.current_stream() == torch.cuda.default_stream()
+            current = {min(usr_busy)} if usr_busy and default else set()
+    finally:
+        coll.close()
+    head = (f"check: expert-parallel MoE ({GRANITE} layer, x [{TRAIN_BATCH}, "
+            f"{TRAIN_SEQ}, {GRANITE_D}] bf16, {xe.shape[0]} groups x "
+            f"{cfg.moe.num_experts} experts x capacity {xe.shape[2]}, "
+            f"{n} model ranks): moe_apply == native == user all-to-all, "
+            f"bit for bit (y and aux {float(aux_ref):.6f}); each all-to-all "
+            f"moves [{', '.join(map(str, xe.shape))}] bf16 "
+            f"({xe.numel() * 2 / 1e6:.1f} MB); the user pair (dispatch and "
+            f"combine) {units} dispatch units")
+    nat_text = (f"the native pair {nat_ms:.3f} ms (CUDA events, its copies "
+                f"on the current stream); wall a pair: user {usr_wall:.3f} "
+                f"ms, native {nat_wall:.3f} ms")
+    if len(usr_busy) < 2 or len(current) != 1:
+        log(head + f"; {nat_text}; the user rounds' device time not measured "
+            f"(profiler streams {sorted(usr_busy)}, current {current})")
+        return
+    rounds = sum(v for k, v in usr_busy.items() if k not in current)
+    copies = sum(v for k, v in usr_busy.items() if k in current)
+    log(head + f"; a user pair's device time: the rounds "
+        f"{rounds / iters:.3f} ms on the collective stream, the payload and "
+        f"reassembly copies {copies / iters:.3f} ms on the current stream; "
+        + nat_text)
+
+
+def moe_phase() -> dict:
+    """The MoE paths, each with the launch counts set to 0 just before it
+    and read just after (inside serve() and train()): granite-moe served
+    (its fused call timed, the slot cache against the paged pool) and
+    trained at full width, grok-1 served at full widths at
+    ``GROK_SERVE_LAYERS`` of its 64 layers, then one granite MoE layer
+    expert-parallel on 4 ranks."""
+    runs = {}
+    runs["serve_granite"], srv, report = serve(workers=0, arch=GRANITE)
+    time_breakdown(srv)
+    decode_paths_check(srv)
+    del srv, report
+    free()
+    runs["serve_grok"], srv, report = serve(workers=0, arch=GROK,
+                                            num_layers=GROK_SERVE_LAYERS)
+    time_breakdown(srv)
+    del srv, report
+    free()
+    runs["train_granite"], report = train(workers=0, arch=GRANITE)
+    train_time_breakdown(report, steps=1)
+    del report
+    free()
+    expert_parallel_phase()
+    free()
+    return runs
+
+
 def free() -> None:
     """Drop what an ended phase left behind (its engines hold reference
     cycles) and hand the cached blocks back, before the next phase."""
@@ -2981,11 +3291,13 @@ def main(argv: list) -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"]):
+    if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
+                    ["--only", "moe"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
-              f"caller-driven qwen2-0.5b run and phase 11)", file=sys.stderr)
+              f"caller-driven qwen2-0.5b run and phase 11; --only moe the "
+              f"attention kernels and phase 12)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3004,6 +3316,19 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "moe"]:
+        # a partial run (the attention kernels, capped too, and phase 12);
+        # it prints no result line
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kernel_flash_decode(gen)
+        kernel_flash_attention(gen)
+        launches = moe_phase()
+        reference_check(GRANITE, num_layers=2)
+        train_reference_check(GRANITE)
+        log(f"partial run: launches of the MoE runs {launches}; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "serve-sharded"]:
         # a partial run (phase 11 and the run it compares with); it prints
         # no result line
@@ -3050,12 +3375,14 @@ def main(argv: list) -> int:
     serve(workers=2, num_layers=SERVE_WORKERS_LAYERS)
     # the report holds its engine: drop both, or the weights and pool
     # outlive the path (qwen2.5-3b's would crowd its training run)
-    runs["serve_mamba"], srv, report = serve(workers=0, arch=MAMBA)
+    runs["serve_mamba"], srv, report = serve(
+        workers=0, arch=MAMBA, num_layers=MAMBA_SERVE_LAYERS)
     time_breakdown(srv)
     del srv, report
     free()
-    runs["serve_qwen2_5_3b"], srv, report = serve(workers=0, arch=QWEN3B,
-                                                  kv_cache_dtype="int8")
+    runs["serve_qwen2_5_3b"], srv, report = serve(
+        workers=0, arch=QWEN3B, kv_cache_dtype="int8",
+        num_layers=Q3_SERVE_LAYERS)
     time_breakdown(srv)
     decode_paths_check(srv)
     int8_weights_check(srv)
@@ -3069,7 +3396,8 @@ def main(argv: list) -> int:
     free()
     train(workers=2)
     free()
-    runs["train_mamba"], report = train(workers=0, arch=MAMBA)
+    runs["train_mamba"], report = train(workers=0, arch=MAMBA,
+                                        layers=MAMBA_TRAIN_LAYERS)
     train_time_breakdown(report)
     del report
     free()
@@ -3102,21 +3430,27 @@ def main(argv: list) -> int:
     runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
     free()
     log(f"remat phase done at {time.perf_counter() - t_start:.1f} s")
+    runs.update(moe_phase())
+    log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
     # path and summed: launches_serve and launches_train count every
-    # family, the *_mamba and *_qwen2_5_3b keys those runs alone, and
-    # launches_remat the checkpoint-policy runs (smollm-360m's five, and
-    # mamba2's "full" and "dots")
+    # family, the *_mamba, *_qwen2_5_3b, *_granite and *_grok keys those
+    # runs alone, and launches_remat the checkpoint-policy runs
+    # (smollm-360m's five, and mamba2's "full" and "dots")
     for row in rows:
         n = {k: v[row["name"]] for k, v in runs.items()}
         row["launches_serve"] = (n["serve"] + n["serve_mamba"]
-                                 + n["serve_qwen2_5_3b"])
+                                 + n["serve_qwen2_5_3b"] + n["serve_granite"]
+                                 + n["serve_grok"])
         row["launches_serve_mamba"] = n["serve_mamba"]
         row["launches_serve_qwen2_5_3b"] = n["serve_qwen2_5_3b"]
+        row["launches_serve_granite"] = n["serve_granite"]
+        row["launches_serve_grok"] = n["serve_grok"]
         row["launches_train"] = (n["train"] + n["train_mamba"]
-                                 + n["train_qwen2_5_3b"])
+                                 + n["train_qwen2_5_3b"] + n["train_granite"])
         row["launches_train_mamba"] = n["train_mamba"]
         row["launches_train_qwen2_5_3b"] = n["train_qwen2_5_3b"]
+        row["launches_train_granite"] = n["train_granite"]
         row["launches_remat"] = n["remat"]
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
@@ -3130,20 +3464,26 @@ def main(argv: list) -> int:
     train_reference_check()
     mamba_decode_check()
     train_reference_check(MAMBA, seq=512)   # two chunks of 256
+    reference_check(GRANITE, num_layers=2)
+    train_reference_check(GRANITE)
     events_check()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_serve_mamba",
-            "launches_serve_qwen2_5_3b", "launches_train",
+            "launches_serve_qwen2_5_3b", "launches_serve_granite",
+            "launches_serve_grok", "launches_train",
             "launches_train_mamba", "launches_train_qwen2_5_3b",
+            "launches_train_granite",
             "launches_remat", "launches_train_dp", "launches_train_fsdp",
             "launches_serve_sharded",
             "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
             "train_shape", "serve_mamba_shape", "train_mamba_shape",
-            "serve_qwen2_5_3b_shape", "train_qwen2_5_3b_shape"]
+            "serve_qwen2_5_3b_shape", "train_qwen2_5_3b_shape",
+            "serve_granite_shape", "train_granite_shape", "serve_grok_shape",
+            "train_grok_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -10,7 +10,10 @@
 // tiles wholly above the diagonal skipped (:47-49); the probabilities
 // rounded to v's type before the P.V product, as the TPU kernel does.
 // Query head h reads KV head h / G (G = H / KVH, odd G included): K and V
-// are never repeated in memory.
+// are never repeated in memory.  With a logit cap (grok-1; the JAX models'
+// L.attention applies it, the Pallas kernel has none) each scaled score s
+// becomes tanh(s/cap)*cap before the mask and the online max; the cap is
+// a template flag, so cap 0 runs the uncapped code.
 //
 // What bounds it on the H100: operations.  At the training shape of
 // smollm-360m (B=8, S=1024, H=15, KVH=5, hd=64, causal, bf16) the two
@@ -79,13 +82,17 @@ struct Bf16Smem {
 // Accumulator layout of m64n64 (PTX ISA, wgmma register fragments): thread
 // (warp w, lane) holds rows 16w + lane/4 (i = 0) and +8 (i = 1), columns
 // 8j + 2(lane%4) + e, j < 8, e < 2, in d[4j + 2i + e].
-template <int HDP>
+// With kCap the scores go to the log2 domain as tanh(s*cap_scale)*scale_log2
+// (cap_scale = 1/(sqrt(hd)*cap), scale_log2 = cap*log2(e)); without, as
+// s*scale_log2 (scale_log2 = log2(e)/sqrt(hd)).
+template <int HDP, bool kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-                            int KVH, int hd, float scale_log2, int causal) {
+                            int KVH, int hd, float scale_log2, float cap_scale,
+                            int causal) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   using L = Bf16Smem<HDP>;
   constexpr int kNB = HDP / 64;        // column blocks of 64
@@ -168,7 +175,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float x = s[4 * j + 2 * i + e] * scale_log2;
+          float x;
+          if constexpr (kCap) {
+            x = tanhf(s[4 * j + 2 * i + e] * cap_scale) * scale_log2;
+          } else {
+            x = s[4 * j + 2 * i + e] * scale_log2;
+          }
           if (edge) {
             const int key = k0 + 8 * j + col0 + e;
             const int qpos = q0 + row0 + 8 * i;
@@ -257,21 +269,24 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
 }
 
-template <int HDP>
+template <int HDP, bool kCap>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                int Sk, int H, int KVH, int hd, int causal, cudaStream_t stream) {
+                int Sk, int H, int KVH, int hd, int causal, float cap,
+                cudaStream_t stream) {
   constexpr int smem = Bf16Smem<HDP>::kTotal;
-  auto kernel = flash_attention_bf16_kernel<HDP>;
+  auto kernel = flash_attention_bf16_kernel<HDP, kCap>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale_log2 =
-      static_cast<float>(1.4426950408889634 / std::sqrt(static_cast<double>(hd)));
+  const double sd = std::sqrt(static_cast<double>(hd));
+  const float scale_log2 = static_cast<float>(kCap ? 1.4426950408889634 * cap
+                                                   : 1.4426950408889634 / sd);
+  const float cap_scale = kCap ? static_cast<float>(1.0 / (sd * cap)) : 0.f;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
-      KVH, hd, scale_log2, causal);
+      KVH, hd, scale_log2, cap_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,11 +397,12 @@ __device__ inline void accumulate_pv(const float* ps, const float* vs, float* os
   }
 }
 
-template <bool kVec>
+template <bool kVec, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ out, int Sq,
-                           int Sk, int H, int KVH, int hd, float scale, int causal) {
+                           int Sk, int H, int KVH, int hd, float scale, float cap,
+                           int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout_f32(hd);
   float* qs = reinterpret_cast<float*>(smem + L.q);
@@ -449,7 +465,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) {
         const int j = 2 * i + h;
-        sv[i] = j < kmax ? srow[j] * scale : kNegInf;
+        float x = srow[j] * scale;
+        if constexpr (kCap) x = tanhf(x / cap) * cap;
+        sv[i] = j < kmax ? x : kNegInf;
         m_loc = fmaxf(m_loc, sv[i]);
       }
       m_loc = fmaxf(m_loc, __shfl_xor_sync(0xffffffffu, m_loc, 1));
@@ -486,10 +504,13 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+template <bool kCap>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-               int Sk, int H, int KVH, int hd, int causal, int vec, cudaStream_t stream) {
+               int Sk, int H, int KVH, int hd, int causal, float cap, int vec,
+               cudaStream_t stream) {
   const Layout L = layout_f32(hd);
-  auto kernel = vec ? flash_attention_f32_kernel<true> : flash_attention_f32_kernel<false>;
+  auto kernel = vec ? flash_attention_f32_kernel<true, kCap>
+                    : flash_attention_f32_kernel<false, kCap>;
   // above 48 KB a kernel must opt in to dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.total));
@@ -498,8 +519,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, L.total, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Sk, H, KVH, hd, scale, causal);
+      static_cast<float*>(out), Sq, Sk, H, KVH, hd, scale, cap, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kCap>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+           int H, int KVH, int hd, int causal, float cap, int dtype, int vec,
+           cudaStream_t s) {
+  switch (dtype) {
+    case kF32:
+      return launch_f32<kCap>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, cap, vec, s);
+    case kBF16:
+      if (!vec) return static_cast<int>(cudaErrorMisalignedAddress);
+      return hd <= 64
+                 ? launch_bf16<64, kCap>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, cap, s)
+                 : launch_bf16<128, kCap>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, cap,
+                                          s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -507,24 +545,24 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
 
 // q, out: [B, Sq, H, hd]; k, v: [B, Sk, KVH, hd], all contiguous and of
 // storage type `dtype`.  hd <= 128 and a multiple of 16; H a multiple of
-// KVH; under `causal`, Sq <= Sk.  `vec` != 0 says every pointer is 16-byte
-// aligned: the f32 path then takes 16-byte loads, and the bf16 path needs
-// it.  Returns cudaGetLastError() after the launch.
+// KVH; under `causal`, Sq <= Sk.  `logit_cap` > 0 caps the scaled scores at
+// tanh(s/cap)*cap, 0 takes the uncapped kernels.  `vec` != 0 says every
+// pointer is 16-byte aligned: the f32 path then takes 16-byte loads, and
+// the bf16 path needs it.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int B, int Sq, int Sk, int H, int KVH, int hd,
-                                     int causal, int dtype, int vec, void* stream) {
+                                     int causal, float logit_cap, int dtype, int vec,
+                                     void* stream) {
   using namespace repro_torch;
   if (B < 1 || Sq < 1 || Sk < 1 || KVH < 1 || H % KVH != 0 || hd < 16 || hd > kMaxHd ||
-      hd % 16 != 0 || (causal && Sq > Sk) || H > 65535 || B > 65535) {
+      hd % 16 != 0 || (causal && Sq > Sk) || H > 65535 || B > 65535 ||
+      !(logit_cap >= 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch_f32(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, vec, s);
-    case kBF16:
-      if (!vec) return static_cast<int>(cudaErrorMisalignedAddress);
-      return hd <= 64 ? launch_bf16<64>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, s)
-                      : launch_bf16<128>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return logit_cap > 0.f
+             ? launch<true>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, logit_cap, dtype,
+                            vec, s)
+             : launch<false>(q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, logit_cap, dtype,
+                             vec, s);
 }

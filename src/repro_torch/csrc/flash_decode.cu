@@ -5,7 +5,10 @@
 // (_fd_kernel; pallas_call at decode_attention.py:80) and computes what
 // _fd_kernel computes: q scaled by 1/sqrt(hd) in f32; f32 max m,
 // denominator l and accumulator; keys at positions >= length masked to
-// -1e30; l floored at 1e-30; keys past length never read.
+// -1e30; l floored at 1e-30; keys past length never read.  With a logit
+// cap (grok-1; the JAX models' L.decode_attention applies it, the Pallas
+// kernel has none) each valid score s becomes tanh(s/cap)*cap before the
+// softmax; the cap is a template flag, so cap 0 runs the uncapped code.
 //
 // What bounds it on the H100: bytes.  Per (sequence, KV head) it reads
 // length*hd keys and values once and does 4*G*hd flops per key; with G=7,
@@ -104,13 +107,14 @@ __device__ __forceinline__ void widen16<__nv_bfloat16>(const __nv_bfloat16* p, f
 // One CTA per (split, KV head, sequence): m, l and the unnormalised acc of
 // its keys' softmax for the G query heads, into the partials; or, with
 // one split (part_acc == nullptr), the normalised output itself.
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ lengths,
                           T* __restrict__ out, float* __restrict__ part_acc,
                           float* __restrict__ part_m, float* __restrict__ part_l,
-                          int S, int H, int KVH, int hd, int split_keys, float scale) {
+                          int S, int H, int KVH, int hd, int split_keys, float scale,
+                          float cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int split = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -240,6 +244,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < kHeadsPerPass; ++n) {
           const int g = g0 + n * kStep;
+          if constexpr (kCap) dot[n] = tanhf(dot[n] / cap) * cap;
           if (g < G) ss[g * kBK + j] = j < nv ? dot[n] : kNegInf;
         }
       }
@@ -370,13 +375,14 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
   out[idx] = from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
-template <typename T>
+template <typename T, bool kCap>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* out, float* scratch, int B, int S, int H, int KVH, int hd,
-           int split_keys, int vec, cudaStream_t stream) {
+           int split_keys, float cap, int vec, cudaStream_t stream) {
   const int G = H / KVH;
   const Layout L = layout_for<T>(G, hd);
-  auto kernel = vec ? flash_decode_split_kernel<T, true> : flash_decode_split_kernel<T, false>;
+  auto kernel = vec ? flash_decode_split_kernel<T, true, kCap>
+                    : flash_decode_split_kernel<T, false, kCap>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -389,7 +395,7 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
   kernel<<<dim3(splits, KVH, B), kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       lengths, static_cast<T*>(out), part_acc, part_m, part_l, S, H, KVH, hd,
-      split_keys, scale);
+      split_keys, scale, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int64_t outputs = static_cast<int64_t>(B) * H * hd;
@@ -406,15 +412,18 @@ int launch(const void* q, const void* k, const void* v, const int* lengths,
 // of storage type `dtype`; lengths: [B] int32 on the device.  Keys go to
 // ceil(S / split_keys) splits; with more than one, `scratch` holds
 // B*KVH*splits*G*(hd + 2) floats of partials (uninitialised is fine).
-// `vec` != 0 selects 16-byte K/V copies (the caller checked hd and
-// alignment).  Returns cudaGetLastError() after the launches.
+// `logit_cap` > 0 caps the scaled scores at tanh(s/cap)*cap, 0 takes the
+// uncapped kernel.  `vec` != 0 selects 16-byte K/V copies (the caller
+// checked hd and alignment).  Returns cudaGetLastError() after the
+// launches.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* lengths, void* out, void* scratch,
                                   int B, int S, int H, int KVH, int hd,
-                                  int split_keys, int dtype, int vec, void* stream) {
+                                  int split_keys, float logit_cap, int dtype, int vec,
+                                  void* stream) {
   using namespace repro_torch;
   if (B < 1 || S < 1 || KVH < 1 || hd < 1 || hd > 128 || H % KVH != 0 ||
-      split_keys < 1 || KVH > 65535 || B > 65535) {
+      split_keys < 1 || KVH > 65535 || B > 65535 || !(logit_cap >= 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int G = H / KVH;
@@ -425,12 +434,18 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   float* scr = static_cast<float*>(scratch);
+  const bool capped = logit_cap > 0.f;
   switch (dtype) {
     case kF32:
-      return launch<float>(q, k, v, len, out, scr, B, S, H, KVH, hd, split_keys, vec, s);
+      return capped ? launch<float, true>(q, k, v, len, out, scr, B, S, H, KVH, hd,
+                                          split_keys, logit_cap, vec, s)
+                    : launch<float, false>(q, k, v, len, out, scr, B, S, H, KVH, hd,
+                                           split_keys, logit_cap, vec, s);
     case kBF16:
-      return launch<__nv_bfloat16>(q, k, v, len, out, scr, B, S, H, KVH, hd, split_keys,
-                                   vec, s);
+      return capped ? launch<__nv_bfloat16, true>(q, k, v, len, out, scr, B, S, H, KVH,
+                                                  hd, split_keys, logit_cap, vec, s)
+                    : launch<__nv_bfloat16, false>(q, k, v, len, out, scr, B, S, H, KVH,
+                                                   hd, split_keys, logit_cap, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

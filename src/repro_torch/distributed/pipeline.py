@@ -250,7 +250,8 @@ class _StepRun:
     __slots__ = ("grid", "params_stages", "xs", "targets", "scale",
                  "inbox_f", "inbox_b", "stash", "dp_acc", "losses",
                  "outputs", "staging", "cell_req", "hop_rreq",
-                 "params_ready", "done", "_lock", "t0", "cell_spans")
+                 "params_ready", "done", "_lock", "t0", "cell_spans",
+                 "hops", "failing")
 
     def __init__(self, grid):
         self.grid = grid
@@ -266,8 +267,12 @@ class _StepRun:
         # serial, so wall - sum(spans) is that stage's idle time
         self.cell_spans: dict = {}
         self.done = Request(tag="pipeline_step")
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self.t0 = time.monotonic()
+        # this step's persistent hop starts, and whether it is failing:
+        # a failing step cancels its hops before its request fails
+        self.hops: list = []
+        self.failing = False
 
 
 def _for_stream(tensors, cs) -> None:
@@ -589,7 +594,14 @@ class PipelineSchedule:
         _for_stream(rows, cur)
         chan = self._chan[d]
         try:
-            chan.send.start(torch.stack(rows))
+            # under the step's lock: either ``_fail`` finds this start
+            # among the step's hops and cancels it, or the start sees the
+            # step failing and is never made
+            with run._lock:
+                if run.failing:
+                    return
+                chan.send.start(torch.stack(rows))
+                run.hops.append(chan.persistent.active)
             inner = chan.recv.start()
         except BaseException as exc:  # noqa: BLE001
             self._fail(run, exc)
@@ -637,7 +649,7 @@ class PipelineSchedule:
             return
         self.last_step_timing = self._timing(run)
         with run._lock:
-            if not run.done.is_complete:
+            if not run.done.is_complete and not run.failing:
                 run.done.complete(result)
 
     def _timing(self, run: _StepRun) -> dict | None:
@@ -663,9 +675,20 @@ class PipelineSchedule:
     def _fail(self, run: _StepRun, exc: BaseException | None) -> None:
         exc = exc or RuntimeError("pipeline step failed")
         with run._lock:
-            if run.done.is_complete:
+            if run.done.is_complete or run.failing:
                 return
-            run.done.fail(exc)
+            run.failing = True
+            hops = list(run.hops)
+        # cancel the step's hops still in flight before its request
+        # fails: the caller's next step then finds each persistent
+        # channel free, and a cancelled start's successor gets fresh
+        # workspaces.  (The JAX ``_fail`` leaves them running, and the
+        # next step's first hop can find its channel still active.)
+        for hop in hops:
+            hop.cancel()
+        with run._lock:
+            if not run.done.is_complete:
+                run.done.fail(exc)
         # release every still-pending gate so sibling branches retire
         # instead of hanging (their nodes observe done and no-op)
         for req in list(run.cell_req.values()) + list(run.hop_rreq.values()):

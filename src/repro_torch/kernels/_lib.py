@@ -48,13 +48,14 @@ _SIGNATURES = {
     "repro_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
     # x, scale, g, dx, part, n, d, rows_per_block, eps, dtype, vec, stream
     "repro_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
-    # q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, dtype, vec, stream
+    # q, k, v, out, B, Sq, Sk, H, KVH, hd, causal, logit_cap, dtype, vec,
+    # stream
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
-    # q, k, v, lengths, out, scratch, B, S, H, KVH, hd, split_keys, dtype,
-    # vec, stream
+                              _F, _I, _I, _P],
+    # q, k, v, lengths, out, scratch, B, S, H, KVH, hd, split_keys,
+    # logit_cap, dtype, vec, stream
     "repro_flash_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _P],
+                           _F, _I, _I, _P],
     # x, b, c, dt, a_log, y, states, decay, work, B, Q, nh, hp, ds,
     # head_block, dtype, dt_dtype, vec, stream
     "repro_ssd_chunk": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

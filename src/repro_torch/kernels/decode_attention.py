@@ -5,7 +5,7 @@ Hopper kernel (``csrc/flash_decode.cu``) and its plain PyTorch version.
 (``src/repro/kernels/decode_attention.py``).  The kernel splits each
 sequence's keys over several CTAs (``decode_split_keys``) and combines
 their partial softmaxes in a second launch; all G query heads of one KV
-head share each K/V tile, per-sequence ``lengths`` mask the tail, and any
+head share each K/V tile, grok-1's logit cap applies to the scores, per-sequence ``lengths`` mask the tail, and any
 cache length S is taken (the TPU wrapper asserts ``S % block_k == 0``).
 ``flash_decode_split_plain`` mirrors the split and combine arithmetic for
 the tests; the CPU path takes ``flash_decode_plain``.  ``kernels/ops.py``
@@ -45,10 +45,9 @@ def decode_splits(B: int, KVH: int, S: int) -> int:
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
     """The kernel's arithmetic in plain PyTorch: q scaled by 1/sqrt(hd) in
-    f32, keys at positions >= length masked to -1e30 (a sequence with no
-    valid key gives zeros), l floored at 1e-30.  ``logit_cap`` (a tanh
-    softcap on the scores) is here for the CPU path only: the kernel
-    does not take it.
+    f32, the scores capped at cap·tanh(s/cap) when ``logit_cap`` > 0
+    (grok-1), keys at positions >= length masked to -1e30 (a sequence
+    with no valid key gives zeros), l floored at 1e-30.
 
     q: [B,H,hd]; caches: [B,S,KVH,hd]; lengths: [B] -> [B,H,hd]."""
     B, H, hd = q.shape
@@ -106,12 +105,13 @@ def flash_decode_split_plain(q, k_cache, v_cache, lengths, *,
 
 def flash_decode(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
     """q: [B,H,hd]; caches: [B,S,KVH,hd] (q's dtype, f32 or bf16);
-    lengths: [B] int32, all on the card -> [B,H,hd].  Launches the kernel
-    on the current stream or raises."""
+    lengths: [B] int32, all on the card -> [B,H,hd].  ``logit_cap`` > 0
+    caps the scaled scores (0: no cap, the kernel's uncapped
+    instantiation).  Launches the kernel on the current stream or
+    raises."""
     name = "flash_decode"
-    if logit_cap:
-        raise NotImplementedError(
-            "flash_decode: logit_cap != 0 is not in the CUDA kernel yet")
+    _lib.require(logit_cap >= 0.0, name,
+                 f"logit_cap={logit_cap}: a cap is positive, or 0 for none")
     tensors = (q, k_cache, v_cache, lengths)
     _lib.require(all(t.is_cuda and t.device == q.device for t in tensors),
                  name, "q, caches and lengths must be on one CUDA device")
@@ -149,8 +149,8 @@ def flash_decode(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None, B, S, H, KVH,
-        hd, split_keys, _lib.DTYPE_CODES[q.dtype], int(vec),
-        _lib.stream_of(q))
+        hd, split_keys, float(logit_cap), _lib.DTYPE_CODES[q.dtype],
+        int(vec), _lib.stream_of(q))
     _lib.check(rc, name)
     _lib.launches[name] += 1
     return out

@@ -49,13 +49,15 @@ def flash_decode(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, logit_cap):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
+        ctx.logit_cap = logit_cap
         if q.device.type == "cpu":
-            return flash_attention_plain(q, k, v, causal=causal)
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         logit_cap=logit_cap)
         return _fa_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=causal)
+                          causal=causal, logit_cap=logit_cap)
 
     @staticmethod
     def backward(ctx, g):
@@ -67,14 +69,17 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = ref.flash_attention_ref(*leaves, causal=ctx.causal)
+            o = ref.flash_attention_ref(*leaves, causal=ctx.causal,
+                                        logit_cap=ctx.logit_cap)
             dq, dk, dv = torch.autograd.grad(o, leaves, g)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
-    """q: [B,Sq,H,hd]; k, v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] in q's dtype."""
-    return _FlashAttention.apply(q, k, v, causal)
+def flash_attention(q, k, v, *, causal: bool = True, logit_cap: float = 0.0):
+    """q: [B,Sq,H,hd]; k, v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] in q's dtype.
+    ``logit_cap`` > 0 caps the scaled scores at cap·tanh(s/cap) before
+    the mask (grok-1); 0 leaves them as they are."""
+    return _FlashAttention.apply(q, k, v, causal, float(logit_cap or 0.0))
 
 
 # ---------------------------------------------------------------------------

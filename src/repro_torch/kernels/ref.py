@@ -7,10 +7,12 @@ import math
 import torch
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        logit_cap: float = 0.0):
     """q: [B,Sq,H,hd]; k,v: [B,Sk,KVH,hd] -> [B,Sq,H,hd] (f32 math).
     The causal mask is aligned bottom-right (query i sits at key position
-    i + Sk - Sq); masked scores are -inf."""
+    i + Sk - Sq); masked scores are -inf.  ``logit_cap`` > 0 caps the
+    scaled scores at cap·tanh(s/cap) before the mask."""
     B, Sq, H, hd = q.shape
     _, Sk, KVH, _ = k.shape
     G = H // KVH
@@ -18,6 +20,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     kr = torch.repeat_interleave(k, G, dim=2)
     vr = torch.repeat_interleave(v, G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kr.float())
+    if logit_cap:
+        s = torch.tanh(s / logit_cap) * logit_cap
     if causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool,
                           device=q.device).tril(diagonal=Sk - Sq)

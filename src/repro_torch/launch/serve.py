@@ -114,11 +114,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(arch: str, scale: str):
-    """``arch`` at ``scale``: the example scales shrink the SSM too, as
-    the JAX launchers do."""
+    """``arch`` at ``scale``: the example scales shrink the experts and
+    the SSM too, as the JAX launchers do."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     overrides = dict(SCALES[scale])
+    if overrides and cfg.moe:
+        overrides["moe"] = cfg.moe.__class__(
+            num_experts=4, top_k=2, expert_d_ff=overrides["d_ff"] // 2,
+            group_size=64)
     if overrides and cfg.ssm:
         overrides["ssm"] = cfg.ssm.__class__(d_state=16, expand=2,
                                              head_dim=16, chunk_size=16)

@@ -270,7 +270,8 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
     (ctypes), so under "dots" they run again too: only the matrix
     products' outputs are kept.
 
-    * dense: the forward runs two rmsnorms per layer plus the final norm
+    * dense and moe (the MoE layer is tensor code, no kernel): the
+      forward runs two rmsnorms per layer plus the final norm
       and one attention per layer; the backward one rmsnorm backward per
       forward rmsnorm (attention's backward is the oracle's autograd, no
       kernel).  "full" and "dots" recompute the whole layer (both norms

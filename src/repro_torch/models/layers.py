@@ -1,5 +1,5 @@
-"""Shared model building blocks (the dense subset of the JAX package's
-``models/layers.py``).
+"""Shared model building blocks (the JAX package's ``models/layers.py``:
+the dense blocks and the MoE layer, with its expert-parallel dispatch).
 
 Conventions, as in the JAX package:
 
@@ -13,11 +13,16 @@ Conventions, as in the JAX package:
 * ``rmsnorm``, ``attention_dispatch`` and ``decode_attention`` go
   through ``kernels/ops.py``: the hand-written kernels for tensors on the
   card, their plain versions on the CPU.
+* The MoE layer is plain tensor code, as in the JAX package (no Pallas
+  kernel computes any of it): routing in f32, the expert products in the
+  compute dtype.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any
 
 import torch
@@ -221,6 +226,31 @@ def softcap(x, cap: float):
 
 
 # ---------------------------------------------------------------------------
+# Training mode
+# ---------------------------------------------------------------------------
+
+# Set by ``registry.loss_fn``.  The JAX package reads it to place the MoE
+# block's collectives by hand when a backward pass follows on a mesh with
+# a tensor-parallel axis; the port has no tensor-parallel training, so
+# its MoE block takes the one branch whatever the mode.
+_mode = threading.local()
+
+
+@contextlib.contextmanager
+def training_mode():
+    prev = getattr(_mode, "training", False)
+    _mode.training = True
+    try:
+        yield
+    finally:
+        _mode.training = prev
+
+
+def in_training() -> bool:
+    return getattr(_mode, "training", False)
+
+
+# ---------------------------------------------------------------------------
 # Causal self-attention
 # ---------------------------------------------------------------------------
 
@@ -228,18 +258,15 @@ def attention_dispatch(cfg, q, k, v, *, causal: bool = True):
     """Attention for the forward pass: q [B,Sq,H,hd], k/v [B,Sk,KVH,hd].
 
     Every ported ``cfg.attention_impl`` ("xla", "xla_blockskip",
-    "pallas") goes through ``ops.flash_attention``: the kernel on the
-    card, its plain version on the CPU.  The JAX package's "xla" scan and
-    the block-skip schedule compute the same function; ring attention and
-    a logit softcap, which the kernel lacks, raise (queued in ROADMAP)."""
+    "pallas") goes through ``ops.flash_attention`` with the config's
+    logit cap: the kernel on the card, its plain version on the CPU.  The
+    JAX package's "xla" scan and the block-skip schedule compute the same
+    function; ring attention raises (queued in ROADMAP)."""
     if cfg.attention_impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' is not ported (collectives slice)")
-    if cfg.logit_softcap:
-        raise NotImplementedError(
-            f"logit_softcap={cfg.logit_softcap}: the flash_attention kernel "
-            f"has no logit cap yet")
-    return ops.flash_attention(q, k, v, causal=causal)
+    return ops.flash_attention(q, k, v, causal=causal,
+                               logit_cap=cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -337,3 +364,222 @@ def mlp_apply(p, x, act=F.silu):
     g = torch.matmul(x, p["wi_gate"].to(dt))
     u = torch.matmul(x, p["wi_up"].to(dt))
     return torch.matmul(act(g) * u, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (GShard capacity dispatch, Switch aux loss)
+# ---------------------------------------------------------------------------
+
+def moe_spec(cfg, layers: int | None = None):
+    D, E = cfg.d_model, cfg.moe.num_experts
+    Fd = cfg.moe.expert_d_ff
+    L = (layers,) if layers is not None else ()
+    lax = ("layers",) if layers is not None else ()
+    return {
+        "router": PSpec(L + (D, E), lax + ("embed", None), fan_in=D),
+        "wi_gate": PSpec(L + (E, D, Fd), lax + ("experts", "embed", "expert_mlp"), fan_in=D),
+        "wi_up": PSpec(L + (E, D, Fd), lax + ("experts", "embed", "expert_mlp"), fan_in=D),
+        "wo": PSpec(L + (E, Fd, D), lax + ("experts", "expert_mlp", "embed"), fan_in=Fd),
+    }
+
+
+def _top_k(probs, k: int):
+    """The ``k`` largest entries of the last dim and their indices, equal
+    values in index order (``jax.lax.top_k``'s order; ``torch.topk``
+    promises none, and bf16 router logits tie often)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_route(p, x, cfg):
+    """Router + GShard capacity dispatch, shared by every MoE apply path.
+
+    Returns ``(xg, dispatch, combine, aux)``: the grouped tokens
+    ``[g, t, d]``, the dispatch mask and the combine weights
+    ``[g, t, E, C]`` in x's dtype, and the Switch aux loss (f32).  Tokens
+    go to their top-k experts one choice at a time (k-major), each at the
+    next free place of its expert's capacity C; a token past C is
+    dropped (its capacity row is all zeros).  The router's gradient flows
+    through the gate values into ``combine`` and through the
+    probabilities into the aux loss, never through the masks."""
+    mc = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = mc.num_experts, mc.top_k
+    Gt = min(mc.group_size, T)
+    if T % Gt != 0:
+        Gt = T
+    Gn = T // Gt
+    C = max(1, int(math.ceil(Gt * K * mc.capacity_factor / E)))
+    # capacity rounded to a multiple of 16, at most the group size
+    C = int(min(Gt, ((C + 15) // 16) * 16))
+
+    xg = x.reshape(Gn, Gt, D)
+    logits = torch.matmul(xg, p["router"].to(x.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, gate_idx = _top_k(probs, K)                  # [g,t,K]
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+
+    places = torch.arange(C, dtype=torch.float32, device=x.device)
+    counts = torch.zeros((Gn, 1, E), dtype=torch.float32, device=x.device)
+    combine = torch.zeros((Gn, Gt, E, C), dtype=x.dtype, device=x.device)
+    sel_all = torch.zeros((Gn, Gt, E), dtype=torch.float32, device=x.device)
+    for kk in range(K):
+        sel_k = F.one_hot(gate_idx[:, :, kk], E).float()
+        pos_k = counts + torch.cumsum(sel_k, dim=1) - sel_k  # [g,t,E]
+        counts = counts + torch.sum(sel_k, dim=1, keepdim=True)
+        keep_k = (pos_k < C).float() * sel_k
+        # the token's place in its chosen expert, as a one-hot over C
+        # (all zeros past the capacity, as jax.nn.one_hot gives)
+        pos_tok = torch.sum(pos_k * sel_k, dim=-1)          # [g,t]
+        cap_oh = (pos_tok[..., None] == places).to(x.dtype)  # [g,t,C]
+        w_k = (gate_vals[:, :, kk:kk + 1] * keep_k).to(x.dtype)
+        combine = combine + w_k[..., None] * cap_oh[:, :, None, :]
+        sel_all = sel_all + sel_k
+    dispatch = (combine > 0).to(x.dtype)
+
+    # load-balance aux loss (Switch): E * sum_e mean prob * routed share
+    me = torch.mean(probs, dim=(0, 1))
+    fe = torch.mean(sel_all, dim=(0, 1)) / K
+    aux = E * torch.sum(me * fe) * mc.aux_loss_weight
+    return xg, dispatch, combine, aux
+
+
+def _moe_dispatch(dispatch, xg):
+    """[g,t,E,C] x [g,t,d] -> the dispatched tokens [g,E,C,d]."""
+    return torch.einsum("gtec,gtd->gecd", dispatch, xg)
+
+
+def _moe_expert_ffn(xe, wi_gate, wi_up, wo):
+    """Every expert's SwiGLU on its dispatched tokens: [g,E,C,d] ->
+    [g,E,C,d].  Each product is expert-local.  The input is made
+    contiguous first, so that every path (moe_apply, expert-parallel
+    native or user) hands the products the same layout and gets the same
+    bits."""
+    xe = xe.contiguous()
+    h = (F.silu(torch.einsum("gecd,edf->gecf", xe, wi_gate))
+         * torch.einsum("gecd,edf->gecf", xe, wi_up))
+    return torch.einsum("gecf,efd->gecd", h, wo)
+
+
+def _moe_combine(combine, ye):
+    """[g,t,E,C] x [g,E,C,d] -> [g,t,d]."""
+    return torch.einsum("gtec,gecd->gtd", combine, ye.contiguous())
+
+
+def _moe_expert_block(xg, dispatch, combine, wi_gate, wi_up, wo):
+    """Dispatch -> expert FFN -> combine: the JAX package's einsum
+    branch.  Its other branch, the tensor-parallel block with a
+    hand-placed backward (``_make_moe_blk_vjp``), is taken only when
+    training on a mesh whose model axis splits the expert width; it comes
+    with tensor-parallel training (ROADMAP)."""
+    return _moe_combine(combine, _moe_expert_ffn(
+        _moe_dispatch(dispatch, xg), wi_gate, wi_up, wo))
+
+
+def moe_apply(p, x, cfg):
+    """GShard-style grouped capacity dispatch (einsum formulation):
+    x [B,S,D] -> (y [B,S,D], aux loss).  For the explicitly placed
+    expert-parallel variant see :func:`moe_apply_expert_parallel`."""
+    B, S, D = x.shape
+    xg, dispatch, combine, aux = _moe_route(p, x, cfg)
+    dt = x.dtype
+    y = _moe_expert_block(xg, dispatch.detach(), combine,
+                          p["wi_gate"].to(dt), p["wi_up"].to(dt),
+                          p["wo"].to(dt))
+    return y.reshape(B, S, D), aux
+
+
+def moe_dispatch_alltoall(xe, mesh, axis: str, *, reverse: bool = False,
+                          coll=None, spec=None, timeout: float = 120.0):
+    """Block-transpose the dispatched tensor between the group-sharded
+    and the expert-sharded layouts: the MoE all-to-all, placed
+    explicitly.
+
+    ``xe`` is the global ``[G, E, C, d]`` dispatched tensor in the
+    single-controller form of the port's collectives (every rank on one
+    device).  Forward (``reverse=False``), rank s holds groups
+    s·G/n .. of every expert and ends up holding every group's slice of
+    its own experts; reverse undoes it.  Either way the global array is
+    the same after the move.  Both dims must divide the axis size.
+
+    The payload is the ``n·n`` blocks (source rank's groups x
+    destination rank's experts), rank s's n outgoing blocks as its rows.
+    ``coll=None`` is the native path: the block transpose of that
+    rank-stacked payload in one tensor op.  A
+    :class:`~repro_torch.collectives.nonblocking.UserCollectives` context
+    sends the payload through the engine-driven Bruck ``ialltoall``
+    instead.  All-to-all is pure data movement, so the two give the same
+    bits."""
+    n = dict(mesh.shape)[axis]
+    G, E = xe.shape[0], xe.shape[1]
+    if G % n or E % n:
+        raise ValueError(
+            f"moe_dispatch_alltoall: groups ({G}) and experts ({E}) must "
+            f"divide the {axis!r} axis size ({n})")
+    if n == 1:
+        return xe
+    Gl, El = G // n, E // n
+    rest = tuple(xe.shape[2:])
+    r_axes = tuple(range(4, 4 + len(rest)))
+    blocks = xe.reshape(n, Gl, n, El, *rest)
+    # block (s, r) of the payload: rank s sends it to rank r
+    order = (2, 0, 1, 3) if reverse else (0, 2, 1, 3)
+    pay = blocks.permute(order + r_axes).reshape(n * n, Gl, El, *rest)
+    if coll is None:
+        out = pay.reshape(n, n, Gl, El, *rest).transpose(0, 1)
+    else:
+        out = coll.ialltoall(pay, mesh, axis, spec=spec).wait(timeout=timeout)
+        out = out.reshape(n, n, Gl, El, *rest)
+    # out[i, j]: the block rank j sent to rank i
+    if reverse:
+        # (groups of i, experts of j) -> group-major global
+        return out.permute((0, 2, 1, 3) + r_axes).reshape(G, E, *rest)
+    # (groups of j, experts of i) -> group-major global
+    return out.permute((1, 2, 0, 3) + r_axes).reshape(G, E, *rest)
+
+
+def _moe_expert_ffn_sharded(mesh, axis: str):
+    """The expert-sharded FFN: every contraction is expert-local, so the
+    only collectives of the expert-parallel path are the two explicit
+    all-to-alls around it.  Single-controller, as the port's
+    collectives: every rank's experts in one batched product over the
+    expert dim, whose leading factor is the rank."""
+    n = dict(mesh.shape)[axis]
+
+    def ffn(xed, wg, wu, wo):
+        if xed.shape[1] % n or wg.shape[0] != xed.shape[1]:
+            raise ValueError(
+                f"expert-sharded FFN: experts ({xed.shape[1]}) must divide "
+                f"the {axis!r} axis size ({n}) and match the weights "
+                f"({wg.shape[0]})")
+        return _moe_expert_ffn(xed, wg, wu, wo)
+
+    return ffn
+
+
+def moe_apply_expert_parallel(p, x, cfg, mesh, axis: str = "model", *,
+                              coll=None, spec=None, timeout: float = 120.0):
+    """Expert-parallel MoE with EXPLICIT all-to-all placement, the
+    dispatch path for many-tiny-expert configs (granite-moe-3b-a800m:
+    E=40 experts of F=512).
+
+    Tokens are routed on the group-sharded layout, block-transposed to
+    the expert shards (:func:`moe_dispatch_alltoall`), run through the
+    expert-local FFN and transposed back for the combine.  With ``coll``
+    the transposes are engine-driven user-space Bruck all-to-alls;
+    without, the native block transpose.  The token math is the same
+    tensor ops as :func:`moe_apply`'s on the same values, so the three
+    paths agree bit for bit.  Returns (y, aux loss)."""
+    B, S, D = x.shape
+    xg, dispatch, combine, aux = _moe_route(p, x, cfg)
+    dt = x.dtype
+    xe = _moe_dispatch(dispatch, xg)                    # [G, E, C, d]
+    xed = moe_dispatch_alltoall(xe, mesh, axis, coll=coll, spec=spec,
+                                timeout=timeout)
+    ye = _moe_expert_ffn_sharded(mesh, axis)(
+        xed, p["wi_gate"].to(dt), p["wi_up"].to(dt), p["wo"].to(dt))
+    ye = moe_dispatch_alltoall(ye, mesh, axis, reverse=True, coll=coll,
+                               spec=spec, timeout=timeout)
+    y = _moe_combine(combine, ye)
+    return y.reshape(B, S, D), aux

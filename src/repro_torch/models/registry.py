@@ -1,10 +1,10 @@
 """Uniform model API across families (the entries the train and serve
 paths call) + analytical parameter/FLOP counts.
 
-The dense and ssm families are ported, each with every entry below,
-the vocab-parallel ``unembed_partial`` of sharded serving included; the
-others (moe, vlm, hybrid, audio) raise ``NotImplementedError`` naming
-the family."""
+The dense, moe and ssm families are ported, each with every entry
+below, the vocab-parallel ``unembed_partial`` of sharded serving
+included; the others (vlm, hybrid, audio) raise ``NotImplementedError``
+naming the family."""
 from __future__ import annotations
 
 import math
@@ -13,7 +13,7 @@ from types import ModuleType
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba, transformer
 
-_MODULES = {"dense": transformer, "ssm": mamba}
+_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:
@@ -31,7 +31,9 @@ def cast_params(cfg, params):
 
 
 def loss_fn(params, cfg, batch):
-    return module_for(cfg).loss_fn(params, cfg, batch)
+    from repro_torch.models.layers import training_mode
+    with training_mode():
+        return module_for(cfg).loss_fn(params, cfg, batch)
 
 
 def forward(params, cfg, batch):
@@ -95,20 +97,27 @@ def _spec_leaves_with_path(cfg):
             for path, spec in tree_leaves(module_for(cfg).param_spec(cfg))]
 
 
+def _leaf_count(cfg: ModelConfig, path: str, spec, active_only: bool) -> int:
+    """A leaf's parameters; with ``active_only`` an expert leaf counts the
+    top_k of its num_experts experts a token reaches (the router counts
+    whole)."""
+    n = math.prod(spec.shape)
+    if active_only and cfg.moe is not None and "/moe/" in f"/{path}/" \
+            and "router" not in path:
+        n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+    return n
+
+
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Parameters of ``cfg``'s tree.  ``active_only`` counts the experts a
-    token reaches in the JAX package; no ported family has experts, so
-    here it counts every parameter."""
-    del active_only
-    return sum(math.prod(spec.shape)
-               for _, spec in _spec_leaves_with_path(cfg))
+    """Parameters of ``cfg``'s tree (``active_only``: per token)."""
+    return sum(_leaf_count(cfg, path, spec, active_only)
+               for path, spec in _spec_leaves_with_path(cfg))
 
 
 def non_embedding_param_count(cfg: ModelConfig,
                               active_only: bool = False) -> int:
     """``param_count`` without the embedding and the untied ``lm_head``."""
-    del active_only
-    return sum(math.prod(spec.shape)
+    return sum(_leaf_count(cfg, path, spec, active_only)
                for path, spec in _spec_leaves_with_path(cfg)
                if "embed" not in path.split("/")[-1] and "lm_head" not in path)
 
@@ -116,14 +125,16 @@ def non_embedding_param_count(cfg: ModelConfig,
 def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,
                 include_attention: bool = True, seq_len: int = 0,
                 decode_cache_len: int = 0) -> float:
-    """Canonical 6·N·D (train) / 2·N·D (inference) + the kernel terms, as
-    the JAX package's ``registry.model_flops`` counts them for the dense
-    and ssm families: attention 2·2·S²·H·hd per layer per sequence for
+    """Canonical 6·N·D (train) / 2·N·D (inference), N the parameters a
+    token reaches (an MoE layer's top_k experts), + the kernel terms, as
+    the JAX package's ``registry.model_flops`` counts them for the dense,
+    moe and ssm families: attention 2·2·S²·H·hd per layer per sequence for
     scores and values, halved by the causal mask, times 3 in training,
     and for decode the cache length per produced token; SSD 2·Q·nh·hp
     (intra-chunk) + 4·nh·hp·ds (state and output) per token per layer,
     times 3 in training."""
-    flops = (6.0 if training else 2.0) * param_count(cfg) * tokens
+    flops = (6.0 if training else 2.0) * param_count(cfg, active_only=True) \
+        * tokens
     if include_attention and cfg.ssm is not None and seq_len:
         _, nh, hp, ds = mamba.dims(cfg)
         per_tok = 2 * cfg.ssm.chunk_size * nh * hp + 4 * nh * hp * ds

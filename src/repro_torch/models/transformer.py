@@ -1,10 +1,13 @@
-"""Decoder-only transformer LM, dense GQA family (qwen2-0.5b, qwen2.5-3b,
-smollm-360m, llama3-405b): the JAX package's ``models/transformer.py``
-without its MoE and vision parts — the training forward under every
-checkpoint policy, the plain and the vocab-chunked loss, head padding,
-and decode on the slot cache and on the paged pool, with K/V in the
-compute dtype or in int8 with per-position scales, and the vocab-parallel
-unembed of sharded serving (``unembed_partial``, ``unembed_ranks``).
+"""Decoder-only transformer LM, the dense GQA family (qwen2-0.5b,
+qwen2.5-3b, smollm-360m, llama3-405b) and the MoE family
+(granite-moe-3b-a800m, grok-1-314b): the JAX package's
+``models/transformer.py`` without its vision part — the training forward
+under every checkpoint policy with the MoE aux loss summed over the
+layers, the plain and the vocab-chunked loss, head padding, a logit cap
+in attention and on the logits, and decode on the slot cache and on the
+paged pool, with K/V in the compute dtype or in int8 with per-position
+scales, and the vocab-parallel unembed of sharded serving
+(``unembed_partial``, ``unembed_ranks``).
 
 Layers are stacked on a leading ``layers`` axis, as in the JAX package,
 and run by a Python loop over the layer index where the JAX package uses
@@ -24,9 +27,9 @@ from repro_torch.sharding import shard_hint
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported "
+            f"{cfg.name}: only the dense and moe families are ported "
             f"(family={cfg.family!r})")
 
 
@@ -44,8 +47,11 @@ def param_spec(cfg: ModelConfig):
         "attn": L.attn_spec(cfg, layers=NL),
         "ln1": L.PSpec((NL, D), ("layers", "embed_nofsdp"), init="ones"),
         "ln2": L.PSpec((NL, D), ("layers", "embed_nofsdp"), init="ones"),
-        "mlp": L.mlp_spec(cfg, layers=NL),
     }
+    if cfg.moe is not None:
+        layer["moe"] = L.moe_spec(cfg, layers=NL)
+    else:
+        layer["mlp"] = L.mlp_spec(cfg, layers=NL)
     spec = {
         "embed": L.PSpec((V, D), ("vocab", "embed"), init="embed"),
         "layers": layer,
@@ -144,7 +150,16 @@ def _remat(fn, cfg: ModelConfig):
     return lambda *args: L.checkpoint(fn, *args, dots=dots)
 
 
+def _ffn(cfg: ModelConfig, lp, h):
+    """The layer's feed-forward block: (y, aux) with the MoE layer's aux
+    loss, (y, None) for the dense MLP (whose aux is zero)."""
+    if cfg.moe is not None:
+        return L.moe_apply(lp["moe"], h, cfg)
+    return L.mlp_apply(lp["mlp"], h), None
+
+
 def _layer_fwd(cfg: ModelConfig, x, lp, positions):
+    """One layer: (x, aux), aux None for a dense layer."""
     if cfg.remat_policy == "subblock":
         return _layer_fwd_subblock(cfg, x, lp, positions)
     h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
@@ -158,7 +173,8 @@ def _layer_fwd(cfg: ModelConfig, x, lp, positions):
         o = L.attention_dispatch(cfg, q, k, v, causal=True)
     x = x + L.attn_out(lp["attn"], o)
     h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
-    return x + L.mlp_apply(lp["mlp"], h)
+    y, aux = _ffn(cfg, lp, h)
+    return x + y, aux
 
 
 def _layer_fwd_subblock(cfg: ModelConfig, x, lp, positions):
@@ -174,21 +190,25 @@ def _layer_fwd_subblock(cfg: ModelConfig, x, lp, positions):
     def rest_fn(x_, o_, lp_):
         x_ = x_ + L.attn_out(lp_["attn"], o_)
         h = L.rmsnorm(x_, lp_["ln2"], cfg.rms_norm_eps)
-        return x_ + L.mlp_apply(lp_["mlp"], h)
+        y, aux = _ffn(cfg, lp_, h)
+        return x_ + y, aux
 
     return L.checkpoint(rest_fn, x, o, lp)
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens):
-    """tokens [B, S] -> (final normed hidden [B,S,D], aux loss: 0 for the
-    dense family)."""
+    """tokens [B, S] -> (final normed hidden [B,S,D], aux loss): the MoE
+    layers' aux losses summed in layer order from an f32 zero, as the
+    JAX scan carries them; 0 for the dense family."""
     _check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = _remat(lambda x_, lp_: _layer_fwd(cfg, x_, lp_, positions), cfg)
-    for lp in L.unstack_layers(params["layers"]):
-        x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in L.unstack_layers(params["layers"]):
+        x, a = body(x, lp)
+        if a is not None:
+            aux = aux + a
     return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
 
@@ -350,7 +370,7 @@ def _decode_hidden(params, cfg: ModelConfig, cache, tokens, pos, write, view):
                                logit_cap=cfg.logit_softcap)
         x = x + L.attn_out(lp["attn"], o)
         h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h)
+        x = x + _ffn(cfg, lp, h)[0]
     return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
 
 

@@ -9,6 +9,10 @@ Differences from the JAX package, by design:
   checkpointer does, on the same CUDA stream, before the next update.
 * The moments are f32 whatever the parameters' dtype (the JAX moments
   become f32 after the first step; here they start so).
+* A leaf above ``SLICE_ELEMS`` elements is updated a slice of its
+  leading dim at a time: the update is elementwise, so the values are
+  the same, and the step's temporaries stay a few slices big instead of
+  a few copies of the leaf (granite-moe's 4 GB expert leaves).
 
 ``torch.optim.AdamW`` is not used: its schedule, clipping and decay
 differ.  ``init_shards``/``apply_shards`` are the ZeRO step over FSDP
@@ -137,15 +141,28 @@ def apply(cfg: AdamWConfig, state: AdamWState, params, grads):
     g_leaves = dict(tree_leaves(grads))
     m_leaves = dict(tree_leaves(state.mu))
     v_leaves = dict(tree_leaves(state.nu))
-    for path, p in tree_leaves(params):
-        g = g_leaves[path].float() * scale
-        m, v = m_leaves[path], v_leaves[path]
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        mhat = m / b1c
-        vhat = v / b2c
-        pf = p.float()
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+    for path, p_leaf in tree_leaves(params):
+        for p, g, m, v in zip(*map(_slices, (p_leaf, g_leaves[path],
+                                             m_leaves[path], v_leaves[path]))):
+            g = g.float() * scale
+            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+            mhat = m / b1c
+            vhat = v / b2c
+            pf = p.float()
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+            p.copy_((pf - lr * delta).to(p.dtype))
     return params, AdamWState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+SLICE_ELEMS = 1 << 26       # 256 MB of f32: larger leaves go by slices
+
+
+def _slices(t):
+    """``t`` as views of at most ``SLICE_ELEMS`` elements along its
+    leading dim (``t`` itself when it is that small or has no dim)."""
+    if t.numel() <= SLICE_ELEMS or t.dim() == 0:
+        return [t]
+    rows = max(1, SLICE_ELEMS // max(1, t[0].numel()))
+    return list(t.split(rows))

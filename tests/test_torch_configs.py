@@ -17,9 +17,8 @@ ARCHS = ["granite-moe-3b-a800m", "grok-1-314b", "llama3-405b",
          "mamba2-1.3b", "pixtral-12b", "qwen2-0.5b", "qwen2.5-3b",
          "smollm-360m", "whisper-tiny", "zamba2-1.2b"]
 COUNTED = ["qwen2-0.5b", "qwen2.5-3b", "smollm-360m", "llama3-405b",
-           "mamba2-1.3b"]
-UNPORTED = {"granite-moe-3b-a800m": "moe", "grok-1-314b": "moe",
-            "pixtral-12b": "vlm", "zamba2-1.2b": "hybrid",
+           "mamba2-1.3b", "granite-moe-3b-a800m", "grok-1-314b"]
+UNPORTED = {"pixtral-12b": "vlm", "zamba2-1.2b": "hybrid",
             "whisper-tiny": "audio"}
 
 

@@ -171,6 +171,82 @@ def test_flash_attention_takes_unaligned_bf16_views(cuda):
                                **TOLS[torch.bfloat16])
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", [
+    (2, 1024, 1024, 48, 8, 128),   # grok-1 heads (G=6, hd=128)
+    (1, 77, 133, 4, 2, 64),        # ragged, Sk > Sq
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capped_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, KVH,
+                                                     hd, causal, dtype):
+    """grok-1's logit cap of 30 on scores scaled up so that it bites;
+    cap 0 gives the uncapped kernel's bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = (4 * torch.randn(B, Sq, H, hd, generator=cuda, device="cuda")).to(dtype)
+    k = (4 * torch.randn(B, Sk, KVH, hd, generator=cuda,
+                         device="cuda")).to(dtype)
+    v = torch.randn(B, Sk, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    got = flash_attention(q, k, v, causal=causal, logit_cap=30.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, causal=causal, logit_cap=30.0),
+        **TOLS[dtype])
+    assert torch.equal(flash_attention(q, k, v, causal=causal, logit_cap=0.0),
+                       flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd", [
+    (8, 1024, 48, 8, 128),     # grok-1 serve shape (G=6, hd=128)
+    (3, 37, 15, 5, 64),        # odd S
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_capped_flash_decode_kernel_matches_plain(cuda, B, S, H, KVH, hd,
+                                                  dtype):
+    from repro_torch.kernels.decode_attention import (flash_decode,
+                                                      flash_decode_plain)
+    q = (4 * torch.randn(B, H, hd, generator=cuda, device="cuda")).to(dtype)
+    k = (4 * torch.randn(B, S, KVH, hd, generator=cuda,
+                         device="cuda")).to(dtype)
+    v = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    lengths = torch.randint(1, S + 1, (B,), generator=cuda, device="cuda",
+                            dtype=torch.int32)
+    got = flash_decode(q, k, v, lengths, logit_cap=30.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_decode_plain(q, k, v, lengths, logit_cap=30.0),
+        **TOLS[dtype])
+    assert torch.equal(flash_decode(q, k, v, lengths, logit_cap=0.0),
+                       flash_decode(q, k, v, lengths))
+
+
+def test_moe_layer_on_the_card_expert_parallel_equals_moe_apply(cuda):
+    """granite's MoE layer at reduced widths on the card, bf16: the
+    expert-parallel path on 4 ranks (user all-to-all and native) equals
+    moe_apply bit for bit."""
+    from repro_torch.collectives.nonblocking import UserCollectives
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    cfg = get_config("granite-moe-3b-a800m").with_overrides(d_model=256)
+    p = layers.init_tree(layers.moe_spec(cfg), cuda)
+    x = torch.randn(8, 256, 256, generator=cuda, device="cuda").to(
+        torch.bfloat16)                        # 4 groups of 512 tokens
+    mesh = make_mesh((4,), ("model",), "cuda")
+    coll = UserCollectives(ProgressEngine())
+    try:
+        y, aux = layers.moe_apply(p, x, cfg)
+        yn, auxn = layers.moe_apply_expert_parallel(p, x, cfg, mesh)
+        yu, auxu = layers.moe_apply_expert_parallel(p, x, cfg, mesh,
+                                                    coll=coll)
+        torch.cuda.synchronize()
+    finally:
+        coll.close()
+    assert torch.equal(y, yn) and torch.equal(yn, yu)
+    assert torch.equal(aux, auxn) and torch.equal(auxn, auxu)
+
+
 def test_training_ops_gradients_on_the_card(cuda):
     """ops.rmsnorm and ops.flash_attention backward on the card (kernels)
     against the CPU (plain versions), in f32."""

@@ -43,6 +43,14 @@ PARALLEL_SLICE = ["repro_torch.sharding", "repro_torch.distributed.elastic",
 SERVE_SLICE = ["repro_torch.serve.engine", "repro_torch.serve.kvcache",
                "repro_torch.launch.serve", "repro_torch.models.registry",
                "repro_torch.models.transformer"]
+# the MoE slice: its configs, and the modules that hold its code (the MoE
+# layer, its expert-parallel path and the capped attention kernels)
+MOE_SLICE = ["repro_torch.configs.granite_moe_3b_a800m",
+             "repro_torch.configs.grok1_314b", "repro_torch.models.layers",
+             "repro_torch.kernels.decode_attention", "repro_torch.kernels.ops"]
+MOE_NAMES = ["training_mode", "in_training", "moe_spec", "_moe_route",
+             "moe_apply", "moe_dispatch_alltoall", "_moe_expert_ffn_sharded",
+             "moe_apply_expert_parallel"]
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -70,7 +78,24 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     loaded = lines["LOADED"]
     assert all(f"'{m}'" in loaded
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
-               + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE), loaded
+               + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE
+               + MOE_SLICE), loaded
+
+
+def test_the_moe_slice_is_in_the_port():
+    """The MoE layer's functions live in the port's ``layers`` (whose
+    source the AST check below holds to no JAX import), and its registry
+    takes the moe family into the transformer."""
+    import inspect
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, registry, transformer
+    for name in MOE_NAMES:
+        fn = getattr(layers, name)
+        assert inspect.getsourcefile(inspect.unwrap(fn)) == \
+            str(PORT / "models" / "layers.py")
+    for arch in ("granite-moe-3b-a800m", "grok-1-314b"):
+        assert registry.module_for(get_config(arch)) is transformer
 
 
 def _imported(path: Path) -> list[str]:

@@ -479,8 +479,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     lengths = torch.tensor([1, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="flash_decode"):
         flash_decode(q, k, k, lengths)
-    with pytest.raises(NotImplementedError, match="logit_cap"):
+    # the logit cap is in the kernel now: a capped call refuses CPU
+    # tensors as the uncapped one does, and a negative cap is refused
+    with pytest.raises(ValueError, match="flash_decode.*CUDA"):
         flash_decode(q, k, k, lengths, logit_cap=30.0)
+    with pytest.raises(ValueError, match="logit_cap"):
+        flash_decode(q, k, k, lengths, logit_cap=-1.0)
     with pytest.raises(ValueError, match="rmsnorm_bwd"):
         rmsnorm_bwd(x, torch.ones(64), x)
     q4 = torch.randn(1, 8, 2, 16)

@@ -157,13 +157,12 @@ def test_gradients_match_jax(remat):
 
 
 def test_unported_training_options_raise():
-    """Ring attention and a logit softcap still raise; the checkpoint
-    policies and the chunked loss are ported (tests/test_torch_options.py)."""
+    """Ring attention still raises; the checkpoint policies and the
+    chunked loss are ported (tests/test_torch_options.py), and so are the
+    logit softcap and the moe family (tests/test_torch_moe.py)."""
     _, _, cfg, params, batch = _train_setup("none", S=8)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for over in (dict(attention_impl="ring"), dict(logit_softcap=30.0),
-                 dict(loss_impl="chunked_vocab", logit_softcap=30.0),
-                 dict(family="moe")):
+    for over in (dict(attention_impl="ring"),):
         with pytest.raises(NotImplementedError):
             with torch.enable_grad():
                 registry.loss_fn(params, cfg.with_overrides(**over), tbatch)

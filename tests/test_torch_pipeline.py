@@ -294,6 +294,53 @@ def test_failing_cell_fails_the_step_once(executor):
     sched.close()
 
 
+def test_failing_cell_with_a_hop_in_flight_frees_its_channel():
+    """A cell fails while a hop of its step is still in flight on a
+    persistent channel: the p2p stream is held, so the forward hop
+    started after the first forward cell cannot retire.  The failed step
+    cancels that hop before its request fails, so the next step's first
+    hop finds the channel free (a hop left in flight makes that start
+    raise "already has an active start") and the step runs to a finite
+    loss once the stream is released."""
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    S = 2
+    seen = {"calls": 0, "hop": None}
+    box = {}
+
+    def flaky(p, x):
+        seen["calls"] += 1
+        if seen["calls"] == 2:          # stage 0's second forward cell
+            seen["hop"] = box["sched"]._chan["f"].persistent.active
+            raise RuntimeError("stage blew up")
+        return stage_fn(p, x)
+
+    sched = pl.PipelineSchedule(flaky, make_mesh((S,), ("stage",), "cpu"),
+                                "stage", S, loss_fn=loss_fn,
+                                engine=ProgressEngine(), name="held")
+    box["sched"] = sched
+    stream = sched.p2p.stream
+    poll = stream._poll_once
+    held = {"on": True}
+    stream._poll_once = lambda: 0 if held["on"] else poll()
+    g = torch.Generator().manual_seed(2)
+    params = {"w1": torch.randn(S, D, H, generator=g) * 0.3,
+              "w2": torch.randn(S, H, D, generator=g) * 0.3}
+    xs = torch.randn(M, MB, D, generator=g)
+    with pytest.raises(RuntimeError, match="stage blew up"):
+        sched.step(params, xs, xs, timeout=60)
+    hop = seen["hop"]
+    assert hop is not None, "no hop was in flight when the cell failed"
+    # before the stream is released: a hop still in flight here makes the
+    # next step's first start on its channel raise
+    assert hop.is_complete and hop.cancelled, \
+        "the failed step left its hop in flight on the persistent channel"
+    held["on"] = False
+    loss, _ = sched.step(params, xs, xs, timeout=60)
+    assert torch.isfinite(loss)
+    sched.close()
+
+
 @pytest.mark.parametrize("kind,mesh", [("1f1b", "2x2"), ("1f1b", "1x4"),
                                        ("gpipe", "1x4")])
 def test_launcher_pipeline_on_cpu(tmp_path, kind, mesh):

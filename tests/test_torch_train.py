@@ -442,3 +442,29 @@ def test_kernel_launches_per_step_as_derived(monkeypatch, remat, mb):
              for k, v in SyntheticLM(64, 16, 4, seed=1).sample().items()}
     step(params, opt.init(params), batch)
     assert calls == train_launch.kernel_launches_per_step(cfg, mb)
+
+
+def test_adamw_by_slices_equals_the_whole_leaf(monkeypatch):
+    """A leaf above ``SLICE_ELEMS`` is updated a slice of its leading dim
+    at a time: the same bits as the whole-leaf update, params and both
+    moments, over two steps."""
+    from repro_torch.train import optimizer as opt_mod
+    g = torch.Generator().manual_seed(3)
+    tree = {"a": torch.randn(7, 5, 3, generator=g), "b": torch.randn(4, generator=g),
+            "c": torch.randn(2, 3, generator=g)}
+    grads = [{k: torch.randn(v.shape, generator=g) for k, v in tree.items()}
+             for _ in range(2)]
+    cfg = opt_mod.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    outs = []
+    for elems in (1 << 26, 10):
+        monkeypatch.setattr(opt_mod, "SLICE_ELEMS", elems)
+        params = {k: v.clone() for k, v in tree.items()}
+        state = opt_mod.init(params)
+        for gr in grads:
+            params, state, _ = opt_mod.apply(cfg, state, params, gr)
+        outs.append((params, state))
+    assert len(opt_mod._slices(tree["a"])) == 7      # a row of 15 a slice
+    for k in tree:
+        assert torch.equal(outs[0][0][k], outs[1][0][k])
+        assert torch.equal(outs[0][1].mu[k], outs[1][1].mu[k])
+        assert torch.equal(outs[0][1].nu[k], outs[1][1].nu[k])
