@@ -104,9 +104,9 @@ Phases; any failure raises and the script exits non-zero:
              requests through 8 lanes over phase 3's 1024-position view,
              caller-driven; its launches, one fused call timed, the slot
              cache against the paged pool) and trained through the train
-             launcher (6 steps of 8 x 1024 tokens, "full" remat, the aux
-             loss of each step finite, the 40 GB checkpoint restored
-             equal leaf by leaf); grok-1-314b served at full widths at 2
+             launcher at 16 of its 32 layers (6 steps of 8 x 1024 tokens,
+             "full" remat, the aux loss of each step finite, the ~21 GB
+             checkpoint restored equal); grok-1-314b served at full widths at 2
              of its 64 layers, every flash_decode launch with its logit
              cap of 30; one granite MoE layer expert-parallel on 4 model
              ranks, the user-space all-to-all against the native block
@@ -115,12 +115,35 @@ Phases; any failure raises and the script exits non-zero:
              (cap 0: the uncapped kernel's bits) and the norms and
              attention at granite's shapes; phase 7 holds granite's loss,
              gradients and paged decode at 2 layers, card against CPU.
+13. families — zamba2-1.2b at full width and all 38 layers served (16
+             short requests through 8 lanes over phase 3's 1024-position
+             view, caller-driven; 51 rmsnorm_fwd and 6 flash_decode a
+             fused call, one call timed, the slot cache against the
+             paged pool bit for bit) and trained through the train
+             launcher (6 steps of 8 x 1024 tokens, "full" remat, the
+             launches as derived, the 13.4 GB checkpoint restored equal);
+             whisper-tiny trained so (encoder embeddings of ones, as the
+             JAX launcher feeds them) and decoded on the slot cache (8
+             lanes, the encoder over seeded frames [8, 1500, 384], the
+             cross K/V filled per layer, 32 greedy tokens, 8 flash_decode
+             a call); pixtral-12b at full widths and 4 of its 40 layers
+             through ``make_train_step`` (1024 vision embeddings before
+             1024 text tokens, 4 steps, the chunked loss equal to the
+             plain one at step 0); then, in f32 at full widths, card
+             against CPU: zamba2 at one group and a tail (decode logits,
+             loss, every gradient), whisper at 2 + 2 layers (decode with
+             the cross K/V, loss, gradients), pixtral at 2 layers (the
+             loss with vision embeddings).  The kernels phase holds every
+             kernel at these families' shapes (G = 1, non-causal Sq 1024
+             against Sk 1500, flash_decode over 1500 keys, ssd_chunk at
+             d_state 64, pixtral's norms and heads).
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
 ``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
 and phase 11; ``--only moe`` the build, the two attention kernels' checks
-and phase 12 with granite's card-against-CPU checks.
+and phase 12 with granite's card-against-CPU checks; ``--only families``
+the build, the kernels at the new shapes and phase 13 with its checks.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -189,6 +212,21 @@ GRANITE, GRANITE_D = "granite-moe-3b-a800m", 1536
 GROK, GROK_D, GROK_SERVE_LAYERS = "grok-1-314b", 6144, 2
 LOGIT_CAP = 30.0                    # grok-1's logit_softcap
 CAP_Q_SCALE = 8.0                   # capped kernel inputs: q scaled so scores reach the cap
+# the last three families (phase 13): zamba2-1.2b served with the mamba2
+# path's short requests over phase 3's 1024-position view and trained as
+# smollm-360m is; whisper-tiny trained so, and decoded on the slot cache
+# (32 greedy tokens, its decoder's 448 positions, the cross K/V of its
+# 1500 encoder frames); pixtral-12b trained at 4 of its 40 layers (its
+# f32 training state: 1.34 B embedding and head parameters, ~4.4 GB a
+# layer) with 1024 vision patches before 1024 text tokens
+ZAMBA, ZAMBA_D = "zamba2-1.2b", 2048
+WHISPER, WHISPER_D, WHISPER_FRAMES = "whisper-tiny", 384, 1500
+WHISPER_MAX_SEQ, WHISPER_NEW = 448, 32
+PIXTRAL, PIXTRAL_D, PIXTRAL_LAYERS, PIXTRAL_STEPS = "pixtral-12b", 5120, 4, 4
+PIXTRAL_BATCH, PIXTRAL_PATCHES = 2, 1024
+# granite-moe's train run (of 32 layers): its 40 GB checkpoint was the
+# script's largest item; at 16 layers it is ~21 GB
+GRANITE_TRAIN_LAYERS = 16
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
             torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
@@ -335,25 +373,33 @@ SHAPE_KEYS = {(False, 960, 1e-5): "train_shape",
               (False, Q3_D, 1e-6): "train_qwen2_5_3b_shape",
               (True, GRANITE_D, 1e-6): "serve_granite_shape",
               (False, GRANITE_D, 1e-6): "train_granite_shape",
-              (True, GROK_D, 1e-5): "serve_grok_shape"}
+              (True, GROK_D, 1e-5): "serve_grok_shape",
+              (False, PIXTRAL_D, 1e-5): "train_pixtral_shape"}
 
 
-def kernel_rmsnorm(gen) -> dict:
+# the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b,
+# zamba2-1.2b, qwen2.5-3b, granite-moe and grok-1: a fused call) and the
+# train paths' (smollm-360m, mamba2-1.3b and zamba2-1.2b, qwen2.5-3b,
+# granite-moe, pixtral-12b: the whole batch) shapes; zamba2's norms are
+# mamba2's shapes and eps
+RMSNORM_SHAPES = ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
+                  (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5),
+                  (LANES, MAMBA_D, 1e-5),
+                  (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
+                  (LANES, Q3_D, 1e-6), (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6),
+                  (LANES, GRANITE_D, 1e-6),
+                  (TRAIN_BATCH * TRAIN_SEQ, GRANITE_D, 1e-6),
+                  (LANES, GROK_D, 1e-5),
+                  (PIXTRAL_BATCH * 2 * TRAIN_SEQ, PIXTRAL_D, 1e-5))
+
+
+def kernel_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> dict:
     from repro_torch.kernels.rmsnorm import (rmsnorm_fwd, rmsnorm_fwd_path,
                                              rmsnorm_fwd_plain)
-    row = None
-    # the serve paths' (qwen2-0.5b: decode, prefill chunk; mamba2-1.3b,
-    # qwen2.5-3b, granite-moe and grok-1: a fused call) and the train
-    # paths' (smollm-360m, mamba2-1.3b, qwen2.5-3b, granite-moe: the whole
-    # batch) shapes
-    for N, D, eps in ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
-                      (TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5),
-                      (LANES, MAMBA_D, 1e-5),
-                      (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
-                      (LANES, Q3_D, 1e-6), (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6),
-                      (LANES, GRANITE_D, 1e-6),
-                      (TRAIN_BATCH * TRAIN_SEQ, GRANITE_D, 1e-6),
-                      (LANES, GROK_D, 1e-5)):
+    row = dict(name="rmsnorm_fwd", route="cuda",
+               source="src/repro_torch/csrc/rmsnorm.cu",
+               replaces="src/repro/kernels/rmsnorm.py:41")
+    for N, D, eps in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             s = torch.randn(D, generator=gen, device="cuda") + 1.0
@@ -384,15 +430,34 @@ def kernel_rmsnorm(gen) -> dict:
                        bound_ms=bound, bound_by="bytes",
                        library_ms=dev["F.rms_norm"])
             if (N, D) == (LANES, 896):                      # the serve path
-                row = dict(name="rmsnorm_fwd", route="cuda",
-                           source="src/repro_torch/csrc/rmsnorm.cu",
-                           replaces="src/repro/kernels/rmsnorm.py:41", **fig)
+                row.update(fig)
             elif D != 896:
                 row[SHAPE_KEYS[N == LANES, D, eps]] = fig
     return row
 
 
-def kernel_flash_decode(gen) -> dict:
+SERVE_VIEW = -(-MAX_SEQ // BLOCK) * BLOCK     # the serve phases' view length
+# ((B, H, KVH, hd), logit cap, row key, cache length S, every length S):
+# the serve paths' heads (qwen2-0.5b, qwen2.5-3b, granite-moe, grok-1
+# capped, zamba2-1.2b G = 1) over the serve view, and whisper-tiny's
+# decode (G = 1): self-attention over its 448 positions, cross-attention
+# over all 1500 encoder frames (not a multiple of the 64-key tile)
+DECODE_CASES = (((LANES, 14, 2, 64), 0.0, None, SERVE_VIEW, False),
+                ((LANES, 16, 2, 128), 0.0, "serve_qwen2_5_3b_shape",
+                 SERVE_VIEW, False),
+                ((LANES, 24, 8, 64), 0.0, "serve_granite_shape", SERVE_VIEW,
+                 False),
+                ((LANES, 48, 8, 128), LOGIT_CAP, "serve_grok_shape",
+                 SERVE_VIEW, False),
+                ((LANES, 32, 32, 64), 0.0, "serve_zamba2_shape", SERVE_VIEW,
+                 False),
+                ((LANES, 6, 6, 64), 0.0, "serve_whisper_self_shape",
+                 WHISPER_MAX_SEQ, False),
+                ((LANES, 6, 6, 64), 0.0, "serve_whisper_cross_shape",
+                 WHISPER_FRAMES, True))
+
+
+def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
     """flash_decode against its plain version at the serve paths' heads
     (qwen2-0.5b G = 7 hd 64, qwen2.5-3b G = 8 hd 128, granite-moe G = 3
     hd 64) and, with grok-1's logit cap, at grok's (G = 6, hd 128; q
@@ -403,13 +468,10 @@ def kernel_flash_decode(gen) -> dict:
                                                       decode_splits,
                                                       flash_decode,
                                                       flash_decode_plain)
-    S = -(-MAX_SEQ // BLOCK) * BLOCK          # the serve phases' view length
-    row = None
-    cases = (((LANES, 14, 2, 64), 0.0, None),
-             ((LANES, 16, 2, 128), 0.0, "serve_qwen2_5_3b_shape"),
-             ((LANES, 24, 8, 64), 0.0, "serve_granite_shape"),
-             ((LANES, 48, 8, 128), LOGIT_CAP, "serve_grok_shape"))
-    for ((B, H, KVH, hd), cap, key), dtype in itertools.product(
+    row = dict(name="flash_decode", route="cuda",
+               source="src/repro_torch/csrc/flash_decode.cu",
+               replaces="src/repro/kernels/decode_attention.py:80")
+    for ((B, H, KVH, hd), cap, key, S, full), dtype in itertools.product(
             cases, (torch.bfloat16, torch.float32)):
         split_keys = decode_split_keys(B, KVH, S)
         splits = decode_splits(B, KVH, S)
@@ -420,8 +482,10 @@ def kernel_flash_decode(gen) -> dict:
         q = (q * CAP_Q_SCALE if cap else q).to(dtype)
         k = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
         v = torch.randn(B, S, KVH, hd, generator=gen, device="cuda").to(dtype)
-        lengths = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
-                                dtype=torch.int32)
+        lengths = (torch.full((B,), S, dtype=torch.int32, device="cuda")
+                   if full else
+                   torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                                 dtype=torch.int32))
         got = flash_decode(q, k, v, lengths, logit_cap=cap)
         torch.cuda.synchronize()
         err = check_close("flash_decode", got,
@@ -479,10 +543,7 @@ def kernel_flash_decode(gen) -> dict:
                    >= flops / PEAK_FLOPS[dtype] else "operations",
                    library_ms=dev.get("sdpa"))
         if key is None:                                     # the serve path
-            row = dict(name="flash_decode", route="cuda",
-                       source="src/repro_torch/csrc/flash_decode.cu",
-                       replaces="src/repro/kernels/decode_attention.py:80",
-                       **fig)
+            row.update(fig)
         else:
             row[key] = fig
     return row
@@ -503,15 +564,21 @@ def fused_rms_norm_backward(x, g, w, eps):
     return rstd, ""
 
 
-def kernel_rmsnorm_bwd(gen) -> dict:
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
-    row = None
-    for N, D, eps in ((TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5), (LANES, 896, 1e-5),
+RMSNORM_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5), (LANES, 896, 1e-5),
                       (TRAIN_BATCH * TRAIN_SEQ, MAMBA_D, 1e-5),
                       (LANES, MAMBA_D, 1e-5),
                       (TRAIN_BATCH * TRAIN_SEQ, Q3_D, 1e-6),
                       (TRAIN_BATCH * TRAIN_SEQ, GRANITE_D, 1e-6),
-                      (LANES, GRANITE_D, 1e-6)):
+                      (LANES, GRANITE_D, 1e-6),
+                      (PIXTRAL_BATCH * 2 * TRAIN_SEQ, PIXTRAL_D, 1e-5))
+
+
+def kernel_rmsnorm_bwd(gen, shapes=RMSNORM_BWD_SHAPES) -> dict:
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    row = dict(name="rmsnorm_bwd", route="cuda",
+               source="src/repro_torch/csrc/rmsnorm.cu",
+               replaces="src/repro/kernels/rmsnorm.py:61")
+    for N, D, eps in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
             g = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
@@ -566,15 +633,47 @@ def kernel_rmsnorm_bwd(gen) -> dict:
                        bound_ms=bound, bound_by="bytes",
                        library_ms=dev.get("library"))
             if D == 960:                                   # the train path
-                row = dict(name="rmsnorm_bwd", route="cuda",
-                           source="src/repro_torch/csrc/rmsnorm.cu",
-                           replaces="src/repro/kernels/rmsnorm.py:61", **fig)
+                row.update(fig)
             else:
                 row[SHAPE_KEYS[False, D, eps]] = fig
     return row
 
 
-def kernel_flash_attention(gen) -> dict:
+# the last three families' attention: zamba2's shared site (G = 1),
+# whisper-tiny's encoder (non-causal over 1500 frames), decoder
+# self-attention (causal, G = 1) and cross-attention (non-causal, Sq 1024
+# against Sk 1500), pixtral-12b's layers (1024 patches and 1024 text
+# tokens, G = 4, hd 128)
+FAMILY_ATTENTION_SHAPES = (
+    ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 64), (True,), 0.0,
+     "train_zamba2_shape"),
+    ((TRAIN_BATCH, WHISPER_FRAMES, WHISPER_FRAMES, 6, 6, 64), (False,), 0.0,
+     "train_whisper_encoder_shape"),
+    ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 6, 6, 64), (True,), 0.0,
+     "train_whisper_self_shape"),
+    ((TRAIN_BATCH, TRAIN_SEQ, WHISPER_FRAMES, 6, 6, 64), (False,), 0.0,
+     "train_whisper_cross_shape"),
+    ((PIXTRAL_BATCH, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 32, 8, 128), (True,), 0.0,
+     "train_pixtral_shape"))
+# (B, Sq, Sk, H, KVH, hd), the causal flags (a row records the first),
+# the cap, the row key ("": checked, not recorded)
+ATTENTION_SHAPES = (
+    ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64), (True, False), 0.0,
+     None),                                                   # the train path
+    ((2, 1000, 1000, 6, 3, 64), (True, False), 0.0, ""),      # ragged
+    # qwen2.5-3b's train path (G = 8, hd 128), causal only
+    ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128), (True,), 0.0,
+     "train_qwen2_5_3b_shape"),
+    # granite-moe's train path (G = 3, hd 64)
+    ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 64), (True,), 0.0,
+     "train_granite_shape"),
+    # grok-1's heads (G = 6, hd 128) with its logit cap
+    ((2, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128), (True,), LOGIT_CAP,
+     "train_grok_shape"),
+    *FAMILY_ATTENTION_SHAPES)
+
+
+def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
     """flash_attention against its plain version at the train paths'
     heads (smollm-360m, qwen2.5-3b, granite-moe), a ragged shape, and
     with grok-1's logit cap at grok's heads (q and k scaled by
@@ -582,20 +681,9 @@ def kernel_flash_attention(gen) -> dict:
     figure, and cap 0 must give the uncapped kernel's bits)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    row = None
-    # (B, Sq, Sk, H, KVH, hd), the causal flags, the cap, the row key
-    shapes = (((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 15, 5, 64), (True, False),
-               0.0, None),                                    # the train path
-              ((2, 1000, 1000, 6, 3, 64), (True, False), 0.0, ""),  # ragged
-              # qwen2.5-3b's train path (G = 8, hd 128), causal only
-              ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 2, 128), (True,), 0.0,
-               "train_qwen2_5_3b_shape"),
-              # granite-moe's train path (G = 3, hd 64)
-              ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 24, 8, 64), (True,), 0.0,
-               "train_granite_shape"),
-              # grok-1's heads (G = 6, hd 128) with its logit cap
-              ((2, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128), (True,), LOGIT_CAP,
-               "train_grok_shape"))
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:96")
     for (B, Sq, Sk, H, KVH, hd), causals, cap, key in shapes:
         for causal in causals:
             for dtype in (torch.bfloat16, torch.float32):
@@ -666,10 +754,13 @@ def kernel_flash_attention(gen) -> dict:
                     f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                     f"{nbytes / 1e6:.1f} MB); kernel "
                     f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s{cap_text}")
-                if key == "" or not causal or dtype != torch.bfloat16:
+                if key == "" or causal != causals[0] \
+                        or dtype != torch.bfloat16:
                     continue
                 fig = dict(shape=f"q [{B}, {Sq}, {H}, {hd}], k/v [{B}, "
-                                 f"{Sk}, {KVH}, {hd}] causal bfloat16"
+                                 f"{Sk}, {KVH}, {hd}] "
+                                 f"{'causal' if causal else 'non-causal'} "
+                                 f"bfloat16"
                                  + (f", logit_cap {cap:g}" if cap else ""),
                            grid=grid,
                            max_abs_err=err, ms=dev["kernel"],
@@ -677,28 +768,31 @@ def kernel_flash_attention(gen) -> dict:
                            bound_ms=bound, bound_by=by,
                            library_ms=dev.get("sdpa"))
                 if key is None:                         # the train path
-                    row = dict(name="flash_attention", route="cuda",
-                               source="src/repro_torch/csrc/flash_attention.cu",
-                               replaces="src/repro/kernels/flash_attention.py:96",
-                               **fig)
+                    row.update(fig)
                 else:
                     row[key] = fig
     return row
 
 
-def kernel_ssd_chunk(gen) -> dict:
+SSD_TRAIN_SHAPE = (TRAIN_BATCH * TRAIN_SEQ // 256, 256, 64, 64, 128)
+# zamba2-1.2b's train shape: mamba2's but d_state 64
+SSD_ZAMBA2_SHAPE = SSD_TRAIN_SHAPE[:4] + (64,)
+SSD_SHAPES = (SSD_TRAIN_SHAPE, (1, 64, 8, 32, 32), (2, 128, 16, 64, 64),
+              (1, 256, 8, 64, 128), (2, 1000, 8, 64, 128), SSD_ZAMBA2_SHAPE)
+
+
+def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
     """ssd_chunk against its plain version at the mamba2 train path's
     shape (x [B*nc, Q, nh, hp] = [32, 256, 64, 64], ds 128), the three
     shapes of tests/test_kernels.py:136-139 and a ragged one-chunk
-    sequence (Q = 1000), each with dt in f32 (as the model feeds it) and
-    in x's dtype (as tests/test_kernels.py feeds it)."""
+    sequence (Q = 1000), and zamba2-1.2b's train shape (ds 64), each with
+    dt in f32 (as the model feeds it) and in x's dtype (as
+    tests/test_kernels.py feeds it)."""
     from repro_torch.kernels.ssd_scan import (ssd_chunk, ssd_chunk_plain,
                                               ssd_grid, ssd_head_block)
-    B = TRAIN_BATCH * TRAIN_SEQ // 256
-    train_shape = (B, 256, 64, 64, 128)
-    shapes = (train_shape, (1, 64, 8, 32, 32), (2, 128, 16, 64, 64),
-              (1, 256, 8, 64, 128), (2, 1000, 8, 64, 128))
-    row = None
+    row = dict(name="ssd_chunk", route="cuda",
+               source="src/repro_torch/csrc/ssd_chunk.cu",
+               replaces="src/repro/kernels/ssd_scan.py:79")
     for shape in shapes:
         Bc, Q, nh, hp, ds = shape
         for dtype, dt_dtype in ((torch.bfloat16, torch.float32),
@@ -726,7 +820,8 @@ def kernel_ssd_chunk(gen) -> dict:
                      f"y {err:.3e} (atol/rtol {TOLS[dtype]['atol']}), states "
                      f"{st_err:.3e} ({tol['states']}), decay {dec_err:.3e} "
                      f"({tol['decay']})")
-            timed = (shape == train_shape and dt_dtype == torch.float32) or \
+            timed = (shape in (SSD_TRAIN_SHAPE, SSD_ZAMBA2_SHAPE)
+                     and dt_dtype == torch.float32) or \
                 (Q == 1000 and dtype == torch.bfloat16
                  and dt_dtype == torch.float32)
             if not timed:
@@ -771,16 +866,18 @@ def kernel_ssd_chunk(gen) -> dict:
                 f"per call {fmt(paced)}; bound {bound:.6f} ms ({by}: "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); no single "
                 f"PyTorch call computes it")
-            if shape == train_shape and dtype == torch.bfloat16:
-                row = dict(name="ssd_chunk", route="cuda",
-                           source="src/repro_torch/csrc/ssd_chunk.cu",
-                           replaces="src/repro/kernels/ssd_scan.py:79",
-                           shape=f"x [{Bc}, {Q}, {nh}, {hp}] bfloat16, b/c "
+            if shape in (SSD_TRAIN_SHAPE, SSD_ZAMBA2_SHAPE) \
+                    and dtype == torch.bfloat16:
+                fig = dict(shape=f"x [{Bc}, {Q}, {nh}, {hp}] bfloat16, b/c "
                                  f"[{Bc}, {Q}, {ds}], dt float32",
                            grid=grid, launch_split_ms=split,
                            max_abs_err=err, ms=dev["kernel"],
                            plain_ms=dev["plain"], ms_source=source,
                            bound_ms=bound, bound_by=by, library_ms=None)
+                if shape == SSD_TRAIN_SHAPE:
+                    row.update(fig)
+                else:
+                    row["train_zamba2_shape"] = fig
     return row
 
 
@@ -797,7 +894,9 @@ SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
               GRANITE: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
                         MAX_SEQ),
               GROK: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
-                     MAX_SEQ)}
+                     MAX_SEQ),
+              ZAMBA: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
+                      MAX_SEQ)}
 
 
 def full_width(cfg) -> tuple:
@@ -805,6 +904,17 @@ def full_width(cfg) -> tuple:
         return (cfg.num_layers, cfg.d_model, cfg.ssm.d_state,
                 cfg.ssm.head_dim, cfg.ssm.expand, cfg.ssm.chunk_size,
                 cfg.vocab_size, cfg.tie_embeddings)
+    if cfg.family == "hybrid":
+        return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
+                cfg.tie_embeddings, cfg.ssm.d_state, cfg.ssm.head_dim,
+                cfg.ssm.expand, cfg.ssm.chunk_size, cfg.shared_attn_every,
+                cfg.shared_attn_lora_rank)
+    if cfg.family == "audio":
+        return (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.resolved_head_dim(), cfg.d_ff, cfg.vocab_size,
+                cfg.tie_embeddings, cfg.num_encoder_layers,
+                cfg.encoder_frames)
     moe = () if cfg.moe is None else (cfg.moe.num_experts, cfg.moe.top_k,
                                       cfg.moe.expert_d_ff,
                                       cfg.moe.group_size)
@@ -820,7 +930,13 @@ FULL_WIDTH = {ARCH: (24, 896, 14, 2, 64, 4864, 151936, True, 0.0),
               GRANITE: (32, GRANITE_D, 24, 8, 64, 512, 49155, True, 0.0,
                         40, 8, 512, 512),
               GROK: (64, GROK_D, 48, 8, 128, 32768, 131072, False, LOGIT_CAP,
-                     8, 2, 32768, 1024)}
+                     8, 2, 32768, 1024),
+              ZAMBA: (38, ZAMBA_D, 32, 32, 64, 8192, 32000, True, 64, 64, 2,
+                      256, 6, 128),
+              WHISPER: (4, WHISPER_D, 6, 6, 64, 1536, 51865, True, 4,
+                        WHISPER_FRAMES),
+              PIXTRAL: (40, PIXTRAL_D, 32, 8, 128, 14336, 131072, False,
+                        0.0)}
 
 
 def serve(workers: int, arch: str = ARCH, extra: tuple = (),
@@ -854,10 +970,15 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
     calls = report.steps + report.prefill_calls
     NL = cfg.num_layers
     # under no_grad the training kernels must not launch at all; the ssm
-    # family has one block norm a layer and no attention
+    # family has one block norm a layer and no attention; the hybrid one
+    # besides two norms and one attention at each of its sites
     want = dict.fromkeys(launches, 0)
     if cfg.family == "ssm":
         want["rmsnorm_fwd"] = calls * (NL + 1)
+    elif cfg.family == "hybrid":
+        sites = NL // cfg.shared_attn_every
+        want.update(rmsnorm_fwd=calls * (NL + 2 * sites + 1),
+                    flash_decode=calls * sites)
     else:
         want.update(rmsnorm_fwd=calls * (2 * NL + 1),
                     flash_decode=calls * NL)
@@ -878,7 +999,8 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
     if full_width(cfg) != (depth,) + FULL_WIDTH[arch][1:]:
         raise AssertionError(f"not the full {arch} width: {cfg}")
     lat = report.latency
-    pool = sum(t.numel() * t.element_size() for t in srv.slots.cache.values())
+    pool = sum(t.numel() * t.element_size()
+               for _, t in tree_leaves(srv.slots.cache))
     pool_text = f"pool {pool / 2**20:.1f} MiB"
     if cfg.kv_cache_dtype == "int8":
         spec = transformer.paged_cache_spec(
@@ -1104,6 +1226,10 @@ def train_time_breakdown(report, steps: int = 3) -> None:
     batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
              SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
              .sample().items()}
+    if cfg.is_encoder_decoder:              # as the train launcher feeds it
+        batch["encoder_embeds"] = torch.ones(
+            TRAIN_BATCH, cfg.encoder_frames, cfg.d_model,
+            dtype=torch.bfloat16, device="cuda")
     step_breakdown(cfg, step, {"p": tr.params, "o": tr.opt_state}, batch,
                    steps)
 
@@ -1132,7 +1258,7 @@ def step_breakdown(cfg, step, state, batch, steps: int, warm: bool = True):
 # phase 5: full-width f32 decode, card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
 
-def reference_check(arch: str = ARCH, **over) -> None:
+def reference_check(arch: str = ARCH, prep=None, **over) -> None:
     """f32 paged decode steps at ``arch``'s full width (``over``: fewer
     layers, int8 K/V) on the card and on the CPU from the same weights:
     logits within atol/rtol 1e-3 and the same greedy tokens.  With int8
@@ -1147,6 +1273,8 @@ def reference_check(arch: str = ARCH, **over) -> None:
     cfg = get_config(arch).with_overrides(dtype="float32", **over)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = registry.init_params(cfg, gen)
+    if prep is not None:
+        params = prep(params)
     cpu_params = tree_map(lambda t: t.cpu(), params)
     B, nb = LANES, 4
     tables = (1 + torch.arange(B * nb, dtype=torch.int32)).reshape(B, nb)
@@ -1220,10 +1348,18 @@ def leaf_errors(label, names, got, want, limit, spacing=None) -> list[float]:
     return out
 
 
-def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128) -> None:
+def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128, over=None,
+                          extra=None, prep=None, zero=()) -> None:
     """One f32 train step of a two-layer ``arch`` at full width (B=2,
-    S=``seq``) on the card (kernels) and on the CPU (plain versions), from
-    the same weights and batch.  Both sides are f32 with TF32 off: only the
+    S=``seq``; ``over`` other config fields, ``extra(rs, cfg)`` more numpy
+    inputs of the batch, ``prep(params)`` the weights made otherwise) on
+    the card (kernels) and on the CPU (plain versions), from the same
+    weights and batch.  Leaves whose last key is in ``zero`` have a
+    gradient of zero in exact arithmetic (a key bias: softmax does not
+    move when one constant is added to every score of a query), so each
+    side's is only the rounding of its sums: they are held to
+    max|g| <= 1e-6 of the step's largest gradient entry on both sides,
+    not to each other.  Both sides are f32 with TF32 off: only the
     order of the sums differs (cuBLAS and the kernels' tiles against the
     CPU's).  Each stage is held to its own inputs, with a limit scaled to
     each leaf, since a typical gradient entry (~1e-3) is smaller than any
@@ -1252,17 +1388,23 @@ def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128) -> None:
     from repro_torch.models.layers import (tree_from_leaves, tree_leaves,
                                            tree_map)
     from repro_torch.train import optimizer as opt_mod
-    cfg = get_config(arch).with_overrides(num_layers=2, dtype="float32")
+    cfg = get_config(arch).with_overrides(
+        **{"num_layers": 2, "dtype": "float32", **(over or {})})
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = {"cuda": registry.init_params(cfg, gen)}
+    if prep is not None:
+        params["cuda"] = prep(params["cuda"])
     params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
     names = [p for p, _ in tree_leaves(params["cpu"])]
     rs = np.random.RandomState(4)
     toks = rs.randint(0, cfg.vocab_size, size=(2, seq + 1)).astype(np.int32)
+    more = extra(rs, cfg) if extra is not None else {}
     loss, grads, batch = {}, {}, {}
     for dev in ("cuda", "cpu"):
         batch[dev] = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
-                      "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+                      "labels": torch.from_numpy(toks[:, 1:]).to(dev),
+                      **{k: torch.from_numpy(v).to(dev)
+                         for k, v in more.items()}}
         leaves = [t.requires_grad_() for _, t in tree_leaves(params[dev])]
         out, _ = registry.loss_fn(params[dev], cfg, batch[dev])
         grads[dev] = torch.autograd.grad(out, leaves)
@@ -1292,13 +1434,31 @@ def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128) -> None:
     la, lb = loss["cuda"], loss["cpu"]
     if not math.isfinite(la) or not abs(la - lb) <= 1e-5 * abs(lb):
         raise AssertionError(f"card loss {la} vs CPU loss {lb}")
-    g_err = leaf_errors("gradient", names,
-                        [g.cpu() for g in grads["cuda"]], grads["cpu"], 1e-4)
+    held = [i for i, n in enumerate(names) if n[-1] not in zero]
+    top = max(float(g.abs().max()) for g in grads["cpu"])
+    zero_worst = 0.0
+    for i in set(range(len(names))) - set(held):
+        worst = max(float(grads["cuda"][i].abs().max()),
+                    float(grads["cpu"][i].abs().max()))
+        if not worst <= 1e-6 * top:
+            raise AssertionError(f"gradient {'/'.join(names[i])}: zero in "
+                                 f"exact arithmetic, max |g| {worst:.3e} > "
+                                 f"1e-6 of {top:.3e}")
+        zero_worst = max(zero_worst, worst / top)
+    g_err = dict(zip(held, leaf_errors(
+        "gradient", [names[i] for i in held],
+        [grads["cuda"][i].cpu() for i in held],
+        [grads["cpu"][i] for i in held], 1e-4)))
     u_worst = max(leaf_errors("AdamW update", names, update["cuda"],
                               update["cpu"], 1e-4, spacing))
-    top3 = sorted(range(len(names)), key=lambda i: -g_err[i])[:3]
-    log(f"check: full-width two-layer {arch} f32 train step, card kernels "
-        f"vs CPU plain versions (B=2, S={seq}): loss {la:.7f} vs {lb:.7f} (rel err "
+    top3 = sorted(held, key=lambda i: -g_err[i])[:3]
+    zero_text = (f"; {len(names) - len(held)} key-bias leaves (zero in exact "
+                 f"arithmetic): max |g| {zero_worst:.3e} of the largest "
+                 f"gradient entry (limit 1e-6)" if zero else "")
+    log(f"check: full-width {cfg.num_layers}-layer {arch} f32 train step, "
+        f"card kernels vs CPU plain versions (B=2, S={seq}"
+        + "".join(f", {k} {list(v.shape)}" for k, v in more.items())
+        + f"): loss {la:.7f} vs {lb:.7f} (rel err "
         f"{abs(la - lb) / abs(lb):.3e}, limit 1e-5); worst leaf of "
         f"{len(names)}, max abs err over the leaf's largest entry: "
         f"gradients {g_err[top3[0]]:.3e} (limit 1e-4), AdamW update from the "
@@ -1307,7 +1467,7 @@ def train_reference_check(arch: str = TRAIN_ARCH, seq: int = 128) -> None:
         f"{gnorm['cpu']:.6f}); worst gradient leaves, card vs CPU (noise: "
         f"card vs card, every weight moved by one f32 ulp): "
         + "; ".join(f"{'/'.join(names[i])} {g_err[i]:.3e} (noise "
-                    f"{noise[i]:.3e})" for i in top3))
+                    f"{noise[i]:.3e})" for i in top3) + zero_text)
 
 
 def mamba_decode_check(steps: int = 4) -> None:
@@ -1373,7 +1533,7 @@ def mamba_decode_check(steps: int = 4) -> None:
 # checkpoint policies, and the event classes on the card
 # ---------------------------------------------------------------------------
 
-def decode_paths_check(srv, steps: int = 16) -> None:
+def decode_paths_check(srv, steps: int = 16, kvs=("bf16", "int8")) -> None:
     """The slot path (``decode_step``, max_seq the paged view's length)
     against the paged path, on the served engine's bf16 weights, with bf16
     and int8 K/V: the same tokens at the same positions (lanes at
@@ -1389,7 +1549,7 @@ def decode_paths_check(srv, steps: int = 16) -> None:
     toks = rs.randint(0, srv.cfg.vocab_size, size=(steps, LANES, 1))
     start = rs.randint(0, min(64, nb * BLOCK - steps), size=LANES)
     texts = []
-    for kv in ("bf16", "int8"):
+    for kv in kvs:
         cfg = srv.cfg.with_overrides(kv_cache_dtype=kv)
         slot = registry.init_cache(cfg, LANES, nb * BLOCK, "cuda")
         pool = registry.init_paged_cache(cfg, LANES, 1 + LANES * nb, BLOCK,
@@ -3263,13 +3423,320 @@ def moe_phase() -> dict:
     time_breakdown(srv)
     del srv, report
     free()
-    runs["train_granite"], report = train(workers=0, arch=GRANITE)
+    runs["train_granite"], report = train(workers=0, arch=GRANITE,
+                                          layers=GRANITE_TRAIN_LAYERS)
     train_time_breakdown(report, steps=1)
     del report
     free()
     expert_parallel_phase()
     free()
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the last three families (zamba2-1.2b, whisper-tiny, pixtral-12b)
+# ---------------------------------------------------------------------------
+
+def lora_nonzero(params):
+    """zamba2's per-site LoRA b factors (zeros at init, where the deltas
+    vanish) drawn from a seed, in place, for the card-vs-CPU checks."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for k, v in params["site_lora"].items():
+        if k.endswith("_b"):
+            v.copy_(0.02 * torch.randn(v.shape, generator=gen, device="cuda"))
+    return params
+
+
+def whisper_frames(B: int, frames: int, d: int, device, seed: int = 12):
+    """Seeded stand-ins for the stub audio frontend's frame embeddings."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(B, frames, d, generator=gen, device=device)
+
+
+def whisper_cache(params, cfg, frames, max_seq):
+    """A slot cache whose cross K/V hold the encoder's: ``encode`` over the
+    frames, then ``_enc_kv`` of each decoder layer, stacked (the JAX
+    ``init_cache`` leaves them zero and no JAX function fills them)."""
+    from repro_torch.models import encdec, registry
+    from repro_torch.models.layers import unstack_layers
+    cache = registry.init_cache(cfg, frames.shape[0], max_seq, frames.device)
+    enc = encdec.encode(params, cfg, frames)
+    for li, lp in enumerate(unstack_layers(params["decoder"])):
+        k, v = encdec._enc_kv(cfg, lp, enc)
+        cache["xk"][li].copy_(k)
+        cache["xv"][li].copy_(v)
+    return cache
+
+
+def whisper_decode(steps: int = WHISPER_NEW) -> dict:
+    """whisper-tiny at full width (bf16 weights) decoded on the slot cache,
+    8 lanes: the encoder over seeded frame embeddings [8, 1500, 384], the
+    cross K/V filled per layer, then ``steps`` greedy tokens through
+    ``registry.decode_step``, the launch counts set to 0 just before the
+    decode and read just after: 2 flash_decode a layer a call (self over
+    the written positions, cross over all 1500 frames), nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import registry
+    cfg = get_config(WHISPER)
+    if full_width(cfg) != FULL_WIDTH[WHISPER]:
+        raise AssertionError(f"not the full {WHISPER} width: {cfg}")
+    params = registry.cast_params(cfg, registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))
+    frames = whisper_frames(LANES, cfg.encoder_frames, cfg.d_model, "cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cache = whisper_cache(params, cfg, frames, WHISPER_MAX_SEQ)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        toks = torch.full((LANES, 1), 50257, dtype=torch.int32,
+                          device="cuda")        # whisper's <|startoftranscript|>
+        pos = torch.zeros(LANES, dtype=torch.int32, device="cuda")
+        out = []
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = registry.decode_step(params, cfg, cache, toks, pos)
+            toks = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out.append(toks)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        launches = dict(_lib.launches)
+    want = dict.fromkeys(launches, 0)
+    want["flash_decode"] = steps * 2 * cfg.num_layers
+    log(f"whisper decode launches {launches}, expected {want} for {steps} "
+        f"calls ({2 * cfg.num_layers} flash_decode a call)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not torch.isfinite(logits).all() or logits.shape != (
+            LANES, 1, cfg.vocab_size):
+        raise AssertionError(f"bad whisper logits {tuple(logits.shape)}")
+    tokens = torch.cat(out, 1).cpu()
+    log(f"whisper {WHISPER} decode (bf16, {LANES} lanes, cross K/V of "
+        f"{cfg.encoder_frames} frames, self K/V of {WHISPER_MAX_SEQ} "
+        f"positions): encoder and cross K/V {enc_ms:.3f} ms; {steps} greedy "
+        f"tokens a lane at {wall:.3f} ms a call (host wall), "
+        f"{LANES * 1e3 / wall:.1f} tokens/s; lane 0's first tokens "
+        f"{tokens[0, :8].tolist()}")
+    return launches
+
+
+def train_pixtral() -> dict:
+    """pixtral-12b at full widths and ``PIXTRAL_LAYERS`` of its 40 layers
+    through ``make_train_step``: ``PIXTRAL_PATCHES`` vision embeddings
+    (seeded, bf16) before 1024 text tokens, batch 2, the vocab-chunked
+    loss over the text positions, "full" remat, ``PIXTRAL_STEPS`` steps.
+    At step 0 the chunked loss must equal the plain one (|a - b| <= 1e-4
+    |b|, as phase 4's qwen2.5-3b).  Not the Trainer: the checkpoint of
+    the last step would be ~39 GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    cfg = get_config(PIXTRAL).with_overrides(num_layers=PIXTRAL_LAYERS,
+                                             loss_impl="chunked_vocab")
+    if full_width(cfg) != (PIXTRAL_LAYERS,) + FULL_WIDTH[PIXTRAL][1:] or (
+            cfg.dtype, cfg.param_dtype, cfg.remat_policy) != (
+            "bfloat16", "float32", "full"):
+        raise AssertionError(f"not the full {PIXTRAL} width: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt_state = opt_mod.init(params)
+    src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, PIXTRAL_BATCH, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    batches = []
+    for _ in range(PIXTRAL_STEPS):
+        b = {k: torch.from_numpy(v.copy()).cuda()
+             for k, v in src.sample().items()}
+        b["vision_embeds"] = torch.randn(
+            PIXTRAL_BATCH, PIXTRAL_PATCHES, cfg.d_model, generator=gen,
+            device="cuda").to(torch.bfloat16)
+        batches.append(b)
+    with torch.no_grad():
+        chunked = float(registry.loss_fn(params, cfg, batches[0])[0])
+        plain = float(registry.loss_fn(
+            params, cfg.with_overrides(loss_impl="plain"), batches[0])[0])
+    if not math.isfinite(chunked) or abs(chunked - plain) > 1e-4 * abs(plain):
+        raise AssertionError(f"chunked loss {chunked} vs plain {plain}")
+    step = train_mod.make_train_step(cfg, opt_mod.AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=10))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    times, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_mod.kernel_launches_per_step(cfg)
+    want = {k: v * PIXTRAL_STEPS for k, v in per_step.items()}
+    log(f"train {PIXTRAL} launches {launches}, expected {want} ({per_step} "
+        f"per step x {PIXTRAL_STEPS} steps)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad loss trajectory {losses}")
+    mean_s = sum(times[1:]) / len(times[1:])
+    S = PIXTRAL_PATCHES + TRAIN_SEQ
+    tokens = PIXTRAL_BATCH * S
+    flops = registry.model_flops(cfg, tokens, training=True, seq_len=S)
+    log(f"train {PIXTRAL} ({PIXTRAL_LAYERS} of 40 layers, "
+        f"{registry.param_count(cfg) / 1e9:.3f} B params, {PIXTRAL_BATCH} x "
+        f"({PIXTRAL_PATCHES} vision + {TRAIN_SEQ} text) positions, "
+        f"chunked_vocab loss over the text, remat full): step-0 loss "
+        f"chunked {chunked:.7f} vs plain {plain:.7f} (rel diff "
+        f"{abs(chunked - plain) / abs(plain):.3e}, limit 1e-4); losses "
+        f"{[round(x, 6) for x in losses]}; mean step {mean_s * 1e3:.3f} ms "
+        f"(steps 1-{PIXTRAL_STEPS - 1}; step 0 {times[0] * 1e3:.3f} ms), "
+        f"model {flops / mean_s / 1e12:.2f} TFLOP/s ({flops / 1e12:.2f} "
+        f"TFLOP a step by registry.model_flops); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    step_breakdown(cfg, step, {"p": params, "o": opt_state}, batches[0], 1,
+                   warm=False)
+    return launches
+
+
+def whisper_reference_check(steps: int = 4) -> None:
+    """Four f32 decode steps of whisper-tiny at full width and 2 encoder
+    and 2 decoder layers, 8 lanes, on the card (kernels) and on the CPU
+    (plain versions), from the same weights, frames [8, 1500, 384] and
+    tokens, the cross K/V filled as ``whisper_decode`` fills them: the
+    cross K/V held per leaf to max|a - b| <= 1e-4 max|b|, the logits as
+    the dense decode check holds them (atol/rtol 1e-3, greedy tokens
+    equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_map
+    cfg = get_config(WHISPER).with_overrides(
+        num_layers=2, num_encoder_layers=2, dtype="float32")
+    params = {"cuda": registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1))}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    frames = whisper_frames(LANES, cfg.encoder_frames, cfg.d_model, "cuda")
+    with torch.no_grad():
+        caches = {dev: whisper_cache(params[dev], cfg, frames.to(dev), 64)
+                  for dev in ("cuda", "cpu")}
+    x_err = max(leaf_errors("whisper cross K/V", [("xk",), ("xv",)],
+                            [caches["cuda"][k].cpu() for k in ("xk", "xv")],
+                            [caches["cpu"][k] for k in ("xk", "xv")], 1e-4))
+    rs = np.random.RandomState(8)
+    pos = rs.randint(0, 8, size=LANES).astype(np.int32)
+    worst = 0.0
+    for step in range(steps):
+        toks = torch.from_numpy(
+            rs.randint(0, cfg.vocab_size, size=(LANES, 1)).astype(np.int32))
+        p = torch.from_numpy(pos)
+        with torch.no_grad():
+            got, caches["cuda"] = registry.decode_step(
+                params["cuda"], cfg, caches["cuda"], toks.cuda(), p.cuda())
+            want, caches["cpu"] = registry.decode_step(
+                params["cpu"], cfg, caches["cpu"], toks, p)
+        got = got.cpu()
+        err = (got - want).abs()
+        if not torch.isfinite(got).all() or \
+                (err > 1e-3 + 1e-3 * want.abs()).any():
+            raise AssertionError(f"card vs CPU whisper logits differ: max abs "
+                                 f"err {float(err.max()):.3e}")
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError("card vs CPU whisper greedy tokens differ")
+        worst = max(worst, float(err.max()))
+        pos = pos + 1
+    log(f"check: full-width whisper-tiny f32 decode (2+2 layers, cross K/V "
+        f"of {cfg.encoder_frames} frames), card kernels vs CPU plain "
+        f"versions, {steps} steps x {LANES} lanes: cross K/V {x_err:.3e} of "
+        f"the leaf's largest entry (limit 1e-4); max abs logit err "
+        f"{worst:.3e} (atol/rtol 1e-3), greedy tokens equal")
+
+
+def pixtral_reference_check(patches: int = 64, text: int = 64) -> None:
+    """The f32 loss of pixtral-12b at full widths and 2 layers with
+    ``patches`` vision embeddings before ``text`` tokens (B=2), on the
+    card and on the CPU from the same weights and inputs, the plain and
+    the chunked loss each: |a - b| <= 1e-5 |b|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_map
+    cfg = get_config(PIXTRAL).with_overrides(num_layers=2, dtype="float32")
+    params = {"cuda": registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1))}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    rs = np.random.RandomState(9)
+    toks = rs.randint(0, cfg.vocab_size, size=(2, text + 1)).astype(np.int32)
+    vis = rs.randn(2, patches, cfg.d_model).astype(np.float32)
+    texts = []
+    for impl in ("plain", "chunked_vocab"):
+        c = cfg.with_overrides(loss_impl=impl)
+        loss = {}
+        for dev in ("cuda", "cpu"):
+            batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                     "labels": torch.from_numpy(toks[:, 1:]).to(dev),
+                     "vision_embeds": torch.from_numpy(vis).to(dev)}
+            with torch.no_grad():
+                loss[dev] = float(registry.loss_fn(params[dev], c, batch)[0])
+        a, b = loss["cuda"], loss["cpu"]
+        if not math.isfinite(a) or abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"pixtral {impl} loss card {a} vs CPU {b}")
+        texts.append(f"{impl} {a:.7f} vs {b:.7f} (rel err "
+                     f"{abs(a - b) / abs(b):.3e})")
+    log(f"check: full-width two-layer pixtral-12b f32 loss with {patches} "
+        f"vision embeddings before {text} text tokens, card kernels vs CPU "
+        f"plain versions (limit 1e-5 rel): " + "; ".join(texts))
+
+
+def families_phase() -> dict:
+    """Phase 13, each path with the launch counts set to 0 just before it
+    and read just after: zamba2-1.2b served at full width (its fused call
+    timed, the slot cache against the paged pool) and trained through
+    the train launcher (the checkpoint restored equal); whisper-tiny
+    trained through the train launcher (encoder embeddings as the JAX
+    launcher feeds them) and decoded on the slot cache; pixtral-12b
+    trained at ``PIXTRAL_LAYERS`` of its 40 layers with vision
+    embeddings."""
+    runs = {}
+    runs["serve_zamba2"], srv, report = serve(workers=0, arch=ZAMBA)
+    time_breakdown(srv)
+    decode_paths_check(srv, kvs=("bf16",))
+    del srv, report
+    free()
+    runs["train_zamba2"], report = train(workers=0, arch=ZAMBA)
+    train_time_breakdown(report, steps=1)
+    del report
+    free()
+    runs["train_whisper"], report = train(workers=0, arch=WHISPER)
+    train_time_breakdown(report, steps=1)
+    del report
+    free()
+    runs["serve_whisper"] = whisper_decode()
+    free()
+    runs["train_pixtral"] = train_pixtral()
+    free()
+    return runs
+
+
+def families_reference_checks() -> None:
+    """Phase 13's card-vs-CPU checks in f32 at full widths: zamba2 at one
+    group of 2 layers and a tail of 1 (LoRA b nonzero; decode logits, and
+    one train step's loss, every gradient and the AdamW update), whisper
+    at 2 + 2 layers (decode with the cross K/V filled, and one train
+    step), pixtral at 2 layers (the loss with vision embeddings)."""
+    zamba_small = dict(num_layers=3, shared_attn_every=2)
+    reference_check(ZAMBA, prep=lora_nonzero, **zamba_small)
+    train_reference_check(ZAMBA, over=zamba_small, prep=lora_nonzero)
+    whisper_reference_check()
+    train_reference_check(
+        WHISPER, over=dict(num_encoder_layers=2), zero=("bk",),
+        extra=lambda rs, cfg: {"encoder_embeds": rs.randn(
+            2, cfg.encoder_frames, cfg.d_model).astype(np.float32)})
+    pixtral_reference_check()
 
 
 def free() -> None:
@@ -3292,12 +3759,14 @@ def main(argv: list) -> int:
               file=sys.stderr)
         return 2
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
-                    ["--only", "moe"]):
+                    ["--only", "moe"], ["--only", "families"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
               f"caller-driven qwen2-0.5b run and phase 11; --only moe the "
-              f"attention kernels and phase 12)", file=sys.stderr)
+              f"attention kernels and phase 12; --only families the kernels "
+              f"at the last three families' shapes and phase 13)",
+              file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3316,6 +3785,24 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "families"]:
+        # a partial run (the kernels at the new shapes and phase 13); it
+        # prints no result line
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kernel_rmsnorm(gen, RMSNORM_SHAPES[-1:])
+        kernel_rmsnorm_bwd(gen, RMSNORM_BWD_SHAPES[-1:])
+        kernel_flash_decode(gen, DECODE_CASES[-3:])
+        kernel_flash_attention(gen, FAMILY_ATTENTION_SHAPES)
+        kernel_ssd_chunk(gen, (SSD_ZAMBA2_SHAPE,))
+        log(f"kernels at the new shapes done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        launches = families_phase()
+        log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
+        families_reference_checks()
+        log(f"partial run: launches of the families' runs {launches}; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "moe"]:
         # a partial run (the attention kernels, capped too, and phase 12);
         # it prints no result line
@@ -3432,25 +3919,24 @@ def main(argv: list) -> int:
     log(f"remat phase done at {time.perf_counter() - t_start:.1f} s")
     runs.update(moe_phase())
     log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
+    runs.update(families_phase())
+    log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
     # path and summed: launches_serve and launches_train count every
-    # family, the *_mamba, *_qwen2_5_3b, *_granite and *_grok keys those
-    # runs alone, and launches_remat the checkpoint-policy runs
-    # (smollm-360m's five, and mamba2's "full" and "dots")
+    # family, the *_mamba, *_qwen2_5_3b, *_granite, *_grok, *_zamba2,
+    # *_whisper and *_pixtral keys those runs alone, and launches_remat
+    # the checkpoint-policy runs (smollm-360m's five, and mamba2's "full"
+    # and "dots")
+    serve_runs = ("serve_mamba", "serve_qwen2_5_3b", "serve_granite",
+                  "serve_grok", "serve_zamba2", "serve_whisper")
+    train_runs = ("train_mamba", "train_qwen2_5_3b", "train_granite",
+                  "train_zamba2", "train_whisper", "train_pixtral")
     for row in rows:
         n = {k: v[row["name"]] for k, v in runs.items()}
-        row["launches_serve"] = (n["serve"] + n["serve_mamba"]
-                                 + n["serve_qwen2_5_3b"] + n["serve_granite"]
-                                 + n["serve_grok"])
-        row["launches_serve_mamba"] = n["serve_mamba"]
-        row["launches_serve_qwen2_5_3b"] = n["serve_qwen2_5_3b"]
-        row["launches_serve_granite"] = n["serve_granite"]
-        row["launches_serve_grok"] = n["serve_grok"]
-        row["launches_train"] = (n["train"] + n["train_mamba"]
-                                 + n["train_qwen2_5_3b"] + n["train_granite"])
-        row["launches_train_mamba"] = n["train_mamba"]
-        row["launches_train_qwen2_5_3b"] = n["train_qwen2_5_3b"]
-        row["launches_train_granite"] = n["train_granite"]
+        row["launches_serve"] = n["serve"] + sum(n[k] for k in serve_runs)
+        row["launches_train"] = n["train"] + sum(n[k] for k in train_runs)
+        for k in serve_runs + train_runs:
+            row[f"launches_{k}"] = n[k]
         row["launches_remat"] = n["remat"]
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
@@ -3466,15 +3952,18 @@ def main(argv: list) -> int:
     train_reference_check(MAMBA, seq=512)   # two chunks of 256
     reference_check(GRANITE, num_layers=2)
     train_reference_check(GRANITE)
+    families_reference_checks()
     events_check()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_serve", "launches_serve_mamba",
             "launches_serve_qwen2_5_3b", "launches_serve_granite",
-            "launches_serve_grok", "launches_train",
+            "launches_serve_grok", "launches_serve_zamba2",
+            "launches_serve_whisper", "launches_train",
             "launches_train_mamba", "launches_train_qwen2_5_3b",
-            "launches_train_granite",
+            "launches_train_granite", "launches_train_zamba2",
+            "launches_train_whisper", "launches_train_pixtral",
             "launches_remat", "launches_train_dp", "launches_train_fsdp",
             "launches_serve_sharded",
             "shape", "grid", "launch_split_ms",
@@ -3483,7 +3972,10 @@ def main(argv: list) -> int:
             "train_shape", "serve_mamba_shape", "train_mamba_shape",
             "serve_qwen2_5_3b_shape", "train_qwen2_5_3b_shape",
             "serve_granite_shape", "train_granite_shape", "serve_grok_shape",
-            "train_grok_shape"]
+            "train_grok_shape", "serve_zamba2_shape", "train_zamba2_shape",
+            "serve_whisper_self_shape", "serve_whisper_cross_shape",
+            "train_whisper_encoder_shape", "train_whisper_self_shape",
+            "train_whisper_cross_shape", "train_pixtral_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -114,19 +114,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(arch: str, scale: str):
-    """``arch`` at ``scale``: the example scales shrink the experts and
-    the SSM too, as the JAX launchers do."""
+    """``arch`` at ``scale``: the example scales shrink the experts, the
+    SSM, the hybrid's grouping and the encoder too, as the JAX launchers
+    do."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     overrides = dict(SCALES[scale])
-    if overrides and cfg.moe:
+    if not overrides:
+        return cfg
+    if cfg.moe:
         overrides["moe"] = cfg.moe.__class__(
             num_experts=4, top_k=2, expert_d_ff=overrides["d_ff"] // 2,
             group_size=64)
-    if overrides and cfg.ssm:
+    if cfg.ssm:
         overrides["ssm"] = cfg.ssm.__class__(d_state=16, expand=2,
                                              head_dim=16, chunk_size=16)
-    return cfg.with_overrides(**overrides) if overrides else cfg
+    if cfg.shared_attn_every:
+        overrides.update(num_layers=5, shared_attn_every=2,
+                         shared_attn_lora_rank=8)
+    if cfg.is_encoder_decoder:
+        overrides.update(num_encoder_layers=2, encoder_frames=16,
+                         max_position_embeddings=256)
+    return cfg.with_overrides(**overrides)
 
 
 @dataclasses.dataclass

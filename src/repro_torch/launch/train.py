@@ -281,15 +281,33 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
     * ssm: one rmsnorm per layer plus the final norm and one ssd_chunk
       per layer (all chunks at once; its backward is the oracle's
       autograd); the gated per-head norm is inline, not the kernel.
-      Every policy but "none" recomputes the whole layer."""
+      Every policy but "none" recomputes the whole layer;
+    * hybrid: the ssm family's per mamba layer, and at each of the
+      n_groups sites the shared block's two rmsnorms and one attention.
+      Every policy but "none" recomputes the whole group (its k layers
+      and its site); the tail's layers and the final norm are never
+      recomputed;
+    * audio (whisper): LayerNorms, no rmsnorm; one attention per encoder
+      layer and two per decoder layer (self and cross), all recomputed
+      under every policy but "none"."""
     from repro_torch.kernels import _lib
     NL = cfg.num_layers
     policy = cfg.remat_policy
+    again = 0 if policy == "none" else 1
     per = dict.fromkeys(_lib.launches, 0)
     if cfg.family == "ssm":
-        again = 0 if policy == "none" else 1
         per.update(rmsnorm_fwd=(1 + again) * NL + 1, rmsnorm_bwd=NL + 1,
                    ssd_chunk=(1 + again) * NL)
+    elif cfg.family == "hybrid":
+        n_groups = NL // cfg.shared_attn_every
+        grouped = n_groups * cfg.shared_attn_every   # the layers of groups
+        norms = NL + 2 * n_groups + 1
+        per.update(rmsnorm_fwd=norms + again * (grouped + 2 * n_groups),
+                   rmsnorm_bwd=norms, ssd_chunk=NL + again * grouped,
+                   flash_attention=(1 + again) * n_groups)
+    elif cfg.family == "audio":
+        per.update(flash_attention=(1 + again)
+                   * (cfg.num_encoder_layers + 2 * NL))
     else:
         norms_again = policy in ("full", "dots", "subblock")
         attn_again = policy in ("full", "dots", "attn_only")
@@ -496,8 +514,13 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
 
     def to_host(b):
         # pinned host memory, so the step's copy to the card is async
-        return {k: torch.from_numpy(v.copy()).pin_memory() if pin
-                else torch.from_numpy(v.copy()) for k, v in b.items()}
+        b = {k: torch.from_numpy(v.copy()) for k, v in b.items()}
+        if cfg.is_encoder_decoder:
+            # the stub audio frontend's frames: ones, as the JAX launcher
+            b["encoder_embeds"] = torch.ones(
+                (args.global_batch, cfg.encoder_frames, cfg.d_model),
+                dtype=torch.bfloat16)
+        return {k: v.pin_memory() if pin else v for k, v in b.items()}
 
     def to_device(batch):
         return {k: v.to(device, non_blocking=True) for k, v in batch.items()}

@@ -1,5 +1,7 @@
 """Shared model building blocks (the JAX package's ``models/layers.py``:
-the dense blocks and the MoE layer, with its expert-parallel dispatch).
+the dense blocks with the hybrid family's per-site LoRA, the
+encoder-decoder family's LayerNorm, sinusoid and non-causal attention,
+and the MoE layer, with its expert-parallel dispatch).
 
 Conventions, as in the JAX package:
 
@@ -25,6 +27,7 @@ import math
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -205,6 +208,27 @@ def rmsnorm(x, scale, eps: float):
     return ops.rmsnorm(x, scale, eps)
 
 
+def layernorm(x, scale, bias, eps: float):
+    """LayerNorm over the last dim in f32 (population variance), the f32
+    scale and bias applied, cast back to x's dtype; plain tensor code, as
+    in the JAX package (no kernel computes it)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    """[length, dim] f32: sin of pos / 10000^(2i/dim) in the first half,
+    cos in the second (the encoder's positions)."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    return np.concatenate([np.sin(angle), np.cos(angle)],
+                          axis=-1).astype(np.float32)
+
+
 def rope(x, positions, theta: float):
     """Rotary embeddings. x: [..., S, H, hd]; positions: [..., S]."""
     hd = x.shape[-1]
@@ -269,6 +293,15 @@ def attention_dispatch(cfg, q, k, v, *, causal: bool = True):
                                logit_cap=cfg.logit_softcap)
 
 
+def attention(q, k, v, *, causal: bool, chunk: int = 1024):
+    """Attention without a config (the encoder-decoder family's): q
+    [B,Sq,H,hd], k/v [B,Sk,KVH,hd] through ``ops.flash_attention``.
+    ``chunk`` is the JAX scan's key chunk, which does not change the
+    function; non-causal attention takes any Sq and Sk."""
+    del chunk
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
 # ---------------------------------------------------------------------------
 # Decode attention
 # ---------------------------------------------------------------------------
@@ -304,7 +337,7 @@ def padded_heads(cfg) -> tuple[int, int]:
     return pad(H), pad(KVH)
 
 
-def attn_spec(cfg, layers: int | None = None):
+def attn_spec(cfg, layers: int | None = None, lora_rank: int = 0):
     D = cfg.d_model
     H, KVH = padded_heads(cfg)
     hd = cfg.resolved_head_dim()
@@ -320,15 +353,31 @@ def attn_spec(cfg, layers: int | None = None):
         spec["bq"] = PSpec(L + (H, hd), lax + ("heads", "head_dim"), init="zeros")
         spec["bk"] = PSpec(L + (KVH, hd), lax + ("kv_heads", "head_dim"), init="zeros")
         spec["bv"] = PSpec(L + (KVH, hd), lax + ("kv_heads", "head_dim"), init="zeros")
+    if lora_rank:
+        for nm, outd, outax in (("q", (H, hd), ("heads", "head_dim")),
+                                ("k", (KVH, hd), ("kv_heads", "head_dim")),
+                                ("v", (KVH, hd), ("kv_heads", "head_dim"))):
+            spec[f"lora_{nm}_a"] = PSpec(L + (D, lora_rank),
+                                         lax + ("embed", None), fan_in=D)
+            spec[f"lora_{nm}_b"] = PSpec(L + (lora_rank,) + outd,
+                                         lax + (None,) + outax, init="zeros")
     return spec
 
 
 def attn_qkv(p, x, positions, cfg, *, use_rope=True):
-    """Project to q, k, v (with optional bias) and apply RoPE."""
+    """Project to q, k, v (with the LoRA deltas ``lora_{q,k,v}_{a,b}``
+    where ``p`` has them, and optional bias) and apply RoPE.  The deltas
+    x·a·b are added before the bias and RoPE, as in the JAX package."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if "lora_q_a" in p:
+        q, k, v = (t + torch.einsum(
+            "bsr,rhk->bshk",
+            torch.einsum("bsd,dr->bsr", x, p[f"lora_{nm}_a"].to(dt)),
+            p[f"lora_{nm}_b"].to(dt)) for nm, t in (("q", q), ("k", k),
+                                                    ("v", v)))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)

@@ -1,24 +1,25 @@
 """Uniform model API across families (the entries the train and serve
 paths call) + analytical parameter/FLOP counts.
 
-The dense, moe and ssm families are ported, each with every entry
-below, the vocab-parallel ``unembed_partial`` of sharded serving
-included; the others (vlm, hybrid, audio) raise ``NotImplementedError``
-naming the family."""
+Every family of the JAX registry is ported: dense, moe and vlm (the
+transformer), ssm (mamba), hybrid and audio (the encoder-decoder).  An
+entry a family lacks raises as the JAX registry's does: the
+encoder-decoder has no ``decode_hidden`` and no paged decode."""
 from __future__ import annotations
 
 import math
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba, transformer
+from repro_torch.models import encdec, hybrid, mamba, transformer
 
-_MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": mamba, "hybrid": hybrid, "audio": encdec}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:
     if cfg.family not in _MODULES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        raise ValueError(cfg.family)
     return _MODULES[cfg.family]
 
 
@@ -37,7 +38,13 @@ def loss_fn(params, cfg, batch):
 
 
 def forward(params, cfg, batch):
-    return module_for(cfg).forward(params, cfg, batch["tokens"])
+    m = module_for(cfg)
+    if cfg.is_encoder_decoder:
+        return m.forward(params, cfg, batch["tokens"], batch["encoder_embeds"])
+    if cfg.frontend_stub == "vision" and "vision_embeds" in batch:
+        return m.forward(params, cfg, batch["tokens"],
+                         vision_embeds=batch["vision_embeds"])
+    return m.forward(params, cfg, batch["tokens"])
 
 
 # ---------------------------------------------------------------------------
@@ -46,15 +53,19 @@ def forward(params, cfg, batch):
 
 def decode_step(params, cfg, cache, tokens, pos, fed=None):
     """``fed`` [B] bool (optional): lanes not fed a real token this call
-    — the ssm family freezes their recurrent state; the dense family
-    ignores it (its KV writes are safe)."""
+    — the ssm and hybrid families freeze their recurrent state; the
+    attention-only families ignore it (their KV writes are safe)."""
     return module_for(cfg).decode_step(params, cfg, cache, tokens, pos, fed)
 
 
 def decode_hidden(params, cfg, cache, tokens, pos, fed=None):
-    """Decode up to the final norm (no unembed)."""
-    return module_for(cfg).decode_hidden(params, cfg, cache, tokens, pos,
-                                         fed)
+    """Decode up to the final norm (no unembed).  Raises for the
+    encoder-decoder family, whose decode step has its own unembed."""
+    m = module_for(cfg)
+    if not hasattr(m, "decode_hidden"):
+        raise NotImplementedError(
+            f"decode_hidden not supported for family {cfg.family!r}")
+    return m.decode_hidden(params, cfg, cache, tokens, pos, fed)
 
 
 def decode_step_q(qparams, cfg, cache, tokens, pos, fed=None):
@@ -77,10 +88,10 @@ def cache_shapes(cfg, batch, max_seq):
 
 
 def reset_cache_lane(cfg, cache, lane_index):
-    """Zero one lane's recurrent state in the slot cache (ssm family) — a
-    recycled slot must not leak its previous occupant's state.  No-op for
-    the dense family (KV rows are position-indexed and overwritten before
-    the mask exposes them)."""
+    """Zero one lane's recurrent state in the slot cache (ssm and hybrid
+    families) — a recycled slot must not leak its previous occupant's
+    state.  No-op for the attention-only families (KV rows are
+    position-indexed and overwritten before the mask exposes them)."""
     m = module_for(cfg)
     if hasattr(m, "reset_cache_lane"):
         return m.reset_cache_lane(cfg, cache, lane_index)
@@ -122,34 +133,63 @@ def non_embedding_param_count(cfg: ModelConfig,
                if "embed" not in path.split("/")[-1] and "lm_head" not in path)
 
 
+def _encoder_param_count(cfg: ModelConfig) -> int:
+    """Parameters of the encoder (the encoder-decoder family's)."""
+    return sum(math.prod(spec.shape)
+               for path, spec in _spec_leaves_with_path(cfg)
+               if path.startswith("encoder/") or "/encoder/" in path)
+
+
 def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,
                 include_attention: bool = True, seq_len: int = 0,
                 decode_cache_len: int = 0) -> float:
     """Canonical 6·N·D (train) / 2·N·D (inference), N the parameters a
-    token reaches (an MoE layer's top_k experts), + the kernel terms, as
-    the JAX package's ``registry.model_flops`` counts them for the dense,
-    moe and ssm families: attention 2·2·S²·H·hd per layer per sequence for
-    scores and values, halved by the causal mask, times 3 in training,
-    and for decode the cache length per produced token; SSD 2·Q·nh·hp
-    (intra-chunk) + 4·nh·hp·ds (state and output) per token per layer,
-    times 3 in training."""
-    flops = (6.0 if training else 2.0) * param_count(cfg, active_only=True) \
-        * tokens
-    if include_attention and cfg.ssm is not None and seq_len:
-        _, nh, hp, ds = mamba.dims(cfg)
-        per_tok = 2 * cfg.ssm.chunk_size * nh * hp + 4 * nh * hp * ds
-        flops += (3.0 if training else 1.0) * tokens * cfg.num_layers \
-            * per_tok
-    if include_attention and cfg.num_heads:
-        hd = cfg.resolved_head_dim()
-        if seq_len:
+    token reaches (an MoE layer's top_k experts; the encoder's run over
+    ``encoder_frames`` a sequence), + the kernel terms, as the JAX
+    package's ``registry.model_flops`` counts them: attention 2·2·S²·H·hd
+    per layer per sequence for scores and values, halved by the causal
+    mask (the encoder's and the cross-attention's are not), times 3 in
+    training, over the hybrid's attention sites only; for decode the
+    cache length per produced token; SSD 2·Q·nh·hp (intra-chunk) +
+    4·nh·hp·ds (state and output) per token per layer, times 3 in
+    training."""
+    n_active = param_count(cfg, active_only=True)
+    mult = 6.0 if training else 2.0
+    if cfg.is_encoder_decoder and seq_len:
+        # encoder params run over `encoder_frames` tokens, not seq_len
+        enc = _encoder_param_count(cfg)
+        batch = tokens / max(seq_len, 1)
+        flops = mult * ((n_active - enc) * tokens
+                        + enc * batch * cfg.encoder_frames)
+    else:
+        flops = mult * n_active * tokens
+    if include_attention:
+        hd = cfg.resolved_head_dim() if cfg.num_heads else 0
+        att_layers = cfg.num_layers + cfg.num_encoder_layers
+        if cfg.family == "hybrid":
+            att_layers = cfg.num_layers // max(cfg.shared_attn_every, 1)
+        if cfg.num_heads and seq_len:
             batch = tokens / max(seq_len, 1)
-            per_layer = 2 * 2 * seq_len * seq_len * cfg.num_heads * hd / 2
-            flops += (3.0 if training else 1.0) * batch * cfg.num_layers \
-                * per_layer
-        if decode_cache_len:
-            flops += tokens * cfg.num_layers * (
-                2 * 2 * decode_cache_len * cfg.num_heads * hd)
+            k = 3.0 if training else 1.0
+            if cfg.is_encoder_decoder:
+                F = cfg.encoder_frames
+                dec = (2 * 2 * seq_len * seq_len / 2      # causal self
+                       + 2 * 2 * seq_len * F)             # cross
+                enc = 2 * 2 * F * F
+                flops += k * batch * cfg.num_heads * hd * (
+                    cfg.num_layers * dec + cfg.num_encoder_layers * enc)
+            else:
+                per_layer = 2 * 2 * seq_len * seq_len * cfg.num_heads * hd / 2
+                flops += k * batch * att_layers * per_layer
+        if cfg.num_heads and decode_cache_len:
+            per_tok = 2 * 2 * decode_cache_len * cfg.num_heads * hd
+            flops += tokens * att_layers * per_tok
+        if cfg.ssm is not None and seq_len:
+            _, nh, hp, ds = mamba.dims(cfg)
+            Q = cfg.ssm.chunk_size
+            per_tok = 2 * Q * nh * hp + 4 * nh * hp * ds
+            flops += (3.0 if training else 1.0) * tokens * cfg.num_layers \
+                * per_tok
     return float(flops)
 
 
@@ -158,9 +198,8 @@ def model_flops(cfg: ModelConfig, tokens: int, *, training: bool,
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """True iff the family is ported and implements paged decode."""
-    return (cfg.family in _MODULES
-            and hasattr(module_for(cfg), "decode_step_paged"))
+    """True iff the family implements the paged decode entry points."""
+    return hasattr(module_for(cfg), "decode_step_paged")
 
 
 def paged_has_blocks(cfg: ModelConfig) -> bool:
@@ -169,8 +208,11 @@ def paged_has_blocks(cfg: ModelConfig) -> bool:
 
 
 def init_paged_cache(cfg, lanes, num_blocks, block_size, device):
-    return module_for(cfg).init_paged_cache(cfg, lanes, num_blocks,
-                                            block_size, device)
+    m = module_for(cfg)
+    if not hasattr(m, "init_paged_cache"):
+        raise NotImplementedError(
+            f"paged decode not supported for family {cfg.family!r}")
+    return m.init_paged_cache(cfg, lanes, num_blocks, block_size, device)
 
 
 def decode_step_paged(params, cfg, cache, tokens, pos, tables, fed=None):
@@ -179,8 +221,11 @@ def decode_step_paged(params, cfg, cache, tokens, pos, tables, fed=None):
 
 
 def decode_hidden_paged(params, cfg, cache, tokens, pos, tables, fed=None):
-    return module_for(cfg).decode_hidden_paged(params, cfg, cache, tokens,
-                                               pos, tables, fed)
+    m = module_for(cfg)
+    if not hasattr(m, "decode_hidden_paged"):
+        raise NotImplementedError(
+            f"decode_hidden_paged not supported for family {cfg.family!r}")
+    return m.decode_hidden_paged(params, cfg, cache, tokens, pos, tables, fed)
 
 
 def reset_paged_lane(cfg, cache, lane_index):
@@ -189,7 +234,8 @@ def reset_paged_lane(cfg, cache, lane_index):
 
 def unembed_partial(params, cfg, x, vocab_start, vocab_len):
     """Vocab-parallel unembed slice (see ``transformer.unembed_partial``);
-    every ported family unembeds through the transformer's table."""
+    every family with ``decode_hidden`` unembeds through the
+    transformer's table."""
     module_for(cfg)
     return transformer.unembed_partial(params, cfg, x, vocab_start,
                                        vocab_len)

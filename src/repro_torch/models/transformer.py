@@ -1,7 +1,9 @@
 """Decoder-only transformer LM, the dense GQA family (qwen2-0.5b,
-qwen2.5-3b, smollm-360m, llama3-405b) and the MoE family
-(granite-moe-3b-a800m, grok-1-314b): the JAX package's
-``models/transformer.py`` without its vision part — the training forward
+qwen2.5-3b, smollm-360m, llama3-405b), the MoE family
+(granite-moe-3b-a800m, grok-1-314b) and the vlm backbone (pixtral-12b,
+whose vision frontend is a stub: precomputed patch embeddings go in
+before the text): the JAX package's ``models/transformer.py`` — the
+training forward
 under every checkpoint policy with the MoE aux loss summed over the
 layers, the plain and the vocab-chunked loss, head padding, a logit cap
 in attention and on the logits, and decode on the slot cache and on the
@@ -26,11 +28,14 @@ from repro_torch.models import layers as L
 from repro_torch.sharding import shard_hint
 
 
+VISION_PATCHES = 1024  # the stub vision frontend: one 1024-patch image a sequence
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families are ported "
-            f"(family={cfg.family!r})")
+            f"{cfg.name}: the transformer takes the dense, moe and vlm "
+            f"families (family={cfg.family!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +92,14 @@ def cast_params(cfg: ModelConfig, params):
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens].to(L.torch_dtype(cfg.dtype))
+def embed_tokens(params, cfg: ModelConfig, tokens, vision_embeds=None):
+    """tokens [B, S] -> [B, S, D] in the compute dtype; ``vision_embeds``
+    [B, P, D] (the vlm stub's patches) go before the text: [B, P+S, D]."""
+    dt = L.torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(dt)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(dt), x], dim=1)
+    return x
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -196,12 +207,13 @@ def _layer_fwd_subblock(cfg: ModelConfig, x, lp, positions):
     return L.checkpoint(rest_fn, x, o, lp)
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens):
-    """tokens [B, S] -> (final normed hidden [B,S,D], aux loss): the MoE
-    layers' aux losses summed in layer order from an f32 zero, as the
-    JAX scan carries them; 0 for the dense family."""
+def forward_hidden(params, cfg: ModelConfig, tokens, vision_embeds=None):
+    """tokens [B, S_text] -> (final normed hidden [B,S,D], aux loss): the
+    MoE layers' aux losses summed in layer order from an f32 zero, as the
+    JAX scan carries them; 0 for the dense family.  With
+    ``vision_embeds`` [B, P, D], S = P + S_text."""
     _check_ported(cfg)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, vision_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = _remat(lambda x_, lp_: _layer_fwd(cfg, x_, lp_, positions), cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -212,9 +224,9 @@ def forward_hidden(params, cfg: ModelConfig, tokens):
     return L.rmsnorm(x, params["final_norm"], cfg.rms_norm_eps), aux
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """tokens [B, S] -> (logits [B, S, V] f32, aux loss)."""
-    x, aux = forward_hidden(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens, vision_embeds=None):
+    """tokens [B, S_text] -> (logits [B, S, V] f32, aux loss)."""
+    x, aux = forward_hidden(params, cfg, tokens, vision_embeds)
     return unembed(params, cfg, x), aux
 
 
@@ -224,11 +236,15 @@ def loss_fn(params, cfg: ModelConfig, batch):
     ``chunked_vocab_xent`` over the unembedding table (``embed`` when
     tied, ``lm_head`` read transposed when not) and never builds the
     [B, S, V] logits; every other case is the plain f32 logits path, as
-    in the JAX ``loss_fn``."""
+    in the JAX ``loss_fn``.  With ``batch["vision_embeds"]`` (vlm) the
+    loss is over the text positions, the last ``labels.shape[1]``."""
     from repro_torch.train.losses import chunked_vocab_xent, plain_xent
     labels = batch["labels"]
+    vision = batch.get("vision_embeds")
     if cfg.loss_impl == "chunked_vocab" and not cfg.logit_softcap:
-        x, aux = forward_hidden(params, cfg, batch["tokens"])
+        x, aux = forward_hidden(params, cfg, batch["tokens"], vision)
+        if x.shape[1] != labels.shape[1]:       # vlm: the text positions
+            x = x[:, -labels.shape[1]:]
         if cfg.tie_embeddings:
             nll = chunked_vocab_xent(x, params["embed"], labels,
                                      cfg.loss_vocab_chunk, False)
@@ -236,7 +252,9 @@ def loss_fn(params, cfg: ModelConfig, batch):
             nll = chunked_vocab_xent(x, params["lm_head"], labels,
                                      cfg.loss_vocab_chunk, True)
         return nll + aux, {"nll": nll, "aux": aux}
-    logits, aux = forward(params, cfg, batch["tokens"])
+    logits, aux = forward(params, cfg, batch["tokens"], vision)
+    if logits.shape[1] != labels.shape[1]:      # vlm: the text positions
+        logits = logits[:, -labels.shape[1]:]
     nll = plain_xent(logits, labels)
     return nll + aux, {"nll": nll, "aux": aux}
 

@@ -1,7 +1,7 @@
 """The port's configs against the JAX package's: every architecture's
 dataclass, the assigned-shapes table, and the analytical parameter and
-FLOP counts of the families the port has; the other families raise,
-naming the family."""
+FLOP counts of every family; an unknown family raises as the JAX
+registry's does."""
 import dataclasses
 
 import pytest
@@ -17,9 +17,8 @@ ARCHS = ["granite-moe-3b-a800m", "grok-1-314b", "llama3-405b",
          "mamba2-1.3b", "pixtral-12b", "qwen2-0.5b", "qwen2.5-3b",
          "smollm-360m", "whisper-tiny", "zamba2-1.2b"]
 COUNTED = ["qwen2-0.5b", "qwen2.5-3b", "smollm-360m", "llama3-405b",
-           "mamba2-1.3b", "granite-moe-3b-a800m", "grok-1-314b"]
-UNPORTED = {"pixtral-12b": "vlm", "zamba2-1.2b": "hybrid",
-            "whisper-tiny": "audio"}
+           "mamba2-1.3b", "granite-moe-3b-a800m", "grok-1-314b",
+           "zamba2-1.2b", "whisper-tiny", "pixtral-12b"]
 
 
 def test_every_arch_is_registered():
@@ -72,10 +71,13 @@ def test_qwen2_5_3b_size():
     assert total - registry.non_embedding_param_count(cfg) == 151936 * 2048
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise_naming_the_family(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match=repr(UNPORTED[arch])):
-        registry.param_count(cfg)
-    with pytest.raises(NotImplementedError, match=repr(UNPORTED[arch])):
+def test_unknown_family_raises_value_error_as_jax():
+    bad = dict(family="bogus")
+    with pytest.raises(ValueError, match="^bogus$"):
+        jax_registry.module_for(
+            jax_get_config("qwen2-0.5b").with_overrides(**bad))
+    cfg = get_config("qwen2-0.5b").with_overrides(**bad)
+    with pytest.raises(ValueError, match="^bogus$"):
         registry.module_for(cfg)
+    with pytest.raises(ValueError, match="^bogus$"):
+        registry.param_count(cfg)

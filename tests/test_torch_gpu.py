@@ -666,3 +666,97 @@ def test_lane_round_trip_on_the_card(cuda):
     assert not torch.equal(pool2.block_tables()[lane, :3],
                            pool.block_tables()[lane, :3])
     assert torch.equal(feed(pool2, lane, 10, 4), feed(pool, lane, 10, 4))
+
+
+# ---------------------------------------------------------------------------
+# the last three families' shapes: G = 1, non-causal Sq != Sk with
+# Sk = 1500, flash_decode over 1500 keys, ssd_chunk with d_state 64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd,causal", [
+    (2, 1024, 1024, 32, 32, 64, True),   # zamba2's shared site (G = 1)
+    (2, 1500, 1500, 6, 6, 64, False),    # whisper's encoder
+    (2, 1024, 1500, 6, 6, 64, False),    # whisper's cross-attention
+    (2, 37, 1500, 6, 6, 64, False),      # a ragged query block against it
+    (1, 1024, 1024, 6, 6, 64, True),     # whisper's decoder self-attention
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_families_shapes(cuda, B, Sq, Sk, H, KVH, hd,
+                                                causal, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q = torch.randn(B, Sq, H, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, causal=causal), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd,full", [
+    (8, 1024, 32, 32, 64, False),        # zamba2's sites (G = 1)
+    (8, 1500, 6, 6, 64, True),           # whisper's cross K/V, every frame
+    (8, 1500, 6, 6, 64, False),
+    (8, 448, 6, 6, 64, False),           # whisper's self K/V
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_families_shapes(cuda, B, S, H, KVH, hd, full,
+                                             dtype):
+    from repro_torch.kernels.decode_attention import (flash_decode,
+                                                      flash_decode_plain)
+    q = torch.randn(B, H, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    lengths = (torch.full((B,), S, dtype=torch.int32, device="cuda") if full
+               else torch.randint(1, S + 1, (B,), generator=cuda,
+                                  device="cuda", dtype=torch.int32))
+    got = flash_decode(q, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_decode_plain(q, k, v, lengths),
+                               **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype,dt_f32", [(torch.float32, True),
+                                          (torch.bfloat16, True)])
+def test_ssd_chunk_at_zamba2s_train_shape(cuda, dtype, dt_f32):
+    """x [32, 256, 64, 64], b/c [32, 256, 64]: mamba2's shape with
+    zamba2's d_state of 64."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_plain
+    args = _ssd_inputs(cuda, 32, 256, 64, 64, 64, dtype,
+                       torch.float32 if dt_f32 else dtype)
+    y, st, dec = ssd_chunk(*args)
+    torch.cuda.synchronize()
+    wy, wst, wdec = ssd_chunk_plain(*args)
+    torch.testing.assert_close(y, wy, **TOLS[dtype])
+    tol = 3e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(st, wst, atol=tol, rtol=tol)
+    torch.testing.assert_close(dec, wdec, atol=1e-5, rtol=1e-5)
+
+
+def test_zamba2_decode_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 paged decode step of zamba2 at full width, one group of 2
+    layers and a tail of 1, LoRA b nonzero: the card's kernels against
+    the CPU's plain versions, logits within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_map
+    cfg = get_config("zamba2-1.2b").with_overrides(
+        num_layers=3, shared_attn_every=2, dtype="float32")
+    params = registry.init_params(cfg, cuda)
+    for key, leaf in params["site_lora"].items():
+        if key.endswith("_b"):
+            leaf.normal_(0.0, 0.02, generator=cuda)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    B, nb, bs = 4, 4, 16
+    tables = (1 + torch.arange(B * nb, dtype=torch.int32)).reshape(B, nb)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32)
+    pos = torch.tensor([0, 5, 17, 40], dtype=torch.int32)
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        pool = registry.init_paged_cache(cfg, B, 1 + B * nb, bs, dev)
+        with torch.no_grad():
+            out[dev], _ = registry.decode_step_paged(
+                p, cfg, pool, toks.to(dev), pos.to(dev), tables.to(dev))
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-3,
+                               rtol=1e-3)

@@ -48,6 +48,12 @@ SERVE_SLICE = ["repro_torch.serve.engine", "repro_torch.serve.kvcache",
 MOE_SLICE = ["repro_torch.configs.granite_moe_3b_a800m",
              "repro_torch.configs.grok1_314b", "repro_torch.models.layers",
              "repro_torch.kernels.decode_attention", "repro_torch.kernels.ops"]
+# the slice of the last three families: hybrid, encoder-decoder and the
+# vlm backbone (the transformer), and their configs
+FAMILIES_SLICE = ["repro_torch.models.hybrid", "repro_torch.models.encdec",
+                  "repro_torch.configs.zamba2_1_2b",
+                  "repro_torch.configs.whisper_tiny",
+                  "repro_torch.configs.pixtral_12b"]
 MOE_NAMES = ["training_mode", "in_training", "moe_spec", "_moe_route",
              "moe_apply", "moe_dispatch_alltoall", "_moe_expert_ffn_sharded",
              "moe_apply_expert_parallel"]
@@ -79,7 +85,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert all(f"'{m}'" in loaded
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE
-               + MOE_SLICE), loaded
+               + MOE_SLICE + FAMILIES_SLICE), loaded
 
 
 def test_the_moe_slice_is_in_the_port():
@@ -98,6 +104,23 @@ def test_the_moe_slice_is_in_the_port():
         assert registry.module_for(get_config(arch)) is transformer
 
 
+def test_every_family_maps_to_a_module_of_the_port():
+    """The registry takes each of the JAX registry's six families into a
+    module of the port, whose source the AST check holds to no JAX
+    import."""
+    import inspect
+
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.models import registry
+    families = set()
+    for arch in list_configs():
+        cfg = get_config(arch)
+        families.add(cfg.family)
+        src = Path(inspect.getsourcefile(registry.module_for(cfg)))
+        assert PORT in src.parents, (arch, src)
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "audio"}
+
+
 def _imported(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -114,7 +137,7 @@ def test_no_jax_or_repro_import_in_the_sources():
                for p in SOURCES if PORT in p.parents}
     assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE
-               + SERVE_SLICE) <= scanned
+               + SERVE_SLICE + FAMILIES_SLICE) <= scanned
     assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):

@@ -166,11 +166,16 @@ def test_loss_impl_is_plain_xent_as_jax():
 
 
 def test_unported_training_options_raise():
-    """The hybrid family still raises; "dots" is ported
-    (tests/test_torch_options.py)."""
-    _, _, cfg, params, batch = _train_setup("none", 8)
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for over in (dict(family="hybrid"),):
+    """Ring attention (queued) still raises, at the hybrid family's
+    shared attention block; "dots" is ported (tests/test_torch_options.py)
+    and so is the hybrid family (tests/test_torch_hybrid.py)."""
+    jcfg = reduce_cfg(jax_get_config("zamba2-1.2b"), dtype="float32")
+    cfg = port_cfg(jcfg)
+    params = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 9))
+    tbatch = {"tokens": torch.from_numpy(toks[:, :-1]),
+              "labels": torch.from_numpy(toks[:, 1:])}
+    for over in (dict(attention_impl="ring"),):
         with pytest.raises(NotImplementedError):
             with torch.enable_grad():
                 registry.loss_fn(params, cfg.with_overrides(**over), tbatch)

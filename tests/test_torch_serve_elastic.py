@@ -1,7 +1,8 @@
 """Membership-aware recovery of the port's serving engine on the CPU.
 
 * ``PagedKVCache.checkpoint_lane``/``restore_lane`` round trips into a
-  pool whose block layout is shifted, for qwen2 and mamba2; a JAX lane
+  pool whose block layout is shifted, for qwen2, mamba2 and zamba2 (the
+  hybrid's pool: block-pooled K/V beside lane-indexed state); a JAX lane
   snapshot restores into the port's pool and decodes on as JAX does, and
   the port's snapshot restores into the JAX pool;
 * a membership change fails the step, not the requests: mid decode
@@ -9,8 +10,8 @@
   the no-failure streams — the port's and the JAX unsharded engine's —
   with one remesh, every request completed and none failed;
 * a kill mid-gather on the user backend, down to 2 ranks and down to 1
-  (the unsharded fallback), dense and mamba2 (whose decode state the
-  failed step already advanced in place: its lanes replay);
+  (the unsharded fallback), dense, mamba2 and zamba2 (whose decode
+  state the failed step already advanced in place: their lanes replay);
 * the launcher's ``--chaos-kill`` and its ``SystemExit``s.
 """
 import contextlib
@@ -42,7 +43,11 @@ from repro_torch.serve.engine import GenRequest, ServeEngine
 from repro_torch.serve.kvcache import (BlockAllocationError, PagedKVCache,
                                        to_device)
 
-ARCHS = ("qwen2-0.5b", "mamba2-1.3b")
+ARCHS = ("qwen2-0.5b", "mamba2-1.3b", "zamba2-1.2b")
+# the lane snapshot's state keys, as jax.tree_util.keystr writes them
+SSM_KEYS = {f"['{k}']" for k in ("conv_x", "conv_b", "conv_c", "h")}
+HYBRID_SSM_KEYS = {f"['{t}']{k}" for t in ("ssm", "tail_ssm")
+                   for k in SSM_KEYS}
 SLOTS, MAX_SEQ, BLOCK = 3, 48, 4
 
 
@@ -89,10 +94,13 @@ def port_decode(params, cfg):
 
 
 def jax_decode(jparams, jcfg):
+    step = jax.jit(lambda c, t, q, bt, f: jax_registry.decode_step_paged(
+        jparams, jcfg, c, t, q, bt, f))
+
     def run(pool, toks, pos, fed):
-        out, pool.cache = jax_registry.decode_step_paged(
-            jparams, jcfg, pool.cache, jnp.asarray(toks), jnp.asarray(pos),
-            jnp.asarray(pool.block_tables()), jnp.asarray(fed))
+        out, pool.cache = step(pool.cache, jnp.asarray(toks), jnp.asarray(pos),
+                               jnp.asarray(pool.block_tables()),
+                               jnp.asarray(fed))
         return np.asarray(out)
     return run
 
@@ -118,11 +126,15 @@ def test_lane_round_trip_into_a_shifted_pool(tiny):
     assert ckpt["pos"] == 6
     assert all(isinstance(a, np.ndarray)
                for part in ("blocks", "state") for a in ckpt[part].values())
-    if pool.has_blocks:
+    if cfg.family == "hybrid":
+        assert set(ckpt["blocks"]) == {"['attn_k']", "['attn_v']"}
+        assert set(ckpt["state"]) == HYBRID_SSM_KEYS
+        assert ckpt["blocks"]["['attn_k']"].shape[1] == 2  # ceil(6 / 4)
+    elif pool.has_blocks:
         assert set(ckpt["blocks"]) == {"['k']", "['v']"} and not ckpt["state"]
         assert ckpt["blocks"]["['k']"].shape[1] == 2       # ceil(6 / 4)
     else:
-        assert not ckpt["blocks"] and "['h']" in ckpt["state"]
+        assert not ckpt["blocks"] and set(ckpt["state"]) == SSM_KEYS
     pool2 = PagedKVCache(cfg, 2, 32, block_size=BLOCK, device="cpu")
     pool2.assign("other", seq_len=9)                   # shift the layout
     lane2 = pool2.assign("req", seq_len=7)
@@ -284,8 +296,8 @@ def test_kill_mid_gather_on_the_user_backend(streams, survivors):
     """The epoch is invalidated with a gather start in flight: the start
     fails with a MembershipError, the step fails, not its requests; the
     engine rebuilds on 2 model ranks, or serves unsharded on 1.  Mamba2
-    lanes, whose state the failed step already advanced in place,
-    replay; dense lanes restore their KV."""
+    and zamba2 lanes, whose state the failed step already advanced in
+    place, replay; dense lanes restore their KV."""
     cfg, params, ps, want = streams
 
     def in_flight(srv, reqs):
@@ -299,7 +311,7 @@ def test_kill_mid_gather_on_the_user_backend(streams, survivors):
     assert srv.remeshes == 1 and lat.completed == 8 and lat.failed == 0
     assert any(isinstance(e, NB.MembershipError) for e in srv.decode_errors)
     assert srv._model_shards == survivors and srv._sharded == (survivors > 1)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         assert srv.lanes_checkpointed == srv.lanes_restored == 0
     else:
         assert srv.lanes_restored == srv.lanes_checkpointed > 0
