@@ -138,12 +138,27 @@ Phases; any failure raises and the script exits non-zero:
              against Sk 1500, flash_decode over 1500 keys, ssd_chunk at
              d_state 64, pixtral's norms and heads).
 
+14. context — the model axis in training: smollm-360m at full width and
+             all 32 layers trained through the train launcher with
+             ``attention_impl="ring"`` on ``--mesh 1x4`` (5 steps of 8 x
+             1024 tokens, "full" remat; no flash_attention launch, the
+             norms of the single-card run, the checkpoint restored
+             equal), one step's time; the ring's device time at that
+             shape against the flash_attention launches it replaces;
+             in f32 at full widths (2 layers, S 128) the ring held against
+             the CPU, against "xla" (the flash_attention kernel) and under
+             "full" and "subblock" remat (whose backward autograd runs on
+             its device thread) against "none"; the MoE block's
+             tensor-parallel schedule at grok-1's widths on 4 model ranks
+             against the einsum branch in f32, and both timed in bf16.
+
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
 ``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
 and phase 11; ``--only moe`` the build, the two attention kernels' checks
 and phase 12 with granite's card-against-CPU checks; ``--only families``
-the build, the kernels at the new shapes and phase 13 with its checks.
+the build, the kernels at the new shapes and phase 13 with its checks;
+``--only context`` the build and phase 14.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -227,6 +242,8 @@ PIXTRAL_BATCH, PIXTRAL_PATCHES = 2, 1024
 # granite-moe's train run (of 32 layers): its 40 GB checkpoint was the
 # script's largest item; at 16 layers it is ~21 GB
 GRANITE_TRAIN_LAYERS = 16
+# phase 14: smollm-360m trained with "ring" on a model axis of 4 ranks
+RING_MESH, RING_STEPS = "1x4", 5
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
             torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
@@ -1065,10 +1082,13 @@ def time_breakdown(srv, calls: int = 10) -> None:
 # phase 4: the train path
 # ---------------------------------------------------------------------------
 
-def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None):
+def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None,
+          mesh: str = "", over: dict | None = None,
+          steps: int = TRAIN_STEPS):
     """One full-width run of the train launcher (at ``layers`` of the
-    config's depth, if given).  It ends with an async checkpoint of the
-    last step (the Trainer's rule), which must restore to the same
+    config's depth, if given; ``over`` other config fields, ``mesh`` the
+    launcher's ``--mesh``, natively).  It ends with an async checkpoint
+    of the last step (the Trainer's rule), which must restore to the same
     tensors."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
@@ -1081,9 +1101,13 @@ def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None):
         args = train_mod.build_parser().parse_args([
             "--arch", arch, "--scale", "full", "--device", "cuda",
             "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir])
-        config = None if layers is None else \
-            make_config(arch, "full").with_overrides(num_layers=layers)
+            "--steps", str(steps), "--ckpt-dir", ckpt_dir]
+            + (["--mesh", mesh] if mesh else []))
+        model = train_mod.mesh_shape(args)[1]
+        over = dict(over or {}, **({} if layers is None else
+                                   {"num_layers": layers}))
+        config = make_config(arch, "full").with_overrides(**over) \
+            if over else None
         torch.cuda.reset_peak_memory_stats()
         _lib.reset_launches()
         report = train_mod.run(args, config=config, log_every=1,
@@ -1097,14 +1121,15 @@ def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None):
                 get_config(arch).rms_norm_eps, "bfloat16", "float32", "full",
                 "plain"):
             raise AssertionError(f"not the full {arch} width: {cfg}")
-        per_step = train_mod.kernel_launches_per_step(cfg)
-        want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+        per_step = train_mod.kernel_launches_per_step(cfg, model=model,
+                                                      seq=TRAIN_SEQ)
+        want = {k: v * steps for k, v in per_step.items()}
         log(f"train {arch} launches {launches}, expected {want} ({per_step} "
-            f"per step x {TRAIN_STEPS} steps)")
+            f"per step x {steps} steps)")
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
         losses = [m["loss"] for m in report.log]
-        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
             raise AssertionError(f"bad loss trajectory {losses}")
         aux_text = ""
         if cfg.moe is not None:
@@ -1133,17 +1158,19 @@ def train(workers: int, arch: str = TRAIN_ARCH, layers: int | None = None):
                           [*tree_leaves(tr.params),
                            *tree_leaves(tr.opt_state.mu),
                            *tree_leaves(tr.opt_state.nu)])
-        ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1,
+        ckpt_text = checkpoint_check(tr, steps - 1,
                                      leafwise=state_bytes > total / 4)
         steps_s = [m["step_time_s"] for m in report.log[1:]]
         mean_s = sum(steps_s) / len(steps_s)
         tokens = TRAIN_BATCH * TRAIN_SEQ
         flops = registry.model_flops(cfg, tokens, training=True,
                                      seq_len=TRAIN_SEQ)
-        log(f"train {arch} [{workers} progress workers]: {cfg.num_layers} "
-            f"of {FULL_WIDTH[arch][0]} layers; losses "
+        mesh_text = f", mesh {mesh}, attention {cfg.attention_impl}" \
+            if mesh else ""
+        log(f"train {arch} [{workers} progress workers{mesh_text}]: "
+            f"{cfg.num_layers} of {FULL_WIDTH[arch][0]} layers; losses "
             f"{[round(x, 6) for x in losses]}; mean step {mean_s * 1e3:.3f} "
-            f"ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+            f"ms (steps 1-{steps - 1}; step 0 "
             f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
             f"{tokens / mean_s:.1f} tokens/s, model {flops / mean_s / 1e12:.2f} "
             f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step by registry.model_flops); "
@@ -1213,16 +1240,24 @@ def checkpoint_check_leafwise(tr, latest: int, state) -> str:
             f"equal, one leaf at a time, in {t_restore:.3f} s")
 
 
-def train_time_breakdown(report, steps: int = 3) -> None:
+def train_time_breakdown(report, steps: int = 3, mesh=None) -> None:
     """Where a train step's time goes: host wall clock of unprofiled
     steps against the device time the profiler records over as many
-    profiled steps, on the trained weights and one fixed batch."""
+    profiled steps, on the trained weights and one fixed batch (under
+    ``mesh``, a ``Mesh``, if given: the launcher's native step enters
+    it)."""
+    from repro_torch import sharding
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.launch import train as train_mod
     from repro_torch.train import optimizer as opt_mod
     tr, cfg = report.trainer, report.cfg
-    step = train_mod.make_train_step(cfg, opt_mod.AdamWConfig(
+    plain_step = train_mod.make_train_step(cfg, opt_mod.AdamWConfig(
         lr=3e-3, warmup_steps=5, total_steps=10))
+
+    def step(*a):
+        with sharding.set_mesh(mesh):
+            return plain_step(*a)
+
     batch = {k: torch.from_numpy(v.copy()).cuda() for k, v in
              SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
              .sample().items()}
@@ -3739,6 +3774,267 @@ def families_reference_checks() -> None:
     pixtral_reference_check()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the model axis in training (ring attention, the MoE block's
+# tensor-parallel schedule)
+# ---------------------------------------------------------------------------
+
+def ring_mesh(device: str = "cuda"):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(tuple(int(v) for v in RING_MESH.split("x")),
+                     ("data", "model"), device)
+
+
+def ring_attention_time() -> None:
+    """At smollm-360m's train shape (q [8, 1024, 15, 64], k/v [8, 1024,
+    5, 64], bf16, causal) on the ``RING_MESH`` model ranks: the ring's
+    output against the flash_attention kernel's (bf16 tolerance), and
+    the device time of the ring's forward and of its forward + backward
+    against the kernel's forward and its forward + the oracle's
+    backward; per step of the "full"-remat train path (each layer's
+    forward twice, its backward once), the ring against the 2 x 32
+    flash_attention launches it replaces."""
+    from repro_torch import sharding
+    from repro_torch.collectives.ring_attention import ring_attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(TRAIN_ARCH)
+    B, S, H, KVH = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads
+    hd, NL = cfg.resolved_head_dim(), cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    mesh = ring_mesh()
+
+    def draw(heads):
+        return torch.randn((B, S, heads, hd), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    args = [(draw(H), draw(KVH), draw(KVH), draw(H)) for _ in range(2)]
+
+    def ring_fwd(q, k, v, do):
+        with torch.no_grad(), sharding.set_mesh(mesh):
+            return ring_attention(q, k, v, causal=True)
+
+    def ring_fwd_bwd(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with sharding.set_mesh(mesh):
+            o = ring_attention(*leaves, causal=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    def flash_fwd(q, k, v, do):
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, causal=True)
+
+    def flash_fwd_bwd(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, causal=True)
+        return torch.autograd.grad(o, leaves, do)
+
+    err = check_close("ring attention vs flash_attention", ring_fwd(*args[0]),
+                      flash_fwd(*args[0]), torch.bfloat16)
+    dev, paced, source = measure(
+        {"ring_fwd": ring_fwd, "ring_fwd_bwd": ring_fwd_bwd,
+         "flash_fwd": flash_fwd, "flash_fwd_bwd": flash_fwd_bwd}, args,
+        dev_iters=4, paced_iters=4)
+    ring_step = NL * (dev["ring_fwd"] + dev["ring_fwd_bwd"])
+    flash_step = NL * (dev["flash_fwd"] + dev["flash_fwd_bwd"])
+    log(f"time: ring attention at smollm-360m's train shape (q [{B}, {S}, "
+        f"{H}, {hd}], k/v [{B}, {S}, {KVH}, {hd}], bf16, causal) on "
+        f"{RING_MESH} (model ranks {dict(mesh.shape)['model']}; bf16 "
+        f"products through bmm's f32 out_dtype); ring output vs the "
+        f"flash_attention kernel's max abs err "
+        f"{err:.3e} (bf16 atol/rtol 2e-2); device ms ({source}): "
+        f"{fmt(dev)}; back to back: {fmt(paced)}; a \"full\" step's "
+        f"attention ({NL} layers: forward, then forward + backward): ring "
+        f"{ring_step:.3f} ms against flash_attention + the oracle backward "
+        f"{flash_step:.3f} ms, whose {2 * NL} flash_attention launches "
+        f"take {2 * NL * dev['flash_fwd']:.3f} ms")
+
+
+def ring_reference_check(seq: int = 128) -> None:
+    """One f32 loss and gradient of a two-layer smollm-360m at full width
+    (B=2, S=``seq``, TF32 off) with "ring" on the ``RING_MESH`` model
+    ranks, held against (a) the same on the CPU (plain versions), (b) the
+    card with "xla" (the flash_attention kernel, no mesh), (c) the ring
+    on the card under "full" and under "subblock" remat, whose backward
+    autograd runs on its device thread, where no mesh and no training
+    mode are set (``layers.checkpoint`` re-enters them): loss within
+    1e-5 relative, every gradient leaf within 1e-4 of its largest entry
+    (the card-vs-CPU limits of ``train_reference_check``).  The ring's
+    runs launch no flash_attention, the "xla" run does."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_leaves, tree_map
+    cfg0 = get_config(TRAIN_ARCH).with_overrides(num_layers=2,
+                                                 dtype="float32")
+    params = {"cuda": registry.init_params(
+        cfg0, torch.Generator(device="cuda").manual_seed(3))}
+    params["cpu"] = tree_map(lambda t: t.cpu(), params["cuda"])
+    names = [p for p, _ in tree_leaves(params["cpu"])]
+    rs = np.random.RandomState(4)
+    toks = rs.randint(0, cfg0.vocab_size, size=(2, seq + 1)).astype(np.int32)
+
+    def run(dev, impl, policy="none"):
+        cfg = cfg0.with_overrides(attention_impl=impl, remat_policy=policy)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        leaves = [t.requires_grad_() for _, t in tree_leaves(params[dev])]
+        _lib.reset_launches()
+        with sharding.set_mesh(ring_mesh(dev) if impl == "ring" else None):
+            loss, _ = registry.loss_fn(params[dev], cfg, batch)
+        # outside the mesh block, as a step's backward may run
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        flash = _lib.launches["flash_attention"]
+        if dev == "cuda" and (flash == 0) != (impl == "ring"):
+            raise AssertionError(f"{impl} {policy}: {flash} flash_attention "
+                                 f"launches")
+        return float(loss.detach()), grads
+
+    ref = run("cuda", "ring")
+    texts = []
+    for label, (dev, impl, policy) in (
+            ("CPU ring", ("cpu", "ring", "none")),
+            ("card xla", ("cuda", "xla", "none")),
+            ("card ring full", ("cuda", "ring", "full")),
+            ("card ring subblock", ("cuda", "ring", "subblock"))):
+        loss, grads = run(dev, impl, policy)
+        if not abs(loss - ref[0]) <= 1e-5 * abs(loss):
+            raise AssertionError(f"ring loss {ref[0]} vs {label} {loss}")
+        if all(torch.equal(a, b) for a, b in zip(ref[1], grads)):
+            g_text = "gradients equal bit for bit"
+        else:
+            worst = max(leaf_errors(f"ring vs {label} gradient", names,
+                                    ref[1], grads, 1e-4))
+            g_text = f"worst gradient leaf {worst:.3e}"
+        texts.append(f"{label}: loss {loss:.7f} (rel err "
+                     f"{abs(loss - ref[0]) / abs(loss):.3e}), {g_text}")
+    log(f"check: full-width 2-layer {TRAIN_ARCH} f32 loss and gradients "
+        f"(B=2, S={seq}, TF32 off), \"ring\" on the card on {RING_MESH} "
+        f"(loss {ref[0]:.7f}) against (limits 1e-5 rel, 1e-4 of each "
+        f"leaf's largest entry): " + "; ".join(texts))
+
+
+def moe_tp_check(groups: int = 2) -> None:
+    """The MoE block's tensor-parallel schedule at grok-1's widths (d
+    6144, 8 experts of F 32768, top-2, ``groups`` groups of 1024 tokens,
+    capacity from its factor 1.25) on the ``RING_MESH`` model ranks (F/tp
+    = 8192), held against the einsum branch on the card in f32 with TF32
+    off: the output and the gradients of the tokens, the combine weights
+    and the three expert weights within 1e-4 of each tensor's largest
+    entry.  Then both timed in bf16, forward and forward + backward.  The
+    block runs alone: one grok layer's f32 training state does not fit
+    the card."""
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(GROK)
+    mc = cfg.moe
+    D, E, Fd = cfg.d_model, mc.num_experts, mc.expert_d_ff
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(*shape, fan_in=1):
+        return torch.randn(shape, generator=gen, device="cuda") \
+            / math.sqrt(fan_in)
+
+    x = randn(groups, mc.group_size, D)
+    xg, disp, comb, _ = L._moe_route({"router": randn(D, E, fan_in=D)}, x,
+                                     cfg)
+    del x
+    weights = [randn(E, D, Fd, fan_in=D), randn(E, D, Fd, fan_in=D),
+               randn(E, Fd, D, fan_in=Fd)]
+    dy = randn(*xg.shape)
+    mesh = ring_mesh()
+    tp = dict(mesh.shape)["model"]
+    C = comb.shape[-1]
+    flops = 2 * groups * E * C * D * Fd     # one expert product
+
+    def block(on_mesh, ins, grad=True):
+        leaves = [t.detach().requires_grad_(grad and i != 1)
+                  for i, t in enumerate(ins)]
+        with sharding.set_mesh(mesh if on_mesh else None), \
+                L.training_mode():
+            want = tp if on_mesh else 1
+            if L.moe_tp_ranks(Fd) != want:
+                raise AssertionError(f"moe_tp_ranks {L.moe_tp_ranks(Fd)} "
+                                     f"!= {want}")
+            y = L._moe_expert_block(*leaves)
+        if not grad:
+            return y
+        return y.detach(), torch.autograd.grad(
+            y, [leaves[i] for i in (0, 2, 3, 4, 5)], dy.to(y.dtype))
+
+    ins = [xg, disp, comb] + weights
+    tp_y, tp_g = block(True, ins)
+    ref_y, ref_g = block(False, ins)
+    errs = []
+    for name, a, b in zip(("y", "xg", "combine", "wi_gate", "wi_up", "wo"),
+                          (tp_y,) + tuple(tp_g), (ref_y,) + tuple(ref_g)):
+        top = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if a.shape != b.shape or not torch.isfinite(a).all() \
+                or not err <= 1e-4 * top:
+            raise AssertionError(f"MoE tensor-parallel {name}: max abs err "
+                                 f"{err:.3e} of {top:.3e} (limit 1e-4)")
+        errs.append(f"{name} {err / top:.3e}")
+    del tp_y, tp_g, ref_y, ref_g, ins
+    free()
+    ins = [t.to(torch.bfloat16) for t in [xg, disp, comb] + weights]
+    del weights
+    free()
+    args = [tuple(ins)]
+    times, paced, source = measure(
+        {"tp_fwd": lambda *a: block(True, a, grad=False),
+         "einsum_fwd": lambda *a: block(False, a, grad=False),
+         "tp_fwd_bwd": lambda *a: block(True, a),
+         "einsum_fwd_bwd": lambda *a: block(False, a)},
+        args, dev_iters=3, paced_iters=3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"check: MoE tensor-parallel block at {GROK}'s widths (xg "
+        f"[{groups}, {mc.group_size}, {D}], {E} experts of F {Fd}, top "
+        f"{mc.top_k}, capacity {C}) on {tp} model ranks (F/tp "
+        f"{Fd // tp}) against the einsum branch, f32 TF32 off, max abs err "
+        f"over the largest entry (limit 1e-4): " + ", ".join(errs)
+        + f"; bf16 device ms ({source}): {fmt(times)}; back to back: "
+        f"{fmt(paced)}; expert products: forward 3 x {flops / 1e12:.3f} "
+        f"TFLOP ({3 * flops / times['einsum_fwd'] / 1e9:.1f} TFLOP/s "
+        f"einsum, {3 * flops / times['tp_fwd'] / 1e9:.1f} tensor-parallel), "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+
+
+def context_phase() -> dict:
+    """Phase 14, the path driven with the launch counts set to 0 just
+    before it and read just after (inside ``train``): smollm-360m at full
+    width and all 32 layers trained through the train launcher with
+    "ring" on ``--mesh RING_MESH`` (no flash_attention launch, the norms
+    of the single-card run); one step's time; the ring's device time
+    against flash_attention's; then the ring's f32 checks and the MoE
+    block's tensor-parallel schedule at grok-1's widths."""
+    from repro_torch.launch import train as train_mod
+    runs = {}
+    runs["train_ring"], report = train(
+        workers=0, mesh=RING_MESH, over={"attention_impl": "ring"},
+        steps=RING_STEPS)
+    single = train_mod.kernel_launches_per_step(report.cfg.with_overrides(
+        attention_impl="xla"))
+    got = runs["train_ring"]
+    if got["flash_attention"] != 0 or any(
+            got[k] != v * RING_STEPS for k, v in single.items()
+            if k != "flash_attention"):
+        raise AssertionError(f"ring launches {got} against the single-card "
+                             f"step's {single} x {RING_STEPS}")
+    train_time_breakdown(report, steps=1, mesh=ring_mesh())
+    del report
+    free()
+    ring_attention_time()
+    free()
+    ring_reference_check()
+    free()
+    moe_tp_check()
+    free()
+    return runs
+
+
 def free() -> None:
     """Drop what an ended phase left behind (its engines hold reference
     cycles) and hand the cached blocks back, before the next phase."""
@@ -3759,14 +4055,15 @@ def main(argv: list) -> int:
               file=sys.stderr)
         return 2
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
-                    ["--only", "moe"], ["--only", "families"]):
+                    ["--only", "moe"], ["--only", "families"],
+                    ["--only", "context"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
               f"caller-driven qwen2-0.5b run and phase 11; --only moe the "
               f"attention kernels and phase 12; --only families the kernels "
-              f"at the last three families' shapes and phase 13)",
-              file=sys.stderr)
+              f"at the last three families' shapes and phase 13; --only "
+              f"context phase 14)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3785,6 +4082,13 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "context"]:
+        # a partial run (phase 14); it prints no result line
+        launches = context_phase()
+        log(f"partial run: launches of the ring train run {launches}; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "families"]:
         # a partial run (the kernels at the new shapes and phase 13); it
         # prints no result line
@@ -3921,16 +4225,20 @@ def main(argv: list) -> int:
     log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
     runs.update(families_phase())
     log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
+    runs.update(context_phase())
+    log(f"context phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
     # path and summed: launches_serve and launches_train count every
     # family, the *_mamba, *_qwen2_5_3b, *_granite, *_grok, *_zamba2,
-    # *_whisper and *_pixtral keys those runs alone, and launches_remat
+    # *_whisper, *_pixtral and *_ring keys those runs alone (train_ring:
+    # smollm-360m on the model axis), and launches_remat
     # the checkpoint-policy runs (smollm-360m's five, and mamba2's "full"
     # and "dots")
     serve_runs = ("serve_mamba", "serve_qwen2_5_3b", "serve_granite",
                   "serve_grok", "serve_zamba2", "serve_whisper")
     train_runs = ("train_mamba", "train_qwen2_5_3b", "train_granite",
-                  "train_zamba2", "train_whisper", "train_pixtral")
+                  "train_zamba2", "train_whisper", "train_pixtral",
+                  "train_ring")
     for row in rows:
         n = {k: v[row["name"]] for k, v in runs.items()}
         row["launches_serve"] = n["serve"] + sum(n[k] for k in serve_runs)
@@ -3964,7 +4272,7 @@ def main(argv: list) -> int:
             "launches_train_mamba", "launches_train_qwen2_5_3b",
             "launches_train_granite", "launches_train_zamba2",
             "launches_train_whisper", "launches_train_pixtral",
-            "launches_remat", "launches_train_dp", "launches_train_fsdp",
+            "launches_train_ring", "launches_remat", "launches_train_dp", "launches_train_fsdp",
             "launches_serve_sharded",
             "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",

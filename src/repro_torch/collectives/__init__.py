@@ -13,6 +13,9 @@ the JAX package's ``repro.collectives`` (without the FSDP classes yet).
   engine=None, ...)``.
 * overlap machinery: ``EngineGradReducer`` (replicated gradients) and
   the ZeRO-sharded ``FsdpReducer`` / ``FsdpLayout``.
+* ``ring_attention`` — context parallelism: the sequence split over the
+  model axis of the current mesh, key/value blocks circulating on a ring
+  (importable from here; not in ``__all__``, which is the JAX package's).
 
 Meshes come from ``repro_torch.launch.mesh``: every rank of an axis lives
 on the mesh's one device, a payload is rank-stacked on its leading dim.
@@ -54,6 +57,9 @@ from repro_torch.collectives.p2p import (
     recv_init,
     send_init,
 )
+# importable from here, but kept out of ``__all__``, which mirrors the
+# JAX package's surface (it exports no ring)
+from repro_torch.collectives.ring_attention import ring_attention  # noqa: F401
 
 __all__ = [
     "S",

@@ -15,6 +15,8 @@ elastic, or a 1F1B pipeline.
         [--fsdp] [--elastic --chaos-kill 2 --chaos-kill-step 2]]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --pipeline 1f1b --mesh 2x2 --microbatches 4 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --scale tiny --mesh 1x4 --steps 6        # a model axis of 4 ranks
 
 The JAX package's ``repro.launch.train``: synthetic data prefetched on
 the engine, a forward + backward + AdamW step (``make_train_step``, the
@@ -29,6 +31,16 @@ are reduced by an ``EngineGradReducer`` — persistent bucketed
 user-space allreduces whose rounds run on their own CUDA stream, driven
 by the same engine — and AdamW steps on the mean.  The native backend
 computes the same mean gradient inside one step.
+
+``--mesh DxM`` on the native backend trains on a (data, model) mesh of
+ranks on the one device, entered (``sharding.set_mesh``) around each
+step: with ``attention_impl="ring"`` the causal attention splits the
+sequence over the M model ranks (``collectives.ring_attention``), and
+the MoE block splits the expert width over them when it is wide enough
+(``layers.moe_tp_ranks``); every other layer replicates over the model
+axis, and the data axis splits nothing the one pass over the batch does
+not already sum (the JAX launcher's ``build_cell`` under the same mesh).
+A config with "ring" goes through ``run(args, config=...)``.
 
 ``--fsdp`` shards parameters and AdamW moments over the mesh's data
 axis as flat per-dtype buckets (``FsdpLayout``, ``--fsdp-bucket-bytes``):
@@ -85,7 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0: one)")
     ap.add_argument("--mesh", default="",
                     help="e.g. 4x1 -> (data=4, model=1); a model axis "
-                         "above 1 needs --fsdp (it replicates), and with "
+                         "above 1 splits the sequence for "
+                         "attention_impl='ring' and the MoE expert width "
+                         "(native backend), replicates under --fsdp, and "
+                         "needs --fsdp on the user backend; with "
                          "--pipeline the mesh is (data x stage)")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
@@ -139,9 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def mesh_shape(args) -> tuple:
-    """(data, model) from ``--mesh`` or ``--devices``; a model axis above
-    1 raises unless ``--fsdp`` is on (tensor parallelism is not ported:
-    under FSDP the model axis replicates)."""
+    """(data, model) from ``--mesh`` or ``--devices``.  A model axis above
+    1 trains natively (the ring splits the sequence over it, the MoE
+    block the expert width; every other layer replicates) or under
+    ``--fsdp`` (where it replicates); the user backend without
+    ``--fsdp`` refuses it, as the JAX launcher does."""
     if args.mesh:
         shape = tuple(int(v) for v in args.mesh.split("x"))
         if len(shape) != 2:
@@ -151,11 +168,11 @@ def mesh_shape(args) -> tuple:
                              f"--devices {args.devices} ranks")
     else:
         shape = (max(args.devices, 1), 1)
-    if shape[1] != 1 and not args.fsdp:
-        raise SystemExit(
-            f"--mesh {args.mesh}: a model axis above 1 requires --fsdp "
-            f"(ZeRO sharding over the data axis, the model axis "
-            f"replicating); without it use model dim 1")
+    if shape[1] != 1 and args.collective_backend == "user" \
+            and not args.fsdp:
+        raise SystemExit("--collective-backend user on a 2-D mesh requires "
+                         "--fsdp (ZeRO sharding over the data axis); "
+                         "without it use model dim 1")
     return shape
 
 
@@ -260,7 +277,8 @@ def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
     return grad_fn
 
 
-def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
+def kernel_launches_per_step(cfg, microbatches: int = 1, model: int = 1,
+                             seq: int | None = None) -> dict:
     """Launches of each kernel in one ``make_train_step`` step, per
     microbatch.  A checkpointed region runs its forward again in the
     backward: non-reentrant checkpointing recomputes until every tensor
@@ -289,9 +307,18 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
       recomputed;
     * audio (whisper): LayerNorms, no rmsnorm; one attention per encoder
       layer and two per decoder layer (self and cross), all recomputed
-      under every policy but "none"."""
+      under every policy but "none".
+
+    ``model`` is the mesh's model axis: with ``attention_impl="ring"``
+    and ``model`` > 1 dividing ``seq`` (the sequence, when given), every
+    causal self-attention of the dense, moe, vlm and hybrid families goes
+    around the ring and launches no ``flash_attention`` (the ring is
+    tensor code); the norms are unchanged.  whisper's attention never
+    takes the ring (``layers.attention``), as in the JAX package."""
     from repro_torch.kernels import _lib
     NL = cfg.num_layers
+    ring = cfg.attention_impl == "ring" and model > 1 and (
+        seq is None or seq % model == 0)
     policy = cfg.remat_policy
     again = 0 if policy == "none" else 1
     per = dict.fromkeys(_lib.launches, 0)
@@ -304,7 +331,7 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
         norms = NL + 2 * n_groups + 1
         per.update(rmsnorm_fwd=norms + again * (grouped + 2 * n_groups),
                    rmsnorm_bwd=norms, ssd_chunk=NL + again * grouped,
-                   flash_attention=(1 + again) * n_groups)
+                   flash_attention=0 if ring else (1 + again) * n_groups)
     elif cfg.family == "audio":
         per.update(flash_attention=(1 + again)
                    * (cfg.num_encoder_layers + 2 * NL))
@@ -313,7 +340,7 @@ def kernel_launches_per_step(cfg, microbatches: int = 1) -> dict:
         attn_again = policy in ("full", "dots", "attn_only")
         per.update(rmsnorm_fwd=(2 + 2 * norms_again) * NL + 1,
                    rmsnorm_bwd=2 * NL + 1,
-                   flash_attention=(1 + attn_again) * NL)
+                   flash_attention=0 if ring else (1 + attn_again) * NL)
     return {k: v * microbatches for k, v in per.items()}
 
 
@@ -466,10 +493,11 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     ``log_every=1``).  ``config`` replaces the ``--arch``/``--scale``
     ModelConfig and ``params`` the seeded weights (tests hand in bridged
     ones)."""
-    from repro_torch import resolve_device
+    from repro_torch import resolve_device, sharding
     from repro_torch.collectives.nonblocking import CollectiveSpec
     from repro_torch.core import ProgressEngine
     from repro_torch.data.pipeline import PrefetchPipeline, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import make_config
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
@@ -536,14 +564,18 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     opt_state = opt_mod.init(params)
     train_step = make_train_step(cfg, ocfg, microbatches=args.microbatches,
                                  cast_params_bf16=args.cast_bf16)
+    native_mesh = make_mesh((data, model), ("data", "model"), device)
 
     def step_fn(params, opt_state, batch):
-        return train_step(params, opt_state, to_device(batch))
+        # the mesh is entered here, on the thread that runs the step (the
+        # Trainer may call it from a progress worker): the model's
+        # attention and MoE layers read their model axis from it
+        with sharding.set_mesh(native_mesh):
+            return train_step(params, opt_state, to_device(batch))
 
     split, reducer, epoch, remesh_fn, mesh = None, None, None, None, None
     if user_backend:
         from repro_torch.collectives.overlap import EngineGradReducer
-        from repro_torch.launch.mesh import make_mesh
 
         def make_grad_fn(ranks):
             rank_grads = make_rank_grads(cfg, ranks,

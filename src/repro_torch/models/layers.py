@@ -17,7 +17,13 @@ Conventions, as in the JAX package:
   card, their plain versions on the CPU.
 * The MoE layer is plain tensor code, as in the JAX package (no Pallas
   kernel computes any of it): routing in f32, the expert products in the
-  compute dtype.
+  compute dtype.  Training on a mesh whose model axis splits the expert
+  width, its expert block places its model-axis sums by hand
+  (``_MoEBlockTP``).
+* ``attention_impl="ring"`` splits the sequence over the mesh's model
+  axis (``collectives/ring_attention.py``).  The model axis replicates
+  every other layer: each computes the function GSPMD's placement does,
+  once, as under FSDP.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -191,13 +198,33 @@ def checkpoint(fn, *args, dots: bool = False):
     autograd records, and plainly otherwise.  Only the inputs are kept and
     the forward runs again in the backward; with ``dots`` the outputs of
     the matrix products are kept too and only the rest is recomputed, as
-    ``jax.checkpoint_policies.checkpoint_dots`` keeps them."""
+    ``jax.checkpoint_policies.checkpoint_dots`` keeps them.
+
+    The recompute re-enters the caller's mesh (``sharding.set_mesh``)
+    and training mode, read here at forward time: both are thread-local,
+    and autograd runs a CUDA backward, and so the recompute, on a thread
+    of its own, where neither is set.  So a recomputed layer takes the
+    branches its forward took (the ring, the MoE block's
+    tensor-parallel schedule)."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    kw = {"context_fn": _dots_context} if dots else {}
+    mesh, training = sharding.current_mesh(), in_training()
+
+    def context_fn():
+        fwd, again = (_dots_context() if dots else
+                      (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _recompute_in(mesh, training, again)
+
     # the models draw no random numbers: no RNG state to stash
     return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=context_fn)
+
+
+@contextlib.contextmanager
+def _recompute_in(mesh, training: bool, inner):
+    with sharding.set_mesh(mesh), _training_as(training), inner:
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -253,17 +280,24 @@ def softcap(x, cap: float):
 # Training mode
 # ---------------------------------------------------------------------------
 
-# Set by ``registry.loss_fn``.  The JAX package reads it to place the MoE
-# block's collectives by hand when a backward pass follows on a mesh with
-# a tensor-parallel axis; the port has no tensor-parallel training, so
-# its MoE block takes the one branch whatever the mode.
+# Set by ``registry.loss_fn``.  The MoE block places its model-axis
+# collectives by hand (``_moe_expert_block``) only when a backward pass
+# follows, on a mesh whose model axis splits the expert width.
+# Thread-local, as the mesh of ``sharding.set_mesh``: ``checkpoint``
+# carries both into a recompute on autograd's thread.
 _mode = threading.local()
 
 
 @contextlib.contextmanager
 def training_mode():
+    with _training_as(True):
+        yield
+
+
+@contextlib.contextmanager
+def _training_as(flag: bool):
     prev = getattr(_mode, "training", False)
-    _mode.training = True
+    _mode.training = flag
     try:
         yield
     finally:
@@ -281,14 +315,17 @@ def in_training() -> bool:
 def attention_dispatch(cfg, q, k, v, *, causal: bool = True):
     """Attention for the forward pass: q [B,Sq,H,hd], k/v [B,Sk,KVH,hd].
 
-    Every ported ``cfg.attention_impl`` ("xla", "xla_blockskip",
-    "pallas") goes through ``ops.flash_attention`` with the config's
-    logit cap: the kernel on the card, its plain version on the CPU.  The
-    JAX package's "xla" scan and the block-skip schedule compute the same
-    function; ring attention raises (queued in ROADMAP)."""
-    if cfg.attention_impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' is not ported (collectives slice)")
+    ``cfg.attention_impl="ring"`` with causal attention goes to
+    ``collectives.ring_attention`` (the sequence split over the current
+    mesh's model axis; plain attention without one).  Every other case
+    ("xla", "xla_blockskip", "pallas", and non-causal "ring") goes
+    through ``ops.flash_attention`` with the config's logit cap: the
+    kernel on the card, its plain version on the CPU.  The JAX package's
+    "xla" scan and the block-skip schedule compute the same function."""
+    if cfg.attention_impl == "ring" and causal:
+        from repro_torch.collectives.ring_attention import ring_attention
+        return ring_attention(q, k, v, causal=True,
+                              logit_cap=cfg.logit_softcap)
     return ops.flash_attention(q, k, v, causal=causal,
                                logit_cap=cfg.logit_softcap)
 
@@ -516,14 +553,125 @@ def _moe_combine(combine, ye):
     return torch.einsum("gtec,gecd->gtd", combine, ye.contiguous())
 
 
+# The tensor-parallel block is worth its combine-space sums only for wide
+# experts (grok-1: F/tp = 8192 on 4 ranks); for many tiny experts
+# (granite: F/tp = 128) the einsum branch stays, as in the JAX package.
+MOE_TP_MIN_WIDTH = 512
+
+
+def moe_tp_ranks(F_: int) -> int:
+    """The model-axis ranks the MoE block splits the expert width ``F_``
+    over: the current mesh's model axis when ``in_training()`` and that
+    axis tp > 1 divides F into slices of at least ``MOE_TP_MIN_WIDTH``
+    (the JAX package's condition for its hand-placed block), else 1."""
+    mesh = sharding.current_mesh()
+    tp = 1 if mesh is None else dict(mesh.shape).get("model", 1)
+    if tp == 1 or F_ % tp or F_ // tp < MOE_TP_MIN_WIDTH or \
+            not in_training():
+        return 1
+    return tp
+
+
 def _moe_expert_block(xg, dispatch, combine, wi_gate, wi_up, wo):
-    """Dispatch -> expert FFN -> combine: the JAX package's einsum
-    branch.  Its other branch, the tensor-parallel block with a
-    hand-placed backward (``_make_moe_blk_vjp``), is taken only when
-    training on a mesh whose model axis splits the expert width; it comes
-    with tensor-parallel training (ROADMAP)."""
+    """Dispatch -> expert FFN -> combine.
+
+    Training on a mesh whose model axis splits the expert width
+    (``moe_tp_ranks``) takes the JAX package's tensor-parallel block
+    with its hand-placed backward (``_MoEBlockTP``); everything else the
+    einsum branch."""
+    tp = moe_tp_ranks(wi_gate.shape[-1])
+    if tp > 1:
+        return _MoEBlockTP.apply(xg, dispatch, combine, wi_gate, wi_up, wo,
+                                 tp)
     return _moe_combine(combine, _moe_expert_ffn(
         _moe_dispatch(dispatch, xg), wi_gate, wi_up, wo))
+
+
+def _rank_slices(wi_gate, wi_up, wo, tp: int):
+    """Rank r's slices of the expert width: ``wi_gate``/``wi_up``
+    ``[E, d, F/tp]`` and ``wo`` ``[E, F/tp, d]`` (views; rank r of the
+    stacked ``[tp, E, d, F/tp]`` the JAX ``P(None, None, "model")``
+    places), r = 0 .. tp-1."""
+    w = wi_gate.shape[-1] // tp
+    return [(wi_gate[..., r * w:(r + 1) * w], wi_up[..., r * w:(r + 1) * w],
+             wo[:, r * w:(r + 1) * w]) for r in range(tp)]
+
+
+def _rank_sum(parts):
+    """The psum over the model axis: the ranks' rows added in rank order."""
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t
+    return total
+
+
+def _moe_blk_fwd_inner(xg, disp, comb, wi_gate, wi_up, wo, tp: int):
+    """The tensor-parallel block's forward: each rank's expert FFN over
+    its slice of F (a partial ``y`` [g, t, d]), the partials summed over
+    the ranks.  Dispatch and combine are linear in the tokens, so the one
+    model-axis sum of the forward is in token space, on ``y``."""
+    xe = torch.einsum("gtec,gtd->gecd", disp, xg)            # every rank's
+    parts = []
+    for wg, wu, wo_r in _rank_slices(wi_gate, wi_up, wo, tp):
+        h = (F.silu(torch.einsum("gecd,edf->gecf", xe, wg))
+             * torch.einsum("gecd,edf->gecf", xe, wu))
+        ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)       # partial over F
+        parts.append(torch.einsum("gtec,gecd->gtd", comb, ye_p))
+    return _rank_sum(parts)
+
+
+class _MoEBlockTP(torch.autograd.Function):
+    """The JAX package's ``_make_moe_blk_vjp``: the forward of
+    ``_moe_blk_fwd_inner``, saving only its inputs, and a hand-placed
+    backward that recomputes each rank's forward intermediates locally.
+    Its only cross-rank sums are those of ``d_xg`` [g, t, d] and
+    ``d_comb`` [g, t, E, C], in token space; each rank's weight
+    gradients stay on its slice and come back concatenated on F (each
+    written into its slice of one gradient tensor).  The
+    dispatch mask gets no gradient.  The JAX backward also sums the
+    weight gradients over the batch (data) axes, whose ranks each hold
+    some of the groups; the port's one pass over every group already
+    sums over g.  ``tp`` is captured at forward time: the backward reads
+    no mesh (autograd may run it on a thread of its own)."""
+
+    @staticmethod
+    def forward(ctx, xg, disp, comb, wi_gate, wi_up, wo, tp):
+        ctx.save_for_backward(xg, disp, comb, wi_gate, wi_up, wo)
+        ctx.tp = tp
+        return _moe_blk_fwd_inner(xg, disp, comb, wi_gate, wi_up, wo, tp)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg, disp, comb, wi_gate, wi_up, wo = ctx.saved_tensors
+        dy = dy.to(xg.dtype)
+        xe = torch.einsum("gtec,gtd->gecd", disp, xg)
+        d_ye = torch.einsum("gtec,gtd->gecd", comb, dy)      # every rank's
+        d_comb, d_xg = [], []
+        # each rank's weight gradients land in its slice of F
+        d_w = [torch.empty_like(t) for t in (wi_gate, wi_up, wo)]
+        for (wg, wu, wo_r), (d_wg, d_wu, d_wo) in zip(
+                _rank_slices(wi_gate, wi_up, wo, ctx.tp),
+                _rank_slices(*d_w, ctx.tp)):
+            # this rank's forward intermediates, recomputed
+            g1 = torch.einsum("gecd,edf->gecf", xe, wg)
+            u1 = torch.einsum("gecd,edf->gecf", xe, wu)
+            sg = torch.sigmoid(g1.float())
+            silu_g = (g1.float() * sg).to(g1.dtype)
+            h = silu_g * u1
+            ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)
+            d_comb.append(torch.einsum("gtd,gecd->gtec", dy, ye_p))
+            d_h = torch.einsum("gecd,efd->gecf", d_ye, wo_r)
+            d_wo.copy_(torch.einsum("gecf,gecd->efd", h, d_ye))
+            d_silu_g = d_h * u1
+            d_u1 = d_h * silu_g
+            dsilu = (sg * (1 + g1.float() * (1 - sg))).to(g1.dtype)
+            d_g1 = d_silu_g * dsilu
+            d_xe = (torch.einsum("gecf,edf->gecd", d_g1, wg)
+                    + torch.einsum("gecf,edf->gecd", d_u1, wu))
+            d_wg.copy_(torch.einsum("gecd,gecf->edf", xe, d_g1))
+            d_wu.copy_(torch.einsum("gecd,gecf->edf", xe, d_u1))
+            d_xg.append(torch.einsum("gtec,gecd->gtd", disp, d_xe))
+        return (_rank_sum(d_xg), None, _rank_sum(d_comb), *d_w, None)
 
 
 def moe_apply(p, x, cfg):

@@ -169,7 +169,8 @@ def test_user_backend_matches_the_native_single_rank_run(jax_run, tmp_path):
 def test_launcher_refuses_what_waits_for_later_slices(tmp_path):
     from repro_torch.launch import train as launch
     parse = launch.build_parser().parse_args
-    for extra, what in ((["--mesh", "2x2"], "requires --fsdp"),
+    for extra, what in ((["--mesh", "2x2", "--collective-backend", "user"],
+                         "requires --fsdp"),
                         (["--devices", "4", "--mesh", "2x1"], "does not hold"),
                         (["--devices", "3", "--collective-backend", "user"],
                          "does not split"),

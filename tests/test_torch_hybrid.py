@@ -195,14 +195,22 @@ def test_loss_impl_is_plain_xent_as_jax():
     np.testing.assert_allclose(float(loss), float(jloss), **TOL)
 
 
-def test_unported_attention_raises():
-    """Ring attention (queued) raises at the shared block's site."""
-    _, _, cfg, params = setup()
-    tbatch = {k: torch.from_numpy(v)
-              for k, v in batch_of(cfg.vocab_size, S=8).items()}
-    with pytest.raises(NotImplementedError, match="ring"):
-        registry.loss_fn(params, cfg.with_overrides(attention_impl="ring"),
-                         tbatch)
+def test_unported_attention_raises(tmp_path):
+    """Ring attention at the shared block's sites, which raised before it
+    was ported, is held against the JAX model with nonzero LoRA and
+    "full" remat (each group recomputed): the "ring" loss without a mesh
+    and under a (1, 4) mesh equals the JAX loss without a mesh and under
+    JAX's (1, 4) mesh, within 1e-5."""
+    from tests.test_torch_ring import jax_ring_losses, port_ring_losses
+    jcfg, jparams, cfg, params = setup()
+    batch = batch_of(cfg.vocab_size, S=16)
+    got = port_ring_losses(params, cfg.with_overrides(remat_policy="full"),
+                           batch)
+    want = jax_ring_losses(
+        f'reduce_cfg(get_config("{ARCH}"), dtype="float32", '
+        f'vocab_size={cfg.vocab_size}, remat_policy="full", '
+        f'attention_impl="ring")', jparams, batch, tmp_path)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def _count_launches(monkeypatch):

@@ -54,6 +54,9 @@ FAMILIES_SLICE = ["repro_torch.models.hybrid", "repro_torch.models.encdec",
                   "repro_torch.configs.zamba2_1_2b",
                   "repro_torch.configs.whisper_tiny",
                   "repro_torch.configs.pixtral_12b"]
+# the model-axis slice: ring attention (the MoE block's tensor-parallel
+# schedule lives in models.layers, scanned above)
+CONTEXT_SLICE = ["repro_torch.collectives.ring_attention"]
 MOE_NAMES = ["training_mode", "in_training", "moe_spec", "_moe_route",
              "moe_apply", "moe_dispatch_alltoall", "_moe_expert_ffn_sharded",
              "moe_apply_expert_parallel"]
@@ -85,7 +88,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert all(f"'{m}'" in loaded
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE
-               + MOE_SLICE + FAMILIES_SLICE), loaded
+               + MOE_SLICE + FAMILIES_SLICE + CONTEXT_SLICE), loaded
 
 
 def test_the_moe_slice_is_in_the_port():
@@ -137,7 +140,7 @@ def test_no_jax_or_repro_import_in_the_sources():
                for p in SOURCES if PORT in p.parents}
     assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE
-               + SERVE_SLICE + FAMILIES_SLICE) <= scanned
+               + SERVE_SLICE + FAMILIES_SLICE + CONTEXT_SLICE) <= scanned
     assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):

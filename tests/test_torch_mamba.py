@@ -165,20 +165,27 @@ def test_loss_impl_is_plain_xent_as_jax():
     _grads_match_jax(*_train_setup("none", 32, loss_impl="chunked_vocab"))
 
 
-def test_unported_training_options_raise():
-    """Ring attention (queued) still raises, at the hybrid family's
-    shared attention block; "dots" is ported (tests/test_torch_options.py)
-    and so is the hybrid family (tests/test_torch_hybrid.py)."""
+def test_unported_training_options_raise(tmp_path):
+    """Ring attention at the hybrid family's shared attention block,
+    which raised before it was ported, is held against the JAX model:
+    zamba2-1.2b's "ring" loss without a mesh and under a (1, 4) mesh
+    equals the JAX loss of the same config without a mesh and under
+    JAX's (1, 4) mesh, within 1e-5 ("dots" is held in
+    tests/test_torch_options.py, the hybrid family in
+    tests/test_torch_hybrid.py)."""
+    from tests.test_torch_ring import jax_ring_losses, port_ring_losses
     jcfg = reduce_cfg(jax_get_config("zamba2-1.2b"), dtype="float32")
     cfg = port_cfg(jcfg)
-    params = registry.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 9))
-    tbatch = {"tokens": torch.from_numpy(toks[:, :-1]),
-              "labels": torch.from_numpy(toks[:, 1:])}
-    for over in (dict(attention_impl="ring"),):
-        with pytest.raises(NotImplementedError):
-            with torch.enable_grad():
-                registry.loss_fn(params, cfg.with_overrides(**over), tbatch)
+    jparams = jax_registry.init_params(jcfg, jax.random.PRNGKey(0))
+    params = bridge.params_from_numpy(np_tree(jparams), device="cpu")
+    toks = np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    got = port_ring_losses(params, cfg, batch)
+    want = jax_ring_losses(
+        'reduce_cfg(get_config("zamba2-1.2b"), dtype="float32", '
+        'attention_impl="ring")', jparams, batch, tmp_path)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

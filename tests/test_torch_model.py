@@ -156,16 +156,23 @@ def test_gradients_match_jax(remat):
         np.testing.assert_allclose(g.numpy(), np.asarray(jg), **TOL)
 
 
-def test_unported_training_options_raise():
-    """Ring attention still raises; the checkpoint policies and the
-    chunked loss are ported (tests/test_torch_options.py), and so are the
-    logit softcap and the moe family (tests/test_torch_moe.py)."""
-    _, _, cfg, params, batch = _train_setup("none", S=8)
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    for over in (dict(attention_impl="ring"),):
-        with pytest.raises(NotImplementedError):
-            with torch.enable_grad():
-                registry.loss_fn(params, cfg.with_overrides(**over), tbatch)
+def test_unported_training_options_raise(tmp_path):
+    """Ring attention, which raised before it was ported, is held
+    against the JAX model: smollm-360m's "ring" loss without a mesh
+    (plain attention) and under a (1, 4) mesh (the ring around 4 model
+    ranks) equals the JAX loss of the same config, without a mesh and
+    under JAX's (1, 4) mesh, within 1e-5.  The checkpoint policies and
+    the chunked loss are held in tests/test_torch_options.py, the logit
+    softcap and the moe family in tests/test_torch_moe.py, and the ring's
+    gradients in tests/test_torch_ring.py."""
+    from tests.test_torch_ring import jax_ring_losses, port_ring_losses
+    jcfg, jparams, cfg, params, batch = _train_setup("none", S=8)
+    got = port_ring_losses(params, cfg, batch)
+    want = jax_ring_losses(
+        'reduce_cfg(get_config("smollm-360m"), dtype="float32", '
+        'remat_policy="none", attention_impl="ring")', jparams, batch,
+        tmp_path)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_model_flops_and_param_count_match_jax():

@@ -261,6 +261,45 @@ def test_kernel_launches_per_step_as_derived(monkeypatch, arch, policy):
         assert calls["rmsnorm_fwd"] == (4 if again_norm else 2) * NL + 1
 
 
+@pytest.mark.parametrize("arch,policy", [
+    *(("smollm-360m", p) for p in POLICIES), ("zamba2-1.2b", "full"),
+    ("zamba2-1.2b", "none")])
+def test_kernel_launches_per_step_with_ring_on_4_model_ranks(
+        monkeypatch, arch, policy):
+    """"ring" on a 4-rank model axis: the step under ``set_mesh`` of a
+    (1, 4) mesh makes no flash_attention call (every causal
+    self-attention goes around the ring, recomputed or not) and the
+    norms of the single-rank step, as ``kernel_launches_per_step(cfg,
+    model=4, seq=16)`` derives; with a sequence the axis does not divide
+    the ring falls back and the counts are the single-rank ones."""
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    calls = _count_launches(monkeypatch)
+    jcfg = reduce_cfg(jax_get_config(arch), num_layers=3, vocab_size=64)
+    cfg = port_cfg(jcfg).with_overrides(remat_policy=policy,
+                                        attention_impl="ring")
+    params = bridge.params_from_numpy(np_tree(jax_registry.init_params(
+        jcfg, jax.random.PRNGKey(0))), device="cpu")
+    step = train_launch.make_train_step(cfg, opt.AdamWConfig())
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    for seq in (16, 14):
+        for k in calls:
+            calls[k] = 0
+        batch = {k: torch.from_numpy(v) for k, v in
+                 SyntheticLM(64, seq, 4, seed=1).sample().items()}
+        with sharding.set_mesh(mesh):
+            step(params, opt.init(params), batch)
+        assert calls == train_launch.kernel_launches_per_step(
+            cfg, model=4, seq=seq)
+        single = train_launch.kernel_launches_per_step(cfg)
+        if seq == 16:
+            assert calls["flash_attention"] == 0 < single["flash_attention"]
+            assert {k: v for k, v in calls.items() if k != "flash_attention"} \
+                == {k: v for k, v in single.items() if k != "flash_attention"}
+        else:
+            assert calls == single
+
+
 # ---------------------------------------------------------------------------
 # head padding
 # ---------------------------------------------------------------------------
