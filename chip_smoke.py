@@ -33,7 +33,7 @@ Phases; any failure raises and the script exits non-zero:
              progress workers, each from a fresh checkpoint directory;
              the final async checkpoint must restore to the same
              tensors) and at full mamba2-1.3b width (caller-driven, at
-             24 of its 48 layers, checked alike): 6 steps of batch
+             12 of its 48 layers, checked alike): 6 steps of batch
              8 x 1024 tokens.  The launch
              counters must show every step went through its kernels as
              many times as ``kernel_launches_per_step`` derives; after
@@ -95,7 +95,8 @@ Phases; any failure raises and the script exits non-zero:
              call's device time per stream; two progress workers serve
              the caller-driven streams (both at 6 of the 24 layers, as
              in phase 3), and an executor never started serves; mamba2-1.3b
-             on 2 ranks, user = native; membership changes mid decode
+             on 2 ranks at 24 of its 48 layers, user = native;
+             membership changes mid decode
              (down to 2 ranks and to 1), mid prefill and by the watchdog
              against a run without failure; ``--chaos-kill 2``; a lane
              checkpointed after 40 tokens restored into a shifted pool
@@ -104,8 +105,8 @@ Phases; any failure raises and the script exits non-zero:
              requests through 8 lanes over phase 3's 1024-position view,
              caller-driven; its launches, one fused call timed, the slot
              cache against the paged pool) and trained through the train
-             launcher at 16 of its 32 layers (6 steps of 8 x 1024 tokens,
-             "full" remat, the aux loss of each step finite, the ~21 GB
+             launcher at 8 of its 32 layers (6 steps of 8 x 1024 tokens,
+             "full" remat, the aux loss of each step finite, the ~11 GB
              checkpoint restored equal); grok-1-314b served at full widths at 2
              of its 64 layers, every flash_decode launch with its logit
              cap of 30; one granite MoE layer expert-parallel on 4 model
@@ -120,8 +121,9 @@ Phases; any failure raises and the script exits non-zero:
              view, caller-driven; 51 rmsnorm_fwd and 6 flash_decode a
              fused call, one call timed, the slot cache against the
              paged pool bit for bit) and trained through the train
-             launcher (6 steps of 8 x 1024 tokens, "full" remat, the
-             launches as derived, the 13.4 GB checkpoint restored equal);
+             launcher at 19 of its layers (6 steps of 8 x 1024 tokens,
+             "full" remat, the launches as derived, the checkpoint
+             restored equal);
              whisper-tiny trained so (encoder embeddings of ones, as the
              JAX launcher feeds them) and decoded on the slot cache (8
              lanes, the encoder over seeded frames [8, 1500, 384], the
@@ -152,13 +154,41 @@ Phases; any failure raises and the script exits non-zero:
              tensor-parallel schedule at grok-1's widths on 4 model ranks
              against the einsum branch in f32, and both timed in bf16.
 
+15. cells  — ``launch/steps.py``'s cells at the assigned shapes
+             (``configs/shapes.py``) on the card: qwen2-0.5b
+             ``decode_32k`` at all 128 lanes, every lane at position
+             32767 (51.5 GB of bf16 K/V filled in place from a seeded
+             generator), with bf16 weights and with int8 weights on the
+             same cache; zamba2-1.2b ``long_500k`` (flash_decode over
+             524288 keys at its 6 sites); qwen2-0.5b ``prefill_32k`` at 1
+             of its 32 sequences (flash_attention at 32768 queries);
+             smollm-360m ``train_4k`` at 16 of its 256 sequences, in 8
+             microbatches of 2, bf16 cast.  Each: one step's time (CUDA
+             events), its launches against the dry run's meta count of
+             the same cell (and train's against
+             ``kernel_launches_per_step``), its peak memory, the dry
+             run's one-card bound and the time over it; then each card
+             against the CPU in f32 at 2 layers (zamba2: one group and
+             a tail; prefill over 4096 positions).  The dry run over
+             every registered config x assigned shape on 1x1 runs on the
+             host (two processes, half the configs each) after the
+             timed steps, beside those checks and the five examples on
+             the card (``train_lm --scale full --steps 4``, then resumed
+             to step 5), for at most ``DRYRUN_BUDGET_S`` (else the
+             cells' own records only).  The kernels phase holds
+             flash_decode at the two decode shapes and
+             flash_attention at 32768 queries on its last 1024 query
+             rows, in bf16 to a limit scaled to the output's rms, which
+             zeros and the output over half the keys fail.
+
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
 ``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
 and phase 11; ``--only moe`` the build, the two attention kernels' checks
 and phase 12 with granite's card-against-CPU checks; ``--only families``
 the build, the kernels at the new shapes and phase 13 with its checks;
-``--only context`` the build and phase 14.
+``--only context`` the build and phase 14; ``--only cells`` the build,
+the kernels at the assigned shapes and phase 15.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -173,6 +203,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -187,11 +218,6 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
-# larger of its bytes over the memory rate and its flops over the rate of
-# its inputs' type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOLS = {torch.float32: dict(atol=2e-5, rtol=2e-5),     # tests/test_kernels.py
         torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -216,8 +242,9 @@ SERVE_WORKERS_LAYERS = 6
 MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
 # cut so that the whole run stays well inside its time limit with the MoE
 # phase: qwen2.5-3b's int8 K/V serve run (of 36 layers), mamba2-1.3b's
-# serve and train runs (of 48)
-Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 12, 24, 24
+# serve and train runs (of 48; the train run's from 24 to 12, with its
+# checkpoint, for phase 15)
+Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 12, 24, 12
 # the MoE family: granite-moe-3b-a800m trained as smollm-360m is (6 steps
 # of 8 x 1024 tokens) and served with the mamba2 path's short requests
 # over phase 3's 1024-position view; grok-1-314b served at full widths at
@@ -240,8 +267,11 @@ WHISPER_MAX_SEQ, WHISPER_NEW = 448, 32
 PIXTRAL, PIXTRAL_D, PIXTRAL_LAYERS, PIXTRAL_STEPS = "pixtral-12b", 5120, 4, 4
 PIXTRAL_BATCH, PIXTRAL_PATCHES = 2, 1024
 # granite-moe's train run (of 32 layers): its 40 GB checkpoint was the
-# script's largest item; at 16 layers it is ~21 GB
-GRANITE_TRAIN_LAYERS = 16
+# script's largest item; at 16 layers it was ~21 GB, at 8 (for phase 15)
+# ~11 GB.  zamba2-1.2b's train run: 19 of its 38 layers (3 groups of 6
+# and the tail), for phase 15
+GRANITE_TRAIN_LAYERS = 8
+ZAMBA_TRAIN_LAYERS = 19
 # phase 14: smollm-360m trained with "ring" on a model axis of 4 ranks
 RING_MESH, RING_STEPS = "1x4", 5
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
@@ -251,6 +281,20 @@ L2_BYTES = 50 * 2**20
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(work: tuple, dtype) -> tuple[float, str]:
+    """The least ms one H100 SXM could take for ``work`` (flops, bytes;
+    the ``*_work`` formula beside each kernel) on ``dtype``: the larger of
+    the bytes over the memory rate and the flops over the peak rate of
+    the type (``launch.mesh.H100_SXM``, NVIDIA's data sheet, dense), and
+    which of the two it is."""
+    from repro_torch.launch.mesh import H100_SXM, peak_flops
+    flops, nbytes = work
+    t_bytes = nbytes / H100_SXM["hbm_bytes_per_s"]
+    t_ops = flops / peak_flops(dtype)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, args_list, iters: int = 200) -> float:
@@ -365,16 +409,64 @@ def fmt(times: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in times.items())
 
 
+def off_limit(got, want, tol) -> torch.Tensor:
+    """Where ``got`` is off ``want`` beyond ``tol`` (its atol a number or a
+    tensor that broadcasts against ``want``)."""
+    return (got.float() - want.float()).abs() \
+        > tol["atol"] + tol["rtol"] * want.float().abs()
+
+
+def tol_text(tol) -> str:
+    atol = tol["atol"]
+    if torch.is_tensor(atol):
+        return (f"atol {SCALED_ATOL:g} x each sequence's rms, "
+                f"{float(atol.min()):.3e}-{float(atol.max()):.3e}, rtol "
+                f"{tol['rtol']:g}")
+    return f"atol/rtol {atol:g}/{tol['rtol']:g}"
+
+
 def check_close(name, got, want, dtype, tol=None) -> float:
     err = (got.float() - want.float()).abs()
     tol = tol or TOLS[dtype]
-    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    bad = off_limit(got, want, tol)
     if not torch.isfinite(got.float()).all() or bad.any():
         raise AssertionError(
             f"{name} {dtype}: {int(bad.sum())} elements off the plain "
-            f"version beyond atol={tol['atol']} rtol={tol['rtol']} "
-            f"(max abs err {float(err.max()):.3e})")
+            f"version beyond {tol_text(tol)} (max abs err "
+            f"{float(err.max()):.3e})")
     return float(err.max())
+
+
+# At the assigned shapes an output element averages v over 32768 or
+# 524288 keys, so its rms is ~sqrt(e / keys) (~0.009, ~0.002 for unit
+# normal inputs): below the bf16 atol of TOLS, which a kernel that wrote
+# zeros would pass.  There a bf16 output is held to SCALED_ATOL times its
+# own sequence's rms (and the rtol of TOLS), and the limit is shown to
+# reject zeros and the output over half the keys (a combine or a key loop
+# that dropped half of its splits or tiles).
+SCALED_ATOL = 0.1
+
+
+def scaled_tol(want, dtype) -> dict:
+    if dtype != torch.bfloat16:
+        return TOLS[dtype]
+    w = want.float()
+    rms = w.pow(2).mean(dim=tuple(range(1, w.dim())), keepdim=True).sqrt()
+    return dict(atol=SCALED_ATOL * rms, rtol=TOLS[dtype]["rtol"])
+
+
+def rejects(name, want, tol, wrong: dict) -> str:
+    """That ``tol`` rejects each of the ``wrong`` outputs; the share of
+    elements off in each."""
+    parts = []
+    for what, out in wrong.items():
+        off = off_limit(out, want, tol)
+        if not off.any():
+            raise AssertionError(f"{name}: the limit ({tol_text(tol)}) "
+                                 f"does not reject {what}")
+        parts.append(f"{what}: {100 * float(off.float().mean()):.1f}% of "
+                     f"elements off")
+    return "the limit rejects " + "; ".join(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -412,7 +504,8 @@ RMSNORM_SHAPES = ((LANES, 896, 1e-6), (LANES * MAX_PROMPT, 896, 1e-6),
 
 def kernel_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> dict:
     from repro_torch.kernels.rmsnorm import (rmsnorm_fwd, rmsnorm_fwd_path,
-                                             rmsnorm_fwd_plain)
+                                             rmsnorm_fwd_plain,
+                                             rmsnorm_fwd_work)
     row = dict(name="rmsnorm_fwd", route="cuda",
                source="src/repro_torch/csrc/rmsnorm.cu",
                replaces="src/repro/kernels/rmsnorm.py:41")
@@ -424,27 +517,27 @@ def kernel_rmsnorm(gen, shapes=RMSNORM_SHAPES) -> dict:
             torch.cuda.synchronize()
             err = check_close("rmsnorm_fwd", got, rmsnorm_fwd_plain(x, s, eps),
                               dtype)
-            nbytes = 2 * x.numel() * x.element_size() + s.numel() * 4
+            work = rmsnorm_fwd_work(N, D, dtype)
+            nbytes = work[1]
             args = [(x.clone(), s) for _ in range(copies_for(nbytes))]
             fns = {"kernel": lambda a, b: rmsnorm_fwd(a, b, eps),
                    "plain": lambda a, b: rmsnorm_fwd_plain(a, b, eps),
                    "F.rms_norm": lambda a, b: F.rms_norm(a, (D,), b.to(dtype),
                                                          eps)}
             dev, paced, source = measure(fns, args)
-            bound = max(nbytes / HBM_BYTES_PER_S,
-                        4 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
+            bound_ms, by = bound(work, dtype)
             log(f"kernel rmsnorm_fwd N={N} D={D} eps={eps} {str(dtype)[6:]} (path "
                 f"{rmsnorm_fwd_path(D, dtype)}): max abs "
                 f"err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
-                f"{fmt(paced)}; bound {bound:.6f} ms (bytes)")
+                f"{fmt(paced)}; bound {bound_ms:.6f} ms ({by})")
             if dtype != torch.bfloat16:
                 continue
             fig = dict(shape=f"x [{N}, {D}] bfloat16",
                        path=rmsnorm_fwd_path(D, dtype),
                        max_abs_err=err, ms=dev["kernel"],
                        plain_ms=dev["plain"], ms_source=source,
-                       bound_ms=bound, bound_by="bytes",
+                       bound_ms=bound_ms, bound_by=by,
                        library_ms=dev["F.rms_norm"])
             if (N, D) == (LANES, 896):                      # the serve path
                 row.update(fig)
@@ -472,6 +565,16 @@ DECODE_CASES = (((LANES, 14, 2, 64), 0.0, None, SERVE_VIEW, False),
                  WHISPER_MAX_SEQ, False),
                 ((LANES, 6, 6, 64), 0.0, "serve_whisper_cross_shape",
                  WHISPER_FRAMES, True))
+# the last three families' decode shapes (phase 13)
+FAMILY_DECODE_CASES = DECODE_CASES[-3:]
+# the assigned decode shapes (phase 15), every lane at its cache's end:
+# qwen2-0.5b decode_32k at 128 lanes, zamba2-1.2b long_500k's sites (G = 1,
+# 9 splits of 58304 keys)
+ASSIGNED_DECODE_CASES = (((128, 14, 2, 64), 0.0, "decode_32k_shape", 32768,
+                          True),
+                         ((1, 32, 32, 64), 0.0, "long_500k_shape", 524288,
+                          True))
+DECODE_CASES = DECODE_CASES + ASSIGNED_DECODE_CASES
 
 
 def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
@@ -484,12 +587,18 @@ def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
     from repro_torch.kernels.decode_attention import (decode_split_keys,
                                                       decode_splits,
                                                       flash_decode,
-                                                      flash_decode_plain)
+                                                      flash_decode_plain,
+                                                      flash_decode_work)
     row = dict(name="flash_decode", route="cuda",
                source="src/repro_torch/csrc/flash_decode.cu",
                replaces="src/repro/kernels/decode_attention.py:80")
     for ((B, H, KVH, hd), cap, key, S, full), dtype in itertools.product(
             cases, (torch.bfloat16, torch.float32)):
+        # a cache of 1 GiB or more: fewer timed calls (the plain version
+        # reads it in f32), and in f32 (no row of the JSON) held, not timed
+        big = B * S * KVH * hd * 2 >= 2**30
+        many = S >= 32768                   # the assigned shapes' keys
+        iters = (10, 20) if big else (50, 200)
         split_keys = decode_split_keys(B, KVH, S)
         splits = decode_splits(B, KVH, S)
         grid = (f"{splits * KVH * B} CTAs ({splits} splits of {split_keys} "
@@ -505,9 +614,22 @@ def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
                                  dtype=torch.int32))
         got = flash_decode(q, k, v, lengths, logit_cap=cap)
         torch.cuda.synchronize()
-        err = check_close("flash_decode", got,
-                          flash_decode_plain(q, k, v, lengths, logit_cap=cap),
-                          dtype)
+        want = flash_decode_plain(q, k, v, lengths, logit_cap=cap)
+        tol = scaled_tol(want, dtype) if many else TOLS[dtype]
+        err = check_close("flash_decode", got, want, dtype, tol)
+        reject_text = ""
+        if many:
+            # what a combine that kept the first half of the splits gives
+            # (half the keys where there is one split)
+            kept = (splits // 2) * split_keys if splits > 1 else S // 2
+            half = flash_decode_plain(q, k, v, lengths.clamp(max=kept),
+                                      logit_cap=cap)
+            reject_text = "; " + rejects(
+                "flash_decode", want, tol,
+                {"zeros": torch.zeros_like(got),
+                 f"the output over the first {kept} keys": half})
+            del half
+        del want
         cap_text = ""
         if cap:
             bits = torch.equal(flash_decode(q, k, v, lengths, logit_cap=0.0),
@@ -520,10 +642,14 @@ def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
             cap_text = (f"; logit cap {cap:g}: the cap moves the output by up "
                         f"to {moved:.3e}, cap 0 gives the uncapped kernel's "
                         f"bits")
+        if big and dtype == torch.float32:
+            log(f"kernel flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} "
+                f"float32: max abs err {err:.3e} ({tol_text(tol)}); grid "
+                f"{grid}; not timed{reject_text}")
+            continue
         es = q.element_size()
         valid = int(lengths.sum())
-        nbytes = (2 * q.numel() * es + 2 * valid * KVH * hd * es + 4 * B)
-        flops = 4 * valid * H * hd
+        work = flash_decode_work(B, H, KVH, hd, valid, dtype)
         args = [(q, k.clone(), v.clone(), lengths)
                 for _ in range(copies_for(2 * k.numel() * es))]
         pos = torch.arange(S, device="cuda")
@@ -538,16 +664,16 @@ def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
                "plain": lambda *a: flash_decode_plain(*a, logit_cap=cap)}
         if not cap:
             fns["sdpa"] = sdpa
-        dev, paced, source = measure(fns, args)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+        dev, paced, source = measure(fns, args, *iters)
+        bound_ms, by = bound(work, dtype)
         kv_bytes = 2 * valid * KVH * hd * es
         log(f"kernel flash_decode B={B} H={H} KVH={KVH} hd={hd} S={S} "
             f"{str(dtype)[6:]} logit_cap={cap:g} (sum lengths {valid}): max "
-            f"abs err {err:.3e} (atol/rtol {TOLS[dtype]['atol']}); grid {grid}; "
+            f"abs err {err:.3e} ({tol_text(tol)}); grid {grid}; "
             f"device ms ({source}) {fmt(dev)}; back-to-back ms per call "
-            f"{fmt(paced)}; bound {bound:.6f} ms (bytes); kernel "
+            f"{fmt(paced)}; bound {bound_ms:.6f} ms ({by}); kernel "
             f"{kv_bytes / dev['kernel'] / 1e6:.1f} GB/s of valid K/V bytes "
-            f"({kv_bytes / 1e6:.3f} MB){cap_text}")
+            f"({kv_bytes / 1e6:.3f} MB){cap_text}{reject_text}")
         if dtype != torch.bfloat16:
             continue
         fig = dict(shape=f"q [{B}, {H}, {hd}], k/v [{B}, {S}, {KVH}, "
@@ -555,9 +681,7 @@ def kernel_flash_decode(gen, cases=DECODE_CASES) -> dict:
                    + (f", logit_cap {cap:g}" if cap else ""), grid=grid,
                    max_abs_err=err, ms=dev["kernel"],
                    plain_ms=dev["plain"], ms_source=source,
-                   bound_ms=bound,
-                   bound_by="bytes" if nbytes / HBM_BYTES_PER_S
-                   >= flops / PEAK_FLOPS[dtype] else "operations",
+                   bound_ms=bound_ms, bound_by=by,
                    library_ms=dev.get("sdpa"))
         if key is None:                                     # the serve path
             row.update(fig)
@@ -591,7 +715,8 @@ RMSNORM_BWD_SHAPES = ((TRAIN_BATCH * TRAIN_SEQ, 960, 1e-5), (LANES, 896, 1e-5),
 
 
 def kernel_rmsnorm_bwd(gen, shapes=RMSNORM_BWD_SHAPES) -> dict:
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_bwd_plain
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plain,
+                                             rmsnorm_bwd_work)
     row = dict(name="rmsnorm_bwd", route="cuda",
                source="src/repro_torch/csrc/rmsnorm.cu",
                replaces="src/repro/kernels/rmsnorm.py:61")
@@ -608,8 +733,8 @@ def kernel_rmsnorm_bwd(gen, shapes=RMSNORM_BWD_SHAPES) -> dict:
             ds_err = check_close("rmsnorm_bwd dscale", part.sum(0),
                                  want_part.sum(0), dtype,
                                  dict(atol=1e-3, rtol=1e-3))
-            es = x.element_size()
-            nbytes = 3 * x.numel() * es + part.numel() * 4 + D * 4
+            work = rmsnorm_bwd_work(N, D, dtype)
+            nbytes = work[1]
             w = s.to(dtype)     # the library takes weight in x's dtype
             rstd, why = fused_rms_norm_backward(x, g, w, eps)
             args = [(x.clone(), s, g.clone(), rstd, w)
@@ -634,20 +759,19 @@ def kernel_rmsnorm_bwd(gen, shapes=RMSNORM_BWD_SHAPES) -> dict:
                 lib_text = (f"no single PyTorch call computes it on this "
                             f"card (aten._fused_rms_norm_backward: {why})")
             dev, paced, source = measure(fns, args)
-            bound = max(nbytes / HBM_BYTES_PER_S,
-                        12 * x.numel() / PEAK_FLOPS[dtype]) * 1e3
+            bound_ms, by = bound(work, dtype)
             log(f"kernel rmsnorm_bwd N={N} D={D} eps={eps} {str(dtype)[6:]}: max abs "
                 f"err dx {err:.3e} (atol/rtol {TOLS[dtype]['atol']}), summed "
                 f"dscale {ds_err:.3e} (atol/rtol 1e-3); device ms "
                 f"({source}) {fmt(dev)}; back-to-back ms per call "
-                f"{fmt(paced)}; bound {bound:.6f} ms (bytes); {lib_text}")
+                f"{fmt(paced)}; bound {bound_ms:.6f} ms ({by}); {lib_text}")
             if N == LANES or dtype != torch.bfloat16:
                 continue
             fig = dict(shape=f"x, g [{N}, {D}] bfloat16",
                        max_abs_err=err, ms=dev["kernel"],
                        ms_with_sum=dev["kernel+sum"],
                        plain_ms=dev["plain"], ms_source=source,
-                       bound_ms=bound, bound_by="bytes",
+                       bound_ms=bound_ms, bound_by=by,
                        library_ms=dev.get("library"))
             if D == 960:                                   # the train path
                 row.update(fig)
@@ -688,6 +812,15 @@ ATTENTION_SHAPES = (
     ((2, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128), (True,), LOGIT_CAP,
      "train_grok_shape"),
     *FAMILY_ATTENTION_SHAPES)
+# qwen2-0.5b prefill_32k's attention (phase 15): the plain version's f32
+# scores [1, 2, 7, 32768, 32768] (60 GB) do not fit, so the kernel is held
+# on its last ATTENTION_TAIL query rows, which under the bottom-right
+# causal mask are the plain version on q[:, -ATTENTION_TAIL:] against
+# every key, and "plain" is timed on that slice
+PREFILL_ATTENTION_SHAPES = (
+    ((1, 32768, 32768, 14, 2, 64), (True,), 0.0, "prefill_32k_shape"),)
+ATTENTION_SHAPES = ATTENTION_SHAPES + PREFILL_ATTENTION_SHAPES
+ATTENTION_TAIL = 1024
 
 
 def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
@@ -697,7 +830,8 @@ def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
     ``CAP_Q_SCALE`` ** 0.5 so that scores reach the cap; no library
     figure, and cap 0 must give the uncapped kernel's bits)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_work)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:96")
@@ -713,10 +847,39 @@ def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
                                 device="cuda").to(dtype)
                 got = flash_attention(q, k, v, causal=causal, logit_cap=cap)
                 torch.cuda.synchronize()
+                # more than 8 GB of plain f32 scores: the last rows only
+                tail = ATTENTION_TAIL if B * H * Sq * Sk * 4 > 8 * 2**30 \
+                    else 0
+                want = flash_attention_plain(
+                    q[:, -tail:] if tail else q, k, v, causal=causal,
+                    logit_cap=cap)
+                # the assigned shape's rows average over ~32768 keys
+                tol = scaled_tol(want, dtype) if Sk >= 32768 \
+                    else TOLS[dtype]
                 err = check_close(
-                    "flash_attention", got,
-                    flash_attention_plain(q, k, v, causal=causal,
-                                          logit_cap=cap), dtype)
+                    "flash_attention", got[:, -tail:] if tail else got,
+                    want, dtype, tol)
+                reject_text = ""
+                if Sk >= 32768:
+                    # what a key loop that dropped the later half of its
+                    # tiles gives (bottom-right mask: the same rows)
+                    half = flash_attention_plain(
+                        q[:, -tail:] if tail else q, k[:, :Sk // 2],
+                        v[:, :Sk // 2], causal=causal, logit_cap=cap)
+                    reject_text = "; " + rejects(
+                        "flash_attention", want, tol,
+                        {"zeros": torch.zeros_like(want),
+                         f"the output over the first {Sk // 2} keys": half})
+                    del half
+                del want
+                if tail and dtype == torch.float32:
+                    # no row of the JSON: held, not timed
+                    log(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
+                        f"KVH={KVH} hd={hd} causal={causal} float32 (held on "
+                        f"the last {tail} query rows): max abs err "
+                        f"{err:.3e} ({tol_text(tol)}); not timed"
+                        f"{reject_text}")
+                    continue
                 cap_text = ""
                 if cap:
                     bits = torch.equal(
@@ -731,12 +894,10 @@ def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
                     cap_text = (f"; logit cap {cap:g}: the cap moves the "
                                 f"output by up to {moved:.3e}, cap 0 gives "
                                 f"the uncapped kernel's bits")
-                es = q.element_size()
-                nbytes = (2 * q.numel() + 2 * k.numel()) * es
-                # (query, key) pairs the mask leaves: what this run computes
-                pairs = sum(min(Sk, i + Sk - Sq + 1) for i in range(Sq)) \
-                    if causal else Sq * Sk
-                flops = 4 * B * H * pairs * hd
+                # the (query, key) pairs the mask leaves: what this run
+                # computes
+                flops, nbytes = flash_attention_work(B, Sq, Sk, H, KVH, hd,
+                                                     causal, dtype)
                 args = [(q, k.clone(), v.clone())
                         for _ in range(copies_for(nbytes))]
 
@@ -749,28 +910,30 @@ def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
                 fns = {"kernel": lambda a, b, c: flash_attention(
                            a, b, c, causal=causal, logit_cap=cap),
                        "plain": lambda a, b, c: flash_attention_plain(
-                           a, b, c, causal=causal, logit_cap=cap)}
+                           a[:, -tail:] if tail else a, b, c, causal=causal,
+                           logit_cap=cap)}
                 if not cap:
                     fns["sdpa"] = sdpa
-                dev, paced, source = measure(fns, args, dev_iters=20,
-                                             paced_iters=50)
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = flops / PEAK_FLOPS[dtype]
-                bound = max(t_bytes, t_ops) * 1e3
-                by = "bytes" if t_bytes >= t_ops else "operations"
+                dev, paced, source = measure(fns, args,
+                                             dev_iters=5 if tail else 20,
+                                             paced_iters=10 if tail else 50)
+                bound_ms, by = bound((flops, nbytes), dtype)
                 n_q = -(-Sq // 64)
                 grid = (f"{n_q * H * B} CTAs ({n_q} query tiles of 64 x {H} "
                         f"heads x {B} sequences)")
                 log(f"kernel flash_attention B={B} Sq={Sq} Sk={Sk} H={H} "
                     f"KVH={KVH} hd={hd} causal={causal} logit_cap={cap:g} "
-                    f"{str(dtype)[6:]}: "
-                    f"max abs err {err:.3e} (atol/rtol "
-                    f"{TOLS[dtype]['atol']}); grid {grid}; device ms ({source}) "
+                    f"{str(dtype)[6:]}"
+                    + (f" (held and plain timed on the last {tail} query "
+                       f"rows)" if tail else "") + ": "
+                    f"max abs err {err:.3e} ({tol_text(tol)}); grid {grid}; "
+                    f"device ms ({source}) "
                     f"{fmt(dev)}; "
                     f"back-to-back ms per call {fmt(paced)}; bound "
-                    f"{bound:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+                    f"{bound_ms:.6f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                     f"{nbytes / 1e6:.1f} MB); kernel "
-                    f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s{cap_text}")
+                    f"{flops / dev['kernel'] / 1e9:.1f} TFLOP/s{cap_text}"
+                    f"{reject_text}")
                 if key == "" or causal != causals[0] \
                         or dtype != torch.bfloat16:
                     continue
@@ -782,8 +945,11 @@ def kernel_flash_attention(gen, shapes=ATTENTION_SHAPES) -> dict:
                            grid=grid,
                            max_abs_err=err, ms=dev["kernel"],
                            plain_ms=dev["plain"], ms_source=source,
-                           bound_ms=bound, bound_by=by,
+                           bound_ms=bound_ms, bound_by=by,
                            library_ms=dev.get("sdpa"))
+                if tail:
+                    fig["plain_of"] = (f"the last {tail} query rows against "
+                                       f"every key")
                 if key is None:                         # the train path
                     row.update(fig)
                 else:
@@ -806,7 +972,8 @@ def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
     dt in f32 (as the model feeds it) and in x's dtype (as
     tests/test_kernels.py feeds it)."""
     from repro_torch.kernels.ssd_scan import (ssd_chunk, ssd_chunk_plain,
-                                              ssd_grid, ssd_head_block)
+                                              ssd_chunk_work, ssd_grid,
+                                              ssd_head_block)
     row = dict(name="ssd_chunk", route="cuda",
                source="src/repro_torch/csrc/ssd_chunk.cu",
                replaces="src/repro/kernels/ssd_scan.py:79")
@@ -844,22 +1011,13 @@ def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
             if not timed:
                 log(label)
                 continue
-            es = args[0].element_size()
-            nbytes = (2 * x.numel() + 2 * b.numel()) * es \
-                + dt.numel() * args[3].element_size() \
-                + 4 * (nh + got[1].numel() + got[2].numel())
-            pairs = Q * (Q + 1) // 2            # the causal (i, j) pairs
-            flops = 2 * Bc * (pairs * ds + pairs * nh * hp
-                              + Q * nh * hp * ds)
+            flops, nbytes = ssd_chunk_work(Bc, Q, nh, hp, ds, dtype, dt_dtype)
             copies = [tuple(t.clone() for t in args)
                       for _ in range(copies_for(nbytes))]
             fns = {"kernel": ssd_chunk, "plain": ssd_chunk_plain}
             dev, paced, source = measure(fns, copies, dev_iters=10,
                                          paced_iters=20)
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[dtype]
-            bound = max(t_bytes, t_ops) * 1e3
-            by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, by = bound((flops, nbytes), dtype)
             # the device time of each of the call's two launches
             calls = 10
             by_name, _ = profile_kernels(lambda: [
@@ -880,7 +1038,7 @@ def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
                 f"launches: " + (", ".join(f"{k} {v:.4f}" for k, v in
                                            split.items()) or "not measured")
                 + f"; back-to-back ms "
-                f"per call {fmt(paced)}; bound {bound:.6f} ms ({by}: "
+                f"per call {fmt(paced)}; bound {bound_ms:.6f} ms ({by}: "
                 f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); no single "
                 f"PyTorch call computes it")
             if shape in (SSD_TRAIN_SHAPE, SSD_ZAMBA2_SHAPE) \
@@ -890,7 +1048,7 @@ def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
                            grid=grid, launch_split_ms=split,
                            max_abs_err=err, ms=dev["kernel"],
                            plain_ms=dev["plain"], ms_source=source,
-                           bound_ms=bound, bound_by=by, library_ms=None)
+                           bound_ms=bound_ms, bound_by=by, library_ms=None)
                 if shape == SSD_TRAIN_SHAPE:
                     row.update(fig)
                 else:
@@ -3300,7 +3458,8 @@ def serve_sharded_phase(unsharded: list) -> dict:
     for backend in ("user", "native"):
         with no_sync() if backend == "user" else contextlib.nullcontext():
             _, srv, report = serve(workers=0, arch=MAMBA, requests=LANES,
-                                   extra=sharded_flags(MAMBA_SHARDS, backend))
+                                   extra=sharded_flags(MAMBA_SHARDS, backend),
+                                   num_layers=MAMBA_SERVE_LAYERS)
         check_sharded(report, MAMBA_SHARDS, backend)
         m[backend] = streams(report)
         del srv, report
@@ -3742,7 +3901,8 @@ def families_phase() -> dict:
     decode_paths_check(srv, kvs=("bf16",))
     del srv, report
     free()
-    runs["train_zamba2"], report = train(workers=0, arch=ZAMBA)
+    runs["train_zamba2"], report = train(workers=0, arch=ZAMBA,
+                                         layers=ZAMBA_TRAIN_LAYERS)
     train_time_breakdown(report, steps=1)
     del report
     free()
@@ -4035,6 +4195,437 @@ def context_phase() -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the step cells at the assigned shapes, the dry run, the examples
+# ---------------------------------------------------------------------------
+
+# (name, arch, assigned shape, the batch run on one card, build_cell
+# options): decode_32k whole (128 lanes: 51.5 GB of bf16 K/V), with bf16
+# and with int8 weights on the same cache; long_500k whole; prefill_32k at
+# 1 of its 32 sequences (its f32 logits are 19.9 GB a sequence);
+# train_4k at 16 of its 256 sequences, in 8 microbatches of 2 (the
+# oracle backward's f32 scores [2, 15, 4096, 4096] are 2 GB a tensor; at
+# 4 a microbatch the card ran out of memory)
+CELLS = (("train_4k", "smollm-360m", "train_4k", 16,
+          {"microbatches": 8, "cast_params_bf16": True}),
+         ("prefill_32k", "qwen2-0.5b", "prefill_32k", 1, {}),
+         ("decode_32k", "qwen2-0.5b", "decode_32k", 128, {}),
+         ("decode_32k_int8", "qwen2-0.5b", "decode_32k", 128,
+          {"int8_weights": True}),
+         ("long_500k", "zamba2-1.2b", "long_500k", 1, {}))
+# steps timed after one warm-up step
+CELL_TIMED_STEPS = {"decode": 3, "prefill": 1, "train": 1}
+# the card-against-CPU checks (f32): 2 layers (zamba2: one group of 6 and
+# a tail of 1, its shortest depth with an attention site), 8 decode lanes,
+# batch 1 otherwise; prefill over 4096 of its 32768 positions (the CPU's
+# plain attention at 32768 needs 60 GB of f32 scores); train at its full
+# 4096 positions
+CELL_CHECKS = {"decode_32k": (2, 8, None), "decode_32k_int8": (2, 8, None),
+               "long_500k": (7, 1, None), "prefill_32k": (2, 1, 4096),
+               "train_4k": (2, 1, None)}
+DRYRUN_BUDGET_S = 120.0        # the dry run over every 1x1 cell, at most
+
+
+def to_device(tree, device):
+    """A copy of a tree of tensors (dicts and NamedTuples) on ``device``."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(t, device) for t in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(t, device) for t in tree)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def start_dryrun() -> tuple:
+    """The dry run over every registered config x assigned shape on the
+    1x1 mesh, on the host (it needs no card), in two processes that take
+    every other config each, writing their records to a fresh
+    directory."""
+    from repro_torch.configs import list_configs
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    archs = list_configs()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "1x1",
+         "--arch", ",".join(archs[i::2]), "--out", str(tmp / f"dry{i}.jsonl")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for i in range(2)]
+    return procs, tmp, time.perf_counter()
+
+
+def stop(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def finish_dryrun(procs, tmp: Path, t0: float, cell_records: list) -> dict:
+    """Waits for the dry run until ``DRYRUN_BUDGET_S`` after its start;
+    past that it is stopped and only the cells' own records (made in this
+    process) are reported.  Prints the one-card roofline table."""
+    from repro_torch.analysis import report
+    from repro_torch.configs import list_configs
+    try:
+        texts = [proc.communicate(timeout=max(
+            1.0, DRYRUN_BUDGET_S - (time.perf_counter() - t0)))[0]
+            for proc in procs]
+        seconds = time.perf_counter() - t0
+    except subprocess.TimeoutExpired:
+        stop(procs)
+        log(f"dry run: every 1x1 cell did not finish within "
+            f"{DRYRUN_BUDGET_S:.0f} s; it was stopped, and only the five "
+            f"cells above are reported")
+        rows = cell_records
+        seconds = None
+    else:
+        for proc, text in zip(procs, texts):
+            if proc.returncode != 0:
+                raise AssertionError(f"the dry run failed:\n{text[-3000:]}")
+        order = {a: i for i, a in enumerate(list_configs())}
+        rows = sorted((r for i in range(len(procs))
+                       for r in report.load(str(tmp / f"dry{i}.jsonl"))),
+                      key=lambda r: order[r["arch"]])
+        log(f"dry run: every registered config x assigned shape on 1x1, in "
+            f"two processes: "
+            + "; ".join(t.strip().splitlines()[-1] for t in texts)
+            + f" (their own clocks), {seconds:.1f} s from their start beside "
+            f"the checks and examples")
+    shutil.rmtree(tmp, ignore_errors=True)
+    bad = [r for r in rows if r["status"] not in ("ok", "skipped")]
+    if bad:
+        raise AssertionError(f"dry-run cells failed: {bad}")
+    log("dry run, one card (H100 constants):\n"
+        + report.roofline_table(rows, "1x1"))
+    return {"seconds": seconds, "records": len(rows)}
+
+
+def cell_step(name, arch, shape_name, batch, kw, kept=None) -> tuple:
+    """One cell through ``build_cell`` on the card: its arguments made by
+    ``Cell.materialize`` (or, for int8 weights, the bf16 cell's cache
+    and batch kept in ``kept``), one warm-up step, then the timed steps
+    (CUDA events) with the launch counts set to 0 just before and read
+    just after, each against the dry run's meta count of the same cell
+    (and, for train, ``kernel_launches_per_step``); the output finite and
+    of its shape; the peak device memory; the dry run's one-card bound
+    for the same cell and the measured time over it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec, get_shape
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import registry
+    from repro_torch.serve.quantization import quantize_tree
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    spec = ShapeSpec(shape.name, shape.seq_len, batch, shape.kind)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape_name, "1x1", cell_kwargs=kw,
+                          batch=batch)
+    dry_s = time.perf_counter() - t0
+    cell = build_cell(cfg, spec, make_mesh((1, 1), ("data", "model"),
+                                           "cuda"), **kw)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if kept is not None:                     # the bf16 cell's cache
+        params = registry.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(15))
+        args = (quantize_tree(params), kept[0], kept[1])
+        del params
+    else:
+        args = cell.materialize(
+            "cuda", torch.Generator(device="cuda").manual_seed(15))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    def step(args):
+        out = cell.step_fn(*args)
+        if spec.kind == "train":
+            return out, (out[0], out[1], args[2])
+        if spec.kind == "decode":
+            return out, (args[0], out[1], args[2])
+        return out, args
+
+    try:
+        out, args = step(args)               # warm-up
+        torch.cuda.synchronize()
+    except RuntimeError:
+        free_b, _ = torch.cuda.mem_get_info()
+        log(f"cell {name}: the warm-up step failed with "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+            f"{free_b / 2**30:.2f} GiB free on the card, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        raise
+    n = CELL_TIMED_STEPS[spec.kind]
+    _lib.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        out = None                           # the prefill's 19.9 GB logits
+        out, args = step(args)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    launches = dict(_lib.launches)
+    peak = torch.cuda.max_memory_allocated()
+    derived = {k: v["launches"] * n for k, v in rec["kernels"].items()}
+    got = {k: v for k, v in launches.items() if v}
+    if got != derived:
+        raise AssertionError(f"cell {name}: launches {got} against the dry "
+                             f"run's {derived} for {n} step(s)")
+    if spec.kind == "train":
+        want = {k: v * n for k, v in train_mod.kernel_launches_per_step(
+            cfg, microbatches=kw["microbatches"]).items() if v}
+        if got != want:
+            raise AssertionError(f"cell {name}: launches {got} against "
+                                 f"kernel_launches_per_step's {want}")
+        loss = float(out[2]["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"cell {name}: loss {loss}")
+        out_text = f"loss {loss:.6f}, grad norm {float(out[2]['grad_norm']):.4f}"
+    else:
+        logits = out[0] if spec.kind == "decode" else out
+        want_shape = (batch, 1 if spec.kind == "decode" else spec.seq_len,
+                      cfg.vocab_size)
+        if tuple(logits.shape) != want_shape \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"cell {name}: logits {tuple(logits.shape)}"
+                                 f" (want {want_shape}) not all finite")
+        out_text = f"logits {list(want_shape)} finite"
+    busy = ""
+    if spec.kind != "train":
+        # the device's busy time over as many steps, profiled after the
+        # counts were read (the prefill's logits dropped first: 19.9 GB)
+        out = logits = None
+        state = [args]
+
+        def run():
+            for _ in range(n):
+                state[0] = step(state[0])[1]
+
+        by_name, _ = profile_kernels(run)
+        args = state[0]
+        busy = "; " + busy_text(by_name, n, ms, "step", 4)
+    rl = rec["roofline"]
+    bound_ms = rl["bound_s"] * 1e3
+    tokens = batch * (1 if spec.kind == "decode" else spec.seq_len)
+    result = dict(ms=ms, launches=launches, peak_gib=peak / 2**30,
+                  bound_ms=bound_ms, dominant=rl["dominant"],
+                  over_bound=ms / bound_ms, tokens_per_s=tokens / ms * 1e3,
+                  model_tflops=rl["model_flops"] / ms / 1e9)
+    log(f"cell {name} ({arch} {shape_name}, batch {batch} of "
+        f"{shape.global_batch}{', ' + str(kw) if kw else ''}): one step "
+        f"{ms:.3f} ms (CUDA events, mean of {n} after one warm-up), "
+        f"{result['tokens_per_s']:.1f} tokens/s, "
+        f"{result['model_tflops']:.2f} model TFLOP/s; {out_text}; launches "
+        f"a step {dict((k, v // n) for k, v in got.items())} = the dry "
+        f"run's; peak device memory {peak / 2**30:.2f} GiB; the dry run's "
+        f"one-card bound {bound_ms:.3f} ms ({rl['dominant']}: compute "
+        f"{rl['compute_s'] * 1e3:.3f}, memory {rl['memory_s'] * 1e3:.3f}, "
+        f"counted-bytes upper {rl['memory_s_counted_upper'] * 1e3:.3f} ms), "
+        f"measured over bound {result['over_bound']:.2f}; arguments made "
+        f"in {fill_s:.2f} s, meta step {rec['compile_s']} s "
+        f"(dry run {dry_s:.1f} s){busy}")
+    if spec.kind == "decode" and not kw:
+        # keep the cache and batch for the int8-weights cell
+        return result, rec, (args[1], args[2])
+    return result, rec, None
+
+
+def cell_reference_check(name, arch, shape_name, kw) -> None:
+    """The cell's step in f32 at ``CELL_CHECKS``' depth, lanes or batch and
+    sequence, on the card (kernels) and on the CPU (plain versions), from
+    the same arguments (made on the card, copied to the CPU).  Limits:
+    logits |a - b| <= 1e-3 + 1e-3 |b| (the decode checks' limits) and the
+    decode's greedy tokens equal; train: the loss and grad norm within
+    1e-5 relative, the first moment mu = 0.1·g (the clipped gradient)
+    per leaf within 1e-4 of its largest entry (the gradient limit of
+    ``train_reference_check``).  The decode caches after the step: every
+    position but the one the step wrote (every lane's last) bit for bit,
+    and the written rows, activations of the same forward as the logits,
+    to the logits' limits, |a - b| <= 1e-3 + 1e-3 |b|; the K rows plus
+    p·2^-22 of their largest entry, p the position: the rotary angle p·f
+    moves by up to p·2^-23 when the two devices' f32 ``exp`` give a
+    frequency f one ulp apart, and a rotated entry by that times the
+    row's size.  (Chip runs 4 and 5 held the written rows to 1e-4 of
+    their largest entry: the K rows at p = 32767 missed it by the rotary
+    term, 4.8e-4, and the V rows, whose second layer reads an attention
+    over 32768 keys summed in another order on each device, by 1.09e-4.)
+    The rotary cos and sin at p on both devices are printed beside."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec, get_shape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.layers import tree_leaves
+    layers, batch, seq = CELL_CHECKS[name]
+    shape = get_shape(shape_name)
+    cfg = get_config(arch).with_overrides(num_layers=layers,
+                                          dtype="float32")
+    spec = ShapeSpec(shape.name, seq or shape.seq_len, batch, shape.kind)
+    kw = {k: v for k, v in kw.items() if k != "microbatches"}
+    cells = {dev: build_cell(cfg, spec, make_mesh(
+        (1, 1), ("data", "model"), dev), **kw) for dev in ("cuda", "cpu")}
+    args = {"cuda": cells["cuda"].materialize(
+        "cuda", torch.Generator(device="cuda").manual_seed(16))}
+    args["cpu"] = to_device(args["cuda"], "cpu")
+    out = {dev: cells[dev].step_fn(*args[dev]) for dev in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    if spec.kind == "train":
+        (_, st_a, m_a), (_, st_b, m_b) = out["cuda"], out["cpu"]
+        text = []
+        for k in ("loss", "grad_norm"):
+            a, b = float(m_a[k]), float(m_b[k])
+            if not math.isfinite(a) or not abs(a - b) <= 1e-5 * abs(b):
+                raise AssertionError(f"cell {name} check: {k} {a} vs {b}")
+            text.append(f"{k} {a:.7f} vs {b:.7f}")
+        names = [p for p, _ in tree_leaves(st_b.mu)]
+        errs = leaf_errors(f"cell {name} mu", names,
+                           [t.cpu() for _, t in tree_leaves(st_a.mu)],
+                           [t for _, t in tree_leaves(st_b.mu)], 1e-4)
+        text.append(f"worst mu leaf of {len(names)} {max(errs):.3e} of its "
+                    f"largest entry (limit 1e-4)")
+    else:
+        la = (out["cuda"][0] if spec.kind == "decode" else out["cuda"]).cpu()
+        lb = out["cpu"][0] if spec.kind == "decode" else out["cpu"]
+        err = (la - lb).abs()
+        if not torch.isfinite(la).all() \
+                or (err > 1e-3 + 1e-3 * lb.abs()).any():
+            raise AssertionError(f"cell {name} check: logits differ, max abs "
+                                 f"err {float(err.max()):.3e}")
+        text = [f"max abs logit err {float(err.max()):.3e} (atol 1e-3, rtol "
+                f"1e-3)"]
+        if spec.kind == "decode":
+            if not torch.equal(la.argmax(-1), lb.argmax(-1)):
+                raise AssertionError(f"cell {name} check: greedy tokens "
+                                     f"differ")
+            text.append("greedy tokens equal")
+            text += cache_check(name, spec.seq_len - 1, out, cfg.rope_theta)
+    log(f"check: cell {name} in f32 at {layers} layers, batch {batch}, "
+        f"{spec.seq_len} positions, card kernels vs CPU plain versions: "
+        + "; ".join(text))
+
+
+def cache_check(name, p: int, out: dict, theta: float) -> list:
+    """The decode caches of ``cell_reference_check`` after a step that
+    wrote position ``p`` of every lane (see its limits); returns the
+    figures it printed."""
+    from repro_torch.models.layers import rope, tree_leaves
+    # the rotary cos and sin at p on both devices (x = (1, 0) per pair)
+    x = torch.cat([torch.ones(1, 1, 1, 32), torch.zeros(1, 1, 1, 32)], -1)
+    rot = {dev: rope(x.to(dev), torch.full((1, 1), p, device=dev),
+                     theta).cpu() for dev in ("cuda", "cpu")}
+    text = [f"rotary cos/sin at position {p}, card vs CPU: max abs diff "
+            f"{float((rot['cuda'] - rot['cpu']).abs().max()):.3e}"]
+    worst = {}
+    for (path, a), (_, b) in zip(tree_leaves(out["cuda"][1]),
+                                 tree_leaves(out["cpu"][1])):
+        a = a.cpu()
+        kv = path[-1].removeprefix("attn_")        # zamba2's attn_k, attn_v
+        if kv in ("k", "v"):                       # K/V [L, B, S, KVH, hd]
+            if not torch.equal(a[:, :, :p], b[:, :, :p]):
+                raise AssertionError(f"cell {name} check: cache "
+                                     f"{'/'.join(path)} moved off position "
+                                     f"{p}")
+            a, b = a[:, :, p].float(), b[:, :, p].float()
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        rotary = p * 2.0 ** -22 * top if kv == "k" else 0.0
+        err = (a - b).abs()
+        if not torch.isfinite(a).all() \
+                or (err > 1e-3 + 1e-3 * b.abs() + rotary).any():
+            raise AssertionError(f"cell {name} check: cache {'/'.join(path)}"
+                                 f" max abs err {float(err.max()):.3e} (atol "
+                                 f"1e-3 + {rotary:.3e}, rtol 1e-3)")
+        key = {"k": "k rows", "v": "v rows"}.get(kv, "states")
+        worst[key] = max(worst.get(key, 0.0), float(err.max()))
+    text.append("cache: every other position bit for bit; written, max abs "
+                "err " + ", ".join(f"{k} {v:.3e}"
+                                   for k, v in sorted(worst.items()))
+                + f" (atol 1e-3, rtol 1e-3; k rows plus p·2^-22 = "
+                f"{p * 2.0 ** -22:.3e} of their largest entry)")
+    return text
+
+
+def examples_phase() -> None:
+    """The five examples on the card, in this process: ``train_lm
+    --scale full --steps 4`` from a fresh directory, then ``--steps 5``
+    on the same one (it must resume at the committed step 3 and run step
+    4), and the other four at their defaults."""
+    from repro_torch.examples import (progress_engine_tour, quickstart,
+                                      serve_lm, train_lm, user_collectives)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        t0 = time.perf_counter()
+        first = train_lm.main(["--scale", "full", "--steps", "4",
+                               "--ckpt-dir", ckpt])
+        second = train_lm.main(["--scale", "full", "--steps", "5",
+                                "--ckpt-dir", ckpt])
+        if first["resumed_from"] is not None or second["resumed_from"] != 3 \
+                or [m["step"] for m in second["log"]] != [4]:
+            raise AssertionError(f"train_lm resumed from "
+                                 f"{second['resumed_from']}, logged "
+                                 f"{[m['step'] for m in second['log']]}")
+        log(f"example train_lm: full smollm-360m, 4 steps, then resumed at "
+            f"the committed step 3 and ran step 4 (loss "
+            f"{second['log'][-1]['loss']:.4f}); {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del first, second
+    free()
+    for name, fn in (("quickstart", quickstart.main),
+                     ("serve_lm", serve_lm.main),
+                     ("user_collectives", user_collectives.main),
+                     ("progress_engine_tour", progress_engine_tour.main)):
+        t0 = time.perf_counter()
+        fn([])
+        free()
+        log(f"example {name}: done on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def cells_phase() -> dict:
+    """Phase 15: each of ``CELLS`` stepped on the card (its launch counts
+    set to 0 just before its timed steps and read just after), with no
+    other process on the host; then the dry run over every 1x1 cell in a
+    host process beside the card-against-CPU checks and the five examples
+    (whose printed times are then no measurement), and its table."""
+    t_phase = time.perf_counter()
+    runs, records, kept = {}, [], None
+    for name, arch, shape_name, batch, kw in CELLS:
+        # the bf16 decode cell hands its cache on to the int8 one
+        result, rec, kept = cell_step(
+            name, arch, shape_name, batch, kw,
+            kept=kept if kw.get("int8_weights") else None)
+        records.append(rec)
+        runs[f"cell_{name}"] = result["launches"]
+    del kept
+    free()
+    t_steps = time.perf_counter()
+    procs, tmp, t0 = start_dryrun()
+    try:
+        for name, arch, shape_name, batch, kw in CELLS:
+            cell_reference_check(name, arch, shape_name, kw)
+            free()
+        t_checks = time.perf_counter()
+        examples_phase()
+        t_examples = time.perf_counter()
+        finish_dryrun(procs, tmp, t0, records)
+    finally:
+        stop(procs)
+    log(f"phase 15: the cells' steps {t_steps - t_phase:.1f} s, then beside "
+        f"the dry run the card-vs-CPU checks {t_checks - t_steps:.1f} s and "
+        f"the examples {t_examples - t_checks:.1f} s, then waiting for the "
+        f"dry run {time.perf_counter() - t_examples:.1f} s")
+    return runs
+
+
 def free() -> None:
     """Drop what an ended phase left behind (its engines hold reference
     cycles) and hand the cached blocks back, before the next phase."""
@@ -4056,14 +4647,15 @@ def main(argv: list) -> int:
         return 2
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
                     ["--only", "moe"], ["--only", "families"],
-                    ["--only", "context"]):
+                    ["--only", "context"], ["--only", "cells"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
               f"caller-driven qwen2-0.5b run and phase 11; --only moe the "
               f"attention kernels and phase 12; --only families the kernels "
               f"at the last three families' shapes and phase 13; --only "
-              f"context phase 14)", file=sys.stderr)
+              f"context phase 14; --only cells the kernels at the assigned "
+              f"shapes and phase 15)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4082,6 +4674,19 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "cells"]:
+        # a partial run (the kernels at the assigned shapes and phase 15);
+        # it prints no result line
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        kernel_flash_decode(gen, ASSIGNED_DECODE_CASES)
+        kernel_flash_attention(gen, PREFILL_ATTENTION_SHAPES)
+        log(f"kernels at the assigned shapes done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        launches = cells_phase()
+        log(f"partial run: launches of the cells {launches}; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "context"]:
         # a partial run (phase 14); it prints no result line
         launches = context_phase()
@@ -4095,7 +4700,7 @@ def main(argv: list) -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         kernel_rmsnorm(gen, RMSNORM_SHAPES[-1:])
         kernel_rmsnorm_bwd(gen, RMSNORM_BWD_SHAPES[-1:])
-        kernel_flash_decode(gen, DECODE_CASES[-3:])
+        kernel_flash_decode(gen, FAMILY_DECODE_CASES)
         kernel_flash_attention(gen, FAMILY_ATTENTION_SHAPES)
         kernel_ssd_chunk(gen, (SSD_ZAMBA2_SHAPE,))
         log(f"kernels at the new shapes done at "
@@ -4227,6 +4832,8 @@ def main(argv: list) -> int:
     log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
     runs.update(context_phase())
     log(f"context phase done at {time.perf_counter() - t_start:.1f} s")
+    runs.update(cells_phase())
+    log(f"cells phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
     # path and summed: launches_serve and launches_train count every
     # family, the *_mamba, *_qwen2_5_3b, *_granite, *_grok, *_zamba2,
@@ -4249,9 +4856,12 @@ def main(argv: list) -> int:
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
         row["launches_serve_sharded"] = n["serve_sharded"]
+        for name, *_ in CELLS:
+            row[f"launches_cell_{name}"] = n[f"cell_{name}"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_remat"] + n["train_dp"]
-                           + n["train_fsdp"] + n["serve_sharded"])
+                           + n["train_fsdp"] + n["serve_sharded"]
+                           + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
     reference_check()
     reference_check(QWEN3B, num_layers=2, kv_cache_dtype="int8")
@@ -4274,6 +4884,7 @@ def main(argv: list) -> int:
             "launches_train_whisper", "launches_train_pixtral",
             "launches_train_ring", "launches_remat", "launches_train_dp", "launches_train_fsdp",
             "launches_serve_sharded",
+            *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",
             "plain_ms", "ms_source", "bound_ms", "bound_by", "library_ms",
@@ -4283,7 +4894,8 @@ def main(argv: list) -> int:
             "train_grok_shape", "serve_zamba2_shape", "train_zamba2_shape",
             "serve_whisper_self_shape", "serve_whisper_cross_shape",
             "train_whisper_encoder_shape", "train_whisper_self_shape",
-            "train_whisper_cross_shape", "train_pixtral_shape"]
+            "train_whisper_cross_shape", "train_pixtral_shape",
+            "decode_32k_shape", "long_500k_shape", "prefill_32k_shape"]
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

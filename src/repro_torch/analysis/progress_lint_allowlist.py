@@ -1,10 +1,11 @@
 """Deliberate exceptions to the progress-safety lint over the port
 (``src/repro_torch``), as plain data.
 
-The lint itself is the JAX package's (``repro.analysis.progress_lint``),
-run by ``tests/test_torch_lint.py``: its ``apply_allowlist`` matches an
-entry by rule, path suffix and enclosing symbol (``qual``; ``"*"``
-matches any), and every entry carries a written ``why``.  The port's
+The lint is the port's own (``repro_torch.analysis.progress_lint``, a
+copy of the JAX package's), run by ``tests/test_torch_lint.py``: its
+``apply_allowlist`` matches an entry by rule, path suffix and enclosing
+symbol (``qual``; ``"*"`` matches any), and every entry carries a
+written ``why``.  The port's
 entries excuse the same ``done()``-guarded harvests as the JAX package's
 own allowlist, at the port's paths.
 """

@@ -43,6 +43,17 @@ def decode_splits(B: int, KVH: int, S: int) -> int:
     return -(-S // decode_split_keys(B, KVH, S))
 
 
+def flash_decode_work(B: int, H: int, KVH: int, hd: int, valid: int,
+                      dtype) -> tuple[int, int]:
+    """(flops, bytes) of one call whose lanes hold ``valid`` cached
+    positions in all (the sum of ``lengths``): the two products, 4 operations
+    a (position, head, hd) entry; q read and the output written once, each
+    valid K and V row read once, the int32 lengths read once."""
+    es = dtype.itemsize
+    return (4 * valid * H * hd,
+            2 * B * H * hd * es + 2 * valid * KVH * hd * es + 4 * B)
+
+
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, logit_cap: float = 0.0):
     """The kernel's arithmetic in plain PyTorch: q scaled by 1/sqrt(hd) in
     f32, the scores capped at cap·tanh(s/cap) when ``logit_cap`` > 0

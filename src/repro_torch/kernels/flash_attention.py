@@ -24,6 +24,26 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128       # shared-memory tiles are sized for hd <= 128
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """The (query, key) pairs the mask leaves: Sq·Sk, or under the
+    bottom-right causal mask the sum over query rows i of
+    max(0, i + Sk - Sq + 1)."""
+    if not causal:
+        return Sq * Sk
+    off = Sk - Sq + 1
+    lo = max(0, 1 - off)              # the first row that sees a key
+    return (lo + off + Sk) * (Sq - lo) // 2 if lo < Sq else 0
+
+
+def flash_attention_work(B: int, Sq: int, Sk: int, H: int, KVH: int,
+                         hd: int, causal: bool, dtype) -> tuple[int, int]:
+    """(flops, bytes) of one forward: the two products over the pairs the
+    mask leaves, 4 operations a (pair, head, hd) entry; q read and the
+    output written once, K and V read once."""
+    return (4 * B * H * attention_pairs(Sq, Sk, causal) * hd,
+            (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd) * dtype.itemsize)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           logit_cap: float = 0.0):
     """The kernel's arithmetic in plain PyTorch: scores q.k/sqrt(hd) in f32,

@@ -36,6 +36,21 @@ def rmsnorm_fwd_path(D: int, dtype) -> str:
     return "rows" if fits else "cta"
 
 
+def rmsnorm_fwd_work(N: int, D: int, dtype) -> tuple[int, int]:
+    """(flops, bytes) of one forward over [N, D] rows of ``dtype``: four
+    operations an entry (square, sum, scale, multiply); x read and y
+    written once, the f32 scale read once."""
+    return 4 * N * D, 2 * N * D * dtype.itemsize + 4 * D
+
+
+def rmsnorm_bwd_work(N: int, D: int, dtype) -> tuple[int, int]:
+    """(flops, bytes) of one backward over [N, D] rows of ``dtype``: twelve
+    operations an entry; x and g read and dx written once, the f32 scale
+    read and the f32 dscale partials [ceil(N/32), D] written once."""
+    nb = -(-N // BWD_BLOCK_ROWS)
+    return 12 * N * D, 3 * N * D * dtype.itemsize + nb * D * 4 + D * 4
+
+
 def rmsnorm_fwd(x, scale, eps: float = 1e-6):
     """x: [N, D] f32/bf16 on the card; scale: [D] f32 -> [N, D] in x's
     dtype.  Launches the kernel on the current stream or raises."""

@@ -47,6 +47,21 @@ def ssd_grid(B: int, Q: int, nh: int, hp: int, ds: int) -> tuple[int, int]:
     return n_y, B * nh * -(-hp // 64) * -(-ds // 128)
 
 
+def ssd_chunk_work(B: int, Q: int, nh: int, hp: int, ds: int, dtype,
+                   dt_dtype) -> tuple[int, int]:
+    """(flops, bytes) of one call over B chunks of Q: the causal pairs'
+    C.B^T (pairs·ds) and L-weighted x (pairs·nh·hp) products and the
+    states' (Q·nh·hp·ds), 2 operations a multiply-add; x, b and c read
+    and y written once in ``dtype``, dt read once in ``dt_dtype``, a_log
+    read and the f32 states and decays written once."""
+    pairs = Q * (Q + 1) // 2
+    es = dtype.itemsize
+    return (2 * B * (pairs * ds + pairs * nh * hp + Q * nh * hp * ds),
+            (2 * B * Q * nh * hp + 2 * B * Q * ds) * es
+            + B * Q * nh * dt_dtype.itemsize
+            + 4 * (nh + B * nh * hp * ds + B * nh))
+
+
 # the kernel's arithmetic in plain PyTorch: the oracle, whose prefix sums
 # add in the kernel's order
 ssd_chunk_plain = ref.ssd_chunk_ref

@@ -8,6 +8,11 @@ card: a :class:`Mesh` names its axes and their sizes and holds ONE
 the same global tensor, rank ``r``'s shard being its ``r``-th slice of
 the leading dimension (the rank-stacked form).  ``dict(mesh.shape)[axis]``
 reads an axis size as it does on a JAX mesh.
+
+``make_production_mesh`` names the dry run's meshes (the JAX package's
+16x16 and 2x16x16, so that the records compare, and "1x1", the one card
+on which a dry run meets a measurement) on the ``meta`` device; ``H100_SXM``
+holds the card's constants for the roofline.
 """
 from __future__ import annotations
 
@@ -68,3 +73,49 @@ def make_mesh(shape, axes, device=None) -> Mesh:
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """A ``(data, model)`` mesh of ranks on one device (smoke tests)."""
     return make_mesh((max(1, data), max(1, model)), ("data", "model"), device)
+
+
+# The dry run's meshes: name -> (shape, axes).
+PRODUCTION_MESHES = {
+    "1x1": ((1, 1), ("data", "model")),
+    "16x16": ((16, 16), ("data", "model")),
+    "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(name: str = "16x16") -> Mesh:
+    """One of ``PRODUCTION_MESHES`` by name (the JAX package's 16x16 and,
+    its ``multi_pod``, 2x16x16) on the ``meta`` device: no rank holds
+    storage."""
+    shape, axes = PRODUCTION_MESHES[name]
+    return Mesh(shape, axes, "meta")
+
+
+# Hardware constants for the roofline and the kernels' bounds: one NVIDIA
+# H100 SXM (NVIDIA's data sheet, dense rates, at its 700 W limit).
+H100_SXM = {
+    "name": "h100-sxm",
+    "peak_flops_bf16": 989e12,      # tensor cores, dense
+    "peak_flops_f32": 67e12,        # outside the tensor cores
+    "hbm_bytes_per_s": 3.35e12,
+    "hbm_bytes": 80e9,
+    "nvlink_bytes_per_s": 450e9,    # per direction, to any card of the node
+    "nvlink_domain": 8,             # cards of one node, all to all
+    # per card across nodes: one 400 Gb/s NDR port
+    "network_bytes_per_s": 50e9,
+}
+
+
+def peak_flops(dtype, hw: dict = H100_SXM) -> float:
+    """The card's peak rate for operations on ``dtype`` (a torch dtype or
+    its name): the tensor cores' for bf16 and f16, else f32's."""
+    name = str(dtype).replace("torch.", "")
+    return hw["peak_flops_bf16"] if name in ("bfloat16", "float16") \
+        else hw["peak_flops_f32"]
+
+
+def link_bytes_per_s(chips: int, hw: dict = H100_SXM) -> float:
+    """The slowest link a collective over ``chips`` cards crosses: NVLink
+    within one node, the network port beyond it."""
+    return hw["nvlink_bytes_per_s"] if chips <= hw["nvlink_domain"] \
+        else hw["network_bytes_per_s"]

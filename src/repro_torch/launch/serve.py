@@ -36,20 +36,8 @@ import time
 import numpy as np
 import torch
 
-# The example scales of the JAX package's examples/train_lm.py (a copy:
-# the port imports nothing of the JAX package).
-SCALES = {
-    # ~1M params: fast CPU demo
-    "tiny": dict(num_layers=2, d_model=64, d_ff=128, vocab_size=512,
-                 num_heads=4, num_kv_heads=2, head_dim=16, remat_policy="none"),
-    # ~25M params: slower but meaningful loss curves on CPU
-    "small": dict(num_layers=4, d_model=256, d_ff=1024, vocab_size=4096,
-                  num_heads=8, num_kv_heads=4, head_dim=32, remat_policy="none"),
-    "full": {},
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
+    from repro_torch.examples.train_lm import SCALES
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--scale", default="tiny", choices=list(SCALES))
@@ -118,6 +106,7 @@ def make_config(arch: str, scale: str):
     SSM, the hybrid's grouping and the encoder too, as the JAX launchers
     do."""
     from repro_torch.configs import get_config
+    from repro_torch.examples.train_lm import SCALES
     cfg = get_config(arch)
     overrides = dict(SCALES[scale])
     if not overrides:

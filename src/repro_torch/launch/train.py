@@ -19,10 +19,10 @@ elastic, or a 1F1B pipeline.
         --scale tiny --mesh 1x4 --steps 6        # a model axis of 4 ranks
 
 The JAX package's ``repro.launch.train``: synthetic data prefetched on
-the engine, a forward + backward + AdamW step (``make_train_step``, the
-body of the JAX ``build_cell`` train step, with microbatch accumulation
-and the bf16 cast), async checkpoints and the step watchdog on the same
-engine.
+the engine, a forward + backward + AdamW step (the train cell of
+``launch.steps.build_cell``, as the JAX launcher builds its step, with
+microbatch accumulation and the bf16 cast), async checkpoints and the
+step watchdog on the same engine.
 
 ``--devices N --collective-backend user`` runs N data-parallel ranks on
 a single-controller mesh (``--mesh Nx1``): each rank's gradients on its
@@ -80,7 +80,7 @@ import torch
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from repro_torch.launch.serve import SCALES
+    from repro_torch.examples.train_lm import SCALES
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="smollm-360m")
     ap.add_argument("--scale", default="tiny", choices=list(SCALES))
@@ -176,69 +176,14 @@ def mesh_shape(args) -> tuple:
     return shape
 
 
-def _compute_params(cfg, cast_params_bf16: bool):
-    """``params -> params`` the model reads: with ``cast_params_bf16`` the
-    f32 masters cast to the compute dtype (1-D leaves such as norm scales
-    stay f32), else the masters themselves."""
-    from repro_torch.models.layers import torch_dtype, tree_map
-    cdt = torch_dtype(cfg.dtype)
-
-    def model_params(params):
-        if not cast_params_bf16:
-            return params
-        return tree_map(lambda p: p.to(cdt)
-                        if p.dtype == torch.float32 and p.dim() > 1 else p,
-                        params)
-
-    return model_params
-
-
 def make_train_step(cfg, ocfg, *, microbatches: int = 1,
                     cast_params_bf16: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: loss and gradients of ``registry.loss_fn`` (summed over
-    ``microbatches`` slices of the batch, then averaged), then one AdamW
-    step IN PLACE on ``params`` and the moments.  With
-    ``cast_params_bf16`` the f32 master params are cast to the compute
-    dtype before the model reads them (norm scales and other 1-D leaves
-    stay f32) and the gradients land on the f32 masters.  Metrics are
-    0-d tensors on the device: {"nll", "aux", "loss", "grad_norm", "lr"}."""
-    from repro_torch.models import registry
-    from repro_torch.models.layers import tree_from_leaves, tree_leaves
-    from repro_torch.train import optimizer as opt
-
-    model_params = _compute_params(cfg, cast_params_bf16)
-
-    def train_step(params, opt_state, batch):
-        paths, leaves = zip(*tree_leaves(params))
-        for t in leaves:
-            t.requires_grad_(True)
-        if microbatches > 1:
-            mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                               + tuple(v.shape[1:]))
-                  for k, v in batch.items()}
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            grads = None
-            for i in range(microbatches):
-                l, _ = registry.loss_fn(model_params(params), cfg,
-                                        {k: v[i] for k, v in mb.items()})
-                g = torch.autograd.grad(l, leaves)
-                loss = loss + l.detach()
-                grads = [x.float() for x in g] if grads is None else \
-                    [a + x.float() for a, x in zip(grads, g)]
-            inv = 1.0 / microbatches
-            loss = loss * inv
-            grads = [x * inv for x in grads]
-            metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
-        else:
-            loss, metrics = registry.loss_fn(model_params(params), cfg, batch)
-            grads = [x.float() for x in torch.autograd.grad(loss, leaves)]
-        params, opt_state, om = opt.apply(ocfg, opt_state, params,
-                                          tree_from_leaves(zip(paths, grads)))
-        metrics = dict(metrics, loss=loss, **om)
-        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
-
-    return train_step
+    metrics)``: the train cell's step (``launch.steps.train_step_fn``);
+    ``run`` takes it from ``build_cell``."""
+    from repro_torch.launch.steps import train_step_fn
+    return train_step_fn(cfg, ocfg, microbatches=microbatches,
+                         cast_params_bf16=cast_params_bf16)
 
 
 def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
@@ -248,10 +193,11 @@ def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
     written as f32 into row r of ``[ranks, *shape]`` leaves (the JAX
     launcher's ``v[None].astype(f32)``); metrics ``[ranks]``.  The bf16
     cast as in ``make_train_step``."""
+    from repro_torch.launch.steps import compute_params
     from repro_torch.models import registry
     from repro_torch.models.layers import tree_from_leaves, tree_leaves
 
-    model_params = _compute_params(cfg, cast_params_bf16)
+    model_params = compute_params(cfg, cast_params_bf16)
 
     def grad_fn(params, batch):
         paths, leaves = zip(*tree_leaves(params))
@@ -495,10 +441,12 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     ones)."""
     from repro_torch import resolve_device, sharding
     from repro_torch.collectives.nonblocking import CollectiveSpec
+    from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core import ProgressEngine
     from repro_torch.data.pipeline import PrefetchPipeline, SyntheticLM
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import make_config
+    from repro_torch.launch.steps import build_cell
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.train_loop import Trainer, UserCollectiveStep
@@ -562,9 +510,12 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
             pipe.close()
 
     opt_state = opt_mod.init(params)
-    train_step = make_train_step(cfg, ocfg, microbatches=args.microbatches,
-                                 cast_params_bf16=args.cast_bf16)
     native_mesh = make_mesh((data, model), ("data", "model"), device)
+    cell = build_cell(cfg, ShapeSpec("train", args.seq, args.global_batch,
+                                     "train"), native_mesh, opt_cfg=ocfg,
+                      microbatches=args.microbatches,
+                      cast_params_bf16=args.cast_bf16)
+    train_step = cell.step_fn
 
     def step_fn(params, opt_state, batch):
         # the mesh is entered here, on the thread that runs the step (the

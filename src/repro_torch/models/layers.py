@@ -159,6 +159,13 @@ def unstack_layers(tree) -> list:
     return list(tree.unbind(0))
 
 
+def axes_tree(spec_tree):
+    """The tree of a PSpec tree's logical-axis tuples (the JAX package's
+    ``axes_tree``)."""
+    return tree_from_leaves((path, spec.axes)
+                            for path, spec in tree_leaves(spec_tree))
+
+
 def shapes_tree(spec_tree, param_dtype: torch.dtype = torch.float32):
     """The tree of a PSpec tree as tensors on the ``meta`` device: shapes
     and dtypes, no storage (the JAX package's ``ShapeDtypeStruct`` tree)."""

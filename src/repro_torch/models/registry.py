@@ -78,6 +78,23 @@ def decode_step_q(qparams, cfg, cache, tokens, pos, fed=None):
     return decode_step(params, cfg, cache, tokens, pos, fed)
 
 
+def param_spec(cfg):
+    return module_for(cfg).param_spec(cfg)
+
+
+def param_shapes(cfg):
+    """The parameter tree as ``meta`` tensors in ``cfg.param_dtype`` (a
+    leaf's own dtype where its spec names one)."""
+    from repro_torch.models.layers import shapes_tree, torch_dtype
+    return shapes_tree(param_spec(cfg), torch_dtype(cfg.param_dtype))
+
+
+def param_axes(cfg):
+    """The parameter tree's logical-axis tuples."""
+    from repro_torch.models.layers import axes_tree
+    return axes_tree(param_spec(cfg))
+
+
 def init_cache(cfg, batch, max_seq, device):
     return module_for(cfg).init_cache(cfg, batch, max_seq, device)
 
@@ -85,6 +102,12 @@ def init_cache(cfg, batch, max_seq, device):
 def cache_shapes(cfg, batch, max_seq):
     """The slot cache's leaves as ``meta`` tensors (shapes and dtypes)."""
     return module_for(cfg).cache_shapes(cfg, batch, max_seq)
+
+
+def cache_axes(cfg, batch, max_seq):
+    """The slot cache's logical-axis tuples."""
+    from repro_torch.models.layers import axes_tree
+    return axes_tree(module_for(cfg).cache_spec(cfg, batch, max_seq))
 
 
 def reset_cache_lane(cfg, cache, lane_index):
@@ -105,7 +128,7 @@ def reset_cache_lane(cfg, cache, lane_index):
 def _spec_leaves_with_path(cfg):
     from repro_torch.models.layers import tree_leaves
     return [("/".join(path), spec)
-            for path, spec in tree_leaves(module_for(cfg).param_spec(cfg))]
+            for path, spec in tree_leaves(param_spec(cfg))]
 
 
 def _leaf_count(cfg: ModelConfig, path: str, spec, active_only: bool) -> int:

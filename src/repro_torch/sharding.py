@@ -161,8 +161,12 @@ def spec_tree(tree_axes, tree_shapes, mesh, rules: Rules | None = None):
         return {k: spec_tree(v, tree_shapes[k], mesh, rules)
                 for k, v in tree_axes.items()}
     if isinstance(tree_axes, (list, tuple)):
-        return type(tree_axes)(spec_tree(a, s, mesh, rules)
-                               for a, s in zip(tree_axes, tree_shapes))
+        parts = [spec_tree(a, s, mesh, rules)
+                 for a, s in zip(tree_axes, tree_shapes)]
+        # a NamedTuple (the int8 weights' QuantizedTensor) takes its
+        # fields as arguments
+        return (type(tree_axes)(*parts) if hasattr(tree_axes, "_fields")
+                else type(tree_axes)(parts))
     raise TypeError(f"spec_tree: {type(tree_axes).__name__} is neither a "
                     f"logical-axis tuple nor a container")
 

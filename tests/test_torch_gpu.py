@@ -760,3 +760,103 @@ def test_zamba2_decode_step_on_the_card_matches_the_cpu(cuda):
                 p, cfg, pool, toks.to(dev), pos.to(dev), tables.to(dev))
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], atol=1e-3,
                                rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the assigned shapes' kernels: decode_32k at batch 128, long_500k's
+# 524288 keys at G = 1 (9 splits of 58304 keys), prefill_32k's attention
+# ---------------------------------------------------------------------------
+
+# An output element there averages v over 32768 or 524288 keys, so its
+# rms is ~sqrt(e / keys) (~0.009, ~0.002): below the bf16 atol of TOLS,
+# which zeros would pass.  A bf16 output is held to SCALED_ATOL times its
+# own sequence's rms (and the rtol of TOLS); zeros and the output over
+# half the keys (a combine or key loop that dropped half of its splits or
+# tiles) must fail that limit.
+SCALED_ATOL = 0.1
+
+
+def _off_scaled_limit(got, want, dtype):
+    """Where ``got`` is off ``want`` beyond the limit of its dtype at the
+    assigned shapes."""
+    w = want.float()
+    if dtype == torch.bfloat16:
+        dims = tuple(range(1, w.dim()))
+        atol = SCALED_ATOL * w.pow(2).mean(dim=dims, keepdim=True).sqrt()
+    else:
+        atol = TOLS[dtype]["atol"]
+    return (got.float() - w).abs() > atol + TOLS[dtype]["rtol"] * w.abs()
+
+
+def _assert_close_at_scale(got, want, dtype, wrong=()):
+    off = _off_scaled_limit(got, want, dtype)
+    assert torch.isfinite(got.float()).all()
+    assert not off.any(), (
+        f"{int(off.sum())} of {off.numel()} elements off; max abs err "
+        f"{float((got.float() - want.float()).abs().max()):.3e}")
+    for out in wrong:
+        assert _off_scaled_limit(out, want, dtype).any()
+
+
+@pytest.mark.parametrize("B,S,H,KVH,hd", [
+    (128, 32768, 14, 2, 64),             # qwen2-0.5b decode_32k
+    (1, 524288, 32, 32, 64),             # zamba2-1.2b long_500k
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_the_assigned_shapes(cuda, B, S, H, KVH, hd, dtype):
+    """Every lane at its cache's last position (the cells' decode), then
+    random lengths: the split combine over many keys a split."""
+    from repro_torch.kernels.decode_attention import (decode_split_keys,
+                                                      decode_splits,
+                                                      flash_decode,
+                                                      flash_decode_plain)
+    q = torch.randn(B, H, hd, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(B, S, KVH, hd, generator=cuda, device="cuda").to(dtype)
+    splits = decode_splits(B, KVH, S)
+    if B * KVH < 132:
+        assert splits > 1
+    # the first half of the splits (half the keys where there is one)
+    kept = (splits // 2) * decode_split_keys(B, KVH, S) if splits > 1 \
+        else S // 2
+    full = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    for lengths in (full, torch.randint(1, S + 1, (B,), generator=cuda,
+                                        device="cuda", dtype=torch.int32)):
+        got = flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        want = flash_decode_plain(q, k, v, lengths)
+        wrong = (torch.zeros_like(want),
+                 flash_decode_plain(q, k, v, lengths.clamp(max=kept))) \
+            if lengths is full else ()
+        _assert_close_at_scale(got, want, dtype, wrong)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_32768_queries_on_its_last_rows(cuda, dtype):
+    """qwen2-0.5b prefill_32k's attention, q [1, 32768, 14, 64] against
+    k/v [1, 32768, 2, 64], causal: the plain version's 60 GB of scores do
+    not fit, and under the bottom-right mask the kernel's last 1024 query
+    rows are the plain version on q[:, -1024:] against every key."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    S, tail = 32768, 1024
+    q = torch.randn(1, S, 14, 64, generator=cuda, device="cuda").to(dtype)
+    k = torch.randn(1, S, 2, 64, generator=cuda, device="cuda").to(dtype)
+    v = torch.randn(1, S, 2, 64, generator=cuda, device="cuda").to(dtype)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = flash_attention_plain(q[:, -tail:].contiguous(), k, v,
+                                 causal=True)
+    # zeros, and the rows over the first half of the keys
+    half = flash_attention_plain(q[:, -tail:].contiguous(),
+                                 k[:, :S // 2].contiguous(),
+                                 v[:, :S // 2].contiguous(), causal=True)
+    _assert_close_at_scale(got[:, -tail:], want, dtype,
+                           (torch.zeros_like(want), half))
+    # the first rows against the plain version on the keys they can see
+    torch.testing.assert_close(
+        got[:, :tail], flash_attention_plain(q[:, :tail].contiguous(),
+                                             k[:, :tail].contiguous(),
+                                             v[:, :tail].contiguous(),
+                                             causal=True), **TOLS[dtype])

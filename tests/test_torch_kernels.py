@@ -495,24 +495,41 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ssd_chunk(q4, bc, bc, torch.rand(1, 8, 2), torch.zeros(2))
 
 
-def test_ops_dispatch_non_cpu_tensor_to_the_kernel():
-    """A tensor that is not on the CPU never takes the plain version: a
-    meta tensor goes to the CUDA wrapper, which raises."""
-    x = torch.empty(8, 64, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.rmsnorm(x, torch.empty(64, device="meta"))
+def test_ops_dispatch_non_cpu_tensor_to_the_kernel(monkeypatch):
+    """A tensor that is not on the CPU never takes the plain version.  A
+    meta tensor (the dry run's) takes the kernels' meta branch: outputs
+    of the kernel's shapes on meta, and neither the plain version nor the
+    CUDA wrapper (which refuses a meta tensor, below) is called."""
+    def refuse(*a, **k):
+        raise AssertionError("a meta tensor reached a plain version or a "
+                             "CUDA wrapper")
+    for name in ("flash_decode_plain", "flash_attention_plain",
+                 "rmsnorm_fwd_plain", "rmsnorm_bwd_plain", "ssd_chunk_plain",
+                 "_fd_kernel", "_fa_kernel", "_rms_fwd_kernel",
+                 "_rms_bwd_kernel", "_ssd_kernel"):
+        monkeypatch.setattr(ops, name, refuse)
+    x = torch.empty(8, 64, device="meta", requires_grad=True)
+    y = ops.rmsnorm(x, torch.empty(64, device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape
+    y.sum().backward()
+    assert x.grad.device.type == "meta" and x.grad.shape == x.shape
     q = torch.empty(2, 4, 16, device="meta")
     k = torch.empty(2, 8, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_decode(q, k, k, torch.empty(2, dtype=torch.int32,
-                                              device="meta"))
+    out = ops.flash_decode(q, k, k, torch.empty(2, dtype=torch.int32,
+                                                device="meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
     q4 = torch.empty(1, 8, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention(q4, q4, q4)
+    assert ops.flash_attention(q4, q4, q4).shape == q4.shape
     bc = torch.empty(1, 8, 16, device="meta")
+    y, st, dec = ops.ssd_chunk(q4, bc, bc, torch.empty(1, 8, 2, device="meta"),
+                               torch.empty(2, device="meta"))
+    assert (y.shape, st.shape, dec.shape) == ((1, 8, 2, 16), (1, 2, 16, 16),
+                                              (1, 2))
+    monkeypatch.undo()
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
     with pytest.raises(ValueError, match="CUDA"):
-        ops.ssd_chunk(q4, bc, bc, torch.empty(1, 8, 2, device="meta"),
-                      torch.empty(2, device="meta"))
+        rmsnorm_fwd(torch.empty(8, 64, device="meta"),
+                    torch.empty(64, device="meta"))
 
 
 def test_new_cuda_wrappers_raise_for_the_card_without_cuda():
