@@ -181,6 +181,29 @@ Phases; any failure raises and the script exits non-zero:
              rows, in bf16 to a limit scaled to the output's rms, which
              zeros and the output over half the keys fail.
 
+16. devices — a mesh with one device per rank (``launch.mesh``'s
+             ``devices=`` form; distinct cards cuda:0..3 on a machine
+             with four or more, else cuda:0 listed four times, which a
+             line says; peer access printed for every pair of distinct
+             cards), run after phase 10: every op × algorithm at 2 and 4
+             ranks, int32, f32 and bf16, chunks 1 and 4, round batch 1
+             and auto, one-shot and persistent, each bit for bit against
+             the rank-stacked run on cuda:0 (int32 also against the
+             plain reference) under ``set_sync_debug_mode("error")``; a
+             persistent ring allreduce of 256 MiB a rank restarted 20
+             times (``memory_allocated`` of every device unchanged, ms an
+             allreduce, and on distinct cards the bus bandwidth as
+             nccl-tests define it); phase 9's data-parallel smollm-360m
+             run with ``--rank-devices`` (a replica of the weights and
+             AdamW state on each rank's device): its losses equal phase
+             9's bit for bit, the replicas equal on every device, the
+             checkpoint (rank 0's replica) restored equal, per device the
+             port's kernel launches a step (each wrapper's count filed
+             under the card current at its launch: its ranks' share of a
+             single-card step's; the profiler's events beside it), busy
+             ms and idle share (profiler) and peak memory; a chaos kill of 1 of 4 ranks at step 3, at 4 layers,
+             rank-stacked and per device, the losses equal bit for bit.
+
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
 ``--only serve-sharded`` the build, phase 3's caller-driven qwen2-0.5b run
@@ -188,7 +211,9 @@ and phase 11; ``--only moe`` the build, the two attention kernels' checks
 and phase 12 with granite's card-against-CPU checks; ``--only families``
 the build, the kernels at the new shapes and phase 13 with its checks;
 ``--only context`` the build and phase 14; ``--only cells`` the build,
-the kernels at the assigned shapes and phase 15.
+the kernels at the assigned shapes and phase 15; ``--only devices`` the
+build, phase 9's data-parallel run and phase 16 (on a call with four
+cards, across them).
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -2318,12 +2343,13 @@ DP_LOSS_ATOL = 5e-2          # bf16: the ranks' GEMMs see 2 rows, not 8
 DP_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}   # relative L2
 
 
-def train_dp(single_losses: list):
+def train_dp(single_losses: list | None):
     """``launch.train`` data-parallel at full smollm-360m width: 4 ranks
     on the card, 8 x 1024 tokens (2 sequences a rank), ring, 4 chunks,
     32 MiB buckets, 6 steps under the Trainer, the last step checkpointed
     and restored equal; every loss finite and the trajectory within
-    ``DP_LOSS_ATOL`` of the single-card run's."""
+    ``DP_LOSS_ATOL`` of the single-card run's (not compared when
+    ``single_losses`` is None: ``--only devices`` runs no single card)."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import train as train_mod
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_dp_")
@@ -2349,10 +2375,16 @@ def train_dp(single_losses: list):
         losses = [m["loss"] for m in report.log]
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"bad loss trajectory {losses}")
-        diff = max(abs(a - b) for a, b in zip(losses, single_losses))
-        if diff > DP_LOSS_ATOL:
-            raise AssertionError(f"data-parallel losses {losses} vs the "
-                                 f"single card's {single_losses}")
+        if single_losses is not None:
+            diff = max(abs(a - b) for a, b in zip(losses, single_losses))
+            if diff > DP_LOSS_ATOL:
+                raise AssertionError(f"data-parallel losses {losses} vs the "
+                                     f"single card's {single_losses}")
+            single_text = (f"single card "
+                           f"{[round(v, 6) for v in single_losses]}, max "
+                           f"diff {diff:.3e}, limit {DP_LOSS_ATOL}")
+        else:
+            single_text = "no single-card run in this partial run"
         peak = torch.cuda.max_memory_allocated()
         ckpt_text = checkpoint_check(tr, TRAIN_STEPS - 1)
         steps_s = [m["step_time_s"] for m in report.log[1:]]
@@ -2362,9 +2394,8 @@ def train_dp(single_losses: list):
         log(f"train_dp {TRAIN_ARCH} ({DP_RANKS} ranks on the card, "
             f"{red.algorithm}, {red.chunks} chunks, "
             f"{red.bucket_bytes >> 20} MiB buckets): launches {launches}; "
-            f"losses {[round(v, 6) for v in losses]} (single card "
-            f"{[round(v, 6) for v in single_losses]}, max diff {diff:.3e}, "
-            f"limit {DP_LOSS_ATOL}); mean step {mean_s * 1e3:.3f} ms (steps "
+            f"losses {[round(v, 6) for v in losses]} ({single_text}); "
+            f"mean step {mean_s * 1e3:.3f} ms (steps "
             f"1-{TRAIN_STEPS - 1}; step 0 "
             f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
             f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; reducer "
@@ -3081,6 +3112,489 @@ def parallel_phase(single_losses: list, dp_losses: list) -> dict:
     free()
     pipeline_phase()
     free()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: a mesh with one device per rank
+# ---------------------------------------------------------------------------
+
+DEV_COLL_NS = (2, 4)
+DEV_BIG_BYTES = 256 << 20       # each rank's buffer in the timed allreduce
+DEV_RESTARTS = 20
+DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 4, 3
+DEV_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "flash_attention")
+
+
+def rank_devices(n: int = DP_RANKS) -> list:
+    """Distinct cards ``cuda:0 .. n-1`` on a machine with n or more, else
+    ``cuda:0`` listed n times (the ranks then share it)."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def distinct(devices) -> list:
+    """The devices of a list, each once, in order."""
+    return list(dict.fromkeys(torch.device(d) for d in devices))
+
+
+def sync_all(devices) -> None:
+    for d in distinct(devices):
+        torch.cuda.synchronize(d)
+
+
+class sync_errors:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: any
+    call that would synchronize a card raises."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def devices_collectives(devices) -> None:
+    """Every op × algorithm at n ∈ ``DEV_COLL_NS`` ranks on the first n of
+    ``devices``, int32, f32 and bf16, chunks {1, 4}, round batch {1,
+    auto}, one-shot and persistent: the per-device result equals the
+    rank-stacked run of the same case on ``cuda:0`` bit for bit, and
+    int32 the plain reference; every run under the sync debug mode
+    "error"."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    coll = NB.UserCollectives(ProgressEngine())
+    gen = torch.Generator().manual_seed(16)
+    runs, t0 = 0, time.perf_counter()
+    for n in DEV_COLL_NS:
+        smesh = make_mesh((n,), ("x",), "cuda:0")
+        dmesh = make_mesh((n,), ("x",), devices=devices[:n])
+        for op, alg, shape in coll_cases(n):
+            for dt in COLL_DTYPES:
+                xc = torch.randint(-8, 8, shape, generator=gen,
+                                   dtype=torch.int32) \
+                    if dt == torch.int32 else \
+                    torch.randn(shape, generator=gen).to(dt)
+                x = xc.to("cuda:0")
+                xs = RankShards.from_stacked(x, dmesh)
+                sync_all(devices)
+                for chunks, batch, persistent in itertools.product(
+                        COLL_CHUNKS, COLL_BATCHES, (False, True)):
+                    with sync_errors():
+                        want = run_collective(coll, op, alg, x, smesh,
+                                              chunks, batch, persistent)
+                        got = run_collective(coll, op, alg, xs, dmesh,
+                                             chunks, batch, persistent)
+                    case = (f"{op}/{alg} n={n} {dt} chunks={chunks} round "
+                            f"batch={batch} persistent={persistent}")
+                    if not isinstance(got, RankShards) or [
+                            str(d) for d in got.devices] != list(devices[:n]):
+                        raise AssertionError(f"{case}: result not on the "
+                                             f"ranks' devices")
+                    if not torch.equal(got.to_stacked("cuda:0"), want):
+                        raise AssertionError(f"{case}: the per-device form "
+                                             f"differs from the stacked run")
+                    if dt == torch.int32 and not torch.equal(
+                            want.cpu(), plain_collective(op, xc, n)):
+                        raise AssertionError(f"{case}: not the plain sum")
+                    runs += 1
+    coll.close()
+    log(f"devices: {runs} per-device collective runs ({len(DEV_COLL_NS)} "
+        f"rank counts x 9 op/algorithm pairs x 3 dtypes x chunks "
+        f"{COLL_CHUNKS} x round batch {COLL_BATCHES} x one-shot/persistent) "
+        f"in {time.perf_counter() - t0:.1f} s, each bit for bit against the "
+        f"rank-stacked run on cuda:0 (int32 also against the plain "
+        f"reference), every run under set_sync_debug_mode('error'); "
+        f"{coll.pending_polls} polls found a round running")
+
+
+def busy_by_device(prof) -> dict:
+    """Device index -> ms its kernels and copies kept it busy (the union
+    of their intervals) over a profiler run."""
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {}
+    for d, iv in spans.items():
+        merged = []
+        for a, b in sorted(iv):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy[d] = sum(b - a for a, b in merged) / 1e3
+    return busy
+
+
+def host_top(prof, n: int, top: int = 6) -> str:
+    """The host calls that took most of the host's own time over a
+    profiler run with CPU activity, in ms per each of ``n`` units."""
+    ranked = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CPU),
+                    key=lambda e: -e.self_cpu_time_total)[:top]
+    return "; ".join(f"{e.key} {e.self_cpu_time_total / n / 1e3:.3f} ms "
+                     f"({e.count // n} calls)" for e in ranked)
+
+
+def devices_big_allreduce(devices) -> None:
+    """A persistent ring allreduce of ``DEV_BIG_BYTES`` of int32 on each
+    rank (4 chunks, per-round dispatch), restarted ``DEV_RESTARTS``
+    times: ``memory_allocated`` of every device unchanged, the result the
+    plain sum, the time per allreduce (host clock over the restarts,
+    every card synchronized at both ends) and, on distinct cards, the
+    bus bandwidth as nccl-tests define it, 2(n-1)/n x bytes / time (no
+    NCCL or torch.distributed call is made)."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    n = len(devices)
+    mesh = make_mesh((n,), ("x",), devices=devices)
+    gen = torch.Generator(device="cuda:0").manual_seed(17)
+    x = torch.randint(-8, 8, (n, DEV_BIG_BYTES // 4), generator=gen,
+                      device="cuda:0", dtype=torch.int32)
+    want = x.sum(0, dtype=torch.int32)
+    xs = RankShards.from_stacked(x, mesh)
+    del x
+    coll = NB.UserCollectives(ProgressEngine())
+    h = coll.allreduce_init(xs, mesh, "x", chunks=4, round_batch=1)
+    cards = distinct(devices)
+    out = h.start(xs).wait(timeout=120)
+    del out
+    sync_all(devices)
+    mem, t0 = [], time.perf_counter()
+    for _ in range(DEV_RESTARTS):
+        out = h.start(xs).wait(timeout=120)
+        mem.append(tuple(torch.cuda.memory_allocated(d) for d in cards))
+    sync_all(devices)
+    ms = (time.perf_counter() - t0) * 1e3 / DEV_RESTARTS
+    for s in out.shards:
+        if not torch.equal(s[0].to("cuda:0"), want):
+            raise AssertionError("per-device 256 MiB allreduce: not the sum")
+    if len(set(mem)) != 1:
+        raise AssertionError(f"per-device restarts allocated: {mem}")
+    # where the time goes: each card's busy time, and the host's calls
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(2):
+            out = h.start(xs).wait(timeout=120)
+        sync_all(devices)
+        prof_ms = (time.perf_counter() - t1) * 1e3 / 2
+    busy = busy_by_device(prof)
+    trace_text = (f"under the profiler {prof_ms:.3f} ms an allreduce, device "
+                  f"busy " + ", ".join(f"cuda:{d} {v / 2:.3f} ms"
+                                       for d, v in sorted(busy.items()))
+                  + f"; host's own time: {host_top(prof, 2)}") if busy \
+        else "device busy not measured (no profiler events)"
+    h.close()
+    coll.close()
+    if len(cards) == n:
+        bus = 2 * (n - 1) / n * DEV_BIG_BYTES / (ms / 1e3) / 1e9
+        bw_text = (f"bus bandwidth {bus:.3f} GB/s (2(n-1)/n x "
+                   f"{DEV_BIG_BYTES >> 20} MiB / time; NVLink's 450 GB/s a "
+                   f"direction is its ceiling)")
+    else:
+        bw_text = ("no bus bandwidth: the ranks share one card, so every "
+                   "hop is a copy within it")
+    log(f"devices: persistent ring allreduce of {DEV_BIG_BYTES >> 20} MiB "
+        f"int32 a rank over {n} ranks on {devices} (4 chunks, per-round "
+        f"dispatch), restarted {DEV_RESTARTS} times: {ms:.3f} ms an "
+        f"allreduce; {bw_text}; memory_allocated after every start "
+        + ", ".join(f"{d} {m} B" for d, m in zip(cards, mem[0]))
+        + f"; the result the plain sum on every rank; {trace_text}")
+
+
+def train_devices(dp_losses: list, devices):
+    """``launch.train --rank-devices`` at full smollm-360m width: the run
+    of phase 9 (4 ranks, ring, 4 chunks, 6 steps of 8 x 1024 tokens) with
+    each rank's replica, gradients and AdamW state on its own device.
+    Its losses equal phase 9's bit for bit; the launches are 4 ranks'
+    passes; the final replicas equal bit for bit on every device; the
+    checkpoint (rank 0's replica) restores equal."""
+    import types
+
+    from repro_torch.collectives.rank_shards import RankShards, tree_shard
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.layers import tree_leaves
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_devices_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir,
+            "--devices", str(DP_RANKS), "--mesh", f"{DP_RANKS}x1",
+            "--collective-backend", "user", "--collective-algorithm", "ring",
+            "--collective-chunks", str(DP_CHUNKS),
+            "--rank-devices", ",".join(devices)])
+        for d in distinct(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        _lib.reset_launches()
+        report = train_mod.run(args, log_every=1)
+        launches = dict(_lib.launches)
+        cfg, tr = report.cfg, report.trainer
+        if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+            raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+        want = {k: v * TRAIN_STEPS for k, v in
+                train_mod.kernel_launches_per_step(cfg, DP_RANKS).items()}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        losses = [m["loss"] for m in report.log]
+        if losses != dp_losses:
+            raise AssertionError(f"per-device losses {losses} differ from "
+                                 f"the rank-stacked run's {dp_losses}")
+        leaves = [t for _, t in [*tree_leaves(tr.params),
+                                 *tree_leaves(tr.opt_state.mu),
+                                 *tree_leaves(tr.opt_state.nu)]]
+        for t in leaves:
+            if not isinstance(t, RankShards) or [
+                    str(d) for d in t.devices] != list(devices):
+                raise AssertionError(f"a replica off its rank's device: {t}")
+            for s in t.shards[1:]:
+                if not torch.equal(s.to(t.shards[0].device), t.shards[0]):
+                    raise AssertionError("the replicas differ")
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                 for d in distinct(devices)}
+        ckpt_text = checkpoint_check(types.SimpleNamespace(
+            ckpt=tr.ckpt, params=tree_shard(tr.params, 0),
+            opt_state=tree_shard(tr.opt_state, 0)), TRAIN_STEPS - 1)
+        steps_s = [m["step_time_s"] for m in report.log[1:]]
+        mean_s = sum(steps_s) / len(steps_s)
+        issue = tr.reduce_issue_s[1:]
+        log(f"train_devices {TRAIN_ARCH} ({DP_RANKS} ranks on {devices}, "
+            f"ring, {DP_CHUNKS} chunks): launches {launches} (4 ranks' "
+            f"passes); losses {[round(v, 6) for v in losses]}, bit for bit "
+            f"those of the rank-stacked run (phase 9); the {len(leaves)} "
+            f"replicated leaves equal on every device; mean step "
+            f"{mean_s * 1e3:.3f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+            f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; reducer "
+            f"{report.reduce_dispatches} dispatch units a step, host time "
+            f"to issue {sum(issue) / len(issue) * 1e3:.3f} ms a step; "
+            f"{ckpt_text} (rank 0's replica); peak device memory "
+            + ", ".join(f"{d} {v:.2f} GiB" for d, v in peaks.items()))
+        return launches, report
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+class DeviceLaunches(dict):
+    """``_lib.launches`` that also files each increment under the current
+    CUDA device: a wrapper counts its launch with its kernel's card
+    current (``_lib.stream_of`` refuses any other), on the host thread or
+    autograd's device thread.  The profiler's kernel events name the
+    device too, but a long trace can drop a few of them."""
+
+    def __init__(self, base):
+        super().__init__(base)
+        self.by_device: dict = {}
+
+    def __setitem__(self, name, value):
+        added = value - self.get(name, 0)
+        if added > 0:
+            key = (torch.cuda.current_device(), name)
+            self.by_device[key] = self.by_device.get(key, 0) + added
+        super().__setitem__(name, value)
+
+
+def kernel_of(name: str) -> str | None:
+    """Which of ``DEV_KERNELS`` a device event's kernel belongs to."""
+    if "repro_torch::" not in name:
+        return None
+    for k in DEV_KERNELS:
+        if k in name:
+            return k
+    return None
+
+
+def devices_time_breakdown(report, devices, steps: int = 2) -> None:
+    """``steps`` per-device data-parallel steps on the trained replicas
+    and one fixed batch (the launcher's split step: rank gradients, the
+    reducer, AdamW on each replica): host wall clock unprofiled; per
+    device the port's kernel launches (``DeviceLaunches``: each must be
+    its ranks' share of a single-card step's; the profiler's count of
+    them beside it) and, from the profiler, busy ms and idle share."""
+    from repro_torch.collectives.overlap import EngineGradReducer
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt_mod
+    tr, cfg = report.trainer, report.cfg
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), devices=devices)
+    reducer = EngineGradReducer(mesh, "data", engine=ProgressEngine(),
+                                chunks=DP_CHUNKS)
+    grad_fn = train_mod.make_rank_grads(cfg, DP_RANKS, mesh=mesh)
+    apply_fn = train_mod._apply_per_device(ocfg)
+    batch = {k: torch.from_numpy(v.copy()).pin_memory() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+    state = {"p": tr.params, "o": tr.opt_state}
+
+    def run(k=steps):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            mets, g = grad_fn(state["p"], batch)
+            grads = reducer.iallreduce_tree(g).wait(timeout=600)
+            del g
+            state["p"], state["o"], _ = apply_fn(state["p"], state["o"],
+                                                 grads, mets)
+            del grads
+        sync_all(devices)
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(1)
+    wall = run()
+    base, counter = _lib.launches, DeviceLaunches(_lib.launches)
+    _lib.launches = counter
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            wall_prof = run()
+    finally:
+        _lib.launches = base
+        for k, v in counter.items():
+            base[k] = v
+    # the reducer's issue on the host (its 8-36 dispatch units a bucket)
+    _, g = grad_fn(state["p"], batch)
+    sync_all(devices)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as host_prof:
+        reduction = reducer.iallreduce_tree(g)
+    issue_ms = reduction.issue_s * 1e3
+    reduction.wait(timeout=600)
+    del g, reduction
+    reducer.close()
+    counts = {}
+    for e in prof.events():
+        k = kernel_of(e.name) \
+            if e.device_type == torch.autograd.DeviceType.CUDA else None
+        if k is not None:
+            key = (e.device_index, k)
+            counts[key] = counts.get(key, 0) + 1
+    busy_all = busy_by_device(prof)
+    single = train_mod.kernel_launches_per_step(cfg)
+    if not busy_all:
+        log(f"time: train_devices step wall {wall:.3f} ms; per-device "
+            f"launches, busy time and idle not measured (no profiler "
+            f"events)")
+        return
+    parts = []
+    for d in distinct(devices):
+        ranks = sum(torch.device(x) == d for x in devices)
+        got = {k: counter.by_device.get((d.index, k), 0) / steps
+               for k in DEV_KERNELS}
+        want = {k: single[k] * ranks for k in DEV_KERNELS}
+        if got != want:
+            raise AssertionError(f"{d}: launches a step {got}, want {want} "
+                                 f"({ranks} rank(s) x a single-card step)")
+        seen = sum(counts.get((d.index, k), 0) for k in DEV_KERNELS)
+        busy = busy_all.get(d.index, 0.0) / steps
+        parts.append(f"{d}: {ranks} rank(s), launches a step "
+                     f"{ {k: int(v) for k, v in got.items()} } (= {ranks} x "
+                     f"a single-card step's; the profiler's events name "
+                     f"{seen} of their {int(sum(got.values())) * steps}), "
+                     f"device busy {busy:.3f} ms, idle share "
+                     f"{1 - busy / wall_prof:.3f}")
+    log(f"time: train_devices step ({TRAIN_ARCH}, {DP_RANKS} ranks on "
+        f"{devices}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): wall {wall:.3f} ms "
+        f"({wall_prof:.3f} ms under the profiler); " + "; ".join(parts)
+        + f"; the reducer's issue {issue_ms:.3f} ms on the host (under the "
+        f"profiler), its own time led by: {host_top(host_prof, 1)}")
+
+
+def devices_chaos(devices) -> None:
+    """``--elastic --chaos-kill 1 --chaos-kill-step DEV_CHAOS_KILL`` at
+    full width and ``DEV_CHAOS_LAYERS`` layers, rank-stacked and per
+    device: one remesh each (3 survivors: the JAX package's plan_mesh
+    takes a mesh of 2, on the first 2 surviving devices), the losses
+    equal bit for bit."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    cfg = make_config(TRAIN_ARCH, "full").with_overrides(
+        num_layers=DEV_CHAOS_LAYERS)
+    out = {}
+    for name, extra in (("stacked", []),
+                        ("per-device", ["--rank-devices",
+                                        ",".join(devices)])):
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_devices_chaos_")
+        try:
+            args = train_mod.build_parser().parse_args([
+                "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+                "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt_dir,
+                "--devices", str(DP_RANKS), "--mesh", f"{DP_RANKS}x1",
+                "--collective-backend", "user", "--collective-chunks",
+                str(DP_CHUNKS), "--elastic", "--chaos-kill", "1",
+                "--chaos-kill-step", str(DEV_CHAOS_KILL)] + extra)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                report = train_mod.run(args, config=cfg, log_every=1)
+            lines = [ln for ln in text.getvalue().splitlines()
+                     if ln.startswith(("chaos:", "remesh:"))]
+            out[name] = ([m["loss"] for m in report.log], lines,
+                         report.trainer.recoveries, report.reducer.mesh,
+                         [m["step_time_s"] * 1e3 for m in report.log])
+            del report
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        free()
+    (a, la, ra, _, _), (b, lb, rb, mesh, ms) = out["stacked"], \
+        out["per-device"]
+    if a != b or not ra == rb == 1 or len(a) != TRAIN_STEPS:
+        raise AssertionError(f"chaos: per-device {b} ({rb} recoveries) vs "
+                             f"stacked {a} ({ra})")
+    log(f"devices: chaos kill of 1 of {DP_RANKS} ranks at step "
+        f"{DEV_CHAOS_KILL} ({DEV_CHAOS_LAYERS} layers, full width): "
+        f"{' / '.join(lb)}; recovered onto {mesh}; losses "
+        f"{[round(v, 6) for v in b]}, bit for bit the rank-stacked chaos "
+        f"run's; step ms {[round(v, 3) for v in ms]}")
+
+
+def devices_phase(dp_losses: list) -> dict:
+    """Phase 16: the mesh with one device per rank (distinct cards where
+    the machine has 4, else cuda:0 four times): the collectives, the
+    timed 256 MiB allreduce, data-parallel smollm-360m at full width
+    against phase 9, its per-device breakdown, a chaos kill; returns the
+    data-parallel run's launches."""
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices = rank_devices()
+    log(f"devices: torch.cuda.device_count() = {count}; the mesh's "
+        f"devices {devices}"
+        + ("" if count >= DP_RANKS else
+           f" (this machine has {count} card(s): cuda:0 is listed "
+           f"{DP_RANKS} times, so every copy between ranks stays on it)"))
+    cards = distinct(devices)
+    if len(cards) > 1:
+        log("devices: peer access " + ", ".join(
+            f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+            for i in range(len(cards)) for j in range(len(cards)) if i != j)
+            + " (where False, a copy between the two is staged through "
+            "the host)")
+    devices_collectives(devices)
+    free()
+    devices_big_allreduce(devices)
+    free()
+    launches, report = train_devices(dp_losses, devices)
+    devices_time_breakdown(report, devices)
+    del report
+    free()
+    devices_chaos(devices)
+    free()
+    log(f"devices phase: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4647,7 +5161,8 @@ def main(argv: list) -> int:
         return 2
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
                     ["--only", "moe"], ["--only", "families"],
-                    ["--only", "context"], ["--only", "cells"]):
+                    ["--only", "context"], ["--only", "cells"],
+                    ["--only", "devices"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
@@ -4655,7 +5170,8 @@ def main(argv: list) -> int:
               f"attention kernels and phase 12; --only families the kernels "
               f"at the last three families' shapes and phase 13; --only "
               f"context phase 14; --only cells the kernels at the assigned "
-              f"shapes and phase 15)", file=sys.stderr)
+              f"shapes and phase 15; --only devices the data-parallel run "
+              f"and phase 16)", file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4674,6 +5190,18 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "devices"]:
+        # a partial run (phase 9's data-parallel run and phase 16); it
+        # prints no result line
+        _, report = train_dp(None)
+        dp_losses = [m["loss"] for m in report.log]
+        del report
+        free()
+        launches = devices_phase(dp_losses)
+        log(f"partial run: launches of the per-device run {launches}; "
+            f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "cells"]:
         # a partial run (the kernels at the assigned shapes and phase 15);
         # it prints no result line
@@ -4818,6 +5346,8 @@ def main(argv: list) -> int:
     log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
     runs["train_fsdp"] = parallel_phase(single_losses, dp_losses)
     log(f"parallel phase done at {time.perf_counter() - t_start:.1f} s")
+    runs["train_devices"] = devices_phase(dp_losses)
+    log(f"devices phase done at {time.perf_counter() - t_start:.1f} s")
     runs["serve_sharded"] = serve_sharded_phase(unsharded)
     free()
     log(f"sharded serve phase done at {time.perf_counter() - t_start:.1f} s")
@@ -4855,12 +5385,14 @@ def main(argv: list) -> int:
         row["launches_remat"] = n["remat"]
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
+        row["launches_train_devices"] = n["train_devices"]
         row["launches_serve_sharded"] = n["serve_sharded"]
         for name, *_ in CELLS:
             row[f"launches_cell_{name}"] = n[f"cell_{name}"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_remat"] + n["train_dp"]
-                           + n["train_fsdp"] + n["serve_sharded"]
+                           + n["train_fsdp"] + n["train_devices"]
+                           + n["serve_sharded"]
                            + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
     reference_check()
@@ -4882,7 +5414,8 @@ def main(argv: list) -> int:
             "launches_train_mamba", "launches_train_qwen2_5_3b",
             "launches_train_granite", "launches_train_zamba2",
             "launches_train_whisper", "launches_train_pixtral",
-            "launches_train_ring", "launches_remat", "launches_train_dp", "launches_train_fsdp",
+            "launches_train_ring", "launches_remat", "launches_train_dp",
+            "launches_train_fsdp", "launches_train_devices",
             "launches_serve_sharded",
             *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",

@@ -18,8 +18,10 @@ the JAX package's ``repro.collectives`` (without the FSDP classes yet).
   (importable from here; not in ``__all__``, which is the JAX package's).
 
 Meshes come from ``repro_torch.launch.mesh``: every rank of an axis lives
-on the mesh's one device, a payload is rank-stacked on its leading dim.
-``schedules`` is re-exported as ``S``.
+on the mesh's one device and a payload is rank-stacked on its leading
+dim, or each rank lives on a device of its own and a payload is a
+``RankShards`` (``rank_shards``; importable from here, not in
+``__all__``).  ``schedules`` is re-exported as ``S``.
 """
 from repro_torch.collectives import schedules as S
 from repro_torch.collectives.nonblocking import (
@@ -59,6 +61,7 @@ from repro_torch.collectives.p2p import (
 )
 # importable from here, but kept out of ``__all__``, which mirrors the
 # JAX package's surface (it exports no ring)
+from repro_torch.collectives.rank_shards import RankShards  # noqa: F401
 from repro_torch.collectives.ring_attention import ring_attention  # noqa: F401
 
 __all__ = [

@@ -22,21 +22,29 @@ return ``CollectiveRequest`` handles: issue returns at once, completion
 is observed through ``is_complete`` / ``wait`` like every other request,
 and a failing round fails the request instead of raising into the
 progress loop.  A payload is the global tensor of the JAX package's
-``shard_map`` form, its leading dim sharded over the axis; on the
-port's single-controller mesh every rank's shard lives on the mesh's one
-device (``launch.mesh``).
+``shard_map`` form, its leading dim sharded over the axis: on a
+rank-stacked mesh every rank's shard lives on the mesh's one device
+(``launch.mesh``); on a mesh with one device per rank the payload is a
+``RankShards`` (``rank_shards``), each rank's shard on its own device, and
+a round's hops are copies between the devices (``schedules``: the same
+bits as the stacked form).
 
 **Streams.**  Every round, and the ``torch_future`` after it, is queued
-inside ``torch.cuda.stream(<the context's stream>)``, whatever thread
-runs the continuation.  At issue an event recorded on the caller's
-stream makes the collective stream wait for the payload's producer, and
-the payload is ``record_stream``-ed for it; a request completes only
-after its last device op has finished (its join too), and its result is
-``record_stream``-ed for the stream that was current at issue.  Nothing
-on the path synchronizes the card or reads a value back to the host.
+inside ``torch.cuda.stream(<the context's stream>)`` of every device the
+payload lives on (a copy between two cards runs on both cards' current
+streams), whatever thread runs the continuation.  At issue an event
+recorded on the caller's stream of each device makes that device's
+collective stream wait for the payload's producer, and each shard is
+``record_stream``-ed for its device's collective stream; a round
+completes when its event on every device has (``torch_future``), a
+request only after its last device op has finished (its join too), and
+each result shard is ``record_stream``-ed for the stream of its device
+that was current at issue.  Nothing on the path synchronizes a card or
+reads a value back to the host.
 
-**Carries.**  Round carries are buffers of a per-chunk workspace: a
-round writes into them and never into the caller's payload.  A
+**Carries.**  Round carries are buffers of a per-chunk workspace (one
+buffer per rank and device in the per-device form): a round writes into
+them and never into the caller's payload.  A
 ``PersistentCollective`` owns its workspaces and reuses them on every
 ``start`` (MPI's ``Allreduce_init``/``Start``), so a restart allocates
 only its result; a one-shot issue gets fresh ones.  A start that failed
@@ -75,6 +83,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.collectives import schedules as S
+from repro_torch.collectives.rank_shards import RankShards, global_view, \
+    local, ranks_view
 from repro_torch.core import debug
 from repro_torch.core.continuations import DEFERRED, INLINE, \
     ContinuationQueue
@@ -89,13 +99,39 @@ from repro_torch.core.request import CancelledError, Request
 # ---------------------------------------------------------------------------
 
 def _ranks(x, n: int):
-    """Global payload [n*k, ...] -> rank-stacked [n, k, ...] (a view)."""
-    return x.unflatten(0, (n, x.shape[0] // n))
+    """Global payload [n*k, ...] -> rank-stacked [n, k, ...] (a view; in
+    the per-device form each shard [k, ...] as [1, k, ...])."""
+    return ranks_view(x, n)
 
 
 def _global(y):
     """Rank-stacked [n, k, ...] -> global [n*k, ...]."""
-    return y.flatten(0, 1)
+    return global_view(y)
+
+
+def _splitter(n: int, split_v):
+    """The chunk split of a payload: ``split_v`` on the rank view, per
+    rank in the per-device form (each chunk a ``RankShards``)."""
+    def split(x):
+        v = _ranks(x, n)
+        if isinstance(v, RankShards):
+            return [RankShards(parts)
+                    for parts in zip(*(split_v(t) for t in v.shards))]
+        return split_v(v)
+
+    return split
+
+
+def _joiner(join_v):
+    """The chunk join: ``join_v`` on the chunks' rank views, per rank in
+    the per-device form, then back to the global payload."""
+    def join(parts):
+        if isinstance(parts[0], RankShards):
+            return _global(RankShards(join_v([p.shards[r] for p in parts])
+                                      for r in range(len(parts[0]))))
+        return _global(join_v(parts))
+
+    return join
 
 
 def _pad_last_to(x, target: int):
@@ -217,8 +253,17 @@ class _Workspace:
             self.bufs[key] = t
         return t
 
-    def like(self, key, t: torch.Tensor) -> torch.Tensor:
-        return self.buf(key, t.shape, t.dtype, t.device)
+    def shaped(self, key, like, shape_fn):
+        """A buffer of shape ``shape_fn(like.shape)`` in ``like``'s dtype
+        and device; for a ``RankShards``, one per rank on its device."""
+        if isinstance(like, RankShards):
+            return RankShards(self.buf((key, r), shape_fn(t.shape), t.dtype,
+                                       t.device)
+                              for r, t in enumerate(like.shards))
+        return self.buf(key, shape_fn(like.shape), like.dtype, like.device)
+
+    def like(self, key, t):
+        return self.shaped(key, t, tuple)
 
 
 class _Schedule:
@@ -308,8 +353,8 @@ def _recursive_doubling_schedule(n):
             def step(v, ws, mask=mask, last=2 * mask >= n):
                 recv = S.xor_exchange(v, mask, out=ws.like("recv", v))
                 if last:
-                    return torch.add(v, recv)
-                return torch.add(v, recv, out=ws.like("acc", v))
+                    return S.add(v, recv)
+                return S.add(v, recv, out=ws.like("acc", v))
 
             stages.append(_RoundStage(step))
             mask <<= 1
@@ -322,10 +367,10 @@ def _ring_rs_init(n, d):
     """carry = (chunks [..., n, W/n], acc [..., W/n]) with acc = own
     starting chunk (rank r starts from chunk (r - d) mod n)."""
     def init(x, ws):
-        chunks = x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
-        acc = ws.buf("acc", chunks.shape[:-2] + chunks.shape[-1:], x.dtype,
-                     x.device)
-        S.take_block(chunks, S.rank_offsets(n, x.device)[-d % n], out=acc)
+        chunks = local(lambda t: t.reshape(t.shape[:-1]
+                                           + (n, t.shape[-1] // n)), x)
+        acc = ws.shaped("acc", chunks, lambda s: s[:-2] + s[-1:])
+        S.take_block(chunks, S.rank_row(n, -d % n, x), out=acc)
         return chunks, acc
 
     return init
@@ -336,12 +381,11 @@ def _ring_rs_round(n, d, step, fresh: bool = False):
     def rnd(carry, ws):
         chunks, acc = carry
         recv = S.ring_shift(acc, d, out=ws.like("recv", acc))
-        blk = S.take_block(chunks,
-                           S.rank_offsets(n, acc.device)[(-d * (1 + step)) % n],
+        blk = S.take_block(chunks, S.rank_row(n, (-d * (1 + step)) % n, acc),
                            out=ws.like("blk", acc))
         if fresh:
-            return chunks, torch.add(recv, blk)
-        return chunks, torch.add(recv, blk, out=acc)
+            return chunks, S.add(recv, blk)
+        return chunks, S.add(recv, blk, out=acc)
 
     return rnd
 
@@ -351,8 +395,9 @@ def _ring_ag_start(n):
     with the fully reduced resident chunk at slot idx."""
     def start(carry, ws):
         _, acc = carry
-        out = acc.new_empty(acc.shape[:-1] + (n, acc.shape[-1]))
-        S.put_block(out, acc, S.rank_offsets(n, acc.device)[0])
+        out = local(lambda t: t.new_empty(t.shape[:-1] + (n, t.shape[-1])),
+                    acc)
+        S.put_block(out, acc, S.rank_row(n, 0, acc))
         return out, acc
 
     return start
@@ -364,7 +409,7 @@ def _ring_ag_round(n, d, step):
         # ping-pong: round 1 reads "acc" (or the payload) into "recv"
         nxt = S.ring_shift(cur, d, out=ws.like("recv" if step % 2 else "acc",
                                                cur))
-        S.put_block(out, nxt, S.rank_offsets(n, cur.device)[(-d * step) % n])
+        S.put_block(out, nxt, S.rank_row(n, (-d * step) % n, cur))
         return out, nxt
 
     return rnd
@@ -372,7 +417,8 @@ def _ring_ag_round(n, d, step):
 
 def _ring_finish(carry, ws):
     out, _ = carry
-    return out.reshape(out.shape[:-2] + (out.shape[-2] * out.shape[-1],))
+    return local(lambda t: t.reshape(t.shape[:-2]
+                                     + (t.shape[-2] * t.shape[-1],)), out)
 
 
 def _ring_allreduce_schedule(n, reverse):
@@ -392,9 +438,9 @@ def _ring_allreduce_schedule(n, reverse):
 
 def _hd_halve_round(mask, fresh: bool = False):
     def rnd(cur, ws):
-        out = None if fresh else ws.buf(
-            ("half", cur.shape[-1] // 2), cur.shape[:-1]
-            + (cur.shape[-1] // 2,), cur.dtype, cur.device)
+        out = None if fresh else ws.shaped(
+            ("half", cur.shape[-1] // 2), cur,
+            lambda s: s[:-1] + (s[-1] // 2,))
         return S.halve(cur, mask, out=out)
 
     return rnd
@@ -402,9 +448,9 @@ def _hd_halve_round(mask, fresh: bool = False):
 
 def _hd_double_round(mask, fresh: bool = False):
     def rnd(cur, ws):
-        out = None if fresh else ws.buf(
-            ("double", 2 * cur.shape[-1]), cur.shape[:-1]
-            + (2 * cur.shape[-1],), cur.dtype, cur.device)
+        out = None if fresh else ws.shaped(
+            ("double", 2 * cur.shape[-1]), cur,
+            lambda s: s[:-1] + (2 * s[-1],))
         return S.double(cur, mask, out=out)
 
     return rnd
@@ -459,8 +505,9 @@ def _ring_reduce_scatter_schedule(n):
 def _ring_all_gather_schedule(n):
     def build():
         def init(x, ws):
-            out = x.new_empty(x.shape[:-1] + (n, x.shape[-1]))
-            S.put_block(out, x, S.rank_offsets(n, x.device)[0])
+            out = local(lambda t: t.new_empty(t.shape[:-1]
+                                              + (n, t.shape[-1])), x)
+            S.put_block(out, x, S.rank_row(n, 0, x))
             return out, x
 
         stages = [_RoundStage(init)]
@@ -474,28 +521,19 @@ def _ring_all_gather_schedule(n):
 def _bruck_alltoall_schedule(n):
     def build():
         def init(x, ws):
-            idx = S.rank_offsets(n, x.device)
-            idx = idx.view(idx.shape + (1,) * (x.dim() - 2)).expand(x.shape)
-            return torch.gather(x, 1, idx, out=ws.like("a", x))
+            return S.rotate_blocks(x, out=ws.like("a", x))
 
         stages = [_RoundStage(init)]
         step = 1
         while step < n:
             def rnd(x, ws, step=step):
                 moved = S.ring_shift(x, step, out=ws.like("moved", x))
-                sel = S.bruck_mask(n, step, x.device).view(
-                    (1, n) + (1,) * (x.dim() - 2))
-                return torch.where(sel, moved, x, out=x)
+                return S.bruck_select(x, moved, step, out=x)
 
             stages.append(_RoundStage(rnd))
             step <<= 1
 
-        def finish(x, ws):
-            idx = S.rank_back(n, x.device)
-            return torch.gather(x, 1, idx.view(
-                idx.shape + (1,) * (x.dim() - 2)).expand(x.shape))
-
-        stages.append(_RoundStage(finish))
+        stages.append(_RoundStage(lambda x, ws: S.unrotate_blocks(x)))
         return _RoundSchedule(stages)
 
     return _cached(("bruck", n), build)
@@ -662,6 +700,8 @@ class CollectiveRequest(Request):
 def _tensors(tree) -> list:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, RankShards):
+        return list(tree.shards)
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in _tensors(v)]
     return []
@@ -678,19 +718,23 @@ class _ChunkPipeline:
     abandoned.  The join's device work completes through one more
     future before the request does.  ``defer=True``: the caller enqueues
     a one-shot issue task and the stream's adopting worker runs
-    ``launch``."""
+    ``launch``.
+
+    ``cuda_streams`` holds one round stream per device the payload lives
+    on, ``ready`` one event per device (recorded on its stream current at
+    issue), ``consumers`` each device's stream current at issue."""
 
     def __init__(self, ctx: "UserCollectives", req: CollectiveRequest,
                  schedules, payloads_fn: Callable[[], list],
                  join: Callable[[list], Any], defer: bool = False, *,
-                 cuda_stream=None, ready=None, consumer=None):
+                 cuda_streams=(), ready=(), consumers=None):
         self.ctx = ctx
         self.req = req
         self.schedules = schedules
         self.join = join
-        self.cuda_stream = cuda_stream
-        self._ready = ready          # event on the payload's stream
-        self._consumer = consumer    # the stream current at issue
+        self.cuda_streams = tuple(cuda_streams)
+        self._ready = tuple(ready)          # events on the payload's streams
+        self._consumers = consumers or {}   # device -> stream at issue
         self._lock = threading.Lock()
         self._results: list = [None] * len(schedules)
         self._remaining = len(schedules)
@@ -699,8 +743,15 @@ class _ChunkPipeline:
             self.launch()
 
     def _on_stream(self):
-        return torch.cuda.stream(self.cuda_stream) \
-            if self.cuda_stream is not None else contextlib.nullcontext()
+        """Every device's round stream made current for the block."""
+        if not self.cuda_streams:
+            return contextlib.nullcontext()
+        if len(self.cuda_streams) == 1:
+            return torch.cuda.stream(self.cuda_streams[0])
+        stack = contextlib.ExitStack()
+        for cs in self.cuda_streams:
+            stack.enter_context(torch.cuda.stream(cs))
+        return stack
 
     def launch(self) -> None:
         """Split the payload and dispatch round 0 of every chunk on the
@@ -710,8 +761,8 @@ class _ChunkPipeline:
         self.req.issue_thread = threading.get_ident()
         fn, self._payloads_fn = self._payloads_fn, None
         with self._on_stream():
-            if self._ready is not None:
-                self.cuda_stream.wait_event(self._ready)
+            for cs, ready in zip(self.cuda_streams, self._ready):
+                cs.wait_event(ready)
             try:
                 payloads = fn()
             except BaseException as exc:  # noqa: BLE001
@@ -778,10 +829,10 @@ class _ChunkPipeline:
                               on_error=self._on_error)
 
     def _complete(self, result) -> None:
-        if self._consumer is not None:
+        if self._consumers:
             for t in _tensors(result):
                 if t.is_cuda:
-                    t.record_stream(self._consumer)
+                    t.record_stream(self._consumers[t.device])
         with self.req._fail_lock:
             if self.req.is_complete:
                 return                # lost the race to cancel()/fail()
@@ -978,40 +1029,39 @@ def _plan_allreduce(mesh, axis: str, shape, dtype, algorithm: str,
     batch = _resolve_round_batch(round_batch, nbytes, base.num_rounds)
     if chunks == 1:
         if pad_to == D:
-            split = lambda x: [_ranks(x, n)]                        # noqa: E731
-            join = lambda parts: _global(parts[0])                  # noqa: E731
+            split_v, join_v = (lambda v: [v]), _first
         else:
-            split = lambda x: [_pad_last_to(_ranks(x, n), pad_to)]  # noqa: E731
-            join = lambda parts: _slice_last(_global(parts[0]), D)  # noqa: E731
+            split_v = lambda v: [_pad_last_to(v, pad_to)]           # noqa: E731
+            join_v = lambda parts: _slice_last(parts[0], D)         # noqa: E731
         scheds = [base]
     elif algorithm != "bidir" and batch >= base.num_rounds:
         # chunk fusion for the fully batched (small payload) regime: all
         # K chunks ride ONE program as a stacked batch dim.  Bit for bit
         # the per-chunk issue: every element's cross-rank summation order
         # depends only on ring position / partner masks.
-        split = lambda x: [_stack_last(                             # noqa: E731
-            _pad_last_to(_ranks(x, n), pad_to), chunks, per)]
-        join = lambda parts: _unstack_last(_global(parts[0]), D)    # noqa: E731
+        split_v = lambda v: [_stack_last(_pad_last_to(v, pad_to),   # noqa: E731
+                                         chunks, per)]
+        join_v = lambda parts: _unstack_last(parts[0], D)           # noqa: E731
         scheds = [base]
     elif algorithm == "recursive_doubling":
         # no divisibility constraint: contiguous near-equal slices
         widths = [len(r) for r in _split_ranges(D, min(chunks, D))]
-        split = lambda x: _contiguous_chunks(_ranks(x, n), widths)  # noqa: E731
-        join = lambda parts: _global(_concat_last(parts))           # noqa: E731
+        split_v = lambda v: _contiguous_chunks(v, widths)           # noqa: E731
+        join_v = _concat_last
         scheds = [base] * len(widths)
     else:
-        split = lambda x: list(_split_last(                         # noqa: E731
-            _pad_last_to(_ranks(x, n), pad_to), chunks, per))
+        split_v = lambda v: list(_split_last(_pad_last_to(v, pad_to),  # noqa: E731
+                                             chunks, per))
         if algorithm == "bidir":
             # alternate ring direction per chunk (chunks=1: forward ring)
             scheds = [_ring_allreduce_schedule(n, bool(c % 2))
                       for c in range(chunks)]
         else:
             scheds = [base] * chunks
-        join = lambda parts: _slice_last(                           # noqa: E731
-            _global(_concat_last(parts)), D)
+        join_v = lambda parts: _slice_last(_concat_last(parts), D)  # noqa: E731
     return _Plan("allreduce", algorithm, tuple(shape), dtype, mesh, axis,
-                 scheds, split, join, nbytes, batch)
+                 scheds, _splitter(n, split_v), _joiner(join_v), nbytes,
+                 batch)
 
 
 def _plan_reduce_scatter(mesh, axis: str, shape, dtype,
@@ -1035,19 +1085,19 @@ def _plan_reduce_scatter(mesh, axis: str, shape, dtype,
             else _ring_reduce_scatter_schedule(n))
     batch = _resolve_round_batch(round_batch, nbytes, base.num_rounds)
     if k == 1:
-        split = lambda x: [_ranks(x, n)]                            # noqa: E731
-        join = lambda parts: _global(parts[0])                      # noqa: E731
+        split_v, join_v = (lambda v: [v]), _first
         scheds = [base]
     elif batch >= base.num_rounds:
-        split = lambda x: [_rs_stack(_ranks(x, n), n, k)]           # noqa: E731
-        join = lambda parts: _global(_rs_unstack(parts[0]))         # noqa: E731
+        split_v = lambda v: [_rs_stack(v, n, k)]                    # noqa: E731
+        join_v = lambda parts: _rs_unstack(parts[0])                # noqa: E731
         scheds = [base]
     else:
-        split = lambda x: list(_rs_split(_ranks(x, n), n, k))       # noqa: E731
-        join = lambda parts: _global(_rs_join(parts))               # noqa: E731
+        split_v = lambda v: list(_rs_split(v, n, k))                # noqa: E731
+        join_v = _rs_join
         scheds = [base] * k
     return _Plan("reduce_scatter", algorithm, tuple(shape), dtype, mesh,
-                 axis, scheds, split, join, nbytes, batch)
+                 axis, scheds, _splitter(n, split_v), _joiner(join_v),
+                 nbytes, batch)
 
 
 def _plan_allgather(mesh, axis: str, shape, dtype,
@@ -1067,19 +1117,19 @@ def _plan_allgather(mesh, axis: str, shape, dtype,
             else _ring_all_gather_schedule(n))
     batch = _resolve_round_batch(round_batch, nbytes, base.num_rounds)
     if k == 1:
-        split = lambda x: [_ranks(x, n)]                            # noqa: E731
-        join = lambda parts: _global(parts[0])                      # noqa: E731
+        split_v, join_v = (lambda v: [v]), _first
         scheds = [base]
     elif batch >= base.num_rounds:
-        split = lambda x: [_stack_last(_ranks(x, n), k, d // k)]    # noqa: E731
-        join = lambda parts: _global(_ag_unstack(parts[0], n))      # noqa: E731
+        split_v = lambda v: [_stack_last(v, k, d // k)]             # noqa: E731
+        join_v = lambda parts: _ag_unstack(parts[0], n)             # noqa: E731
         scheds = [base]
     else:
-        split = lambda x: list(_split_last(_ranks(x, n), k, d // k))  # noqa: E731
-        join = lambda parts: _global(_ag_join(parts, n))            # noqa: E731
+        split_v = lambda v: list(_split_last(v, k, d // k))         # noqa: E731
+        join_v = lambda parts: _ag_join(parts, n)                   # noqa: E731
         scheds = [base] * k
     return _Plan("allgather", algorithm, tuple(shape), dtype, mesh, axis,
-                 scheds, split, join, nbytes, batch)
+                 scheds, _splitter(n, split_v), _joiner(join_v), nbytes,
+                 batch)
 
 
 def _plan_alltoall(mesh, axis: str, shape, dtype, chunks: int,
@@ -1102,17 +1152,47 @@ def _plan_alltoall(mesh, axis: str, shape, dtype, chunks: int,
     base = _bruck_alltoall_schedule(n)
     batch = _resolve_round_batch(round_batch, nbytes, base.num_rounds)
     if len(widths) == 1:
-        split = lambda x: [_ranks(x, n)]                            # noqa: E731
-        join = lambda parts: _global(parts[0])                      # noqa: E731
+        split_v, join_v = (lambda v: [v]), _first
     else:
-        split = lambda x: _contiguous_chunks(_ranks(x, n), widths)  # noqa: E731
-        join = lambda parts: _global(_concat_last(parts))           # noqa: E731
+        split_v = lambda v: _contiguous_chunks(v, widths)           # noqa: E731
+        join_v = _concat_last
     return _Plan("alltoall", "bruck", tuple(shape), dtype, mesh, axis,
-                 [base] * len(widths), split, join, nbytes, batch)
+                 [base] * len(widths), _splitter(n, split_v),
+                 _joiner(join_v), nbytes, batch)
 
 
-def _device_of(x):
-    return x.device if isinstance(x, torch.Tensor) else None
+def _check_form(x, mesh, axis: str, op: str) -> None:
+    """A rank-stacked mesh takes a tensor; a mesh with a device per rank
+    takes a ``RankShards`` with shard ``r`` on ``mesh.devices[r]`` (its
+    collectives run over an axis that holds every rank)."""
+    if mesh is None:
+        return
+    if not getattr(mesh, "per_device", False):
+        if isinstance(x, RankShards):
+            raise ValueError(f"i{op}: a RankShards payload needs a mesh "
+                             f"with a device per rank, got {mesh!r}")
+        return
+    if not isinstance(x, RankShards):
+        raise ValueError(f"i{op}: {mesh!r} has a device per rank; the "
+                         f"payload must be a RankShards "
+                         f"(RankShards.from_stacked), got "
+                         f"{type(x).__name__}")
+    if _axis_len(mesh, axis) != mesh.size:
+        raise ValueError(f"i{op}: on a mesh with a device per rank the "
+                         f"axis {axis!r} must hold every rank of {mesh!r}")
+    if x.devices != mesh.devices:
+        raise ValueError(f"i{op}: shards on {list(map(str, x.devices))}, "
+                         f"the mesh's ranks on "
+                         f"{list(map(str, mesh.devices))}")
+
+
+def _cuda_tensors_by_device(x) -> dict:
+    """The payload's CUDA tensors by device, in rank order."""
+    out: dict = {}
+    for t in _tensors(x):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            out.setdefault(t.device, []).append(t)
+    return out
 
 
 class UserCollectives:
@@ -1185,6 +1265,7 @@ class UserCollectives:
         from the payload size); ``spec`` overrides all three."""
         self._check_open()
         _check_payload(x, "allreduce")
+        _check_form(x, mesh, axis, "allreduce")
         if spec is not None:
             algorithm, chunks, round_batch = \
                 spec.algorithm, spec.chunks, spec.round_batch
@@ -1202,6 +1283,7 @@ class UserCollectives:
         ``halving_doubling``; other names fall back to ring."""
         self._check_open()
         _check_payload(x, "reduce_scatter")
+        _check_form(x, mesh, axis, "reduce_scatter")
         if spec is not None:
             algorithm, chunks, round_batch = \
                 spec.algorithm, spec.chunks, spec.round_batch
@@ -1217,6 +1299,7 @@ class UserCollectives:
         dim); ``ring`` or ``halving_doubling``."""
         self._check_open()
         _check_payload(x, "allgather")
+        _check_form(x, mesh, axis, "allgather")
         if spec is not None:
             algorithm, chunks, round_batch = \
                 spec.algorithm, spec.chunks, spec.round_batch
@@ -1231,6 +1314,7 @@ class UserCollectives:
         dim (the global leading dim is n·n blocks, n per rank)."""
         self._check_open()
         _check_payload(x, "alltoall")
+        _check_form(x, mesh, axis, "alltoall")
         if spec is not None:
             chunks, round_batch = spec.chunks, spec.round_batch
         plan = _plan_alltoall(mesh, axis, tuple(x.shape), _dtype_of(x),
@@ -1242,6 +1326,7 @@ class UserCollectives:
               **kw) -> "PersistentCollective":
         self._check_open()
         _check_payload(x, op)
+        _check_form(x, mesh, axis, op)
         if spec is not None:
             kw.update(chunks=spec.chunks, round_batch=spec.round_batch)
             if "algorithm" in kw:
@@ -1326,21 +1411,23 @@ class UserCollectives:
         if workspaces is None:
             workspaces = [_Workspace() for _ in scheds]
         scheds = [_bind(s, ws) for s, ws in zip(scheds, workspaces)]
-        cs = ready = consumer = None
-        device = _device_of(payload)
-        if device is not None and device.type == "cuda":
+        streams, ready, consumers = [], [], {}
+        for device, shards in _cuda_tensors_by_device(payload).items():
             cs = self.cuda_stream(device)
-            consumer = torch.cuda.current_stream(device)
-            ready = torch.cuda.Event()
-            ready.record(consumer)
-            payload.record_stream(cs)
+            consumers[device] = torch.cuda.current_stream(device)
+            ev = torch.cuda.Event()
+            ev.record(consumers[device])
+            for t in shards:
+                t.record_stream(cs)
+            streams.append(cs)
+            ready.append(ev)
         req = CollectiveRequest(self.engine, self.stream, self.queue, op,
                                 algorithm, len(scheds),
                                 sum(s.num_rounds for s in scheds), ctx=self)
         self.issued += 1
         pipe = _ChunkPipeline(self, req, scheds, payloads_fn, join,
-                              defer=defer, cuda_stream=cs, ready=ready,
-                              consumer=consumer)
+                              defer=defer, cuda_streams=streams, ready=ready,
+                              consumers=consumers)
         if defer:
             # one-shot issue task: the worker that owns the collective
             # stream splits + dispatches round 0 on its next sweep
@@ -1459,10 +1546,17 @@ class PersistentCollective:
         self._workspaces = [_Workspace() for _ in self.schedules]
 
     def _warm(self) -> None:
-        device = self.plan.mesh.device if self.plan.mesh is not None \
-            else None
-        self.start(torch.zeros(self.plan.shape, dtype=self.plan.dtype,
-                               device=device)).wait(timeout=600)
+        mesh = self.plan.mesh
+        if mesh is not None and mesh.per_device:
+            k = self.plan.shape[0] // mesh.size
+            zeros = RankShards(torch.zeros((k,) + self.plan.shape[1:],
+                                           dtype=self.plan.dtype, device=d)
+                               for d in mesh.devices)
+        else:
+            zeros = torch.zeros(self.plan.shape, dtype=self.plan.dtype,
+                                device=mesh.device if mesh is not None
+                                else None)
+        self.start(zeros).wait(timeout=600)
 
     # -- introspection -----------------------------------------------------
     @property
@@ -1514,6 +1608,7 @@ class PersistentCollective:
             raise ValueError(
                 f"persistent {self.plan.op} built for dtype "
                 f"{self.plan.dtype}, got {payload.dtype}")
+        _check_form(payload, self.plan.mesh, self.plan.axis, self.plan.op)
         if active is not None and active.failed:
             # the dead start's queued rounds may still write its carries
             self._workspaces = [_Workspace() for _ in self.schedules]

@@ -12,7 +12,10 @@ JAX package's ``collectives/overlap.py``.
 
 Trees are nested dicts (keys in sorted order, as ``jax.tree.flatten``
 visits them), lists and tuples; a rank-stacked leaf is ``[n, *shape]``,
-rank r's value in row r.
+rank r's value in row r.  On a mesh with a device per rank the
+``EngineGradReducer`` takes ``RankShards`` leaves instead (rank r's
+``[1, *shape]`` on its device) and returns each rank's reduced copy on
+its device.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Callable
 import torch
 
 from repro_torch.collectives import schedules as S
+from repro_torch.collectives.rank_shards import RankShards, local
 from repro_torch.core import debug
 
 
@@ -178,14 +182,22 @@ def microbatched_grad_fn(loss_fn: Callable, num_microbatches: int,
 # Engine-driven bucketed gradient reduction (paper §4.7 at the host level)
 # ---------------------------------------------------------------------------
 
-def _flatten_bucket(leaves, n: int) -> torch.Tensor:
-    """Stacked per-rank leaves [n, *shape] -> one [n, bucket] payload."""
-    return torch.cat([g.reshape(n, -1) for g in leaves], dim=-1)
+def _flatten_bucket(leaves, n: int):
+    """Stacked per-rank leaves [n, *shape] -> one [n, bucket] payload;
+    ``RankShards`` leaves -> each rank's [1, bucket] on its device."""
+    return local(lambda *gs: torch.cat([g.reshape(g.shape[0], -1)
+                                        for g in gs], dim=-1), *leaves)
 
 
 def _unflatten_bucket(flat, shapes: tuple, scale: float, n: int):
     """Reduced [n, bucket] payload (every row the cross-rank sum) back
-    into reduced leaves [*shape] (row 0, multiplied by ``scale``)."""
+    into reduced leaves [*shape] (row 0, multiplied by ``scale``); a
+    ``RankShards`` payload into ``RankShards`` leaves, each rank's own
+    row on its device."""
+    if isinstance(flat, RankShards):
+        per_rank = [_unflatten_bucket(t, shapes, scale, 1)
+                    for t in flat.shards]
+        return [RankShards(parts) for parts in zip(*per_rank)]
     del n
     out, off = [], 0
     for shape in shapes:
@@ -222,7 +234,8 @@ class TreeReduction:
     def wait(self, timeout: float | None = None):
         """Drive the engine until every bucket reduced; returns the
         reduced gradient tree (one copy of each leaf, on the stream that
-        was current at issue).  ``timeout`` is one overall deadline."""
+        was current at issue; a ``RankShards`` of each rank's copy in the
+        per-device form).  ``timeout`` is one overall deadline."""
         deadline = None if timeout is None else time.monotonic() + timeout
         for req in self.requests:
             remaining = None if deadline is None else \
@@ -235,7 +248,7 @@ class TreeReduction:
             shapes = tuple(self._shapes[i] for i in bucket)
             leaves = _unflatten_bucket(req.value(), shapes, scale, n)
             for i, leaf in zip(bucket, leaves):
-                red[i] = leaf.to(self._dtypes[i])
+                red[i] = local(lambda t, dt=self._dtypes[i]: t.to(dt), leaf)
         return self._unflatten(red)
 
 
@@ -244,7 +257,10 @@ class EngineGradReducer:
     engine.
 
     Input gradients are rank-stacked trees — each leaf ``[axis_size,
-    *shape]``, rank i's local gradient in row i.  ``iallreduce_tree``
+    *shape]``, rank i's local gradient in row i — or, on a mesh with a
+    device per rank, trees of ``RankShards`` leaves (rank i's ``[1,
+    *shape]`` on its device; each rank flattens its own buckets there).
+    ``iallreduce_tree``
     flattens the leaves into ~``bucket_bytes`` (per rank) buckets and
     starts one chunk-pipelined persistent allreduce per bucket, so the
     reductions progress on the collective stream while the caller keeps
@@ -305,7 +321,8 @@ class EngineGradReducer:
         return sum(h.dispatches_per_start for h in self._persistent.values())
 
     def remesh(self, mesh, axis: str | None = None) -> "EngineGradReducer":
-        """Adopt the survivors' mesh: the old handles close (the stacked
+        """Adopt the survivors' mesh (a mesh of fewer ranks, or of fewer
+        devices in the per-device form): the old handles close (the
         payload's leading dim changes) and fresh ones build on the next
         ``iallreduce_tree``."""
         for handle in self._persistent.values():

@@ -1,0 +1,178 @@
+"""Payloads of a mesh with one device per rank: ``RankShards``.
+
+The port's counterpart of a JAX array sharded on its leading dimension
+over a mesh of devices: a tuple of ``n`` local tensors, shard ``r`` on
+``mesh.devices[r]`` (``launch.mesh``).  Glued along the leading dim in
+rank order, the shards are the rank-stacked tensor of the other mesh
+form: shard ``r`` is that tensor's rows ``r*k .. (r+1)*k``.  So a
+schedule's stacked carry ``[n, ...]`` (rank ``r`` in row ``r``) is, in
+this form, ``n`` shards of ``[1, ...]``, and every per-shard round does
+to shard ``r`` what the stacked round does to row ``r``.
+
+``RankShards.from_stacked(x, mesh)`` and ``to_stacked(device)`` convert
+between the forms (tests and checks compare through them; the main path
+never converts).  ``shape`` is the stacked tensor's shape, ``dtype`` the
+shards' dtype.
+
+A value every rank holds whole (a parameter replica, a reduced gradient)
+is also a ``RankShards``, of equal copies (``replicate``); trees of such
+leaves go through ``tree_shard`` (rank ``r``'s tree), ``tree_stack`` (the
+inverse) and ``tree_keep`` (the first ``k`` ranks).  ``local(fn, *xs)``
+applies ``fn`` to each rank's shards, or to the tensors themselves in the
+stacked form: the trailing-dim code of the schedules runs unchanged on
+both.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+
+class RankShards:
+    """One local tensor per rank, each on its rank's device.  Every shard
+    has the same shape and dtype."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards):
+        shards = tuple(shards)
+        if not shards:
+            raise ValueError("RankShards needs at least one shard")
+        first = shards[0]
+        for s in shards:
+            if not isinstance(s, torch.Tensor):
+                raise TypeError(f"a shard is {type(s).__name__}, not a "
+                                f"tensor")
+            if s.shape != first.shape or s.dtype != first.dtype:
+                raise ValueError(
+                    f"shards differ: {tuple(first.shape)} {first.dtype} "
+                    f"and {tuple(s.shape)} {s.dtype}")
+        self.shards = shards
+
+    @classmethod
+    def from_stacked(cls, x: torch.Tensor, mesh) -> "RankShards":
+        """The stacked tensor ``x`` (its leading dim split over the mesh's
+        ranks in order) as a copy on each rank's device."""
+        devices = mesh.devices
+        n = len(devices)
+        if x.dim() < 1 or x.shape[0] % n:
+            raise ValueError(f"leading dim of {tuple(x.shape)} does not "
+                             f"split over {n} ranks")
+        k = x.shape[0] // n
+        return cls(x[r * k:(r + 1) * k].to(d, copy=True)
+                   for r, d in enumerate(devices))
+
+    def to_stacked(self, device) -> torch.Tensor:
+        """The shards glued along the leading dim, on ``device``."""
+        return torch.cat([s.to(device) for s in self.shards])
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(s.device for s in self.shards)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def shape(self) -> torch.Size:
+        s = self.shards[0].shape
+        if not s:
+            raise ValueError("0-d shards have no stacked shape")
+        return torch.Size((len(self.shards) * s[0],) + tuple(s[1:]))
+
+    def numel(self) -> int:
+        return sum(s.numel() for s in self.shards)
+
+    def element_size(self) -> int:
+        return self.shards[0].element_size()
+
+    def __len__(self) -> int:
+        return len(self.shards)
+
+    def __iter__(self):
+        return iter(self.shards)
+
+    def __getitem__(self, r: int) -> torch.Tensor:
+        return self.shards[r]
+
+    def __repr__(self):
+        s = self.shards[0]
+        return (f"RankShards({len(self.shards)} x {tuple(s.shape)} "
+                f"{s.dtype} on [" + ", ".join(str(d) for d in self.devices)
+                + "])")
+
+
+def local(fn, *xs):
+    """``fn`` on each rank's shards of the ``RankShards`` in ``xs`` (one
+    call per rank), or on ``xs`` themselves when they are tensors."""
+    if isinstance(xs[0], RankShards):
+        return RankShards(fn(*parts) for parts in zip(*(x.shards for x in xs)))
+    return fn(*xs)
+
+
+def replicate(t: torch.Tensor, devices) -> RankShards:
+    """A copy of ``t`` on each of ``devices``."""
+    return RankShards(t.to(d, copy=True) for d in devices)
+
+
+def device_context(device):
+    """``device`` made the current CUDA device for the block (nothing off
+    the card): a rank's kernels run with their own card current."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _zip_map(fn, trees):
+    """``fn(leaves)`` over the matching leaves of same-shaped trees (dicts,
+    named tuples, lists, tuples; a ``RankShards`` is a leaf)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*[_zip_map(fn, [getattr(t, f) for t in trees])
+                          for f in t0._fields])
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(_zip_map(fn, list(parts)) for parts in zip(*trees))
+    return fn(trees)
+
+
+def tree_shard(tree, r: int):
+    """Rank ``r``'s tree: each ``RankShards`` leaf replaced by shard
+    ``r`` (other leaves kept)."""
+    return _zip_map(lambda ls: ls[0].shards[r]
+                    if isinstance(ls[0], RankShards) else ls[0], [tree])
+
+
+def tree_stack(trees):
+    """Per-rank trees of tensors -> one tree of ``RankShards`` leaves."""
+    return _zip_map(RankShards, list(trees))
+
+
+def tree_keep(tree, k: int):
+    """The first ``k`` ranks of every ``RankShards`` leaf."""
+    return _zip_map(lambda ls: RankShards(ls[0].shards[:k])
+                    if isinstance(ls[0], RankShards) else ls[0], [tree])
+
+
+def replicate_tree(tree, devices):
+    """Every tensor leaf of ``tree`` replicated onto ``devices``."""
+    return _zip_map(lambda ls: replicate(ls[0], devices)
+                    if isinstance(ls[0], torch.Tensor) else ls[0], [tree])
+
+
+def ranks_view(x, n: int):
+    """A global payload ``[n*k, ...]`` as the schedules' rank view: the
+    stacked ``[n, k, ...]`` (a view), or each shard ``[k, ...]`` as
+    ``[1, k, ...]``."""
+    if isinstance(x, RankShards):
+        return local(lambda t: t.unsqueeze(0), x)
+    return x.unflatten(0, (n, x.shape[0] // n))
+
+
+def global_view(y):
+    """Inverse of ``ranks_view``."""
+    return local(lambda t: t.flatten(0, 1), y)

@@ -20,6 +20,16 @@ Each rank's adds come in the JAX order (own + received, round by round):
 nothing sums over the rank dimension in one call, so a schedule gives
 the JAX schedule's result bit for bit.
 
+On a mesh with one device per rank the payload is a ``RankShards``
+(``rank_shards``): shard ``r`` is row ``r`` of the stacked carry, on rank
+``r``'s device.  Every primitive below has a per-shard branch, chosen by
+the payload's type: a hop is ``dst.copy_(src, non_blocking=True)`` into
+the receiving rank's buffer on its device, a rank's block index is a
+host ``int`` (the device index tables are not used), and each rank adds
+own + received with the same ops in the same order, so the two forms
+give the same bits in every dtype.  The schedules are written once over
+both: shape-only steps go through ``rank_shards.local``.
+
 Implemented schedules (every one ``[n, *local] -> [n, *local']``):
 ``recursive_doubling_allreduce`` (the paper's Listing 1.8),
 ``ring_reduce_scatter`` / ``ring_all_gather`` / ``ring_allreduce``,
@@ -34,6 +44,9 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from repro_torch.collectives.rank_shards import RankShards, global_view, \
+    local, ranks_view
+
 
 def ring_perm(n: int, *, reverse: bool = False) -> list:
     """The permutation of one ring hop over ``n`` ranks: forward is
@@ -43,11 +56,32 @@ def ring_perm(n: int, *, reverse: bool = False) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Rank-stacked primitives
+# Primitives (rank-stacked tensors, or RankShards: one shard per rank)
 # ---------------------------------------------------------------------------
 
-def ring_shift(v: torch.Tensor, d: int, out: torch.Tensor | None = None):
+def _empty_like(v):
+    return local(torch.empty_like, v)
+
+
+def add(a, b, out=None):
+    """``a + b`` for every rank (own + received), into ``out`` when
+    given."""
+    if isinstance(a, RankShards):
+        outs = out.shards if out is not None else (None,) * len(a)
+        return RankShards(torch.add(x, y, out=o)
+                          for x, y, o in zip(a.shards, b.shards, outs))
+    return torch.add(a, b, out=out)
+
+
+def ring_shift(v, d: int, out=None):
     """One ring hop of ``d``: ``out[(i + d) % n] = v[i]``."""
+    if isinstance(v, RankShards):
+        n = len(v)
+        if out is None:
+            out = _empty_like(v)
+        for i in range(n):
+            out.shards[(i + d) % n].copy_(v.shards[i], non_blocking=True)
+        return out
     n = v.shape[0]
     d %= n
     if out is None:
@@ -59,9 +93,14 @@ def ring_shift(v: torch.Tensor, d: int, out: torch.Tensor | None = None):
     return out
 
 
-def xor_exchange(v: torch.Tensor, mask: int,
-                 out: torch.Tensor | None = None):
+def xor_exchange(v, mask: int, out=None):
     """The XOR-partner exchange: ``out[i] = v[i ^ mask]``."""
+    if isinstance(v, RankShards):
+        if out is None:
+            out = _empty_like(v)
+        for i, o in enumerate(out.shards):
+            o.copy_(v.shards[i ^ mask], non_blocking=True)
+        return out
     n = v.shape[0]
     if out is None:
         out = torch.empty_like(v)
@@ -111,16 +150,32 @@ def bruck_mask(n: int, step: int, device) -> torch.Tensor:
                          lambda a: ((a // step) % 2 == 1))
 
 
+def rank_row(n: int, c: int, like):
+    """Row ``c`` of ``rank_offsets`` for ``like``'s form: each rank's block
+    index ``(r + c) % n``, as a device row for a stacked payload and as
+    host ints for a ``RankShards``."""
+    if isinstance(like, RankShards):
+        return tuple((r + c) % n for r in range(n))
+    return rank_offsets(n, like.device)[c]
+
+
 def _block_index(chunks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     n = chunks.shape[0]
     return pos.view((n,) + (1,) * (chunks.dim() - 1)).expand(
         chunks.shape[:-2] + (1, chunks.shape[-1]))
 
 
-def take_block(chunks: torch.Tensor, pos: torch.Tensor,
-               out: torch.Tensor | None = None) -> torch.Tensor:
+def take_block(chunks, pos, out=None):
     """chunks ``[n, ..., nb, m]``, pos ``[n]`` -> ``[n, ..., m]``: rank r
     reads its block ``pos[r]`` (only the m-wide block, one gather)."""
+    if isinstance(chunks, RankShards):
+        parts = [c.select(-2, p) for c, p in zip(chunks.shards, pos)]
+        if out is None:
+            return RankShards(p.clone(memory_format=torch.contiguous_format)
+                              for p in parts)
+        for o, p in zip(out.shards, parts):
+            o.copy_(p)
+        return out
     idx = _block_index(chunks, pos)
     if out is None:
         return torch.gather(chunks, -2, idx).squeeze(-2)
@@ -128,21 +183,30 @@ def take_block(chunks: torch.Tensor, pos: torch.Tensor,
     return out
 
 
-def put_block(out: torch.Tensor, cur: torch.Tensor,
-              pos: torch.Tensor) -> torch.Tensor:
+def put_block(out, cur, pos):
     """out ``[n, ..., nb, m]`` <- cur ``[n, ..., m]`` at block ``pos[r]``
     of each rank r (in place)."""
+    if isinstance(out, RankShards):
+        for o, c, p in zip(out.shards, cur.shards, pos):
+            o.select(-2, p).copy_(c)
+        return out
     return out.scatter_(-2, _block_index(out, pos), cur.unsqueeze(-2))
 
 
-def halve(cur: torch.Tensor, mask: int,
-          out: torch.Tensor | None = None) -> torch.Tensor:
+def halve(cur, mask: int, out=None):
     """One recursive-halving round: each rank keeps the half its rank bit
     ``mask`` selects (hi when set), ships the other half to its XOR
     partner and adds what it receives: ``mine + recv``."""
-    n, h = cur.shape[0], cur.shape[-1] // 2
+    h = cur.shape[-1] // 2
     if out is None:
-        out = cur.new_empty(cur.shape[:-1] + (h,))
+        out = local(lambda t: t.new_empty(t.shape[:-1] + (h,)), cur)
+    if isinstance(cur, RankShards):
+        for r, o in enumerate(out.shards):
+            sl = slice(h, 2 * h) if r & mask else slice(0, h)
+            o.copy_(cur.shards[r ^ mask][..., sl], non_blocking=True)
+            torch.add(cur.shards[r][..., sl], o, out=o)
+        return out
+    n = cur.shape[0]
     v = cur.unflatten(0, (n // (2 * mask), 2, mask))
     o = out.unflatten(0, (n // (2 * mask), 2, mask))
     torch.add(v[:, 0, ..., :h], v[:, 1, ..., :h], out=o[:, 0])
@@ -150,18 +214,71 @@ def halve(cur: torch.Tensor, mask: int,
     return out
 
 
-def double(cur: torch.Tensor, mask: int,
-           out: torch.Tensor | None = None) -> torch.Tensor:
+def double(cur, mask: int, out=None):
     """One recursive-doubling round: exchange with the XOR partner and
     concatenate in rank-bit order (both partners end with [lo | hi])."""
-    n, w = cur.shape[0], cur.shape[-1]
+    w = cur.shape[-1]
     if out is None:
-        out = cur.new_empty(cur.shape[:-1] + (2 * w,))
+        out = local(lambda t: t.new_empty(t.shape[:-1] + (2 * w,)), cur)
+    if isinstance(cur, RankShards):
+        for r, o in enumerate(out.shards):
+            mine, theirs = (slice(w, 2 * w), slice(0, w)) if r & mask \
+                else (slice(0, w), slice(w, 2 * w))
+            o[..., mine].copy_(cur.shards[r])
+            o[..., theirs].copy_(cur.shards[r ^ mask], non_blocking=True)
+        return out
+    n = cur.shape[0]
     v = cur.unflatten(0, (n // (2 * mask), 2, mask))
     o = out.unflatten(0, (n // (2 * mask), 2, mask))
     o[..., :w].copy_(v[:, :1])
     o[..., w:].copy_(v[:, 1:])
     return out
+
+
+def rotate_blocks(x, out=None):
+    """Bruck's first step: ``y[r, k] = x[r, (r + k) % n]`` over the local
+    block dim (dim 1 of the stacked carry)."""
+    n = x.shape[0]
+    if isinstance(x, RankShards):
+        if out is None:
+            out = _empty_like(x)
+        for r, (t, o) in enumerate(zip(x.shards, out.shards)):
+            o[:, :n - r].copy_(t[:, r:])
+            o[:, n - r:].copy_(t[:, :r])
+        return out
+    idx = rank_offsets(n, x.device)
+    idx = idx.view(idx.shape + (1,) * (x.dim() - 2)).expand(x.shape)
+    return torch.gather(x, 1, idx, out=out)
+
+
+def unrotate_blocks(x):
+    """Bruck's last step: ``y[r, k] = x[r, (r - k) % n]``."""
+    n = x.shape[0]
+    if isinstance(x, RankShards):
+        out = _empty_like(x)
+        for r, (t, o) in enumerate(zip(x.shards, out.shards)):
+            o[:, :r + 1].copy_(t[:, :r + 1].flip(1))
+            o[:, r + 1:].copy_(t[:, r + 1:].flip(1))
+        return out
+    idx = rank_back(n, x.device)
+    return torch.gather(x, 1, idx.view(
+        idx.shape + (1,) * (x.dim() - 2)).expand(x.shape))
+
+
+def bruck_select(x, moved, step: int, out=None):
+    """Bruck round ``step``: the block slots with bit ``step`` set take
+    ``moved``'s, the others keep ``x``'s; a fresh result, or ``x`` itself
+    updated in place when ``out`` is ``x``."""
+    n = x.shape[0]
+    if isinstance(x, RankShards):
+        if out is None:
+            out = local(torch.clone, x)
+        for m, o in zip(moved.shards, out.shards):
+            for a in range(step, n, 2 * step):
+                o[:, a:a + step].copy_(m[:, a:a + step])
+        return out
+    sel = bruck_mask(n, step, x.device).view((1, n) + (1,) * (x.dim() - 2))
+    return torch.where(sel, moved, x, out=out)
 
 
 def _check_pow2(n: int, what: str) -> None:
@@ -173,14 +290,14 @@ def _check_pow2(n: int, what: str) -> None:
 # Recursive doubling (paper Listing 1.8)
 # ---------------------------------------------------------------------------
 
-def recursive_doubling_allreduce(x: torch.Tensor) -> torch.Tensor:
+def recursive_doubling_allreduce(x):
     """The paper's user-level allreduce: XOR-partner exchange, log2 P
     rounds.  Requires a power-of-two rank count (as the paper asserts)."""
     n = x.shape[0]
     _check_pow2(n, "recursive doubling")
     mask = 1
     while mask < n:
-        x = x + xor_exchange(x, mask)
+        x = add(x, xor_exchange(x, mask))
         mask <<= 1
     return x
 
@@ -189,15 +306,14 @@ def recursive_doubling_allreduce(x: torch.Tensor) -> torch.Tensor:
 # Ring schedules
 # ---------------------------------------------------------------------------
 
-def _pad_last(x: torch.Tensor, n: int):
+def _pad_last(x, n: int):
     D = x.shape[-1]
     if D % n:
-        return F.pad(x, (0, n - D % n)), D
+        return local(lambda t: F.pad(t, (0, n - D % n)), x), D
     return x, D
 
 
-def ring_reduce_scatter(x: torch.Tensor, *,
-                        reverse: bool = False) -> torch.Tensor:
+def ring_reduce_scatter(x, *, reverse: bool = False):
     """P-1 neighbour steps; rank r ends with its reduced [..., D/P]
     block (where ``ring_all_gather`` expects it)."""
     n = x.shape[0]
@@ -205,33 +321,32 @@ def ring_reduce_scatter(x: torch.Tensor, *,
         return x
     D = x.shape[-1]
     assert D % n == 0, (D, n)
-    chunks = x.reshape(x.shape[:-1] + (n, D // n))
+    chunks = local(lambda t: t.reshape(t.shape[:-1] + (n, D // n)), x)
     d = -1 if reverse else 1
-    table = rank_offsets(n, x.device)
-    acc = take_block(chunks, table[-d % n])
+    acc = take_block(chunks, rank_row(n, -d % n, x))
     for step in range(1, n):
-        acc = ring_shift(acc, d) + take_block(chunks,
-                                              table[(-d * (1 + step)) % n])
+        acc = add(ring_shift(acc, d),
+                  take_block(chunks, rank_row(n, (-d * (1 + step)) % n, x)))
     return acc
 
 
-def ring_all_gather(x: torch.Tensor, *, reverse: bool = False):
+def ring_all_gather(x, *, reverse: bool = False):
     """All-gather each rank's [..., d] -> [..., P*d] in P-1 ring steps."""
     n = x.shape[0]
     if n == 1:
         return x
     d = -1 if reverse else 1
-    table = rank_offsets(n, x.device)
-    out = x.new_zeros(x.shape[:-1] + (n, x.shape[-1]))
+    out = local(lambda t: t.new_zeros(t.shape[:-1] + (n, t.shape[-1])), x)
     cur = x
     for step in range(n):
-        put_block(out, cur, table[(-d * step) % n])
+        put_block(out, cur, rank_row(n, (-d * step) % n, x))
         if step != n - 1:
             cur = ring_shift(cur, d)
-    return out.reshape(x.shape[:-1] + (n * x.shape[-1],))
+    return local(lambda t: t.reshape(t.shape[:-2] + (n * t.shape[-1],)),
+                 out)
 
 
-def ring_allreduce(x: torch.Tensor, *, reverse: bool = False):
+def ring_allreduce(x, *, reverse: bool = False):
     """reduce-scatter + all-gather: the bandwidth-optimal allreduce."""
     n = x.shape[0]
     if n == 1:
@@ -239,24 +354,24 @@ def ring_allreduce(x: torch.Tensor, *, reverse: bool = False):
     xp, D = _pad_last(x, n)
     full = ring_all_gather(ring_reduce_scatter(xp, reverse=reverse),
                            reverse=reverse)
-    return full[..., :D]
+    return local(lambda t: t[..., :D], full)
 
 
-def bidirectional_ring_allreduce(x: torch.Tensor) -> torch.Tensor:
+def bidirectional_ring_allreduce(x):
     """Opposing rings over the two halves of the vector."""
     if x.shape[0] == 1:
         return x
     half = x.shape[-1] // 2
-    lo = ring_allreduce(x[..., :half], reverse=False)
-    hi = ring_allreduce(x[..., half:], reverse=True)
-    return torch.cat([lo, hi], dim=-1)
+    lo = ring_allreduce(local(lambda t: t[..., :half], x), reverse=False)
+    hi = ring_allreduce(local(lambda t: t[..., half:], x), reverse=True)
+    return local(lambda a, b: torch.cat([a, b], dim=-1), lo, hi)
 
 
 # ---------------------------------------------------------------------------
 # Recursive halving/doubling
 # ---------------------------------------------------------------------------
 
-def recursive_halving_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+def recursive_halving_reduce_scatter(x):
     """Reduce-scatter by recursive halving: log2 P rounds, rank r ends
     with its own contiguous block (as ``ring_reduce_scatter``)."""
     n = x.shape[0]
@@ -271,7 +386,7 @@ def recursive_halving_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def recursive_doubling_all_gather(x: torch.Tensor) -> torch.Tensor:
+def recursive_doubling_all_gather(x):
     """All-gather by recursive doubling, in native rank order."""
     n = x.shape[0]
     _check_pow2(n, "recursive doubling")
@@ -282,7 +397,7 @@ def recursive_doubling_all_gather(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def recursive_halving_doubling_allreduce(x: torch.Tensor) -> torch.Tensor:
+def recursive_halving_doubling_allreduce(x):
     """Ring traffic (2·(P-1)/P·bytes) in 2·log2 P steps."""
     n = x.shape[0]
     _check_pow2(n, "halving/doubling")
@@ -290,32 +405,25 @@ def recursive_halving_doubling_allreduce(x: torch.Tensor) -> torch.Tensor:
         return x
     xp, D = _pad_last(x, n)
     out = recursive_doubling_all_gather(recursive_halving_reduce_scatter(xp))
-    return out[..., :D]
+    return local(lambda t: t[..., :D], out)
 
 
 # ---------------------------------------------------------------------------
 # Bruck all-to-all (MoE dispatch)
 # ---------------------------------------------------------------------------
 
-def _block_gather(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``y[r, k] = x[r, table[r, k]]`` over the local block dim."""
-    idx = table.view(table.shape + (1,) * (x.dim() - 2)).expand(x.shape)
-    return torch.gather(x, 1, idx)
-
-
-def bruck_alltoall(x: torch.Tensor) -> torch.Tensor:
+def bruck_alltoall(x):
     """All-to-all over each rank's leading block dim in ceil(log2 P)
     rounds: x ``[P, P, ...]``; ``y[i, j] = x[j, i]`` (MPI_Alltoall)."""
     n = x.shape[0]
     if n == 1:
         return x
-    x = _block_gather(x, rank_offsets(n, x.device))
+    x = rotate_blocks(x)
     step = 1
     while step < n:
-        sel = bruck_mask(n, step, x.device).view((1, n) + (1,) * (x.dim() - 2))
-        x = torch.where(sel, ring_shift(x, step), x)
+        x = bruck_select(x, ring_shift(x, step), step)
         step <<= 1
-    return _block_gather(x, rank_back(n, x.device))
+    return unrotate_blocks(x)
 
 
 # ---------------------------------------------------------------------------
@@ -409,13 +517,12 @@ def auto_round_batch(payload_bytes: int, num_rounds: int) -> int:
     return 1
 
 
-def allreduce_under_shard_map(x: torch.Tensor, mesh, axis: str,
-                              algorithm: str = "ring") -> torch.Tensor:
-    """Allreduce ``x`` (its leading dim sharded over ``axis``) with a user
+def allreduce_under_shard_map(x, mesh, axis: str, algorithm: str = "ring"):
+    """Allreduce ``x`` (its leading dim sharded over ``axis``; a tensor,
+    or a ``RankShards`` on a mesh with a device per rank) with a user
     schedule; the output is sharded the same way — comparable with a
     plain sum.  Power-of-two-only algorithms fall back to ring with a
     warning on other sizes."""
     n = dict(mesh.shape)[axis]
     algorithm = resolve_algorithm(algorithm, n)
-    out = ALGORITHMS[algorithm](x.unflatten(0, (n, x.shape[0] // n)))
-    return out.flatten(0, 1)
+    return global_view(ALGORITHMS[algorithm](ranks_view(x, n)))

@@ -25,12 +25,30 @@ def _leaves(tree) -> list:
         return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
+    shards = getattr(tree, "shards", None)    # a RankShards: one per rank
+    if isinstance(shards, tuple):
+        return list(shards)
     return [tree]
 
 
-def _on_cuda(tensors) -> bool:
-    return any(isinstance(t, torch.Tensor) and t.is_cuda
-               for t in _leaves(tensors))
+def cuda_devices(tensors) -> list:
+    """The CUDA devices the tree's tensors live on, in order of first
+    appearance."""
+    seen: dict = {}
+    for t in _leaves(tensors):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            seen.setdefault(t.device, None)
+    return list(seen)
+
+
+def record_events(devices) -> list:
+    """One CUDA event recorded on each device's current stream."""
+    events = []
+    for d in devices:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    return events
 
 
 def _host_ready(tensors) -> bool:
@@ -45,24 +63,23 @@ def torch_future(engine: ProgressEngine, tensors: Any,
                  on_complete: Callable[[Any], None] | None = None,
                  on_pending: Callable[[], None] | None = None) -> Request:
     """Request completing when the work queued so far on the current CUDA
-    stream — the work that produces ``tensors`` — has finished.
+    streams — the work that produces ``tensors`` — has finished.
 
     Call it right after dispatching that work: it records a
-    ``torch.cuda.Event`` on the current stream and polls ``query()``
-    (never ``synchronize``), so the engine interleaves other subsystems
-    while the card runs.  A tree holding no CUDA tensor is ready at the
-    first poll, unless a leaf's ``is_ready()`` still says no.  The
-    watched tensors ride along as the task's ``state``; ``on_pending``, if
-    given, runs at each poll that finds the work still running.
+    ``torch.cuda.Event`` on the current stream of each device the tree's
+    tensors live on (the shards of a ``RankShards`` each on its own) and
+    polls every one with ``query()`` (never ``synchronize``), so the
+    engine interleaves other subsystems while the cards run.  A tree
+    holding no CUDA tensor is ready at the first poll, unless a leaf's
+    ``is_ready()`` still says no.  The watched tensors ride along as the
+    task's ``state``; ``on_pending``, if given, runs at each poll that
+    finds the work still running.
     """
     req = Request(tag="torch")
-    event = None
-    if _on_cuda(tensors):
-        event = torch.cuda.Event()
-        event.record()
+    events = record_events(cuda_devices(tensors))
 
     def poll(thing) -> str:
-        if (event is None or event.query()) and _host_ready(tensors):
+        if all(e.query() for e in events) and _host_ready(tensors):
             if on_complete is not None:
                 on_complete(tensors)
             req.complete(tensors)

@@ -4,15 +4,17 @@ the latest checkpoint onto it (the port of the JAX package's
 
 Checkpoints store full (unsharded) tensors, so restoring onto a smaller
 or larger mesh is a placement decision: the sharding rules are resolved
-again against the new mesh.  On the port's single-controller mesh every
-rank lives on the mesh's one device, so the restored tensors are the
-full tensors on that device, returned beside the spec tree the rules
-give for the new mesh (a spec a dim cannot take raises, as in JAX).
+again against the new mesh.  On the port's rank-stacked mesh every rank
+lives on the mesh's one device, so the restored tensors are the full
+tensors on that device, returned beside the spec tree the rules give for
+the new mesh (a spec a dim cannot take raises, as in JAX).  ``remesh``
+also builds a mesh with one device per rank from the surviving devices.
 Combined with ``AsyncCheckpointer``'s atomic commits, a membership loss
 costs at most the work since the last committed step.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 from repro_torch.launch.mesh import make_mesh
@@ -45,17 +47,31 @@ def plan_mesh(n_devices: int, *, prefer_model: int = 16) -> tuple[tuple, tuple]:
 
 
 def remesh(n_devices: Optional[int] = None, prefer_model: int = 16,
-           device=None):
+           device=None, *, devices=None):
     """The survivors' ``(data, model)`` mesh of ranks on ``device``
-    (``cuda`` unless the caller asks for another).  ``n_devices`` is the
-    surviving rank count (default 1: the one card)."""
-    n = n_devices if n_devices is not None else 1
+    (``cuda`` unless the caller asks for another), or, given the
+    surviving ``devices`` (one per rank), on the first of them the mesh
+    takes, as the JAX package's mesh takes the first of
+    ``jax.devices()``.  ``n_devices`` is the surviving rank count
+    (default: ``len(devices)``, else 1: the one card)."""
+    if n_devices is not None:
+        n = n_devices
+    else:
+        n = len(devices) if devices is not None else 1
     if n < 1:
         raise ValueError(
             f"remesh: cannot rebuild a mesh for {n} surviving "
             f"device(s); at least 1 is required")
     shape, axes = plan_mesh(n, prefer_model=prefer_model)
-    return make_mesh(shape, axes, device)
+    if devices is None:
+        return make_mesh(shape, axes, device)
+    devices = list(devices)
+    if device is not None:
+        raise ValueError("remesh takes device or devices, not both")
+    if n > len(devices):
+        raise ValueError(f"remesh: {n} survivor(s) on {len(devices)} "
+                         f"device(s)")
+    return make_mesh(shape, axes, devices=devices[:math.prod(shape)])
 
 
 def reshard_restore(checkpointer, step: int, like_tree, axes_tree, new_mesh,

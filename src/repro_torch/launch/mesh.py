@@ -2,12 +2,20 @@
 
 The JAX package lays a mesh over devices and runs each collective as a
 ``shard_map`` program whose payload is a global array sharded on its
-leading dimension.  The port keeps that single-controller shape on one
-card: a :class:`Mesh` names its axes and their sizes and holds ONE
-``torch.device`` that carries every rank, and a collective's payload is
-the same global tensor, rank ``r``'s shard being its ``r``-th slice of
-the leading dimension (the rank-stacked form).  ``dict(mesh.shape)[axis]``
-reads an axis size as it does on a JAX mesh.
+leading dimension.  The port keeps that single-controller shape in two
+forms of :class:`Mesh`:
+
+* **rank-stacked** (``make_mesh(shape, axes, device)``): ONE
+  ``torch.device`` carries every rank, and a collective's payload is the
+  same global tensor, rank ``r``'s shard being its ``r``-th slice of the
+  leading dimension;
+* **one device per rank** (``make_mesh(shape, axes, devices=[...])``):
+  rank ``r`` lives on ``devices[r]`` (row-major over the axes, as
+  ``jax.sharding.Mesh.devices`` is laid out), and a payload is a
+  ``collectives.rank_shards.RankShards``, one local tensor per rank on its
+  device; a round of a collective copies between the ranks' devices.
+
+``dict(mesh.shape)[axis]`` reads an axis size as it does on a JAX mesh.
 
 ``make_production_mesh`` names the dry run's meshes (the JAX package's
 16x16 and 2x16x16, so that the records compare, and "1x1", the one card
@@ -23,12 +31,21 @@ import torch
 
 
 class Mesh:
-    """Axis names, their sizes, and the device that holds every rank.
-    Equal meshes hash alike, so schedules cached per mesh are shared."""
+    """Axis names, their sizes, and where the ranks live: ``device`` (every
+    rank on one device, the rank-stacked form) or ``devices`` (one device
+    per rank, row-major over the axes).  Equal meshes hash alike, so
+    schedules cached per mesh are shared.
 
-    __slots__ = ("axis_names", "sizes", "device")
+    ``mesh.devices`` exists only in the per-device form: a rank-stacked
+    mesh has no per-rank devices, and reading it raises (a repeated
+    device would pass for the other form, whose payloads differ).
+    ``mesh.device`` likewise raises in the per-device form.  A device list
+    that names a card this machine lacks raises; a device listed twice is
+    allowed (two ranks on one card), only as the caller lists it."""
 
-    def __init__(self, shape, axis_names, device):
+    __slots__ = ("axis_names", "sizes", "_device", "_devices")
+
+    def __init__(self, shape, axis_names, device=None, *, devices=None):
         shape = tuple(int(s) for s in shape)
         axis_names = tuple(axis_names)
         if len(shape) != len(axis_names):
@@ -36,9 +53,41 @@ class Mesh:
                              f"differ in length")
         if any(s < 1 for s in shape):
             raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
+        if (device is None) == (devices is None):
+            raise ValueError("a Mesh takes one device (rank-stacked) or a "
+                             "device per rank (devices=[...]), not both "
+                             "or neither")
         self.axis_names = axis_names
         self.sizes = shape
-        self.device = torch.device(device)
+        self._device = None
+        self._devices = None
+        if devices is None:
+            self._device = torch.device(device)
+            return
+        devices = tuple(_present(d) for d in devices)
+        if len(devices) != math.prod(shape):
+            raise ValueError(f"mesh {shape} has {math.prod(shape)} ranks, "
+                             f"the device list {len(devices)}")
+        self._devices = devices
+
+    @property
+    def per_device(self) -> bool:
+        """True in the one-device-per-rank form."""
+        return self._devices is not None
+
+    @property
+    def device(self) -> torch.device:
+        if self._devices is not None:
+            raise ValueError(f"{self!r} has a device per rank, not one "
+                             f"device: read mesh.devices")
+        return self._device
+
+    @property
+    def devices(self) -> tuple:
+        if self._devices is None:
+            raise ValueError(f"{self!r} is rank-stacked on one device: it "
+                             f"has no per-rank devices (read mesh.device)")
+        return self._devices
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -49,7 +98,7 @@ class Mesh:
         return math.prod(self.sizes)
 
     def _key(self):
-        return (self.axis_names, self.sizes, self.device)
+        return (self.axis_names, self.sizes, self._device, self._devices)
 
     def __eq__(self, other):
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -60,12 +109,36 @@ class Mesh:
     def __repr__(self):
         axes = ", ".join(f"{a}={s}" for a, s in zip(self.axis_names,
                                                     self.sizes))
-        return f"Mesh({axes}, device={self.device})"
+        if self._devices is not None:
+            return (f"Mesh({axes}, devices=["
+                    + ", ".join(str(d) for d in self._devices) + "])")
+        return f"Mesh({axes}, device={self._device})"
 
 
-def make_mesh(shape, axes, device=None) -> Mesh:
-    """A mesh of ``prod(shape)`` ranks on ``device`` (``cuda`` unless the
-    caller asks for another; raises when CUDA is asked for and missing)."""
+def _present(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index spelt out; raises
+    when it names a card this machine lacks (no fallback)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"mesh device {device}: CUDA is not available")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"mesh device {device}: this machine has "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
+    return torch.device("cuda", index)
+
+
+def make_mesh(shape, axes, device=None, *, devices=None) -> Mesh:
+    """A mesh of ``prod(shape)`` ranks: on ``device`` (``cuda`` unless the
+    caller asks for another; raises when CUDA is asked for and missing),
+    or, with ``devices``, rank ``r`` on ``devices[r]``."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("make_mesh takes device or devices, not both")
+        return Mesh(shape, axes, devices=devices)
     from repro_torch import resolve_device
     return Mesh(shape, axes, resolve_device(device))
 

@@ -7,6 +7,9 @@ elastic, or a 1F1B pipeline.
     PYTHONPATH=src python -m repro_torch.launch.train --devices 4 \
         --collective-backend user --scale full --global-batch 8 \
         --seq 1024 --steps 6                   # 4 ranks on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 4 \
+        --collective-backend user --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
+        --scale full --global-batch 8 --seq 1024 --steps 6  # a card a rank
     PYTHONPATH=src python -m repro_torch.launch.train --devices 4 --fsdp \
         --collective-backend user --scale full --global-batch 8 \
         --seq 1024 --steps 6                   # FSDP over 4 ranks
@@ -30,7 +33,14 @@ slice of the batch, stacked f32 ``[N, *shape]`` (``make_rank_grads``),
 are reduced by an ``EngineGradReducer`` — persistent bucketed
 user-space allreduces whose rounds run on their own CUDA stream, driven
 by the same engine — and AdamW steps on the mean.  The native backend
-computes the same mean gradient inside one step.
+computes the same mean gradient inside one step.  ``--rank-devices`` puts
+each rank on a device of its own (a mesh with one device per rank,
+``launch.mesh``): each rank holds a replica of the parameters and AdamW
+state on its device, computes its gradients there on its slice of the
+batch (copied from pinned host memory), the reducer's rounds copy
+between the devices, and every rank applies AdamW to its own replica —
+the losses and parameters of the rank-stacked run, bit for bit.  The
+checkpoint holds rank 0's replica.
 
 ``--mesh DxM`` on the native backend trains on a (data, model) mesh of
 ranks on the one device, entered (``sharding.set_mesh``) around each
@@ -102,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(native backend), replicates under --fsdp, and "
                          "needs --fsdp on the user backend; with "
                          "--pipeline the mesh is (data x stage)")
+    ap.add_argument("--rank-devices", default="",
+                    help="a device per data-parallel rank, comma-separated "
+                         "(e.g. cuda:0,cuda:1,cuda:2,cuda:3; a device may "
+                         "repeat); as many as --devices, user backend only")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -186,18 +200,27 @@ def make_train_step(cfg, ocfg, *, microbatches: int = 1,
                          cast_params_bf16=cast_params_bf16)
 
 
-def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
+def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False,
+                    mesh=None):
     """``grad_fn(params, batch) -> (stacked_metrics, stacked_grads)``: the
     loss and gradients of ``registry.loss_fn`` on each rank's contiguous
     slice of the batch, one rank after the other, each rank's gradients
     written as f32 into row r of ``[ranks, *shape]`` leaves (the JAX
     launcher's ``v[None].astype(f32)``); metrics ``[ranks]``.  The bf16
-    cast as in ``make_train_step``."""
+    cast as in ``make_train_step``.
+
+    On a ``mesh`` with a device per rank, ``params`` is a tree of
+    ``RankShards`` replicas: rank r's pass runs with its device current,
+    on its replica and on its slice of the batch copied to that device,
+    and its f32 gradients are the ``[1, *shape]`` shards of ``RankShards``
+    leaves; the metrics are stacked on rank 0's device."""
     from repro_torch.launch.steps import compute_params
     from repro_torch.models import registry
     from repro_torch.models.layers import tree_from_leaves, tree_leaves
 
     model_params = compute_params(cfg, cast_params_bf16)
+    if mesh is not None and mesh.per_device:
+        return _rank_grads_per_device(cfg, ranks, model_params, mesh)
 
     def grad_fn(params, batch):
         paths, leaves = zip(*tree_leaves(params))
@@ -219,6 +242,43 @@ def make_rank_grads(cfg, ranks: int, *, cast_params_bf16: bool = False):
             mets.append({k: v.detach() for k, v in dict(m, loss=loss).items()})
         stacked_mets = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
         return stacked_mets, tree_from_leaves(zip(paths, stacked))
+
+    return grad_fn
+
+
+def _rank_grads_per_device(cfg, ranks: int, model_params, mesh):
+    """``make_rank_grads`` on a mesh with a device per rank."""
+    from repro_torch.collectives.rank_shards import RankShards, \
+        device_context, tree_shard
+    from repro_torch.models import registry
+    from repro_torch.models.layers import tree_from_leaves, tree_leaves
+
+    devices = mesh.devices
+    if len(devices) != ranks:
+        raise ValueError(f"{ranks} ranks on {mesh!r}")
+
+    def grad_fn(params, batch):
+        per = batch["tokens"].shape[0] // ranks
+        rank_grads, mets, paths = [], [], None
+        for r, dev in enumerate(devices):
+            with device_context(dev):
+                replica = tree_shard(params, r)
+                paths, leaves = zip(*tree_leaves(replica))
+                for t in leaves:
+                    t.requires_grad_(True)
+                local = {k: v[r * per:(r + 1) * per].to(dev, non_blocking=True)
+                         for k, v in batch.items()}
+                loss, m = registry.loss_fn(model_params(replica), cfg, local)
+                grads = torch.autograd.grad(loss, leaves)
+                rank_grads.append([g.to(torch.float32)[None] for g in grads])
+                del grads
+                mets.append({k: v.detach()
+                             for k, v in dict(m, loss=loss).items()})
+        first = devices[0]
+        stacked_mets = {k: torch.stack([m[k].to(first) for m in mets])
+                        for k in mets[0]}
+        return stacked_mets, tree_from_leaves(
+            zip(paths, [RankShards(g) for g in zip(*rank_grads)]))
 
     return grad_fn
 
@@ -388,6 +448,66 @@ class TrainReport:
                 f"final loss {self.log[-1]['loss']:.6f}"]
 
 
+def _rank_devices(args):
+    """``--rank-devices`` as a list of devices (None when not given);
+    what it does not compose with yet exits, naming the ROADMAP item
+    (queue 1) that will port it."""
+    if not args.rank_devices:
+        return None
+    dims = args.mesh.split("x") if args.mesh else []
+    model = int(dims[1]) if len(dims) == 2 else 1     # else mesh_shape says
+    later = (("--fsdp", args.fsdp, 9),
+             ("--pipeline", args.pipeline != "none", 10),
+             ("a model axis above 1", model > 1, 12))
+    for what, on, item in later:
+        if on:
+            raise SystemExit(f"--rank-devices does not compose with {what} "
+                             f"yet (ROADMAP queue 1, item {item})")
+    if args.collective_backend != "user":
+        raise SystemExit("--rank-devices needs --collective-backend user "
+                         "(the ranks' gradients meet in the user-space "
+                         "allreduce)")
+    return [torch.device(d.strip()) for d in args.rank_devices.split(",")]
+
+
+def _replicate_state(params, mesh):
+    """A replica of ``params`` and of fresh AdamW state on each rank's
+    device (``RankShards`` leaves)."""
+    from repro_torch.collectives.rank_shards import device_context, \
+        replicate_tree, tree_shard, tree_stack
+    from repro_torch.train import optimizer as opt_mod
+    params = replicate_tree(params, mesh.devices)
+    states = []
+    for r, dev in enumerate(mesh.devices):
+        with device_context(dev):
+            states.append(opt_mod.init(tree_shard(params, r)))
+    return params, tree_stack(states)
+
+
+def _apply_per_device(ocfg):
+    """``apply_fn`` over per-rank replicas: AdamW on each rank's replica
+    on its device, the metrics' mean on rank 0's (where the gradient
+    pass stacked them), the optimizer's own metrics rank 0's."""
+    from repro_torch.collectives.rank_shards import device_context, \
+        tree_shard, tree_stack
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train import optimizer as opt_mod
+
+    def apply_fn(params, opt_state, grads, stacked_mets):
+        outs = []
+        for r, dev in enumerate(next(t for _, t in tree_leaves(params))
+                                .devices):
+            with device_context(dev):
+                outs.append(opt_mod.apply(ocfg, tree_shard(opt_state, r),
+                                          tree_shard(params, r),
+                                          tree_shard(grads, r)))
+        mets = {k: v.mean() for k, v in stacked_mets.items()}
+        return (tree_stack([o[0] for o in outs]),
+                tree_stack([o[1] for o in outs]), dict(mets, **outs[0][2]))
+
+    return apply_fn
+
+
 def _elastic_on(args) -> bool:
     return args.elastic or args.heartbeat_timeout > 0 or args.chaos_kill > 0
 
@@ -451,6 +571,7 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.train_loop import Trainer, UserCollectiveStep
 
+    rank_devices = _rank_devices(args)
     if args.pipeline != "none":
         return _run_pipeline(args, **loop_overrides)
     device = resolve_device(args.device)
@@ -474,6 +595,9 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     if args.global_batch % data:
         raise SystemExit(f"--global-batch {args.global_batch} does not "
                          f"split over {data} ranks")
+    if rank_devices is not None and len(rank_devices) != data:
+        raise SystemExit(f"--rank-devices names {len(rank_devices)} "
+                         f"device(s) for {data} data-parallel ranks")
     spec = CollectiveSpec(backend=args.collective_backend,
                           algorithm=args.collective_algorithm,
                           chunks=args.collective_chunks,
@@ -509,7 +633,8 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
         finally:
             pipe.close()
 
-    opt_state = opt_mod.init(params)
+    # the per-device form makes its replicas' state below, on each device
+    opt_state = opt_mod.init(params) if rank_devices is None else None
     native_mesh = make_mesh((data, model), ("data", "model"), device)
     cell = build_cell(cfg, ShapeSpec("train", args.seq, args.global_batch,
                                      "train"), native_mesh, opt_cfg=ocfg,
@@ -528,9 +653,15 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     if user_backend:
         from repro_torch.collectives.overlap import EngineGradReducer
 
-        def make_grad_fn(ranks):
+        def make_grad_fn(mesh_):
+            ranks = dict(mesh_.shape)["data"]
             rank_grads = make_rank_grads(cfg, ranks,
-                                         cast_params_bf16=args.cast_bf16)
+                                         cast_params_bf16=args.cast_bf16,
+                                         mesh=mesh_)
+            if mesh_.per_device:
+                # each rank's slice goes from pinned host memory to its
+                # own device
+                return rank_grads
             return lambda params, batch: rank_grads(params,
                                                     to_device(batch))
 
@@ -540,27 +671,44 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
             mets = {k: v.mean() for k, v in stacked_mets.items()}
             return params, opt_state, dict(mets, **om)
 
-        mesh = make_mesh((data, 1), ("data", "model"), device)
+        if rank_devices is not None:
+            mesh = make_mesh((data, 1), ("data", "model"),
+                             devices=rank_devices)
+            params, opt_state = _replicate_state(params, mesh)
+            apply_fn = _apply_per_device(ocfg)
+        else:
+            mesh = make_mesh((data, 1), ("data", "model"), device)
         if _elastic_on(args):
             from repro_torch.collectives.nonblocking import MembershipEpoch
             epoch = MembershipEpoch(mesh=mesh)
         reducer = EngineGradReducer(mesh, "data", engine=eng, spec=spec,
                                     mean=True, epoch=epoch)
-        split = UserCollectiveStep(make_grad_fn(data), apply_fn, reducer,
+        split = UserCollectiveStep(make_grad_fn(mesh), apply_fn, reducer,
                                    spec=spec)
         if epoch is not None:
+            from repro_torch.collectives.rank_shards import tree_keep
             from repro_torch.distributed import elastic
+            live = {"mesh": mesh}
 
             def remesh_fn(exc, params, opt_state):
                 # survivors' mesh: pure data-parallel (model dim stays 1);
-                # the ranks share the one device, so the state stays put
-                new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
-                                          device=device)
+                # ranks that share the one device keep the state where it
+                # is, ranks on devices of their own keep the replicas of
+                # the first devices the new mesh takes
+                if live["mesh"].per_device:
+                    new_mesh = elastic.remesh(
+                        exc.survivors, prefer_model=1,
+                        devices=live["mesh"].devices[:exc.survivors])
+                    params = tree_keep(params, new_mesh.size)
+                    opt_state = tree_keep(opt_state, new_mesh.size)
+                else:
+                    new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
+                                              device=device)
+                live["mesh"] = new_mesh
                 print(f"remesh: {exc.survivors} survivor(s) -> mesh "
                       f"{dict(new_mesh.shape)}", flush=True)
                 reducer.remesh(new_mesh, "data")
-                ranks = dict(new_mesh.shape)["data"]
-                return (UserCollectiveStep(make_grad_fn(ranks), apply_fn,
+                return (UserCollectiveStep(make_grad_fn(new_mesh), apply_fn,
                                            reducer, spec=spec),
                         params, opt_state)
 

@@ -6,6 +6,10 @@ A checkpoint save is the paper's Figure 1(c) multi-wait-block task:
 storage I/O), (3) fsync+atomic-commit rename.  Every stage advances from
 the engine's poll loop while training computes.
 
+A ``RankShards`` leaf (a replica on each rank's device, the per-device
+data-parallel state) is saved from rank 0, as the JAX package saves a
+replicated array once, and restored as a copy on each rank's device.
+
 Stage 1 differs from the JAX package, where arrays are immutable: the
 port's optimizer updates the parameters and moments in place on the same
 CUDA stream.  So ``save_async`` itself enqueues every device→host copy
@@ -34,8 +38,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.collectives.rank_shards import RankShards
 from repro_torch.core.engine import DONE, NOPROGRESS, ProgressEngine, Stream
-from repro_torch.core.futures import io_pool
+from repro_torch.core.futures import cuda_devices, io_pool, record_events
 from repro_torch.core.request import Request
 
 
@@ -67,7 +72,10 @@ def _flat_with_paths(tree) -> list[tuple[str, Any]]:
 
 def _to_host(leaf):
     """Stage 1 for one leaf: a host copy that later in-place updates of
-    ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA)."""
+    ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA).
+    A ``RankShards`` leaf saves rank 0's replica."""
+    if isinstance(leaf, RankShards):
+        leaf = leaf.shards[0]
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
@@ -110,11 +118,11 @@ class AsyncCheckpointer:
         flat = _flat_with_paths(tree)
         with torch.no_grad():
             leaves = [(name, _to_host(leaf)) for name, leaf in flat]
-        event = None
-        if any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
-               for _, leaf in flat):
-            event = torch.cuda.Event()
-            event.record()
+        # one event per card the copies were enqueued on (rank 0's for
+        # RankShards leaves)
+        events = record_events(cuda_devices(
+            [leaf.shards[0] if isinstance(leaf, RankShards) else leaf
+             for _, leaf in flat]))
         state = {"phase": "d2h", "fut": None}
 
         def write():
@@ -134,7 +142,7 @@ class AsyncCheckpointer:
 
         def poll(thing) -> str:
             if state["phase"] == "d2h":
-                if event is None or event.query():
+                if all(e.query() for e in events):
                     state["fut"] = io_pool().submit(write)
                     state["phase"] = "write"
                 return NOPROGRESS
@@ -171,7 +179,9 @@ class AsyncCheckpointer:
 
     def restore(self, step: int, like: Any, device=None) -> Any:
         """The tree saved at ``step``, shaped and typed like ``like``, on
-        ``device`` (default: each leaf of ``like``'s own device)."""
+        ``device`` (default: each leaf of ``like``'s own device; a
+        ``RankShards`` leaf of ``like`` gets a copy on each of its
+        shards' devices)."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -179,6 +189,10 @@ class AsyncCheckpointer:
         def load(name, leaf_like):
             arr = np.load(os.path.join(path, manifest[name]))
             t = torch.from_numpy(arr)
+            if isinstance(leaf_like, RankShards):
+                return RankShards(t.to(device=d, dtype=leaf_like.dtype,
+                                       copy=True)
+                                  for d in leaf_like.devices)
             dev = device if device is not None else leaf_like.device
             return t.to(device=dev, dtype=leaf_like.dtype)
 

@@ -16,9 +16,10 @@ after the engine wait, so the host never syncs on the card inside the
 step.
 
 The user collective backend runs a split step (``UserCollectiveStep``):
-per-rank gradients stacked on a leading rank dim, reduced by an
-``EngineGradReducer`` whose persistent bucketed allreduces progress on
-the collective stream of the same engine, then the optimizer.
+per-rank gradients stacked on a leading rank dim (or, with a device per
+rank, ``RankShards`` leaves), reduced by an ``EngineGradReducer`` whose
+persistent bucketed allreduces progress on the collective stream of the
+same engine, then the optimizer.
 ``FsdpStep`` runs ZeRO-style FSDP: the step's full parameters are
 all-gathered from flat shards (the next step's gathers chained off the
 optimizer's compute futures), the gradients reduce-scattered, and the
@@ -123,7 +124,10 @@ class UserCollectiveStep:
     """Split train step for the engine-driven collective backend.
 
     ``grad_fn(params, batch) -> (stacked_metrics, stacked_grads)`` —
-    per-rank metrics and f32 gradients stacked on a leading rank dim;
+    per-rank metrics and f32 gradients stacked on a leading rank dim, or
+    ``RankShards`` leaves on a mesh with a device per rank (the params
+    and optimizer state are then trees of per-rank replicas, and the
+    step's wait covers every device they live on);
     ``reducer`` (an ``EngineGradReducer``) allreduces the gradients on
     the collective stream while the engine also progresses prefetch and
     checkpoint tasks; ``apply_fn(params, opt_state, grads,
@@ -329,7 +333,13 @@ class Trainer:
                 # dispatch: returns once the step's kernels are queued
                 self.params, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state, batch)
-            loss_req = torch_future(self.engine, metrics)
+            # the step is done when the metrics are and, for the split
+            # data-parallel step, the optimizer's update on every device
+            # the parameters live on (one polled event per device)
+            loss_req = torch_future(
+                self.engine, (metrics, self.params)
+                if isinstance(self.split_step, UserCollectiveStep)
+                else metrics)
 
             # overlap window: drive collated progress until the card is
             # done (with progress workers attached, wait yields to them)

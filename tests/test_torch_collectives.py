@@ -7,12 +7,14 @@ functions under ``shard_map``, the nonblocking ops at several chunk
 counts and round batches, and the native ``psum`` / ``psum_scatter`` /
 ``all_gather`` / ``all_to_all`` — on numpy inputs made from a seed, and
 saves the outputs to an ``.npz``.  The port runs the same inputs through
-its rank-stacked schedules (one-shot and persistent, every round batch)
-and must give the JAX user schedules' outputs bit for bit, in int32 and
-f32; int32 outputs equal the native collectives bit for bit, f32 ones
-within 1e-6 relative.
+its schedules (one-shot and persistent, every round batch) in both mesh
+forms — rank-stacked, and one device per rank (``RankShards`` on a mesh
+of ``["cpu"] * n``) — and must give the JAX user schedules' outputs bit
+for bit, in int32 and f32; int32 outputs equal the native collectives
+bit for bit, f32 ones within 1e-6 relative.
 Also here: compression, collective matmul, and the algorithm table.
 """
+import itertools
 import warnings
 from pathlib import Path
 
@@ -179,6 +181,21 @@ def port_mesh(n):
     return make_mesh((n,), ("x",), "cpu")
 
 
+def port_meshes(n):
+    """Both forms: the rank-stacked mesh, and a device per rank."""
+    from repro_torch.launch.mesh import make_mesh
+    return port_mesh(n), make_mesh((n,), ("x",), devices=["cpu"] * n)
+
+
+def as_form(fn, x, mesh):
+    """``fn`` on the stacked ``x``, or on its ``RankShards`` (each rank's
+    rows) on a mesh with a device per rank, the result stacked again."""
+    if not mesh.per_device:
+        return fn(x)
+    from repro_torch.collectives.rank_shards import RankShards
+    return fn(RankShards.from_stacked(x, mesh)).to_stacked("cpu")
+
+
 @pytest.fixture(scope="module")
 def coll():
     from repro_torch.collectives import nonblocking as NB
@@ -191,13 +208,23 @@ def coll():
 
 def _run(coll, op, x, mesh, persistent, **kw):
     """One issue through the one-shot op, or through a persistent handle
-    started twice (the second start must give the same result)."""
+    started twice (the second start must give the same result); on a
+    mesh with a device per rank through ``as_form``."""
+    if mesh.per_device:
+        return as_form(lambda xs: _run_form(coll, op, xs, mesh, persistent,
+                                            **kw), x, mesh)
+    return _run_form(coll, op, x, mesh, persistent, **kw)
+
+
+def _run_form(coll, op, x, mesh, persistent, **kw):
+    from repro_torch.collectives.rank_shards import local
     if not persistent:
         return getattr(coll, "i" + op)(x, mesh, "x", **kw).wait(timeout=60)
     h = getattr(coll, op + "_init")(x, mesh, "x", **kw)
-    first = h.start(x).wait(timeout=60).clone()
-    again = h.start(x.clone()).wait(timeout=60)
-    assert torch.equal(first, again)
+    first = local(torch.clone, h.start(x).wait(timeout=60))
+    again = h.start(local(torch.clone, x)).wait(timeout=60)
+    assert all(torch.equal(a, b) for a, b in zip(
+        getattr(first, "shards", [first]), getattr(again, "shards", [again])))
     assert h.starts == 2
     h.close()
     return first
@@ -214,15 +241,16 @@ def _check_native(got, native, dt):
 @pytest.mark.parametrize("n", NS)
 def test_allreduce_equals_jax_user_schedule(ref, coll, n, alg):
     from repro_torch.collectives import schedules as S
-    mesh = port_mesh(n)
     ins = inputs(n)
-    for dt in DTYPES:
+    for dt, mesh in itertools.product(DTYPES, port_meshes(n)):
         x = torch.from_numpy(ins[("ar", dt)])
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")          # n = 3: pow2 fallback
-            whole = S.allreduce_under_shard_map(x, mesh, "x", alg).numpy()
+            whole = as_form(lambda v: S.allreduce_under_shard_map(
+                v, mesh, "x", alg), x, mesh).numpy()
             np.testing.assert_array_equal(
-                whole, ref[f"ar/{n}/{alg}/whole/{dt}"], err_msg=f"whole {dt}")
+                whole, ref[f"ar/{n}/{alg}/whole/{dt}"],
+                err_msg=f"whole {dt} {mesh}")
             _check_native(whole, ref[f"ar/{n}/native/{dt}"], dt)
             for K, rb in AR_CASES:
                 want = ref[f"ar/{n}/{alg}/{K}/{dt}"]
@@ -231,7 +259,8 @@ def test_allreduce_equals_jax_user_schedule(ref, coll, n, alg):
                                algorithm=alg, chunks=K, round_batch=rb)
                     np.testing.assert_array_equal(
                         got.numpy(), want,
-                        err_msg=f"{dt} K={K} rb={rb} persistent={persistent}")
+                        err_msg=f"{dt} K={K} rb={rb} persistent={persistent}"
+                                f" {mesh}")
                     _check_native(got.numpy(), ref[f"ar/{n}/native/{dt}"], dt)
 
 
@@ -241,19 +270,20 @@ def test_allreduce_equals_jax_user_schedule(ref, coll, n, alg):
 @pytest.mark.parametrize("n", NS)
 def test_rs_ag_equal_jax_user_schedule(ref, coll, n, alg, op, cases, inp):
     from repro_torch.collectives import schedules as S
-    mesh = port_mesh(n)
     ins = inputs(n)
     whole_fn = {("rs", "ring"): S.ring_reduce_scatter,
                 ("rs", "halving_doubling"): S.recursive_halving_reduce_scatter,
                 ("ag", "ring"): S.ring_all_gather,
                 ("ag", "halving_doubling"): S.recursive_doubling_all_gather}
-    for dt in DTYPES:
+    for dt, mesh in itertools.product(DTYPES, port_meshes(n)):
         x = torch.from_numpy(ins[(inp, dt)])
         native = ref[f"{inp}/{n}/native/{dt}"]
         key = f"{inp}/{n}/{alg}/whole/{dt}"
         if key in ref:
-            whole = whole_fn[(inp, alg)](x.unflatten(0, (n, -1))).flatten(0, 1)
-            np.testing.assert_array_equal(whole.numpy(), ref[key])
+            whole = as_form(whole_fn[(inp, alg)], x.unflatten(0, (n, -1)),
+                            mesh).flatten(0, 1)
+            np.testing.assert_array_equal(whole.numpy(), ref[key],
+                                          err_msg=str(mesh))
             _check_native(whole.numpy(), native, dt)
         for K, rb in cases:
             want = ref[f"{inp}/{n}/{alg}/{K}/{dt}"]
@@ -264,19 +294,20 @@ def test_rs_ag_equal_jax_user_schedule(ref, coll, n, alg, op, cases, inp):
                                chunks=K, round_batch=rb)
                 np.testing.assert_array_equal(
                     got.numpy(), want,
-                    err_msg=f"{dt} K={K} rb={rb} persistent={persistent}")
+                    err_msg=f"{dt} K={K} rb={rb} persistent={persistent} "
+                            f"{mesh}")
                 _check_native(got.numpy(), native, dt)
 
 
 @pytest.mark.parametrize("n", NS)
 def test_alltoall_equals_jax_bruck(ref, coll, n):
     from repro_torch.collectives import schedules as S
-    mesh = port_mesh(n)
     ins = inputs(n)
-    for dt in DTYPES:
+    for dt, mesh in itertools.product(DTYPES, port_meshes(n)):
         x = torch.from_numpy(ins[("a2a", dt)])
         native = ref[f"a2a/{n}/native/{dt}"]
-        whole = S.bruck_alltoall(x.unflatten(0, (n, n))).flatten(0, 1)
+        whole = as_form(S.bruck_alltoall, x.unflatten(0, (n, n)),
+                        mesh).flatten(0, 1)
         np.testing.assert_array_equal(whole.numpy(),
                                       ref[f"a2a/{n}/bruck/whole/{dt}"])
         np.testing.assert_array_equal(whole.numpy(), native)   # a transpose
@@ -285,7 +316,8 @@ def test_alltoall_equals_jax_bruck(ref, coll, n):
                 got = _run(coll, "alltoall", x, mesh, persistent, chunks=K,
                            round_batch=rb)
                 np.testing.assert_array_equal(
-                    got.numpy(), ref[f"a2a/{n}/bruck/{K}/{dt}"])
+                    got.numpy(), ref[f"a2a/{n}/bruck/{K}/{dt}"],
+                    err_msg=str(mesh))
                 np.testing.assert_array_equal(got.numpy(), native)
 
 

@@ -11,7 +11,13 @@ intends); the child also saves the weights that launcher draws from
 user`` (per-rank gradients, the engine grad reducer's ring allreduce,
 AdamW on the mean) and once natively on one rank.  The per-step losses
 agree within 1e-5, the final parameters within 1e-5 of the port's own
-native run and within 2e-5 of the JAX launcher's (``PARAM_TOL``)."""
+native run and within 2e-5 of the JAX launcher's (``PARAM_TOL``).
+
+With ``--rank-devices cpu,cpu,cpu,cpu`` each rank holds its own replica
+of the weights and AdamW state (a mesh with one device per rank): its
+losses and every replica's final parameters equal the rank-stacked run's
+bit for bit (a chaos kill's too), and hold the JAX launcher within the
+same limits."""
 import argparse
 from pathlib import Path
 
@@ -130,6 +136,104 @@ def port_run(tmp_path, ref, extra):
     final = {"/".join(p): t.detach().numpy()
              for p, t in tree_leaves(report.trainer.params)}
     return report, losses, final
+
+
+def replicas(report):
+    """Every rank's final parameters of a ``--rank-devices`` run, as numpy
+    by path: {path: [rank 0's, rank 1's, ...]}."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.models.layers import tree_leaves
+    out = {}
+    for path, leaf in tree_leaves(report.trainer.params):
+        assert isinstance(leaf, RankShards), path
+        out["/".join(path)] = [s.detach().numpy() for s in leaf.shards]
+    return out
+
+
+RANK_DEVICES = ["--rank-devices", "cpu,cpu,cpu,cpu"]
+USER4 = ["--devices", "4", "--mesh", "4x1", "--collective-backend", "user"]
+
+
+def test_rank_devices_equal_the_stacked_run_bit_for_bit(jax_run, tmp_path):
+    """A replica on each rank's device: the losses, and every replica's
+    final parameters, equal the rank-stacked run's bit for bit."""
+    _, losses, final = port_run(tmp_path / "stacked", jax_run, USER4)
+    report, dev_losses = port_run_devices(tmp_path / "dev", jax_run,
+                                          USER4 + RANK_DEVICES)
+    assert dev_losses == losses
+    got = replicas(report)
+    assert got.keys() == final.keys()
+    for k, reps in got.items():
+        assert len(reps) == 4
+        for r, v in enumerate(reps):
+            np.testing.assert_array_equal(v, final[k], err_msg=f"{k} {r}")
+    assert [str(d) for d in report.reducer.mesh.devices] == ["cpu"] * 4
+    assert len(report.trainer.reduce_issue_s) == STEPS
+
+
+def test_rank_devices_match_the_jax_launcher(jax_run, tmp_path):
+    """The ``--rank-devices`` run against the JAX launcher's
+    ``--devices 4 --collective-backend user``: losses within 1e-5, every
+    replica's parameters within ``PARAM_TOL``."""
+    report, losses = port_run_devices(tmp_path, jax_run,
+                                      USER4 + RANK_DEVICES)
+    np.testing.assert_allclose(losses, jax_run["losses"], **TOL)
+    want = {k[len("final/"):]: v for k, v in jax_run.items()
+            if k.startswith("final/")}
+    got = replicas(report)
+    assert got.keys() == want.keys()
+    for k in want:
+        for v in got[k]:
+            np.testing.assert_allclose(v, want[k], err_msg=k, **PARAM_TOL)
+
+
+def test_rank_devices_chaos_kill_equals_the_stacked_chaos_run(jax_run,
+                                                              tmp_path):
+    """``--elastic --chaos-kill 1`` after step 1: both forms remesh once
+    onto 2 ranks (the per-device run onto the first 2 of the 3 surviving
+    devices, keeping their replicas) and log the same losses."""
+    chaos = USER4 + ["--elastic", "--chaos-kill", "1", "--chaos-kill-step",
+                     "1"]
+    a, losses, final = port_run(tmp_path / "stacked", jax_run, chaos)
+    b, dev_losses = port_run_devices(tmp_path / "dev", jax_run,
+                                     chaos + RANK_DEVICES)
+    assert dev_losses == losses and len(losses) == STEPS
+    assert a.trainer.recoveries == b.trainer.recoveries == 1
+    assert b.reducer.remeshes == 1 and b.reducer.axis_size == 2
+    for k, reps in replicas(b).items():
+        assert len(reps) == 2
+        for v in reps:
+            np.testing.assert_array_equal(v, final[k], err_msg=k)
+
+
+def port_run_devices(tmp_path, ref, extra):
+    """``port_run`` for a ``--rank-devices`` run: (report, losses)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import bridge
+    args = launch.build_parser().parse_args(
+        ARGV + ["--device", "cpu", "--ckpt-dir", str(tmp_path)] + extra)
+    cfg = make_config(args.arch, args.scale).with_overrides(dtype="float32")
+    params = bridge.params_from_numpy(unflatten(ref, "init"), device="cpu")
+    report = launch.run(args, config=cfg, params=params, log_every=1)
+    return report, [m["loss"] for m in report.log]
+
+
+@pytest.mark.parametrize("extra,what", [
+    (["--fsdp"], "--fsdp yet .ROADMAP queue 1, item 9"),
+    (["--pipeline", "1f1b"], "--pipeline yet .ROADMAP queue 1, item 10"),
+    (["--mesh", "2x2"], "model axis above 1 yet .ROADMAP queue 1, item 12"),
+    (["--rank-devices", "cpu,cpu"], "names 2 device.s. for 4"),
+    (["--collective-backend", "native"], "needs --collective-backend user"),
+], ids=["fsdp", "pipeline", "model-axis", "length", "native"])
+def test_rank_devices_refuses_what_waits_for_later_slices(tmp_path, extra,
+                                                          what):
+    from repro_torch.launch import train as launch
+    argv = ARGV + ["--device", "cpu", "--ckpt-dir", str(tmp_path),
+                   "--devices", "4", "--collective-backend", "user",
+                   "--rank-devices", "cpu,cpu,cpu,cpu"] + extra
+    with pytest.raises(SystemExit, match=what):
+        launch.run(launch.build_parser().parse_args(argv))
 
 
 def test_user_backend_matches_the_jax_launcher(jax_run, tmp_path):

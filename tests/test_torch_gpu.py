@@ -860,3 +860,114 @@ def test_flash_attention_at_32768_queries_on_its_last_rows(cuda, dtype):
                                              k[:, :tail].contiguous(),
                                              v[:, :tail].contiguous(),
                                              causal=True), **TOLS[dtype])
+
+
+# ---------------------------------------------------------------------------
+# a mesh with one device per rank: collectives as copies between devices
+# ---------------------------------------------------------------------------
+
+def _rank_devices(n: int, distinct: bool) -> list:
+    """n devices: distinct cards (skips, with the reason, when the machine
+    has fewer), or ``cuda:0`` listed n times."""
+    if not distinct:
+        return ["cuda:0"] * n
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, this machine has "
+                    f"{torch.cuda.device_count()}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_per_device_collectives_equal_the_stacked_form(cuda, n, distinct):
+    """Every op × algorithm, chunks 1 and 4, round batch 1 and auto,
+    one-shot and persistent, int32, f32 and bf16: the per-device form's
+    result equals the rank-stacked run on ``cuda:0`` bit for bit, each
+    shard on its rank's device."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    devices = _rank_devices(n, distinct)
+    coll = NB.UserCollectives(ProgressEngine())
+    smesh = make_mesh((n,), ("x",), "cuda:0")
+    dmesh = make_mesh((n,), ("x",), devices=devices)
+    cases = [("allreduce", a, (n * 2, 3, 100)) for a in NB.S.ALGORITHMS]
+    cases += [(op, a, shape) for op, shape in
+              (("reduce_scatter", (n * 2, 2, n * 16)),
+               ("allgather", (n * 2, 2, 24)))
+              for a in ("ring", "halving_doubling")]
+    cases.append(("alltoall", "bruck", (n * n, 24)))
+    gen = torch.Generator().manual_seed(10 + n)
+    for op, alg, shape in cases:
+        for dt in (torch.int32, torch.float32, torch.bfloat16):
+            xc = torch.randint(-8, 8, shape, generator=gen, dtype=dt) \
+                if dt == torch.int32 else torch.randn(shape,
+                                                      generator=gen).to(dt)
+            x = xc.to("cuda:0")
+            xs = RankShards.from_stacked(x, dmesh)
+            for chunks in (1, 4):
+                for batch in (1, None):
+                    for persistent in (False, True):
+                        want = _collective(coll, op, alg, x, smesh, chunks,
+                                           batch, persistent)
+                        got = _collective(coll, op, alg, xs, dmesh, chunks,
+                                          batch, persistent)
+                        assert isinstance(got, RankShards)
+                        assert [str(d) for d in got.devices] == devices
+                        assert torch.equal(got.to_stacked("cuda:0"), want), \
+                            (op, alg, dt, chunks, batch, persistent)
+    coll.close()
+    assert coll.failed == 0
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_per_device_restart_allocates_nothing_on_any_device(cuda,
+                                                            distinct):
+    """A persistent per-device allreduce restarted 10 times: after its
+    first start, ``memory_allocated`` of every device stays put."""
+    from repro_torch.collectives import nonblocking as NB
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    devices = _rank_devices(4, distinct)
+    mesh = make_mesh((4,), ("x",), devices=devices)
+    coll = NB.UserCollectives(ProgressEngine())
+    x = torch.randint(-8, 8, (8, 1 << 16), device="cuda:0",
+                      dtype=torch.int32)
+    want = x.unflatten(0, (4, 2)).sum(0, dtype=torch.int32)
+    xs = RankShards.from_stacked(x, mesh)
+    h = coll.allreduce_init(xs, mesh, "x", chunks=4, round_batch=1)
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    mem = []
+    for _ in range(10):
+        out = h.start(xs).wait(timeout=60)
+        mem.append(tuple(torch.cuda.memory_allocated(d) for d in cards))
+        # (no loop variable: it would keep the last shard of this result
+        # alive through the next start)
+        assert all(torch.equal(s.to("cuda:0"), want) for s in out.shards)
+    assert len(set(mem)) == 1, mem
+    coll.close()
+
+
+def test_torch_future_polls_an_event_on_each_device(cuda):
+    """``torch_future`` over a tree on two cards records one event on each
+    card's current stream and completes only when both have; the poll
+    never synchronizes."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.core.futures import cuda_devices, torch_future
+    devices = _rank_devices(2, True)
+    a = torch.randn(4096, 4096, device=devices[0])
+    b = torch.randn(4096, 4096, device=devices[1])
+    for _ in range(20):                  # keep both cards busy a while
+        a = a @ a / 64
+        with torch.cuda.device(devices[1]):
+            b = b @ b / 64
+    tree = {"x": RankShards([a[:1], b[:1]])}
+    assert [str(d) for d in cuda_devices(tree)] == devices
+    eng = ProgressEngine()
+    req = torch_future(eng, tree)
+    assert eng.wait(req, timeout=60) is tree

@@ -36,6 +36,8 @@ COLLECTIVES_SLICE = ["repro_torch.collectives",
                      "repro_torch.collectives.p2p",
                      "repro_torch.collectives.overlap",
                      "repro_torch.launch.mesh"]
+# the per-device mesh: its payload type (and the modules above, extended)
+DEVICES_SLICE = ["repro_torch.collectives.rank_shards"]
 # the parallel-training slice's modules
 PARALLEL_SLICE = ["repro_torch.sharding", "repro_torch.distributed.elastic",
                   "repro_torch.distributed.pipeline"]
@@ -98,7 +100,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                for m in TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE + PARALLEL_SLICE + SERVE_SLICE
                + MOE_SLICE + FAMILIES_SLICE + CONTEXT_SLICE
-               + STEPS_SLICE), loaded
+               + STEPS_SLICE + DEVICES_SLICE), loaded
 
 
 def test_the_moe_slice_is_in_the_port():
@@ -151,7 +153,7 @@ def test_no_jax_or_repro_import_in_the_sources():
     assert set(TRAIN_SLICE + MAMBA_SLICE + OPTIONS_SLICE
                + COLLECTIVES_SLICE[1:] + PARALLEL_SLICE
                + SERVE_SLICE + FAMILIES_SLICE + CONTEXT_SLICE
-               + STEPS_SLICE) <= scanned
+               + STEPS_SLICE + DEVICES_SLICE) <= scanned
     assert "repro_torch.collectives.__init__" in scanned
     for path in SOURCES:
         for name in _imported(path):
