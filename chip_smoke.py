@@ -15,11 +15,11 @@ Phases; any failure raises and the script exits non-zero:
              only);
 3. serve   — the port's serving launcher (``repro_torch.launch.serve``)
              at full qwen2-0.5b width (16 requests through 8 lanes,
-             caller-driven, and then with two progress workers at 6 of
+             caller-driven, and then with two progress workers at 2 of
              its 24 layers), at full mamba2-1.3b width (16 requests
-             through 8 lanes, caller-driven, at 24 of its 48 layers) and
+             through 8 lanes, caller-driven, at 12 of its 48 layers) and
              at full qwen2.5-3b width with int8 K/V (as qwen2-0.5b,
-             caller-driven, at 12 of its 36 layers).  Launch
+             caller-driven, at 6 of its 36 layers).  Launch
              counters are zeroed just before and read just after each
              run, and must show every fused decode/prefill call went
              through its kernels and no training kernel.  After each
@@ -30,7 +30,8 @@ Phases; any failure raises and the script exits non-zero:
              (``decode_step_q``) against bf16;
 4. train   — the port's training launcher (``repro_torch.launch.train``)
              at full smollm-360m width (caller-driven and then with two
-             progress workers, each from a fresh checkpoint directory;
+             progress workers at 8 of its 32 layers, each from a fresh
+             checkpoint directory;
              the final async checkpoint must restore to the same
              tensors) and at full mamba2-1.3b width (caller-driven, at
              12 of its 48 layers, checked alike): 6 steps of batch
@@ -77,7 +78,7 @@ Phases; any failure raises and the script exits non-zero:
              losses against native FSDP, data-parallel and the single
              card within limits stated before the run; one step's device
              time per stream; step 0's gather bit for bit.  Elastic: 2 of
-             4 ranks killed at step 2 of 5 (data-parallel and FSDP, 4
+             4 ranks killed at step 2 of 5 (data-parallel and FSDP, 2
              layers) against a checkpoint-and-restart on the survivors;
              the watchdog failing a hung start once.  Pipeline: 1F1B at
              S = 4, M = 8 on 4 stage CUDA streams, bit for bit against the
@@ -88,25 +89,27 @@ Phases; any failure raises and the script exits non-zero:
              model ranks of the card (``--devices 4 --model-shards 4``, the
              16 requests through 8 lanes of phase 3) on the user backend
              (a persistent all-gather, ring, 2 chunks: the main path; its
-             launches) and the native one: the same streams bit for bit,
-             one gather start a step; every fused call's concatenated
-             partial logits against the unsharded unembed, and the streams
-             against phase 3's, within limits stated before the run; one
-             call's device time per stream; two progress workers serve
-             the caller-driven streams (both at 6 of the 24 layers, as
-             in phase 3), and an executor never started serves; mamba2-1.3b
-             on 2 ranks at 24 of its 48 layers, user = native;
-             membership changes mid decode
-             (down to 2 ranks and to 1), mid prefill and by the watchdog
-             against a run without failure; ``--chaos-kill 2``; a lane
+             launches; one gather start a step; its streams against phase
+             3's, within a limit stated before the run); one call's device
+             time per stream; at 2 of the 24 layers the user backend
+             caller-driven (its streams held by phase 16), the native one
+             (every fused call's concatenated partial logits against the
+             unsharded unembed) and two progress workers, both serving
+             the caller-driven streams bit for bit; an executor never
+             started serves; mamba2-1.3b on 2 ranks at 12
+             of its 48 layers, user = native; membership changes mid
+             decode (down to 2 ranks and to 1), mid prefill and by the
+             watchdog against a run without failure (at 2 layers);
+             ``--chaos-kill 2`` (at 2 layers); a lane
              checkpointed after 40 tokens restored into a shifted pool
              decodes on bit for bit.
-12. moe    — granite-moe-3b-a800m at full width served (16 short
+12. moe    — granite-moe-3b-a800m at full width served at 16 of its 32
+             layers (16 short
              requests through 8 lanes over phase 3's 1024-position view,
              caller-driven; its launches, one fused call timed, the slot
              cache against the paged pool) and trained through the train
-             launcher at 8 of its 32 layers (6 steps of 8 x 1024 tokens,
-             "full" remat, the aux loss of each step finite, the ~11 GB
+             launcher at 4 of its 32 layers (6 steps of 8 x 1024 tokens,
+             "full" remat, the aux loss of each step finite, the ~6 GB
              checkpoint restored equal); grok-1-314b served at full widths at 2
              of its 64 layers, every flash_decode launch with its logit
              cap of 30; one granite MoE layer expert-parallel on 4 model
@@ -116,12 +119,12 @@ Phases; any failure raises and the script exits non-zero:
              (cap 0: the uncapped kernel's bits) and the norms and
              attention at granite's shapes; phase 7 holds granite's loss,
              gradients and paged decode at 2 layers, card against CPU.
-13. families — zamba2-1.2b at full width and all 38 layers served (16
-             short requests through 8 lanes over phase 3's 1024-position
-             view, caller-driven; 51 rmsnorm_fwd and 6 flash_decode a
-             fused call, one call timed, the slot cache against the
+13. families — zamba2-1.2b at full width and 19 of its 38 layers served
+             (16 short requests through 8 lanes over phase 3's
+             1024-position view, caller-driven; 26 rmsnorm_fwd and 3
+             flash_decode a fused call, one call timed, the slot cache against the
              paged pool bit for bit) and trained through the train
-             launcher at 19 of its layers (6 steps of 8 x 1024 tokens,
+             launcher at 13 of its layers (6 steps of 8 x 1024 tokens,
              "full" remat, the launches as derived, the checkpoint
              restored equal);
              whisper-tiny trained so (encoder embeddings of ones, as the
@@ -185,7 +188,7 @@ Phases; any failure raises and the script exits non-zero:
              ``devices=`` form; distinct cards cuda:0..3 on a machine
              with four or more, else cuda:0 listed four times, which a
              line says; peer access printed for every pair of distinct
-             cards), run after phase 10: every op × algorithm at 2 and 4
+             cards), run after phase 11: every op × algorithm at 2 and 4
              ranks, int32, f32 and bf16, chunks 1 and 4, round batch 1
              and auto, one-shot and persistent, each bit for bit against
              the rank-stacked run on cuda:0 (int32 also against the
@@ -201,8 +204,30 @@ Phases; any failure raises and the script exits non-zero:
              port's kernel launches a step (each wrapper's count filed
              under the card current at its launch: its ranks' share of a
              single-card step's; the profiler's events beside it), busy
-             ms and idle share (profiler) and peak memory; a chaos kill of 1 of 4 ranks at step 3, at 4 layers,
-             rank-stacked and per device, the losses equal bit for bit.
+             ms and idle share (profiler) and peak memory; a chaos kill
+             of 1 of 4 ranks at step 3, at 2 layers, rank-stacked and
+             per device, the losses equal bit for bit.  Then FSDP with a
+             device per rank: phase 10's user run, 4 steps, with
+             rank r's ZeRO blocks, moments, step counter and pass on its
+             card, under ``no_sync`` (its losses equal phase 10's bit for
+             bit; each card's launches its ranks' share of a single-card
+             step; the checkpoint, the stacked run's files, restored
+             equal; ``reshard_restore`` of it onto the per-device mesh,
+             each card its block; a profiled step: busy and idle a card,
+             the prefetch overlap); a chaos kill of 2 of 4 ranks at 2
+             layers, the survivors on the first 2 cards, bit for bit
+             against a restart there.  And sharded serving with a device
+             per model rank: qwen2-0.5b at full width and 2 layers on 4
+             ranks (16 requests through 8 lanes), user (ring, 2 chunks)
+             and native bit for bit, one gather start a step, against
+             phase 11's stacked streams at 2 layers; a recovery mid
+             decode, 4 -> 2 ranks, lanes restored into both survivors'
+             pools; at full depth one fused call's launches on each card
+             (49 ``rmsnorm_fwd`` and 24 ``flash_decode`` a rank), its
+             partial logits gathered to cuda:0 against the stacked
+             ``unembed_ranks`` of rank 0's hidden state, its host wall,
+             each card's busy time and idle share and the gather's
+             device time.
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
@@ -212,7 +237,8 @@ and phase 12 with granite's card-against-CPU checks; ``--only families``
 the build, the kernels at the new shapes and phase 13 with its checks;
 ``--only context`` the build and phase 14; ``--only cells`` the build,
 the kernels at the assigned shapes and phase 15; ``--only devices`` the
-build, phase 9's data-parallel run and phase 16 (on a call with four
+build, phase 9's data-parallel run, phase 10's user FSDP run, phase 11's
+stacked caller-driven run at 2 layers and phase 16 (on a call with four
 cards, across them).
 
 Prints the versions of torch, CUDA and Python first, and at the end the
@@ -263,13 +289,15 @@ QWEN3B, Q3_D, Q3_TRAIN_STEPS = "qwen2.5-3b", 2048, 4
 POLICIES = ("full", "none", "subblock", "attn_only", "dots")
 # the two-worker qwen2-0.5b serve run is cut to this depth (of 24) to keep
 # the whole run near its time budget; the caller-driven run keeps 24
-SERVE_WORKERS_LAYERS = 6
+SERVE_WORKERS_LAYERS = 2
+# the two-worker smollm-360m train run's depth (of 32), for the same
+TRAIN_WORKERS_LAYERS = 8
 MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
 # cut so that the whole run stays well inside its time limit with the MoE
 # phase: qwen2.5-3b's int8 K/V serve run (of 36 layers), mamba2-1.3b's
 # serve and train runs (of 48; the train run's from 24 to 12, with its
-# checkpoint, for phase 15)
-Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 12, 24, 12
+# checkpoint, for phase 15); the serve runs' depths pay for phase 16
+Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 6, 12, 12
 # the MoE family: granite-moe-3b-a800m trained as smollm-360m is (6 steps
 # of 8 x 1024 tokens) and served with the mamba2 path's short requests
 # over phase 3's 1024-position view; grok-1-314b served at full widths at
@@ -293,10 +321,13 @@ PIXTRAL, PIXTRAL_D, PIXTRAL_LAYERS, PIXTRAL_STEPS = "pixtral-12b", 5120, 4, 4
 PIXTRAL_BATCH, PIXTRAL_PATCHES = 2, 1024
 # granite-moe's train run (of 32 layers): its 40 GB checkpoint was the
 # script's largest item; at 16 layers it was ~21 GB, at 8 (for phase 15)
-# ~11 GB.  zamba2-1.2b's train run: 19 of its 38 layers (3 groups of 6
-# and the tail), for phase 15
-GRANITE_TRAIN_LAYERS = 8
-ZAMBA_TRAIN_LAYERS = 19
+# ~11 GB, at 4 (for phase 16) ~6 GB.  zamba2-1.2b's train run: 13 of its
+# 38 layers (2 groups of 6 and the tail), for phases 15 and 16
+GRANITE_TRAIN_LAYERS = 4
+ZAMBA_TRAIN_LAYERS = 13
+# granite-moe's and zamba2-1.2b's serve runs (of 32 and 38 layers; zamba2
+# 3 groups of 6 and the tail), cut for phase 16
+GRANITE_SERVE_LAYERS, ZAMBA_SERVE_LAYERS = 16, 19
 # phase 14: smollm-360m trained with "ring" on a model axis of 4 ranks
 RING_MESH, RING_STEPS = "1x4", 5
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
@@ -1145,7 +1176,9 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
     flags (phase 11's sharding flags), ``requests`` cuts the requests of
     ``SERVE_RUNS``, ``cfg_overrides`` set config fields the launcher has
     no flags for (``kv_cache_dtype``).  Returns the launches, the closed
-    engine and the launcher's report."""
+    engine and the launcher's report.  With ``--rank-devices`` among the
+    flags each rank's pass launches its kernels on its own card."""
+    from repro_torch.collectives.rank_shards import RankShards
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import transformer
@@ -1159,11 +1192,16 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
             "--max-new", str(max_new), "--progress-workers", str(workers),
             *extra]
     args = serve_mod.build_parser().parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
+    # a device per model rank (phase 16): every rank runs its own pass
+    cards = distinct(args.rank_devices.split(",")) if args.rank_devices \
+        else [torch.device("cuda", 0)]
+    ranks = len(args.rank_devices.split(",")) if args.rank_devices else 1
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     _lib.reset_launches()
     report = serve_mod.run(args, **cfg_overrides)
     launches = dict(_lib.launches)
-    peak = torch.cuda.max_memory_allocated()
+    peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
     srv, cfg = report.server, report.server.cfg
     log(f"serve {arch} [{workers} progress workers{' '.join(('',) + extra)}] "
         + "\n  ".join(report.format()))
@@ -1174,16 +1212,17 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
     # besides two norms and one attention at each of its sites
     want = dict.fromkeys(launches, 0)
     if cfg.family == "ssm":
-        want["rmsnorm_fwd"] = calls * (NL + 1)
+        want["rmsnorm_fwd"] = calls * (NL + 1) * ranks
     elif cfg.family == "hybrid":
         sites = NL // cfg.shared_attn_every
-        want.update(rmsnorm_fwd=calls * (NL + 2 * sites + 1),
-                    flash_decode=calls * sites)
+        want.update(rmsnorm_fwd=calls * (NL + 2 * sites + 1) * ranks,
+                    flash_decode=calls * sites * ranks)
     else:
-        want.update(rmsnorm_fwd=calls * (2 * NL + 1),
-                    flash_decode=calls * NL)
+        want.update(rmsnorm_fwd=calls * (2 * NL + 1) * ranks,
+                    flash_decode=calls * NL * ranks)
     log(f"serve launches {launches}, expected {want} for {calls} fused calls "
-        f"({want['rmsnorm_fwd'] // max(calls, 1)} rmsnorm_fwd a call)")
+        f"({want['rmsnorm_fwd'] // max(calls, 1)} rmsnorm_fwd a call"
+        + (f", {ranks} ranks' passes" if ranks > 1 else "") + ")")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     short = [r.request_id for r in report.requests
@@ -1192,7 +1231,8 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
         raise AssertionError(f"requests without {max_new} tokens: {short}")
     off = [p for p, t in [*tree_leaves(srv.params),
                           *tree_leaves(srv.slots.cache)]
-           if t.device.type != "cuda"]
+           if any(x.device.type != "cuda" for x in
+                  (t.shards if isinstance(t, RankShards) else (t,)))]
     if off:
         raise AssertionError(f"tensors off the card: {off}")
     depth = cfg_overrides.get("num_layers", FULL_WIDTH[arch][0])
@@ -1218,7 +1258,9 @@ def serve(workers: int, arch: str = ARCH, extra: tuple = (),
         f"{report.tokens / report.wall_s:.2f} tokens/s, mean decode step "
         f"{srv.mean_step_ms():.3f} ms, wall {report.wall_s:.3f} s, TTFT p50 "
         f"{lat.ttft_ms_p50:.1f} ms p99 {lat.ttft_ms_p99:.1f} ms; {pool_text}; "
-        f"peak device memory {peak / 2**30:.2f} GiB")
+        f"peak device memory "
+        + ", ".join(f"{d} {p / 2**30:.2f} GiB" if len(cards) > 1
+                    else f"{p / 2**30:.2f} GiB" for d, p in zip(cards, peaks)))
     return launches, srv, report
 
 
@@ -1382,17 +1424,28 @@ def checkpoint_check(tr, last: int, leafwise: bool = False) -> str:
     restore_s = time.perf_counter() - t0
     diff = [i for i, (a, b) in enumerate(zip(tree_flatten(back["params"])[0],
                                              tree_flatten(tr.params)[0]))
-            if not torch.equal(a, b)]
+            if not same(a, b)]
     for name in ("mu", "nu"):
         diff += [(name, i) for i, (a, b) in enumerate(zip(
             tree_flatten(getattr(back["opt_state"], name))[0],
             tree_flatten(getattr(tr.opt_state, name))[0]))
-            if not torch.equal(a, b)]
-    if diff or not torch.equal(back["opt_state"].step, tr.opt_state.step):
+            if not same(a, b)]
+    if diff or not same(back["opt_state"].step, tr.opt_state.step):
         raise AssertionError(f"checkpoint restores other values: {diff}")
     return (f"checkpoint of step {latest} committed "
             f"{tr.ckpt.last_save_s:.3f} s after save_async and restored "
             f"equal in {restore_s:.3f} s")
+
+
+def same(a, b) -> bool:
+    """Two tensors, or two ``RankShards`` on the same devices, equal bit
+    for bit."""
+    from repro_torch.collectives.rank_shards import RankShards
+    if isinstance(a, RankShards):
+        return (isinstance(b, RankShards) and a.devices == b.devices
+                and a.replica == b.replica
+                and all(torch.equal(x, y) for x, y in zip(a, b)))
+    return torch.equal(a, b)
 
 
 def checkpoint_check_leafwise(tr, latest: int, state) -> str:
@@ -2540,7 +2593,7 @@ FSDP_BUCKET = 4 << 20        # the launcher's default --fsdp-bucket-bytes
 FSDP_NATIVE_ATOL = DP_LOSS_ATOL    # user vs native FSDP losses
 FSDP_RS_RTOL = 1e-6          # step 0's reduce-scatter, user vs native, rel L2
 FSDP_DP_ATOL = 1e-3          # vs the data-parallel run: same rank gradients
-ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_KILL = 4, 5, 2
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_KILL = 2, 5, 2
 ELASTIC_LOSS_ATOL = 1e-3     # chaos vs restart, held only if two identical
 #                              restarts already differ (atomics)
 PIPE_S, PIPE_M, PIPE_MB, PIPE_STEPS = 4, 8, 8, 5
@@ -2749,15 +2802,18 @@ class _ListPipe:
         return self.batches.pop(0)
 
 
-def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool):
+def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool,
+                devices=None):
     """Five steps at full width and ``ELASTIC_LAYERS`` layers on 4 ranks
-    of the card.  ``chaos``: one Trainer with a membership epoch and a
-    ``remesh_fn``; its hook invalidates the epoch down to 2 survivors
-    after step ``ELASTIC_KILL`` - 1, so step ``ELASTIC_KILL`` fails, is
-    remeshed (FSDP: unsharded and re-sharded for 2 ranks) and retried.
-    Otherwise the restart: ``ELASTIC_KILL`` steps on 4 ranks, then a new
-    Trainer on 2 ranks from that state.  Returns (losses, final
-    parameter leaves, the recovery's figures)."""
+    of the card (with ``devices``, FSDP only: rank r on ``devices[r]``,
+    the survivors on the first 2).  ``chaos``: one Trainer with a
+    membership epoch and a ``remesh_fn``; its hook invalidates the epoch
+    down to 2 survivors after step ``ELASTIC_KILL`` - 1, so step
+    ``ELASTIC_KILL`` fails, is remeshed (FSDP: unsharded and re-sharded
+    for 2 ranks) and retried.  Otherwise the restart: ``ELASTIC_KILL``
+    steps on 4 ranks, then a new Trainer on 2 ranks from that state.
+    Returns (losses, final parameter leaves, the recovery's figures)."""
+    from repro_torch.collectives.rank_shards import tree_keep
     from repro_torch.collectives.nonblocking import (CollectiveSpec,
                                                      MembershipEpoch)
     from repro_torch.collectives.overlap import (EngineGradReducer,
@@ -2825,7 +2881,17 @@ def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool):
         return (layout.unshard_params(params), layout.unshard_params(state.mu),
                 layout.unshard_params(state.nu))
 
-    mesh4 = elastic.remesh(4, prefer_model=1, device="cuda")
+    def mesh_of(n):
+        if devices is not None:
+            return elastic.remesh(n, prefer_model=1, devices=devices[:n])
+        return elastic.remesh(n, prefer_model=1, device="cuda")
+
+    def keep(step, mesh):
+        # the survivors' step counters (one a device in the per-device
+        # form)
+        return tree_keep(step, mesh.size) if devices is not None else step
+
+    mesh4 = mesh_of(4)
     params = tree_map(torch.clone, params0)
     layout, p, st = state_for(mesh4, params)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
@@ -2839,12 +2905,11 @@ def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool):
 
             def remesh_fn(exc, params_, state_):
                 t0 = time.perf_counter()
-                new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
-                                          device="cuda")
+                new_mesh = mesh_of(exc.survivors)
                 red.remesh(new_mesh, "data")
                 full, mu, nu = unshard(box["layout"], params_, state_)
-                box["layout"], p2, st2 = state_for(new_mesh, full, mu, nu,
-                                                   state_.step)
+                box["layout"], p2, st2 = state_for(
+                    new_mesh, full, mu, nu, keep(state_.step, new_mesh))
                 split = split_for(box["layout"], new_mesh, red)
                 info["remesh_ms"] = (time.perf_counter() - t0) * 1e3
                 return split, p2, st2
@@ -2867,10 +2932,10 @@ def elastic_run(fsdp: bool, cfg, ocfg, params0, batches, *, chaos: bool):
         else:
             trA = trainer(layout, mesh4, p, st, batches[:ELASTIC_KILL],
                           tmp + "/a", losses=losses)
-            mesh2 = elastic.remesh(2, prefer_model=1, device="cuda")
+            mesh2 = mesh_of(2)
             full, mu, nu = unshard(layout, trA.params, trA.opt_state)
-            final_layout, p2, st2 = state_for(mesh2, full, mu, nu,
-                                              trA.opt_state.step)
+            final_layout, p2, st2 = state_for(
+                mesh2, full, mu, nu, keep(trA.opt_state.step, mesh2))
             del trA
             trB = trainer(final_layout, mesh2, p2, st2,
                           batches[ELASTIC_KILL:], tmp + "/b", losses=losses)
@@ -3091,9 +3156,10 @@ def pipeline_phase() -> None:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def parallel_phase(single_losses: list, dp_losses: list) -> dict:
+def parallel_phase(single_losses: list, dp_losses: list) -> tuple:
     """Phase 10: FSDP (user and native), the step-0 gather, the elastic
-    recovery and the pipeline; returns the FSDP user run's launches."""
+    recovery and the pipeline; returns the FSDP user run's launches and
+    losses."""
     launches, report, losses = train_fsdp("user")
     hold_losses("train_fsdp vs the single card", losses, single_losses,
                 DP_LOSS_ATOL)
@@ -3112,7 +3178,7 @@ def parallel_phase(single_losses: list, dp_losses: list) -> dict:
     free()
     pipeline_phase()
     free()
-    return launches
+    return launches, losses
 
 
 # ---------------------------------------------------------------------------
@@ -3122,7 +3188,7 @@ def parallel_phase(single_losses: list, dp_losses: list) -> dict:
 DEV_COLL_NS = (2, 4)
 DEV_BIG_BYTES = 256 << 20       # each rank's buffer in the timed allreduce
 DEV_RESTARTS = 20
-DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 4, 3
+DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 2, 3
 DEV_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "flash_attention")
 
 
@@ -3414,7 +3480,7 @@ def kernel_of(name: str) -> str | None:
     return None
 
 
-def devices_time_breakdown(report, devices, steps: int = 2) -> None:
+def devices_time_breakdown(report, devices, steps: int = 1) -> None:
     """``steps`` per-device data-parallel steps on the trained replicas
     and one fixed batch (the launcher's split step: rank gradients, the
     reducer, AdamW on each replica): host wall clock unprofiled; per
@@ -3452,7 +3518,6 @@ def devices_time_breakdown(report, devices, steps: int = 2) -> None:
         sync_all(devices)
         return (time.perf_counter() - t0) * 1e3 / k
 
-    run(1)
     wall = run()
     base, counter = _lib.launches, DeviceLaunches(_lib.launches)
     _lib.launches = counter
@@ -3563,12 +3628,474 @@ def devices_chaos(devices) -> None:
         f"run's; step ms {[round(v, 3) for v in ms]}")
 
 
-def devices_phase(dp_losses: list) -> dict:
+DEV_FSDP_STEPS = 4          # the per-device FSDP run (phase 10's has 6)
+DEV_SERVE_LAYERS = 2        # the per-device serve runs' depth (of 24)
+
+
+def per_card_launches(counter, devices, steps: int, per_rank: dict,
+                      what: str) -> str:
+    """Each card's launches (``DeviceLaunches``) a step or call held to its
+    ranks' share, ``per_rank`` each; the text that says so."""
+    parts = []
+    for d in distinct(devices):
+        ranks = sum(torch.device(x) == d for x in devices)
+        got = {k: counter.by_device.get((d.index, k), 0) / steps
+               for k in per_rank}
+        want = {k: v * ranks for k, v in per_rank.items()}
+        if got != want:
+            raise AssertionError(f"{d}: launches a {what} {got}, want "
+                                 f"{want} ({ranks} rank(s))")
+        parts.append(f"{d} {ranks} rank(s) "
+                     f"{ {k: int(v) for k, v in got.items()} }")
+    return "; ".join(parts)
+
+
+def counting_by_device():
+    """Swap ``_lib.launches`` for a ``DeviceLaunches``; returns (base,
+    counter) for ``restore_counts``."""
+    from repro_torch.kernels import _lib
+    base, counter = _lib.launches, DeviceLaunches(_lib.launches)
+    _lib.launches = counter
+    return base, counter
+
+
+def restore_counts(base, counter) -> None:
+    from repro_torch.kernels import _lib
+    _lib.launches = base
+    for k, v in counter.items():
+        base[k] = v
+
+
+def train_fsdp_devices(fsdp_losses: list, devices):
+    """``launch.train --fsdp --rank-devices`` at full smollm-360m width:
+    phase 10's user run (4 ranks, 4 MiB buckets, ring, 4 chunks, 8 x 1024
+    tokens) for ``DEV_FSDP_STEPS`` steps with rank r's blocks, moments,
+    step counter and pass on ``devices[r]``, under ``no_sync``.  Its
+    losses equal phase 10's first ones bit for bit (the same schedule:
+    ``total_steps`` is at least 10 in both); each card launches its ranks'
+    share of a single-card step (the wrappers' counts filed by current
+    card); the checkpoint restores equal, and ``reshard_restore`` of it
+    onto the per-device mesh gives each card its ZeRO block."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.distributed import elastic
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import AsyncCheckpointer
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_fsdp_devices_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(DEV_FSDP_STEPS), "--ckpt-dir", ckpt_dir,
+            "--devices", str(DP_RANKS), "--mesh", f"{DP_RANKS}x1", "--fsdp",
+            "--fsdp-bucket-bytes", str(FSDP_BUCKET),
+            "--collective-backend", "user", "--collective-algorithm", "ring",
+            "--collective-chunks", str(DP_CHUNKS),
+            "--rank-devices", ",".join(devices)])
+        cards = distinct(devices)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        _lib.reset_launches()
+        base, counter = counting_by_device()
+        try:
+            with no_sync():
+                report = train_mod.run(args, log_every=1)
+        finally:
+            restore_counts(base, counter)
+        launches = dict(_lib.launches)
+        cfg, tr = report.cfg, report.trainer
+        if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+            raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+        single = train_mod.kernel_launches_per_step(cfg)
+        want = {k: v * DP_RANKS * DEV_FSDP_STEPS for k, v in single.items()}
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+        card_text = per_card_launches(
+            counter, devices, DEV_FSDP_STEPS,
+            {k: single[k] for k in DEV_KERNELS}, "step")
+        losses = [m["loss"] for m in report.log]
+        if losses != fsdp_losses[:DEV_FSDP_STEPS]:
+            raise AssertionError(f"per-device FSDP losses {losses} differ "
+                                 f"from the rank-stacked run's "
+                                 f"{fsdp_losses[:DEV_FSDP_STEPS]}")
+        for t in [*tr.params, *tr.opt_state.mu, *tr.opt_state.nu]:
+            if not isinstance(t, RankShards) or t.replica or [
+                    str(d) for d in t.devices] != list(devices):
+                raise AssertionError(f"a block off its rank's device: {t}")
+        if not tr.opt_state.step.replica:
+            raise AssertionError("the step counters are not replicas")
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) / 2**30
+                 for d in cards}
+        ckpt_text = checkpoint_check(tr, DEV_FSDP_STEPS - 1)
+        # reshard_restore of that checkpoint's flat stacks onto the
+        # per-device mesh: the spec splits the rank dim over "data", so
+        # each card gets its ZeRO block
+        mesh = make_mesh((DP_RANKS, 1), ("data", "model"), devices=devices)
+        like = {"params": [torch.empty(p.shape, dtype=p.dtype, device="meta")
+                           for p in tr.params]}
+        axes = {"params": [("batch", None)] * len(tr.params)}
+        t0 = time.perf_counter()
+        got, specs = elastic.reshard_restore(
+            AsyncCheckpointer(tr.ckpt.dir, tr.ckpt.engine),
+            DEV_FSDP_STEPS - 1, like, axes, mesh)
+        reshard_s = time.perf_counter() - t0
+        if any(sp != ("data",) for sp in specs["params"]) or not all(
+                same(a, b) for a, b in zip(got["params"], tr.params)):
+            raise AssertionError("reshard_restore placed other blocks")
+        del got
+        steps_s = [m["step_time_s"] for m in report.log[1:]]
+        mean_s = sum(steps_s) / len(steps_s)
+        red = report.reducer
+        log(f"train_fsdp_devices {TRAIN_ARCH} ({DP_RANKS} ranks on "
+            f"{devices}, {FSDP_BUCKET >> 20} MiB buckets, ring, {DP_CHUNKS} "
+            f"chunks, under no_sync): launches {launches}; a step on each "
+            f"card: {card_text}; losses {[round(v, 6) for v in losses]}, "
+            f"bit for bit phase 10's first {DEV_FSDP_STEPS}; mean step "
+            f"{mean_s * 1e3:.3f} ms (steps 1-{DEV_FSDP_STEPS - 1}; step 0 "
+            f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; prefetch "
+            f"overlap {red.prefetch_overlap:.3f} over {red.gathers} chained "
+            f"gathers, {report.reduce_dispatches} dispatch units a step; "
+            f"{ckpt_text} ({report.layout.num_buckets} buckets of blocks, "
+            f"the stacked run's files); reshard_restore of it onto {mesh}: "
+            f"each card its block, in {reshard_s:.3f} s; peak device "
+            f"memory " + ", ".join(f"{d} {v:.2f} GiB"
+                                   for d, v in peaks.items()))
+        return launches, report
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def fsdp_devices_breakdown(report, devices, steps: int = 1) -> None:
+    """One per-device FSDP step on the trained blocks and one fixed batch,
+    as the Trainer runs it (gather waited, each rank's pass on its card,
+    reduce-scatter, AdamW on each card's blocks, the next gather chained
+    off the optimizer's compute futures), under the profiler: each card's
+    busy ms and idle share, beside the Trainer's unprofiled mean step;
+    the prefetch overlap."""
+    from repro_torch.collectives.overlap import FsdpReducer
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt_mod
+    tr, cfg = report.trainer, report.cfg
+    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), devices=devices)
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    grad_fn, apply_fn, _, _ = train_mod.build_fsdp_programs(
+        cfg, ocfg, mesh, report.layout)
+    red = FsdpReducer(mesh, "data", engine=ProgressEngine(),
+                      chunks=DP_CHUNKS, bucket_bytes=FSDP_BUCKET)
+    batch = {k: torch.from_numpy(v.copy()).pin_memory() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+    state = {"s": tr.params, "o": tr.opt_state, "g": None}
+
+    def run(k=steps):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            pending = state["g"] or red.igather(state["s"])
+            flats = pending.wait(timeout=600)
+            smets, fg = grad_fn(flats, batch)
+            del flats
+            gs = red.ireduce_scatter(fg).wait(timeout=600)
+            del fg
+            state["s"], state["o"], _ = apply_fn(state["s"], state["o"], gs,
+                                                 smets)
+            del gs
+            state["g"] = red.igather(state["s"], after=[
+                red.future(sh) for sh in state["s"]])
+        state["g"].wait(timeout=600)
+        sync_all(devices)
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    steps_s = [m["step_time_s"] for m in report.log[1:]]
+    wall = sum(steps_s) * 1e3 / len(steps_s)     # the Trainer's, unprofiled
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    overlap = red.prefetch_overlap
+    red.close()
+    busy = busy_by_device(prof)
+    if not busy:
+        log(f"time: fsdp_devices step wall {wall:.3f} ms; per-device busy "
+            f"and idle not measured (no profiler events)")
+        return
+    log(f"time: fsdp_devices step ({TRAIN_ARCH}, {DP_RANKS} ranks on "
+        f"{devices}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): the Trainer's mean "
+        f"step {wall:.3f} ms ({wall_prof:.3f} ms a step under the "
+        f"profiler); "
+        + "; ".join(f"cuda:{d} busy {v / steps:.3f} ms, idle share "
+                    f"{1 - v / steps / wall_prof:.3f}"
+                    for d, v in sorted(busy.items()))
+        + f"; prefetch overlap {overlap:.3f}")
+
+
+def fsdp_devices_chaos(devices) -> None:
+    """FSDP at full width and ``DEV_CHAOS_LAYERS`` layers with a device per
+    rank: 2 of 4 ranks killed after step ``ELASTIC_KILL`` - 1, the
+    survivors on the first 2 devices, against a restart there (phase 10's
+    ``elastic_run``): bit for bit when two identical restarts agree bit
+    for bit, else within ``ELASTIC_LOSS_ATOL``."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    cfg = make_config(TRAIN_ARCH, "full").with_overrides(
+        num_layers=DEV_CHAOS_LAYERS)
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=2,
+                               total_steps=ELASTIC_STEPS)
+    it = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=5))
+    batches = [{k: torch.from_numpy(v.copy()).cuda()
+                for k, v in next(it).items()} for _ in range(ELASTIC_STEPS)]
+    params0 = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    kw = dict(devices=devices)
+    ref1 = elastic_run(True, cfg, ocfg, params0, batches, chaos=False, **kw)
+    ref2 = elastic_run(True, cfg, ocfg, params0, batches, chaos=False, **kw)
+    free()
+    chaos = elastic_run(True, cfg, ocfg, params0, batches, chaos=True, **kw)
+    same_refs = ref1[0] == ref2[0] and all(
+        torch.equal(a, b) for a, b in zip(ref1[1], ref2[1]))
+    exact = chaos[0] == ref1[0] and all(
+        torch.equal(a, b) for a, b in zip(chaos[1], ref1[1]))
+    info = chaos[2]
+    log(f"devices: fsdp chaos kill of 2 of {DP_RANKS} ranks at step "
+        f"{ELASTIC_KILL} of {ELASTIC_STEPS} ({DEV_CHAOS_LAYERS} layers, full "
+        f"width, {devices} -> {devices[:2]}): 1 recovery, "
+        f"{info['failed_starts']} in-flight start(s) failed, remesh + "
+        f"re-shard {info['remesh_ms']:.3f} ms; two identical restarts "
+        f"{'agree' if same_refs else 'differ'} bit for bit; chaos vs "
+        f"restart losses {[round(v, 6) for v in chaos[0]]}, "
+        f"{'bit for bit' if exact else 'not bit for bit'}")
+    if same_refs and not exact:
+        raise AssertionError("per-device fsdp chaos differs from a "
+                             "deterministic restart")
+    if not same_refs:
+        hold_losses("per-device fsdp chaos vs restart", chaos[0], ref1[0],
+                    ELASTIC_LOSS_ATOL)
+
+
+def serve_devices(stacked: list, devices) -> dict:
+    """qwen2-0.5b, full width at ``DEV_SERVE_LAYERS`` layers, on 4 model
+    ranks with a card a rank (16 requests through 8 lanes, as phase 11):
+    the user backend (ring, ``SHARD_CHUNKS`` chunks; the main path, its
+    launches returned) and the native one, bit for bit, one gather start
+    a step; both against phase 11's stacked caller-driven streams at this
+    depth (``stacked``): bit for bit, else the share of agreeing tokens,
+    held to ``SHARD_TOKEN_SHARE``.  Then the recovery mid decode, 4 -> 2
+    ranks on the user backend (``devices_recovery``)."""
+    from repro_torch.collectives.rank_shards import RankShards, tree_shard
+    from repro_torch.models.layers import tree_leaves
+    flags = ("--rank-devices", ",".join(devices))
+    out, launches, params, cfg = {}, None, None, None
+    for backend in ("user", "native"):
+        with no_sync() if backend == "user" else contextlib.nullcontext():
+            n_launch, srv, report = serve(
+                workers=0, extra=sharded_flags(SHARDS, backend) + flags,
+                num_layers=DEV_SERVE_LAYERS)
+        check_sharded(report, SHARDS, backend)
+        for path, t in [*tree_leaves(srv.params),
+                        *tree_leaves(srv.slots.cache)]:
+            if not isinstance(t, RankShards) or [
+                    str(d) for d in t.devices] != list(devices):
+                raise AssertionError(f"{path}: not a replica a rank: {t}")
+        out[backend] = streams(report)
+        if backend == "user":
+            launches = n_launch
+            cfg, params = srv.cfg, tree_shard(srv.params, 0)
+        del srv, report
+        free()
+    share = token_share(out["user"], stacked)
+    log(f"check: per-device sharded serve {ARCH} ({DEV_SERVE_LAYERS} "
+        f"layers) on {devices}: user == native bit for bit "
+        f"{out['user'] == out['native']}; against phase 11's stacked "
+        f"streams {'bit for bit' if out['user'] == stacked else 'not bit for bit'}"
+        f", {share:.4f} of the greedy tokens agree (limit "
+        f"{SHARD_TOKEN_SHARE})")
+    if out["user"] != out["native"]:
+        raise AssertionError("per-device user and native streams differ")
+    if share < SHARD_TOKEN_SHARE:
+        raise AssertionError("per-device streams off the stacked ones")
+    devices_recovery(cfg, params, devices)
+    return launches
+
+
+def devices_recovery(cfg, params, devices) -> None:
+    """A membership change mid decode, 4 -> 2 ranks, on the user backend
+    with a device per rank, held as ``recovery_phase`` holds its cases:
+    lanes restored, not replayed, into the pool replica of both
+    surviving cards (which end equal), the mesh on the first 2."""
+    from repro_torch.collectives.nonblocking import MembershipEpoch
+    from repro_torch.models.layers import tree_leaves
+    rs = np.random.RandomState(11)
+    lo, hi = RECOVERY_PROMPT
+    prompts = [rs.randint(1, cfg.vocab_size - 1, size=rs.randint(lo, hi + 1))
+               .astype(np.int32) for _ in range(RECOVERY_REQUESTS)]
+    kw = dict(n=SHARDS, devices=devices)
+    with no_sync():
+        ref, _, _, _ = direct_serve(cfg, params, prompts, **kw)
+        moved, _, _, _ = direct_serve(cfg, params, prompts, reverse=True,
+                                      **kw)
+        epoch = MembershipEpoch(n_devices=SHARDS)
+        got, srv, lat, kill_ms = direct_serve(
+            cfg, params, prompts, epoch=epoch, survivors=2,
+            kill=lambda srv, reqs: sum(len(r.out_tokens)
+                                       for r in reqs) >= 5, **kw)
+    exact = moved == ref
+    share = token_share(got, ref)
+    equal = all(torch.equal(t[0], t[1].to(t[0].device))
+                for _, t in tree_leaves(srv.slots.cache))
+    log(f"check: per-device recovery mid decode -> 2 ranks "
+        f"({DEV_SERVE_LAYERS} layers): remeshes {srv.remeshes}, mesh "
+        f"{srv.mesh}, lanes checkpointed {srv.lanes_checkpointed}, "
+        f"restored {srv.lanes_restored} into both survivors' pools (equal "
+        f"at the end: {equal}), {lat.completed} completed, {lat.failed} "
+        f"failed; rebuild {srv.recovery_s[0] * 1e3:.3f} ms, kill to idle "
+        f"{kill_ms:.1f} ms; {share:.4f} of the tokens agree with the run "
+        f"without failure (lanes moved between slots agree bit for bit: "
+        f"{exact})")
+    if srv.remeshes != 1 or not srv.lanes_restored or not equal or [
+            str(d) for d in srv.mesh.devices] != list(devices[:2]):
+        raise AssertionError("per-device recovery: not restored on both "
+                             "survivors")
+    if (got != ref) if exact else share < RECOVERY_TOKEN_SHARE:
+        raise AssertionError("per-device recovery: streams differ")
+
+
+def busy_by_stream(prof) -> tuple[dict, dict]:
+    """(device index, stream) -> busy ms (the union of its events'
+    intervals), and -> "compute" (it ran a GEMM) or "collective"."""
+    spans, names = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = (e.device_index, e.device_resource_id)
+            spans.setdefault(key, []).append((e.time_range.start,
+                                              e.time_range.end))
+            names.setdefault(key, set()).add(e.name.lower())
+    busy = {}
+    for key, iv in spans.items():
+        merged = []
+        for a, b in sorted(iv):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy[key] = sum(b - a for a, b in merged) / 1e3
+    roles = {k: "compute" if any(g in nm for nm in v for g in GEMM_NAMES)
+             else "collective" for k, v in names.items()}
+    return busy, roles
+
+
+def serve_devices_breakdown(devices, calls: int = 5) -> None:
+    """qwen2-0.5b at full width and depth, a replica on each of 4 ranks'
+    cards: one fused call (each rank's ``decode_hidden_paged`` and
+    vocabulary slice on its card, then a start of the persistent
+    user-space all-gather, waited by polling).  Each card's launches for
+    one call (``rmsnorm_fwd`` 49 and ``flash_decode`` 24 a rank); the
+    partial logits, gathered to ``cuda:0``, against the rank-stacked
+    ``unembed_ranks`` of rank 0's hidden state within
+    ``SHARD_LOGITS_ATOL``; host wall (unprofiled) against each card's
+    busy time and idle share and the gather's device time."""
+    from repro_torch.collectives.nonblocking import (CollectiveSpec,
+                                                     UserCollectives)
+    from repro_torch.collectives.rank_shards import RankShards, tree_shard
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeEngine
+    cfg = make_config(ARCH, "full")
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    mesh = make_mesh((SHARDS,), ("model",), devices=devices)
+    srv = ServeEngine(cfg, params, ProgressEngine(), batch_slots=LANES,
+                      max_seq=MAX_SEQ, mesh=mesh, kv_block_size=BLOCK,
+                      collective_spec=CollectiveSpec(backend="user",
+                                                     chunks=SHARD_CHUNKS))
+    del params
+    rs = np.random.RandomState(3)
+    toks = rs.randint(0, cfg.vocab_size, (LANES, 1)).astype(np.int32)
+    pos = rs.randint(MIN_PROMPT, MAX_PROMPT + MAX_NEW, LANES).astype(np.int32)
+    nb = srv.slots.max_blocks
+    tables = (1 + np.arange(LANES * nb, dtype=np.int32)).reshape(LANES, nb)
+    args = [srv.slots.place(a) for a in (toks, pos, tables)]
+    base, counter = counting_by_device()
+    try:
+        part, _ = srv._decode(srv.slots.cache, *args, None)
+    finally:
+        restore_counts(base, counter)
+    card_text = per_card_launches(
+        counter, devices, 1, {"rmsnorm_fwd": 2 * cfg.num_layers + 1,
+                              "flash_decode": cfg.num_layers}, "call")
+    # rank 0's hidden state, unembedded by the stacked batched product
+    first = mesh.devices[0]
+    p0, c0 = tree_shard(srv.params, 0), tree_shard(srv.slots.cache, 0)
+    with torch.cuda.device(first):
+        hid, _ = registry.decode_hidden_paged(p0, cfg, c0, *(a[0]
+                                                              for a in args))
+        want = registry.unembed_ranks(p0, cfg, hid[:, -1], SHARDS)
+    err = float((part.to_stacked(first) - want).abs().max())
+    log(f"check: per-device partial logits of one full-depth fused call, "
+        f"gathered to {first}, against the stacked unembed_ranks of rank "
+        f"0's hidden state: max abs err {err:.3e} (limit "
+        f"{SHARD_LOGITS_ATOL}); launches in the call: {card_text}")
+    if not err <= SHARD_LOGITS_ATOL:
+        raise AssertionError("per-device partial logits off the stacked")
+    coll = UserCollectives(ProgressEngine(), name="breakdown")
+    h = coll.allgather_init(RankShards(
+        torch.empty((1, LANES, cfg.vocab_size // SHARDS), device=d)
+        for d in mesh.devices), mesh, "model",
+        spec=srv.collective_spec, warmup=True)
+
+    def step():
+        out, _ = srv._decode(srv.slots.cache, *args, None)
+        return h.start(out).wait(timeout=60)
+
+    def run(k=calls):
+        t0 = time.perf_counter()
+        for _ in range(k):
+            step()
+        sync_all(devices)
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    run(1)
+    wall = run()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    h.close()
+    coll.close()
+    srv.close()
+    busy, roles = busy_by_stream(prof)
+    head = (f"time: per-device sharded fused call ({ARCH}, {SHARDS} ranks "
+            f"on {devices}, {LANES} lanes, user all-gather ring "
+            f"{SHARD_CHUNKS} chunks): wall {wall:.3f} ms ({wall_prof:.3f} "
+            f"ms under the profiler)")
+    if not busy:
+        log(head + "; device busy not measured (no profiler events)")
+        return
+    per_card = busy_by_device(prof)
+    gather = sum(v for k, v in busy.items() if roles[k] == "collective")
+    log(head + "; " + "; ".join(
+        f"cuda:{d} busy {v / calls:.3f} ms, idle share "
+        f"{1 - v / calls / wall_prof:.3f}" for d, v in sorted(per_card.items()))
+        + f"; the gather's device time {gather / calls:.3f} ms a call "
+        f"(its streams on every card)")
+
+
+def devices_phase(dp_losses: list, fsdp_losses: list,
+                  sharded: list) -> dict:
     """Phase 16: the mesh with one device per rank (distinct cards where
     the machine has 4, else cuda:0 four times): the collectives, the
     timed 256 MiB allreduce, data-parallel smollm-360m at full width
-    against phase 9, its per-device breakdown, a chaos kill; returns the
-    data-parallel run's launches."""
+    against phase 9 (``dp_losses``), its per-device breakdown, a chaos
+    kill; FSDP against phase 10's user run (``fsdp_losses``), its
+    breakdown and chaos; sharded serving against phase 11's streams at
+    ``DEV_SERVE_LAYERS`` layers (``sharded``), its recovery and a
+    full-depth fused call's breakdown.  Returns the three main paths'
+    launches."""
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
     devices = rank_devices()
@@ -3594,8 +4121,25 @@ def devices_phase(dp_losses: list) -> dict:
     free()
     devices_chaos(devices)
     free()
+    t1 = time.perf_counter()
+    log(f"devices: data-parallel parts done in {t1 - t0:.1f} s")
+    fsdp_launches, report = train_fsdp_devices(fsdp_losses, devices)
+    fsdp_devices_breakdown(report, devices)
+    del report
+    free()
+    fsdp_devices_chaos(devices)
+    free()
+    t2 = time.perf_counter()
+    log(f"devices: FSDP parts done in {t2 - t1:.1f} s")
+    serve_launches = serve_devices(sharded, devices)
+    free()
+    serve_devices_breakdown(devices)
+    free()
+    log(f"devices: sharded serving parts done in "
+        f"{time.perf_counter() - t2:.1f} s")
     log(f"devices phase: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {"train_devices": launches, "train_fsdp_devices": fsdp_launches,
+            "serve_devices": serve_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3710,11 +4254,12 @@ def sharded_time_breakdown(srv, calls: int = 10) -> None:
 def direct_serve(cfg, params, prompts, *, n, backend="user", workers=0,
                  start=True, epoch=None, kill=None, watchdog=False,
                  survivors=None, prefill_chunk=8, reverse=False,
-                 max_new=RECOVERY_NEW):
+                 max_new=RECOVERY_NEW, devices=None):
     """``ServeEngine`` on the launcher's weights, driven here so that a
     membership change can land at a chosen point: ``kill(srv, reqs)``
     polled between progress calls; then the epoch is invalidated down to
-    ``survivors``, or a step watchdog on a stepped clock fires.  Returns
+    ``survivors``, or a step watchdog on a stepped clock fires.  With
+    ``devices`` the n ranks are on ``devices[:n]``, one each.  Returns
     the streams, the closed engine, its latency snapshot and the ms from
     the kill to idle."""
     from repro_torch.collectives.nonblocking import CollectiveSpec
@@ -3726,7 +4271,11 @@ def direct_serve(cfg, params, prompts, *, n, backend="user", workers=0,
     ex = ProgressExecutor(eng, workers) if workers else None
     if ex is not None and start:
         ex.start()
-    mesh = make_mesh((n,), ("model",), "cuda") if n > 1 else None
+    mesh = None
+    if n > 1 and devices is not None:
+        mesh = make_mesh((n,), ("model",), devices=devices[:n])
+    elif n > 1:
+        mesh = make_mesh((n,), ("model",), "cuda")
     srv = ServeEngine(cfg, params, eng, batch_slots=LANES, max_seq=MAX_SEQ,
                       executor=ex, mesh=mesh, kv_block_size=BLOCK,
                       collective_spec=CollectiveSpec(backend=backend,
@@ -3769,7 +4318,8 @@ def direct_serve(cfg, params, prompts, *, n, backend="user", workers=0,
 
 
 def recovery_phase(cfg, params) -> None:
-    """Membership changes at full width on the user backend, 4 model
+    """Membership changes at full width (at ``DEV_SERVE_LAYERS`` layers,
+    for the script's time) on the user backend, 4 model
     ranks, against a run of the same requests without failure: mid decode
     down to 2 ranks (KV restored, not replayed) and down to 1 (the
     unsharded fallback), mid prefill, and a watchdog-fired restart."""
@@ -3809,7 +4359,8 @@ def recovery_phase(cfg, params) -> None:
             got, srv, lat, kill_ms = direct_serve(cfg, params, prompts,
                                                   n=SHARDS, epoch=epoch, **kw)
         share = token_share(got, ref)
-        log(f"check: recovery {name}: remeshes {srv.remeshes}, model ranks "
+        log(f"check: recovery {name} ({cfg.num_layers} layers): remeshes "
+            f"{srv.remeshes}, model ranks "
             f"after {srv._model_shards}, lanes checkpointed "
             f"{srv.lanes_checkpointed}, restored {srv.lanes_restored}, "
             f"{lat.completed} completed, {lat.failed} failed; rebuild "
@@ -3896,14 +4447,17 @@ def unstarted_executor_check(cfg, params) -> None:
         raise AssertionError("the unstarted executor served other streams")
 
 
-def serve_sharded_phase(unsharded: list) -> dict:
+def serve_sharded_phase(unsharded: list) -> tuple:
     """Phase 11.  qwen2-0.5b at full width on 4 model ranks of the card
     (16 requests through 8 lanes, as phase 3): the user backend (ring,
-    2 chunks; the main path, its launches returned), the native backend
+    2 chunks; the main path, its launches returned) against phase 3's
+    streams (``unsharded``); at ``DEV_SERVE_LAYERS`` layers the user
+    backend caller-driven (its streams returned too), the native backend
     with every fused call's partial logits held against the unsharded
-    unembed, both against phase 3's streams (``unsharded``); two progress
-    workers (at 6 layers); an unstarted executor; mamba2-1.3b on 2 ranks; the recovery
-    cases; the launcher's ``--chaos-kill 2``; the lane round trip."""
+    unembed, and two progress workers, both bit for bit the
+    caller-driven streams; an unstarted executor;
+    mamba2-1.3b on 2 ranks; the recovery cases; the launcher's
+    ``--chaos-kill 2``; the lane round trip."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import registry, transformer
     with no_sync():
@@ -3916,6 +4470,17 @@ def serve_sharded_phase(unsharded: list) -> dict:
     cfg, params = srv.cfg, srv.params
     del srv
     free()
+    # the caller-driven user run at phase 16's per-device serving depth:
+    # the native backend and two progress workers are held against it,
+    # and phase 16 holds its per-device runs against its streams
+    depth = dict(num_layers=DEV_SERVE_LAYERS)
+    with no_sync():
+        _, srv, report = serve(workers=0, extra=sharded_flags(SHARDS, "user"),
+                               **depth)
+    caller = streams(report)
+    # the recovery cases run at this depth too
+    cfg_cut, params_cut = srv.cfg, srv.params
+    del srv, report
     errs = []
     real = registry.unembed_ranks
 
@@ -3929,7 +4494,7 @@ def serve_sharded_phase(unsharded: list) -> dict:
     registry.unembed_ranks = held
     try:
         _, srv, report = serve(workers=0,
-                               extra=sharded_flags(SHARDS, "native"))
+                               extra=sharded_flags(SHARDS, "native"), **depth)
     finally:
         registry.unembed_ranks = real
     check_sharded(report, SHARDS, "native")
@@ -3937,32 +4502,26 @@ def serve_sharded_phase(unsharded: list) -> dict:
     del srv, report
     err = float(torch.stack(errs).max())
     share = token_share(user, unsharded)
-    log(f"check: sharded serve {ARCH} on {SHARDS} ranks: user == native bit "
-        f"for bit {user == native}; {len(errs)} fused calls' concatenated "
-        f"partial logits against the unsharded unembed: max abs err "
-        f"{err:.3e} (limit {SHARD_LOGITS_ATOL}); {share:.4f} of the greedy "
-        f"tokens agree with phase 3's unsharded run (limit "
+    log(f"check: sharded serve {ARCH} on {SHARDS} ranks: native == user bit "
+        f"for bit at {DEV_SERVE_LAYERS} layers {caller == native}; "
+        f"{len(errs)} fused calls' concatenated partial logits against the "
+        f"unsharded unembed: max abs err {err:.3e} (limit "
+        f"{SHARD_LOGITS_ATOL}); {share:.4f} of the full-depth user run's "
+        f"greedy tokens agree with phase 3's unsharded run (limit "
         f"{SHARD_TOKEN_SHARE})")
-    if user != native:
+    if caller != native:
         raise AssertionError("user and native sharded streams differ")
     if err > SHARD_LOGITS_ATOL or share < SHARD_TOKEN_SHARE:
         raise AssertionError("the sharded logits are off the unsharded ones")
     free()
-    # two progress workers, at phase 3's two-worker depth, against the
-    # caller-driven run at that depth
-    depth = dict(num_layers=SERVE_WORKERS_LAYERS)
     with no_sync():
-        _, srv, report = serve(workers=0, extra=sharded_flags(SHARDS, "user"),
-                               **depth)
-        caller = streams(report)
-        del srv, report
         _, srv, report = serve(workers=2, extra=sharded_flags(SHARDS, "user"),
                                **depth)
     check_sharded(report, SHARDS, "user")
     if streams(report) != caller:
         raise AssertionError("executor-driven starts served other streams")
     log(f"check: two progress workers (executor-driven starts) serve the "
-        f"caller-driven streams bit for bit ({SERVE_WORKERS_LAYERS} of "
+        f"caller-driven streams bit for bit ({DEV_SERVE_LAYERS} of "
         f"{FULL_WIDTH[ARCH][0]} layers)")
     del srv, report
     free()
@@ -3982,10 +4541,12 @@ def serve_sharded_phase(unsharded: list) -> dict:
         f"requests): user == native bit for bit {m['user'] == m['native']}")
     if m["user"] != m["native"]:
         raise AssertionError("mamba2 user and native sharded streams differ")
-    recovery_phase(cfg, params)
+    recovery_phase(cfg_cut, params_cut)
+    del params_cut
     with no_sync():
         _, srv, report = serve(
             workers=0, requests=RECOVERY_REQUESTS,
+            num_layers=DEV_SERVE_LAYERS,
             extra=sharded_flags(SHARDS, "user") + (
                 "--chaos-kill", "2", "--min-prompt", "16",
                 "--max-prompt", "64"))
@@ -3995,7 +4556,7 @@ def serve_sharded_phase(unsharded: list) -> dict:
     free()
     lane_round_trip(cfg, params)
     free()
-    return launches
+    return launches, caller
 
 
 # ---------------------------------------------------------------------------
@@ -4121,7 +4682,8 @@ def moe_phase() -> dict:
     ``GROK_SERVE_LAYERS`` of its 64 layers, then one granite MoE layer
     expert-parallel on 4 ranks."""
     runs = {}
-    runs["serve_granite"], srv, report = serve(workers=0, arch=GRANITE)
+    runs["serve_granite"], srv, report = serve(
+        workers=0, arch=GRANITE, num_layers=GRANITE_SERVE_LAYERS)
     time_breakdown(srv)
     decode_paths_check(srv)
     del srv, report
@@ -4410,7 +4972,8 @@ def families_phase() -> dict:
     trained at ``PIXTRAL_LAYERS`` of its 40 layers with vision
     embeddings."""
     runs = {}
-    runs["serve_zamba2"], srv, report = serve(workers=0, arch=ZAMBA)
+    runs["serve_zamba2"], srv, report = serve(
+        workers=0, arch=ZAMBA, num_layers=ZAMBA_SERVE_LAYERS)
     time_breakdown(srv)
     decode_paths_check(srv, kvs=("bf16",))
     del srv, report
@@ -5170,8 +5733,9 @@ def main(argv: list) -> int:
               f"attention kernels and phase 12; --only families the kernels "
               f"at the last three families' shapes and phase 13; --only "
               f"context phase 14; --only cells the kernels at the assigned "
-              f"shapes and phase 15; --only devices the data-parallel run "
-              f"and phase 16)", file=sys.stderr)
+              f"shapes and phase 15; --only devices the data-parallel, "
+              f"FSDP and sharded runs it compares with and phase 16)",
+              file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5191,14 +5755,27 @@ def main(argv: list) -> int:
     _lib.lib()
 
     if argv == ["--only", "devices"]:
-        # a partial run (phase 9's data-parallel run and phase 16); it
-        # prints no result line
+        # a partial run (phase 9's data-parallel run, phase 10's user
+        # FSDP run, phase 11's stacked sharded run at phase 16's serving
+        # depth, and phase 16); it prints no result line
         _, report = train_dp(None)
         dp_losses = [m["loss"] for m in report.log]
         del report
         free()
-        launches = devices_phase(dp_losses)
-        log(f"partial run: launches of the per-device run {launches}; "
+        _, report, fsdp_losses = train_fsdp("user")
+        del report
+        free()
+        with no_sync():
+            _, srv, report = serve(workers=0,
+                                   extra=sharded_flags(SHARDS, "user"),
+                                   num_layers=DEV_SERVE_LAYERS)
+        sharded = streams(report)
+        del srv, report
+        free()
+        log(f"the runs phase 16 compares with done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        launches = devices_phase(dp_losses, fsdp_losses, sharded)
+        log(f"partial run: launches of the per-device runs {launches}; "
             f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         return 0
@@ -5260,7 +5837,7 @@ def main(argv: list) -> int:
         unsharded = streams(report)
         del srv, report
         free()
-        launches = serve_sharded_phase(unsharded)
+        launches, _ = serve_sharded_phase(unsharded)
         log(f"partial run: launches of the sharded serve run {launches}; "
             f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -5276,7 +5853,7 @@ def main(argv: list) -> int:
         dp_losses = [m["loss"] for m in report.log]
         del report
         free()
-        launches = parallel_phase(single_losses, dp_losses)
+        launches, _ = parallel_phase(single_losses, dp_losses)
         log(f"partial run: launches of the FSDP run {launches}; total "
             f"{time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -5318,7 +5895,7 @@ def main(argv: list) -> int:
     single_losses = [m["loss"] for m in report.log]
     del report
     free()
-    train(workers=2)
+    train(workers=2, layers=TRAIN_WORKERS_LAYERS)
     free()
     runs["train_mamba"], report = train(workers=0, arch=MAMBA,
                                         layers=MAMBA_TRAIN_LAYERS)
@@ -5344,13 +5921,14 @@ def main(argv: list) -> int:
     dp_gradient_check(layers=2)
     free()
     log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
-    runs["train_fsdp"] = parallel_phase(single_losses, dp_losses)
+    runs["train_fsdp"], fsdp_losses = parallel_phase(single_losses,
+                                                     dp_losses)
     log(f"parallel phase done at {time.perf_counter() - t_start:.1f} s")
-    runs["train_devices"] = devices_phase(dp_losses)
-    log(f"devices phase done at {time.perf_counter() - t_start:.1f} s")
-    runs["serve_sharded"] = serve_sharded_phase(unsharded)
+    runs["serve_sharded"], sharded = serve_sharded_phase(unsharded)
     free()
     log(f"sharded serve phase done at {time.perf_counter() - t_start:.1f} s")
+    runs.update(devices_phase(dp_losses, fsdp_losses, sharded))
+    log(f"devices phase done at {time.perf_counter() - t_start:.1f} s")
     remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
                                         layers=MAMBA_DOTS_LAYERS)]
     runs["remat"] = {k: remat[0][k] + remat[1][k] for k in remat[0]}
@@ -5386,13 +5964,16 @@ def main(argv: list) -> int:
         row["launches_train_dp"] = n["train_dp"]
         row["launches_train_fsdp"] = n["train_fsdp"]
         row["launches_train_devices"] = n["train_devices"]
+        row["launches_train_fsdp_devices"] = n["train_fsdp_devices"]
         row["launches_serve_sharded"] = n["serve_sharded"]
+        row["launches_serve_devices"] = n["serve_devices"]
         for name, *_ in CELLS:
             row[f"launches_cell_{name}"] = n[f"cell_{name}"]
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_remat"] + n["train_dp"]
                            + n["train_fsdp"] + n["train_devices"]
-                           + n["serve_sharded"]
+                           + n["train_fsdp_devices"] + n["serve_sharded"]
+                           + n["serve_devices"]
                            + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
     reference_check()
@@ -5416,7 +5997,8 @@ def main(argv: list) -> int:
             "launches_train_whisper", "launches_train_pixtral",
             "launches_train_ring", "launches_remat", "launches_train_dp",
             "launches_train_fsdp", "launches_train_devices",
-            "launches_serve_sharded",
+            "launches_train_fsdp_devices", "launches_serve_sharded",
+            "launches_serve_devices",
             *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",
             "path", "max_abs_err", "ms", "ms_with_sum",

@@ -15,7 +15,10 @@ visits them), lists and tuples; a rank-stacked leaf is ``[n, *shape]``,
 rank r's value in row r.  On a mesh with a device per rank the
 ``EngineGradReducer`` takes ``RankShards`` leaves instead (rank r's
 ``[1, *shape]`` on its device) and returns each rank's reduced copy on
-its device.
+its device; FSDP's flat buckets are ``RankShards`` blocks likewise (rank
+r's ``[1, W/n]`` shard and ``[1, W]`` gathered flat on its device), and
+the ``FsdpReducer``'s reduce-scatters and chained gathers copy between
+the devices.
 """
 from __future__ import annotations
 
@@ -436,8 +439,10 @@ class FsdpLayout:
     def shard_params(self, params, mesh=None, axis: str = "data"):
         """Full params -> list of ``[n, W/n]`` shard stacks (row ``r`` is
         rank ``r``'s block — ZeRO-3 resident state), on ``mesh``'s device
-        (default: the leaves' own).  ``axis`` names the data axis, whose
-        size must be the layout's ``n``."""
+        (default: the leaves' own).  On a mesh with a device per rank, one
+        ``RankShards`` per bucket instead: rank ``r``'s block ``[1, W/n]``
+        on ``mesh.devices[r]`` (glued, the stack).  ``axis`` names the
+        data axis, whose size must be the layout's ``n``."""
         if mesh is not None and dict(mesh.shape)[axis] != self.n:
             raise ValueError(f"mesh axis {axis!r} has "
                              f"{dict(mesh.shape)[axis]} ranks, the layout "
@@ -445,17 +450,25 @@ class FsdpLayout:
         leaves, _ = tree_flatten(params)
         out = []
         for b in range(self.num_buckets):
-            flat = self.flatten_bucket(leaves, b)
-            if mesh is not None:
+            flat = self.flatten_bucket(leaves, b).reshape(
+                self.n, self.widths[b] // self.n)
+            if mesh is not None and mesh.per_device:
+                flat = RankShards.from_stacked(flat, mesh)
+            elif mesh is not None:
                 flat = flat.to(mesh.device)
-            out.append(flat.reshape(self.n, self.widths[b] // self.n))
+            out.append(flat)
         return out
 
-    def unshard_params(self, shards):
-        """Shard stacks ``[n, W/n]`` -> the full parameter tree (views of
-        the stacks; for checkpointing, eval and re-sharding — the
-        training path gathers through the engine instead)."""
-        return self.unflatten([s.reshape(-1) for s in shards])
+    def unshard_params(self, shards, device=None):
+        """Shard stacks ``[n, W/n]``, or ``RankShards`` of the blocks ->
+        the full parameter tree (views of the stacks; the blocks glued on
+        ``device``, default rank 0's — for checkpointing, eval and
+        re-sharding; the training path gathers through the engine
+        instead)."""
+        return self.unflatten([
+            (s.to_stacked(device if device is not None else s.devices[0])
+             if isinstance(s, RankShards) else s).reshape(-1)
+            for s in shards])
 
 
 class FsdpReduction:
@@ -626,7 +639,9 @@ class FsdpReducer:
     a membership change fails in-flight FSDP starts exactly once and
     ``remesh`` rebuilds on the survivors.  Works on any mesh whose
     ``axis`` names the data dimension; other mesh axes (``model``)
-    replicate, so the payloads carry one row per data rank."""
+    replicate, so the payloads carry one row per data rank.  On a mesh
+    with a device per rank every payload is a ``RankShards`` (rank r's
+    row on its device) and ``future`` records an event on each card."""
 
     def __init__(self, mesh, axis: str = "data", *, engine=None,
                  collectives=None, spec=None, algorithm: str = "ring",

@@ -17,7 +17,13 @@ shards' dtype.
 A value every rank holds whole (a parameter replica, a reduced gradient)
 is also a ``RankShards``, of equal copies (``replicate``); trees of such
 leaves go through ``tree_shard`` (rank ``r``'s tree), ``tree_stack`` (the
-inverse) and ``tree_keep`` (the first ``k`` ranks).  ``local(fn, *xs)``
+inverse) and ``tree_keep`` (the first ``k`` ranks).  Which of the two a
+leaf is, the leaf says: ``replica`` is True for copies of one value
+(``replicate``, ``tree_stack(..., replica=True)``; ``tree_keep`` keeps
+the mark) and False for the blocks of a stacked tensor (the default:
+``from_stacked``, a collective's payloads, ZeRO shards).  The checkpoint
+saves a replica once and the blocks glued; nothing infers the mark from
+equal values.  ``local(fn, *xs)``
 applies ``fn`` to each rank's shards, or to the tensors themselves in the
 stacked form: the trailing-dim code of the schedules runs unchanged on
 both.
@@ -33,9 +39,9 @@ class RankShards:
     """One local tensor per rank, each on its rank's device.  Every shard
     has the same shape and dtype."""
 
-    __slots__ = ("shards",)
+    __slots__ = ("shards", "replica")
 
-    def __init__(self, shards):
+    def __init__(self, shards, *, replica: bool = False):
         shards = tuple(shards)
         if not shards:
             raise ValueError("RankShards needs at least one shard")
@@ -49,12 +55,15 @@ class RankShards:
                     f"shards differ: {tuple(first.shape)} {first.dtype} "
                     f"and {tuple(s.shape)} {s.dtype}")
         self.shards = shards
+        self.replica = replica
 
     @classmethod
-    def from_stacked(cls, x: torch.Tensor, mesh) -> "RankShards":
+    def from_stacked(cls, x: torch.Tensor, mesh=None, *,
+                     devices=None) -> "RankShards":
         """The stacked tensor ``x`` (its leading dim split over the mesh's
-        ranks in order) as a copy on each rank's device."""
-        devices = mesh.devices
+        ranks in order, or over ``devices``) as a copy on each rank's
+        device."""
+        devices = mesh.devices if mesh is not None else tuple(devices)
         n = len(devices)
         if x.dim() < 1 or x.shape[0] % n:
             raise ValueError(f"leading dim of {tuple(x.shape)} does not "
@@ -100,8 +109,8 @@ class RankShards:
     def __repr__(self):
         s = self.shards[0]
         return (f"RankShards({len(self.shards)} x {tuple(s.shape)} "
-                f"{s.dtype} on [" + ", ".join(str(d) for d in self.devices)
-                + "])")
+                f"{s.dtype}{' replicas' if self.replica else ''} on ["
+                + ", ".join(str(d) for d in self.devices) + "])")
 
 
 def local(fn, *xs):
@@ -113,8 +122,8 @@ def local(fn, *xs):
 
 
 def replicate(t: torch.Tensor, devices) -> RankShards:
-    """A copy of ``t`` on each of ``devices``."""
-    return RankShards(t.to(d, copy=True) for d in devices)
+    """A copy of ``t`` on each of ``devices`` (a replica)."""
+    return RankShards((t.to(d, copy=True) for d in devices), replica=True)
 
 
 def device_context(device):
@@ -147,14 +156,17 @@ def tree_shard(tree, r: int):
                     if isinstance(ls[0], RankShards) else ls[0], [tree])
 
 
-def tree_stack(trees):
-    """Per-rank trees of tensors -> one tree of ``RankShards`` leaves."""
-    return _zip_map(RankShards, list(trees))
+def tree_stack(trees, *, replica: bool = False):
+    """Per-rank trees of tensors -> one tree of ``RankShards`` leaves
+    (replicas when ``replica``)."""
+    return _zip_map(lambda ls: RankShards(ls, replica=replica), list(trees))
 
 
 def tree_keep(tree, k: int):
-    """The first ``k`` ranks of every ``RankShards`` leaf."""
-    return _zip_map(lambda ls: RankShards(ls[0].shards[:k])
+    """The first ``k`` ranks of every ``RankShards`` leaf (a replica stays
+    one)."""
+    return _zip_map(lambda ls: RankShards(ls[0].shards[:k],
+                                          replica=ls[0].replica)
                     if isinstance(ls[0], RankShards) else ls[0], [tree])
 
 

@@ -7,8 +7,10 @@ or larger mesh is a placement decision: the sharding rules are resolved
 again against the new mesh.  On the port's rank-stacked mesh every rank
 lives on the mesh's one device, so the restored tensors are the full
 tensors on that device, returned beside the spec tree the rules give for
-the new mesh (a spec a dim cannot take raises, as in JAX).  ``remesh``
-also builds a mesh with one device per rank from the surviving devices.
+the new mesh (a spec a dim cannot take raises, as in JAX).  On a mesh
+with one device per rank each device receives the block its spec gives
+it, as JAX places a ``NamedSharding``.  ``remesh`` also builds a mesh
+with one device per rank from the surviving devices.
 Combined with ``AsyncCheckpointer``'s atomic commits, a membership loss
 costs at most the work since the last committed step.
 """
@@ -77,9 +79,58 @@ def remesh(n_devices: Optional[int] = None, prefer_model: int = 16,
 def reshard_restore(checkpointer, step: int, like_tree, axes_tree, new_mesh,
                     rules_overrides=None):
     """Restore checkpoint ``step`` onto ``new_mesh``: ``(tree, specs)``,
-    the full tensors on the mesh's device and their spec tree resolved
-    for the new mesh."""
+    the tree and its spec tree resolved for the new mesh.
+
+    On a rank-stacked mesh the leaves are the full tensors on the mesh's
+    device.  On a mesh with a device per rank each leaf is a
+    ``RankShards`` whose shard ``r`` lives on ``new_mesh.devices[r]`` and
+    is the block of the full tensor that the leaf's spec gives rank
+    ``r``'s mesh coordinate (row-major over the axes, as
+    ``jax.sharding.Mesh.devices``): the block JAX's
+    ``NamedSharding(mesh, spec).devices_indices_map(shape)`` gives the
+    r-th device.  These shards are device blocks, not rows of a stacked
+    tensor (``to_stacked`` does not glue them back unless the spec
+    splits only the leading dim); a leaf the spec replicates comes back
+    whole on every device, a replica."""
     rules = merged_rules(rules_overrides)
     with axis_rules(rules):
         specs = spec_tree(axes_tree, like_tree, new_mesh)
-    return checkpointer.restore(step, like_tree, new_mesh.device), specs
+    if not new_mesh.per_device:
+        return checkpointer.restore(step, like_tree, new_mesh.device), specs
+    full = checkpointer.restore(step, like_tree, "cpu")
+    return _place_blocks(full, specs, new_mesh), specs
+
+
+def _device_blocks(t, spec, mesh):
+    """``t`` as a ``RankShards`` of the blocks ``spec`` gives the devices
+    of a mesh with a device per rank (see ``reshard_restore``)."""
+    from repro_torch.collectives.rank_shards import RankShards
+    sizes = dict(mesh.shape)
+    parts = []
+    for r, dev in enumerate(mesh.devices):
+        coord, rest = {}, r
+        for name, size in reversed(list(zip(mesh.axis_names, mesh.sizes))):
+            coord[name], rest = rest % size, rest // size
+        index = []
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                index.append(slice(None))
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            pos, count = 0, 1
+            for a in axes:
+                pos, count = pos * sizes[a] + coord[a], count * sizes[a]
+            width = t.shape[dim] // count
+            index.append(slice(pos * width, (pos + 1) * width))
+        parts.append(t[tuple(index)].to(dev, copy=True).contiguous())
+    return RankShards(parts, replica=all(e is None for e in spec))
+
+
+def _place_blocks(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: _place_blocks(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [_place_blocks(v, sp, mesh) for v, sp in zip(tree, specs)]
+        return (type(tree)(*parts) if hasattr(tree, "_fields")
+                else type(tree)(parts))
+    return _device_blocks(tree, specs, mesh)

@@ -19,6 +19,16 @@ puts N ranks on the one device, as the train launcher does:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --devices 4 --model-shards 4 --collective-backend user
 
+``--rank-devices cuda:0,cuda:1,...`` (as many as ``--model-shards``)
+puts each model rank on a device of its own instead: a replica of the
+weights and of the paged pool on each, every rank's decode and
+vocabulary slice computed there, the gather a copy between the devices
+(``serve.engine``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --scale full \
+        --model-shards 4 --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
+        --collective-backend user
+
 Fault tolerance: one ``MembershipEpoch`` shared by the heartbeat monitor
 (``--heartbeat-timeout``), the step watchdog (``--watchdog-limit``, armed
 while the launcher serves; the JAX launcher builds it unarmed) and the
@@ -64,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-shards", type=int, default=0,
                     help="shard decode over a 'model' mesh axis of this "
                          "size (0 = unsharded)")
+    ap.add_argument("--rank-devices", default="",
+                    help="a device per model rank, comma-separated (e.g. "
+                         "cuda:0,cuda:1,cuda:2,cuda:3; a device may "
+                         "repeat); as many as --model-shards")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],   # -> one CollectiveSpec
                     help="per-step logits all-gather: native (a gather "
@@ -175,6 +189,17 @@ def run(args, **cfg_overrides) -> ServeReport:
     from repro_torch.models import registry
     from repro_torch.serve.engine import GenRequest, ServeEngine
 
+    rank_devices = None
+    if args.rank_devices:
+        rank_devices = [d.strip() for d in args.rank_devices.split(",")]
+        if len(rank_devices) != args.model_shards:
+            raise SystemExit(f"--rank-devices names {len(rank_devices)} "
+                             f"device(s) for --model-shards "
+                             f"{args.model_shards}")
+        if args.devices and args.devices != len(rank_devices):
+            raise SystemExit(f"--rank-devices names {len(rank_devices)} "
+                             f"device(s), --devices {args.devices}")
+        args.devices = len(rank_devices)
     n_ranks = max(args.devices, 1)
     if args.model_shards > n_ranks:
         raise SystemExit(f"--model-shards {args.model_shards} > {n_ranks} "
@@ -196,7 +221,13 @@ def run(args, **cfg_overrides) -> ServeReport:
             eng, args.progress_workers,
             continuation_max_drain=args.continuation_max_drain)
     mesh = None
-    if args.model_shards > 0:
+    if rank_devices is not None:
+        try:
+            mesh = make_mesh((args.model_shards,), ("model",),
+                             devices=rank_devices)
+        except RuntimeError as exc:
+            raise SystemExit(f"--rank-devices: {exc}") from None
+    elif args.model_shards > 0:
         mesh = make_mesh((args.model_shards,), ("model",), device)
     # fault tolerance: one membership epoch shared by the monitors and
     # the serve engine's persistent collectives — a dead peer or a hung
@@ -222,7 +253,7 @@ def run(args, **cfg_overrides) -> ServeReport:
                       kv_block_size=args.kv_block_size,
                       kv_blocks=args.kv_blocks or None,
                       prefill_chunk=args.prefill_chunk, epoch=epoch,
-                      device=device)
+                      device=None if rank_devices is not None else device)
     if executor is not None:
         executor.start()
     rng = np.random.RandomState(1)

@@ -13,6 +13,9 @@ elastic, or a 1F1B pipeline.
     PYTHONPATH=src python -m repro_torch.launch.train --devices 4 --fsdp \
         --collective-backend user --scale full --global-batch 8 \
         --seq 1024 --steps 6                   # FSDP over 4 ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 4 --fsdp \
+        --collective-backend user --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
+        --scale full --global-batch 8 --seq 1024 --steps 6  # a card a rank
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --scale tiny --steps 6 [--devices 4 --collective-backend user \
         [--fsdp] [--elastic --chaos-kill 2 --chaos-kill-step 2]]
@@ -61,6 +64,11 @@ moves both through an ``FsdpReducer``'s persistent handles, the next
 step's gathers chained off the optimizer's compute futures; the native
 backend stacks and sums over the rank dim in the step.  A model axis
 (``--mesh DxM``) replicates: each data rank's work is computed once.
+With ``--rank-devices`` (user backend) rank r's blocks, moments, step
+counter and pass live on its own device, the reducer's rounds copy
+between the devices, and the checkpoint holds the blocks glued in rank
+order: the stacked run's losses, shards and checkpoint files, bit for
+bit.
 
 ``--elastic`` (user backend) shares a ``MembershipEpoch`` between the
 watchdog, an optional heartbeat monitor (``--heartbeat-timeout``) and
@@ -115,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank-devices", default="",
                     help="a device per data-parallel rank, comma-separated "
                          "(e.g. cuda:0,cuda:1,cuda:2,cuda:3; a device may "
-                         "repeat); as many as --devices, user backend only")
+                         "repeat); as many as --devices, user backend "
+                         "only; composes with --fsdp")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -371,7 +380,16 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
       folded into ``grad_scale``), in place;
     * ``ag_fn(shards)`` / ``rs_fn(flat_grads)`` — the native collectives:
       every row the concatenated shards (a broadcast view), and the sum
-      over the rank dim with row r its block r."""
+      over the rank dim with row r its block r.
+
+    On a ``mesh`` with a device per rank the flats, the gradient buckets
+    and the shards are ``RankShards`` (rank r's ``[1, W]`` and ``[1,
+    W/n]`` on its device): ``grad_fn`` runs rank r's pass with its device
+    current, over views of its gathered flats, on its slice of the batch
+    copied there from the host (pinned on the card's machine), and stacks
+    the metrics on rank 0's device; ``apply_fn`` steps each rank's blocks
+    on its device.  The native pair exists only in the stacked form (the
+    per-device form moves its bytes through the ``FsdpReducer``)."""
     from repro_torch.collectives.overlap import tree_flatten
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
@@ -380,6 +398,28 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
     if dict(mesh.shape)[axis] != n:
         raise ValueError(f"mesh axis {axis!r} has {dict(mesh.shape)[axis]} "
                          f"ranks, the layout {n}")
+
+    def rank_pass(rows, local, out_rows):
+        """One rank's forward and backward over its gathered flat rows
+        ``[W]``, its f32 gradients written into ``out_rows``; its
+        metrics."""
+        leaves, rebuild = tree_flatten(layout.unflatten(rows))
+        with torch.enable_grad():
+            ps = [t.detach().requires_grad_(True) for t in leaves]
+            loss, m = registry.loss_fn(rebuild(ps), cfg, local)
+            grads = torch.autograd.grad(loss, ps)
+        for b, bucket in enumerate(layout.buckets):
+            off = 0
+            for i in bucket:
+                size = layout.sizes[i]
+                out_rows[b][off:off + size].copy_(grads[i].reshape(-1))
+                off += size
+        del grads
+        return {k: v.detach() for k, v in dict(m, loss=loss).items()}
+
+    if mesh.per_device:
+        return (*_fsdp_per_device(mesh, layout, rank_pass, ocfg), None,
+                None)
 
     def grad_fn(flats, batch):
         per = batch["tokens"].shape[0] // n
@@ -391,21 +431,9 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
             flat_g.append(g)
         mets = []
         for r in range(n):
-            leaves, rebuild = tree_flatten(
-                layout.unflatten([f[r] for f in flats]))
             local = {k: v[r * per:(r + 1) * per] for k, v in batch.items()}
-            with torch.enable_grad():
-                ps = [t.detach().requires_grad_(True) for t in leaves]
-                loss, m = registry.loss_fn(rebuild(ps), cfg, local)
-                grads = torch.autograd.grad(loss, ps)
-            for b, bucket in enumerate(layout.buckets):
-                off = 0
-                for i in bucket:
-                    size = layout.sizes[i]
-                    flat_g[b][r, off:off + size].copy_(grads[i].reshape(-1))
-                    off += size
-            del grads
-            mets.append({k: v.detach() for k, v in dict(m, loss=loss).items()})
+            mets.append(rank_pass([f[r] for f in flats], local,
+                                  [g[r] for g in flat_g]))
         stacked = {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
         return stacked, flat_g
 
@@ -422,6 +450,47 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
         return [g.sum(0).view(n, -1) for g in flat_grads]
 
     return grad_fn, apply_fn, ag_fn, rs_fn
+
+
+def _fsdp_per_device(mesh, layout, rank_pass, ocfg):
+    """``build_fsdp_programs``' ``grad_fn`` and ``apply_fn`` on a mesh with
+    a device per rank."""
+    from repro_torch.collectives.rank_shards import RankShards, \
+        device_context
+    from repro_torch.train import optimizer as opt_mod
+    devices, n = mesh.devices, layout.n
+    if len(devices) != n:
+        raise ValueError(f"{n} FSDP ranks on {mesh!r}")
+
+    def grad_fn(flats, batch):
+        per = batch["tokens"].shape[0] // n
+        grads, mets = [[] for _ in flats], []
+        for r, dev in enumerate(devices):
+            with device_context(dev):
+                rows = []
+                for b, f in enumerate(flats):
+                    g = torch.empty((1, layout.widths[b]),
+                                    dtype=torch.float32, device=dev)
+                    g[:, layout.totals[b]:].zero_()
+                    grads[b].append(g)
+                    rows.append(g[0])
+                local = {k: v[r * per:(r + 1) * per].to(dev,
+                                                        non_blocking=True)
+                         for k, v in batch.items()}
+                mets.append(rank_pass([f[r][0] for f in flats], local, rows))
+        first = devices[0]
+        stacked = {k: torch.stack([m[k].to(first) for m in mets])
+                   for k in mets[0]}
+        return stacked, [RankShards(g) for g in grads]
+
+    def apply_fn(shards, opt_state, grad_shards, stacked_mets):
+        shards, opt_state, om = opt_mod.apply_shards(
+            ocfg, opt_state, shards, grad_shards, grad_scale=1.0 / n)
+        with device_context(devices[0]):
+            mets = {k: v.mean() for k, v in stacked_mets.items()}
+        return shards, opt_state, dict(mets, **om)
+
+    return grad_fn, apply_fn
 
 
 @dataclasses.dataclass
@@ -456,8 +525,7 @@ def _rank_devices(args):
         return None
     dims = args.mesh.split("x") if args.mesh else []
     model = int(dims[1]) if len(dims) == 2 else 1     # else mesh_shape says
-    later = (("--fsdp", args.fsdp, 9),
-             ("--pipeline", args.pipeline != "none", 10),
+    later = (("--pipeline", args.pipeline != "none", 10),
              ("a model axis above 1", model > 1, 12))
     for what, on, item in later:
         if on:
@@ -466,7 +534,7 @@ def _rank_devices(args):
     if args.collective_backend != "user":
         raise SystemExit("--rank-devices needs --collective-backend user "
                          "(the ranks' gradients meet in the user-space "
-                         "allreduce)")
+                         "collectives)")
     return [torch.device(d.strip()) for d in args.rank_devices.split(",")]
 
 
@@ -481,7 +549,7 @@ def _replicate_state(params, mesh):
     for r, dev in enumerate(mesh.devices):
         with device_context(dev):
             states.append(opt_mod.init(tree_shard(params, r)))
-    return params, tree_stack(states)
+    return params, tree_stack(states, replica=True)
 
 
 def _apply_per_device(ocfg):
@@ -502,8 +570,9 @@ def _apply_per_device(ocfg):
                                           tree_shard(params, r),
                                           tree_shard(grads, r)))
         mets = {k: v.mean() for k, v in stacked_mets.items()}
-        return (tree_stack([o[0] for o in outs]),
-                tree_stack([o[1] for o in outs]), dict(mets, **outs[0][2]))
+        return (tree_stack([o[0] for o in outs], replica=True),
+                tree_stack([o[1] for o in outs], replica=True),
+                dict(mets, **outs[0][2]))
 
     return apply_fn
 
@@ -629,7 +698,8 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     if args.fsdp:
         try:
             return _run_fsdp(args, cfg, ocfg, params, device, (data, model),
-                             spec, eng, pipe, to_device, loop_overrides)
+                             spec, eng, pipe, to_device, loop_overrides,
+                             rank_devices)
         finally:
             pipe.close()
 
@@ -738,7 +808,7 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
 
 
 def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
-              to_device, loop_overrides) -> TrainReport:
+              to_device, loop_overrides, rank_devices=None) -> TrainReport:
     """ZeRO-style FSDP over the mesh's data axis.
 
     Params and AdamW moments live as flat per-dtype bucket shards
@@ -749,16 +819,26 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
     handles, with the next step's gathers chained as continuations off
     the optimizer's compute futures; ``native`` runs the same programs
     with ``ag_fn``/``rs_fn`` in the step.  The model axis replicates, so
-    the same step runs unchanged on (4,1) and (2,2)."""
+    the same step runs unchanged on (4,1) and (2,2).
+
+    With ``rank_devices`` (user backend, model axis 1) rank ``r``'s
+    blocks, moments, step counter and pass live on ``rank_devices[r]``:
+    the reducer's rounds copy between the devices, and a remesh re-shards
+    onto the survivors' devices.  The losses, the shards and the
+    checkpoint equal the rank-stacked run's bit for bit."""
     from repro_torch.collectives.nonblocking import MembershipEpoch
     from repro_torch.collectives.overlap import FsdpLayout, FsdpReducer
+    from repro_torch.collectives.rank_shards import tree_keep
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.train_loop import FsdpStep, Trainer
 
     axis = "data"
     user_backend = args.collective_backend == "user"
-    mesh = make_mesh(shape, ("data", "model"), device)
+    if rank_devices is not None:
+        mesh = make_mesh(shape, ("data", "model"), devices=rank_devices)
+    else:
+        mesh = make_mesh(shape, ("data", "model"), device)
     epoch = MembershipEpoch(mesh=mesh) if _elastic_on(args) else None
 
     def shard_state(mesh_, params_tree, mu_tree=None, nu_tree=None,
@@ -781,6 +861,9 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
         cfg, ocfg, mesh, layout, axis=axis)
 
     def on_device(fn):
+        if mesh.per_device:
+            # each rank's slice goes from the host to its own device
+            return fn
         return lambda flats, batch: fn(flats, to_device(batch))
 
     reducer, split, step_fn, remesh_fn = None, None, None, None
@@ -798,21 +881,35 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
         from repro_torch.distributed import elastic
         model_dim = shape[1]
 
+        live = {"mesh": mesh}
+
         def remesh_fn(exc, shards_, opt_state_):
             nonlocal layout
-            new_mesh = elastic.remesh(exc.survivors, prefer_model=model_dim,
-                                      device=device)
+            step = opt_state_.step
+            if live["mesh"].per_device:
+                # the survivors' mesh on the first devices it takes; their
+                # step counters carry
+                new_mesh = elastic.remesh(
+                    exc.survivors, prefer_model=1,
+                    devices=live["mesh"].devices[:exc.survivors])
+                step = tree_keep(step, new_mesh.size)
+            else:
+                new_mesh = elastic.remesh(exc.survivors,
+                                          prefer_model=model_dim,
+                                          device=device)
+            live["mesh"] = new_mesh
             print(f"remesh: {exc.survivors} survivor(s) -> mesh "
                   f"{dict(new_mesh.shape)}", flush=True)
-            # shard widths depend on the data-axis size: unshard, rebuild
-            # the layout + programs for the new mesh, re-shard params AND
+            # shard widths depend on the data-axis size: unshard (the
+            # per-device blocks glued on rank 0's device), rebuild the
+            # layout + programs for the new mesh, re-shard params AND
             # moments (the step counter carries)
             params_tree = layout.unshard_params(shards_)
             mu_tree = layout.unshard_params(opt_state_.mu)
             nu_tree = layout.unshard_params(opt_state_.nu)
             reducer.remesh(new_mesh, axis)
             layout, new_shards, new_state = shard_state(
-                new_mesh, params_tree, mu_tree, nu_tree, opt_state_.step)
+                new_mesh, params_tree, mu_tree, nu_tree, step)
             g2, a2, _, _ = build_fsdp_programs(cfg, ocfg, new_mesh, layout,
                                                axis=axis)
             return (FsdpStep(on_device(g2), a2, reducer, spec=spec),

@@ -59,6 +59,20 @@ Both sharded paths consume the same partial logits, so their greedy
 token streams are identical.  The greedy ids come from row 0, and the
 first gathered step of an engine checks that every row equals row 0.
 
+**A device per rank.**  On a mesh built with ``devices=[...]`` each
+model-axis rank holds a replica of the weights (cast once) and of the
+paged pool on its own device, as every JAX device holds the replicated
+params and pool: for each rank ``r``, with its device current, the step
+runs ``decode_hidden_paged`` on replica ``r`` and pool ``r`` and then
+``unembed_partial`` at offset ``r·V/n`` (the JAX ``local_step``), giving
+a ``RankShards`` of ``[1, B, V/n]`` partial logits.  The gather is the
+per-device ``allgather_shards`` (copies between the devices on their
+compute streams) or the persistent user-space all-gather built on that
+mesh; the greedy ids come from rank 0's row, and the step's readiness is
+an event on each device.  A rebuild takes the first surviving devices
+and restores resident lanes into every survivor's pool; a lone survivor
+serves unsharded on the first device.
+
 **Membership.**  With an ``epoch`` (a ``MembershipEpoch`` shared with the
 heartbeat monitor, the step watchdog and the persistent all-gather) a
 membership change fails the step, not the requests.  The epoch's
@@ -90,6 +104,9 @@ from repro_torch.collectives.nonblocking import (CollectiveSpec,
                                                  MembershipError,
                                                  UserCollectives,
                                                  spec_from_legacy)
+from repro_torch.collectives.rank_shards import (RankShards, device_context,
+                                                 tree_keep, tree_shard,
+                                                 tree_stack)
 from repro_torch.core import DEFERRED, DONE, ProgressEngine, Request
 from repro_torch.core import debug
 from repro_torch.core.continuations import POLICIES, ContinuationQueue
@@ -98,7 +115,7 @@ from repro_torch.core.futures import torch_future
 from repro_torch.core.stats import SchedulerStats
 from repro_torch.models import registry
 from repro_torch.models.layers import tree_map
-from repro_torch.serve.kvcache import PagedKVCache, to_device
+from repro_torch.serve.kvcache import PagedKVCache
 
 
 @dataclasses.dataclass
@@ -191,6 +208,19 @@ class _BucketBacklog:
         return sum(len(dq) for dq in self._buckets.values())
 
 
+def allgather_shards(parts: RankShards) -> RankShards:
+    """The native all-gather of per-device partial logits (shard ``r``
+    ``[1, B, w]`` on rank ``r``'s device) -> shard ``r`` ``[1, B, n·w]``,
+    the rank-order concatenation of every rank's slice on rank ``r``'s
+    device: copies between the devices, ordered on both devices' current
+    (compute) streams."""
+    out = []
+    for d in parts.devices:
+        with device_context(d):
+            out.append(torch.cat([p.to(d) for p in parts.shards], dim=-1))
+    return RankShards(out, replica=True)
+
+
 def allgather_ranks(part: torch.Tensor) -> torch.Tensor:
     """The native all-gather of rank-stacked partial logits: ``[n, B, w]``
     -> ``[n, B, n·w]``, row r the rank-order concatenation of every
@@ -199,6 +229,17 @@ def allgather_ranks(part: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(n, device=part.device).repeat(n)
     return (part.index_select(0, idx).view(n, n, B, w)
             .permute(0, 2, 1, 3).reshape(n, B, n * w))
+
+
+def _replicas(cfg, params, devices):
+    """A replica of the weights on each of ``devices``, each cast to the
+    compute dtype there (a ``RankShards`` replica per leaf)."""
+    out = []
+    for d in devices:
+        with device_context(d):
+            out.append(registry.cast_params(
+                cfg, tree_map(lambda t: t.to(d, copy=True), params)))
+    return tree_stack(out, replica=True)
 
 
 def _quantiles(samples_ms: list[float]) -> tuple[float, float, float]:
@@ -294,7 +335,13 @@ class ServeEngine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got "
                              f"{prefill_chunk}")
-        if mesh is not None:
+        per_device = mesh is not None and mesh.per_device
+        if per_device:
+            if device is not None:
+                raise ValueError(f"{mesh!r} has a device per rank: the "
+                                 f"engine takes no device= beside it")
+            device = mesh.devices[0]
+        elif mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"device {mesh.device}")
@@ -304,10 +351,14 @@ class ServeEngine:
         self.slots = PagedKVCache(cfg, batch_slots, max_seq,
                                   block_size=kv_block_size,
                                   num_blocks=kv_blocks, mesh=mesh,
-                                  device=self.device)
-        # weights move to the device and take the compute dtype once, here
-        self.params = registry.cast_params(
-            cfg, tree_map(lambda t: t.to(self.device), params))
+                                  device=None if per_device else self.device)
+        # weights move to the device (each rank's device) and take the
+        # compute dtype once, here
+        if per_device:
+            self.params = _replicas(cfg, params, mesh.devices)
+        else:
+            self.params = registry.cast_params(
+                cfg, tree_map(lambda t: t.to(self.device), params))
         self.engine = engine
         self.executor = executor
         self.mesh = mesh
@@ -435,23 +486,48 @@ class ServeEngine:
         if self.collective_spec.user:
             self.coll = UserCollectives(self.engine, executor=self.executor,
                                         name="serve-coll", epoch=self.epoch)
-            like = torch.empty((n, self.batch_slots, V // n),
-                               dtype=torch.float32, device="meta")
+            if mesh.per_device:
+                like = RankShards(torch.empty((1, self.batch_slots, V // n),
+                                              dtype=torch.float32, device=d)
+                                  for d in mesh.devices)
+            else:
+                like = torch.empty((n, self.batch_slots, V // n),
+                                   dtype=torch.float32, device="meta")
             self._ag_handle = self.coll.allgather_init(
                 like, mesh, axis, spec=self.collective_spec, warmup=True)
 
     def _decode(self, cache, toks, pos, tables, fed):
         """One fused paged call: logits [B, 1, V] unsharded; sharded, the
         rank-stacked partial logits [n, B, V/n] of ``decode_hidden_paged``
-        then ``unembed_ranks`` (every JAX rank's ``local_step`` at once)."""
+        then ``unembed_ranks`` (every JAX rank's ``local_step`` at once),
+        or, with a device per rank, each rank's ``local_step`` on its
+        device: a ``RankShards`` of [1, B, V/n] and the pool replicas."""
         if not self._sharded:
-            return registry.decode_step_paged(self.params, self.cfg, cache,
-                                              toks, pos, tables, fed)
+            with device_context(self.device):
+                return registry.decode_step_paged(self.params, self.cfg,
+                                                  cache, toks, pos, tables,
+                                                  fed)
+        if self.mesh.per_device:
+            return self._decode_per_device(cache, toks, pos, tables, fed)
         hid, cache = registry.decode_hidden_paged(self.params, self.cfg,
                                                   cache, toks, pos, tables,
                                                   fed)
         return registry.unembed_ranks(self.params, self.cfg, hid[:, -1],
                                       self._model_shards), cache
+
+    def _decode_per_device(self, cache, toks, pos, tables, fed):
+        width = self.cfg.vocab_size // self._model_shards
+        parts, caches = [], []
+        for r, d in enumerate(self.mesh.devices):
+            params = tree_shard(self.params, r)
+            with device_context(d):
+                hid, c = registry.decode_hidden_paged(
+                    params, self.cfg, tree_shard(cache, r), toks[r], pos[r],
+                    tables[r], None if fed is None else fed[r])
+                parts.append(registry.unembed_partial(
+                    params, self.cfg, hid[:, -1], r * width, width)[None])
+            caches.append(c)
+        return RankShards(parts), tree_stack(caches, replica=True)
 
     # -- client API -------------------------------------------------------
     def submit(self, request: GenRequest) -> Request:
@@ -616,8 +692,8 @@ class ServeEngine:
                 toks[idx, 0] = int(req.replay[req.prefill_pos])
                 fed[idx] = True
             _, cache = self._decode(
-                cache, to_device(toks, self.device), self.slots.positions(),
-                self.slots.block_tables(), to_device(fed, self.device))
+                cache, self.slots.place(toks), self.slots.positions(),
+                self.slots.block_tables(), self.slots.place(fed))
             for idx, req in feeding:
                 req.prefill_pos += 1
                 self.slots.slots[idx].pos += 1
@@ -688,12 +764,14 @@ class ServeEngine:
             for idx in self._active:
                 fed[idx] = True
             out, cache = self._decode(
-                self.slots.cache, to_device(toks, self.device),
+                self.slots.cache, self.slots.place(toks),
                 self.slots.positions(), self.slots.block_tables(),
-                to_device(fed, self.device))
+                self.slots.place(fed))
             agreq = None
             if self._ag_handle is not None:      # user-space gather
                 agreq = self._ag_handle.start(out)
+            elif isinstance(out, RankShards):    # native, a device per rank
+                out = allgather_shards(out)
             elif self._sharded:                  # native gather
                 out = allgather_ranks(out)
             if agreq is None:
@@ -710,14 +788,23 @@ class ServeEngine:
         card and copied to pinned host memory without blocking;
         ``torch_future`` completes ``step`` once that copy has passed.
         The first gathered step also copies whether every row equals row
-        0, so that a wrong gather shows."""
-        logits = out[0] if self._sharded else out[:, -1]
+        0, so that a wrong gather shows.  With a device per rank ``out``
+        is a ``RankShards`` of the gathered rows, row 0 on rank 0's device
+        (where the ids are taken), and the step waits for an event on
+        every device."""
+        per_device = isinstance(out, RankShards)
+        first = out.shards[0] if per_device else out
+        logits = first[0] if self._sharded else out[:, -1]
         ids = torch.argmax(logits, dim=-1)
         ids_host = ids.to("cpu", non_blocking=True)
-        watched = [ids, ids_host]
+        watched = [ids, ids_host, out] if per_device else [ids, ids_host]
         rows_host = None
         if self._sharded and not self._rows_checked:
-            rows = (out == out[:1]).all()
+            if per_device:
+                rows = torch.stack([(s.to(first.device) == first).all()
+                                    for s in out.shards]).all()
+            else:
+                rows = (out == out[:1]).all()
             rows_host = rows.to("cpu", non_blocking=True)
             watched += [rows, rows_host]
         torch_future(self.engine, watched, self.decode_stream,
@@ -1011,18 +1098,28 @@ class ServeEngine:
             m = shape[1]
             while m > 1 and self.cfg.vocab_size % m:
                 m //= 2
-            if m > 1:
+            per_device = self.mesh.per_device
+            if m > 1 and per_device:
+                # the first m devices and their weight replicas
+                self.mesh = make_mesh((m,), (self.model_axis,),
+                                      devices=self.mesh.devices[:m])
+                self.params = tree_keep(self.params, m)
+            elif m > 1:
                 self.mesh = make_mesh((m,), (self.model_axis,), self.device)
             else:
                 # a lone survivor serves unsharded — there is nothing
-                # left to gather
+                # left to gather; with a device per rank, on the first
+                # device (self.device) with its replica
                 self.mesh = None
                 self._sharded = False
                 self._model_shards = 1
+                if per_device:
+                    self.params = tree_shard(self.params, 0)
+        per_device = self.mesh is not None and self.mesh.per_device
         self.slots = PagedKVCache(self.cfg, self.batch_slots, self.max_seq,
                                   block_size=self._kv_block_size,
-                                  num_blocks=self._kv_blocks,
-                                  mesh=self.mesh, device=self.device)
+                                  num_blocks=self._kv_blocks, mesh=self.mesh,
+                                  device=None if per_device else self.device)
         if self._sharded:
             self._build_sharded_decode()
             if self.coll is not None:

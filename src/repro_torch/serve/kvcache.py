@@ -33,15 +33,24 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.collectives.rank_shards import RankShards, \
+    device_context, tree_shard, tree_stack
 from repro_torch.models import registry
 from repro_torch.models.layers import tree_leaves
 
 
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``.  On the card the copy goes
-    through pinned memory without blocking, so it queues behind the work
-    already on the stream instead of waiting for it."""
+def to_device(a: np.ndarray, device):
+    """Host array -> tensor on ``device``, or, given a tuple of devices (a
+    mesh with a device per rank), a ``RankShards`` replica: one copy on
+    each.  On the card the copy goes through pinned memory without
+    blocking, so it queues behind the work already on the stream instead
+    of waiting for it."""
     t = torch.from_numpy(a)
+    if isinstance(device, tuple):
+        if any(d.type == "cuda" for d in device):
+            t = t.pin_memory()
+        return RankShards((t.to(d, non_blocking=True, copy=True)
+                           for d in device), replica=True)
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
@@ -232,7 +241,14 @@ class PagedKVCache:
 
     ``mesh`` is recorded and the pool lives on the mesh's device: every
     model-axis rank of the port's single-controller mesh reads the one
-    pool (the JAX pool is replicated over the mesh).
+    pool (the JAX pool is replicated over the mesh).  On a mesh with a
+    device per rank the pool is a replica per rank (``cache`` a tree of
+    ``RankShards`` replicas, one ``init_paged_cache`` on each device):
+    every replica takes the same writes, so the host-side allocator and
+    tables stay single, and ``positions``/``block_tables``/``place`` give
+    one copy per device.  ``checkpoint_lane`` reads rank 0's replica, as
+    the JAX snapshot reads its replicated pool; ``restore_lane`` writes
+    every replica.
     """
 
     def __init__(self, cfg, lanes: int, max_seq: int, *,
@@ -259,15 +275,28 @@ class PagedKVCache:
                 f"pool of {num_blocks} blocks cannot hold one max_seq="
                 f"{max_seq} request ({self.max_blocks} blocks of "
                 f"{block_size}) — a lone request would deadlock")
-        if mesh is not None:
+        self.devices = None
+        if mesh is not None and mesh.per_device:
+            if device is not None:
+                raise ValueError(f"{mesh!r} has a device per rank: the pool "
+                                 f"takes no device= beside it")
+            self.devices = mesh.devices
+            device = mesh.devices[0]
+        elif mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"device {mesh.device}")
             device = mesh.device
         self.mesh = mesh
         self.device = resolve_device(device)
-        self.cache = registry.init_paged_cache(cfg, lanes, num_blocks,
-                                               block_size, self.device)
+        if self.devices is None:
+            self.cache = registry.init_paged_cache(cfg, lanes, num_blocks,
+                                                   block_size, self.device)
+        else:
+            self.cache = tree_stack(
+                [registry.init_paged_cache(cfg, lanes, num_blocks,
+                                           block_size, d)
+                 for d in self.devices], replica=True)
         self.slots = [Lane(i) for i in range(lanes)]
         self._free_heap = list(range(lanes))
         self._by_request: dict[str, Lane] = {}
@@ -281,16 +310,28 @@ class PagedKVCache:
     def free_slots(self) -> list[Lane]:
         return [self.slots[i] for i in sorted(self._free_heap)]
 
-    def positions(self) -> torch.Tensor:
-        """Each lane's next write position, [lanes] int32 on the device."""
-        return to_device(np.array([s.pos for s in self.slots], np.int32),
-                         self.device)
+    def place(self, a: np.ndarray):
+        """A host array on the pool's device, or a copy on each of its
+        devices (``to_device``)."""
+        return to_device(a, self.devices or self.device)
+
+    def positions(self):
+        """Each lane's next write position, [lanes] int32 on the device
+        (a copy on each device of a per-device pool)."""
+        return self.place(np.array([s.pos for s in self.slots], np.int32))
 
     def active_mask(self) -> np.ndarray:
         return np.array([not s.done for s in self.slots])
 
     def active_count(self) -> int:
         return len(self.slots) - len(self._free_heap)
+
+    def _leaves(self, cache) -> list:
+        """(path, leaf) of ``cache``, rank 0's replica of a per-device
+        pool."""
+        if self.devices is not None:
+            cache = tree_shard(cache, 0)
+        return list(tree_leaves(cache))
 
     # -- paged assignment --------------------------------------------------
     def blocks_for(self, seq_len: int) -> int:
@@ -368,17 +409,26 @@ class PagedKVCache:
         self._tables[lane.index, :] = 0
         heapq.heappush(self._free_heap, lane.index)
 
-    def block_tables(self) -> torch.Tensor:
+    def block_tables(self):
         """Current tables as a tensor [lanes, max_blocks] int32 on the
-        device — one argument of the fused paged decode step."""
-        return to_device(self._tables.copy(), self.device)
+        device (a copy on each device of a per-device pool) — one
+        argument of the fused paged decode step."""
+        return self.place(self._tables.copy())
 
     def reset_lane(self, cache, lane_index: int):
         """Zero a lane's per-lane (non-block) state in ``cache`` before
         prefill — recurrent SSM state survives release (there are no
         blocks to recycle), so a recycled lane must not leak its previous
-        occupant's state into the next request."""
-        return registry.reset_paged_lane(self.cfg, cache, lane_index)
+        occupant's state into the next request.  Every replica of a
+        per-device pool, each with its device current."""
+        if self.devices is None:
+            return registry.reset_paged_lane(self.cfg, cache, lane_index)
+        out = []
+        for r, d in enumerate(self.devices):
+            with device_context(d):
+                out.append(registry.reset_paged_lane(
+                    self.cfg, tree_shard(cache, r), lane_index))
+        return tree_stack(out, replica=True)
 
     # -- per-lane checkpoint / restore (KV migration) ----------------------
     # Leaf classification is by shape against the pool geometry: a leaf
@@ -401,7 +451,7 @@ class PagedKVCache:
         """True iff the pool holds per-lane state (not block-pooled KV)
         that a decode step overwrites in place."""
         return any(self._is_lane_leaf(leaf) and not self._is_block_leaf(leaf)
-                   for _, leaf in tree_leaves(self.cache))
+                   for _, leaf in self._leaves(self.cache))
 
     def _used_blocks(self, pos: int) -> int:
         return -(-pos // self.block_size) if (self.has_blocks and pos) else 0
@@ -417,7 +467,8 @@ class PagedKVCache:
         a membership change can carry a decoding request's KV onto a pool
         rebuilt for the surviving mesh instead of replaying its whole
         prefix.  bf16 leaves are kept as f32, which holds them exactly.
-        The copies to the host wait for the work queued on the pool."""
+        The copies to the host wait for the work queued on the pool; a
+        per-device pool is read from rank 0's replica."""
         lane = self.slots[lane_index]
         if lane.done:
             raise BlockAllocationError(f"lane {lane_index} is free")
@@ -427,7 +478,7 @@ class PagedKVCache:
             .to(self.device)
         blocks: dict[str, np.ndarray] = {}
         state: dict[str, np.ndarray] = {}
-        for path, leaf in tree_leaves(self.cache):
+        for path, leaf in self._leaves(self.cache):
             key = keystr(path)
             if self._is_block_leaf(leaf):
                 if used:
@@ -440,8 +491,9 @@ class PagedKVCache:
         """Write a ``checkpoint_lane`` snapshot into this pool's ``cache``
         for an already-``assign``ed lane (whose table must cover
         ``ckpt['pos']`` positions — ``assign(request_id, seq_len=pos+1)``
-        guarantees that), in place.  Returns the cache and sets the
-        lane's position; the caller owns the engine-side bookkeeping."""
+        guarantees that), in place — into every replica of a per-device
+        pool.  Returns the cache and sets the lane's position; the caller
+        owns the engine-side bookkeeping."""
         lane = self.slots[lane_index]
         if lane.done:
             raise BlockAllocationError(f"lane {lane_index} is free")
@@ -451,14 +503,18 @@ class PagedKVCache:
             raise BlockAllocationError(
                 f"lane {lane_index} owns too few blocks to restore "
                 f"{pos} positions")
-        table = torch.from_numpy(self._tables[lane_index, :used].copy()) \
-            .to(self.device)
-        for path, leaf in tree_leaves(cache):
-            key = keystr(path)
-            if used and key in ckpt["blocks"]:
-                leaf[:, table] = _from_host(ckpt["blocks"][key], leaf)
-            elif key in ckpt["state"]:
-                leaf[:, lane_index] = _from_host(ckpt["state"][key], leaf)
+        devices = self.devices or (self.device,)
+        replicas = [cache] if self.devices is None else \
+            [tree_shard(cache, r) for r in range(len(devices))]
+        host_table = torch.from_numpy(self._tables[lane_index, :used].copy())
+        for device, replica in zip(devices, replicas):
+            table = host_table.to(device)
+            for path, leaf in tree_leaves(replica):
+                key = keystr(path)
+                if used and key in ckpt["blocks"]:
+                    leaf[:, table] = _from_host(ckpt["blocks"][key], leaf)
+                elif key in ckpt["state"]:
+                    leaf[:, lane_index] = _from_host(ckpt["state"][key], leaf)
         lane.pos = pos
         return cache
 

@@ -6,9 +6,13 @@ A checkpoint save is the paper's Figure 1(c) multi-wait-block task:
 storage I/O), (3) fsync+atomic-commit rename.  Every stage advances from
 the engine's poll loop while training computes.
 
-A ``RankShards`` leaf (a replica on each rank's device, the per-device
-data-parallel state) is saved from rank 0, as the JAX package saves a
-replicated array once, and restored as a copy on each rank's device.
+A ``RankShards`` leaf says which it is (``RankShards.replica``).  A
+replica (the per-device data-parallel state, a step counter) is saved
+from rank 0, as the JAX package saves a replicated array once, and
+restored as a copy on each rank's device.  Blocks (FSDP's ZeRO shards,
+rank ``r``'s ``[1, W/n]`` on its device) are saved glued in rank order,
+the rank-stacked tensor's file byte for byte, and restored as rank ``r``'s
+block on its device.
 
 Stage 1 differs from the JAX package, where arrays are immutable: the
 port's optimizer updates the parameters and moments in place on the same
@@ -70,20 +74,36 @@ def _flat_with_paths(tree) -> list[tuple[str, Any]]:
     return out
 
 
+def _saved_parts(leaf) -> list:
+    """The tensors a leaf's file is made of: rank 0's shard of a replica,
+    every shard of blocks (glued in rank order), else the leaf."""
+    if not isinstance(leaf, RankShards):
+        return [leaf]
+    return [leaf.shards[0]] if leaf.replica else list(leaf.shards)
+
+
 def _to_host(leaf):
     """Stage 1 for one leaf: a host copy that later in-place updates of
-    ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA).
-    A ``RankShards`` leaf saves rank 0's replica."""
-    if isinstance(leaf, RankShards):
-        leaf = leaf.shards[0]
-    if not isinstance(leaf, torch.Tensor):
-        return np.array(leaf)
-    t = leaf.detach()
-    if t.is_cuda:
-        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        buf.copy_(t, non_blocking=True)
-        return buf
-    return t.clone()
+    ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA;
+    each block's on its own card's stream)."""
+    parts = _saved_parts(leaf)
+    if not isinstance(parts[0], torch.Tensor):
+        return np.array(parts[0])
+    parts = [t.detach() for t in parts]
+    if len(parts) > 1 and parts[0].dim() == 0:
+        raise ValueError("RankShards of 0-d shards are not blocks of a "
+                         "stacked tensor: mark a per-rank scalar as a "
+                         "replica")
+    if not any(t.is_cuda for t in parts):
+        return parts[0].clone() if len(parts) == 1 else torch.cat(parts)
+    shape = parts[0].shape if len(parts) == 1 else \
+        (sum(t.shape[0] for t in parts),) + tuple(parts[0].shape[1:])
+    buf = torch.empty(shape, dtype=parts[0].dtype, pin_memory=True)
+    flat, off = buf.view(-1), 0
+    for t in parts:
+        flat[off:off + t.numel()].copy_(t.reshape(-1), non_blocking=True)
+        off += t.numel()
+    return buf
 
 
 def _to_numpy(host) -> np.ndarray:
@@ -118,11 +138,9 @@ class AsyncCheckpointer:
         flat = _flat_with_paths(tree)
         with torch.no_grad():
             leaves = [(name, _to_host(leaf)) for name, leaf in flat]
-        # one event per card the copies were enqueued on (rank 0's for
-        # RankShards leaves)
+        # one event per card the copies were enqueued on
         events = record_events(cuda_devices(
-            [leaf.shards[0] if isinstance(leaf, RankShards) else leaf
-             for _, leaf in flat]))
+            [_saved_parts(leaf) for _, leaf in flat]))
         state = {"phase": "d2h", "fut": None}
 
         def write():
@@ -180,8 +198,9 @@ class AsyncCheckpointer:
     def restore(self, step: int, like: Any, device=None) -> Any:
         """The tree saved at ``step``, shaped and typed like ``like``, on
         ``device`` (default: each leaf of ``like``'s own device; a
-        ``RankShards`` leaf of ``like`` gets a copy on each of its
-        shards' devices)."""
+        ``RankShards`` replica of ``like`` gets a copy on each of its
+        shards' devices, ``RankShards`` blocks each rank's rows on its
+        device)."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
@@ -190,9 +209,12 @@ class AsyncCheckpointer:
             arr = np.load(os.path.join(path, manifest[name]))
             t = torch.from_numpy(arr)
             if isinstance(leaf_like, RankShards):
-                return RankShards(t.to(device=d, dtype=leaf_like.dtype,
-                                       copy=True)
-                                  for d in leaf_like.devices)
+                if not leaf_like.replica:
+                    return RankShards.from_stacked(
+                        t.to(leaf_like.dtype), devices=leaf_like.devices)
+                return RankShards((t.to(device=d, dtype=leaf_like.dtype,
+                                        copy=True)
+                                   for d in leaf_like.devices), replica=True)
             dev = device if device is not None else leaf_like.device
             return t.to(device=dev, dtype=leaf_like.dtype)
 

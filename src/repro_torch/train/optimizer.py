@@ -26,6 +26,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.collectives.rank_shards import RankShards, \
+    device_context, local
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -61,8 +63,17 @@ def init(params) -> AdamWState:
 def init_shards(shards) -> AdamWState:
     """Optimizer state over FSDP flat shard stacks ``[n, W/n]``: mu/nu are
     lists shaped like the stacks, f32 (ZeRO — each rank holds moments
-    only for the block it owns, row r)."""
+    only for the block it owns, row r).  Over ``RankShards`` blocks (a
+    device per rank) each rank's moments are blocks on its device and
+    its step counter a replica there."""
     zeros = lambda s: torch.zeros_like(s, dtype=torch.float32)  # noqa: E731
+    if isinstance(shards[0], RankShards):
+        return AdamWState(
+            step=RankShards((torch.zeros((), dtype=torch.int32, device=d)
+                             for d in shards[0].devices), replica=True),
+            mu=[local(zeros, s) for s in shards],
+            nu=[local(zeros, s) for s in shards],
+        )
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=shards[0].device),
         mu=[zeros(s) for s in shards],
@@ -85,35 +96,25 @@ def global_norm(tree):
     return torch.sqrt(sq)
 
 
-@torch.no_grad()
-def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
-                 *, grad_scale: float = 1.0):
-    """One AdamW step over flat shard stacks (the ZeRO step: each rank
-    updates only the parameter block it owns), IN PLACE on ``shards`` and
-    the moments.
+def _sum_squares(rows, grad_scale: float) -> torch.Tensor:
+    """One rank's sum of squares over its blocks (one row per bucket):
+    each block reduced whole, the buckets added in order.  A block is
+    reduced by itself in both mesh forms, so the rank's partial is the
+    same bits whether its block is a row of a stack or a card's own."""
+    return sum(torch.sum(torch.square(g.float() * grad_scale))
+               for g in rows)
 
-    ``shards``/``grad_shards`` are lists of rank-stacked ``[n, W/n]``
-    tensors, rank r's block in row r.  AdamW is elementwise, so flat
-    math equals per-leaf math given the same clip scale and schedule;
-    the one cross-rank quantity, the global grad norm, is each rank's
-    sum of squares over its blocks (the JAX package's local sum) then the
-    sum over the rank dim (its ``psum``).  ``grad_scale`` folds the
-    data-parallel mean into the step (reduce-scatter delivers sums).
-    Zero-padded bucket tails stay zero: grad 0 keeps mu/nu 0 and weight
-    decay multiplies a zero param.
 
-    Returns ``(shards, new_state, metrics)``."""
-    sq = sum(torch.sum(torch.square(g.float() * grad_scale),
-                       dim=tuple(range(1, g.dim())))
-             for g in grad_shards)
-    gnorm = torch.sqrt(sq.sum())
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
+def _adamw_blocks(cfg: AdamWConfig, step, scale, shards, grad_shards, mu, nu,
+                  grad_scale: float):
+    """The elementwise AdamW update of one set of blocks, in place; the
+    new step counter and the schedule's lr."""
+    step = step + 1
     lr = schedule(cfg, step)
     stepf = step.float()
     b1c = 1 - torch.pow(cfg.b1, stepf)
     b2c = 1 - torch.pow(cfg.b2, stepf)
-    for p, g, m, v in zip(shards, grad_shards, state.mu, state.nu):
+    for p, g, m, v in zip(shards, grad_shards, mu, nu):
         g = g.float() * grad_scale * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
@@ -122,8 +123,69 @@ def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
         pf = p.float()
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
         p.copy_((pf - lr * delta).to(p.dtype))
+    return step, lr
+
+
+@torch.no_grad()
+def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
+                 *, grad_scale: float = 1.0):
+    """One AdamW step over flat shard stacks (the ZeRO step: each rank
+    updates only the parameter block it owns), IN PLACE on ``shards`` and
+    the moments.
+
+    ``shards``/``grad_shards`` are lists of rank-stacked ``[n, W/n]``
+    tensors, rank r's block in row r, or (a device per rank) lists of
+    ``RankShards`` blocks with the moments likewise and the step counter
+    a replica.  AdamW is elementwise, so flat math equals per-leaf math
+    given the same clip scale and schedule; the one cross-rank quantity,
+    the global grad norm, is each rank's sum of squares over its blocks
+    (the JAX package's local sum) then the sum of the n partials in rank
+    order (its ``psum``).  In the per-device form the partials meet on
+    rank 0's card, are added there as the stacked form adds them, and
+    the clip scale goes back to every card as a copy between cards: no
+    value is read to the host.  ``grad_scale`` folds the data-parallel
+    mean into the step (reduce-scatter delivers sums).  Zero-padded
+    bucket tails stay zero: grad 0 keeps mu/nu 0 and weight decay
+    multiplies a zero param.
+
+    Returns ``(shards, new_state, metrics)``."""
+    if isinstance(shards[0], RankShards):
+        return _apply_shards_per_device(cfg, state, shards, grad_shards,
+                                        grad_scale)
+    n = grad_shards[0].shape[0]
+    sq = torch.stack([_sum_squares([g[r] for g in grad_shards], grad_scale)
+                      for r in range(n)])
+    gnorm = torch.sqrt(sq.sum())
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step, lr = _adamw_blocks(cfg, state.step, scale, shards, grad_shards,
+                             state.mu, state.nu, grad_scale)
     return shards, AdamWState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def _apply_shards_per_device(cfg, state, shards, grad_shards, grad_scale):
+    devices = shards[0].devices
+    first = devices[0]
+    partials = []
+    for r, d in enumerate(devices):
+        with device_context(d):
+            partials.append(_sum_squares([g[r][0] for g in grad_shards],
+                                         grad_scale).to(first))
+    with device_context(first):
+        gnorm = torch.sqrt(torch.stack(partials).sum())
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    steps, lrs = [], []
+    for r, d in enumerate(devices):
+        with device_context(d):
+            step, lr = _adamw_blocks(
+                cfg, state.step[r], scale.to(d),
+                [p[r] for p in shards], [g[r] for g in grad_shards],
+                [m[r] for m in state.mu], [v[r] for v in state.nu],
+                grad_scale)
+        steps.append(step)
+        lrs.append(lr)
+    return shards, AdamWState(RankShards(steps, replica=True), state.mu,
+                              state.nu), {"grad_norm": gnorm, "lr": lrs[0]}
 
 
 @torch.no_grad()

@@ -147,7 +147,9 @@ class FsdpStep:
     """Split train step for ZeRO-style FSDP on the user backend.
 
     Parameters live as *flat shard stacks* (``FsdpLayout.shard_params``
-    — one ``[n, W/n]`` tensor per bucket, rank ``r`` owning row ``r``):
+    — one ``[n, W/n]`` tensor per bucket, rank ``r`` owning row ``r``; on
+    a mesh with a device per rank one ``RankShards`` per bucket, rank
+    ``r``'s block on its device, and every payload below likewise):
 
     * ``grad_fn(gathered_flats, batch) -> (stacked_metrics,
       flat_grads)`` — takes the all-gathered full flat buckets ``[n,
@@ -252,8 +254,9 @@ class Trainer:
                 self.params, self.opt_state, grad_shards, stacked_metrics)
             # prefetch the next step's full params NOW: each bucket's
             # persistent all-gather start is chained off that bucket's
-            # compute future (a CUDA event after the in-place optimizer,
-            # polled on the reducer's collective stream), so it fires on
+            # compute future (a CUDA event after the in-place optimizer on
+            # each card the bucket's blocks live on, polled on the
+            # reducer's collective stream), so it fires on
             # the first sweep of that stream after the optimizer's work —
             # a worker's that owns the stream, or at the latest the next
             # step's gather wait (§4.6 continuations)
@@ -333,13 +336,12 @@ class Trainer:
                 # dispatch: returns once the step's kernels are queued
                 self.params, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state, batch)
-            # the step is done when the metrics are and, for the split
-            # data-parallel step, the optimizer's update on every device
-            # the parameters live on (one polled event per device)
+            # the step is done when the metrics are and, for a split
+            # step, the optimizer's update on every device the parameters
+            # live on (one polled event per device)
             loss_req = torch_future(
                 self.engine, (metrics, self.params)
-                if isinstance(self.split_step, UserCollectiveStep)
-                else metrics)
+                if self.split_step is not None else metrics)
 
             # overlap window: drive collated progress until the card is
             # done (with progress workers attached, wait yields to them)

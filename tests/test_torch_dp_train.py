@@ -220,7 +220,8 @@ def port_run_devices(tmp_path, ref, extra):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--fsdp"], "--fsdp yet .ROADMAP queue 1, item 9"),
+    (["--fsdp", "--collective-backend", "native"],
+     "needs --collective-backend user"),
     (["--pipeline", "1f1b"], "--pipeline yet .ROADMAP queue 1, item 10"),
     (["--mesh", "2x2"], "model axis above 1 yet .ROADMAP queue 1, item 12"),
     (["--rank-devices", "cpu,cpu"], "names 2 device.s. for 4"),

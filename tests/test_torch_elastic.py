@@ -596,3 +596,100 @@ def test_launcher_chaos_kill_remeshes_once(tmp_path, fsdp):
     assert report.trainer.recoveries == 1
     assert [m["step"] for m in report.log] == list(range(5))
     assert report.reducer.remeshes == 1
+
+
+# ---------------------------------------------------------------------------
+# FSDP with a device per rank: the chaos runs against a restart
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("when", ["after_step", "mid_reduce_scatter"])
+def test_chaos_fsdp_per_device_matches_restart_bitwise(tmp_path, when):
+    """FSDP on a mesh with a device per rank (``["cpu"] * 4``): 2 of 4
+    ranks killed after step KILL-1 (``after_step``), or while step KILL's
+    reduce-scatter is in flight (``mid_reduce_scatter``: the start fails
+    with a MembershipError, the step is retried).  The trainer re-shards
+    params, moments and step counters onto the first 2 devices; the
+    losses and parameters equal the rank-stacked restart's (KILL steps on
+    4 ranks, the rest on 2) bit for bit."""
+    from repro_torch.collectives.overlap import FsdpReducer
+    from repro_torch.collectives.rank_shards import RankShards, tree_keep
+    from repro_torch.launch.train import build_fsdp_programs
+    from repro_torch.train.train_loop import FsdpStep, Trainer
+    cfg, ocfg, batches, params0 = _setup()
+    spec = NB.CollectiveSpec(backend="user", chunks=2)
+    mesh = make_mesh((4, 1), ("data", "model"), devices=["cpu"] * 4)
+
+    def step_for(layout, mesh_, red):
+        g, a, _, _ = build_fsdp_programs(cfg, ocfg, mesh_, layout)
+        return FsdpStep(g, a, red, spec=spec)
+
+    eng = ProgressEngine()
+    epoch = NB.MembershipEpoch(mesh=mesh)
+    red = FsdpReducer(mesh, "data", engine=eng, spec=spec, epoch=epoch)
+    if when == "mid_reduce_scatter":
+        start_rs, calls = red.ireduce_scatter, []
+
+        def ireduce_scatter(flat_grads):
+            reduction = start_rs(flat_grads)
+            calls.append(1)
+            if len(calls) == KILL + 1:          # step KILL's first attempt
+                assert not reduction.is_complete
+                epoch.invalidate(survivors=2, reason="chaos")
+            return reduction
+        red.ireduce_scatter = ireduce_scatter
+    layout, shards, state = _fsdp_state(params0, mesh)
+    assert isinstance(shards[0], RankShards)
+    box = {"layout": layout}
+
+    def remesh_fn(exc, shards_, st):
+        lay = box["layout"]
+        new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
+                                  devices=mesh.devices[:exc.survivors])
+        red.remesh(new_mesh, "data")
+        box["layout"], sh2, st2 = _fsdp_state(
+            lay.unshard_params(shards_), new_mesh, lay.unshard_params(st.mu),
+            lay.unshard_params(st.nu), tree_keep(st.step, new_mesh.size))
+        return step_for(box["layout"], new_mesh, red), sh2, st2
+
+    losses = []
+    tr = Trainer(None, shards, state, ListPipe(batches),
+                 _loop_cfg(tmp_path, "a", STEPS), engine=eng,
+                 split_step=step_for(layout, mesh, red), epoch=epoch,
+                 remesh_fn=remesh_fn,
+                 hooks=[_kill_hook(losses, epoch if when == "after_step"
+                                   else None)])
+    tr.run()
+    red.close()
+    assert tr.recoveries == 1 and red.remeshes == 1 and len(losses) == STEPS
+    assert red.mesh.devices == mesh.devices[:2] and box["layout"].n == 2
+    if when == "mid_reduce_scatter":
+        assert red.coll.failed >= 1
+
+    ref = []
+    mesh4 = make_mesh((4, 1), ("data", "model"), "cpu")
+    engA = ProgressEngine()
+    redA = FsdpReducer(mesh4, "data", engine=engA, spec=spec)
+    layA, shA, stA = _fsdp_state(params0, mesh4)
+    trA = Trainer(None, shA, stA, ListPipe(batches[:KILL]),
+                  _loop_cfg(tmp_path, "b1", KILL), engine=engA,
+                  split_step=step_for(layA, mesh4, redA),
+                  hooks=[_kill_hook(ref, None)])
+    trA.run()
+    redA.close()
+    mesh2 = elastic.remesh(2, prefer_model=1, device="cpu")
+    engB = ProgressEngine()
+    redB = FsdpReducer(mesh2, "data", engine=engB, spec=spec)
+    layB, shB, stB = _fsdp_state(
+        layA.unshard_params(trA.params), mesh2,
+        layA.unshard_params(trA.opt_state.mu),
+        layA.unshard_params(trA.opt_state.nu), trA.opt_state.step)
+    trB = Trainer(None, shB, stB, ListPipe(batches[KILL:]),
+                  _loop_cfg(tmp_path, "b2", STEPS - KILL), engine=engB,
+                  split_step=step_for(layB, mesh2, redB),
+                  hooks=[_kill_hook(ref, None)])
+    trB.run()
+    redB.close()
+    assert losses == ref
+    for a, b in zip(tr.params, trB.params):
+        assert torch.equal(a.to_stacked("cpu"), b)
+    assert [int(s) for s in tr.opt_state.step] == [STEPS] * 2

@@ -18,7 +18,14 @@ through its native FSDP step and through the ``Trainer`` with an
 ``PARAM_TOL`` against JAX (f32, two libraries' products and sums); user
 against native bit for bit (on these meshes the data axis has at most 2
 ranks, and a two-term sum is the same in any order; the all-gather only
-copies)."""
+copies).
+
+With a device per rank (``devices=["cpu"] * n``, n in {2, 4}; the child
+also runs the (4,1) trajectory) the shards, the user trajectory, the
+launcher's run and its checkpoint files equal the rank-stacked form's bit
+for bit, and so hold the JAX reference within the same limits; the child
+also gives JAX's ``NamedSharding.devices_indices_map`` on a 2x2 mesh,
+which ``reshard_restore`` onto a per-device 2x2 mesh must place."""
 import json
 from pathlib import Path
 
@@ -29,6 +36,17 @@ import torch
 from tests._multidevice import run_with_devices
 
 MESHES = [(1, 1), (2, 1), (2, 2)]
+TRAJ_MESHES = MESHES + [(4, 1)]   # the child's trajectories
+# reshard_restore onto a per-device 2x2 mesh: (leaf, spec, shape) as JAX
+# places them, and the logical axes (with one rule override) that
+# resolve to those specs
+PLACEMENTS = [("w", ("data", "model"), (16, 8)), ("b", ("model",), (8,)),
+              ("odd", (), (5, 3)), ("both", (("data", "model"),), (16, 3)),
+              ("col", (None, "data"), (3, 8))]
+PLACEMENT_AXES = {"w": ("embed", "mlp"), "b": ("mlp",),
+                  "odd": ("embed", "mlp"), "both": ("both", None),
+                  "col": (None, "embed")}
+PLACEMENT_RULES = {"both": (("data", "model"),)}
 STEPS = 10
 BUCKET = 1 << 16                  # several buckets of the 2-layer model
 # against the JAX native FSDP path, f32: the losses, and the parameters
@@ -163,6 +181,15 @@ for dd, mm in {meshes!r}:
     for path, leaf in jax.tree_util.tree_flatten_with_path(final)[0]:
         res[key + "/final/" + "/".join(str(p.key) for p in path)] = \\
             np.asarray(leaf)
+
+# where a NamedSharding of a 2x2 mesh puts each block
+mesh22 = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+for name, spec, shape in {placements!r}:
+    idx = NamedSharding(mesh22, P(*spec)).devices_indices_map(shape)
+    for r, dev in enumerate(mesh22.devices.flat):
+        res[f"place/{{name}}/{{r}}"] = np.asarray(
+            [[sl.start or 0, n if sl.stop is None else sl.stop]
+             for sl, n in zip(idx[dev], shape)])
 np.savez({out!r}, **{{k: np.asarray(v) for k, v in res.items()}})
 print("SAVED", len(res))
 """
@@ -173,8 +200,8 @@ def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("fsdp") / "ref.npz"
     root = str(Path(__file__).resolve().parents[1])
     log = run_with_devices(_JAX_CHILD.format(
-        root=root, out=str(out), tiny=TINY, steps=STEPS, meshes=MESHES,
-        bucket=BUCKET), n_devices=4, timeout=600)
+        root=root, out=str(out), tiny=TINY, steps=STEPS, meshes=TRAJ_MESHES,
+        bucket=BUCKET, placements=PLACEMENTS), n_devices=4, timeout=600)
     assert "SAVED" in log
     return dict(np.load(out))
 
@@ -299,9 +326,24 @@ def test_reduce_scatter_and_gather_match_jax_int32(ref, n, algorithm):
     np.testing.assert_array_equal(ag_fn([sh])[0].numpy(), ref[f"coll/{n}/ag"])
 
 
-def _port_trajectory(ref, dd, mm, user, tmp_path):
-    """10 FSDP steps of the port on a (dd, mm) mesh: losses, final
-    params, the reducer (user) or None."""
+_TRAJECTORIES: dict = {}
+
+
+def _port_trajectory(ref, dd, mm, user, tmp_path, per_device=False):
+    """10 FSDP steps of the port on a (dd, mm) mesh (``per_device``: a
+    device per rank, ``["cpu"] * dd``, user only): losses, final params,
+    the reducer (user) or None.  The runs are deterministic, so each
+    rank-stacked one runs once in this module and is kept."""
+    key = (dd, mm, user)
+    if not per_device and key in _TRAJECTORIES:
+        return _TRAJECTORIES[key]
+    out = _run_trajectory(ref, dd, mm, user, tmp_path, per_device)
+    if not per_device:
+        _TRAJECTORIES[key] = out
+    return out
+
+
+def _run_trajectory(ref, dd, mm, user, tmp_path, per_device):
     from repro_torch.collectives import CollectiveSpec, FsdpLayout, \
         FsdpReducer
     from repro_torch.configs import get_config
@@ -316,7 +358,8 @@ def _port_trajectory(ref, dd, mm, user, tmp_path):
     cfg = get_config("smollm-360m").with_overrides(**TINY)
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=STEPS)
     params = bridge.params_from_numpy(unflatten(ref, "init"), device="cpu")
-    mesh = make_mesh((dd, mm), ("data", "model"), "cpu")
+    mesh = make_mesh((dd, mm), ("data", "model"), devices=["cpu"] * dd) \
+        if per_device else make_mesh((dd, mm), ("data", "model"), "cpu")
     layout = FsdpLayout(params, dd, BUCKET)
     np.testing.assert_array_equal(layout.widths,
                                   ref[f"traj/{dd}x{mm}/widths"])
@@ -438,3 +481,136 @@ def test_launcher_fsdp_refusals(tmp_path):
              "require --collective-backend user")):
         with pytest.raises(SystemExit, match=what):
             launch.run(parse(base + extra))
+
+
+# ---------------------------------------------------------------------------
+# a device per rank: ZeRO shards as RankShards blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_params_per_device_equal_the_stacks(ref, n):
+    """On a mesh with a device per rank, ``shard_params`` gives one
+    ``RankShards`` of blocks per bucket, rank r's ``[1, W/n]`` on its
+    device; glued they are the stacked ``[n, W/n]`` bit for bit, and
+    ``unshard_params`` round trips (int32 buckets too)."""
+    from repro_torch.collectives import FsdpLayout
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    tree = to_torch(unflatten(ref, "tree"))
+    mesh = make_mesh((n, 1), ("data", "model"), devices=["cpu"] * n)
+    for bb in (1 << 20, 40):
+        lay = FsdpLayout(tree, n, bb)
+        stacked = lay.shard_params(tree)
+        blocks = lay.shard_params(tree, mesh)
+        assert len(blocks) == lay.num_buckets > 0
+        for s, b in zip(stacked, blocks):
+            assert isinstance(b, RankShards) and not b.replica
+            assert b.devices == mesh.devices and b[0].shape == (1,) + \
+                tuple(s.shape[1:])
+            assert torch.equal(b.to_stacked("cpu"), s)
+        back, want = flat_numpy(lay.unshard_params(blocks)), flat_numpy(tree)
+        assert back.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dd", [2, 4])
+def test_user_trajectory_per_device_equals_the_stacked_one(ref, dd,
+                                                           tmp_path):
+    """The ``Trainer``'s user FSDP trajectory with a device per rank
+    (``["cpu"] * dd``): the losses and final parameters of the
+    rank-stacked trajectory bit for bit, and so the JAX native FSDP
+    reference's within ``LOSS_TOL``/``PARAM_TOL``; one compute future a
+    device, the prefetch chained off them."""
+    stacked, s_final, _ = _port_trajectory(ref, dd, 1, True, tmp_path)
+    losses, final, reducer = _port_trajectory(ref, dd, 1, True, tmp_path,
+                                              per_device=True)
+    assert reducer.mesh.per_device and reducer.gathers == STEPS
+    assert losses == stacked
+    got, want = flat_numpy(final), flat_numpy(s_final)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(losses, ref[f"traj/{dd}x1/losses"],
+                               **LOSS_TOL)
+    for k in want:
+        np.testing.assert_allclose(got[k], ref[f"traj/{dd}x1/final/{k}"],
+                                   err_msg=k, **PARAM_TOL)
+
+
+def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path):
+    """``launch.train --devices 4 --fsdp --collective-backend user
+    --rank-devices cpu,cpu,cpu,cpu``: the stacked run's losses bit for
+    bit, the shards ``RankShards`` blocks with a replica step counter on
+    every rank's device, and the last checkpoint's files equal the
+    stacked run's byte for byte; it restores equal."""
+    import contextlib
+    import io
+
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch import train as launch
+    runs = {}
+    for name, extra in (("stacked", []),
+                        ("dev", ["--rank-devices", "cpu,cpu,cpu,cpu"])):
+        args = launch.build_parser().parse_args([
+            "--device", "cpu", "--scale", "tiny", "--steps", "3",
+            "--global-batch", "8", "--seq", "16", "--devices", "4",
+            "--fsdp", "--collective-backend", "user",
+            "--ckpt-dir", str(tmp_path / name)] + extra)
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs[name] = launch.run(args, log_every=1)
+    a, b = runs["stacked"], runs["dev"]
+    assert [m["loss"] for m in b.log] == [m["loss"] for m in a.log]
+    tr = b.trainer
+    assert all(isinstance(s, RankShards) and not s.replica
+               and len(s) == 4 for s in tr.params)
+    assert tr.opt_state.step.replica and len(tr.opt_state.step) == 4
+    for s, t in zip(tr.params, a.trainer.params):
+        assert torch.equal(s.to_stacked("cpu"), t)
+    da = tmp_path / "stacked" / "smollm-360m-fsdp" / "step_2"
+    db = tmp_path / "dev" / "smollm-360m-fsdp" / "step_2"
+    names = sorted(p.name for p in da.iterdir())
+    assert names == sorted(p.name for p in db.iterdir())
+    for name in names:
+        assert (da / name).read_bytes() == (db / name).read_bytes(), name
+    got = tr.ckpt.restore(2, {"params": tr.params,
+                              "opt_state": tr.opt_state})
+    for s, t in zip(got["params"], tr.params):
+        assert s.devices == t.devices and torch.equal(s.to_stacked("cpu"),
+                                                      t.to_stacked("cpu"))
+    assert got["opt_state"].step.replica
+    assert [int(x) for x in got["opt_state"].step] == [3] * 4
+
+
+def test_reshard_restore_onto_a_per_device_mesh(ref, tmp_path):
+    """Save full tensors, restore onto a 2x2 mesh with a device per rank:
+    each leaf a ``RankShards`` whose shard r is the block JAX's
+    ``NamedSharding(mesh, spec).devices_indices_map(shape)`` gives the
+    r-th device of the same mesh (composed axes and a non-leading dim
+    too), a replicated leaf whole on every device; the specs as JAX's;
+    an unknown logical axis raises."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import AsyncCheckpointer
+    gen = torch.Generator().manual_seed(4)
+    tree = {name: torch.randn(shape, generator=gen)
+            for name, _, shape in PLACEMENTS}
+    ck = AsyncCheckpointer(str(tmp_path), ProgressEngine())
+    ck.save_blocking(7, tree)
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    restored, specs = elastic.reshard_restore(
+        ck, 7, like, PLACEMENT_AXES, mesh, rules_overrides=PLACEMENT_RULES)
+    for name, spec, shape in PLACEMENTS:
+        assert specs[name] == spec, name
+        leaf = restored[name]
+        assert isinstance(leaf, RankShards) and leaf.devices == mesh.devices
+        assert leaf.replica == (spec == ())
+        for r in range(4):
+            bounds = ref[f"place/{name}/{r}"]
+            want = tree[name][tuple(slice(int(a), int(b)) for a, b in bounds)]
+            assert torch.equal(leaf[r], want), (name, r)
+    with pytest.raises(KeyError):
+        elastic.reshard_restore(ck, 7, like, dict(PLACEMENT_AXES,
+                                                  b=("nope",)), mesh)

@@ -971,3 +971,147 @@ def test_torch_future_polls_an_event_on_each_device(cuda):
     eng = ProgressEngine()
     req = torch_future(eng, tree)
     assert eng.wait(req, timeout=60) is tree
+
+
+# ---------------------------------------------------------------------------
+# FSDP and sharded serving with a device per rank
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_per_device_fsdp_reducer_equals_its_cpu_run(cuda, distinct):
+    """The ``FsdpReducer``'s persistent reduce-scatter and chained
+    all-gather of ``RankShards`` on 4 ranks' cards (two buckets, int32 and
+    f32, each started twice) against the same on ``["cpu"] * 4``, bit
+    for bit, each result shard on its rank's device."""
+    from repro_torch.collectives import CollectiveSpec, FsdpReducer
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    devices = _rank_devices(4, distinct)
+    gen = torch.Generator().manual_seed(26)
+    grads = [torch.randint(-99, 99, (4, 64), generator=gen,
+                           dtype=torch.int32),
+             torch.randn(4, 4096, generator=gen)]
+    shards = [torch.randint(-99, 99, (4, 16), generator=gen,
+                            dtype=torch.int32),
+              torch.randn(4, 1024, generator=gen)]
+    out = {}
+    for name, devs in (("cpu", ["cpu"] * 4), ("cuda", devices)):
+        mesh = make_mesh((4, 1), ("data", "model"), devices=devs)
+        red = FsdpReducer(mesh, "data", engine=ProgressEngine(),
+                          spec=CollectiveSpec(backend="user", chunks=2))
+        runs = []
+        for _ in range(2):
+            rs = red.ireduce_scatter([RankShards.from_stacked(g, mesh)
+                                      for g in grads]).wait(timeout=60)
+            ag = red.igather([RankShards.from_stacked(s, mesh)
+                              for s in shards],
+                             after=[red.future(RankShards.from_stacked(
+                                 s, mesh)) for s in shards]).wait(timeout=60)
+            for x in rs + ag:
+                assert [str(d) for d in x.devices] == [str(torch.device(d))
+                                                       for d in devs]
+            runs.append([x.to_stacked("cpu") for x in rs + ag])
+        red.close()
+        out[name] = runs
+    for a, b in zip(out["cpu"], out["cuda"]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def _tiny_serve(arch: str = "qwen2-0.5b"):
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import registry
+    cfg = make_config(arch, "tiny").with_overrides(dtype="float32")
+    params = registry.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    return cfg, params
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_per_device_sharded_serving_user_native_stacked(cuda, n, distinct):
+    """f32 tiny qwen2-0.5b on n model ranks with a card a rank (or
+    ``cuda:0`` repeated): the user and native gathers serve the same
+    streams, bit for bit, and those of the rank-stacked engine on
+    ``cuda:0``; one gather start a step."""
+    import numpy as np
+
+    from repro_torch.collectives.nonblocking import CollectiveSpec
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import GenRequest, ServeEngine
+    devices = _rank_devices(n, distinct)
+    cfg, params = _tiny_serve()
+    rs = np.random.RandomState(0)
+    ps = [rs.randint(1, cfg.vocab_size - 1, size=rs.randint(2, 12))
+          .astype(np.int32) for _ in range(6)]
+    runs = {}
+    for name, backend, mesh in (
+            ("stacked", "user", make_mesh((n,), ("model",), "cuda:0")),
+            ("user", "user", make_mesh((n,), ("model",), devices=devices)),
+            ("native", "native",
+             make_mesh((n,), ("model",), devices=devices))):
+        srv = ServeEngine(cfg, params, ProgressEngine(), batch_slots=4,
+                          max_seq=32, mesh=mesh,
+                          collective_spec=CollectiveSpec(backend=backend,
+                                                         chunks=2))
+        reqs = [GenRequest(f"r{i}", p, max_new_tokens=6)
+                for i, p in enumerate(ps)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_idle(timeout=300)
+        if backend == "user":
+            assert srv._ag_handle.starts == srv.steps > 0
+        assert srv._rows_checked
+        srv.close(timeout=60)
+        runs[name] = [list(r.out_tokens) for r in reqs]
+    assert runs["user"] == runs["native"] == runs["stacked"]
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_restore_lane_into_each_cards_replica(cuda, distinct):
+    """A lane snapshot of a one-card pool restored into a pool with a
+    replica on each of 4 ranks' cards: every replica's lane equals the
+    source lane (its snapshot from each replica, bit for bit)."""
+    import numpy as np
+
+    from repro_torch.collectives.rank_shards import tree_shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.serve.kvcache import PagedKVCache, to_device
+    devices = _rank_devices(4, distinct)
+    cfg, params = _tiny_serve()
+    src = PagedKVCache(cfg, 2, 32, block_size=4, device="cuda:0")
+    lane = src.assign("req", seq_len=1)
+    rs = np.random.RandomState(3)
+    for t in range(6):
+        assert src.ensure(lane.index, t)
+        _, src.cache = registry.decode_step_paged(
+            params, cfg, src.cache,
+            to_device(rs.randint(1, cfg.vocab_size, (2, 1)).astype(np.int32),
+                      src.device),
+            to_device(np.full((2,), t, np.int32), src.device),
+            src.block_tables(), to_device(np.array([True, False]),
+                                          src.device))
+        src.slots[lane.index].pos = t + 1
+    ckpt = src.checkpoint_lane(lane.index)
+    mesh = make_mesh((4,), ("model",), devices=devices)
+    pool = PagedKVCache(cfg, 2, 32, block_size=4, mesh=mesh)
+    pool.assign("other", seq_len=9)
+    lane2 = pool.assign("req", seq_len=7)
+    pool.restore_lane(pool.cache, lane2.index, ckpt)
+    for r in range(4):
+        one = PagedKVCache(cfg, 2, 32, block_size=4, device=devices[r])
+        one.cache = tree_shard(pool.cache, r)
+        one.assign("other", seq_len=9)
+        one.assign("req", seq_len=7)
+        one.slots[lane2.index].pos = 6
+        got = one.checkpoint_lane(lane2.index)
+        for part in ("blocks", "state"):
+            assert got[part].keys() == ckpt[part].keys()
+            for k in ckpt[part]:
+                np.testing.assert_array_equal(got[part][k], ckpt[part][k])

@@ -12,7 +12,12 @@
 * a kill mid-gather on the user backend, down to 2 ranks and down to 1
   (the unsharded fallback), dense, mamba2 and zamba2 (whose decode
   state the failed step already advanced in place: their lanes replay);
-* the launcher's ``--chaos-kill`` and its ``SystemExit``s.
+* the launcher's ``--chaos-kill`` and its ``SystemExit``s;
+* with a device per rank (``devices=["cpu"] * 4``, user backend): mid
+  decode down to 2 ranks and to 1, and a kill mid gather, each serving
+  the no-failure streams with the lanes restored into every survivor's
+  pool replica; the launcher's ``--rank-devices`` with ``--chaos-kill``
+  and its refusals.
 """
 import contextlib
 import dataclasses
@@ -232,13 +237,19 @@ def streams(tiny):
 
 
 def chaos_serve(cfg, params, ps, *, kill=None, survivors=1, n=None,
-                backend="native", watchdog=False):
+                backend="native", watchdog=False, per_device=False):
     """Serve ``ps``; ``kill(srv, reqs)`` says when to invalidate the
-    shared epoch (polled as the caller drives progress)."""
+    shared epoch (polled as the caller drives progress).  ``per_device``:
+    the n ranks on a mesh of ``["cpu"] * n``."""
     eng = ProgressEngine()
     epoch = NB.MembershipEpoch(n_devices=n or 1)
-    mesh = make_mesh((n,), ("model",), "cpu") if n else None
-    srv = ServeEngine(cfg, params, eng, mesh=mesh, device="cpu", epoch=epoch,
+    mesh = None
+    if n and per_device:
+        mesh = make_mesh((n,), ("model",), devices=["cpu"] * n)
+    elif n:
+        mesh = make_mesh((n,), ("model",), "cpu")
+    srv = ServeEngine(cfg, params, eng, mesh=mesh,
+                      device=None if per_device else "cpu", epoch=epoch,
                       collective_spec=CollectiveSpec(backend=backend,
                                                      chunks=2), **KW)
     reqs = [GenRequest(f"r{i}", p, max_new_tokens=8)
@@ -317,6 +328,54 @@ def test_kill_mid_gather_on_the_user_backend(streams, survivors):
         assert srv.lanes_restored == srv.lanes_checkpointed > 0
 
 
+def gather_in_flight(srv, reqs):
+    h = srv._ag_handle
+    return (sum(len(r.out_tokens) for r in reqs) >= 5 and h is not None
+            and h.active is not None and not h.active.is_complete)
+
+
+@pytest.mark.parametrize("tiny", ["qwen2-0.5b", "mamba2-1.3b"],
+                         indirect=True)
+@pytest.mark.parametrize("case", ["mid_decode_2", "mid_decode_1",
+                                  "mid_gather_2"])
+def test_per_device_recovery_restores_every_survivor(streams, case):
+    """4 model ranks on ``["cpu"] * 4`` (mid decode on the native
+    gather, mid gather on the user one): the no-failure streams with one
+    remesh, every request completed; the survivors' mesh
+    takes the first devices (a lone survivor serves unsharded on the
+    first); decoding lanes restored (not replayed, except the state the
+    failed gather step advanced in place) into every survivor's pool
+    replica, which end equal."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.models.layers import tree_leaves
+    cfg, params, ps, want = streams
+    survivors = int(case[-1])
+    gather = case.startswith("mid_gather")
+    got, lat, srv = chaos_serve(
+        cfg, params, ps, kill=gather_in_flight if gather else tokens_out(5),
+        n=4, backend="user" if gather else "native", survivors=survivors,
+        per_device=True)
+    assert got == want
+    assert srv.remeshes == 1 and lat.completed == 8 and lat.failed == 0
+    assert srv._model_shards == survivors
+    if gather:
+        assert any(isinstance(e, NB.MembershipError)
+                   for e in srv.decode_errors)
+    if gather and cfg.family in ("ssm", "hybrid"):
+        assert srv.lanes_checkpointed == srv.lanes_restored == 0
+    else:
+        assert srv.lanes_restored == srv.lanes_checkpointed > 0
+    if survivors == 1:
+        assert srv.mesh is None and srv.slots.devices is None
+        assert not any(isinstance(t, RankShards)
+                       for _, t in tree_leaves(srv.params))
+        return
+    assert srv.mesh.devices == (torch.device("cpu"),) * 2
+    for path, leaf in tree_leaves(srv.slots.cache):
+        assert isinstance(leaf, RankShards) and len(leaf) == 2, path
+        assert torch.equal(leaf[0], leaf[1]), path
+
+
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
@@ -339,6 +398,44 @@ def test_launcher_chaos_kill_remeshes_once():
     assert "served 8 requests, 64 tokens" in text
     assert "model-shards=4 backend=user" in text
     assert "8 completed, 0 failed" in text
+
+
+def test_launcher_rank_devices_chaos_kill_remeshes_once():
+    """``--model-shards 4 --rank-devices cpu,cpu,cpu,cpu --chaos-kill 2``
+    on both backends: one remesh, every request served, the same
+    streams (the stacked launcher's chaos run is
+    ``test_launcher_chaos_kill_remeshes_once``)."""
+    from repro_torch.launch import serve
+    base = ["--device", "cpu", "--scale", "tiny", "--model-shards", "4",
+            "--chaos-kill", "2", "--rank-devices", "cpu,cpu,cpu,cpu"]
+    runs = {}
+    for name, extra in (("user", ["--collective-backend", "user"]),
+                        ("native", [])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report = serve.run(serve.build_parser().parse_args(base + extra))
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if "remeshes=1" in ln]
+        assert len(lines) == 1 and lines[0].startswith(
+            "chaos: killed 2 device(s) -> 2 survivors"), out.getvalue()
+        assert report.latency.completed == 8 and report.latency.failed == 0
+        runs[name] = [list(r.out_tokens) for r in report.requests]
+    assert runs["user"] == runs["native"]
+    assert sum(map(len, runs["user"])) == 64
+
+
+def test_launcher_rank_devices_refusals():
+    from repro_torch.launch import serve
+    for argv, match in (
+            (["--model-shards", "4", "--rank-devices", "cpu,cpu"],
+             "names 2 device.s. for --model-shards 4"),
+            (["--model-shards", "2", "--devices", "4", "--rank-devices",
+              "cpu,cpu"], "--devices 4"),
+            (["--model-shards", "2", "--rank-devices", "cpu,cuda:9"],
+             "--rank-devices: mesh device cuda:9")):
+        args = serve.build_parser().parse_args(["--device", "cpu"] + argv)
+        with pytest.raises(SystemExit, match=match):
+            serve.run(args)
 
 
 def test_launcher_refuses_what_jax_refuses():

@@ -14,7 +14,12 @@ package.
   those streams equal the JAX *unsharded* engine's (dense and mamba2);
 * executor-driven gather starts serve the caller-driven streams, and an
   executor attached but never started serves rather than hangs;
-* the eager errors are the JAX engine's.
+* the eager errors are the JAX engine's;
+* with a device per rank (``devices=["cpu"] * n``, n in {2, 4}) each
+  rank's partial logits equal the JAX pieces and, on the CPU, the
+  rank-stacked engine's bit for bit; the streams equal on both backends
+  (one gather start a step), the stacked engine's and the JAX unsharded
+  engine's; the weights and the pool are a replica per rank.
 """
 import dataclasses
 import warnings
@@ -168,14 +173,19 @@ def serve_jax(jcfg, jparams, ps, max_new):
 
 
 def serve_port(cfg, params, ps, max_new, *, n=None, backend="native",
-               workers=0, start=True, chunks=2):
+               workers=0, start=True, chunks=2, per_device=False):
     eng = ProgressEngine()
     ex = ProgressExecutor(eng, workers, steal=False) if workers else None
     if ex is not None and start:
         ex.start()
-    mesh = make_mesh((n,), ("model",), "cpu") if n else None
+    mesh = None
+    if n and per_device:
+        mesh = make_mesh((n,), ("model",), devices=["cpu"] * n)
+    elif n:
+        mesh = make_mesh((n,), ("model",), "cpu")
     srv = ServeEngine(cfg, params, eng, batch_slots=4, max_seq=32,
-                      executor=ex, mesh=mesh, device="cpu",
+                      executor=ex, mesh=mesh,
+                      device=None if per_device else "cpu",
                       collective_spec=CollectiveSpec(backend=backend,
                                                      chunks=chunks))
     reqs = [GenRequest(f"r{i}", p, max_new_tokens=max_new)
@@ -280,3 +290,111 @@ def test_eager_errors_match_jax():
                     max_seq=32, mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="not the mesh's device"):
         ServeEngine(cfg, params, ProgressEngine(), mesh=mesh, device="meta")
+
+
+# ---------------------------------------------------------------------------
+# a device per rank
+# ---------------------------------------------------------------------------
+
+def dev_mesh(n):
+    return make_mesh((n,), ("model",), devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_per_device_partial_logits_match_the_jax_local_step(arch, n):
+    """Three fused calls of the per-device engine's ``_decode``: each
+    rank's ``[1, B, V/n]`` on its device within f32 tolerance of the JAX
+    ``decode_hidden_paged`` + ``unembed_partial`` piece, and, on the CPU,
+    bit for bit the rank-stacked engine's row (``unembed_ranks``' batched
+    product equals the single slices here)."""
+    from repro.serve.kvcache import PagedKVCache as JaxPagedKVCache
+    from repro_torch.collectives.rank_shards import RankShards
+    jcfg, jparams, cfg, params = bridged(arch)
+    lanes = 3
+    kw = dict(batch_slots=lanes, max_seq=32, kv_block_size=4)
+    dev = ServeEngine(cfg, params, ProgressEngine(), mesh=dev_mesh(n), **kw)
+    ref = ServeEngine(cfg, params, ProgressEngine(), device="cpu",
+                      mesh=make_mesh((n,), ("model",), "cpu"), **kw)
+    jpool = JaxPagedKVCache(jcfg, lanes, 32, block_size=4)
+    for i in range(lanes):
+        for pool in (dev.slots, ref.slots, jpool):
+            pool.assign(f"r{i}", seq_len=5)
+    rs = np.random.RandomState(7)
+    w = cfg.vocab_size // n
+    for t in range(3):
+        toks = rs.randint(1, cfg.vocab_size, (lanes, 1)).astype(np.int32)
+        fed = np.array([True, t % 2 == 0, True])
+        pos = np.full((lanes,), t, np.int32)
+        part, dev.slots.cache = dev._decode(
+            dev.slots.cache, dev.slots.place(toks), dev.slots.place(pos),
+            dev.slots.block_tables(), dev.slots.place(fed))
+        stacked, ref.slots.cache = ref._decode(
+            ref.slots.cache, to_device(toks, ref.device),
+            to_device(pos, ref.device), ref.slots.block_tables(),
+            to_device(fed, ref.device))
+        hid, jpool.cache = jax_registry.decode_hidden_paged(
+            jparams, jcfg, jpool.cache, jnp.asarray(toks), jnp.asarray(pos),
+            jpool.block_tables(), jnp.asarray(fed))
+        assert isinstance(part, RankShards) and len(part) == n
+        assert part.devices == dev.mesh.devices
+        for r in range(n):
+            want = np.asarray(jax_registry.unembed_partial(
+                jparams, jcfg, hid, r * w, w))[:, 0]
+            assert part[r].shape == (1, lanes, w)
+            np.testing.assert_allclose(part[r][0].numpy(), want, atol=1e-4,
+                                       rtol=1e-4)
+        assert torch.equal(part.to_stacked("cpu"), stacked)
+    dev.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_per_device_streams_equal_stacked_and_jax(reference, n):
+    """User and native on a device per rank, bit for bit, with one gather
+    start a step; both equal the JAX unsharded engine's streams, which
+    the rank-stacked engine's equal on both backends
+    (``test_sharded_streams_user_equal_native_and_jax``)."""
+    cfg, params, ps, want = reference
+    native, no_handle, _ = serve_port(cfg, params, ps, 5, n=n,
+                                      per_device=True)
+    user, starts, steps = serve_port(cfg, params, ps, 5, n=n,
+                                     backend="user", per_device=True)
+    assert no_handle is None
+    assert user == native == want
+    assert starts == steps > 0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_per_device_weights_and_pool_are_a_replica_per_rank(arch):
+    """On a mesh of ``["cpu"] * 4`` every weight and pool leaf is a
+    ``RankShards`` replica, a copy of its own on each rank's device,
+    cast once; positions, tables and tokens come as a copy a device;
+    ``device=`` beside such a mesh is refused, by the pool too."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve.kvcache import PagedKVCache
+    _, _, cfg, params = bridged(arch)
+    mesh = dev_mesh(4)
+    srv = ServeEngine(cfg, params, ProgressEngine(), batch_slots=2,
+                      max_seq=32, mesh=mesh)
+    for tree in (srv.params, srv.slots.cache):
+        for path, leaf in tree_leaves(tree):
+            assert isinstance(leaf, RankShards) and leaf.replica, path
+            assert leaf.devices == mesh.devices
+            assert len({s.data_ptr() for s in leaf}) == 4, path
+            assert all(torch.equal(s, leaf[0]) for s in leaf), path
+    cast = registry.cast_params(cfg, params)
+    for (path, leaf), (_, want) in zip(tree_leaves(srv.params),
+                                       tree_leaves(cast)):
+        assert leaf.dtype == want.dtype and torch.equal(leaf[3], want), path
+    for got in (srv.slots.positions(), srv.slots.block_tables(),
+                srv.slots.place(np.zeros(2, np.int32))):
+        assert isinstance(got, RankShards) and got.devices == mesh.devices
+    assert srv.device == torch.device("cpu") and srv.slots.devices == \
+        mesh.devices
+    srv.close()
+    with pytest.raises(ValueError, match="no device= beside it"):
+        ServeEngine(cfg, params, ProgressEngine(), mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="no device= beside it"):
+        PagedKVCache(cfg, 2, 32, mesh=mesh, device="cpu")
