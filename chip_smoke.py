@@ -3049,18 +3049,10 @@ def watchdog_check() -> None:
         raise AssertionError("the watchdog did not fail the hung start once")
 
 
-def pipeline_phase() -> None:
-    """1F1B at S = 4, M = 8 on 4 stage CUDA streams of the card (the
-    launcher's residual-MLP stages): the forward equal to ``gpipe``'s, the
-    loss and gradients of ``PIPE_STEPS`` steps bit for bit against the
-    sequential per-stage computation on the card, one blocking wait a
-    call; the bubble measured from ``last_step_timing`` against
-    ``bubble_fraction(4, 8)``.  Then ``launch.train --pipeline 1f1b
-    --mesh 2x4`` with the grad reducer over the data axis."""
-    from repro_torch.core import ProgressEngine, ProgressExecutor
-    from repro_torch.distributed import pipeline as pl
+def pipe_inputs() -> tuple:
+    """The pipeline checks' stacked parameters ``[S, ...]``, microbatches
+    and targets on ``cuda:0`` (the launcher's residual-MLP widths)."""
     from repro_torch.launch import train as train_mod
-    from repro_torch.launch.mesh import make_mesh
     S, M, mb = PIPE_S, PIPE_M, PIPE_MB
     d, h = train_mod.PIPE_D_MODEL, train_mod.PIPE_D_HIDDEN
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -3068,24 +3060,13 @@ def pipeline_phase() -> None:
               "w2": torch.randn((S, h, d), generator=gen, device="cuda") * .3}
     xs = torch.randn((M, mb, d), generator=gen, device="cuda")
     ts = torch.randn((M, mb, d), generator=gen, device="cuda")
-    eng = ProgressEngine()
-    ex = ProgressExecutor(eng, num_workers=2).start()
-    eng.attach_executor(ex)
-    sched = pl.PipelineSchedule(
-        train_mod.pipe_stage_fn, make_mesh((S,), ("stage",), "cuda"),
-        "stage", S, loss_fn=train_mod.pipe_loss_fn, engine=eng, executor=ex,
-        name="chip")
-    out, bubbles, windows = [], [], []
-    with no_sync():
-        ys = sched.apply(params, xs, timeout=300)
-        for _ in range(PIPE_STEPS):
-            out.append(sched.step(params, xs, ts, timeout=300))
-            bubbles.append(sched.last_step_timing["bubble"])
-            windows.append(sched.last_step_timing["window_s"] * 1e3)
-    stats = sched.stats()
-    streams = len({id(c) for c in sched.cuda_streams})
-    # the sequential reference on the card: the same cells, one
-    # microbatch at a time, on the default stream
+    return params, xs, ts
+
+
+def pipe_sequential(sched, params, xs, ts) -> tuple:
+    """The sequential reference on the card: the schedule's cells, one
+    microbatch at a time, on the default stream; (loss, stacked grads)."""
+    S, M = PIPE_S, PIPE_M
     stage = [{k: v[s] for k, v in params.items()} for s in range(S)]
     keys = sorted(params)
     acc = [[torch.zeros_like(stage[s][k]) for k in keys] for s in range(S)]
@@ -3104,9 +3085,43 @@ def pipeline_phase() -> None:
     seq_loss = seq_losses[0]
     for lm in seq_losses[1:]:
         seq_loss = seq_loss + lm
-    seq_loss = seq_loss * scale
-    seq_grads = {k: torch.stack([acc[s][i] for s in range(S)])
-                 for i, k in enumerate(keys)}
+    return seq_loss * scale, {k: torch.stack([acc[s][i] for s in range(S)])
+                              for i, k in enumerate(keys)}
+
+
+def pipeline_phase() -> None:
+    """1F1B at S = 4, M = 8 on 4 stage CUDA streams of the card (the
+    launcher's residual-MLP stages): the forward equal to ``gpipe``'s, the
+    loss and gradients of ``PIPE_STEPS`` steps bit for bit against the
+    sequential per-stage computation on the card, one blocking wait a
+    call; the bubble measured from ``last_step_timing`` against
+    ``bubble_fraction(4, 8)``.  Then ``launch.train --pipeline 1f1b
+    --mesh 2x4`` with the grad reducer over the data axis."""
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed import pipeline as pl
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    S, M, mb = PIPE_S, PIPE_M, PIPE_MB
+    d, h = train_mod.PIPE_D_MODEL, train_mod.PIPE_D_HIDDEN
+    params, xs, ts = pipe_inputs()
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    sched = pl.PipelineSchedule(
+        train_mod.pipe_stage_fn, make_mesh((S,), ("stage",), "cuda"),
+        "stage", S, loss_fn=train_mod.pipe_loss_fn, engine=eng, executor=ex,
+        name="chip")
+    out, bubbles, windows = [], [], []
+    with no_sync():
+        ys = sched.apply(params, xs, timeout=300)
+        for _ in range(PIPE_STEPS):
+            out.append(sched.step(params, xs, ts, timeout=300))
+            bubbles.append(sched.last_step_timing["bubble"])
+            windows.append(sched.last_step_timing["window_s"] * 1e3)
+    stats = sched.stats()
+    streams = len({id(c) for c in sched.cuda_streams})
+    seq_loss, seq_grads = pipe_sequential(sched, params, xs, ts)
+    keys = sorted(params)
     exact = all(torch.equal(loss, seq_loss) and all(
         torch.equal(g[k], seq_grads[k]) for k in keys) for loss, g in out)
     gp = pl.gpipe(train_mod.pipe_stage_fn, make_mesh((S,), ("stage",),
@@ -4085,6 +4100,303 @@ def serve_devices_breakdown(devices, calls: int = 5) -> None:
         f"(its streams on every card)")
 
 
+# the per-device pipeline launcher's meshes and steps; the timed
+# all-to-all pairs of the per-device expert-parallel layer
+DEV_PIPE_MESHES, DEV_PIPE_STEPS = ("1x4", "2x2"), 4
+DEV_A2A_ITERS = 5
+
+
+def per_card(devices, values: list, unit: str = "",
+             fmt_: str = ".3f") -> str:
+    return ", ".join(f"{d} {v:{fmt_}}{unit}"
+                     for d, v in zip(devices, values))
+
+
+def pipeline_devices(devices) -> None:
+    """1F1B with stage s on ``devices[s]`` at ``PIPE_S``, ``PIPE_M``,
+    ``PIPE_MB`` (``pipeline_phase``'s inputs): the loss and gradients of
+    ``PIPE_STEPS`` steps bit for bit against the stacked schedule on
+    ``cuda:0`` (``pipeline_phase``'s run) and the sequential per-stage
+    computation, each gradient block on its stage's card; the forward
+    equal to the per-device ``gpipe``'s; the measured bubble, the step
+    window, each card's cell spans and idle share, the hops and copies a
+    step, one blocking wait a call; then one profiled step's device busy
+    time a card."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed import pipeline as pl
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    S, M = PIPE_S, PIPE_M
+    devices = devices[:S]
+    params, xs, ts = pipe_inputs()
+    smesh = make_mesh((S,), ("stage",), "cuda:0")
+    dmesh = make_mesh((S,), ("stage",), devices=devices)
+    blocks = {k: RankShards.from_stacked(v, dmesh) for k, v in params.items()}
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    kw = dict(loss_fn=train_mod.pipe_loss_fn, engine=eng, executor=ex)
+    stacked = pl.PipelineSchedule(train_mod.pipe_stage_fn, smesh, "stage", S,
+                                  name="chip-s", **kw)
+    per = pl.PipelineSchedule(train_mod.pipe_stage_fn, dmesh, "stage", S,
+                              name="chip-d", **kw)
+    out, st_out, timings = [], [], []
+    with no_sync():
+        ys = per.apply(blocks, xs, timeout=300)
+        before = per.stats()
+        for _ in range(PIPE_STEPS):
+            st_out.append(stacked.step(params, xs, ts, timeout=300))
+            out.append(per.step(blocks, xs, ts, timeout=300))
+            timings.append(per.last_step_timing)
+    stats = per.stats()
+    seq_loss, seq_grads = pipe_sequential(stacked, params, xs, ts)
+    exact = all(
+        torch.equal(loss.to("cuda:0"), sl) and torch.equal(sl, seq_loss)
+        and all(isinstance(g[k], RankShards)
+                and [str(d) for d in g[k].devices] == devices
+                and torch.equal(g[k].to_stacked("cuda:0"), sg[k])
+                and torch.equal(sg[k], seq_grads[k]) for k in params)
+        for (loss, g), (sl, sg) in zip(out, st_out))
+    gp = pl.gpipe(train_mod.pipe_stage_fn, dmesh, "stage", S)(blocks, xs)
+    gp_same = torch.equal(ys, gp)
+    on_cards = [str(c.device) for c in per.cuda_streams] == devices
+    # one step under the profiler: each card's device busy time
+    sync_all(devices)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        per.step(blocks, xs, ts, timeout=300)
+        sync_all(devices)
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy = busy_by_device(prof)
+    per.close()
+    stacked.close()
+    ex.shutdown(drain=True, timeout=120)
+    # what the steps' hops carried, counted by the schedule as it
+    # started them
+    hops, rows, cross = (
+        (f(stats) - f(before)) / PIPE_STEPS
+        for f in (lambda st: sum(st["hop_starts"].values()),
+                  lambda st: st["hop_rows"],
+                  lambda st: st["hop_rows_between_devices"]))
+    later = timings[1:]
+    bubble = sum(t["bubble"] for t in later) / len(later)
+    window = [round(t["window_s"] * 1e3, 3) for t in timings]
+    span = [sum(t["window_s"] - t["idle_s"][s] for t in later) / len(later)
+            * 1e3 for s in range(S)]
+    idle = [sum(t["idle_s"][s] / t["window_s"] for t in later) / len(later)
+            for s in range(S)]
+    busy_text_ = (f"device busy over one profiled step ({prof_ms:.3f} ms "
+                  f"wall) " + ", ".join(
+                      f"cuda:{d} {v:.3f} ms (device idle share "
+                      f"{1 - v / prof_ms:.4f})"
+                      for d, v in sorted(busy.items()))) if busy \
+        else "device busy not measured (no profiler events)"
+    log(f"devices: 1f1b with a stage per card, S={S} M={M} (mb {PIPE_MB}) "
+        f"on {devices}: measured bubble {bubble:.4f} (steps 1-"
+        f"{PIPE_STEPS - 1}) vs analytic "
+        f"{pl.bubble_fraction(S, M, '1f1b'):.4f}; step window {window} ms; "
+        f"each card's cell spans (host clock, issue to the engine seeing "
+        f"the work done) " + per_card(devices, span, " ms")
+        + ", idle share " + per_card(devices, idle, fmt_=".4f")
+        + f"; {busy_text_}; a step (counted) {hops:g} hop starts, "
+        f"{rows:g} row copies of which {cross:g} between two cards; "
+        f"blocking waits "
+        f"{stats['blocking_waits']} for {PIPE_STEPS + 1} calls; loss and "
+        f"gradients vs the stacked schedule on cuda:0 and the sequential "
+        f"computation {'bit for bit' if exact else 'NOT bit for bit'} over "
+        f"{PIPE_STEPS} steps; forward vs the per-card gpipe "
+        f"{'bit for bit' if gp_same else 'DIFFERS'}")
+    if not (exact and gp_same and on_cards
+            and stats["blocking_waits"] == PIPE_STEPS + 1
+            and rows == hops * S > 0
+            and stats["p2p_issued"] == stats["p2p_completed"] > 0):
+        raise AssertionError(f"1f1b with a stage per card failed its "
+                             f"checks: {stats}")
+
+
+def pipeline_launcher_devices(devices) -> None:
+    """``launch.train --pipeline 1f1b --rank-devices`` at each of
+    ``DEV_PIPE_MESHES`` (rank (d, s) on ``devices[d*S + s]``): the losses
+    of ``DEV_PIPE_STEPS`` steps bit for bit the stacked launcher's at the
+    same mesh; the step ms and each card's idle share in the last step."""
+    from repro_torch.launch import train as train_mod
+    for mesh in DEV_PIPE_MESHES:
+        runs = {}
+        for name, extra in (("stacked", []),
+                            ("devices", ["--rank-devices",
+                                         ",".join(devices)])):
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_pipe_dev_")
+            try:
+                args = train_mod.build_parser().parse_args([
+                    "--device", "cuda", "--pipeline", "1f1b", "--mesh", mesh,
+                    "--microbatches", str(PIPE_M), "--global-batch",
+                    str(PIPE_MB), "--steps", str(DEV_PIPE_STEPS),
+                    "--ckpt-dir", ckpt_dir] + extra)
+                with no_sync():
+                    runs[name] = train_mod.run(args, log_every=1)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+        losses = {k: [m["loss"] for m in r.log] for k, r in runs.items()}
+        rep = runs["devices"]
+        steps_ms = [round(m["step_time_s"] * 1e3, 3) for m in rep.log]
+        idle = [round(t["idle_s"][s] / t["window_s"], 4)
+                for t in (r.last_step_timing for r in rep.rows)
+                for s in range(len(t["idle_s"]))]
+        log(f"devices: launch.train --pipeline 1f1b --mesh {mesh} "
+            f"--rank-devices {','.join(devices)}: losses "
+            f"{[round(v, 6) for v in losses['devices']]} "
+            f"{'bit for bit' if losses['devices'] == losses['stacked'] else 'NOT equal to'}"
+            f" the stacked launcher's; step ms {steps_ms} (stacked "
+            f"{[round(m['step_time_s'] * 1e3, 3) for m in runs['stacked'].log]}"
+            f"); last step's idle share a card (row-major) {idle}; reducer "
+            f"over data={rep.reducer.axis_size} a stage column")
+        if losses["devices"] != losses["stacked"] or \
+                len(losses["devices"]) != DEV_PIPE_STEPS:
+            raise AssertionError(f"--pipeline 1f1b --mesh {mesh} with a "
+                                 f"device per rank: {losses}")
+
+
+def expert_parallel_devices(devices, n: int = 4) -> None:
+    """granite-moe-3b-a800m's MoE layer at full width (``x [8, 1024,
+    1536]`` bf16: 16 groups of 512 tokens, 4 a rank; 40 experts, 10 a
+    rank) with each rank's groups and experts on ``devices[r]``: user =
+    native bit for bit, ``y`` within the bf16 limit of the stacked
+    expert-parallel path on ``cuda:0`` and ``aux`` within 1e-6 relative;
+    each card's peak memory; then the all-to-all pair (dispatch and its
+    reverse) alone, user and native: wall, each card's device busy time,
+    the bytes that cross cards and, on distinct cards, the bus
+    bandwidth."""
+    from repro_torch.collectives.nonblocking import UserCollectives
+    from repro_torch.collectives.rank_shards import RankShards, \
+        device_context, replicate
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    devices = devices[:n]
+    cfg = get_config(GRANITE)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    p = layers.tree_map(lambda t: t.to(torch.bfloat16),
+                        layers.init_tree(layers.moe_spec(cfg), gen))
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, GRANITE_D, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    smesh = make_mesh((n,), ("model",), "cuda:0")
+    dmesh = make_mesh((n,), ("model",), devices=devices)
+    cards = distinct(devices)
+    coll = UserCollectives(ProgressEngine(), name="moe_a2a_devices")
+    try:
+        with torch.no_grad():
+            y_ref, aux_ref = layers.moe_apply_expert_parallel(p, x, cfg,
+                                                              smesh)
+            pd = {k: replicate(v, devices) if k == "router"
+                  else RankShards.from_stacked(v, dmesh)
+                  for k, v in p.items()}
+            xd = RankShards.from_stacked(x, dmesh)
+            del p
+            sync_all(devices)
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
+            y_nat, aux_nat = layers.moe_apply_expert_parallel(pd, xd, cfg,
+                                                              dmesh)
+            y_usr, aux_usr = layers.moe_apply_expert_parallel(
+                pd, xd, cfg, dmesh, coll=coll)
+            sync_all(devices)
+            peaks = [torch.cuda.max_memory_allocated(d) / 2**30
+                     for d in cards]
+            if [str(d) for d in y_nat.devices] != devices or not (
+                    all(torch.equal(a, b) for a, b in zip(y_nat, y_usr))
+                    and torch.equal(aux_nat, aux_usr)):
+                raise AssertionError("per-device expert parallelism: user "
+                                     "and native differ")
+            err = check_close("per-device expert-parallel y",
+                              y_nat.to_stacked("cuda:0"), y_ref,
+                              torch.bfloat16)
+            aux_rel = abs(float(aux_nat) - float(aux_ref)) / abs(
+                float(aux_ref))
+            if aux_rel > 1e-6:
+                raise AssertionError(f"per-device aux {float(aux_nat)} vs "
+                                     f"{float(aux_ref)}: rel {aux_rel:.3e}")
+            # the pair alone, on each rank's dispatched [G/n, E, C, d]
+            xe = []
+            for r, dev in enumerate(devices):
+                with device_context(dev):
+                    xg, disp, _, _, _ = layers._moe_route_parts(
+                        {"router": pd["router"][r]}, xd[r], cfg)
+                    xe.append(layers._moe_dispatch(disp, xg).contiguous())
+            xe = RankShards(xe)
+
+            def pair(c):
+                fwd = layers.moe_dispatch_alltoall(xe, dmesh, "model",
+                                                   coll=c)
+                return fwd, layers.moe_dispatch_alltoall(
+                    fwd, dmesh, "model", reverse=True, coll=c)
+
+            walls, busy = {}, {}
+            for name, c in (("user", coll), ("native", None)):
+                fwd, back = pair(c)
+                if not all(torch.equal(a, b) for a, b in zip(back, xe)):
+                    raise AssertionError(f"the {name} pair moved values")
+                sync_all(devices)
+                t0 = time.perf_counter()
+                for _ in range(DEV_A2A_ITERS):
+                    pair(c)
+                sync_all(devices)
+                walls[name] = (time.perf_counter() - t0) * 1e3 \
+                    / DEV_A2A_ITERS
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    pair(c)
+                    sync_all(devices)
+                busy[name] = busy_by_device(prof)
+    finally:
+        coll.close()
+    rank_bytes = xe[0].numel() * xe[0].element_size()
+    cross = (n - 1) / n * rank_bytes if len(cards) == n else 0.0
+    if len(cards) == n:
+        bw = {k: (n - 1) / n * rank_bytes / (v / 2 / 1e3) / 1e9
+              for k, v in walls.items()}
+        bw_text = ("bus bandwidth a one-way all-to-all, (n-1)/n x bytes a "
+                   "rank / (pair wall / 2): " + ", ".join(
+                       f"{k} {v:.3f} GB/s" for k, v in bw.items())
+                   + " (NVLink's 450 GB/s a direction is its ceiling)")
+    else:
+        bw_text = ("no bus bandwidth: the ranks share one card, so every "
+                   "block is a copy within it")
+    busy_t = "; ".join(
+        f"{k} pair device busy " + (", ".join(
+            f"cuda:{d} {v:.3f} ms" for d, v in sorted(b.items()))
+            if b else "not measured (no profiler events)")
+        for k, b in busy.items())
+    log(f"devices: expert parallelism with a card a rank ({GRANITE} layer, "
+        f"x [{TRAIN_BATCH}, {TRAIN_SEQ}, {GRANITE_D}] bf16, {n} ranks on "
+        f"{devices}, {cfg.moe.num_experts // n} experts and "
+        f"{xe[0].shape[0]} groups a rank): user == native bit for bit; y vs "
+        f"the stacked expert-parallel path max abs err {err:.3e} (bf16 "
+        f"limit {tol_text(TOLS[torch.bfloat16])}), aux {float(aux_nat):.6f} "
+        f"rel err {aux_rel:.3e}; each rank's dispatched "
+        f"[{', '.join(map(str, xe[0].shape))}] bf16 is "
+        f"{rank_bytes / 1e6:.1f} MB, of which {cross / 1e6:.1f} MB cross "
+        f"cards each way; all-to-all pair wall: user {walls['user']:.3f} ms, "
+        f"native {walls['native']:.3f} ms; {busy_t}; {bw_text}; peak "
+        f"memory " + ", ".join(f"{d} {v:.2f} GiB"
+                               for d, v in zip(cards, peaks)))
+
+
+def stages_experts_phase(devices) -> None:
+    """Phase 16's stage-per-card and expert-per-card parts."""
+    t0 = time.perf_counter()
+    pipeline_devices(devices)
+    free()
+    pipeline_launcher_devices(devices)
+    free()
+    expert_parallel_devices(devices)
+    free()
+    log(f"devices: pipeline and expert parts done in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def devices_phase(dp_losses: list, fsdp_losses: list,
                   sharded: list) -> dict:
     """Phase 16: the mesh with one device per rank (distinct cards where
@@ -4094,8 +4406,10 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
     kill; FSDP against phase 10's user run (``fsdp_losses``), its
     breakdown and chaos; sharded serving against phase 11's streams at
     ``DEV_SERVE_LAYERS`` layers (``sharded``), its recovery and a
-    full-depth fused call's breakdown.  Returns the three main paths'
-    launches."""
+    full-depth fused call's breakdown; 1F1B with a stage per card, the
+    pipeline launcher with a device per rank and granite's MoE layer with
+    each rank's experts on its card (``stages_experts_phase``).  Returns
+    the three main paths' launches."""
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
     devices = rank_devices()
@@ -4137,6 +4451,7 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
     free()
     log(f"devices: sharded serving parts done in "
         f"{time.perf_counter() - t2:.1f} s")
+    stages_experts_phase(devices)
     log(f"devices phase: {time.perf_counter() - t0:.1f} s")
     return {"train_devices": launches, "train_fsdp_devices": fsdp_launches,
             "serve_devices": serve_launches}
@@ -5725,7 +6040,7 @@ def main(argv: list) -> int:
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
                     ["--only", "moe"], ["--only", "families"],
                     ["--only", "context"], ["--only", "cells"],
-                    ["--only", "devices"]):
+                    ["--only", "devices"], ["--only", "stages"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
@@ -5734,7 +6049,8 @@ def main(argv: list) -> int:
               f"at the last three families' shapes and phase 13; --only "
               f"context phase 14; --only cells the kernels at the assigned "
               f"shapes and phase 15; --only devices the data-parallel, "
-              f"FSDP and sharded runs it compares with and phase 16)",
+              f"FSDP and sharded runs it compares with and phase 16; "
+              f"--only stages phase 16's pipeline and expert parts)",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
@@ -5754,6 +6070,16 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "stages"]:
+        # a partial run (phase 16's stage-per-card and expert-per-card
+        # parts); it prints no result line
+        devices = rank_devices()
+        log(f"devices: torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}; the mesh's devices {devices}")
+        stages_experts_phase(devices)
+        log(f"partial run: total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "devices"]:
         # a partial run (phase 9's data-parallel run, phase 10's user
         # FSDP run, phase 11's stacked sharded run at phase 16's serving

@@ -17,6 +17,13 @@ halves still exist as separate handles:
 * ``irecv(like, ...)`` posts the receive half; its handle completes with
   the received stacked tensor.
 
+On a mesh with one device per rank (``launch.mesh``) the payload is a
+``RankShards`` of each rank's ``[1, ...]`` row on its device, and the hop
+copies row s onto rank s+1's device (``schedules.ring_shift``): the
+received value is a ``RankShards`` likewise, equal to the stacked hop's
+rows bit for bit.  A persistent channel's hop allocates only its result,
+on each rank's device; it keeps no carry, so its workspaces stay empty.
+
 Matching is FIFO per ``(mesh, axis, tag, direction, partition)`` — the
 non-overtaking rule.  ``partition`` names how the trailing dims are
 laid out (the JAX package's payload ``PartitionSpec``); on the port's
@@ -60,7 +67,8 @@ def _hop_schedule(n: int, reverse: bool):
 
 def _plan_sendrecv(mesh, axis: str, shape, dtype, *,
                    reverse: bool = False) -> _Plan:
-    """Issue-invariant plan for one matched send/recv hop."""
+    """Issue-invariant plan for one matched send/recv hop; ``shape`` is the
+    stacked ``[n, ...]`` shape (a ``RankShards`` payload's ``shape``)."""
     n = NB._axis_len(mesh, axis)
     if len(shape) < 1 or shape[0] != n:
         raise ValueError(
@@ -263,6 +271,7 @@ class P2P(UserCollectives):
         each rank's row ships one hop along the ring.  The hop issues
         when the matching ``irecv`` is posted — in either order."""
         self._check_open()
+        NB._check_form(x, mesh, axis, "send")
         spec, partition = _resolve_spec_partition(spec, partition)
         key = (mesh, axis, tag, bool(reverse), _partition_key(partition))
         sreq = self._overlay_request("send")
@@ -305,6 +314,7 @@ class P2P(UserCollectives):
         """One-shot fused pair: issue the hop now, return the receive
         handle."""
         self._check_open()
+        NB._check_form(x, mesh, axis, "sendrecv")
         _resolve_spec_partition(spec, partition)
         plan = _plan_sendrecv(mesh, axis, tuple(x.shape), NB._dtype_of(x),
                               reverse=reverse)

@@ -21,9 +21,14 @@ inverse) and ``tree_keep`` (the first ``k`` ranks).  Which of the two a
 leaf is, the leaf says: ``replica`` is True for copies of one value
 (``replicate``, ``tree_stack(..., replica=True)``; ``tree_keep`` keeps
 the mark) and False for the blocks of a stacked tensor (the default:
-``from_stacked``, a collective's payloads, ZeRO shards).  The checkpoint
-saves a replica once and the blocks glued; nothing infers the mark from
-equal values.  ``local(fn, *xs)``
+``from_stacked``, a collective's payloads, ZeRO shards).  Between the two,
+``copies = c`` says the shards are ``c`` copies, one after the other, of
+the ``n / c`` blocks of one stacked tensor (shard ``i * n / c + b`` is copy
+``i`` of block ``b``): a tensor split over one axis of a 2-D mesh and
+replicated over the other, as pipeline stages' parameters on a (data x
+stage) mesh (``from_stacked(..., copies=c)``).  The checkpoint saves a
+replica once and the blocks glued (the first copy's); nothing infers the
+mark from equal values.  ``local(fn, *xs)``
 applies ``fn`` to each rank's shards, or to the tensors themselves in the
 stacked form: the trailing-dim code of the schedules runs unchanged on
 both.
@@ -39,12 +44,17 @@ class RankShards:
     """One local tensor per rank, each on its rank's device.  Every shard
     has the same shape and dtype."""
 
-    __slots__ = ("shards", "replica")
+    __slots__ = ("shards", "replica", "copies")
 
-    def __init__(self, shards, *, replica: bool = False):
+    def __init__(self, shards, *, replica: bool = False, copies: int = 1):
         shards = tuple(shards)
         if not shards:
             raise ValueError("RankShards needs at least one shard")
+        if copies < 1 or len(shards) % copies or (replica and copies > 1):
+            raise ValueError(f"{len(shards)} shards are not {copies} copies "
+                             f"of the same blocks"
+                             + (" (a replica has one block)" if replica
+                                else ""))
         first = shards[0]
         for s in shards:
             if not isinstance(s, torch.Tensor):
@@ -56,25 +66,37 @@ class RankShards:
                     f"and {tuple(s.shape)} {s.dtype}")
         self.shards = shards
         self.replica = replica
+        self.copies = copies
 
     @classmethod
     def from_stacked(cls, x: torch.Tensor, mesh=None, *,
-                     devices=None) -> "RankShards":
+                     devices=None, copies: int = 1) -> "RankShards":
         """The stacked tensor ``x`` (its leading dim split over the mesh's
         ranks in order, or over ``devices``) as a copy on each rank's
-        device."""
+        device; with ``copies`` split over ``n / copies`` blocks, each
+        block placed once in every copy."""
         devices = mesh.devices if mesh is not None else tuple(devices)
         n = len(devices)
-        if x.dim() < 1 or x.shape[0] % n:
+        if copies < 1 or n % copies:
+            raise ValueError(f"{n} ranks do not hold {copies} copies")
+        blocks = n // copies
+        if x.dim() < 1 or x.shape[0] % blocks:
             raise ValueError(f"leading dim of {tuple(x.shape)} does not "
-                             f"split over {n} ranks")
-        k = x.shape[0] // n
-        return cls(x[r * k:(r + 1) * k].to(d, copy=True)
-                   for r, d in enumerate(devices))
+                             f"split over {blocks} ranks")
+        k = x.shape[0] // blocks
+        return cls((x[(r % blocks) * k:(r % blocks + 1) * k].to(d, copy=True)
+                    for r, d in enumerate(devices)), copies=copies)
+
+    @property
+    def blocks(self) -> tuple:
+        """The shards of one copy: every shard of blocks, the first ``n /
+        copies`` of copies."""
+        return self.shards[:len(self.shards) // self.copies]
 
     def to_stacked(self, device) -> torch.Tensor:
-        """The shards glued along the leading dim, on ``device``."""
-        return torch.cat([s.to(device) for s in self.shards])
+        """The shards (of one copy) glued along the leading dim, on
+        ``device``."""
+        return torch.cat([s.to(device) for s in self.blocks])
 
     @property
     def devices(self) -> tuple:
@@ -89,7 +111,7 @@ class RankShards:
         s = self.shards[0].shape
         if not s:
             raise ValueError("0-d shards have no stacked shape")
-        return torch.Size((len(self.shards) * s[0],) + tuple(s[1:]))
+        return torch.Size((len(self.blocks) * s[0],) + tuple(s[1:]))
 
     def numel(self) -> int:
         return sum(s.numel() for s in self.shards)
@@ -109,7 +131,8 @@ class RankShards:
     def __repr__(self):
         s = self.shards[0]
         return (f"RankShards({len(self.shards)} x {tuple(s.shape)} "
-                f"{s.dtype}{' replicas' if self.replica else ''} on ["
+                f"{s.dtype}{' replicas' if self.replica else ''}"
+                f"{f' ({self.copies} copies)' if self.copies > 1 else ''} on ["
                 + ", ".join(str(d) for d in self.devices) + "])")
 
 

@@ -30,11 +30,21 @@ stage S-1.  Both schedules burn the same warmup bubble of
 (S-1)/(M+S-1) ticks — 1F1B's win is memory: at most min(S, M)
 activation stashes live per stage instead of GPipe's M.
 
-On the port's single-controller mesh every stage lives on the mesh's
-one device; on the card the stages' cells run on S CUDA streams, so
-they overlap as the S devices of the JAX package's mesh do.  A tensor
-made on one stream and read on another is ``record_stream``-ed for the
-reader, and a cell reads its inputs only after the engine saw the
+The stage mesh takes either form of ``launch.mesh.Mesh``.  On a
+rank-stacked mesh every stage lives on the mesh's one device, the stacked
+params ``[S, ...]`` hold stage s's block in row s, and on the card the
+stages' cells run on S CUDA streams, so they overlap as the S devices of
+the JAX package's mesh do.  On a mesh with a device per stage
+(``make_mesh((S,), ("stage",), devices=[...])``, the JAX package's
+``mesh.devices``) stage s's parameters are shard s of ``RankShards``
+blocks, its CUDA stream, accumulators and cells are on ``devices[s]``,
+the microbatches enter on stage 0's device and the targets and the loss
+live on the last stage's, and a hop is a copy between two stages' devices
+(``schedules.ring_shift`` on ``RankShards``); the loss, the gradients
+(``RankShards`` blocks, stage s's on its device) and ``apply``'s outputs
+equal the stacked form's bit for bit.  A tensor made on one stream and
+read on another is ``record_stream``-ed for the reader, on the reader's
+own device, and a cell reads its inputs only after the engine saw the
 producing work finish (its gate's requests are CUDA events).
 """
 from __future__ import annotations
@@ -48,12 +58,37 @@ import torch
 
 from repro_torch.collectives import schedules as S_mod
 from repro_torch.collectives.overlap import tree_flatten
+from repro_torch.collectives.rank_shards import RankShards, device_context
 from repro_torch.core import (INLINE, ContinuationQueue, ProgressEngine,
                               Request, global_engine, torch_future)
 
 
 def _stage_params(stacked_leaves, s: int) -> list:
-    return [leaf[s] for leaf in stacked_leaves]
+    """Stage s's block of each leaf: row s of a stacked ``[S, ...]`` leaf,
+    or shard s (its one row) of ``RankShards`` blocks."""
+    return [leaf.shards[s][0] if isinstance(leaf, RankShards) else leaf[s]
+            for leaf in stacked_leaves]
+
+
+def _stage_devices(mesh, S: int) -> list:
+    """The device of each of the ``S`` stages: the mesh's one device, or
+    (a device per stage) ``mesh.devices``, which must then be the
+    stages' and no other rank's."""
+    if not mesh.per_device:
+        return [mesh.device] * S
+    if mesh.size != S:
+        raise ValueError(f"a stage mesh with a device per rank holds the "
+                         f"{S} stages and nothing else, got {mesh!r}")
+    return list(mesh.devices)
+
+
+def _stack_blocks(blocks: list, per_device: bool):
+    """Per-stage blocks -> the ``[S, ...]`` leaf of the mesh's form: one
+    stacked tensor, or ``RankShards`` blocks (stage s's ``[1, ...]`` on
+    its device)."""
+    if per_device:
+        return RankShards(b.unsqueeze(0) for b in blocks)
+    return torch.stack(blocks)
 
 
 def gpipe(stage_fn: Callable, mesh, axis: str, num_stages: int):
@@ -63,27 +98,41 @@ def gpipe(stage_fn: Callable, mesh, axis: str, num_stages: int):
     * ``stage_fn(stage_params, x) -> y``: one stage's computation
       (same shape in/out — the residual-stream case).
     * ``stage_params_stacked``: tree of tensors with leading dim
-      ``num_stages`` (stage s's block in row s).
+      ``num_stages`` (stage s's block in row s), or on a mesh with a
+      device per stage of ``RankShards`` blocks (stage s's on its
+      device).
     * ``x_microbatches``: ``[M, mb, ...]``.
 
-    Returns ``[M, mb, ...]``, differentiable with autograd."""
+    Returns ``[M, mb, ...]`` (on the last stage's device), differentiable
+    with autograd: on a device per stage, stage s runs on its device and
+    the carry hops between the devices as copies, which autograd
+    differentiates as JAX does ``ppermute``."""
     S = num_stages
     if dict(mesh.shape).get(axis) != S:
         raise ValueError(f"mesh axis {axis!r} has "
                          f"{dict(mesh.shape).get(axis)} rank(s), gpipe "
                          f"wants {S} stages")
+    devices = _stage_devices(mesh, S)
 
     def pipelined(stage_params, xs):
         M = xs.shape[0]
         leaves, rebuild = tree_flatten(stage_params)
         mine = [rebuild(_stage_params(leaves, s)) for s in range(S)]
-        carry = xs.new_zeros((S,) + tuple(xs.shape[1:]))
+        if mesh.per_device:
+            xs = xs.to(devices[0])
+            carry = [xs.new_zeros(xs.shape[1:], device=d) for d in devices]
+        else:
+            carry = xs.new_zeros((S,) + tuple(xs.shape[1:]))
         out = [None] * M
         for t in range(M + S - 1):
             # stage 0 injects microbatch t (if valid); others consume
             x0 = xs[t] if t < M else xs[0]
             x_in = [x0] + [carry[s] for s in range(1, S)]
-            y = torch.stack([stage_fn(mine[s], x_in[s]) for s in range(S)])
+            ys = []
+            for s in range(S):
+                with device_context(devices[s]):
+                    ys.append(stage_fn(mine[s], x_in[s]))
+            y = RankShards(ys) if mesh.per_device else torch.stack(ys)
             # the last stage owns microbatch t - (S-1) at this tick
             if t - (S - 1) >= 0:
                 out[t - (S - 1)] = y[S - 1]
@@ -277,12 +326,21 @@ class _StepRun:
 
 def _for_stream(tensors, cs) -> None:
     """Mark tensors made on another CUDA stream as used on ``cs`` (the
-    caching allocator then keeps their blocks until ``cs`` is done)."""
+    caching allocator then keeps their blocks until ``cs`` is done); the
+    tensors are on ``cs``'s device."""
     if cs is None:
         return
     for t in tensors:
         if isinstance(t, torch.Tensor) and t.is_cuda:
             t.record_stream(cs)
+
+
+def _for_current(tensors) -> None:
+    """Mark tensors as used on the calling thread's current stream of
+    each one's own device."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
 
 
 class PipelineSchedule:
@@ -293,7 +351,9 @@ class PipelineSchedule:
     * ``loss_fn(y, target) -> scalar`` — the loss head, applied to the
       last stage's output per microbatch (required for :meth:`step`).
     * ``mesh``/``axis`` — a 1-D mesh whose ``axis`` has ``num_stages``
-      ranks; stacked params ``[S, ...]`` hold stage s's block in row s.
+      ranks; stacked params ``[S, ...]`` hold stage s's block in row s,
+      or (a device per stage) ``RankShards`` blocks stage s's on its
+      device.
 
     Execution model: :meth:`istep` builds one DAG per call from the
     cached (S, M) grid.  Every (stage, microbatch) forward/backward
@@ -308,7 +368,8 @@ class PipelineSchedule:
     activation and takes ``torch.autograd.grad`` (the JAX package's
     ``vjp``).  Handoffs ride TWO persistent p2p channels (forward ring
     for activations, reverse ring for gradients), one ``start`` per tick
-    with edges stacked.
+    with edges stacked (on a device per stage a ``RankShards`` of each
+    stage's ``[1, *act]`` row, a zero row on the stages without an edge).
 
     The whole step completes through continuations: ``istep`` returns a
     Request, and nothing in the DAG ever polls or blocks — the only
@@ -333,14 +394,15 @@ class PipelineSchedule:
         self.executor = executor
         self.epoch = epoch
         self.name = name
-        self.device = mesh.device
+        # stage s's device: its CUDA stream, parameters, accumulators and
+        # cells are there
+        self.devices = _stage_devices(mesh, num_stages)
         mk = executor.stream if executor is not None else self.engine.stream
         self.stage_streams = [mk(f"{name}-stage{s}")
                               for s in range(num_stages)]
         self.cuda_streams = [
-            torch.cuda.Stream(device=self.device)
-            if self.device.type == "cuda" else None
-            for _ in range(num_stages)]
+            torch.cuda.Stream(device=d) if d.type == "cuda" else None
+            for d in self.devices]
         self.dag_stream = mk(f"{name}-dag")
         # DAG gates fire INLINE on whichever thread progresses the dag
         # stream (an executor worker, or the step waiter's sweep)
@@ -349,10 +411,14 @@ class PipelineSchedule:
         self.p2p = P2P(self.engine, executor=executor,
                        name=f"{name}-p2p", epoch=epoch)
         self._chan = {}              # "f"/"b" -> P2PChannel
-        self._zeros = None           # [*act] zero row of a hop payload
+        self._zeros = None           # per stage: a [1, *act] zero row
         self._act_sig = None
         self.steps = 0
         self.blocking_waits = 0
+        # the rows the hops carried, and those whose device differs from
+        # the receiving rank's (a copy between two cards)
+        self.hop_rows = 0
+        self.hop_rows_between_devices = 0
         # set after each step: {"window_s", "idle_s" (per stage),
         # "bubble"} — measured idle from the cell spans, comparable to
         # bubble_fraction's analytic value
@@ -387,9 +453,10 @@ class PipelineSchedule:
     # -- public API --------------------------------------------------------
     def step(self, params, xs, targets, timeout: float = 600.0):
         """Blocking 1F1B train step: returns ``(loss, grads)`` with
-        ``loss`` the mean microbatch loss (device scalar) and ``grads``
-        the stacked ``[S, ...]`` gradient tree — bit-identical to
-        sequential per-stage accumulation."""
+        ``loss`` the mean microbatch loss (a scalar on the last stage's
+        device) and ``grads`` the ``[S, ...]`` gradient tree in the
+        mesh's form — bit-identical to sequential per-stage
+        accumulation."""
         return self._wait(self.istep(params, xs, targets), timeout)
 
     def istep(self, params, xs, targets) -> Request:
@@ -414,6 +481,8 @@ class PipelineSchedule:
             "steps": self.steps,
             "blocking_waits": self.blocking_waits,
             "hop_starts": hops,
+            "hop_rows": self.hop_rows,
+            "hop_rows_between_devices": self.hop_rows_between_devices,
             "p2p_stream_completions": self.p2p.stream.completions,
             "p2p_issued": self.p2p.issued,
             "p2p_completed": self.p2p.completed,
@@ -440,14 +509,16 @@ class PipelineSchedule:
 
         leaves, self._rebuild = tree_flatten(params)
         run.params_stages = [_stage_params(leaves, s) for s in range(S)]
-        run.xs = xs
-        run.targets = targets
-        run.scale = torch.tensor(1.0 / M, dtype=torch.float32,
-                                 device=xs.device)
+        # the microbatches enter on stage 0's device; the loss head's
+        # targets and scale live on the last stage's
+        first, last = self.devices[0], self.devices[-1]
+        run.xs = xs.to(first)
+        run.targets = None if targets is None else targets.to(last)
+        run.scale = torch.tensor(1.0 / M, dtype=torch.float32, device=last)
         run.dp_acc = None if forward_only else [
             [torch.zeros_like(t) for t in run.params_stages[s]]
             for s in range(S)]
-        self._ensure_channels(tuple(xs.shape[1:]), xs.dtype, xs.device)
+        self._ensure_channels(tuple(xs.shape[1:]), xs.dtype)
 
         # pre-create every completion request the DAG will gate on; the
         # params future covers everything queued above (the zeroed
@@ -521,11 +592,12 @@ class PipelineSchedule:
                 return "done"
             t_issue = time.monotonic()
             cs = self.cuda_streams[op.stage]
-            # torch.cuda.stream is per thread: enter it inside the cell
+            # the current device and stream are per thread: enter the
+            # stage's device and stream inside the cell
             ctx = torch.cuda.stream(cs) if cs is not None \
                 else contextlib.nullcontext()
             try:
-                with ctx:
+                with device_context(self.devices[op.stage]), ctx:
                     out = self._dispatch(run, op, cs)
                     fut = torch_future(self.engine, out,
                                        self.stage_streams[op.stage])
@@ -586,12 +658,12 @@ class PipelineSchedule:
         (zeros elsewhere) and start the persistent channel."""
         if run.done.is_complete:
             return
-        rows = [self._zeros] * self.S
+        rows = list(self._zeros)
         for s, _m in edges:
-            rows[s] = run.staging.pop((d, t, s))
-        cur = torch.cuda.current_stream(self.device) \
-            if self.device.type == "cuda" else None
-        _for_stream(rows, cur)
+            rows[s] = run.staging.pop((d, t, s)).unsqueeze(0)
+        _for_current(rows)
+        payload = RankShards(rows) if self.mesh.per_device \
+            else torch.cat(rows)
         chan = self._chan[d]
         try:
             # under the step's lock: either ``_fail`` finds this start
@@ -600,20 +672,27 @@ class PipelineSchedule:
             with run._lock:
                 if run.failing:
                     return
-                chan.send.start(torch.stack(rows))
+                chan.send.start(payload)
                 run.hops.append(chan.persistent.active)
+                self.hop_rows += len(rows)
+                self.hop_rows_between_devices += sum(
+                    a.device != b.device
+                    for a, b in zip(rows, rows[1:] + rows[:1]))
             inner = chan.recv.start()
         except BaseException as exc:  # noqa: BLE001
             self._fail(run, exc)
             return
 
         def deliver(rq):
+            # stage s's row: row s of the stacked value, or its shard's one
             value = rq.value()
+            rows = [v[0] for v in value.shards] \
+                if isinstance(value, RankShards) else value
             for s, m in edges:
                 if d == "f":
-                    run.inbox_f[(s + 1, m)] = value[s + 1]
+                    run.inbox_f[(s + 1, m)] = rows[s + 1]
                 else:
-                    run.inbox_b[(s - 1, m)] = value[s - 1]
+                    run.inbox_b[(s - 1, m)] = rows[s - 1]
             rreq.complete(None)
 
         self.queue.attach(
@@ -625,23 +704,22 @@ class PipelineSchedule:
         if run.done.is_complete:
             return
         try:
-            cur = torch.cuda.current_stream(self.device) \
-                if self.device.type == "cuda" else None
             if run.grid.forward_only:
                 ys = [run.outputs[m] for m in range(run.grid.M)]
-                _for_stream(ys, cur)
+                _for_current(ys)
                 result = torch.stack(ys)
             else:
                 losses = [run.losses[m] for m in range(run.grid.M)]
-                _for_stream(losses + [run.scale], cur)
+                _for_current(losses + [run.scale])
                 loss = losses[0]
                 for m in range(1, run.grid.M):
                     loss = loss + losses[m]
                 loss = loss * run.scale
                 for acc in run.dp_acc:
-                    _for_stream(acc, cur)
+                    _for_current(acc)
                 grads = self._rebuild([
-                    torch.stack([run.dp_acc[s][i] for s in range(self.S)])
+                    _stack_blocks([run.dp_acc[s][i] for s in range(self.S)],
+                                  self.mesh.per_device)
                     for i in range(len(run.dp_acc[0]))])
                 result = (loss, grads)
         except BaseException as exc:  # noqa: BLE001
@@ -698,8 +776,8 @@ class PipelineSchedule:
                 except BaseException:  # noqa: BLE001
                     pass
 
-    def _ensure_channels(self, act_shape, dtype, device) -> None:
-        sig = (tuple(act_shape), dtype, device)
+    def _ensure_channels(self, act_shape, dtype) -> None:
+        sig = (tuple(act_shape), dtype)
         if self._act_sig == sig:
             return
         if self._act_sig is not None:
@@ -707,7 +785,8 @@ class PipelineSchedule:
                 c.close()
             self._chan = {}
         self._act_sig = sig
-        self._zeros = torch.zeros(act_shape, dtype=dtype, device=device)
+        self._zeros = [torch.zeros((1,) + tuple(act_shape), dtype=dtype,
+                                   device=d) for d in self.devices]
         if self.S > 1:
             like = torch.empty((self.S,) + tuple(act_shape), dtype=dtype,
                                device="meta")

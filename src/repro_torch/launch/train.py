@@ -21,6 +21,9 @@ elastic, or a 1F1B pipeline.
         [--fsdp] [--elastic --chaos-kill 2 --chaos-kill-step 2]]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --pipeline 1f1b --mesh 2x2 --microbatches 4 --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --pipeline 1f1b \
+        --mesh 1x4 --microbatches 8 --rank-devices \
+        cuda:0,cuda:1,cuda:2,cuda:3 --steps 6    # a card a stage
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --scale tiny --mesh 1x4 --steps 6        # a model axis of 4 ranks
 
@@ -77,7 +80,10 @@ after step ``--chaos-kill-step`` (the loop logs every step then), and
 the trainer remeshes onto the survivors and retries the step's batch.
 
 ``--pipeline gpipe|1f1b`` trains a residual-MLP stage stack against a
-fixed linear teacher on a (data x stage) mesh (``_run_pipeline``).
+fixed linear teacher on a (data x stage) mesh (``_run_pipeline``); with
+``--rank-devices`` (D·S devices, rank (d, s) on ``devices[d*S + s]``)
+each stage runs on its rank's device, the losses and checkpoint files of
+the rank-stacked run, bit for bit.
 
 Batches move to the card from pinned host memory.  Weights are random,
 drawn from seed 0 by a ``torch.Generator`` on the device.  A run with
@@ -124,7 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a device per data-parallel rank, comma-separated "
                          "(e.g. cuda:0,cuda:1,cuda:2,cuda:3; a device may "
                          "repeat); as many as --devices, user backend "
-                         "only; composes with --fsdp")
+                         "only; composes with --fsdp; with --pipeline a "
+                         "device per (data, stage) rank, row-major")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -520,18 +527,18 @@ class TrainReport:
 def _rank_devices(args):
     """``--rank-devices`` as a list of devices (None when not given);
     what it does not compose with yet exits, naming the ROADMAP item
-    (queue 1) that will port it."""
+    (queue 1) that will port it.  A pipeline's mesh is (data x stage):
+    its second dim is no model axis, and its reductions run on the user
+    backend whatever ``--collective-backend`` says."""
     if not args.rank_devices:
         return None
+    pipeline = args.pipeline != "none"
     dims = args.mesh.split("x") if args.mesh else []
-    model = int(dims[1]) if len(dims) == 2 else 1     # else mesh_shape says
-    later = (("--pipeline", args.pipeline != "none", 10),
-             ("a model axis above 1", model > 1, 12))
-    for what, on, item in later:
-        if on:
-            raise SystemExit(f"--rank-devices does not compose with {what} "
-                             f"yet (ROADMAP queue 1, item {item})")
-    if args.collective_backend != "user":
+    model = int(dims[1]) if len(dims) == 2 and not pipeline else 1
+    if model > 1:
+        raise SystemExit("--rank-devices does not compose with a model "
+                         "axis above 1 yet (ROADMAP queue 1, item 12)")
+    if not pipeline and args.collective_backend != "user":
         raise SystemExit("--rank-devices needs --collective-backend user "
                          "(the ranks' gradients meet in the user-space "
                          "collectives)")
@@ -541,15 +548,10 @@ def _rank_devices(args):
 def _replicate_state(params, mesh):
     """A replica of ``params`` and of fresh AdamW state on each rank's
     device (``RankShards`` leaves)."""
-    from repro_torch.collectives.rank_shards import device_context, \
-        replicate_tree, tree_shard, tree_stack
+    from repro_torch.collectives.rank_shards import replicate_tree
     from repro_torch.train import optimizer as opt_mod
     params = replicate_tree(params, mesh.devices)
-    states = []
-    for r, dev in enumerate(mesh.devices):
-        with device_context(dev):
-            states.append(opt_mod.init(tree_shard(params, r)))
-    return params, tree_stack(states, replica=True)
+    return params, opt_mod.init(params)
 
 
 def _apply_per_device(ocfg):
@@ -642,7 +644,8 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
 
     rank_devices = _rank_devices(args)
     if args.pipeline != "none":
-        return _run_pipeline(args, **loop_overrides)
+        return _run_pipeline(args, rank_devices, params=params,
+                             **loop_overrides)
     device = resolve_device(args.device)
     cfg = config if config is not None else make_config(args.arch,
                                                         args.scale)
@@ -951,7 +954,88 @@ def pipe_loss_fn(y, t):
     return torch.mean((y - t) ** 2)
 
 
-def _run_pipeline(args, **loop_overrides) -> TrainReport:
+class _StageColumns:
+    """The data-axis gradient reduction of a (data x stage) pipeline
+    mesh: one ``EngineGradReducer`` a stage column, over a 1-D data mesh
+    of that column's D ranks (their devices in the per-device form, whose
+    collectives run over an axis holding every rank of their mesh).  Both
+    forms reduce the same per-column payloads, so they give the same bits.
+
+    ``iallreduce_tree`` takes the rows' gradient trees (``[S, ...]``
+    leaves, or ``RankShards`` blocks on the row's devices) and returns a
+    handle whose ``wait`` gives the mean in the form ``_pipe_adamw``
+    takes: ``[S, ...]`` leaves, or ``RankShards`` copies (rank (d, s)'s
+    block on its device, row-major)."""
+
+    def __init__(self, meshes: list, *, engine, spec):
+        from repro_torch.collectives.overlap import EngineGradReducer
+        self.meshes = meshes
+        self.reducers = [EngineGradReducer(m, "data", engine=engine,
+                                           spec=spec, mean=True)
+                         for m in meshes]
+        self.axis_size = dict(meshes[0].shape)["data"]
+
+    @property
+    def dispatches_per_step(self) -> int:
+        return sum(r.dispatches_per_step for r in self.reducers)
+
+    def iallreduce_tree(self, row_grads: list):
+        from repro_torch.collectives.rank_shards import RankShards
+        per_device = self.meshes[0].per_device
+
+        def column(s):
+            # stage s's gradients of the D rows: [D, ...] leaves, or the
+            # rows' shards s on the column's devices
+            return {k: (RankShards(g[k].shards[s] for g in row_grads)
+                        if per_device else torch.stack([g[k][s]
+                                                        for g in row_grads]))
+                    for k in row_grads[0]}
+
+        return _ColumnReduction([r.iallreduce_tree(column(s))
+                                 for s, r in enumerate(self.reducers)],
+                                self.axis_size if per_device else None)
+
+    def close(self) -> None:
+        for r in self.reducers:
+            r.close()
+
+
+class _ColumnReduction:
+    """The stage columns' reductions in flight (``D`` data ranks a column
+    in the per-device form, None in the stacked one)."""
+
+    def __init__(self, parts: list, D: int | None):
+        self.parts = parts
+        self.D = D
+        self.issue_s = sum(p.issue_s for p in parts)
+
+    def wait(self, timeout: float | None = None):
+        from repro_torch.collectives.rank_shards import RankShards
+        cols = [p.wait(timeout=timeout) for p in self.parts]
+        if self.D is None:
+            return {k: torch.stack([c[k] for c in cols]) for k in cols[0]}
+        return {k: RankShards((cols[s][k].shards[d].unsqueeze(0)
+                               for d in range(self.D)
+                               for s in range(len(cols))), copies=self.D)
+                for k in cols[0]}
+
+
+def _pipe_adamw(ocfg, state, params, grads):
+    """AdamW over the stages' leaves, in place: ``apply_shards`` on the
+    leaves in key order (``[S, ...]`` stacks, or ``RankShards`` copies of
+    the S blocks), the moments as leaf lists, so both forms take the
+    grad norm as the same per-stage partials added in stage order."""
+    from repro_torch.train import optimizer as opt_mod
+    keys = sorted(params)
+    _, st, om = opt_mod.apply_shards(
+        ocfg, opt_mod.AdamWState(state.step, [state.mu[k] for k in keys],
+                                 [state.nu[k] for k in keys]),
+        [params[k] for k in keys], [grads[k] for k in keys])
+    return params, opt_mod.AdamWState(st.step, state.mu, state.nu), om
+
+
+def _run_pipeline(args, rank_devices=None, *, params=None,
+                  **loop_overrides) -> TrainReport:
     """Pipeline-parallel rehearsal: a residual-MLP stage stack (d_model
     16, hidden 32) trained against a fixed linear teacher, on a (data x
     stage) mesh.
@@ -961,14 +1045,25 @@ def _run_pipeline(args, **loop_overrides) -> TrainReport:
       1).
     * ``--pipeline 1f1b``: one event-driven :class:`PipelineSchedule`
       per data row (per-stage executor-owned streams, persistent p2p
-      handoffs), composed with the ``EngineGradReducer`` over the data
-      axis of the 2-D mesh — the split-step ``UserCollectiveStep``
-      path, exactly as for plain data-parallel."""
+      handoffs), composed with a data-axis reduction a stage column
+      (``_StageColumns``) — the split-step ``UserCollectiveStep`` path,
+      as for plain data-parallel.
+
+    AdamW steps every stage's block (``_pipe_adamw``: the grad norm from
+    per-stage partials).  ``params`` (``[S, ...]`` ``w1``/``w2``) replace
+    the seeded weights; tests hand in the JAX reference's.  With ``rank_devices`` (D·S of them, rank (d, s)
+    on ``rank_devices[d*S + s]``, row-major as ``jax.sharding.Mesh``
+    lays them out) row d's schedule (or gpipe's tick loop) runs on a mesh
+    with a device per stage, rank (d, s) holds stage s's parameters,
+    moments and step counter on its device, and each stage column's
+    reduction copies between its ranks' devices; the checkpoint holds the
+    ``[S, ...]`` leaves as the stacked run's, byte for byte, and the
+    losses equal that run's bit for bit."""
     import numpy as np
 
     from repro_torch import resolve_device
     from repro_torch.collectives.nonblocking import CollectiveSpec
-    from repro_torch.collectives.overlap import EngineGradReducer
+    from repro_torch.collectives.rank_shards import RankShards
     from repro_torch.core import ProgressEngine, ProgressExecutor
     from repro_torch.data.pipeline import PrefetchPipeline
     from repro_torch.distributed import pipeline as pl
@@ -995,21 +1090,45 @@ def _run_pipeline(args, **loop_overrides) -> TrainReport:
     if args.pipeline == "gpipe" and D != 1:
         raise SystemExit("--pipeline gpipe differentiates through one "
                          "tick loop; use a 1xS mesh (data dim 1)")
-    mesh = make_mesh((D, S), ("data", "stage"), device)
+    if rank_devices is not None and len(rank_devices) != D * S:
+        raise SystemExit(f"--rank-devices names {len(rank_devices)} "
+                         f"device(s) for the {D}x{S} mesh's {D * S} ranks")
+    if rank_devices is not None:
+        mesh = make_mesh((D, S), ("data", "stage"), devices=rank_devices)
+        rows_of = [list(mesh.devices[r * S:(r + 1) * S]) for r in range(D)]
+        stage_meshes = [make_mesh((S,), ("stage",), devices=row)
+                        for row in rows_of]
+        column_meshes = [make_mesh((D,), ("data",), devices=[
+            row[s] for row in rows_of]) for s in range(S)]
+    else:
+        mesh = make_mesh((D, S), ("data", "stage"), device)
+        stage_meshes = [make_mesh((S,), ("stage",), device)] * D
+        column_meshes = [make_mesh((D,), ("data",), device)] * S
     M = max(args.microbatches, 1)
     d_model, mb = PIPE_D_MODEL, max(args.global_batch, 1)
     print(f"pipeline={args.pipeline} mesh={dict(mesh.shape)} "
           f"microbatches={M} "
           f"bubble={pl.bubble_fraction(S, M, args.pipeline):.3f} "
-          f"peak_act={pl.peak_activation_microbatches(S, M, args.pipeline)}")
+          f"peak_act={pl.peak_activation_microbatches(S, M, args.pipeline)}"
+          + (f" devices={[str(d) for d in mesh.devices]}"
+             if mesh.per_device else ""))
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = {
-        "w1": torch.randn((S, d_model, PIPE_D_HIDDEN), generator=gen,
-                          device=device) * 0.1,
-        "w2": torch.randn((S, PIPE_D_HIDDEN, d_model), generator=gen,
-                          device=device) * 0.1,
-    }
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = {
+            "w1": torch.randn((S, d_model, PIPE_D_HIDDEN), generator=gen,
+                              device=device) * 0.1,
+            "w2": torch.randn((S, PIPE_D_HIDDEN, d_model), generator=gen,
+                              device=device) * 0.1,
+        }
+    else:
+        params = {k: torch.as_tensor(v).to(device, torch.float32, copy=True)
+                  for k, v in params.items()}
+    if mesh.per_device:
+        # rank (d, s) holds stage s's block: the stages split over the
+        # stage axis, copied over the data axis (JAX's P("stage"))
+        params = {k: RankShards.from_stacked(v, mesh, copies=D)
+                  for k, v in params.items()}
     ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5,
                                total_steps=max(args.steps, 10))
     opt_state = opt_mod.init(params)
@@ -1029,8 +1148,15 @@ def _run_pipeline(args, **loop_overrides) -> TrainReport:
 
     pipe = PrefetchPipeline(gen_batches(), eng, depth=3)
 
+    def row_params(params, r):
+        # row r's stage blocks: its S ranks' shards, or the stacked leaves
+        if not mesh.per_device:
+            return params
+        return {k: RankShards(v.shards[r * S:(r + 1) * S])
+                for k, v in params.items()}
+
     def apply_fn(params, opt_state, grads, stacked_mets):
-        params, opt_state, om = opt_mod.apply(ocfg, opt_state, params, grads)
+        params, opt_state, om = _pipe_adamw(ocfg, opt_state, params, grads)
         mets = {k: v.mean() for k, v in stacked_mets.items()}
         return params, opt_state, dict(mets, **om)
 
@@ -1045,40 +1171,52 @@ def _run_pipeline(args, **loop_overrides) -> TrainReport:
 
     rows, reducer, step_fn, split = [], None, None, None
     if args.pipeline == "gpipe":
-        gp = pl.gpipe(pipe_stage_fn, make_mesh((S,), ("stage",), device),
-                      "stage", S)
+        gp = pl.gpipe(pipe_stage_fn, stage_meshes[0], "stage", S)
+        last = stage_meshes[0].devices[-1] if mesh.per_device else device
+
+        def leaves_of(p):
+            return [t for k in sorted(p) for t in (
+                p[k].shards if mesh.per_device else [p[k]])]
 
         def step_fn(p, o, batch):
-            xs, ts = batch["xs"][0].to(device), batch["ts"][0].to(device)
+            xs, ts = batch["xs"][0].to(device), batch["ts"][0].to(last)
             with torch.enable_grad():
-                ps = {k: v.detach().requires_grad_(True)
+                ps = {k: (RankShards(t.detach().requires_grad_(True)
+                                     for t in v.shards)
+                          if mesh.per_device
+                          else v.detach().requires_grad_(True))
                       for k, v in p.items()}
                 ys = gp(ps, xs)
                 loss = torch.stack([pipe_loss_fn(ys[m], ts[m])
                                     for m in range(M)]).mean()
-                g = torch.autograd.grad(loss, [ps[k] for k in sorted(ps)])
-            p, o, om = opt_mod.apply(ocfg, o, p, dict(zip(sorted(ps), g)))
+                g = torch.autograd.grad(loss, leaves_of(ps))
+            if mesh.per_device:
+                grads = {k: RankShards(g[i * S:(i + 1) * S])
+                         for i, k in enumerate(sorted(ps))}
+            else:
+                grads = dict(zip(sorted(ps), g))
+            p, o, om = _pipe_adamw(ocfg, o, p, grads)
             return p, o, dict(loss=loss.detach(), **om)
     else:
+        first = mesh.devices[0] if mesh.per_device else device
         for r in range(D):
             rows.append(pl.PipelineSchedule(
-                pipe_stage_fn, make_mesh((S,), ("stage",), device), "stage",
-                S, loss_fn=pipe_loss_fn, engine=eng, executor=ex,
+                pipe_stage_fn, stage_meshes[r], "stage", S,
+                loss_fn=pipe_loss_fn, engine=eng, executor=ex,
                 name=f"pipe{r}"))
 
         def grad_fn(params, batch):
-            xs, ts = batch["xs"].to(device), batch["ts"].to(device)
-            # launch every row's DAG before waiting on any: the rows'
-            # stage streams progress concurrently under the executor
-            reqs = [rows[r].istep(params, xs[r], ts[r]) for r in range(D)]
+            # each row's schedule moves its microbatches to its stage 0's
+            # device and its targets to its last stage's; launch every
+            # row's DAG before waiting on any: the rows' stage streams
+            # progress concurrently under the executor
+            reqs = [rows[r].istep(row_params(params, r), batch["xs"][r],
+                                  batch["ts"][r]) for r in range(D)]
             outs = [rows[r]._wait(reqs[r], timeout=600) for r in range(D)]
-            losses = torch.stack([o[0] for o in outs])
-            grads = {k: torch.stack([o[1][k] for o in outs])
-                     for k in outs[0][1]}
-            return {"loss": losses}, grads
+            losses = torch.stack([o[0].to(first) for o in outs])
+            return {"loss": losses}, [o[1] for o in outs]
 
-        reducer = EngineGradReducer(mesh, "data", engine=eng, spec=pspec,
-                                    mean=True)
+        reducer = _StageColumns(column_meshes, engine=eng, spec=pspec)
         split = UserCollectiveStep(grad_fn, apply_fn, reducer, spec=pspec)
 
     trainer = Trainer(step_fn, params, opt_state, pipe, loop_cfg,

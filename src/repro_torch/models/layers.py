@@ -39,6 +39,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import sharding
+from repro_torch.collectives.rank_shards import RankShards, device_context, \
+    tree_shard
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -484,6 +486,15 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _moe_groups(cfg, T: int) -> tuple[int, int]:
+    """(groups, tokens a group) of ``T`` tokens: groups of
+    ``group_size``, or one group when they do not divide ``T``."""
+    Gt = min(cfg.moe.group_size, T)
+    if T % Gt != 0:
+        Gt = T
+    return T // Gt, Gt
+
+
 def _moe_route(p, x, cfg):
     """Router + GShard capacity dispatch, shared by every MoE apply path.
 
@@ -495,14 +506,29 @@ def _moe_route(p, x, cfg):
     dropped (its capacity row is all zeros).  The router's gradient flows
     through the gate values into ``combine`` and through the
     probabilities into the aux loss, never through the masks."""
+    xg, dispatch, combine, probs, sel_all = _moe_route_parts(p, x, cfg)
+    # load-balance aux loss (Switch): E * sum_e mean prob * routed share
+    me = torch.mean(probs, dim=(0, 1))
+    fe = torch.mean(sel_all, dim=(0, 1)) / cfg.moe.top_k
+    return xg, dispatch, combine, _moe_aux(me, fe, cfg)
+
+
+def _moe_aux(me, fe, cfg):
+    """The Switch aux loss from each expert's mean probability ``me``
+    and routed share ``fe``."""
+    mc = cfg.moe
+    return mc.num_experts * torch.sum(me * fe) * mc.aux_loss_weight
+
+
+def _moe_route_parts(p, x, cfg):
+    """``_moe_route`` before its aux loss: ``(xg, dispatch, combine,
+    probs, sel_all)``, the router's f32 probabilities and each token's
+    chosen experts ``[g, t, E]`` in place of the loss."""
     mc = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = mc.num_experts, mc.top_k
-    Gt = min(mc.group_size, T)
-    if T % Gt != 0:
-        Gt = T
-    Gn = T // Gt
+    Gn, Gt = _moe_groups(cfg, T)
     C = max(1, int(math.ceil(Gt * K * mc.capacity_factor / E)))
     # capacity rounded to a multiple of 16, at most the group size
     C = int(min(Gt, ((C + 15) // 16) * 16))
@@ -530,12 +556,7 @@ def _moe_route(p, x, cfg):
         combine = combine + w_k[..., None] * cap_oh[:, :, None, :]
         sel_all = sel_all + sel_k
     dispatch = (combine > 0).to(x.dtype)
-
-    # load-balance aux loss (Switch): E * sum_e mean prob * routed share
-    me = torch.mean(probs, dim=(0, 1))
-    fe = torch.mean(sel_all, dim=(0, 1)) / K
-    aux = E * torch.sum(me * fe) * mc.aux_loss_weight
-    return xg, dispatch, combine, aux
+    return xg, dispatch, combine, probs, sel_all
 
 
 def _moe_dispatch(dispatch, xg):
@@ -714,7 +735,13 @@ def moe_dispatch_alltoall(xe, mesh, axis: str, *, reverse: bool = False,
     :class:`~repro_torch.collectives.nonblocking.UserCollectives` context
     sends the payload through the engine-driven Bruck ``ialltoall``
     instead.  All-to-all is pure data movement, so the two give the same
-    bits."""
+    bits.
+
+    On a mesh with a device per rank ``xe`` is a ``RankShards`` of each
+    rank's own part on its device (:func:`_alltoall_per_device`)."""
+    if isinstance(xe, RankShards):
+        return _alltoall_per_device(xe, mesh, axis, reverse=reverse,
+                                    coll=coll, spec=spec, timeout=timeout)
     n = dict(mesh.shape)[axis]
     G, E = xe.shape[0], xe.shape[1]
     if G % n or E % n:
@@ -743,20 +770,97 @@ def moe_dispatch_alltoall(xe, mesh, axis: str, *, reverse: bool = False,
     return out.permute((1, 2, 0, 3) + r_axes).reshape(G, E, *rest)
 
 
+def _axis_ranks(mesh, axis: str) -> tuple:
+    """The devices of a per-device mesh whose ``axis`` holds every rank."""
+    if dict(mesh.shape)[axis] != mesh.size:
+        raise ValueError(f"on a mesh with a device per rank the axis "
+                         f"{axis!r} must hold every rank of {mesh!r}")
+    return mesh.devices
+
+
+def _alltoall_per_device(xe, mesh, axis: str, *, reverse: bool, coll, spec,
+                         timeout: float):
+    """``moe_dispatch_alltoall`` on a mesh with a device per rank.
+
+    Forward, shard r of ``xe`` is rank r's groups of every expert,
+    ``[G/n, E, C, d]``, and becomes every group's slice of its own
+    experts, ``[G, E/n, C, d]``; reverse undoes it.  Shard s of the
+    payload is rank s's n outgoing blocks ``[n, G/n, E/n, ...]`` (block r
+    for rank r); ``coll`` sends it through the Bruck ``ialltoall`` on
+    ``RankShards``, and without it each block is copied onto its
+    destination's device directly.  Either way rank r receives the
+    blocks of every rank in rank order, the same bits."""
+    devices = _axis_ranks(mesh, axis)
+    n = len(devices)
+    if xe.devices != devices:
+        raise ValueError(f"moe_dispatch_alltoall: shards on "
+                         f"{[str(d) for d in xe.devices]}, the mesh's "
+                         f"ranks on {[str(d) for d in devices]}")
+    a, b = xe.shards[0].shape[:2]
+    G, E = (a, b * n) if reverse else (a * n, b)
+    if G % n or E % n:
+        raise ValueError(
+            f"moe_dispatch_alltoall: groups ({G}) and experts ({E}) must "
+            f"divide the {axis!r} axis size ({n})")
+    if n == 1:
+        return xe
+    Gl, El = G // n, E // n
+    rest = tuple(xe.shards[0].shape[2:])
+    pays = []
+    for t, dev in zip(xe.shards, devices):
+        with device_context(dev):
+            if reverse:     # [G, El]: the groups of rank r in block r
+                pays.append(t.reshape(n, Gl, El, *rest))
+            else:           # [Gl, E]: the experts of rank r in block r
+                pays.append(t.reshape(Gl, n, El, *rest).transpose(0, 1)
+                            .contiguous())
+    if coll is None:
+        outs = []
+        for r, dev in enumerate(devices):
+            with device_context(dev):
+                outs.append(torch.stack([pays[s][r].to(dev)
+                                         for s in range(n)]))
+    else:
+        outs = coll.ialltoall(RankShards(pays), mesh, axis, spec=spec) \
+            .wait(timeout=timeout).shards
+    # outs[i][j]: the block rank j sent to rank i
+    res = []
+    for o, dev in zip(outs, devices):
+        with device_context(dev):
+            if reverse:     # (groups of i, experts of j) -> [Gl, E]
+                res.append(o.transpose(0, 1).reshape(Gl, E, *rest))
+            else:           # (groups of j, experts of i) -> [G, El]
+                res.append(o.reshape(G, El, *rest))
+    return RankShards(res)
+
+
 def _moe_expert_ffn_sharded(mesh, axis: str):
     """The expert-sharded FFN: every contraction is expert-local, so the
     only collectives of the expert-parallel path are the two explicit
     all-to-alls around it.  Single-controller, as the port's
     collectives: every rank's experts in one batched product over the
-    expert dim, whose leading factor is the rank."""
+    expert dim, whose leading factor is the rank.  On a mesh with a
+    device per rank each rank's own experts on its device, the weights
+    ``RankShards`` blocks of E/n experts."""
     n = dict(mesh.shape)[axis]
 
-    def ffn(xed, wg, wu, wo):
-        if xed.shape[1] % n or wg.shape[0] != xed.shape[1]:
+    def check(experts: int, local: int, weights: int):
+        if experts % n or weights != local:
             raise ValueError(
-                f"expert-sharded FFN: experts ({xed.shape[1]}) must divide "
+                f"expert-sharded FFN: experts ({experts}) must divide "
                 f"the {axis!r} axis size ({n}) and match the weights "
-                f"({wg.shape[0]})")
+                f"({weights})")
+
+    def ffn(xed, wg, wu, wo):
+        if isinstance(xed, RankShards):
+            El = xed.shards[0].shape[1]
+            check(El * n, El, wg.shards[0].shape[0])
+            out = []
+            for r, dev in enumerate(_axis_ranks(mesh, axis)):
+                with device_context(dev):
+                    out.append(_moe_expert_ffn(xed[r], wg[r], wu[r], wo[r]))
+            return RankShards(out)
+        check(xed.shape[1], xed.shape[1], wg.shape[0])
         return _moe_expert_ffn(xed, wg, wu, wo)
 
     return ffn
@@ -774,7 +878,14 @@ def moe_apply_expert_parallel(p, x, cfg, mesh, axis: str = "model", *,
     the transposes are engine-driven user-space Bruck all-to-alls;
     without, the native block transpose.  The token math is the same
     tensor ops as :func:`moe_apply`'s on the same values, so the three
-    paths agree bit for bit.  Returns (y, aux loss)."""
+    paths agree bit for bit.  Returns (y, aux loss).
+
+    On a mesh with a device per rank (``axis`` holding every rank), see
+    :func:`_moe_expert_parallel_per_device`."""
+    if mesh.per_device:
+        return _moe_expert_parallel_per_device(p, x, cfg, mesh, axis,
+                                               coll=coll, spec=spec,
+                                               timeout=timeout)
     B, S, D = x.shape
     xg, dispatch, combine, aux = _moe_route(p, x, cfg)
     dt = x.dtype
@@ -787,3 +898,64 @@ def moe_apply_expert_parallel(p, x, cfg, mesh, axis: str = "model", *,
                                spec=spec, timeout=timeout)
     y = _moe_combine(combine, ye)
     return y.reshape(B, S, D), aux
+
+
+def _moe_expert_parallel_per_device(p, x, cfg, mesh, axis: str, *, coll,
+                                    spec, timeout: float):
+    """Expert parallelism with each rank's groups and experts on its
+    device (the JAX ``"experts" -> model`` placement).
+
+    ``x`` is a ``RankShards`` of each rank's contiguous batch rows, so
+    rank r holds groups r·G/n .. of the G groups; ``p["router"]`` is a
+    replica and ``wi_gate``/``wi_up``/``wo`` ``RankShards`` blocks of E/n
+    experts each.  Each rank routes its own groups on its device
+    (``_moe_route_parts``), the dispatched ``[G/n, E, C, d]`` goes through
+    the all-to-all to ``[G, E/n, C, d]``, each rank runs its experts' FFN,
+    the reverse all-to-all brings the outputs back and each rank
+    combines.  Returns ``y`` (a ``RankShards`` of each rank's rows) and
+    the global aux loss on rank 0's device: its means over (g, t) are the
+    ranks' partial sums, added in rank order there."""
+    devices = _axis_ranks(mesh, axis)
+    n = len(devices)
+    if not isinstance(x, RankShards) or x.devices != devices:
+        raise ValueError(f"expert-parallel MoE on {mesh!r}: x must be a "
+                         f"RankShards with shard r on the mesh's rank r")
+    mc = cfg.moe
+    E = mc.num_experts
+    Br, S, D = x.shards[0].shape
+    Gn, _ = _moe_groups(cfg, n * Br * S)
+    if E % n or Gn % n:
+        raise ValueError(
+            f"expert-parallel MoE: experts ({E}) and groups ({Gn}) must "
+            f"divide the {axis!r} axis size ({n})")
+    dt = x.dtype
+    routes, xe = [], []
+    for r, dev in enumerate(devices):
+        with device_context(dev):
+            xg, dispatch, combine, probs, sel_all = _moe_route_parts(
+                tree_shard(p, r), x[r], cfg)
+            routes.append((combine, probs, sel_all))
+            xe.append(_moe_dispatch(dispatch, xg))          # [G/n, E, C, d]
+    xed = moe_dispatch_alltoall(RankShards(xe), mesh, axis, coll=coll,
+                                spec=spec, timeout=timeout)
+    w = [RankShards(t.to(dt) for t in p[k].shards)
+         for k in ("wi_gate", "wi_up", "wo")]
+    ye = _moe_expert_ffn_sharded(mesh, axis)(xed, *w)
+    ye = moe_dispatch_alltoall(ye, mesh, axis, reverse=True, coll=coll,
+                               spec=spec, timeout=timeout)
+    ys = []
+    for r, dev in enumerate(devices):
+        with device_context(dev):
+            ys.append(_moe_combine(routes[r][0], ye[r]).reshape(Br, S, D))
+    first = devices[0]
+    sums = []
+    for i in (1, 2):            # the probabilities, then the choices
+        total = None
+        for r, dev in enumerate(devices):
+            with device_context(dev):
+                part = torch.sum(routes[r][i], dim=(0, 1)).to(first)
+            total = part if total is None else total + part
+        sums.append(total / (n * Br * S))
+    with device_context(first):
+        aux = _moe_aux(sums[0], sums[1] / mc.top_k, cfg)
+    return RankShards(ys), aux

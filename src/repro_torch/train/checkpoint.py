@@ -12,7 +12,9 @@ from rank 0, as the JAX package saves a replicated array once, and
 restored as a copy on each rank's device.  Blocks (FSDP's ZeRO shards,
 rank ``r``'s ``[1, W/n]`` on its device) are saved glued in rank order,
 the rank-stacked tensor's file byte for byte, and restored as rank ``r``'s
-block on its device.
+block on its device; copies of blocks (pipeline stages' parameters on a
+(data x stage) mesh) are saved as one copy's blocks, and restored into
+every copy.
 
 Stage 1 differs from the JAX package, where arrays are immutable: the
 port's optimizer updates the parameters and moments in place on the same
@@ -76,10 +78,11 @@ def _flat_with_paths(tree) -> list[tuple[str, Any]]:
 
 def _saved_parts(leaf) -> list:
     """The tensors a leaf's file is made of: rank 0's shard of a replica,
-    every shard of blocks (glued in rank order), else the leaf."""
+    every shard of blocks (glued in rank order; one copy's of copies),
+    else the leaf."""
     if not isinstance(leaf, RankShards):
         return [leaf]
-    return [leaf.shards[0]] if leaf.replica else list(leaf.shards)
+    return [leaf.shards[0]] if leaf.replica else list(leaf.blocks)
 
 
 def _to_host(leaf):
@@ -211,7 +214,8 @@ class AsyncCheckpointer:
             if isinstance(leaf_like, RankShards):
                 if not leaf_like.replica:
                     return RankShards.from_stacked(
-                        t.to(leaf_like.dtype), devices=leaf_like.devices)
+                        t.to(leaf_like.dtype), devices=leaf_like.devices,
+                        copies=leaf_like.copies)
                 return RankShards((t.to(device=d, dtype=leaf_like.dtype,
                                         copy=True)
                                    for d in leaf_like.devices), replica=True)

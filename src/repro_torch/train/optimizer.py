@@ -16,7 +16,7 @@ Differences from the JAX package, by design:
 
 ``torch.optim.AdamW`` is not used: its schedule, clipping and decay
 differ.  ``init_shards``/``apply_shards`` are the ZeRO step over FSDP
-flat shard stacks, in place likewise.
+flat shard stacks, in place likewise (also over pipeline stages' blocks).
 """
 from __future__ import annotations
 
@@ -51,8 +51,20 @@ class AdamWState(NamedTuple):
 
 
 def init(params) -> AdamWState:
+    """Fresh state for ``params``.  Over ``RankShards`` leaves (replicas,
+    blocks or copies of blocks, a device per rank) the moments are leaves
+    of the same kind on the same devices and the step counter a replica
+    on each."""
     first = next(t for _, t in tree_leaves(params))
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+    if isinstance(first, RankShards):
+        moments = lambda: tree_map(                             # noqa: E731
+            lambda p: RankShards((zeros(s) for s in p.shards),
+                                 replica=p.replica, copies=p.copies), params)
+        return AdamWState(
+            step=RankShards((torch.zeros((), dtype=torch.int32, device=d)
+                             for d in first.devices), replica=True),
+            mu=moments(), nu=moments())
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         mu=tree_map(zeros, params),
@@ -136,11 +148,14 @@ def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
     ``shards``/``grad_shards`` are lists of rank-stacked ``[n, W/n]``
     tensors, rank r's block in row r, or (a device per rank) lists of
     ``RankShards`` blocks with the moments likewise and the step counter
-    a replica.  AdamW is elementwise, so flat math equals per-leaf math
-    given the same clip scale and schedule; the one cross-rank quantity,
-    the global grad norm, is each rank's sum of squares over its blocks
-    (the JAX package's local sum) then the sum of the n partials in rank
-    order (its ``psum``).  In the per-device form the partials meet on
+    a replica.  Pipeline stages' leaves fit both forms: ``[S, ...]``
+    stacks, or ``RankShards`` copies of the S blocks on a (data x stage)
+    mesh, whose norm takes the first copy's blocks and whose every copy
+    steps on its device.  AdamW is elementwise, so flat math equals
+    per-leaf math given the same clip scale and schedule; the one
+    cross-rank quantity, the global grad norm, is each rank's sum of
+    squares over its blocks (the JAX package's local sum) then the sum of
+    the n partials in rank order (its ``psum``).  In the per-device form the partials meet on
     rank 0's card, are added there as the stacked form adds them, and
     the clip scale goes back to every card as a copy between cards: no
     value is read to the host.  ``grad_scale`` folds the data-parallel
@@ -167,8 +182,8 @@ def _apply_shards_per_device(cfg, state, shards, grad_shards, grad_scale):
     devices = shards[0].devices
     first = devices[0]
     partials = []
-    for r, d in enumerate(devices):
-        with device_context(d):
+    for r in range(len(grad_shards[0].blocks)):
+        with device_context(devices[r]):
             partials.append(_sum_squares([g[r][0] for g in grad_shards],
                                          grad_scale).to(first))
     with device_context(first):

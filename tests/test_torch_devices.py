@@ -344,6 +344,46 @@ def test_replica_trees_and_their_checkpoint(tmp_path):
     assert replicate(torch.ones(2), devices).devices == tuple(devices)
 
 
+def test_copies_of_blocks_and_their_checkpoint(tmp_path):
+    """``RankShards`` copies (a (data x stage) mesh's stage blocks): shard
+    ``d * k + b`` is block b, ``blocks`` and ``to_stacked`` one copy's,
+    AdamW's fresh state keeps the mark; the checkpoint saves one copy's
+    blocks, the stacked tensor's file byte for byte, and restores every
+    copy."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.checkpoint import AsyncCheckpointer
+    x = torch.arange(24.0).reshape(4, 6)
+    devices = ["cpu"] * 8
+    c = RankShards.from_stacked(x, devices=devices, copies=2)
+    assert len(c) == 8 and c.copies == 2 and len(c.blocks) == 4
+    assert all(torch.equal(c[d * 4 + b], x[b:b + 1])
+               for d in range(2) for b in range(4))
+    assert torch.equal(c.to_stacked("cpu"), x) and c.shape == x.shape
+    assert "2 copies" in repr(c)
+    with pytest.raises(ValueError, match="not 3 copies"):
+        RankShards(c.shards, copies=3)
+    with pytest.raises(ValueError, match="a replica has one block"):
+        RankShards(c.shards, replica=True, copies=2)
+    state = opt_mod.init({"w": c})
+    assert state.mu["w"].copies == 2 and state.step.replica
+    eng = ProgressEngine()
+    AsyncCheckpointer(str(tmp_path / "dev"), eng).save_blocking(
+        0, {"params": {"w": c}, "opt_state": state})
+    AsyncCheckpointer(str(tmp_path / "ref"), eng).save_blocking(
+        0, {"params": {"w": x}, "opt_state": opt_mod.init({"w": x})})
+    names = sorted(p.name for p in (tmp_path / "ref" / "step_0").iterdir())
+    assert names == sorted(p.name for p in
+                           (tmp_path / "dev" / "step_0").iterdir())
+    for name in names:
+        assert (tmp_path / "dev" / "step_0" / name).read_bytes() == \
+            (tmp_path / "ref" / "step_0" / name).read_bytes(), name
+    c[5].add_(1.0)                      # a copy's block changes after save
+    got = AsyncCheckpointer(str(tmp_path / "dev"), eng).restore(
+        0, {"params": {"w": c}, "opt_state": state})["params"]["w"]
+    assert got.copies == 2 and all(torch.equal(got[d * 4 + b], x[b:b + 1])
+                                   for d in range(2) for b in range(4))
+
+
 def test_elastic_remesh_takes_the_surviving_devices():
     from repro_torch.distributed import elastic
     devs = ["cpu", "cpu", "meta"]

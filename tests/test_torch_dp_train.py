@@ -222,7 +222,7 @@ def port_run_devices(tmp_path, ref, extra):
 @pytest.mark.parametrize("extra,what", [
     (["--fsdp", "--collective-backend", "native"],
      "needs --collective-backend user"),
-    (["--pipeline", "1f1b"], "--pipeline yet .ROADMAP queue 1, item 10"),
+    (["--pipeline", "gpipe", "--mesh", "2x2"], "data dim 1"),
     (["--mesh", "2x2"], "model axis above 1 yet .ROADMAP queue 1, item 12"),
     (["--rank-devices", "cpu,cpu"], "names 2 device.s. for 4"),
     (["--collective-backend", "native"], "needs --collective-backend user"),

@@ -8,6 +8,8 @@ reason elsewhere.  On a machine with the card:
 (``--noconftest``: tests/conftest.py imports JAX, and this file needs
 none.)
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -1115,3 +1117,135 @@ def test_restore_lane_into_each_cards_replica(cuda, distinct):
             assert got[part].keys() == ckpt[part].keys()
             for k in ckpt[part]:
                 np.testing.assert_array_equal(got[part][k], ckpt[part][k])
+
+
+# ---------------------------------------------------------------------------
+# 1F1B with a stage per card, expert parallelism with each rank's experts
+# on its card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_1f1b_stage_per_card_equals_the_stacked_run(cuda, distinct):
+    """The run of ``test_1f1b_on_stage_streams_equals_sequential`` (S = 4,
+    M = 8) with stage s on its own card: the loss and gradients of two
+    steps bit for bit against the stacked schedule on ``cuda:0``, each
+    gradient block on its stage's card; ``apply`` equal to the stacked
+    forward and to the per-card ``gpipe``."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.core import ProgressEngine, ProgressExecutor
+    from repro_torch.distributed import pipeline as pl
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_mesh
+    S, M, mb = 4, 8, 4
+    devices = _rank_devices(S, distinct)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = {"w1": torch.randn((S, 16, 32), generator=g, device="cuda"),
+              "w2": torch.randn((S, 32, 16), generator=g, device="cuda")}
+    xs = torch.randn((M, mb, 16), generator=g, device="cuda")
+    eng = ProgressEngine()
+    ex = ProgressExecutor(eng, num_workers=2).start()
+    eng.attach_executor(ex)
+    smesh = make_mesh((S,), ("stage",), "cuda:0")
+    dmesh = make_mesh((S,), ("stage",), devices=devices)
+    blocks = {k: RankShards.from_stacked(v, dmesh) for k, v in params.items()}
+    kw = dict(loss_fn=launch.pipe_loss_fn, engine=eng, executor=ex)
+    stacked = pl.PipelineSchedule(launch.pipe_stage_fn, smesh, "stage", S,
+                                  name="s", **kw)
+    per = pl.PipelineSchedule(launch.pipe_stage_fn, dmesh, "stage", S,
+                              name="d", **kw)
+    for _ in range(2):
+        loss, grads = stacked.step(params, xs, xs, timeout=120)
+        dloss, dgrads = per.step(blocks, xs, xs, timeout=120)
+        assert str(dloss.device) == devices[-1]
+        assert torch.equal(dloss.to("cuda:0"), loss)
+        for k in params:
+            assert [str(d) for d in dgrads[k].devices] == devices
+            assert torch.equal(dgrads[k].to_stacked("cuda:0"), grads[k])
+    ys = per.apply(blocks, xs, timeout=120)
+    assert torch.equal(ys.to("cuda:0"), stacked.apply(params, xs,
+                                                      timeout=120))
+    gp = pl.gpipe(launch.pipe_stage_fn, dmesh, "stage", S)(blocks, xs)
+    assert torch.equal(ys, gp)
+    assert [c.device for c in per.cuda_streams] == [torch.device(d)
+                                                    for d in devices]
+    # every row a hop carried left its card when the cards are distinct
+    st = per.stats()
+    assert st["hop_rows"] == S * sum(st["hop_starts"].values()) > 0
+    assert st["hop_rows_between_devices"] == (st["hop_rows"] if distinct
+                                              else 0)
+    per.close()
+    stacked.close()
+    ex.shutdown(drain=True, timeout=60)
+
+
+def _exact_moe(cfg, B, S, gen):
+    """Integer-valued tokens and weights on which the MoE layer's every
+    product and sum is exact in f32 (``tests/test_torch_moe.py``'s
+    ``exact_moe_inputs``): two one-hot experts a token against a router of
+    200 on the diagonal, gate weights 0 or 20."""
+    D, E, F_ = cfg.d_model, cfg.moe.num_experts, cfg.moe.expert_d_ff
+    x = torch.randint(0, 3, (B, S, D), generator=gen).float()
+    hot = torch.rand(B, S, E, generator=gen).argsort(-1)[..., :2]
+    x[..., :E] = torch.zeros(B, S, E).scatter(-1, hot, 1.0)
+    router = torch.zeros(D, E)
+    router[torch.arange(E), torch.arange(E)] = 200.0
+    p = {"router": router,
+         "wi_gate": torch.randint(0, 2, (E, D, F_), generator=gen) * 20.0,
+         "wi_up": torch.randint(-1, 2, (E, D, F_), generator=gen).float(),
+         "wo": torch.randint(-1, 2, (E, F_, D), generator=gen).float()}
+    return p, x
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_per_device_expert_parallel_equals_the_stacked_layer(cuda, distinct):
+    """granite's MoE layer at reduced widths (40 experts, 4 groups of 512
+    tokens; d 64 and expert width 32 for the exact inputs) on 4 ranks with each rank's groups and experts on its card:
+    user = native bit for bit; on integer-valued f32 inputs y and aux bit
+    for bit against the stacked ``moe_apply_expert_parallel`` on
+    ``cuda:0``; on random bf16 inputs within the bf16 tolerance."""
+    from repro_torch.collectives.nonblocking import UserCollectives
+    from repro_torch.collectives.rank_shards import RankShards, replicate
+    from repro_torch.configs import get_config
+    from repro_torch.core import ProgressEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    devices = _rank_devices(4, distinct)
+    smesh = make_mesh((4,), ("model",), "cuda:0")
+    dmesh = make_mesh((4,), ("model",), devices=devices)
+    gen = torch.Generator().manual_seed(13)
+    base = get_config("granite-moe-3b-a800m")
+    # d 64 and expert width 32: every partial sum below 2^24 by design
+    cfg32 = base.with_overrides(d_model=64, dtype="float32", moe=dataclasses
+                                .replace(base.moe, expert_d_ff=32))
+    exact = _exact_moe(cfg32, 8, 256, gen)
+    cfg16 = get_config("granite-moe-3b-a800m").with_overrides(d_model=256)
+    p16 = layers.init_tree(layers.moe_spec(cfg16), cuda)
+    x16 = torch.randn(8, 256, 256, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    coll = UserCollectives(ProgressEngine())
+    try:
+        for cfg, (p, x) in ((cfg32, exact), (cfg16, (p16, x16))):
+            p = {k: v.to("cuda:0") for k, v in p.items()}
+            x = x.to("cuda:0")
+            y, aux = layers.moe_apply_expert_parallel(p, x, cfg, smesh)
+            pd = {k: replicate(v, devices) if k == "router"
+                  else RankShards.from_stacked(v, dmesh)
+                  for k, v in p.items()}
+            xd = RankShards.from_stacked(x, dmesh)
+            yn, auxn = layers.moe_apply_expert_parallel(pd, xd, cfg, dmesh)
+            yu, auxu = layers.moe_apply_expert_parallel(pd, xd, cfg, dmesh,
+                                                        coll=coll)
+            assert [str(d) for d in yn.devices] == devices
+            yn, yu = yn.to_stacked("cuda:0"), yu.to_stacked("cuda:0")
+            assert torch.equal(yn, yu) and torch.equal(auxn, auxu)
+            if x.dtype == torch.float32:
+                assert torch.equal(yn, y) and torch.equal(auxn.cpu(),
+                                                          aux.cpu())
+            else:
+                torch.testing.assert_close(yn, y, **TOLS[torch.bfloat16])
+                torch.testing.assert_close(auxn.cpu(), aux.cpu(),
+                                           rtol=1e-6, atol=0)
+    finally:
+        coll.close()

@@ -5,7 +5,9 @@ granite-moe and grok-1 families (grok's logit cap in both attention
 paths) under three checkpoint policies, their slot and paged decode, the
 ``ServeEngine`` streams unsharded and on 2 model ranks, the
 expert-parallel path on the user-space all-to-all against the native
-block transpose and ``moe_apply`` (bit for bit), and both launchers.
+block transpose and ``moe_apply`` (bit for bit), that path with each
+rank's groups and experts on a device of its own against the stacked one
+(bit for bit on integer-valued inputs) and JAX, and both launchers.
 
 Tolerances (f32; XLA and PyTorch sum in other orders): forward values
 within 1e-5 of the largest entry, gradients within 1e-4 of each leaf's
@@ -555,6 +557,142 @@ def test_expert_parallel_apply_refuses_indivisible_experts():
     with pytest.raises(ValueError, match=r"experts \(6\) must divide"):
         layers.moe_apply_expert_parallel(
             p, torch.zeros(4, 16, 32), cfg, make_mesh((4,), ("model",), "cpu"))
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism with a device per rank: each rank's groups and experts
+# on its device (meshes of ["cpu"] * n)
+# ---------------------------------------------------------------------------
+
+def per_device_params(p, n):
+    """The router a replica on each of n ranks, the experts ``RankShards``
+    blocks of E/n (the JAX ``"experts" -> model`` placement)."""
+    from repro_torch.collectives.rank_shards import RankShards, replicate
+    devices = ["cpu"] * n
+    return {k: replicate(v, devices) if k == "router"
+            else RankShards.from_stacked(v, devices=devices)
+            for k, v in p.items()}
+
+
+def exact_moe_inputs(cfg, B, S, seed):
+    """Integer-valued tokens and weights on which every product and sum of
+    the layer is exact in f32, whatever the order: each token's first E
+    entries pick two experts with one-hot 1s against a router of 200 on
+    the diagonal, so their probabilities are exactly 1/2 and every other
+    is exactly 0; the gate weights are 0 or 20, so each gate
+    pre-activation is 0 or at least 20, where silu is exactly 0 or the
+    identity in f32; the rest are small integers."""
+    rs = np.random.RandomState(seed)
+    D, E, F_ = cfg.d_model, cfg.moe.num_experts, cfg.moe.expert_d_ff
+    x = rs.randint(0, 3, size=(B, S, D)).astype(np.float32)
+    x[..., :E] = 0
+    hot = np.argsort(rs.rand(B, S, E), axis=-1)[..., :2]
+    np.put_along_axis(x[..., :E], hot, 1.0, axis=-1)
+    router = np.zeros((D, E), np.float32)
+    router[np.arange(E), np.arange(E)] = 200.0
+    p = {"router": router,
+         "wi_gate": rs.randint(0, 2, size=(E, D, F_)).astype(np.float32) * 20,
+         "wi_up": rs.randint(-1, 2, size=(E, D, F_)).astype(np.float32),
+         "wo": rs.randint(-1, 2, size=(E, F_, D)).astype(np.float32)}
+    return ({k: torch.from_numpy(v) for k, v in p.items()},
+            torch.from_numpy(x))
+
+
+def per_device_runs(p, x, cfg, n):
+    """The per-device expert-parallel layer on the native copies and on
+    the user-space all-to-all: ((y, aux) native, (y, aux) user), y glued
+    back in rank order."""
+    from repro_torch.collectives.rank_shards import RankShards
+    mesh = make_mesh((n,), ("model",), devices=["cpu"] * n)
+    pd, xd = per_device_params(p, n), RankShards.from_stacked(x, mesh)
+    coll = UserCollectives(ProgressEngine())
+    try:
+        runs = [layers.moe_apply_expert_parallel(pd, xd, cfg, mesh, coll=c)
+                for c in (None, coll)]
+    finally:
+        coll.close()
+    for y, _ in runs:
+        assert isinstance(y, RankShards) and len(y) == n
+    assert coll.issued == coll.completed == 2
+    return [(y.to_stacked("cpu"), aux) for y, aux in runs]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_per_device_equals_stacked_on_exact_inputs(n):
+    """Integer-valued inputs (every product and sum exact in f32): the
+    per-device layer's y and aux, native and user, bit for bit against
+    the stacked ``moe_apply_expert_parallel``; tokens are dropped at the
+    capacity in both."""
+    jcfg, cfg = moe_cfg(E=4, K=2, F=32, group=64, cf=1.0)
+    p, x = exact_moe_inputs(cfg, 4, 64, seed=n)
+    y_ref, aux_ref = layers.moe_apply_expert_parallel(
+        p, x, cfg, make_mesh((n,), ("model",), "cpu"))
+    (y_nat, aux_nat), (y_usr, aux_usr) = per_device_runs(p, x, cfg, n)
+    assert torch.equal(y_nat, y_usr) and torch.equal(y_nat, y_ref)
+    assert aux_nat.numpy().tobytes() == aux_usr.numpy().tobytes() == \
+        aux_ref.numpy().tobytes()
+    assert float(y_ref.abs().max()) > 0 and float(aux_ref) > 0
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_parallel_per_device_near_jax(n):
+    """Random inputs: user = native bit for bit, y within 1e-5 of the
+    largest entry of the JAX ``moe_apply`` and aux within rel 1e-5."""
+    jcfg, cfg = moe_cfg(E=8, K=2, F=16, group=16, cf=2.0)
+    jp, p = moe_params(jcfg, seed=n)
+    x = np.random.RandomState(n).randn(4, 16, 32).astype(np.float32)
+    (y_nat, aux_nat), (y_usr, aux_usr) = per_device_runs(
+        p, torch.from_numpy(x), cfg, n)
+    assert torch.equal(y_nat, y_usr) and float(aux_nat) == float(aux_usr)
+    jy, jaux = JL.moe_apply(jp, jnp.asarray(x), jcfg)
+    assert_fwd_close(y_nat.numpy(), jy)
+    np.testing.assert_allclose(float(aux_nat), float(jaux), rtol=1e-5)
+
+
+def test_dispatch_alltoall_per_device_moves_the_stacked_blocks():
+    """Per device, rank r's forward result is the stacked move's slice of
+    its experts and its reverse result its groups, both backends."""
+    from repro_torch.collectives.rank_shards import RankShards
+    n, G, E = 4, 8, 8
+    xe = torch.from_numpy(np.random.RandomState(4).randn(G, E, 3, 5)
+                          .astype(np.float32))
+    mesh = make_mesh((n,), ("model",), devices=["cpu"] * n)
+    coll = UserCollectives(ProgressEngine())
+    try:
+        for c in (None, coll):
+            fwd = layers.moe_dispatch_alltoall(
+                RankShards.from_stacked(xe, mesh), mesh, "model", coll=c)
+            for r in range(n):
+                assert torch.equal(fwd[r], xe[:, r * 2:(r + 1) * 2])
+            back = layers.moe_dispatch_alltoall(fwd, mesh, "model",
+                                                reverse=True, coll=c)
+            assert torch.equal(back.to_stacked("cpu"), xe)
+    finally:
+        coll.close()
+
+
+def test_expert_parallel_per_device_refuses_indivisible_dims():
+    """Experts or groups that do not divide the ranks, and a payload off
+    the mesh's devices, raise."""
+    from repro_torch.collectives.rank_shards import RankShards
+    mesh = make_mesh((4,), ("model",), devices=["cpu"] * 4)
+    jcfg, cfg = moe_cfg(E=6, K=2, group=16)
+    _, p = moe_params(jcfg)
+    with pytest.raises(ValueError, match=r"experts \(6\) and groups \(4\) "
+                                         r"must divide"):
+        # (refused before the experts are read: 6 do not split over 4)
+        layers.moe_apply_expert_parallel(
+            per_device_params({"router": p["router"]}, 4),
+            RankShards.from_stacked(torch.zeros(4, 16, 32), mesh), cfg, mesh)
+    jcfg, cfg = moe_cfg(E=4, K=2, group=32)
+    _, p = moe_params(jcfg)
+    with pytest.raises(ValueError, match=r"groups \(2\) must divide"):
+        layers.moe_apply_expert_parallel(
+            per_device_params(p, 4),
+            RankShards.from_stacked(torch.zeros(4, 16, 32), mesh), cfg, mesh)
+    with pytest.raises(ValueError, match="must be a RankShards"):
+        layers.moe_apply_expert_parallel(per_device_params(p, 4),
+                                         torch.zeros(4, 16, 32), cfg, mesh)
 
 
 # ---------------------------------------------------------------------------

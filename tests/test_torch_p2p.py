@@ -170,6 +170,39 @@ def test_invalidation_fails_an_in_flight_start_once():
     coll.close(drain=False)
 
 
+def test_per_device_hops_equal_the_stacked_form():
+    """On a mesh of ``["cpu"] * 4``: ``sendrecv``, ``isend``/``irecv`` and
+    a persistent channel restarted five times carry ``RankShards`` of each
+    rank's ``[1, ...]`` row, each hop the stacked hop's rows bit for bit,
+    forward and reverse; each received shard is a fresh tensor; a stacked
+    payload on the per-device mesh is refused."""
+    from repro_torch.collectives.rank_shards import RankShards
+    p2p = P2P(ProgressEngine())
+    mesh = make_mesh((4,), ("x",), devices=["cpu"] * 4)
+    x = torch.arange(24.0).reshape(4, 2, 3)
+    xs = RankShards.from_stacked(x, mesh)
+    got = p2p.sendrecv(xs, mesh, "x").wait(timeout=30)
+    assert isinstance(got, RankShards)
+    np.testing.assert_array_equal(got.to_stacked("cpu").numpy(), roll(x))
+    p2p.isend(xs, mesh, "x", reverse=True)
+    back = p2p.irecv(xs, mesh, "x", reverse=True).wait(timeout=30)
+    np.testing.assert_array_equal(back.to_stacked("cpu").numpy(),
+                                  roll(x, -1))
+    chan = p2p.channel_init(xs, mesh, "x", reverse=True)
+    for i in range(5):
+        y = RankShards.from_stacked(x + i, mesh)
+        chan.send.start(y)
+        out = chan.recv.start().wait(timeout=30)
+        np.testing.assert_array_equal(out.to_stacked("cpu").numpy(),
+                                      roll(x + i, -1))
+        assert all(o.data_ptr() != t.data_ptr()
+                   for o in out.shards for t in y.shards)
+    assert chan.starts == 5
+    with pytest.raises(ValueError, match="must be a RankShards"):
+        p2p.sendrecv(x, mesh, "x")
+    p2p.close()
+
+
 class TestP2PSpecShim:
     @pytest.fixture(autouse=True)
     def _reset(self):

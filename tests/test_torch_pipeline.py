@@ -3,7 +3,12 @@ bubble, ``gpipe`` and the event-driven ``PipelineSchedule`` against the
 sequential per-stage computation (bit for bit in the port) and against
 the JAX package's ``gpipe``/``PipelineSchedule`` on the same numpy
 inputs (one JAX child with 4 host devices; ``JAX_TOL``, f32), the DAG's
-event-driven stats, and the launcher's ``--pipeline`` paths on the CPU."""
+event-driven stats, and the launcher's ``--pipeline`` paths on the CPU.
+With a device per stage (meshes of ``["cpu"] * S``) the schedule, gpipe
+and the launcher's ``--rank-devices`` runs equal the stacked form bit
+for bit, the launcher's checkpoint files too."""
+import glob
+import os
 import contextlib
 import io
 from pathlib import Path
@@ -17,6 +22,10 @@ from tests._multidevice import run_with_devices
 
 M, D, H, MB = 8, 8, 16, 4
 SGD_STEPS, LR = 3, 0.05
+# the launcher's --pipeline rehearsal: (kind, data, stages) cases and its
+# microbatches, microbatch rows and steps
+LAUNCH_CASES = (("1f1b", 1, 4), ("1f1b", 2, 2), ("gpipe", 1, 4))
+LAUNCH_M, LAUNCH_MB, LAUNCH_STEPS = 4, 4, 4
 # the two libraries' f32 products and tanh differ in the last bits
 JAX_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -70,6 +79,62 @@ for S in (2, 4):
             res[f"{{S}}/grad{{step}}/{{k}}"] = grads[k]
         jp = jax.tree.map(lambda p, g: p - {lr} * g, jp, grads)
     sched.close()
+
+# the launcher's --pipeline rehearsal (launch/train.py's _run_pipeline)
+# from the JAX pieces, on seeded numpy weights that the port's launcher
+# is handed: each data row's PipelineSchedule on its own stage mesh (for
+# gpipe the jitted tick loop at 1xS), the mean over the data axis, AdamW
+from repro.train import optimizer as opt_mod
+ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+for kind, nd, S in {launch_cases!r}:
+    tag = f"launch/{{kind}}/{{nd}}x{{S}}"
+    rs = np.random.RandomState(10 * nd + S)
+    params = {{"w1": (rs.randn(S, 16, 32) * 0.1).astype(np.float32),
+              "w2": (rs.randn(S, 32, 16) * 0.1).astype(np.float32)}}
+    for k, v in params.items():
+        res[f"{{tag}}/init/{{k}}"] = v
+    jp = jax.tree.map(jnp.asarray, params)
+    opt = opt_mod.init(jp)
+    rng = np.random.default_rng(7)
+    teacher = rng.standard_normal((16, 16)).astype(np.float32) * 0.3
+    lmesh = Mesh(np.array(jax.devices()[:nd * S]).reshape(nd, S),
+                 ("data", "stage"))
+    rows = []
+    if kind == "gpipe":
+        gmesh = Mesh(lmesh.devices[0], ("stage",))
+        gp = pl.gpipe(stage_fn, gmesh, "stage", S)
+        jp = jax.device_put(jp, NamedSharding(gmesh, P("stage")))
+
+        def gp_loss(p, x, t, gp=gp):
+            ys = gp(p, x)
+            return jnp.mean(jnp.stack([loss_fn(ys[m], t[m])
+                                       for m in range(x.shape[0])]))
+
+        gstep = jax.jit(jax.value_and_grad(gp_loss))
+    else:
+        rows = [pl.PipelineSchedule(
+            stage_fn, Mesh(lmesh.devices[r], ("stage",)), "stage", S,
+            loss_fn=loss_fn, engine=engine, executor=ex,
+            name=f"{{tag}}/{{r}}") for r in range(nd)]
+    for step in range({launch_steps}):
+        xs = rng.standard_normal((nd, {launch_m}, {launch_mb}, 16)) \
+            .astype(np.float32)
+        ts = xs @ teacher
+        if kind == "gpipe":
+            loss, grads = gstep(jp, jnp.asarray(xs[0]), jnp.asarray(ts[0]))
+        else:
+            outs = [rows[r].step(jp, jnp.asarray(xs[r]), jnp.asarray(ts[r]),
+                                 timeout=300) for r in range(nd)]
+            loss = np.mean([np.asarray(o[0]) for o in outs])
+            grads = {{k: jnp.asarray(np.mean([np.asarray(o[1][k])
+                                             for o in outs], axis=0))
+                     for k in jp}}
+        jp, opt, _ = opt_mod.apply(ocfg, opt, jp, grads)
+        res[f"{{tag}}/loss{{step}}"] = loss
+    for k in ("w1", "w2"):
+        res[f"{{tag}}/final/{{k}}"] = jp[k]
+    for r in rows:
+        r.close()
 ex.shutdown(drain=True, timeout=120)
 np.savez({out!r}, **{{k: np.asarray(v) for k, v in res.items()}})
 print("SAVED", len(res))
@@ -82,7 +147,9 @@ def ref(tmp_path_factory):
     root = str(Path(__file__).resolve().parents[1])
     log = run_with_devices(_JAX_CHILD.format(
         root=root, out=str(out), M=M, D=D, H=H, MB=MB, steps=SGD_STEPS,
-        lr=LR), n_devices=4, timeout=600)
+        lr=LR, launch_cases=LAUNCH_CASES, launch_m=LAUNCH_M,
+        launch_mb=LAUNCH_MB, launch_steps=LAUNCH_STEPS), n_devices=4,
+        timeout=600)
     assert "SAVED" in log
     return dict(np.load(out))
 
@@ -380,3 +447,178 @@ def test_launcher_pipeline_refusals(tmp_path):
                           "--devices", "2"], "needs 4 ranks")):
         with pytest.raises(SystemExit, match=what):
             launch.run(parse(base + extra))
+
+
+# ---------------------------------------------------------------------------
+# a device per stage: meshes of ["cpu"] * S
+# ---------------------------------------------------------------------------
+
+def stage_mesh(S):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((S,), ("stage",), devices=["cpu"] * S)
+
+
+def blocks(params, S):
+    from repro_torch.collectives.rank_shards import RankShards
+    return {k: RankShards.from_stacked(v, stage_mesh(S))
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_1f1b_per_device_equals_stacked_sequential_and_near_jax(ref,
+                                                                executor, S):
+    """The 3-step SGD trajectory with a device per stage: each step's loss
+    and gradients (``RankShards`` blocks, stage s's on its device) bit for
+    bit against the stacked schedule and the sequential chain, within
+    ``JAX_TOL`` of the JAX ``PipelineSchedule`` on S host devices; the
+    forward equal to the stacked ``apply``."""
+    from repro_torch.collectives.rank_shards import RankShards
+    eng, ex = executor
+    params, xs, ts = inputs(ref, S)
+    stacked = schedule(S, eng, ex, name="s")
+    per = pl.PipelineSchedule(stage_fn, stage_mesh(S), "stage", S,
+                              loss_fn=loss_fn, engine=eng, executor=ex,
+                              name="d")
+    p_st = {k: v.clone() for k, v in params.items()}
+    p_dev = blocks(params, S)
+    for step in range(SGD_STEPS):
+        loss, grads = per.step(p_dev, xs, ts, timeout=300)
+        sl, sg = stacked.step(p_st, xs, ts, timeout=300)
+        ql, qg = sequential_step(p_st, xs, ts, S)
+        assert loss.numpy().tobytes() == sl.numpy().tobytes() == \
+            ql.numpy().tobytes(), step
+        for k in ("w1", "w2"):
+            assert isinstance(grads[k], RankShards) and len(grads[k]) == S
+            got = grads[k].to_stacked("cpu")
+            assert torch.equal(got, sg[k]) and torch.equal(got, qg[k])
+            np.testing.assert_allclose(got.numpy(),
+                                       ref[f"{S}/grad{step}/{k}"],
+                                       err_msg=f"{step}/{k}", **JAX_TOL)
+        np.testing.assert_allclose(loss.item(), ref[f"{S}/loss{step}"],
+                                   **JAX_TOL)
+        p_st = {k: p_st[k] - LR * sg[k] for k in p_st}
+        p_dev = blocks(p_st, S)
+    assert torch.equal(per.apply(blocks(params, S), xs, timeout=300),
+                       stacked.apply(params, xs, timeout=300))
+    st = per.stats()
+    assert st["blocking_waits"] == SGD_STEPS + 1
+    assert st["hop_starts"] == stacked.stats()["hop_starts"]
+    # every hop carries a row a stage; on ["cpu"] * S none leaves a device
+    assert st["hop_rows"] == S * sum(st["hop_starts"].values()) > 0
+    assert st["hop_rows_between_devices"] == 0
+    assert st["p2p_issued"] == st["p2p_completed"] > 0
+    per.close()
+    stacked.close()
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_gpipe_per_device_equals_stacked(ref, S):
+    """``gpipe`` with a device per stage: the forward, the mean
+    microbatch loss and the gradients through its tick loop (autograd
+    through the copies between the stages' devices) bit for bit against
+    the stacked ``gpipe``."""
+    from repro_torch.launch.mesh import make_mesh
+    params, xs, ts = inputs(ref, S)
+    runs = []
+    for mesh, ps in ((make_mesh((S,), ("stage",), "cpu"),
+                      {k: v.clone().requires_grad_(True)
+                       for k, v in params.items()}),
+                     (stage_mesh(S), blocks(params, S))):
+        if mesh.per_device:
+            for v in ps.values():
+                for t in v.shards:
+                    t.requires_grad_(True)
+        ys = pl.gpipe(stage_fn, mesh, "stage", S)(ps, xs)
+        loss = torch.stack([loss_fn(ys[m], ts[m]) for m in range(M)]).mean()
+        leaves = [t for k in ("w1", "w2") for t in (
+            ps[k].shards if mesh.per_device else [ps[k]])]
+        g = torch.autograd.grad(loss, leaves)
+        grads = [torch.cat(g[:S]), torch.cat(g[S:])] if mesh.per_device \
+            else list(g)
+        runs.append((ys.detach(), loss.detach(), grads))
+    (ys0, l0, g0), (ys1, l1, g1) = runs
+    assert torch.equal(ys0, ys1) and torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def launcher_run(tmp_path, kind, mesh, extra=(), params=None):
+    """``launch.train --pipeline kind --mesh mesh`` on the CPU (its seeded
+    weights, or ``params``): (losses, {checkpoint file: bytes}, report)."""
+    from repro_torch.launch import train as launch
+    args = launch.build_parser().parse_args(
+        ["--device", "cpu", "--pipeline", kind, "--mesh", mesh,
+         "--microbatches", str(LAUNCH_M), "--steps", str(LAUNCH_STEPS),
+         "--global-batch", str(LAUNCH_MB), "--ckpt-dir", str(tmp_path)]
+        + list(extra))
+    with contextlib.redirect_stdout(io.StringIO()):
+        report = launch.run(args, params=params, log_every=1)
+    files = {os.path.relpath(f, tmp_path): Path(f).read_bytes()
+             for f in glob.glob(f"{tmp_path}/**/*.npy", recursive=True)}
+    return [m["loss"] for m in report.log], files, report
+
+
+@pytest.mark.parametrize("kind,mesh", [("1f1b", "1x4"), ("1f1b", "2x2"),
+                                       ("gpipe", "1x4")])
+def test_launcher_rank_devices_equals_stacked(tmp_path, kind, mesh):
+    """``--rank-devices cpu,cpu,cpu,cpu``: rank (d, s) holds stage s's
+    parameters and moments on its device; the losses of every step and
+    every checkpoint file (the ``[S, ...]`` leaves, the moments, the step
+    counter) equal the stacked launcher's bit for bit."""
+    from repro_torch.collectives.rank_shards import RankShards
+    want, want_files, _ = launcher_run(tmp_path / "stacked", kind, mesh)
+    got, files, report = launcher_run(
+        tmp_path / "devices", kind, mesh,
+        ["--rank-devices", "cpu,cpu,cpu,cpu"])
+    assert got == want and len(got) == 4
+    assert files.keys() == want_files.keys() and len(files) == 7
+    for name in files:
+        assert files[name] == want_files[name], name
+    D = int(mesh.split("x")[0])
+    w1 = report.trainer.params["w1"]
+    assert isinstance(w1, RankShards) and len(w1) == 4 and w1.copies == D
+    if kind == "1f1b":
+        assert report.reducer.axis_size == D
+        assert all(r.mesh.per_device for r in report.rows)
+
+
+@pytest.mark.parametrize("form", ["stacked", "devices"])
+@pytest.mark.parametrize("kind,nd,S", LAUNCH_CASES)
+def test_launcher_near_jax(ref, tmp_path, kind, nd, S, form):
+    """The launcher's ``--pipeline`` run, rank-stacked or with a device per
+    rank, handed the JAX child's weights: the loss of every step and the
+    final ``[S, ...]`` weights within ``JAX_TOL`` of the JAX package's
+    rehearsal (its rows' ``PipelineSchedule``, or gpipe's tick loop, the
+    data-axis mean and ``optimizer.apply``) on the same batches."""
+    from repro_torch.collectives.rank_shards import RankShards
+    tag = f"launch/{kind}/{nd}x{S}"
+    params = {k: torch.from_numpy(ref[f"{tag}/init/{k}"].copy())
+              for k in ("w1", "w2")}
+    handed = {k: v.clone() for k, v in params.items()}
+    extra = ["--rank-devices", ",".join(["cpu"] * (nd * S))] \
+        if form == "devices" else []
+    losses, _, report = launcher_run(tmp_path, kind, f"{nd}x{S}", extra,
+                                     params=params)
+    np.testing.assert_allclose(
+        losses, [ref[f"{tag}/loss{i}"] for i in range(LAUNCH_STEPS)],
+        **JAX_TOL)
+    for k in ("w1", "w2"):
+        got = report.trainer.params[k]
+        assert isinstance(got, RankShards) == (form == "devices")
+        if form == "devices":
+            got = got.to_stacked("cpu")
+        np.testing.assert_allclose(got.numpy(), ref[f"{tag}/final/{k}"],
+                                   err_msg=k, **JAX_TOL)
+    # the launcher stepped copies of the weights it was handed
+    assert all(torch.equal(params[k], handed[k]) for k in params)
+
+
+def test_launcher_rank_devices_refusals(tmp_path):
+    """A device list of another length than the mesh's ranks exits."""
+    from repro_torch.launch import train as launch
+    args = launch.build_parser().parse_args(
+        ["--device", "cpu", "--pipeline", "1f1b", "--mesh", "2x2",
+         "--steps", "2", "--ckpt-dir", str(tmp_path),
+         "--rank-devices", "cpu,cpu"])
+    with pytest.raises(SystemExit, match=r"names 2 device\(s\) for the "
+                                         r"2x2 mesh's 4 ranks"):
+        launch.run(args)
