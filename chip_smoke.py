@@ -227,7 +227,24 @@ Phases; any failure raises and the script exits non-zero:
              partial logits gathered to cuda:0 against the stacked
              ``unembed_ranks`` of rank 0's hidden state, its host wall,
              each card's busy time and idle share and the gather's
-             device time.
+             device time.  Its model-axis part runs after phase 14, whose
+             losses it takes: phase 14's run (smollm-360m, full width, 32
+             layers, "ring" on --mesh 1x4) with ``--rank-devices`` (the
+             ring's blocks on the model ranks' cards, the replicated
+             layers on the leader's), its losses phase 14's bit for bit,
+             each card's launches its leaders' single-card norms and no
+             flash_attention (the other ranks' none), the checkpoint
+             restored equal; one profiled step (each card's busy ms, idle
+             share and peak memory, the sends and ring hops between
+             ranks and the bytes that cross cards); the ring alone at the
+             train shape, bit for bit the stacked ring's under
+             ``set_sync_debug_mode("error")``; ``--mesh 2x2
+             --rank-devices`` in f32 within 1e-5 of the stacked run, at 2
+             layers and with tiny grok-1 (experts 2048 wide, each data
+             row one whole group of the batch's MoE routing); grok-1's
+             MoE block with each rank's F-slices on
+             its card, bit for bit the stacked tensor-parallel block in
+             f32 (TF32 off), both timed in bf16, each card's peak memory.
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
@@ -239,7 +256,8 @@ the build, the kernels at the new shapes and phase 13 with its checks;
 the kernels at the assigned shapes and phase 15; ``--only devices`` the
 build, phase 9's data-parallel run, phase 10's user FSDP run, phase 11's
 stacked caller-driven run at 2 layers and phase 16 (on a call with four
-cards, across them).
+cards, across them); ``--only model-devices`` the build, phase 14's
+stacked ring run and phase 16's model-axis part.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -5562,19 +5580,9 @@ def context_phase() -> dict:
     of the single-card run); one step's time; the ring's device time
     against flash_attention's; then the ring's f32 checks and the MoE
     block's tensor-parallel schedule at grok-1's widths."""
-    from repro_torch.launch import train as train_mod
     runs = {}
-    runs["train_ring"], report = train(
-        workers=0, mesh=RING_MESH, over={"attention_impl": "ring"},
-        steps=RING_STEPS)
-    single = train_mod.kernel_launches_per_step(report.cfg.with_overrides(
-        attention_impl="xla"))
-    got = runs["train_ring"]
-    if got["flash_attention"] != 0 or any(
-            got[k] != v * RING_STEPS for k, v in single.items()
-            if k != "flash_attention"):
-        raise AssertionError(f"ring launches {got} against the single-card "
-                             f"step's {single} x {RING_STEPS}")
+    runs["train_ring"], report = ring_train_run()
+    ring_losses = [m["loss"] for m in report.log]
     train_time_breakdown(report, steps=1, mesh=ring_mesh())
     del report
     free()
@@ -5584,7 +5592,462 @@ def context_phase() -> dict:
     free()
     moe_tp_check()
     free()
-    return runs
+    return runs, ring_losses
+
+
+def ring_train_run():
+    """Phase 14's run: smollm-360m at full width and 32 layers with "ring"
+    on ``--mesh RING_MESH`` (rank-stacked), ``RING_STEPS`` steps; its
+    launches (no flash_attention, the norms of the single-card run) and
+    its report."""
+    from repro_torch.launch import train as train_mod
+    got, report = train(workers=0, mesh=RING_MESH,
+                        over={"attention_impl": "ring"}, steps=RING_STEPS)
+    single = train_mod.kernel_launches_per_step(report.cfg.with_overrides(
+        attention_impl="xla"))
+    if got["flash_attention"] != 0 or any(
+            got[k] != v * RING_STEPS for k, v in single.items()
+            if k != "flash_attention"):
+        raise AssertionError(f"ring launches {got} against the single-card "
+                             f"step's {single} x {RING_STEPS}")
+    return got, report
+
+
+# ---------------------------------------------------------------------------
+# phase 16, its model-axis part: the ring's blocks and the MoE block's
+# F-slices on the ranks' cards
+# ---------------------------------------------------------------------------
+
+# --mesh 2x2 --rank-devices against the stacked native --mesh 2x2: full
+# width at this depth (of 32), f32, these steps, this relative limit on
+# every step's loss
+DEV_MODEL_2D, DEV_MODEL_LAYERS, DEV_MODEL_STEPS = "2x2", 2, 3
+DEV_MODEL_REL = 1e-5
+# and grok-1 at its tiny scale with these experts' width (F/2 = 1024: the
+# MoE block's F-slices engaged) on batch x seq tokens: a row's 64 tokens
+# are one whole group of the scale's routing
+DEV_MODEL_GROK_F, DEV_MODEL_GROK_TOKENS = 2048, (8, 16)
+
+
+def leader_launches(counter, devices, M: int, steps: int,
+                    per_step: dict) -> str:
+    """Each card's launches a step (``DeviceLaunches``) held to its rows'
+    leaders' share: ``per_step`` a leader (rank (d, 0) on ``devices[d *
+    M]``), nothing for any other rank; the text that says so."""
+    leaders = [torch.device(d) for d in devices[::M]]
+    parts = []
+    for d in distinct(devices):
+        n = leaders.count(d)
+        got = {k: counter.by_device.get((d.index, k), 0) / steps
+               for k in per_step}
+        want = {k: v * n for k, v in per_step.items()}
+        if got != want:
+            raise AssertionError(f"{d}: launches a step {got}, want {want} "
+                                 f"({n} leader(s) on it)")
+        parts.append(f"{d} {n} leader(s), "
+                     f"{sum(torch.device(x) == d for x in devices) - n} "
+                     f"other rank(s): {({k: int(v) for k, v in got.items()})}")
+    return "; ".join(parts)
+
+
+def train_model_devices(ring_losses: list, devices):
+    """``launch.train --mesh RING_MESH --rank-devices`` with "ring": phase
+    14's run (smollm-360m, full width, 32 layers, ``RING_STEPS`` steps of
+    8 x 1024 tokens) with the ring's blocks on the model ranks' cards and
+    the replicated layers on the leader's.  Its losses equal phase 14's
+    bit for bit; each card's launches (filed under the card current at
+    each launch) are its leaders' single-card norms and no
+    flash_attention, the other ranks' none; every leaf a replica on the
+    leader; the checkpoint restores equal; each card's peak memory."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models.layers import tree_leaves
+    M = int(RING_MESH.split("x")[1])
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_model_devices_")
+    try:
+        args = train_mod.build_parser().parse_args([
+            "--arch", TRAIN_ARCH, "--scale", "full", "--device", "cuda",
+            "--global-batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(RING_STEPS), "--ckpt-dir", ckpt_dir, "--mesh",
+            RING_MESH, "--rank-devices", ",".join(devices)])
+        config = make_config(TRAIN_ARCH, "full").with_overrides(
+            attention_impl="ring")
+        for d in distinct(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        base, counter = counting_by_device()
+        try:
+            _lib.reset_launches()
+            counter.by_device.clear()
+            report = train_mod.run(args, config=config, log_every=1)
+            launches = dict(_lib.launches)
+        finally:
+            restore_counts(base, counter)
+        cfg, tr = report.cfg, report.trainer
+        if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+            raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+        single = train_mod.kernel_launches_per_step(
+            cfg.with_overrides(attention_impl="xla"))
+        per_step = dict(single, flash_attention=0)
+        if launches != {k: v * RING_STEPS for k, v in per_step.items()} \
+                or not all(launches[k] for k in ("rmsnorm_fwd",
+                                                 "rmsnorm_bwd")):
+            raise AssertionError(f"model-axis launches {launches}, want "
+                                 f"{per_step} x {RING_STEPS}")
+        cards = leader_launches(counter, devices, M, RING_STEPS, per_step)
+        losses = [m["loss"] for m in report.log]
+        if losses != ring_losses:
+            raise AssertionError(f"per-device ring losses {losses} differ "
+                                 f"from phase 14's {ring_losses}")
+        for path, t in tree_leaves(tr.params):
+            if not (isinstance(t, RankShards) and t.replica
+                    and [str(d) for d in t.devices] == devices[:1]):
+                raise AssertionError(f"{path}: {t} is not a replica on the "
+                                     f"leader")
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30
+                 for d in distinct(devices)]
+        ckpt_text = checkpoint_check(tr, RING_STEPS - 1)
+        steps_s = [m["step_time_s"] for m in report.log[1:]]
+        mean_s = sum(steps_s) / len(steps_s)
+        log(f"devices: model axis, {TRAIN_ARCH} at full width and "
+            f"{cfg.num_layers} layers with \"ring\" on --mesh {RING_MESH} "
+            f"--rank-devices {','.join(devices)}: losses "
+            f"{[round(v, 6) for v in losses]}, bit for bit phase 14's; "
+            f"launches {launches} ({RING_STEPS} steps; a card a step: "
+            f"{cards}); mean step {mean_s * 1e3:.3f} ms (steps "
+            f"1-{RING_STEPS - 1}; step 0 "
+            f"{report.log[0]['step_time_s'] * 1e3:.3f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / mean_s:.1f} tokens/s; {ckpt_text}; "
+            f"peak memory " + per_card(distinct(devices), peaks, " GiB",
+                                       ".2f"))
+        return launches, report
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def model_devices_breakdown(report, devices) -> None:
+    """One profiled step of the model axis with a device per rank on the
+    trained state (``make_row_grads``, then AdamW over the placed leaves;
+    one row, so no reduction): the host wall, each card's busy ms, idle
+    share and peak memory, each card's launches (its leaders' norms), and
+    what ``rank_shards.send`` moved between ranks in the step (the ring's
+    hops among it) and how much of it crossed between cards."""
+    from repro_torch.collectives import rank_shards
+    from repro_torch.core import ProgressEngine
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import expert_width_dims
+    from repro_torch.train import optimizer as opt_mod
+    tr, cfg = report.trainer, report.cfg
+    D, M = (int(v) for v in RING_MESH.split("x"))
+    mesh = make_mesh((D, M), ("data", "model"), devices=devices)
+    ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    grad_fn = train_mod.make_row_grads(cfg, mesh)
+    batch = {k: torch.from_numpy(v.copy()).pin_memory() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+    state = {"p": tr.params, "o": tr.opt_state}
+
+    cols = train_mod.model_columns(mesh, expert_width_dims(cfg, M),
+                                   engine=ProgressEngine(), spec=None)
+
+    def step():
+        _, g = grad_fn(state["p"], batch)
+        grads = cols.iallreduce_tree(g).wait(timeout=600)
+        del g
+        state["p"], state["o"], _ = opt_mod.apply(ocfg, state["o"],
+                                                  state["p"], grads)
+        sync_all(devices)
+
+    # the state and the allocator are warm from the launcher's run
+    t0 = time.perf_counter()
+    step()
+    wall = (time.perf_counter() - t0) * 1e3
+    for d in distinct(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+    rank_shards.reset_transfers()
+    base, counter = counting_by_device()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            wall_prof = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore_counts(base, counter)
+    moved = dict(rank_shards.transfers)
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30
+             for d in distinct(devices)]
+    single = train_mod.kernel_launches_per_step(
+        cfg.with_overrides(attention_impl="xla"))
+    cards = leader_launches(counter, devices, M, 1,
+                            dict(single, flash_attention=0))
+    busy = busy_by_device(prof)
+    busy_t = ("; ".join(f"cuda:{d} busy {v:.3f} ms, idle share "
+                        f"{1 - v / wall_prof:.3f}"
+                        for d, v in sorted(busy.items()))
+              if busy else "busy and idle not measured (no profiler "
+                           "events)")
+    log(f"time: model-axis step ({TRAIN_ARCH}, {cfg.num_layers} layers, "
+        f"--mesh {RING_MESH} on {devices}, {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens): wall {wall:.3f} ms ({wall_prof:.3f} ms under the "
+        f"profiler); {busy_t}; launches a card: {cards}; sent between "
+        f"ranks a step: {moved['sends']} tensors, {moved['bytes'] / 1e9:.3f} "
+        f"GB, of them {moved['hops']} ring hops "
+        f"({moved['hop_bytes'] / 1e9:.3f} GB); across cards "
+        f"{moved['cross_bytes'] / 1e9:.3f} GB"
+        + ("" if len(distinct(devices)) > 1 else
+           " (the ranks share one card: a send there copies nothing)")
+        + "; peak memory " + per_card(distinct(devices), peaks, " GiB",
+                                      ".2f"))
+
+
+def model_devices_2d(devices) -> None:
+    """``--mesh DEV_MODEL_2D --rank-devices`` against the stacked native
+    ``--mesh DEV_MODEL_2D``, every step's loss within ``DEV_MODEL_REL``
+    relative, f32 with "ring", ``DEV_MODEL_STEPS`` steps: smollm-360m at
+    full width and ``DEV_MODEL_LAYERS`` layers on 8 x 1024 tokens, and
+    grok-1 at its tiny scale with experts ``DEV_MODEL_GROK_F`` wide (its
+    F-slices on the model ranks) on ``DEV_MODEL_GROK_TOKENS``, each data
+    row one whole group of the batch's MoE routing, whose aux losses take
+    the batch's routed shares.  The per-device run takes each row's pass
+    on its leader's card and averages the rows' gradients over each model
+    column (the stacked run computes the whole batch at once)."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    smollm = make_config(TRAIN_ARCH, "full").with_overrides(
+        attention_impl="ring", num_layers=DEV_MODEL_LAYERS, dtype="float32")
+    grok = make_config(GROK, "tiny").with_overrides(
+        attention_impl="ring", dtype="float32", d_ff=2 * DEV_MODEL_GROK_F)
+    grok = grok.with_overrides(moe=dataclasses.replace(
+        grok.moe, expert_d_ff=DEV_MODEL_GROK_F))
+    for arch, scale, config, (batch, seq), what in (
+            (TRAIN_ARCH, "full", smollm, (TRAIN_BATCH, TRAIN_SEQ),
+             f"{DEV_MODEL_LAYERS} layers"),
+            (GROK, "tiny", grok, DEV_MODEL_GROK_TOKENS,
+             f"tiny, experts {DEV_MODEL_GROK_F} wide")):
+        losses, walls = {}, {}
+        for name, extra in (("stacked", []),
+                            ("devices", ["--rank-devices",
+                                         ",".join(devices)])):
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_model_2d_")
+            try:
+                args = train_mod.build_parser().parse_args([
+                    "--arch", arch, "--scale", scale, "--device", "cuda",
+                    "--global-batch", str(batch), "--seq", str(seq),
+                    "--steps", str(DEV_MODEL_STEPS), "--ckpt-dir", ckpt_dir,
+                    "--mesh", DEV_MODEL_2D] + extra)
+                report = train_mod.run(args, config=config, log_every=1)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            losses[name] = [m["loss"] for m in report.log]
+            walls[name] = [round(m["step_time_s"] * 1e3, 3)
+                           for m in report.log]
+            del report
+            free()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["devices"],
+                                                   losses["stacked"])]
+        if len(rel) != DEV_MODEL_STEPS or not max(rel) <= DEV_MODEL_REL:
+            raise AssertionError(f"{arch} --mesh {DEV_MODEL_2D} "
+                                 f"--rank-devices losses {losses['devices']} "
+                                 f"vs stacked {losses['stacked']}")
+        log(f"devices: model axis --mesh {DEV_MODEL_2D} --rank-devices "
+            f"{','.join(devices)} ({arch}, {what}, f32, \"ring\", {batch}x"
+            f"{seq} tokens): losses "
+            f"{[round(v, 7) for v in losses['devices']]} against the "
+            f"stacked run's {[round(v, 7) for v in losses['stacked']]}, "
+            f"worst rel err {max(rel):.3e} (limit {DEV_MODEL_REL:g}); step "
+            f"ms {walls}")
+
+
+def ring_devices_check(devices) -> None:
+    """The ring with a device per rank alone, at smollm-360m's train shape
+    (q [8, 1024, 15, 64], k/v [8, 1024, 5, 64], bf16, causal) on a ``(1,
+    4)`` mesh of ``devices``: forward and backward bit for bit against the
+    stacked ring on cuda:0, the per-device run under
+    ``set_sync_debug_mode("error")`` (no host sync in a hop); the sends a
+    call."""
+    import importlib
+
+    from repro_torch import sharding
+    from repro_torch.collectives import rank_shards
+    from repro_torch.launch.mesh import make_mesh
+    RA = importlib.import_module("repro_torch.collectives.ring_attention")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    B, S, H, KVH, hd = TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16)
+                   for shape in ((B, S, H, hd), (B, S, KVH, hd),
+                                 (B, S, KVH, hd), (B, S, H, hd)))
+    meshes = {"stacked": ring_mesh(), "devices": make_mesh(
+        (1, len(devices)), ("data", "model"), devices=devices)}
+
+    def run(name, *ins):
+        leaves = [t.detach().requires_grad_() for t in ins[:3]]
+        with sharding.set_mesh(meshes[name]):
+            o = RA.ring_attention(*leaves, causal=True)
+        return [o, *torch.autograd.grad(o, leaves, ins[3])]
+
+    want = run("stacked", q, k, v, do)
+    sync_all(devices)
+    rank_shards.reset_transfers()
+    with sync_errors():
+        got = run("devices", q, k, v, do)
+    moved = dict(rank_shards.transfers)
+    sync_all(devices)
+    for name, a, b in zip(("o", "dq", "dk", "dv"), want, got):
+        if not torch.equal(a, b):
+            raise AssertionError(f"per-device ring {name} differs from the "
+                                 f"stacked ring's")
+    log(f"check: the ring with a device per rank at {TRAIN_ARCH}'s train "
+        f"shape (bf16, causal, {len(devices)} ranks on {devices}): output "
+        f"and dq/dk/dv bit for bit the stacked ring's on cuda:0, under "
+        f"set_sync_debug_mode(\"error\"); a forward + backward sends "
+        f"{moved['sends']} tensors ({moved['bytes'] / 1e6:.1f} MB), "
+        f"{moved['hops']} of them ring hops ({moved['hop_bytes'] / 1e6:.1f} "
+        f"MB), {moved['cross_bytes'] / 1e6:.1f} MB across cards")
+
+
+def moe_devices_check(devices, groups: int = 2) -> None:
+    """The MoE block with each rank's F-slices on its card: grok-1's
+    widths (``moe_tp_check``'s inputs: d 6144, 8 experts of F 32768, top
+    2, ``groups`` groups of 1024 tokens) on 4 ranks (F/4 = 8192 a rank).
+    In f32 with TF32 off, ``y`` and the gradients of the tokens, the
+    combine weights and every slice equal the stacked tensor-parallel
+    block's bit for bit (each slice's gradient on its rank's card), the
+    per-device run under ``set_sync_debug_mode("error")``; each card's
+    peak memory in that run.  Then both timed in bf16, forward and forward
+    + backward."""
+    from repro_torch import sharding
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    cfg = get_config(GROK)
+    mc = cfg.moe
+    D, E, Fd = cfg.d_model, mc.num_experts, mc.expert_d_ff
+    n = len(devices)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def randn(*shape, fan_in=1):
+        return torch.randn(shape, generator=gen, device="cuda") \
+            / math.sqrt(fan_in)
+
+    x = randn(groups, mc.group_size, D)
+    xg, disp, comb, _ = L._moe_route({"router": randn(D, E, fan_in=D)}, x,
+                                     cfg)
+    del x
+    weights = [randn(E, D, Fd, fan_in=D), randn(E, D, Fd, fan_in=D),
+               randn(E, Fd, D, fan_in=Fd)]
+    dy = randn(*xg.shape)
+    smesh = ring_mesh()
+    dmesh = make_mesh((1, n), ("data", "model"), devices=devices)
+    dims = (2, 2, 1)
+    C = comb.shape[-1]
+
+    def block(mesh, ins, ws, grad=True):
+        leaves = [t.detach().requires_grad_(grad and i != 1)
+                  for i, t in enumerate(ins)]
+        if isinstance(ws[0], RankShards):
+            ws = [w.map(lambda t: t.detach().requires_grad_(grad))
+                  for w in ws]
+            wrt = [t for w in ws for t in w.shards]
+        else:
+            ws = [w.detach().requires_grad_(grad) for w in ws]
+            wrt = ws
+        with sharding.set_mesh(mesh), L.training_mode():
+            y = L._moe_expert_block(*leaves, *ws)
+        if not grad:
+            return y
+        return y.detach(), torch.autograd.grad(
+            y, [leaves[0], leaves[2], *wrt], dy.to(y.dtype))
+
+    ins = [xg, disp, comb]
+    ref_y, ref_g = block(smesh, ins, weights)
+    slices = [RankShards.from_stacked(w, dmesh, dim=dim)
+              for w, dim in zip(weights, dims)]
+    del weights
+    free()
+    cards = distinct(devices)
+    sync_all(devices)
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    with sync_errors():
+        got_y, got_g = block(dmesh, ins, slices)
+    sync_all(devices)
+    peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+    held = [torch.equal(got_y, ref_y)] + [
+        torch.equal(a, b) for a, b in zip(got_g[:2], ref_g[:2])]
+    w = Fd // n
+    for k in range(3):
+        for r in range(n):
+            g = got_g[2 + k * n + r]
+            held.append(str(g.device) == str(torch.device(devices[r]))
+                        and torch.equal(g.to("cuda:0"), ref_g[2 + k].narrow(
+                            dims[k], r * w, w)))
+    if not all(held):
+        raise AssertionError(f"per-device MoE block against the stacked "
+                             f"block: {held}")
+    del ref_y, ref_g, got_y, got_g
+    free()
+    ins16 = [t.to(torch.bfloat16) for t in ins]
+    s16 = [s_.map(lambda t: t.to(torch.bfloat16)) for s_ in slices]
+    del slices
+    free()
+    full16 = [sl.to_stacked("cuda:0") for sl in s16]
+    times, _, source = measure(
+        {"stacked_fwd": lambda *a: block(smesh, a, full16, grad=False),
+         "devices_fwd": lambda *a: block(dmesh, a, s16, grad=False),
+         "stacked_fwd_bwd": lambda *a: block(smesh, a, full16),
+         "devices_fwd_bwd": lambda *a: block(dmesh, a, s16)},
+        [tuple(ins16)], dev_iters=2, paced_iters=2)
+    log(f"check: MoE block with each rank's F-slices on its card at "
+        f"{GROK}'s widths (xg [{groups}, {mc.group_size}, {D}], {E} experts "
+        f"of F {Fd}, capacity {C}) on {n} ranks on {devices} (F/{n} = {w} a "
+        f"rank): y and the gradients of xg, the combine weights and every "
+        f"slice bit for bit the stacked tensor-parallel block's on cuda:0 "
+        f"(f32, TF32 off, under set_sync_debug_mode(\"error\")), each "
+        f"slice's gradient on its rank's card; peak memory in that run "
+        + per_card(cards, peaks, " GiB", ".2f")
+        + f" (a rank's slices are {3 * E * D * w * 4 / 2**30:.2f} GiB of "
+        f"f32); bf16 device ms ({source}): {fmt(times)}")
+
+
+def model_devices_phase(devices, ring_losses: list) -> dict:
+    """Phase 16's model-axis part (after phase 14, whose losses it takes):
+    phase 14's run with ``--rank-devices``, its profiled step, the ring
+    alone, ``--mesh 2x2 --rank-devices`` against the stacked run, and
+    grok-1's MoE block with each rank's F-slices on its card.  Returns
+    the path's launches."""
+    t0 = time.perf_counter()
+    log(f"devices: model axis on {devices}"
+        + ("" if len(distinct(devices)) > 1 else
+           " (one card: cuda:0 is listed for every rank, so every copy "
+           "between ranks stays on it)"))
+    spans = {}
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        free()
+        spans[name] = time.perf_counter() - t1
+        return out
+
+    launches, report = timed("train", train_model_devices, ring_losses,
+                             devices)
+    timed("breakdown", model_devices_breakdown, report, devices)
+    del report
+    free()
+    timed("ring", ring_devices_check, devices)
+    timed("2x2", model_devices_2d, devices)
+    timed("moe", moe_devices_check, devices)
+    log(f"devices: model-axis part done in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()) + " s)")
+    return {"train_model_devices": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -6040,7 +6503,8 @@ def main(argv: list) -> int:
     if argv not in ([], ["--only", "parallel"], ["--only", "serve-sharded"],
                     ["--only", "moe"], ["--only", "families"],
                     ["--only", "context"], ["--only", "cells"],
-                    ["--only", "devices"], ["--only", "stages"]):
+                    ["--only", "devices"], ["--only", "stages"],
+                    ["--only", "model-devices"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
@@ -6050,7 +6514,9 @@ def main(argv: list) -> int:
               f"context phase 14; --only cells the kernels at the assigned "
               f"shapes and phase 15; --only devices the data-parallel, "
               f"FSDP and sharded runs it compares with and phase 16; "
-              f"--only stages phase 16's pipeline and expert parts)",
+              f"--only stages phase 16's pipeline and expert parts; "
+              f"--only model-devices phase 14's stacked ring run and "
+              f"phase 16's model-axis part)",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
@@ -6070,6 +6536,18 @@ def main(argv: list) -> int:
         + ("" if info.commands else " (already built)"))
     _lib.lib()
 
+    if argv == ["--only", "model-devices"]:
+        # a partial run (phase 14's stacked ring run and phase 16's
+        # model-axis part); it prints no result line
+        _, report = ring_train_run()
+        ring_losses = [m["loss"] for m in report.log]
+        del report
+        free()
+        launches = model_devices_phase(rank_devices(), ring_losses)
+        log(f"partial run: launches of the model-axis run {launches}; "
+            f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "stages"]:
         # a partial run (phase 16's stage-per-card and expert-per-card
         # parts); it prints no result line
@@ -6120,7 +6598,7 @@ def main(argv: list) -> int:
         return 0
     if argv == ["--only", "context"]:
         # a partial run (phase 14); it prints no result line
-        launches = context_phase()
+        launches, _ = context_phase()
         log(f"partial run: launches of the ring train run {launches}; total "
             f"{time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -6264,8 +6742,13 @@ def main(argv: list) -> int:
     log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
     runs.update(families_phase())
     log(f"families phase done at {time.perf_counter() - t_start:.1f} s")
-    runs.update(context_phase())
+    ctx_runs, ring_losses = context_phase()
+    runs.update(ctx_runs)
     log(f"context phase done at {time.perf_counter() - t_start:.1f} s")
+    # phase 16's model-axis part compares with phase 14's run
+    runs.update(model_devices_phase(rank_devices(), ring_losses))
+    free()
+    log(f"model-axis part done at {time.perf_counter() - t_start:.1f} s")
     runs.update(cells_phase())
     log(f"cells phase done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on the main paths' caller-driven runs, per
@@ -6291,6 +6774,7 @@ def main(argv: list) -> int:
         row["launches_train_fsdp"] = n["train_fsdp"]
         row["launches_train_devices"] = n["train_devices"]
         row["launches_train_fsdp_devices"] = n["train_fsdp_devices"]
+        row["launches_train_model_devices"] = n["train_model_devices"]
         row["launches_serve_sharded"] = n["serve_sharded"]
         row["launches_serve_devices"] = n["serve_devices"]
         for name, *_ in CELLS:
@@ -6298,7 +6782,8 @@ def main(argv: list) -> int:
         row["launches"] = (row["launches_serve"] + row["launches_train"]
                            + row["launches_remat"] + n["train_dp"]
                            + n["train_fsdp"] + n["train_devices"]
-                           + n["train_fsdp_devices"] + n["serve_sharded"]
+                           + n["train_fsdp_devices"]
+                           + n["train_model_devices"] + n["serve_sharded"]
                            + n["serve_devices"]
                            + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
@@ -6323,7 +6808,8 @@ def main(argv: list) -> int:
             "launches_train_whisper", "launches_train_pixtral",
             "launches_train_ring", "launches_remat", "launches_train_dp",
             "launches_train_fsdp", "launches_train_devices",
-            "launches_train_fsdp_devices", "launches_serve_sharded",
+            "launches_train_fsdp_devices", "launches_train_model_devices",
+            "launches_serve_sharded",
             "launches_serve_devices",
             *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",

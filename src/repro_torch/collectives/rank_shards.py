@@ -26,7 +26,11 @@ the mark) and False for the blocks of a stacked tensor (the default:
 the ``n / c`` blocks of one stacked tensor (shard ``i * n / c + b`` is copy
 ``i`` of block ``b``): a tensor split over one axis of a 2-D mesh and
 replicated over the other, as pipeline stages' parameters on a (data x
-stage) mesh (``from_stacked(..., copies=c)``).  The checkpoint saves a
+stage) mesh (``from_stacked(..., copies=c)``).  ``dim = k`` says the
+blocks split dim ``k`` of the stacked tensor instead of the leading one
+(the MoE block's expert-width slices on a model axis: ``[E, d, F/n]``
+blocks of ``[E, d, F]``, ``dim`` 2); ``to_stacked`` and the checkpoint
+glue them along it.  The checkpoint saves a
 replica once and the blocks glued (the first copy's); nothing infers the
 mark from equal values.  ``local(fn, *xs)``
 applies ``fn`` to each rank's shards, or to the tensors themselves in the
@@ -36,6 +40,7 @@ both.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -44,9 +49,10 @@ class RankShards:
     """One local tensor per rank, each on its rank's device.  Every shard
     has the same shape and dtype."""
 
-    __slots__ = ("shards", "replica", "copies")
+    __slots__ = ("shards", "replica", "copies", "dim")
 
-    def __init__(self, shards, *, replica: bool = False, copies: int = 1):
+    def __init__(self, shards, *, replica: bool = False, copies: int = 1,
+                 dim: int = 0):
         shards = tuple(shards)
         if not shards:
             raise ValueError("RankShards needs at least one shard")
@@ -64,28 +70,36 @@ class RankShards:
                 raise ValueError(
                     f"shards differ: {tuple(first.shape)} {first.dtype} "
                     f"and {tuple(s.shape)} {s.dtype}")
+        if dim and (replica or not 0 <= dim < first.dim()):
+            raise ValueError(f"blocks of {tuple(first.shape)} cannot split "
+                             f"dim {dim}" + (" (a replica has one block)"
+                                             if replica else ""))
         self.shards = shards
         self.replica = replica
         self.copies = copies
+        self.dim = dim
 
     @classmethod
     def from_stacked(cls, x: torch.Tensor, mesh=None, *,
-                     devices=None, copies: int = 1) -> "RankShards":
-        """The stacked tensor ``x`` (its leading dim split over the mesh's
-        ranks in order, or over ``devices``) as a copy on each rank's
-        device; with ``copies`` split over ``n / copies`` blocks, each
-        block placed once in every copy."""
+                     devices=None, copies: int = 1,
+                     dim: int = 0) -> "RankShards":
+        """The stacked tensor ``x`` (its leading dim, or ``dim``, split
+        over the mesh's ranks in order, or over ``devices``) as a copy on
+        each rank's device; with ``copies`` split over ``n / copies``
+        blocks, each block placed once in every copy.  Each block is
+        contiguous on its device."""
         devices = mesh.devices if mesh is not None else tuple(devices)
         n = len(devices)
         if copies < 1 or n % copies:
             raise ValueError(f"{n} ranks do not hold {copies} copies")
         blocks = n // copies
-        if x.dim() < 1 or x.shape[0] % blocks:
-            raise ValueError(f"leading dim of {tuple(x.shape)} does not "
+        if x.dim() <= dim or x.shape[dim] % blocks:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
                              f"split over {blocks} ranks")
-        k = x.shape[0] // blocks
-        return cls((x[(r % blocks) * k:(r % blocks + 1) * k].to(d, copy=True)
-                    for r, d in enumerate(devices)), copies=copies)
+        k = x.shape[dim] // blocks
+        return cls((x.narrow(dim, (r % blocks) * k, k)
+                    .to(d, copy=True).contiguous()
+                    for r, d in enumerate(devices)), copies=copies, dim=dim)
 
     @property
     def blocks(self) -> tuple:
@@ -94,9 +108,14 @@ class RankShards:
         return self.shards[:len(self.shards) // self.copies]
 
     def to_stacked(self, device) -> torch.Tensor:
-        """The shards (of one copy) glued along the leading dim, on
-        ``device``."""
-        return torch.cat([s.to(device) for s in self.blocks])
+        """The shards (of one copy) glued along the leading dim (``dim``),
+        on ``device``."""
+        return torch.cat([s.to(device) for s in self.blocks], dim=self.dim)
+
+    def map(self, fn) -> "RankShards":
+        """``fn`` on each shard, the layout (replica, copies, dim) kept."""
+        return RankShards((fn(s) for s in self.shards), replica=self.replica,
+                          copies=self.copies, dim=self.dim)
 
     @property
     def devices(self) -> tuple:
@@ -108,10 +127,11 @@ class RankShards:
 
     @property
     def shape(self) -> torch.Size:
-        s = self.shards[0].shape
+        s = list(self.shards[0].shape)
         if not s:
             raise ValueError("0-d shards have no stacked shape")
-        return torch.Size((len(self.blocks) * s[0],) + tuple(s[1:]))
+        s[self.dim] *= len(self.blocks)
+        return torch.Size(s)
 
     def numel(self) -> int:
         return sum(s.numel() for s in self.shards)
@@ -132,7 +152,8 @@ class RankShards:
         s = self.shards[0]
         return (f"RankShards({len(self.shards)} x {tuple(s.shape)} "
                 f"{s.dtype}{' replicas' if self.replica else ''}"
-                f"{f' ({self.copies} copies)' if self.copies > 1 else ''} on ["
+                f"{f' ({self.copies} copies)' if self.copies > 1 else ''}"
+                f"{f' split on dim {self.dim}' if self.dim else ''} on ["
                 + ", ".join(str(d) for d in self.devices) + "])")
 
 
@@ -156,6 +177,39 @@ def device_context(device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+# What ``send`` moved between ranks (the model axis's ring hops and
+# block copies): sends and their bytes, the ring hops among them, and the
+# bytes that crossed between two devices (none where ranks share one).
+transfers = dict.fromkeys(("sends", "bytes", "hops", "hop_bytes",
+                           "cross_bytes"), 0)
+_transfers_lock = threading.Lock()
+
+
+def send(t: torch.Tensor, device, *, hop: bool = False) -> torch.Tensor:
+    """``t`` for a rank on ``device``: a copy there (asynchronous for the
+    host; PyTorch fences a copy between two cards on both cards' current
+    streams), or ``t`` itself where it already is.  Counted in
+    ``transfers`` (``hop``: a ring hop); autograd differentiates it as the
+    copy it is."""
+    device = torch.device(device)
+    nbytes = t.numel() * t.element_size()
+    with _transfers_lock:
+        transfers["sends"] += 1
+        transfers["bytes"] += nbytes
+        if hop:
+            transfers["hops"] += 1
+            transfers["hop_bytes"] += nbytes
+        if t.device != device:
+            transfers["cross_bytes"] += nbytes
+    return t.to(device, non_blocking=True)
+
+
+def reset_transfers() -> None:
+    with _transfers_lock:
+        for k in transfers:
+            transfers[k] = 0
 
 
 def _zip_map(fn, trees):

@@ -18,8 +18,9 @@ from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec, input_specs
 from repro_torch.models import registry
-from repro_torch.models.layers import (torch_dtype, tree_from_leaves,
-                                       tree_leaves, tree_map)
+from repro_torch.models.layers import (expert_width_dims, torch_dtype,
+                                       tree_from_leaves, tree_leaves,
+                                       tree_map)
 from repro_torch.train import optimizer as opt
 
 BATCH_AXES = {
@@ -101,15 +102,21 @@ def batch_shardings(batch_specs, mesh) -> dict:
 def compute_params(cfg, cast_params_bf16: bool):
     """``params -> params`` the model reads: with ``cast_params_bf16`` the
     f32 masters cast to the compute dtype (1-D leaves such as norm scales
-    stay f32), else the masters themselves."""
+    stay f32), else the masters themselves.  A model axis's F-slices
+    (``RankShards``) cast on their cards."""
+    from repro_torch.collectives.rank_shards import RankShards
     cdt = torch_dtype(cfg.dtype)
+
+    def cast(p):
+        if isinstance(p, RankShards):
+            return p.map(lambda t: t.to(cdt)) \
+                if p.dtype == torch.float32 else p
+        return p.to(cdt) if p.dtype == torch.float32 and p.dim() > 1 else p
 
     def model_params(params):
         if not cast_params_bf16:
             return params
-        return tree_map(lambda p: p.to(cdt)
-                        if p.dtype == torch.float32 and p.dim() > 1 else p,
-                        params)
+        return tree_map(cast, params)
 
     return model_params
 
@@ -158,12 +165,23 @@ def train_step_fn(cfg, ocfg, *, microbatches: int = 1,
                 grads = [x.float()
                          for x in torch.autograd.grad(loss, leaves)]
             params, opt_state, om = opt.apply(
-                ocfg, opt_state, params, tree_from_leaves(zip(paths, grads)))
+                ocfg, opt_state, params, tree_from_leaves(zip(paths, grads)),
+                splits=_model_axis_splits(cfg))
             metrics = dict(metrics, loss=loss, **om)
             return params, opt_state, {k: v.detach()
                                        for k, v in metrics.items()}
 
     return train_step
+
+
+def _model_axis_splits(cfg) -> dict:
+    """The leaves the current mesh's model axis holds as slices (the MoE
+    block's F-slices, ``layers.expert_width_dims``): path -> (dim,
+    ranks), for ``optimizer.global_norm``."""
+    mesh = sharding.current_mesh()
+    tp = 1 if mesh is None else dict(mesh.shape).get("model", 1)
+    return {path: (dim, tp)
+            for path, dim in expert_width_dims(cfg, tp).items()}
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, mesh,

@@ -26,6 +26,9 @@ elastic, or a 1F1B pipeline.
         cuda:0,cuda:1,cuda:2,cuda:3 --steps 6    # a card a stage
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --scale tiny --mesh 1x4 --steps 6        # a model axis of 4 ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --scale full \
+        --mesh 1x4 --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
+        --global-batch 8 --seq 1024 --steps 6    # a card a model rank
 
 The JAX package's ``repro.launch.train``: synthetic data prefetched on
 the engine, a forward + backward + AdamW step (the train cell of
@@ -56,7 +59,12 @@ the MoE block splits the expert width over them when it is wide enough
 (``layers.moe_tp_ranks``); every other layer replicates over the model
 axis, and the data axis splits nothing the one pass over the batch does
 not already sum (the JAX launcher's ``build_cell`` under the same mesh).
-A config with "ring" goes through ``run(args, config=...)``.
+A config with "ring" goes through ``run(args, config=...)``.  With
+``--rank-devices`` (D·M devices, rank (d, m) on ``devices[d*M + m]``)
+the model axis runs with a device per rank (``_run_model_devices``):
+each data row's replicated layers once on its leader's device, the
+ring's sequence blocks and the MoE block's F-slices on the ranks'
+devices, the rows' gradients averaged over a reducer a model column.
 
 ``--fsdp`` shards parameters and AdamW moments over the mesh's data
 axis as flat per-dtype buckets (``FsdpLayout``, ``--fsdp-bucket-bytes``):
@@ -131,7 +139,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(e.g. cuda:0,cuda:1,cuda:2,cuda:3; a device may "
                          "repeat); as many as --devices, user backend "
                          "only; composes with --fsdp; with --pipeline a "
-                         "device per (data, stage) rank, row-major")
+                         "device per (data, stage) rank, row-major; with "
+                         "a model axis above 1 (native backend) a device "
+                         "per (data, model) rank, row-major")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -536,9 +546,17 @@ def _rank_devices(args):
     dims = args.mesh.split("x") if args.mesh else []
     model = int(dims[1]) if len(dims) == 2 and not pipeline else 1
     if model > 1:
-        raise SystemExit("--rank-devices does not compose with a model "
-                         "axis above 1 yet (ROADMAP queue 1, item 12)")
-    if not pipeline and args.collective_backend != "user":
+        # the native backend's model axis (_run_model_devices); the user
+        # backend without --fsdp exits in mesh_shape, as the JAX launcher
+        for flag, on in (("--fsdp", args.fsdp),
+                         ("--elastic/--chaos-kill/--heartbeat-timeout",
+                          _elastic_on(args)),
+                         ("--microbatches above 1", args.microbatches > 1)):
+            if on:
+                raise SystemExit(f"--rank-devices on a model axis above 1 "
+                                 f"does not compose with {flag} yet "
+                                 f"(ROADMAP queue 1, item 12b)")
+    elif not pipeline and args.collective_backend != "user":
         raise SystemExit("--rank-devices needs --collective-backend user "
                          "(the ranks' gradients meet in the user-space "
                          "collectives)")
@@ -667,9 +685,10 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
     if args.global_batch % data:
         raise SystemExit(f"--global-batch {args.global_batch} does not "
                          f"split over {data} ranks")
-    if rank_devices is not None and len(rank_devices) != data:
+    if rank_devices is not None and len(rank_devices) != data * model:
         raise SystemExit(f"--rank-devices names {len(rank_devices)} "
-                         f"device(s) for {data} data-parallel ranks")
+                         f"device(s) for {data * model} rank(s) (data "
+                         f"{data} x model {model})")
     spec = CollectiveSpec(backend=args.collective_backend,
                           algorithm=args.collective_algorithm,
                           chunks=args.collective_chunks,
@@ -698,6 +717,13 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
         return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
     pipe = PrefetchPipeline(map(to_host, iter(src)), eng, depth=3)
+    if rank_devices is not None and model > 1:
+        try:
+            return _run_model_devices(args, cfg, ocfg, params, (data, model),
+                                      rank_devices, eng, pipe,
+                                      loop_overrides)
+        finally:
+            pipe.close()
     if args.fsdp:
         try:
             return _run_fsdp(args, cfg, ocfg, params, device, (data, model),
@@ -806,6 +832,284 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
         if reducer is not None:
             dispatches = reducer.dispatches_per_step
             reducer.close()
+    return TrainReport(trainer, cfg, log, time.perf_counter() - t0,
+                       args.global_batch * args.seq, reducer, dispatches)
+
+
+def make_row_grads(cfg, mesh, *, cast_params_bf16: bool = False):
+    """``grad_fn(params, batch) -> (stacked_metrics, grads)`` on a (data,
+    model) mesh of D x M ranks with a device per rank (rank (d, m) on
+    ``mesh.devices[d*M + m]``), ``params`` placed as
+    ``bridge.params_on_model_axis`` places them.
+
+    Row d's pass runs on its leader's card (rank (d, 0)), on its
+    contiguous slice of the batch copied there from the host, inside the
+    row's ``(1, M)`` mesh (``sharding.set_mesh``): the replicated layers
+    once on the leader, the ring's sequence blocks and the MoE block's
+    F-slices on the row's ranks' cards.  Every row's forward runs before
+    any row's backward.  So with D > 1 an MoE model routes as the whole
+    batch does: each row's share must be whole groups of the batch's
+    routing (``layers.moe_rows_route_alike``, else ValueError), and each
+    row's aux loss takes the batch's routed shares (``layers.moe_rows_aux``,
+    added on rank (0, 0)'s card), so the rows' mean loss and gradients are
+    the batch's.  The gradients are f32 ``[1, *shape]`` shards of
+    ``RankShards`` leaves, the form the reducer takes: a replicated leaf's
+    on the D leaders, an F-sliced leaf's on every rank (row-major); the
+    metrics are stacked on rank (0, 0)'s card."""
+    from repro_torch import sharding
+    from repro_torch.collectives.rank_shards import RankShards, \
+        device_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import compute_params
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+
+    D, M = dict(mesh.shape)["data"], dict(mesh.shape)["model"]
+    rows = [mesh.devices[d * M:(d + 1) * M] for d in range(D)]
+    leaders = [row[0] for row in rows]
+    row_meshes = [make_mesh((1, M), ("data", "model"), devices=row)
+                  for row in rows]
+    model_params = compute_params(cfg, cast_params_bf16)
+    rules = sharding.merged_rules(cfg.sharding_overrides)
+    batch_aux = D > 1 and cfg.moe is not None
+
+    def row_tree(params, d):
+        return L.tree_map(lambda leaf: leaf.shards[d] if leaf.replica else
+                          RankShards(leaf.shards[d * M:(d + 1) * M],
+                                     dim=leaf.dim), params)
+
+    def grad_fn(params, batch):
+        tokens = batch["tokens"]
+        per = tokens.shape[0] // D
+        if batch_aux and not L.moe_rows_route_alike(cfg, tokens.numel(), D):
+            raise ValueError(row_groups_error(cfg, tokens.numel(), D))
+        passes = []
+        for d, (leader, row_mesh) in enumerate(zip(leaders, row_meshes)):
+            paths, leaves = zip(*L.tree_leaves(row_tree(params, d)))
+            tensors = [t for leaf in leaves for t in (
+                leaf.shards if isinstance(leaf, RankShards) else (leaf,))]
+            for t in tensors:
+                t.requires_grad_(True)
+            local = {k: v[d * per:(d + 1) * per].to(leader, non_blocking=True)
+                     for k, v in batch.items()}
+            with device_context(leader), sharding.set_mesh(row_mesh), \
+                    sharding.axis_rules(rules), L.moe_route_stats() as st:
+                loss, m = registry.loss_fn(
+                    model_params(L.tree_from_leaves(zip(paths, leaves))),
+                    cfg, local)
+            passes.append((paths, leaves, tensors, loss, m, st))
+        if batch_aux:
+            auxes = L.moe_rows_aux(cfg, [p[5] for p in passes], leaders)
+            passes = [(*p[:3], p[4]["nll"] + aux, dict(p[4], aux=aux), None)
+                      for p, aux in zip(passes, auxes)]
+        grads, mets = {}, []
+        for leader, (paths, leaves, tensors, loss, m, _) in zip(leaders,
+                                                                passes):
+            with device_context(leader):
+                it = iter(torch.autograd.grad(loss, tensors))
+            for path, leaf in zip(paths, leaves):
+                k = len(leaf.shards) if isinstance(leaf, RankShards) else 1
+                grads.setdefault(path, []).extend(
+                    next(it).to(torch.float32)[None] for _ in range(k))
+            mets.append({k: v.detach() for k, v in dict(m, loss=loss).items()})
+        first = mesh.devices[0]
+        with device_context(first):
+            stacked = {k: torch.stack([m[k].to(first) for m in mets])
+                       for k in mets[0]}
+        return stacked, L.tree_from_leaves((path, RankShards(g))
+                                           for path, g in grads.items())
+
+    return grad_fn
+
+
+def row_groups_error(cfg, tokens: int, rows: int) -> str:
+    """Why ``rows`` data rows with a device per rank cannot route a batch
+    of ``tokens`` as the whole batch does (``layers.moe_rows_route_alike``
+    is false)."""
+    return (f"--rank-devices on a model axis: each of the {rows} data rows "
+            f"routes {tokens // rows} of the batch's {tokens} tokens, not a "
+            f"whole number of its MoE groups (group_size "
+            f"{cfg.moe.group_size}); make --global-batch x --seq a multiple "
+            f"of {rows} groups (MoE groups across rows with a device per "
+            f"rank: ROADMAP queue 1, item 12c)")
+
+
+def _only_row(g):
+    """A leaf of one data rank, in a reducer's output form: its row."""
+    from repro_torch.collectives.rank_shards import RankShards
+    return g.map(lambda t: t[0]) if isinstance(g, RankShards) else g[0]
+
+
+class _ColumnReducer:
+    """The data-axis gradient reduction of a (data x c) mesh, c its model
+    axis or a pipeline's stages: one ``EngineGradReducer`` a column, over
+    a 1-D data mesh of that column's D ranks (their devices in the
+    per-device form).  It runs on the user-space collectives whatever
+    ``--collective-backend`` says.  With one data rank no reducer is
+    built: the row's gradients are the step's.
+
+    ``split(grads)`` gives each column's tree in the reducer's input form
+    (``[D, ...]`` leaves, or ``RankShards`` of the column's ``[1, ...]``
+    shards; ``{}`` for a column with nothing to reduce).  ``join(cols)``
+    takes the columns' means (each leaf once, or a ``RankShards`` of each
+    rank's copy) and gives the tree the optimizer takes."""
+
+    def __init__(self, meshes: list, split, join, *, engine, spec):
+        from repro_torch.collectives.overlap import EngineGradReducer
+        self.axis_size = dict(meshes[0].shape)["data"]
+        self.split, self.join = split, join
+        self.reducers = [] if self.axis_size == 1 else [
+            EngineGradReducer(m, "data", engine=engine, spec=spec, mean=True)
+            for m in meshes]
+
+    @property
+    def dispatches_per_step(self) -> int:
+        return sum(r.dispatches_per_step for r in self.reducers)
+
+    def iallreduce_tree(self, grads):
+        from repro_torch.models.layers import tree_map
+        trees = self.split(grads)
+        if not self.reducers:
+            return _ColumnReduction([tree_map(_only_row, t) for t in trees],
+                                    self.join)
+        return _ColumnReduction([r.iallreduce_tree(t) if t else {}
+                                 for r, t in zip(self.reducers, trees)],
+                                self.join)
+
+    def close(self) -> None:
+        for r in self.reducers:
+            r.close()
+
+
+class _ColumnReduction:
+    """The columns' reductions in flight (with one data rank, their trees
+    as they are)."""
+
+    def __init__(self, parts: list, join):
+        self.parts, self.join = parts, join
+        self.issue_s = sum(getattr(p, "issue_s", 0.0) for p in parts)
+
+    def wait(self, timeout: float | None = None):
+        from repro_torch.collectives.overlap import TreeReduction
+        return self.join([p.wait(timeout=timeout)
+                          if isinstance(p, TreeReduction) else p
+                          for p in self.parts])
+
+
+def model_columns(mesh, dims: dict, *, engine, spec) -> _ColumnReducer:
+    """The data-axis reduction of a (data x model) mesh with a device per
+    rank, a model column at a time.  Column 0 (the leaders) reduces the
+    replicated leaves and its F-slices, column m > 0 its F-slices.  It
+    takes ``make_row_grads``' gradients and gives the mean in the form the
+    optimizer takes: a replica on the leaders, or the F-slices as
+    ``RankShards`` blocks split on ``dims[path]``, a copy per row."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import tree_from_leaves, tree_leaves
+    D, M = dict(mesh.shape)["data"], dict(mesh.shape)["model"]
+
+    def split(grads):
+        cols = [{} for _ in range(M)]
+        for path, g in tree_leaves(grads):
+            if path in dims:
+                for m in range(M):
+                    cols[m][path] = RankShards(g.shards[m::M])
+            else:
+                cols[0][path] = g
+        return [tree_from_leaves(c.items()) for c in cols]
+
+    def join(cols):
+        got = [dict(tree_leaves(c)) for c in cols]
+        return tree_from_leaves(
+            (path, RankShards(g.shards, replica=True)) if path not in dims
+            else (path, RankShards((got[m][path].shards[d] for d in range(D)
+                                    for m in range(M)),
+                                   copies=D, dim=dims[path]))
+            for path, g in got[0].items())
+
+    return _ColumnReducer([make_mesh((D,), ("data",),
+                                     devices=mesh.devices[m::M])
+                           for m in range(M)], split, join,
+                          engine=engine, spec=spec)
+
+
+def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
+                       pipe, loop_overrides) -> TrainReport:
+    """``--mesh DxM --rank-devices`` (M > 1, native backend): the model
+    axis with a device per rank, rank (d, m) on ``rank_devices[d*M +
+    m]`` (row-major, as ``jax.sharding.Mesh.devices``).
+
+    Where the layers run: each data row's replicated layers (embedding,
+    norms, QKV and RoPE, the out-projection, the MLP, the router, the
+    final norm and the loss) run once, on its leader's card, rank (d, 0),
+    on row d's slice of the batch, as the rank-stacked model axis computes
+    them once; the ring's sequence blocks (``ring_attention``) and the MoE
+    block's F-slices (``layers._MoEBlockPerDevice``: weights, gradients,
+    AdamW moments and each slice's expert FFN) live on the ranks' cards.
+    The leaders hold a replica of every other leaf (and its moments), every
+    rank a step counter.  One host thread drives every card, so ranks
+    that share a card run one after the other.
+
+    A step is the split step: ``make_row_grads``, then (D > 1) the mean
+    over each model column's D ranks (``model_columns``), then AdamW on
+    each leaf's cards (``optimizer.apply`` over placed leaves: the grad
+    norm from each leaf's square sums, a sliced leaf's slices in rank
+    order, added on rank (0, 0)'s card).  Data moved between cards a
+    step: the ring's blocks and hops and the MoE block's tokens and
+    partials (``rank_shards.transfers`` counts them), and for D > 1 the
+    column reductions.  With one data row the losses, parameters and
+    checkpoint files equal the rank-stacked ``--mesh 1xM`` run's bit for
+    bit; the checkpoint holds the replicas once and the F-slices glued
+    along F, the stacked run's files.  With D > 1 the rows of an MoE
+    model route as the whole batch does (``make_row_grads``); a row whose
+    share of the batch is not whole MoE groups exits (item 12c)."""
+    from repro_torch.collectives.nonblocking import CollectiveSpec
+    from repro_torch.collectives.rank_shards import device_context
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.bridge import params_on_model_axis
+    from repro_torch.models.layers import expert_width_dims, \
+        moe_rows_route_alike
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import Trainer, UserCollectiveStep
+
+    D, M = shape
+    tokens = args.global_batch * args.seq
+    if D > 1 and cfg.moe is not None and \
+            not moe_rows_route_alike(cfg, tokens, D):
+        raise SystemExit(row_groups_error(cfg, tokens, D))
+    mesh = make_mesh(shape, ("data", "model"), devices=rank_devices)
+    params = params_on_model_axis(params, cfg, mesh)
+    opt_state = opt_mod.init(params)
+    dims = expert_width_dims(cfg, M)
+    spec = CollectiveSpec(backend="user", algorithm=args.collective_algorithm,
+                          chunks=args.collective_chunks,
+                          round_batch=args.collective_round_batch or None)
+    reducer = model_columns(mesh, dims, engine=eng, spec=spec)
+    first = mesh.devices[0]
+
+    def apply_fn(params, opt_state, grads, stacked_mets):
+        params, opt_state, om = opt_mod.apply(ocfg, opt_state, params, grads)
+        with device_context(first):
+            mets = {k: v.mean() for k, v in stacked_mets.items()}
+        return params, opt_state, dict(mets, **om)
+
+    split = UserCollectiveStep(
+        make_row_grads(cfg, mesh, cast_params_bf16=args.cast_bf16),
+        apply_fn, reducer, spec=spec)
+    print(f"model axis with a device per rank: data {D} x model {M} on "
+          f"{[str(d) for d in mesh.devices]}; {len(dims)} leaf/leaves as "
+          f"F-slices; the data reduction "
+          + (f"over {M} model column(s) ({reducer.reducers[0].algorithm})"
+             if D > 1 else "none (one row)"), flush=True)
+    trainer = Trainer(None, params, opt_state, pipe,
+                      _loop_config(args, spec, args.arch, loop_overrides),
+                      engine=eng, hooks=[_print_hook()], split_step=split)
+    t0 = time.perf_counter()
+    try:
+        log = trainer.run()
+    finally:
+        dispatches = reducer.dispatches_per_step
+        reducer.close()
     return TrainReport(trainer, cfg, log, time.perf_counter() - t0,
                        args.global_batch * args.seq, reducer, dispatches)
 
@@ -954,70 +1258,36 @@ def pipe_loss_fn(y, t):
     return torch.mean((y - t) ** 2)
 
 
-class _StageColumns:
-    """The data-axis gradient reduction of a (data x stage) pipeline
-    mesh: one ``EngineGradReducer`` a stage column, over a 1-D data mesh
-    of that column's D ranks (their devices in the per-device form, whose
-    collectives run over an axis holding every rank of their mesh).  Both
-    forms reduce the same per-column payloads, so they give the same bits.
+def stage_columns(meshes: list, *, engine, spec) -> _ColumnReducer:
+    """The data-axis reduction of a (data x stage) pipeline mesh, a stage
+    column at a time (``meshes``: each column's 1-D data mesh, of its
+    ranks' devices in the per-device form).  It takes the rows' gradient
+    trees (``[S, ...]`` leaves, or ``RankShards`` blocks on the row's
+    devices) and gives the mean in the form ``_pipe_adamw`` takes:
+    ``[S, ...]`` leaves, or ``RankShards`` copies (rank (d, s)'s block on
+    its device, row-major).  Both forms reduce the same per-column
+    payloads, so they give the same bits."""
+    from repro_torch.collectives.rank_shards import RankShards
+    per_device = meshes[0].per_device
+    S, D = len(meshes), dict(meshes[0].shape)["data"]
 
-    ``iallreduce_tree`` takes the rows' gradient trees (``[S, ...]``
-    leaves, or ``RankShards`` blocks on the row's devices) and returns a
-    handle whose ``wait`` gives the mean in the form ``_pipe_adamw``
-    takes: ``[S, ...]`` leaves, or ``RankShards`` copies (rank (d, s)'s
-    block on its device, row-major)."""
+    def split(row_grads):
+        # stage s's gradients of the D rows: [D, ...] leaves, or the rows'
+        # shards s on the column's devices
+        return [{k: (RankShards(g[k].shards[s] for g in row_grads)
+                     if per_device else torch.stack([g[k][s]
+                                                     for g in row_grads]))
+                 for k in row_grads[0]} for s in range(S)]
 
-    def __init__(self, meshes: list, *, engine, spec):
-        from repro_torch.collectives.overlap import EngineGradReducer
-        self.meshes = meshes
-        self.reducers = [EngineGradReducer(m, "data", engine=engine,
-                                           spec=spec, mean=True)
-                         for m in meshes]
-        self.axis_size = dict(meshes[0].shape)["data"]
-
-    @property
-    def dispatches_per_step(self) -> int:
-        return sum(r.dispatches_per_step for r in self.reducers)
-
-    def iallreduce_tree(self, row_grads: list):
-        from repro_torch.collectives.rank_shards import RankShards
-        per_device = self.meshes[0].per_device
-
-        def column(s):
-            # stage s's gradients of the D rows: [D, ...] leaves, or the
-            # rows' shards s on the column's devices
-            return {k: (RankShards(g[k].shards[s] for g in row_grads)
-                        if per_device else torch.stack([g[k][s]
-                                                        for g in row_grads]))
-                    for k in row_grads[0]}
-
-        return _ColumnReduction([r.iallreduce_tree(column(s))
-                                 for s, r in enumerate(self.reducers)],
-                                self.axis_size if per_device else None)
-
-    def close(self) -> None:
-        for r in self.reducers:
-            r.close()
-
-
-class _ColumnReduction:
-    """The stage columns' reductions in flight (``D`` data ranks a column
-    in the per-device form, None in the stacked one)."""
-
-    def __init__(self, parts: list, D: int | None):
-        self.parts = parts
-        self.D = D
-        self.issue_s = sum(p.issue_s for p in parts)
-
-    def wait(self, timeout: float | None = None):
-        from repro_torch.collectives.rank_shards import RankShards
-        cols = [p.wait(timeout=timeout) for p in self.parts]
-        if self.D is None:
+    def join(cols):
+        if not per_device:
             return {k: torch.stack([c[k] for c in cols]) for k in cols[0]}
         return {k: RankShards((cols[s][k].shards[d].unsqueeze(0)
-                               for d in range(self.D)
-                               for s in range(len(cols))), copies=self.D)
+                               for d in range(D) for s in range(S)),
+                              copies=D)
                 for k in cols[0]}
+
+    return _ColumnReducer(meshes, split, join, engine=engine, spec=spec)
 
 
 def _pipe_adamw(ocfg, state, params, grads):
@@ -1046,7 +1316,7 @@ def _run_pipeline(args, rank_devices=None, *, params=None,
     * ``--pipeline 1f1b``: one event-driven :class:`PipelineSchedule`
       per data row (per-stage executor-owned streams, persistent p2p
       handoffs), composed with a data-axis reduction a stage column
-      (``_StageColumns``) — the split-step ``UserCollectiveStep`` path,
+      (``stage_columns``) — the split-step ``UserCollectiveStep`` path,
       as for plain data-parallel.
 
     AdamW steps every stage's block (``_pipe_adamw``: the grad norm from
@@ -1216,7 +1486,7 @@ def _run_pipeline(args, rank_devices=None, *, params=None,
             losses = torch.stack([o[0].to(first) for o in outs])
             return {"loss": losses}, [o[1] for o in outs]
 
-        reducer = _StageColumns(column_meshes, engine=eng, spec=pspec)
+        reducer = stage_columns(column_meshes, engine=eng, spec=pspec)
         split = UserCollectiveStep(grad_fn, apply_fn, reducer, spec=pspec)
 
     trainer = Trainer(step_fn, params, opt_state, pipe, loop_cfg,

@@ -4,7 +4,9 @@ package.
 The JAX package keeps its parameters as nested dicts of arrays with the
 stacked ``layers`` axis; the port keeps the same tree of tensors.  The
 trees cross as numpy (``jax.tree.map(np.asarray, params)`` on the JAX
-side), so the port never imports JAX.
+side), so the port never imports JAX.  ``params_on_model_axis`` places
+such a tree (or the port's own) on a (data, model) mesh with a device per
+rank, as the train launcher's model axis holds it.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import expert_width_dims, tree_from_leaves, \
+    tree_leaves, tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,3 +70,28 @@ def opt_state_from_numpy(state, device=None):
         step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                           device=dev),
         mu=moments(mu), nu=moments(nu))
+
+
+def params_on_model_axis(tree, cfg, mesh) -> dict:
+    """A parameter tree (tensors, or numpy arrays as ``params_from_numpy``
+    takes them) placed on a ``(data, model)`` mesh of D x M ranks with a
+    device per rank, rank (d, m) on ``mesh.devices[d*M + m]``: the leaves
+    the model axis splits along the expert width
+    (``layers.expert_width_dims``: the MoE block's ``wi_gate``, ``wi_up``
+    and ``wo`` when it takes its tensor-parallel block) as F-slices, rank
+    (d, m) holding slice m (``RankShards`` blocks split on F, a copy per
+    data row), and every other leaf as a replica on each row's leader,
+    rank (d, 0)."""
+    from repro_torch.collectives.rank_shards import RankShards, replicate
+    D, M = dict(mesh.shape)["data"], dict(mesh.shape)["model"]
+    dims = expert_width_dims(cfg, M)
+    leaders = mesh.devices[::M]
+
+    def place(path, leaf):
+        t = leaf if isinstance(leaf, torch.Tensor) else _tensor(leaf, "cpu")
+        if path in dims:
+            return RankShards.from_stacked(t, mesh, copies=D, dim=dims[path])
+        return replicate(t, leaders)
+
+    return tree_from_leaves((path, place(path, leaf))
+                            for path, leaf in tree_leaves(tree))

@@ -19,11 +19,17 @@ Conventions, as in the JAX package:
   kernel computes any of it): routing in f32, the expert products in the
   compute dtype.  Training on a mesh whose model axis splits the expert
   width, its expert block places its model-axis sums by hand
-  (``_MoEBlockTP``).
+  (``_MoEBlockTP``); on a mesh with a device per rank each rank's
+  F-slices and their expert FFN live on its device
+  (``_MoEBlockPerDevice``), the weights then ``RankShards`` blocks split
+  on F (``expert_width_dims`` names them).  Data rows that each route
+  their share of one batch on a device of their own take the batch's
+  routed shares into their aux losses (``moe_rows_aux``).
 * ``attention_impl="ring"`` splits the sequence over the mesh's model
   axis (``collectives/ring_attention.py``).  The model axis replicates
   every other layer: each computes the function GSPMD's placement does,
-  once, as under FSDP.
+  once, as under FSDP; with a device per rank, once on the data row's
+  leader (rank 0 of the model axis).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch.utils.checkpoint
 
 from repro_torch import sharding
 from repro_torch.collectives.rank_shards import RankShards, device_context, \
-    tree_shard
+    send, tree_shard
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -158,6 +164,14 @@ def unstack_layers(tree) -> list:
         per = {k: unstack_layers(v) for k, v in tree.items()}
         n = len(next(iter(per.values())))
         return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(tree, RankShards):
+        # blocks split past the layers dim (the MoE block's F-slices on
+        # the ranks' cards): each rank's shard unbound on its own card
+        if not tree.dim or tree.replica or tree.copies != 1:
+            raise ValueError(f"{tree!r}: only blocks split past the layers "
+                             f"dim unstack")
+        return [RankShards(parts, dim=tree.dim - 1) for parts in
+                zip(*(t.unbind(0) for t in tree.shards))]
     return list(tree.unbind(0))
 
 
@@ -510,6 +524,9 @@ def _moe_route(p, x, cfg):
     # load-balance aux loss (Switch): E * sum_e mean prob * routed share
     me = torch.mean(probs, dim=(0, 1))
     fe = torch.mean(sel_all, dim=(0, 1)) / cfg.moe.top_k
+    stats = getattr(_route_stats, "stats", None)
+    if stats is not None:
+        stats.append((me, fe))
     return xg, dispatch, combine, _moe_aux(me, fe, cfg)
 
 
@@ -518,6 +535,58 @@ def _moe_aux(me, fe, cfg):
     and routed share ``fe``."""
     mc = cfg.moe
     return mc.num_experts * torch.sum(me * fe) * mc.aux_loss_weight
+
+
+_route_stats = threading.local()
+
+
+@contextlib.contextmanager
+def moe_route_stats():
+    """Collect the ``(me, fe)`` of every MoE layer the body routes, in
+    call order: each expert's mean probability (it carries the router's
+    gradient) and its routed share (it carries none).  A recompute in the
+    backward runs outside the body and adds nothing."""
+    prev = getattr(_route_stats, "stats", None)
+    _route_stats.stats = stats = []
+    try:
+        yield stats
+    finally:
+        _route_stats.stats = prev
+
+
+def moe_rows_route_alike(cfg, tokens: int, rows: int) -> bool:
+    """Whether ``rows`` equal contiguous shares of a batch of ``tokens``
+    route as the whole batch does: each share a whole number of the
+    batch's groups, so that every group, its capacity and its places are
+    the batch's."""
+    return _moe_groups(cfg, tokens // rows)[1] == _moe_groups(cfg, tokens)[1]
+
+
+def moe_rows_aux(cfg, row_stats: list, devices: list) -> list:
+    """The aux losses of D rows that each hold an equal share of one
+    batch (``moe_rows_route_alike``), as the batch's Switch loss splits
+    over them.  ``row_stats[d]`` is row d's ``moe_route_stats``, on
+    ``devices[d]``.  Each layer's routed share over the batch is the rows'
+    shares added in row order on ``devices[0]``, over D, copied back to
+    each row's device; row d's aux is its layers' ``_moe_aux(me_d, fe)``
+    added from an f32 zero, as ``forward_hidden`` adds them.  The rows'
+    aux losses average to the batch's, and their gradients add up to its
+    gradient over D."""
+    first = devices[0]
+    fes = []
+    for layer in zip(*row_stats):
+        total = None
+        for _, fe in layer:
+            total = fe.to(first) if total is None else total + fe.to(first)
+        fes.append(total / len(row_stats))
+    out = []
+    for stats, dev in zip(row_stats, devices):
+        with device_context(dev):
+            aux = torch.zeros((), dtype=torch.float32, device=dev)
+            for (me, _), fe in zip(stats, fes):
+                aux = aux + _moe_aux(me, fe.to(dev), cfg)
+        out.append(aux)
+    return out
 
 
 def _moe_route_parts(p, x, cfg):
@@ -587,17 +656,38 @@ def _moe_combine(combine, ye):
 MOE_TP_MIN_WIDTH = 512
 
 
+def moe_slice_ranks(F_: int, tp: int) -> int:
+    """``tp`` when a model axis of ``tp`` > 1 ranks divides the expert
+    width ``F_`` into slices of at least ``MOE_TP_MIN_WIDTH`` (the JAX
+    package's condition for its hand-placed block), else 1."""
+    if tp == 1 or F_ % tp or F_ // tp < MOE_TP_MIN_WIDTH:
+        return 1
+    return tp
+
+
 def moe_tp_ranks(F_: int) -> int:
     """The model-axis ranks the MoE block splits the expert width ``F_``
     over: the current mesh's model axis when ``in_training()`` and that
-    axis tp > 1 divides F into slices of at least ``MOE_TP_MIN_WIDTH``
-    (the JAX package's condition for its hand-placed block), else 1."""
+    axis splits F (``moe_slice_ranks``), else 1."""
     mesh = sharding.current_mesh()
     tp = 1 if mesh is None else dict(mesh.shape).get("model", 1)
-    if tp == 1 or F_ % tp or F_ // tp < MOE_TP_MIN_WIDTH or \
-            not in_training():
+    if not in_training():
         return 1
-    return tp
+    return moe_slice_ranks(F_, tp)
+
+
+def expert_width_dims(cfg, tp: int) -> dict:
+    """The leaves a model axis of ``tp`` ranks splits along the expert
+    width (the MoE block's F-slices, ``_rank_slices``): path -> the dim F
+    is on (the ``expert_mlp`` logical axis of the config's parameter
+    spec).  Empty when the block keeps the einsum branch (no MoE, or
+    ``moe_slice_ranks`` is 1)."""
+    if cfg.moe is None or moe_slice_ranks(cfg.moe.expert_d_ff, tp) == 1:
+        return {}
+    from repro_torch.models import registry
+    return {path: axes.index("expert_mlp")
+            for path, axes in tree_leaves(axes_tree(registry.param_spec(cfg)))
+            if "expert_mlp" in axes}
 
 
 def _moe_expert_block(xg, dispatch, combine, wi_gate, wi_up, wo):
@@ -605,9 +695,16 @@ def _moe_expert_block(xg, dispatch, combine, wi_gate, wi_up, wo):
 
     Training on a mesh whose model axis splits the expert width
     (``moe_tp_ranks``) takes the JAX package's tensor-parallel block
-    with its hand-placed backward (``_MoEBlockTP``); everything else the
-    einsum branch."""
+    with its hand-placed backward (``_MoEBlockTP``), or, on a mesh with
+    a device per rank, its twin over the F-slices on the ranks' cards
+    (``_MoEBlockPerDevice``: the weights are then ``RankShards`` blocks
+    split on F); everything else the einsum branch."""
     tp = moe_tp_ranks(wi_gate.shape[-1])
+    mesh = sharding.current_mesh()
+    per_device = mesh is not None and mesh.per_device
+    if isinstance(wi_gate, RankShards) or (tp > 1 and per_device):
+        return _moe_block_per_device(xg, dispatch, combine, wi_gate, wi_up,
+                                     wo, tp, mesh)
     if tp > 1:
         return _MoEBlockTP.apply(xg, dispatch, combine, wi_gate, wi_up, wo,
                                  tp)
@@ -639,13 +736,8 @@ def _moe_blk_fwd_inner(xg, disp, comb, wi_gate, wi_up, wo, tp: int):
     the ranks.  Dispatch and combine are linear in the tokens, so the one
     model-axis sum of the forward is in token space, on ``y``."""
     xe = torch.einsum("gtec,gtd->gecd", disp, xg)            # every rank's
-    parts = []
-    for wg, wu, wo_r in _rank_slices(wi_gate, wi_up, wo, tp):
-        h = (F.silu(torch.einsum("gecd,edf->gecf", xe, wg))
-             * torch.einsum("gecd,edf->gecf", xe, wu))
-        ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)       # partial over F
-        parts.append(torch.einsum("gtec,gecd->gtd", comb, ye_p))
-    return _rank_sum(parts)
+    return _rank_sum([_moe_blk_fwd_rank(xe, comb, *ws)
+                      for ws in _rank_slices(wi_gate, wi_up, wo, tp)])
 
 
 class _MoEBlockTP(torch.autograd.Function):
@@ -677,29 +769,138 @@ class _MoEBlockTP(torch.autograd.Function):
         d_comb, d_xg = [], []
         # each rank's weight gradients land in its slice of F
         d_w = [torch.empty_like(t) for t in (wi_gate, wi_up, wo)]
-        for (wg, wu, wo_r), (d_wg, d_wu, d_wo) in zip(
-                _rank_slices(wi_gate, wi_up, wo, ctx.tp),
-                _rank_slices(*d_w, ctx.tp)):
+        for ws, d_ws in zip(_rank_slices(wi_gate, wi_up, wo, ctx.tp),
+                            _rank_slices(*d_w, ctx.tp)):
             # this rank's forward intermediates, recomputed
-            g1 = torch.einsum("gecd,edf->gecf", xe, wg)
-            u1 = torch.einsum("gecd,edf->gecf", xe, wu)
-            sg = torch.sigmoid(g1.float())
-            silu_g = (g1.float() * sg).to(g1.dtype)
-            h = silu_g * u1
-            ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)
-            d_comb.append(torch.einsum("gtd,gecd->gtec", dy, ye_p))
-            d_h = torch.einsum("gecd,efd->gecf", d_ye, wo_r)
-            d_wo.copy_(torch.einsum("gecf,gecd->efd", h, d_ye))
-            d_silu_g = d_h * u1
-            d_u1 = d_h * silu_g
-            dsilu = (sg * (1 + g1.float() * (1 - sg))).to(g1.dtype)
-            d_g1 = d_silu_g * dsilu
-            d_xe = (torch.einsum("gecf,edf->gecd", d_g1, wg)
-                    + torch.einsum("gecf,edf->gecd", d_u1, wu))
-            d_wg.copy_(torch.einsum("gecd,gecf->edf", xe, d_g1))
-            d_wu.copy_(torch.einsum("gecd,gecf->edf", xe, d_u1))
-            d_xg.append(torch.einsum("gtec,gecd->gtd", disp, d_xe))
+            dc, dx, grads = _moe_blk_bwd_rank(xe, d_ye, dy, disp, *ws)
+            d_comb.append(dc)
+            d_xg.append(dx)
+            for dst, g in zip(d_ws, grads):
+                dst.copy_(g)
         return (_rank_sum(d_xg), None, _rank_sum(d_comb), *d_w, None)
+
+
+def _moe_blk_fwd_rank(xe, comb, wg, wu, wo_r):
+    """One rank's partial ``y`` [g, t, d] over its slice of F (the body
+    of ``_moe_blk_fwd_inner``'s loop)."""
+    h = (F.silu(torch.einsum("gecd,edf->gecf", xe, wg))
+         * torch.einsum("gecd,edf->gecf", xe, wu))
+    ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)
+    return torch.einsum("gtec,gecd->gtd", comb, ye_p)
+
+
+def _moe_blk_bwd_rank(xe, d_ye, dy, disp, wg, wu, wo_r):
+    """One rank's share of ``_MoEBlockTP``'s backward: (its ``d_comb``
+    and ``d_xg`` partials, and the gradients of its three F-slices)."""
+    g1 = torch.einsum("gecd,edf->gecf", xe, wg)
+    u1 = torch.einsum("gecd,edf->gecf", xe, wu)
+    sg = torch.sigmoid(g1.float())
+    silu_g = (g1.float() * sg).to(g1.dtype)
+    h = silu_g * u1
+    ye_p = torch.einsum("gecf,efd->gecd", h, wo_r)
+    d_comb = torch.einsum("gtd,gecd->gtec", dy, ye_p)
+    d_h = torch.einsum("gecd,efd->gecf", d_ye, wo_r)
+    d_wo = torch.einsum("gecf,gecd->efd", h, d_ye)
+    d_silu_g = d_h * u1
+    d_u1 = d_h * silu_g
+    dsilu = (sg * (1 + g1.float() * (1 - sg))).to(g1.dtype)
+    d_g1 = d_silu_g * dsilu
+    d_xe = (torch.einsum("gecf,edf->gecd", d_g1, wg)
+            + torch.einsum("gecf,edf->gecd", d_u1, wu))
+    d_wg = torch.einsum("gecd,gecf->edf", xe, d_g1)
+    d_wu = torch.einsum("gecd,gecf->edf", xe, d_u1)
+    return (d_comb, torch.einsum("gtec,gecd->gtd", disp, d_xe),
+            (d_wg, d_wu, d_wo))
+
+
+def _moe_block_per_device(xg, dispatch, combine, wi_gate, wi_up, wo, tp,
+                          mesh):
+    """``_MoEBlockPerDevice`` on the F-slices of ``wi_gate``/``wi_up``
+    (``[E, d, F/tp]`` on each rank's card) and ``wo`` (``[E, F/tp,
+    d]``); raises where they are not the current mesh's model ranks'
+    slices (no fallback onto one card)."""
+    if not all(isinstance(w, RankShards) for w in (wi_gate, wi_up, wo)):
+        raise ValueError("on a mesh with a device per rank the MoE block's "
+                         "expert weights are F-slices on the model ranks' "
+                         "cards (RankShards split on F), not one tensor")
+    n = len(wi_gate.blocks)
+    if mesh is None or not mesh.per_device or tp != n or \
+            (wi_gate.dim, wi_up.dim, wo.dim) != (2, 2, 1) or \
+            wi_gate.copies != 1 or wi_gate.devices != wi_up.devices or \
+            wi_gate.devices != wo.devices:
+        raise ValueError(f"F-slices {wi_gate!r}, {wo!r} run only in "
+                         f"training on a mesh with a device per rank whose "
+                         f"model axis splits F into them (tp {tp}, mesh "
+                         f"{mesh!r})")
+    return _MoEBlockPerDevice.apply(xg, dispatch, combine, wi_gate.devices,
+                                    *wi_gate.shards, *wi_up.shards,
+                                    *wo.shards)
+
+
+def _to_rank(r: int, device):
+    """Copies between the leader (rank 0) and rank r's ``device``
+    (``rank_shards.send``); rank 0's own tensors stay as they are."""
+    return (lambda t: t) if r == 0 else (lambda t: send(t, device))
+
+
+class _MoEBlockPerDevice(torch.autograd.Function):
+    """``_MoEBlockTP`` with rank r's F-slices (and so its expert FFN, its
+    weight gradients and, in the optimizer, its moments) on
+    ``devices[r]``.  The replicated layers around it run on the leader
+    (rank 0's card), which holds ``xg``, the dispatch mask and the combine
+    weights.  The forward computes the dispatched tokens ``xe`` once on
+    the leader, copies ``xe`` and the combine weights to every rank's card,
+    where the rank computes its partial ``y`` [g, t, d]; the partials come
+    back to the leader and are added there in rank order (``_rank_sum``).
+    The backward computes ``xe`` and ``d_ye`` once on the leader and
+    copies them, ``dy`` and the dispatch mask to the ranks; each rank's
+    ``d_comb``/``d_xg`` partials come back and add in rank order, its
+    weight gradients stay on its card.  Each rank's arithmetic is the
+    stacked block's (``_moe_blk_fwd_rank``/``_moe_blk_bwd_rank``), so
+    ``y`` and every gradient equal it bit for bit.  The devices are
+    captured at forward time: the backward reads no mesh."""
+
+    @staticmethod
+    def forward(ctx, xg, disp, comb, devices, *w):
+        n = len(devices)
+        ctx.save_for_backward(xg, disp, comb, *w)
+        ctx.devices = devices
+        xe = torch.einsum("gtec,gtd->gecd", disp, xg)            # once
+        parts = []
+        for r, dev in enumerate(devices):
+            to_rank = _to_rank(r, dev)
+            with device_context(dev):
+                y_r = _moe_blk_fwd_rank(to_rank(xe), to_rank(comb), w[r],
+                                        w[n + r], w[2 * n + r])
+            parts.append(_to_rank(r, xg.device)(y_r))
+        return _rank_sum(parts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xg, disp, comb, *w = ctx.saved_tensors
+        devices, n = ctx.devices, len(ctx.devices)
+        dy = dy.to(xg.dtype)
+        xe = torch.einsum("gtec,gtd->gecd", disp, xg)
+        d_ye = torch.einsum("gtec,gtd->gecd", comb, dy)
+        d_comb, d_xg, d_w = [], [], [[None] * n for _ in range(3)]
+        for r, dev in enumerate(devices):
+            ins = [_to_rank(r, dev)(t) for t in (xe, d_ye, dy, disp)]
+            with device_context(dev):
+                dc, dx, dws = _moe_blk_bwd_rank(*ins, w[r], w[n + r],
+                                                w[2 * n + r])
+            back = _to_rank(r, xg.device)
+            d_comb.append(back(dc))
+            d_xg.append(back(dx))
+            for k in range(3):
+                d_w[k][r] = dws[k]
+        return (_rank_sum(d_xg), None, _rank_sum(d_comb), None,
+                *d_w[0], *d_w[1], *d_w[2])
+
+
+def _cast(w, dt):
+    """A weight in the compute dtype (each F-slice on its card)."""
+    return w.map(lambda t: t.to(dt)) if isinstance(w, RankShards) \
+        else w.to(dt)
 
 
 def moe_apply(p, x, cfg):
@@ -710,8 +911,8 @@ def moe_apply(p, x, cfg):
     xg, dispatch, combine, aux = _moe_route(p, x, cfg)
     dt = x.dtype
     y = _moe_expert_block(xg, dispatch.detach(), combine,
-                          p["wi_gate"].to(dt), p["wi_up"].to(dt),
-                          p["wo"].to(dt))
+                          _cast(p["wi_gate"], dt), _cast(p["wi_up"], dt),
+                          _cast(p["wo"], dt))
     return y.reshape(B, S, D), aux
 
 

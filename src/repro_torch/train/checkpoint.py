@@ -14,7 +14,10 @@ rank ``r``'s ``[1, W/n]`` on its device) are saved glued in rank order,
 the rank-stacked tensor's file byte for byte, and restored as rank ``r``'s
 block on its device; copies of blocks (pipeline stages' parameters on a
 (data x stage) mesh) are saved as one copy's blocks, and restored into
-every copy.
+every copy.  Blocks split on another dim (``RankShards.dim``: the MoE
+block's F-slices on a model axis) are glued along it, each block copied
+to the host on its own card's stream and the gluing done in stage 2, so
+the file is the unsliced tensor's and restores into the slices.
 
 Stage 1 differs from the JAX package, where arrays are immutable: the
 port's optimizer updates the parameters and moments in place on the same
@@ -85,10 +88,20 @@ def _saved_parts(leaf) -> list:
     return [leaf.shards[0]] if leaf.replica else list(leaf.blocks)
 
 
+class _Glued:
+    """Host copies of blocks to glue along ``dim`` once they landed."""
+
+    def __init__(self, parts: list, dim: int):
+        self.parts = parts
+        self.dim = dim
+
+
 def _to_host(leaf):
     """Stage 1 for one leaf: a host copy that later in-place updates of
     ``leaf`` cannot reach (an enqueued, not yet finished, copy for CUDA;
     each block's on its own card's stream)."""
+    if isinstance(leaf, RankShards) and leaf.dim:
+        return _Glued([_to_host(b) for b in leaf.blocks], leaf.dim)
     parts = _saved_parts(leaf)
     if not isinstance(parts[0], torch.Tensor):
         return np.array(parts[0])
@@ -110,6 +123,9 @@ def _to_host(leaf):
 
 
 def _to_numpy(host) -> np.ndarray:
+    if isinstance(host, _Glued):
+        return np.concatenate([_to_numpy(h) for h in host.parts],
+                              axis=host.dim)
     if isinstance(host, np.ndarray):
         return host
     if host.dtype == torch.bfloat16:
@@ -215,7 +231,7 @@ class AsyncCheckpointer:
                 if not leaf_like.replica:
                     return RankShards.from_stacked(
                         t.to(leaf_like.dtype), devices=leaf_like.devices,
-                        copies=leaf_like.copies)
+                        copies=leaf_like.copies, dim=leaf_like.dim)
                 return RankShards((t.to(device=d, dtype=leaf_like.dtype,
                                         copy=True)
                                    for d in leaf_like.devices), replica=True)

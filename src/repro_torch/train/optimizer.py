@@ -54,16 +54,19 @@ def init(params) -> AdamWState:
     """Fresh state for ``params``.  Over ``RankShards`` leaves (replicas,
     blocks or copies of blocks, a device per rank) the moments are leaves
     of the same kind on the same devices and the step counter a replica
-    on each."""
+    on every rank: on the devices of the leaf with the most shards (a
+    model axis's F-slices, on every rank, beside replicas on the data
+    rows' leaders)."""
     first = next(t for _, t in tree_leaves(params))
     zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     if isinstance(first, RankShards):
-        moments = lambda: tree_map(                             # noqa: E731
-            lambda p: RankShards((zeros(s) for s in p.shards),
-                                 replica=p.replica, copies=p.copies), params)
+        moments = lambda: tree_map(lambda p: p.map(zeros),      # noqa: E731
+                                   params)
+        widest = max((t for _, t in tree_leaves(params)),
+                     key=lambda t: len(t.shards))
         return AdamWState(
             step=RankShards((torch.zeros((), dtype=torch.int32, device=d)
-                             for d in first.devices), replica=True),
+                             for d in widest.devices), replica=True),
             mu=moments(), nu=moments())
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
@@ -103,9 +106,28 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree):
-    sq = sum(torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree))
-    return torch.sqrt(sq)
+def _sq(x) -> torch.Tensor:
+    return torch.sum(torch.square(x.float()))
+
+
+def global_norm(tree, splits: dict | None = None):
+    """The f32 norm of a tree: each leaf's sum of squares, added in leaf
+    order.  ``splits`` (path -> (dim, n)) names leaves a model axis of n
+    ranks holds as slices of ``dim`` (the MoE block's F-slices): such a
+    leaf's sum is its n slices' sums added in rank order, as the JAX
+    package psums the devices' local sums and as ``apply`` adds them when
+    the slices live on the ranks' cards, so both forms give the same
+    bits."""
+    splits = splits or {}
+
+    def part(path, x):
+        if path not in splits:
+            return _sq(x)
+        dim, n = splits[path]
+        w = x.shape[dim] // n
+        return sum(_sq(x.narrow(dim, r * w, w)) for r in range(n))
+
+    return torch.sqrt(sum(part(path, x) for path, x in tree_leaves(tree)))
 
 
 def _sum_squares(rows, grad_scale: float) -> torch.Tensor:
@@ -121,20 +143,9 @@ def _adamw_blocks(cfg: AdamWConfig, step, scale, shards, grad_shards, mu, nu,
                   grad_scale: float):
     """The elementwise AdamW update of one set of blocks, in place; the
     new step counter and the schedule's lr."""
-    step = step + 1
-    lr = schedule(cfg, step)
-    stepf = step.float()
-    b1c = 1 - torch.pow(cfg.b1, stepf)
-    b2c = 1 - torch.pow(cfg.b2, stepf)
+    step, lr, b1c, b2c = _step_scalars(cfg, step)
     for p, g, m, v in zip(shards, grad_shards, mu, nu):
-        g = g.float() * grad_scale * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-        mhat = m / b1c
-        vhat = v / b2c
-        pf = p.float()
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
-        p.copy_((pf - lr * delta).to(p.dtype))
+        _adamw_leaf(cfg, p, g, m, v, scale, lr, b1c, b2c, grad_scale)
     return step, lr
 
 
@@ -203,34 +214,99 @@ def _apply_shards_per_device(cfg, state, shards, grad_shards, grad_scale):
                               state.nu), {"grad_norm": gnorm, "lr": lrs[0]}
 
 
+def _step_scalars(cfg: AdamWConfig, step):
+    """The step after ``step``, its lr and the moments' bias corrections."""
+    step = step + 1
+    stepf = step.float()
+    return (step, schedule(cfg, step), 1 - torch.pow(cfg.b1, stepf),
+            1 - torch.pow(cfg.b2, stepf))
+
+
+def _adamw_leaf(cfg: AdamWConfig, p_leaf, g_leaf, m_leaf, v_leaf, scale, lr,
+                b1c, b2c, grad_scale: float = 1.0) -> None:
+    """The elementwise AdamW update of one leaf, in place, a slice of its
+    leading dim at a time (``_slices``); the gradient times
+    ``grad_scale`` (where it is not 1), then times the clip ``scale``."""
+    for p, g, m, v in zip(*map(_slices, (p_leaf, g_leaf, m_leaf, v_leaf))):
+        g = g.float()
+        if grad_scale != 1.0:
+            g = g * grad_scale
+        g = g * scale
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        mhat = m / b1c
+        vhat = v / b2c
+        pf = p.float()
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
+        p.copy_((pf - lr * delta).to(p.dtype))
+
+
 @torch.no_grad()
-def apply(cfg: AdamWConfig, state: AdamWState, params, grads):
+def apply(cfg: AdamWConfig, state: AdamWState, params, grads, *,
+          splits: dict | None = None):
     """One AdamW step, IN PLACE on ``params`` and the moments.  Returns
     (params, new_state, metrics) with metrics {"grad_norm", "lr"} as f32
-    tensors on the device (read them after the step's work is done)."""
-    gnorm = global_norm(grads)
+    tensors on the device (read them after the step's work is done).
+    ``splits`` as ``global_norm``'s.  Over ``RankShards`` leaves placed
+    on a mesh's ranks, ``_apply_placed``."""
+    if isinstance(next(t for _, t in tree_leaves(params)), RankShards):
+        return _apply_placed(cfg, state, params, grads)
+    gnorm = global_norm(grads, splits)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
-    lr = schedule(cfg, step)
-    stepf = step.float()
-    b1c = 1 - torch.pow(cfg.b1, stepf)
-    b2c = 1 - torch.pow(cfg.b2, stepf)
+    step, lr, b1c, b2c = _step_scalars(cfg, state.step)
     g_leaves = dict(tree_leaves(grads))
     m_leaves = dict(tree_leaves(state.mu))
     v_leaves = dict(tree_leaves(state.nu))
     for path, p_leaf in tree_leaves(params):
-        for p, g, m, v in zip(*map(_slices, (p_leaf, g_leaves[path],
-                                             m_leaves[path], v_leaves[path]))):
-            g = g.float() * scale
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-            mhat = m / b1c
-            vhat = v / b2c
-            pf = p.float()
-            delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * pf
-            p.copy_((pf - lr * delta).to(p.dtype))
+        _adamw_leaf(cfg, p_leaf, g_leaves[path], m_leaves[path],
+                    v_leaves[path], scale, lr, b1c, b2c)
     return params, AdamWState(step, state.mu, state.nu), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def _apply_placed(cfg, state, params, grads):
+    """``apply`` over ``RankShards`` leaves of a mesh's R ranks (the model
+    axis with a device per rank): a replica on every ``R / len(shards)``-th
+    rank (the data rows' leaders) or blocks on every rank (the F-slices,
+    copied over the rows), the moments likewise and the step counter a
+    replica on every rank.  The grad norm is ``global_norm``'s with the
+    sliced leaves split: each leaf's sum of squares on its card (a
+    replica's once, on its first rank's), a block leaf's the first copy's
+    blocks' sums in rank order, all added in leaf order on rank 0's card;
+    the clip scale goes back to every card as a copy between cards, with
+    no read to the host.  Each leaf then steps on its cards with its
+    rank's counter."""
+    steps = state.step
+    devices, R = steps.devices, len(steps.shards)
+    first = devices[0]
+    parts = []
+    for _, g in tree_leaves(grads):
+        sums = []
+        for b in ([g.shards[0]] if g.replica else g.blocks):
+            with device_context(b.device):
+                sums.append(_sq(b).to(first))
+        parts.append(sums[0] if g.replica else sum(sums))
+    with device_context(first):
+        gnorm = torch.sqrt(sum(parts))
+        scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    ranks = []
+    for r, d in enumerate(devices):
+        with device_context(d):
+            ranks.append((scale.to(d), *_step_scalars(cfg, steps.shards[r])))
+    g_leaves = dict(tree_leaves(grads))
+    m_leaves = dict(tree_leaves(state.mu))
+    v_leaves = dict(tree_leaves(state.nu))
+    for path, p_leaf in tree_leaves(params):
+        stride = R // len(p_leaf.shards)
+        for i, p in enumerate(p_leaf.shards):
+            scale_r, _, lr, b1c, b2c = ranks[i * stride]
+            with device_context(p.device):
+                _adamw_leaf(cfg, p, g_leaves[path].shards[i],
+                            m_leaves[path].shards[i],
+                            v_leaves[path].shards[i], scale_r, lr, b1c, b2c)
+    return params, AdamWState(RankShards((r[1] for r in ranks), replica=True),
+                              state.mu, state.nu), \
+        {"grad_norm": gnorm, "lr": ranks[0][2]}
 
 
 SLICE_ELEMS = 1 << 26       # 256 MB of f32: larger leaves go by slices

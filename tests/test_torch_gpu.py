@@ -1249,3 +1249,110 @@ def test_per_device_expert_parallel_equals_the_stacked_layer(cuda, distinct):
                                            rtol=1e-6, atol=0)
     finally:
         coll.close()
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_per_device_ring_equals_the_stacked_ring(cuda, dtype, cap, distinct):
+    """The ring with rank r's blocks on ``devices[r]`` (4 ranks, causal
+    GQA at smollm-360m's heads) against the stacked ring on cuda:0: the
+    output and dq/dk/dv bit for bit, the per-device run under
+    ``set_sync_debug_mode("error")``."""
+    import importlib
+
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_mesh
+    RA = importlib.import_module("repro_torch.collectives.ring_attention")
+    devices = _rank_devices(4, distinct)
+    q, k, v, do = (torch.randn(*s, generator=cuda, device="cuda").to(dtype)
+                   for s in ((2, 256, 15, 64), (2, 256, 5, 64),
+                             (2, 256, 5, 64), (2, 256, 15, 64)))
+    got = {}
+    for name, mesh in (("stacked", make_mesh((1, 4), ("data", "model"),
+                                             "cuda:0")),
+                       ("devices", make_mesh((1, 4), ("data", "model"),
+                                             devices=devices))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        if name == "devices":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with sharding.set_mesh(mesh):
+                o = RA.ring_attention(*leaves, causal=True, logit_cap=cap)
+            got[name] = [o, *torch.autograd.grad(o, leaves, do)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got["stacked"], got["devices"]):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_per_device_moe_block_equals_the_tp_block(cuda, distinct):
+    """The MoE block on 4 ranks over F = 2048 with rank r's F-slices on
+    ``devices[r]`` against the stacked tensor-parallel block on cuda:0,
+    f32 with TF32 off: ``y`` and every gradient bit for bit, each slice's
+    gradient on its rank's card."""
+    from repro_torch import sharding
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    devices = _rank_devices(4, distinct)
+    g, t, E, C, d, F_ = 2, 256, 8, 80, 256, 2048
+    xg = torch.randn(g, t, d, generator=cuda, device="cuda")
+    pick = torch.randint(0, E * C, (g, t), generator=cuda, device="cuda")
+    disp = torch.zeros(g, t, E * C, device="cuda").scatter_(
+        2, pick[..., None], 1.0).view(g, t, E, C)
+    comb = disp * torch.rand(g, t, 1, 1, generator=cuda, device="cuda")
+    ws = [torch.randn(*s, generator=cuda, device="cuda") / 16
+          for s in ((E, d, F_), (E, d, F_), (E, F_, d))]
+    dy = torch.randn(g, t, d, generator=cuda, device="cuda")
+    dmesh = make_mesh((1, 4), ("data", "model"), devices=devices)
+    got = {}
+    for name, mesh in (("stacked", make_mesh((1, 4), ("data", "model"),
+                                             "cuda:0")), ("devices", dmesh)):
+        leaves = [x.clone().requires_grad_(i != 1)
+                  for i, x in enumerate((xg, disp, comb))]
+        if name == "stacked":
+            w = [x.clone().requires_grad_() for x in ws]
+            wrt = w
+        else:
+            w = [RankShards.from_stacked(x, dmesh, dim=dim)
+                 for x, dim in zip(ws, (2, 2, 1))]
+            wrt = [s.requires_grad_() for x in w for s in x.shards]
+        with sharding.set_mesh(mesh), L.training_mode():
+            y = L._moe_expert_block(*leaves, *w)
+        grads = torch.autograd.grad(y, [leaves[0], leaves[2], *wrt], dy)
+        if name == "devices":
+            assert [str(x.device) for x in grads[2:6]] == devices
+            grads = list(grads[:2]) + [
+                torch.cat([x.to("cuda:0") for x in grads[2 + 4 * k:
+                                                          6 + 4 * k]],
+                          dim=(2, 2, 1)[k]) for k in range(3)]
+        got[name] = [y, *grads]
+    for a, b in zip(got["stacked"], got["devices"]):
+        assert torch.equal(a, b)
+
+
+def test_launcher_model_axis_rank_devices_equals_the_stacked_run(cuda,
+                                                                 tmp_path):
+    """``launch.train --mesh 1x4 --rank-devices cuda:0 x4`` (smollm-360m
+    at its tiny scale, "ring", 3 steps on the card) against the stacked
+    ``--mesh 1x4`` run: every step's loss bit for bit."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    losses = {}
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices",
+                                     "cuda:0,cuda:0,cuda:0,cuda:0"])):
+        args = launch.build_parser().parse_args(
+            ["--scale", "tiny", "--steps", "3", "--global-batch", "8",
+             "--seq", "64", "--mesh", "1x4", "--ckpt-dir",
+             str(tmp_path / name)] + extra)
+        cfg = make_config(args.arch, args.scale).with_overrides(
+            attention_impl="ring")
+        losses[name] = [m["loss"] for m in launch.run(
+            args, config=cfg, log_every=1).log]
+    assert len(losses["devices"]) == 3
+    assert losses["devices"] == losses["stacked"]

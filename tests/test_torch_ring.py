@@ -17,7 +17,15 @@ Tolerances: the ring's output 1e-5 and its gradients 1e-4 absolute (XLA
 and PyTorch sum in other orders); losses 1e-5 relative; a model's
 gradient leaves within 1e-4 of the leaf's largest entry; the launchers'
 per-step losses 1e-5.  The fallbacks and the other-thread backward are
-held bit for bit."""
+held bit for bit.
+
+The model axis with a device per rank (``make_mesh(..., devices=["cpu"]
+* n)``, the CPU's stand-in for a card a rank) is held bit for bit against
+the rank-stacked form: the ring on its own, whole models (their backward
+on another thread), and the train launcher's ``--mesh 1xM --rank-devices``
+(its losses and checkpoint files); ``--mesh 2x2 --rank-devices`` within
+1e-5 of the stacked run, and every per-device run against the JAX
+launcher's losses within 1e-5."""
 import dataclasses
 import importlib
 import threading
@@ -36,6 +44,7 @@ MODELS = ("smollm", "grok", "zamba2")
 STEPS = 3
 ARGV = ["--arch", "smollm-360m", "--scale", "tiny", "--steps", str(STEPS),
         "--global-batch", "8", "--seq", "16"]
+GROK_ARGV = ["--arch", "grok-1-314b"] + ARGV[2:]
 
 # the reduced configs, built alike in the child and here: conftest's
 # reduce_cfg in f32 with "ring"; grok's experts 2048 wide, so that 4
@@ -137,6 +146,7 @@ class LoggingTrainer(tl.Trainer):
         a = list(a)
         a[4] = dataclasses.replace(a[4], log_every=1)
         super().__init__(*a, **kw)
+        self.init_params = a[1]
         runs.append(self)
 
 
@@ -153,6 +163,17 @@ for path, leaf in jax.tree_util.tree_flatten_with_path(init)[0]:
     flat["init/" + key] = np.asarray(leaf)
 flat["losses"] = np.asarray([m["loss"] for m in tr.metrics_log])
 flat["steps"] = np.asarray([m["step"] for m in tr.metrics_log])
+# grok-1 at 2x2 with experts 2048 wide (the scale's d_ff halved): each
+# model rank's F-slice is 1024 wide, so the MoE block splits F
+SCALES["tiny"] = dict(SCALES["tiny"], d_ff=4096)
+sys.argv = ["train"] + {grok_argv!r} + [
+    "--devices", "4", "--mesh", "2x2", "--ckpt-dir", {ckpt!r}]
+assert launch.main() == 0
+tr = runs[1]
+for path, leaf in jax.tree_util.tree_flatten_with_path(tr.init_params)[0]:
+    key = "/".join(str(getattr(p, "key", p)) for p in path)
+    flat["grok_init/" + key] = np.asarray(leaf)
+flat["grok_losses"] = np.asarray([m["loss"] for m in tr.metrics_log])
 np.savez({out!r}, **flat)
 print("SAVED")
 """
@@ -350,6 +371,154 @@ def test_fallbacks_equal_flash_attention_bit_for_bit(case):
     for a, b in zip(torch.autograd.grad(o, leaves, do),
                     torch.autograd.grad(ro, ref_leaves, do)):
         assert torch.equal(a, b)
+
+
+def device_mesh(data, model):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((data, model), ("data", "model"),
+                     devices=["cpu"] * (data * model))
+
+
+class RingSpy:
+    """Counts the calls of the stacked ring (``_RingAttention``,
+    ``_ring_body``) and of the per-device one (``_ring_per_device``), one
+    an attention each."""
+
+    def __init__(self, monkeypatch):
+        RA = ring_module()
+        self.calls = {"stacked": 0, "devices": 0}
+        for owner, name, kind in ((RA._RingAttention, "apply", "stacked"),
+                                  (RA, "_ring_body", "stacked"),
+                                  (RA, "_ring_per_device", "devices")):
+            real = getattr(owner, name)
+
+            def spy(*a, _real=real, _kind=kind, **kw):
+                self.calls[_kind] += 1
+                return _real(*a, **kw)
+
+            monkeypatch.setattr(owner, name, spy)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap", [0, 30])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_per_device_equals_the_stacked_ring(jax_ref, monkeypatch, n,
+                                                 cap, causal):
+    """The ring with rank r's blocks on its own device (a ``(1, n)`` mesh
+    of ``cpu`` listed n times) against the rank-stacked ring: the output
+    and dq/dk/dv bit for bit, causal and not, cap 0 (the custom backward
+    ring) and 30 (autograd through every hop); the per-device mesh never
+    takes the stacked branch (a spy), and the causal runs hold JAX's
+    ``ring_attention`` within the limits above."""
+    from repro_torch import sharding
+    from repro_torch.collectives import ring_attention
+    q, k, v, do = op_inputs()
+    spy = RingSpy(monkeypatch)
+    got = {}
+    for form, mesh in (("stacked", host_mesh(1, n)),
+                       ("devices", device_mesh(1, n))):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(spy.calls)
+        with sharding.set_mesh(mesh):
+            o = ring_attention(*leaves, causal=causal, logit_cap=float(cap))
+        got[form] = [o.detach(), *torch.autograd.grad(o, leaves, do)]
+        ran = {kind: spy.calls[kind] - before[kind] for kind in spy.calls}
+        assert ran[form] >= 1 and ran[{"stacked": "devices",
+                                       "devices": "stacked"}[form]] == 0
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got["stacked"],
+                          got["devices"]):
+        assert torch.equal(a, b), name
+    if causal:
+        for name, g in zip(("o", "dq", "dk", "dv"), got["devices"]):
+            np.testing.assert_allclose(
+                g.numpy(), jax_ref[f"op/{n}/{cap}/{name}"],
+                atol=1e-5 if name == "o" else 1e-4, rtol=0, err_msg=name)
+
+
+def test_ring_per_device_needs_a_row_mesh_and_its_leader():
+    """A per-device mesh with a data axis above 1, or q away from rank 0's
+    device, raises: the ring never falls back onto one device."""
+    from repro_torch import sharding
+    from repro_torch.collectives import ring_attention
+    from repro_torch.launch.mesh import make_mesh
+    q, k, v, _ = op_inputs()
+    with sharding.set_mesh(device_mesh(2, 2)), \
+            pytest.raises(ValueError, match="one data row's mesh"):
+        ring_attention(q, k, v)
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["meta", "cpu"])
+    with sharding.set_mesh(mesh), pytest.raises(ValueError, match="leader"):
+        ring_attention(q, k, v)
+
+
+@pytest.mark.parametrize("policy", ["none", "full"])
+@pytest.mark.parametrize("name", MODELS)
+def test_model_on_a_per_device_row_equals_the_stacked_model(name, policy,
+                                                            monkeypatch):
+    """``registry.loss_fn`` of each model with "ring" under a ``(1, 4)``
+    mesh with a device per rank, its weights placed by
+    ``bridge.params_on_model_axis`` (grok's experts as F-slices, the rest
+    replicated on the leader), the backward run on a thread that set no
+    mesh and no training mode (autograd's device thread): the loss and
+    every gradient (the F-slices' glued along F) equal the rank-stacked
+    ``(1, 4)`` run's bit for bit, and only the per-device ring and MoE
+    block run."""
+    from repro_torch import sharding
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.models import bridge, registry
+    from repro_torch.models import layers as L
+    cfg = model_cfg(name).with_overrides(remat_policy=policy)
+    params = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = np.random.RandomState(6).randint(
+        0, cfg.vocab_size, size=(B_MODEL, S_MODEL + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    spy = RingSpy(monkeypatch)
+    blocks = {"tp": 0, "devices": 0}
+    for owner, kind in ((L._MoEBlockTP, "tp"), (L._MoEBlockPerDevice,
+                                                "devices")):
+        monkeypatch.setattr(owner, "apply", lambda *a, _r=owner.apply,
+                            _k=kind: blocks.__setitem__(_k, blocks[_k] + 1)
+                            or _r(*a))
+    paths, leaves = zip(*L.tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    with sharding.set_mesh(host_mesh(1, 4)):
+        loss, _ = registry.loss_fn(params, cfg, batch)
+    want = [loss.detach(), *torch.autograd.grad(loss, leaves)]
+    assert spy.calls["devices"] == 0
+    seen = dict(spy.calls, **blocks)
+    mesh = device_mesh(1, 4)
+    placed = bridge.params_on_model_axis(params, cfg, mesh)
+    sliced = {p for p, t in L.tree_leaves(placed) if not t.replica}
+    assert sliced == ({("layers", "moe", k) for k in ("wi_gate", "wi_up",
+                                                     "wo")}
+                      if name == "grok" else set())
+    tree = L.tree_map(lambda t: t.shards[0] if t.replica else
+                      RankShards(t.shards, dim=t.dim), placed)
+    tensors = [u for _, t in L.tree_leaves(tree)
+               for u in (t.shards if isinstance(t, RankShards) else (t,))]
+    for t in tensors:
+        t.requires_grad_(True)
+    with sharding.set_mesh(mesh):
+        loss, _ = registry.loss_fn(tree, cfg, batch)
+    out = []
+    th = threading.Thread(target=lambda: out.append(
+        torch.autograd.grad(loss, tensors)))
+    th.start()
+    th.join()
+    assert out, "the backward on the other thread failed"
+    it = iter(out[0])
+    got = [loss.detach()]
+    for _, t in L.tree_leaves(tree):
+        if isinstance(t, RankShards):
+            got.append(torch.cat([next(it) for _ in t.shards], dim=t.dim))
+        else:
+            got.append(next(it))
+    for label, a, b in zip(("loss",) + paths, want, got):
+        assert torch.equal(a, b), label
+    assert spy.calls["stacked"] == seen["stacked"]
+    assert spy.calls["devices"] == seen["stacked"]
+    assert blocks == {"tp": seen["tp"], "devices": seen["tp"]}
 
 
 # ---------------------------------------------------------------------------
@@ -569,7 +738,8 @@ def jax_launcher(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ring_launch")
     out = tmp / "ref.npz"
     log = run_with_devices(_JAX_LAUNCHER_CHILD.format(
-        root=str(ROOT), argv=ARGV, ckpt=str(tmp / "ckpt"), out=str(out)),
+        root=str(ROOT), argv=ARGV, grok_argv=GROK_ARGV,
+        ckpt=str(tmp / "ckpt"), out=str(out)),
         n_devices=4, timeout=600)
     assert "SAVED" in log
     return dict(np.load(out))
@@ -623,3 +793,87 @@ def test_user_backend_on_a_model_axis_needs_fsdp(tmp_path):
     with pytest.raises(SystemExit, match="--collective-backend user on a "
                        "2-D mesh requires --fsdp"):
         launch.run(args)
+
+
+def port_launch_report(tmp_path, ref, extra, *, grok: bool = False):
+    """``port_launch``'s run: (report, losses, checkpoint directory).
+    With ``grok``, the JAX child's grok-1 run: its argv, its experts 2048
+    wide and its weights."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import bridge
+    args = launch.build_parser().parse_args(
+        (GROK_ARGV if grok else ARGV)
+        + ["--device", "cpu", "--ckpt-dir", str(tmp_path)] + extra)
+    cfg = make_config(args.arch, args.scale).with_overrides(
+        dtype="float32", attention_impl="ring")
+    if grok:
+        cfg = cfg.with_overrides(d_ff=4096, moe=dataclasses.replace(
+            cfg.moe, expert_d_ff=2048))
+    params = bridge.params_from_numpy(
+        unflatten(ref, "grok_init" if grok else "init"), device="cpu")
+    report = launch.run(args, config=cfg, params=params, log_every=1)
+    return (report, [m["loss"] for m in report.log],
+            tmp_path / args.arch / f"step_{STEPS - 1}")
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "1x2", "2x2"])
+def test_launcher_rank_devices_on_a_model_axis(jax_launcher, tmp_path, mesh,
+                                               monkeypatch):
+    """``--mesh DxM --rank-devices cpu,...`` (D·M of them, native backend):
+    the per-device ring runs on every row's pass and the stacked one
+    never (a spy); with one data row the losses and every checkpoint file
+    equal the rank-stacked ``--mesh 1xM`` run's bit for bit, at 2x2 they
+    hold it within 1e-5 (each row's pass, then the mean over the model
+    columns' data ranks); every run holds the JAX launcher's losses
+    within 1e-5."""
+    D, M = (int(v) for v in mesh.split("x"))
+    _, stacked, stacked_dir = port_launch_report(tmp_path / "stacked",
+                                                 jax_launcher,
+                                                 ["--mesh", mesh])
+    spy = RingSpy(monkeypatch)
+    report, losses, dev_dir = port_launch_report(
+        tmp_path / "devices", jax_launcher,
+        ["--mesh", mesh, "--rank-devices", ",".join(["cpu"] * (D * M))])
+    assert spy.calls["stacked"] == 0 and spy.calls["devices"] > 0
+    assert report.reducer.axis_size == D
+    np.testing.assert_allclose(losses, jax_launcher["losses"], rtol=1e-5,
+                               atol=1e-5)
+    if D > 1:
+        np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+        return
+    assert losses == stacked
+    names = sorted(f.name for f in stacked_dir.iterdir())
+    assert names == sorted(f.name for f in dev_dir.iterdir())
+    for f in names:
+        assert (stacked_dir / f).read_bytes() == (dev_dir / f).read_bytes(), f
+
+
+def test_launcher_grok_2x2_matches_the_jax_launcher(jax_launcher, tmp_path,
+                                                    monkeypatch):
+    """Tiny grok-1 with 2048-wide experts on ``--mesh 2x2`` (F/2 = 1024:
+    the MoE block's F-slices engaged; each data row holds one whole group
+    of 64 tokens), from the JAX child's weights: the stacked native run,
+    whose grad norm adds the F-sliced leaves slice by slice, and
+    ``--rank-devices cpu,cpu,cpu,cpu``, whose rows route on their own
+    leaders and take the batch's routed shares into their aux losses,
+    each hold the JAX launcher's ``--devices 4 --mesh 2x2`` losses within
+    1e-5, and each other's within 1e-5."""
+    from repro_torch.models import layers as L
+    _, stacked, _ = port_launch_report(tmp_path / "stacked", jax_launcher,
+                                       ["--mesh", "2x2"], grok=True)
+    spy = RingSpy(monkeypatch)
+    rows = []
+    real = L.moe_rows_aux
+    monkeypatch.setattr(L, "moe_rows_aux",
+                        lambda *a: rows.append(1) or real(*a))
+    report, losses, _ = port_launch_report(
+        tmp_path / "devices", jax_launcher,
+        ["--mesh", "2x2", "--rank-devices", "cpu,cpu,cpu,cpu"], grok=True)
+    assert spy.calls["stacked"] == 0 and spy.calls["devices"] > 0
+    assert len(rows) == STEPS and report.reducer.axis_size == 2
+    assert len(jax_launcher["grok_losses"]) == STEPS
+    for got in (stacked, losses):
+        np.testing.assert_allclose(got, jax_launcher["grok_losses"],
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
