@@ -245,6 +245,18 @@ Phases; any failure raises and the script exits non-zero:
              MoE block with each rank's F-slices on
              its card, bit for bit the stacked tensor-parallel block in
              f32 (TF32 off), both timed in bf16, each card's peak memory.
+             Then FSDP on ``--mesh 2x2 --rank-devices`` at full
+             width and 4 layers (each data row's blocks copied on both
+             cards of its row, the pass and the collectives on the
+             leaders), its losses and grad norms bit for bit the stacked
+             2x2 run's, every copy its leader's, each card's launches
+             (the leaders' single-card step, none elsewhere), the sends
+             a step, peak memory, a profiled step; its chaos kill of 1 of
+             4 ranks at 2 layers (a remesh to (1, 2)) bit for bit the
+             stacked chaos run; ``--microbatches 2`` on the model axis:
+             smollm-360m "ring" on --mesh 1x4 at 4 layers bit for bit
+             the stacked run (launches, sends, peaks, a profiled step),
+             tiny grok-1 on --mesh 2x2 within 1e-5 of it.
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
@@ -3800,13 +3812,16 @@ def train_fsdp_devices(fsdp_losses: list, devices):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def fsdp_devices_breakdown(report, devices, steps: int = 1) -> None:
+def fsdp_devices_breakdown(report, devices, steps: int = 1,
+                           shape: tuple = (DP_RANKS, 1)) -> None:
     """One per-device FSDP step on the trained blocks and one fixed batch,
     as the Trainer runs it (gather waited, each rank's pass on its card,
     reduce-scatter, AdamW on each card's blocks, the next gather chained
     off the optimizer's compute futures), under the profiler: each card's
     busy ms and idle share, beside the Trainer's unprofiled mean step;
-    the prefetch overlap."""
+    the prefetch overlap.  ``shape`` is the (data, model) mesh: on a model
+    axis the passes and collectives run on the data axis's leaders and
+    every copy of a block steps on its card."""
     from repro_torch.collectives.overlap import FsdpReducer
     from repro_torch.core import ProgressEngine
     from repro_torch.data.pipeline import SyntheticLM
@@ -3814,7 +3829,7 @@ def fsdp_devices_breakdown(report, devices, steps: int = 1) -> None:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import optimizer as opt_mod
     tr, cfg = report.trainer, report.cfg
-    mesh = make_mesh((DP_RANKS, 1), ("data", "model"), devices=devices)
+    mesh = make_mesh(shape, ("data", "model"), devices=devices)
     ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
     grad_fn, apply_fn, _, _ = train_mod.build_fsdp_programs(
         cfg, ocfg, mesh, report.layout)
@@ -3855,8 +3870,9 @@ def fsdp_devices_breakdown(report, devices, steps: int = 1) -> None:
         log(f"time: fsdp_devices step wall {wall:.3f} ms; per-device busy "
             f"and idle not measured (no profiler events)")
         return
-    log(f"time: fsdp_devices step ({TRAIN_ARCH}, {DP_RANKS} ranks on "
-        f"{devices}, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): the Trainer's mean "
+    log(f"time: fsdp_devices step ({TRAIN_ARCH}, {cfg.num_layers} layers, "
+        f"mesh {shape[0]}x{shape[1]} on {devices}, {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens): the Trainer's mean "
         f"step {wall:.3f} ms ({wall_prof:.3f} ms a step under the "
         f"profiler); "
         + "; ".join(f"cuda:{d} busy {v / steps:.3f} ms, idle share "
@@ -5726,13 +5742,14 @@ def train_model_devices(ring_losses: list, devices):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
-def model_devices_breakdown(report, devices) -> None:
+def model_devices_breakdown(report, devices, microbatches: int = 1) -> None:
     """One profiled step of the model axis with a device per rank on the
-    trained state (``make_row_grads``, then AdamW over the placed leaves;
-    one row, so no reduction): the host wall, each card's busy ms, idle
-    share and peak memory, each card's launches (its leaders' norms), and
-    what ``rank_shards.send`` moved between ranks in the step (the ring's
-    hops among it) and how much of it crossed between cards."""
+    trained state (``make_row_grads`` over ``microbatches``, then AdamW
+    over the placed leaves; one row, so no reduction): the host wall,
+    each card's busy ms, idle share and peak memory, each card's launches
+    (its leaders' norms), and what ``rank_shards.send`` moved between
+    ranks in the step (the ring's hops among it) and how much of it
+    crossed between cards."""
     from repro_torch.collectives import rank_shards
     from repro_torch.core import ProgressEngine
     from repro_torch.data.pipeline import SyntheticLM
@@ -5744,7 +5761,7 @@ def model_devices_breakdown(report, devices) -> None:
     D, M = (int(v) for v in RING_MESH.split("x"))
     mesh = make_mesh((D, M), ("data", "model"), devices=devices)
     ocfg = opt_mod.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
-    grad_fn = train_mod.make_row_grads(cfg, mesh)
+    grad_fn = train_mod.make_row_grads(cfg, mesh, microbatches=microbatches)
     batch = {k: torch.from_numpy(v.copy()).pin_memory() for k, v in
              SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
              .sample().items()}
@@ -5781,7 +5798,7 @@ def model_devices_breakdown(report, devices) -> None:
     peaks = [torch.cuda.max_memory_allocated(d) / 2**30
              for d in distinct(devices)]
     single = train_mod.kernel_launches_per_step(
-        cfg.with_overrides(attention_impl="xla"))
+        cfg.with_overrides(attention_impl="xla"), microbatches)
     cards = leader_launches(counter, devices, M, 1,
                             dict(single, flash_attention=0))
     busy = busy_by_device(prof)
@@ -5792,7 +5809,7 @@ def model_devices_breakdown(report, devices) -> None:
                            "events)")
     log(f"time: model-axis step ({TRAIN_ARCH}, {cfg.num_layers} layers, "
         f"--mesh {RING_MESH} on {devices}, {TRAIN_BATCH}x{TRAIN_SEQ} "
-        f"tokens): wall {wall:.3f} ms ({wall_prof:.3f} ms under the "
+        f"tokens in {microbatches} microbatch(es)): wall {wall:.3f} ms ({wall_prof:.3f} ms under the "
         f"profiler); {busy_t}; launches a card: {cards}; sent between "
         f"ranks a step: {moved['sends']} tensors, {moved['bytes'] / 1e9:.3f} "
         f"GB, of them {moved['hops']} ring hops "
@@ -5862,6 +5879,288 @@ def model_devices_2d(devices) -> None:
             f"stacked run's {[round(v, 7) for v in losses['stacked']]}, "
             f"worst rel err {max(rel):.3e} (limit {DEV_MODEL_REL:g}); step "
             f"ms {walls}")
+
+
+# three more runs of the model-axis part: FSDP on --mesh
+# DEV_FSDP_2D with a device per rank at full width and this depth (of
+# 32), these steps; its chaos kill of one rank at DEV_CHAOS_LAYERS; and
+# --microbatches DEV_MB on the model axis: smollm-360m "ring" on
+# RING_MESH at full width and this depth (of 32), these steps, and tiny
+# grok-1 (experts DEV_MODEL_GROK_F wide) on --mesh 2x2 over these tokens
+# (a row's share of a microbatch one whole group of 64), these steps.
+# The depths are cut for the script's time limit (at 8 layers these runs
+# took ~58 s on one card)
+DEV_FSDP_2D, DEV_FSDP_2D_LAYERS, DEV_FSDP_2D_STEPS = "2x2", 4, 3
+DEV_MB, DEV_MB_LAYERS, DEV_MB_STEPS = 2, 4, 3
+DEV_MB_GROK_TOKENS, DEV_MB_GROK_STEPS = (16, 16), 2
+
+
+def card_and_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+
+
+def train_counted(argv: list, config, devices):
+    """``launch.train.run`` of ``argv`` with the launch counts set to 0
+    just before and read just after, each launch filed under its card
+    (``DeviceLaunches``), the peak memory of each of ``devices``' cards
+    and what ``rank_shards.send`` moved: (report, launches, counter,
+    peaks GiB, transfers).  The checkpoint directory is a fresh one,
+    removed after."""
+    from repro_torch.collectives import rank_shards
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as train_mod
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_model_axis_")
+    try:
+        args = train_mod.build_parser().parse_args(
+            argv + ["--device", "cuda", "--ckpt-dir", ckpt_dir])
+        for d in distinct(devices):
+            torch.cuda.reset_peak_memory_stats(d)
+        rank_shards.reset_transfers()
+        base, counter = counting_by_device()
+        try:
+            _lib.reset_launches()
+            counter.by_device.clear()
+            report = train_mod.run(args, config=config, log_every=1)
+            launches = dict(_lib.launches)
+        finally:
+            restore_counts(base, counter)
+        peaks = [torch.cuda.max_memory_allocated(d) / 2**30
+                 for d in distinct(devices)]
+        return report, launches, counter, peaks, dict(rank_shards.transfers)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def step_ms(report) -> str:
+    steps = [m["step_time_s"] for m in report.log[1:]]
+    return (f"mean step {sum(steps) * 1e3 / len(steps):.3f} ms (steps "
+            f"1-{len(report.log) - 1}; step 0 "
+            f"{report.log[0]['step_time_s'] * 1e3:.3f} ms)")
+
+
+def copies_equal(leaves) -> bool:
+    """Every copy of each ``RankShards`` leaf equals its first copy (the
+    data axis's leaders) bit for bit."""
+    def equal(t, leader):
+        return torch.equal(t.to(leader.device), leader)
+
+    return all(equal(t, leaf.shards[i % len(leaf.blocks)])
+               for leaf in leaves for i, t in enumerate(leaf.shards))
+
+
+def fsdp_model_axis_devices(devices) -> dict:
+    """``launch.train --mesh DEV_FSDP_2D --fsdp --collective-backend user
+    --rank-devices`` at full smollm-360m width and ``DEV_FSDP_2D_LAYERS``
+    layers, ``DEV_FSDP_2D_STEPS`` steps of 8 x 1024 tokens, 4 MiB
+    buckets: each data row's blocks, moments and step counter copied on
+    both cards of its row, its gather, pass and reduce-scatter on its
+    leader's card over the leaders' column, the reduced blocks sent to
+    the other card of the row, where every copy takes its own AdamW step.
+    Against the rank-stacked ``--mesh DEV_FSDP_2D --fsdp`` run: the losses
+    and grad norms bit for bit, the leaders' blocks the stacked shards,
+    every copy its leader's; each card's launches its leaders'
+    single-card step, none on the other ranks'; the sends between ranks
+    and the bytes across cards a step; each card's peak memory; then one
+    profiled step (``fsdp_devices_breakdown``): busy and idle a card.
+    Returns the run's launches."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    D, M = (int(v) for v in DEV_FSDP_2D.split("x"))
+    config = make_config(TRAIN_ARCH, "full").with_overrides(
+        num_layers=DEV_FSDP_2D_LAYERS)
+    argv = ["--arch", TRAIN_ARCH, "--scale", "full", "--global-batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(DEV_FSDP_2D_STEPS), "--mesh", DEV_FSDP_2D, "--fsdp",
+            "--fsdp-bucket-bytes", str(FSDP_BUCKET), "--collective-backend",
+            "user", "--collective-algorithm", "ring", "--collective-chunks",
+            str(DP_CHUNKS)]
+    stacked = train_counted(argv, config, devices)[0]
+    want = [(m["loss"], m["grad_norm"]) for m in stacked.log]
+    want_shards = [s.clone() for s in stacked.trainer.params]
+    want_ms = step_ms(stacked)
+    del stacked
+    free()
+    report, launches, counter, peaks, moved = train_counted(
+        argv + ["--rank-devices", ",".join(devices)], config, devices)
+    cfg, tr = report.cfg, report.trainer
+    if full_width(cfg)[1:] != FULL_WIDTH[TRAIN_ARCH][1:]:
+        raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+    got = [(m["loss"], m["grad_norm"]) for m in report.log]
+    if got != want or len(got) != DEV_FSDP_2D_STEPS:
+        raise AssertionError(f"--mesh {DEV_FSDP_2D} --fsdp --rank-devices "
+                             f"(loss, grad norm) {got}, the stacked run's "
+                             f"{want}")
+    if not all(s.copies == M and torch.equal(s.to_stacked(w.device), w)
+               for s, w in zip(tr.params, want_shards)):
+        raise AssertionError("the leaders' blocks differ from the stacked "
+                             "shards")
+    if not copies_equal([*tr.params, *tr.opt_state.mu, *tr.opt_state.nu]):
+        raise AssertionError("a copy of a block differs from its leader's")
+    single = train_mod.kernel_launches_per_step(cfg)
+    if launches != {k: v * D * DEV_FSDP_2D_STEPS
+                    for k, v in single.items()} or not all(
+                        launches[k] for k in DEV_KERNELS):
+        raise AssertionError(f"--fsdp on a model axis launches {launches}, "
+                             f"want {single} x {D} x {DEV_FSDP_2D_STEPS}")
+    cards = leader_launches(counter, devices, M, DEV_FSDP_2D_STEPS,
+                            {k: single[k] for k in DEV_KERNELS})
+    log(f"devices: fsdp on --mesh {DEV_FSDP_2D} --rank-devices "
+        f"{','.join(devices)} ({TRAIN_ARCH}, full width, {cfg.num_layers} "
+        f"layers, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, "
+        f"{report.layout.num_buckets} buckets; {card_and_limit()}): losses "
+        f"{[round(v[0], 6) for v in got]} and grad norms bit for bit the "
+        f"stacked --mesh {DEV_FSDP_2D} --fsdp run's, the leaders' blocks its "
+        f"shards, every copy (blocks and moments) its leader's; launches "
+        f"{launches}; a step on each card: {cards}; sent between ranks a "
+        f"step: {moved['sends'] / DEV_FSDP_2D_STEPS:g} reduced blocks "
+        f"({moved['bytes'] / DEV_FSDP_2D_STEPS / 1e6:.3f} MB), across "
+        f"cards {moved['cross_bytes'] / DEV_FSDP_2D_STEPS / 1e6:.3f} MB; "
+        f"{step_ms(report)} (stacked: {want_ms}); peak memory "
+        + per_card(distinct(devices), peaks, " GiB", ".2f"))
+    fsdp_devices_breakdown(report, devices, shape=(D, M))
+    return launches
+
+
+def fsdp_model_axis_chaos(devices) -> None:
+    """``--mesh DEV_FSDP_2D --fsdp --rank-devices --chaos-kill 1`` at full
+    width and ``DEV_CHAOS_LAYERS`` layers, 4 steps: after step 1 one of 4
+    ranks dies, ``plan_mesh(3, prefer_model=2)`` gives (1, 2) on the first
+    two cards, the leader holding the whole buckets and the other card a
+    copy, the step counters carried.  Against the rank-stacked run with
+    the same kill (which equals a restart on (1, 2), phase 10 and the CPU
+    tests): the losses bit for bit, one recovery, the survivors' blocks
+    the stacked ones, every copy its leader's."""
+    from repro_torch.launch.serve import make_config
+    config = make_config(TRAIN_ARCH, "full").with_overrides(
+        num_layers=DEV_CHAOS_LAYERS)
+    argv = ["--arch", TRAIN_ARCH, "--scale", "full", "--global-batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps", "4",
+            "--mesh", DEV_FSDP_2D, "--fsdp", "--fsdp-bucket-bytes",
+            str(FSDP_BUCKET), "--collective-backend", "user",
+            "--chaos-kill", "1", "--chaos-kill-step", "1"]
+    runs = {}
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices", ",".join(devices)])):
+        report = train_counted(argv + extra, config, devices)[0]
+        if report.trainer.recoveries != 1 or report.reducer.remeshes != 1:
+            raise AssertionError(f"{name} chaos run: "
+                                 f"{report.trainer.recoveries} recoveries")
+        runs[name] = ([m["loss"] for m in report.log],
+                      [round(m["step_time_s"] * 1e3, 3) for m in report.log],
+                      report.trainer.params)
+        del report
+        free()
+    (want, want_ms, stacked), (got, ms, blocks) = runs["stacked"], \
+        runs["devices"]
+    if got != want or len(got) != 4:
+        raise AssertionError(f"per-device chaos losses {got}, the stacked "
+                             f"chaos run's {want}")
+    if not copies_equal(blocks) or not all(
+            len(b) == 2 and torch.equal(b.shards[0], s.to(b.shards[0].device))
+            for b, s in zip(blocks, stacked)):
+        raise AssertionError("the survivors' blocks differ")
+    log(f"devices: fsdp chaos kill of 1 of 4 ranks on --mesh {DEV_FSDP_2D} "
+        f"--rank-devices ({DEV_CHAOS_LAYERS} layers, full width; "
+        f"{card_and_limit()}): remesh to (1, 2) on {devices[:2]}, 1 "
+        f"recovery; losses {[round(v, 6) for v in got]}, bit for bit the "
+        f"stacked chaos run's; the survivors' blocks its, each copy its "
+        f"leader's; step ms {ms} (stacked {want_ms})")
+
+
+def microbatch_model_axis_devices(devices) -> dict:
+    """``--mesh RING_MESH --microbatches DEV_MB --rank-devices`` (native
+    backend, "ring") at full smollm-360m width and ``DEV_MB_LAYERS``
+    layers, ``DEV_MB_STEPS`` steps of 8 x 1024 tokens: the row's share of
+    each microbatch on its leader, the ring's blocks on the model ranks'
+    cards.  Against the stacked run: the losses bit for bit; each card's
+    launches its leader's norms times the microbatches, no
+    flash_attention, the other ranks' none; peak memory a card; one
+    profiled step (``model_devices_breakdown``).  Then tiny grok-1 with
+    experts ``DEV_MODEL_GROK_F`` wide on ``--mesh 2x2 --microbatches
+    DEV_MB`` over ``DEV_MB_GROK_TOKENS`` (each row's share of each
+    microbatch one whole group), ``DEV_MB_GROK_STEPS`` steps: within
+    ``DEV_MODEL_REL`` of the stacked run.  Returns the smollm run's
+    launches."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    M = int(RING_MESH.split("x")[1])
+    config = make_config(TRAIN_ARCH, "full").with_overrides(
+        attention_impl="ring", num_layers=DEV_MB_LAYERS)
+    argv = ["--arch", TRAIN_ARCH, "--scale", "full", "--global-batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(DEV_MB_STEPS), "--mesh", RING_MESH, "--microbatches",
+            str(DEV_MB)]
+    stacked = train_counted(argv, config, devices)[0]
+    want = [m["loss"] for m in stacked.log]
+    want_ms = step_ms(stacked)
+    del stacked
+    free()
+    report, launches, counter, peaks, moved = train_counted(
+        argv + ["--rank-devices", ",".join(devices)], config, devices)
+    cfg = report.cfg
+    if full_width(cfg)[1:] != FULL_WIDTH[TRAIN_ARCH][1:]:
+        raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+    losses = [m["loss"] for m in report.log]
+    if losses != want or len(losses) != DEV_MB_STEPS:
+        raise AssertionError(f"--microbatches {DEV_MB} --rank-devices "
+                             f"losses {losses}, the stacked run's {want}")
+    per_step = train_mod.kernel_launches_per_step(cfg, DEV_MB, M, TRAIN_SEQ)
+    if launches != {k: v * DEV_MB_STEPS for k, v in per_step.items()} \
+            or not all(launches[k] for k in ("rmsnorm_fwd", "rmsnorm_bwd")) \
+            or per_step["flash_attention"]:
+        raise AssertionError(f"microbatched model-axis launches {launches}, "
+                             f"want {per_step} x {DEV_MB_STEPS}")
+    cards = leader_launches(counter, devices, M, DEV_MB_STEPS,
+                            {k: per_step[k] for k in DEV_KERNELS})
+    log(f"devices: model axis --mesh {RING_MESH} --microbatches {DEV_MB} "
+        f"--rank-devices {','.join(devices)} ({TRAIN_ARCH}, full width, "
+        f"{cfg.num_layers} layers, \"ring\", {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"tokens; {card_and_limit()}): losses "
+        f"{[round(v, 6) for v in losses]}, bit for bit the stacked run's; "
+        f"launches {launches}; a step on each card: {cards}; sent between "
+        f"ranks a step: {moved['sends'] / DEV_MB_STEPS:g} tensors, of them "
+        f"{moved['hops'] / DEV_MB_STEPS:g} ring hops; across cards "
+        f"{moved['cross_bytes'] / DEV_MB_STEPS / 1e9:.3f} GB; "
+        f"{step_ms(report)} (stacked: {want_ms}); peak memory "
+        + per_card(distinct(devices), peaks, " GiB", ".2f"))
+    model_devices_breakdown(report, devices, microbatches=DEV_MB)
+    del report
+    free()
+    grok = make_config(GROK, "tiny").with_overrides(
+        attention_impl="ring", dtype="float32", d_ff=2 * DEV_MODEL_GROK_F)
+    grok = grok.with_overrides(moe=dataclasses.replace(
+        grok.moe, expert_d_ff=DEV_MODEL_GROK_F))
+    batch, seq = DEV_MB_GROK_TOKENS
+    argv = ["--arch", GROK, "--scale", "tiny", "--global-batch", str(batch),
+            "--seq", str(seq), "--steps", str(DEV_MB_GROK_STEPS), "--mesh",
+            "2x2", "--microbatches", str(DEV_MB)]
+    runs = {}
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices", ",".join(devices)])):
+        r = train_counted(argv + extra, grok, devices)[0]
+        runs[name] = ([m["loss"] for m in r.log],
+                      [round(m["step_time_s"] * 1e3, 3) for m in r.log])
+        del r
+        free()
+    got, want = runs["devices"][0], runs["stacked"][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(rel) != DEV_MB_GROK_STEPS or not max(rel) <= DEV_MODEL_REL:
+        raise AssertionError(f"{GROK} --mesh 2x2 --microbatches {DEV_MB} "
+                             f"--rank-devices losses {got} vs stacked {want}")
+    log(f"devices: model axis --mesh 2x2 --microbatches {DEV_MB} "
+        f"--rank-devices ({GROK}, tiny, experts {DEV_MODEL_GROK_F} wide, "
+        f"f32, \"ring\", {batch}x{seq} tokens): losses "
+        f"{[round(v, 7) for v in got]} against the stacked run's "
+        f"{[round(v, 7) for v in want]}, worst rel err {max(rel):.3e} "
+        f"(limit {DEV_MODEL_REL:g}); step ms "
+        f"{ {k: v[1] for k, v in runs.items()} }")
+    return launches
 
 
 def ring_devices_check(devices) -> None:
@@ -6020,9 +6319,11 @@ def moe_devices_check(devices, groups: int = 2) -> None:
 def model_devices_phase(devices, ring_losses: list) -> dict:
     """Phase 16's model-axis part (after phase 14, whose losses it takes):
     phase 14's run with ``--rank-devices``, its profiled step, the ring
-    alone, ``--mesh 2x2 --rank-devices`` against the stacked run, and
-    grok-1's MoE block with each rank's F-slices on its card.  Returns
-    the path's launches."""
+    alone, ``--mesh 2x2 --rank-devices`` against the stacked run, grok-1's
+    MoE block with each rank's F-slices on its card, FSDP on ``--mesh
+    2x2 --rank-devices`` and its chaos kill, and ``--microbatches`` on
+    the model axis.  Returns the paths' launches: each run's counts set
+    to 0 just before it and read just after."""
     t0 = time.perf_counter()
     log(f"devices: model axis on {devices}"
         + ("" if len(distinct(devices)) > 1 else
@@ -6045,9 +6346,15 @@ def model_devices_phase(devices, ring_losses: list) -> dict:
     timed("ring", ring_devices_check, devices)
     timed("2x2", model_devices_2d, devices)
     timed("moe", moe_devices_check, devices)
+    fsdp = timed("fsdp 2x2", fsdp_model_axis_devices, devices)
+    timed("fsdp chaos", fsdp_model_axis_chaos, devices)
+    microbatched = timed("microbatches", microbatch_model_axis_devices,
+                         devices)
     log(f"devices: model-axis part done in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()) + " s)")
-    return {"train_model_devices": launches}
+    return {"train_model_devices": launches,
+            "train_fsdp_model_devices": fsdp,
+            "train_mb_model_devices": microbatched}
 
 
 # ---------------------------------------------------------------------------
@@ -6775,6 +7082,9 @@ def main(argv: list) -> int:
         row["launches_train_devices"] = n["train_devices"]
         row["launches_train_fsdp_devices"] = n["train_fsdp_devices"]
         row["launches_train_model_devices"] = n["train_model_devices"]
+        row["launches_train_fsdp_model_devices"] = \
+            n["train_fsdp_model_devices"]
+        row["launches_train_mb_model_devices"] = n["train_mb_model_devices"]
         row["launches_serve_sharded"] = n["serve_sharded"]
         row["launches_serve_devices"] = n["serve_devices"]
         for name, *_ in CELLS:
@@ -6783,7 +7093,9 @@ def main(argv: list) -> int:
                            + row["launches_remat"] + n["train_dp"]
                            + n["train_fsdp"] + n["train_devices"]
                            + n["train_fsdp_devices"]
-                           + n["train_model_devices"] + n["serve_sharded"]
+                           + n["train_model_devices"]
+                           + n["train_fsdp_model_devices"]
+                           + n["train_mb_model_devices"] + n["serve_sharded"]
                            + n["serve_devices"]
                            + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
@@ -6809,7 +7121,8 @@ def main(argv: list) -> int:
             "launches_train_ring", "launches_remat", "launches_train_dp",
             "launches_train_fsdp", "launches_train_devices",
             "launches_train_fsdp_devices", "launches_train_model_devices",
-            "launches_serve_sharded",
+            "launches_train_fsdp_model_devices",
+            "launches_train_mb_model_devices", "launches_serve_sharded",
             "launches_serve_devices",
             *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",

@@ -440,9 +440,14 @@ class FsdpLayout:
         """Full params -> list of ``[n, W/n]`` shard stacks (row ``r`` is
         rank ``r``'s block — ZeRO-3 resident state), on ``mesh``'s device
         (default: the leaves' own).  On a mesh with a device per rank, one
-        ``RankShards`` per bucket instead: rank ``r``'s block ``[1, W/n]``
-        on ``mesh.devices[r]`` (glued, the stack).  ``axis`` names the
-        data axis, whose size must be the layout's ``n``."""
+        ``RankShards`` per bucket instead: data rank ``r``'s block ``[1,
+        W/n]`` on its device (glued, the stack); where the mesh has other
+        axes (a model axis) every rank of data rank ``r`` holds a copy of
+        its block, as JAX places ``NamedSharding(mesh, P(axis))``: the
+        shards are copies in ``launch.mesh.axis_order``, the first copy on
+        ``axis``'s leaders.  ``axis`` names the data axis, whose size must
+        be the layout's ``n``."""
+        from repro_torch.launch.mesh import axis_order
         if mesh is not None and dict(mesh.shape)[axis] != self.n:
             raise ValueError(f"mesh axis {axis!r} has "
                              f"{dict(mesh.shape)[axis]} ranks, the layout "
@@ -453,22 +458,32 @@ class FsdpLayout:
             flat = self.flatten_bucket(leaves, b).reshape(
                 self.n, self.widths[b] // self.n)
             if mesh is not None and mesh.per_device:
-                flat = RankShards.from_stacked(flat, mesh)
+                flat = RankShards.from_stacked(
+                    flat, devices=axis_order(mesh, axis),
+                    copies=mesh.size // self.n)
             elif mesh is not None:
                 flat = flat.to(mesh.device)
             out.append(flat)
         return out
 
     def unshard_params(self, shards, device=None):
-        """Shard stacks ``[n, W/n]``, or ``RankShards`` of the blocks ->
-        the full parameter tree (views of the stacks; the blocks glued on
-        ``device``, default rank 0's — for checkpointing, eval and
-        re-sharding; the training path gathers through the engine
-        instead)."""
+        """Shard stacks ``[n, W/n]``, or ``RankShards`` of the blocks (of
+        copies, the first copy's) -> the full parameter tree (views of the
+        stacks; the blocks glued on ``device``, default rank 0's — for
+        checkpointing, eval and re-sharding; the training path gathers
+        through the engine instead)."""
         return self.unflatten([
             (s.to_stacked(device if device is not None else s.devices[0])
              if isinstance(s, RankShards) else s).reshape(-1)
             for s in shards])
+
+
+def _first_copy(x):
+    """A ``RankShards`` of copies of blocks as its first copy (the data
+    axis's leaders); anything else as it is."""
+    if isinstance(x, RankShards) and x.copies > 1:
+        return RankShards(x.blocks)
+    return x
 
 
 class FsdpReduction:
@@ -641,7 +656,11 @@ class FsdpReducer:
     ``axis`` names the data dimension; other mesh axes (``model``)
     replicate, so the payloads carry one row per data rank.  On a mesh
     with a device per rank every payload is a ``RankShards`` (rank r's
-    row on its device) and ``future`` records an event on each card."""
+    row on its device) and ``future`` records an event on each card; a
+    model axis there holds copies of the data ranks' blocks, and the
+    reducer runs over the data axis's leaders alone (``mesh`` is
+    ``launch.mesh.axis_column``'s): ``igather`` and ``future`` take the
+    shards' first copy, the leaders' blocks."""
 
     def __init__(self, mesh, axis: str = "data", *, engine=None,
                  collectives=None, spec=None, algorithm: str = "ring",
@@ -649,10 +668,11 @@ class FsdpReducer:
                  executor=None, round_batch: int | None = None,
                  epoch=None):
         from repro_torch.collectives import nonblocking as NB
+        from repro_torch.launch.mesh import axis_column
         if spec is None:
             spec = NB.CollectiveSpec(backend="user", algorithm=algorithm,
                                      chunks=chunks, round_batch=round_batch)
-        self.mesh = mesh
+        self.mesh = axis_column(mesh, axis)
         self.axis = axis
         self.axis_size = dict(mesh.shape)[axis]
         self._spec_pref = spec
@@ -730,7 +750,8 @@ class FsdpReducer:
         """Chained param prefetch over the shard stacks ``[n, W/n]``;
         see :class:`FsdpGather` for the two chain shapes."""
         debug.handle_check_open(self, "igather", kind="FsdpReducer")
-        return FsdpGather(self, shards, after=after)
+        return FsdpGather(self, [_first_copy(s) for s in shards],
+                          after=after)
 
     def future(self, tensors):
         """A compute future on the reducer's own collective stream: a CUDA
@@ -738,7 +759,8 @@ class FsdpReducer:
         engine — the right upstream for ``igather``'s ``after=`` chain,
         since waiting the gather progresses exactly this stream."""
         from repro_torch.core.futures import torch_future
-        return torch_future(self.coll.engine, tensors, self.coll.stream)
+        return torch_future(self.coll.engine, _first_copy(tensors),
+                            self.coll.stream)
 
     def gather(self, shards, timeout: float | None = None):
         """Blocking convenience: chained issue + engine-driven wait."""
@@ -754,12 +776,13 @@ class FsdpReducer:
         unsharded tree."""
         debug.handle_event(self, "rebuild", kind="FsdpReducer",
                            complete_probe=lambda: True)
+        from repro_torch.launch.mesh import axis_column
         for handle in self._persistent.values():
             handle.close()
         self._persistent.clear()
-        self.mesh = mesh
         if axis is not None:
             self.axis = axis
+        self.mesh = axis_column(mesh, self.axis)
         self.axis_size = dict(mesh.shape)[self.axis]
         self.spec = self._spec_pref.resolve(self.axis_size)
         self.remeshes += 1

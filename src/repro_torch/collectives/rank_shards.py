@@ -26,7 +26,9 @@ the mark) and False for the blocks of a stacked tensor (the default:
 the ``n / c`` blocks of one stacked tensor (shard ``i * n / c + b`` is copy
 ``i`` of block ``b``): a tensor split over one axis of a 2-D mesh and
 replicated over the other, as pipeline stages' parameters on a (data x
-stage) mesh (``from_stacked(..., copies=c)``).  ``dim = k`` says the
+stage) mesh (``from_stacked(..., copies=c)``) or FSDP's blocks on a (data
+x model) mesh (``spread`` copies blocks to the rest of their rows).
+``dim = k`` says the
 blocks split dim ``k`` of the stacked tensor instead of the leading one
 (the MoE block's expert-width slices on a model axis: ``[E, d, F/n]``
 blocks of ``[E, d, F]``, ``dim`` 2); ``to_stacked`` and the checkpoint
@@ -204,6 +206,22 @@ def send(t: torch.Tensor, device, *, hop: bool = False) -> torch.Tensor:
         if t.device != device:
             transfers["cross_bytes"] += nbytes
     return t.to(device, non_blocking=True)
+
+
+def spread(blocks: RankShards, devices) -> RankShards:
+    """``blocks`` (one copy of blocks, shard ``b`` on ``devices[b]``) as
+    ``len(devices) / len(blocks)`` copies on ``devices`` (the order of
+    ``RankShards`` copies): the first copy the blocks themselves, every
+    other shard block ``b`` sent to its device (``send``, counted in
+    ``transfers``)."""
+    n, devices = len(blocks), list(devices)
+    if len(devices) % n:
+        raise ValueError(f"{len(devices)} devices do not hold copies of "
+                         f"{n} blocks")
+    return RankShards((blocks.shards[i] if i < n else
+                       send(blocks.shards[i % n], d)
+                       for i, d in enumerate(devices)),
+                      copies=len(devices) // n)
 
 
 def reset_transfers() -> None:

@@ -143,6 +143,37 @@ def make_mesh(shape, axes, device=None, *, devices=None) -> Mesh:
     return Mesh(shape, axes, resolve_device(device))
 
 
+def axis_ranks(mesh: Mesh, axis: str) -> list:
+    """``mesh``'s rank indices (row-major) with ``axis`` varying fastest:
+    for each position on the other axes (row-major), that position's
+    ``axis`` ranks in rank order.  That is the order of ``RankShards``
+    copies of blocks split over ``axis`` and replicated over the other
+    axes (JAX's ``NamedSharding(mesh, P(axis))``); its first
+    ``size(axis)`` ranks are ``axis_column``'s."""
+    a = mesh.axis_names.index(axis)
+    n, stride = mesh.sizes[a], math.prod(mesh.sizes[a + 1:])
+    return [(o * n + i) * stride + s
+            for o in range(mesh.size // (n * stride))
+            for s in range(stride) for i in range(n)]
+
+
+def axis_order(mesh: Mesh, axis: str) -> list:
+    """A per-device ``mesh``'s devices in ``axis_ranks`` order."""
+    return [mesh.devices[r] for r in axis_ranks(mesh, axis)]
+
+
+def axis_column(mesh: Mesh, axis: str) -> Mesh:
+    """The ranks of ``axis`` at position 0 on every other axis (a data
+    axis's leaders), as a mesh of the same axes, the others of size 1, on
+    their devices; ``mesh`` itself where it is rank-stacked or its other
+    axes have one rank."""
+    n = dict(mesh.shape)[axis]
+    if not mesh.per_device or mesh.size == n:
+        return mesh
+    return Mesh(tuple(n if name == axis else 1 for name in mesh.axis_names),
+                mesh.axis_names, devices=axis_order(mesh, axis)[:n])
+
+
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """A ``(data, model)`` mesh of ranks on one device (smoke tests)."""
     return make_mesh((max(1, data), max(1, model)), ("data", "model"), device)

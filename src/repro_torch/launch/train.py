@@ -29,6 +29,10 @@ elastic, or a 1F1B pipeline.
     PYTHONPATH=src python -m repro_torch.launch.train --scale full \
         --mesh 1x4 --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
         --global-batch 8 --seq 1024 --steps 6    # a card a model rank
+    PYTHONPATH=src python -m repro_torch.launch.train --scale full \
+        --mesh 2x2 --fsdp --collective-backend user --rank-devices \
+        cuda:0,cuda:1,cuda:2,cuda:3 --global-batch 8 --seq 1024 \
+        --steps 6                 # FSDP, a copy of each row's blocks a card
 
 The JAX package's ``repro.launch.train``: synthetic data prefetched on
 the engine, a forward + backward + AdamW step (the train cell of
@@ -64,7 +68,8 @@ A config with "ring" goes through ``run(args, config=...)``.  With
 the model axis runs with a device per rank (``_run_model_devices``):
 each data row's replicated layers once on its leader's device, the
 ring's sequence blocks and the MoE block's F-slices on the ranks'
-devices, the rows' gradients averaged over a reducer a model column.
+devices, the rows' gradients averaged over a reducer a model column;
+``--microbatches`` splits the batch as the one-device step does.
 
 ``--fsdp`` shards parameters and AdamW moments over the mesh's data
 axis as flat per-dtype buckets (``FsdpLayout``, ``--fsdp-bucket-bytes``):
@@ -79,7 +84,8 @@ With ``--rank-devices`` (user backend) rank r's blocks, moments, step
 counter and pass live on its own device, the reducer's rounds copy
 between the devices, and the checkpoint holds the blocks glued in rank
 order: the stacked run's losses, shards and checkpoint files, bit for
-bit.
+bit.  On a model axis every device of data row d holds a copy of its
+blocks; the row's work runs on its leader, and every copy steps.
 
 ``--elastic`` (user backend) shares a ``MembershipEpoch`` between the
 watchdog, an optional heartbeat monitor (``--heartbeat-timeout``) and
@@ -140,8 +146,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "repeat); as many as --devices, user backend "
                          "only; composes with --fsdp; with --pipeline a "
                          "device per (data, stage) rank, row-major; with "
-                         "a model axis above 1 (native backend) a device "
-                         "per (data, model) rank, row-major")
+                         "a model axis above 1 a device per (data, model) "
+                         "rank, row-major (native backend, or --fsdp on "
+                         "the user backend)")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -405,8 +412,14 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
     current, over views of its gathered flats, on its slice of the batch
     copied there from the host (pinned on the card's machine), and stacks
     the metrics on rank 0's device; ``apply_fn`` steps each rank's blocks
-    on its device.  The native pair exists only in the stacked form (the
-    per-device form moves its bytes through the ``FsdpReducer``)."""
+    on its device.  A model axis there holds copies (``FsdpLayout.
+    shard_params``): the flats and gradients live on the data axis's
+    leaders (rank (d, 0)), each data rank's pass runs once on its leader,
+    and ``apply_fn`` sends each reduced block to the rest of its row
+    (``rank_shards.spread``) before every copy steps on its card, the
+    grad norm adding each data rank's partial once.  The native pair
+    exists only in the stacked form (the per-device form moves its bytes
+    through the ``FsdpReducer``)."""
     from repro_torch.collectives.overlap import tree_flatten
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
@@ -435,8 +448,8 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
         return {k: v.detach() for k, v in dict(m, loss=loss).items()}
 
     if mesh.per_device:
-        return (*_fsdp_per_device(mesh, layout, rank_pass, ocfg), None,
-                None)
+        return (*_fsdp_per_device(mesh, layout, rank_pass, ocfg, axis),
+                None, None)
 
     def grad_fn(flats, batch):
         per = batch["tokens"].shape[0] // n
@@ -469,13 +482,15 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
     return grad_fn, apply_fn, ag_fn, rs_fn
 
 
-def _fsdp_per_device(mesh, layout, rank_pass, ocfg):
+def _fsdp_per_device(mesh, layout, rank_pass, ocfg, axis: str):
     """``build_fsdp_programs``' ``grad_fn`` and ``apply_fn`` on a mesh with
-    a device per rank."""
+    a device per rank: the passes on ``axis``'s leaders, the AdamW step on
+    every copy."""
     from repro_torch.collectives.rank_shards import RankShards, \
-        device_context
+        device_context, spread
+    from repro_torch.launch.mesh import axis_column
     from repro_torch.train import optimizer as opt_mod
-    devices, n = mesh.devices, layout.n
+    devices, n = axis_column(mesh, axis).devices, layout.n
     if len(devices) != n:
         raise ValueError(f"{n} FSDP ranks on {mesh!r}")
 
@@ -501,6 +516,10 @@ def _fsdp_per_device(mesh, layout, rank_pass, ocfg):
         return stacked, [RankShards(g) for g in grads]
 
     def apply_fn(shards, opt_state, grad_shards, stacked_mets):
+        # the leaders' reduced blocks, and a copy on each other rank of
+        # their rows (none without a model axis)
+        grad_shards = [spread(g, s.devices)
+                       for g, s in zip(grad_shards, shards)]
         shards, opt_state, om = opt_mod.apply_shards(
             ocfg, opt_state, shards, grad_shards, grad_scale=1.0 / n)
         with device_context(devices[0]):
@@ -535,28 +554,21 @@ class TrainReport:
 
 
 def _rank_devices(args):
-    """``--rank-devices`` as a list of devices (None when not given);
-    what it does not compose with yet exits, naming the ROADMAP item
-    (queue 1) that will port it.  A pipeline's mesh is (data x stage):
-    its second dim is no model axis, and its reductions run on the user
-    backend whatever ``--collective-backend`` says."""
+    """``--rank-devices`` as a list of devices (None when not given).  A
+    pipeline's mesh is (data x stage): its second dim is no model axis,
+    and its reductions run on the user backend whatever
+    ``--collective-backend`` says.  A model axis above 1 without
+    ``--fsdp`` is the native backend's (``_run_model_devices``; the user
+    backend there exits in ``mesh_shape``, as the JAX launcher does);
+    every other form (data-parallel, FSDP) needs the user backend."""
     if not args.rank_devices:
         return None
     pipeline = args.pipeline != "none"
     dims = args.mesh.split("x") if args.mesh else []
     model = int(dims[1]) if len(dims) == 2 and not pipeline else 1
-    if model > 1:
-        # the native backend's model axis (_run_model_devices); the user
-        # backend without --fsdp exits in mesh_shape, as the JAX launcher
-        for flag, on in (("--fsdp", args.fsdp),
-                         ("--elastic/--chaos-kill/--heartbeat-timeout",
-                          _elastic_on(args)),
-                         ("--microbatches above 1", args.microbatches > 1)):
-            if on:
-                raise SystemExit(f"--rank-devices on a model axis above 1 "
-                                 f"does not compose with {flag} yet "
-                                 f"(ROADMAP queue 1, item 12b)")
-    elif not pipeline and args.collective_backend != "user":
+    native_model_axis = model > 1 and not args.fsdp
+    if not pipeline and not native_model_axis \
+            and args.collective_backend != "user":
         raise SystemExit("--rank-devices needs --collective-backend user "
                          "(the ranks' gradients meet in the user-space "
                          "collectives)")
@@ -717,18 +729,18 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
         return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
     pipe = PrefetchPipeline(map(to_host, iter(src)), eng, depth=3)
-    if rank_devices is not None and model > 1:
-        try:
-            return _run_model_devices(args, cfg, ocfg, params, (data, model),
-                                      rank_devices, eng, pipe,
-                                      loop_overrides)
-        finally:
-            pipe.close()
     if args.fsdp:
         try:
             return _run_fsdp(args, cfg, ocfg, params, device, (data, model),
                              spec, eng, pipe, to_device, loop_overrides,
                              rank_devices)
+        finally:
+            pipe.close()
+    if rank_devices is not None and model > 1:
+        try:
+            return _run_model_devices(args, cfg, ocfg, params, (data, model),
+                                      rank_devices, eng, pipe,
+                                      loop_overrides)
         finally:
             pipe.close()
 
@@ -836,7 +848,8 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
                        args.global_batch * args.seq, reducer, dispatches)
 
 
-def make_row_grads(cfg, mesh, *, cast_params_bf16: bool = False):
+def make_row_grads(cfg, mesh, *, microbatches: int = 1,
+                   cast_params_bf16: bool = False):
     """``grad_fn(params, batch) -> (stacked_metrics, grads)`` on a (data,
     model) mesh of D x M ranks with a device per rank (rank (d, m) on
     ``mesh.devices[d*M + m]``), ``params`` placed as
@@ -855,7 +868,15 @@ def make_row_grads(cfg, mesh, *, cast_params_bf16: bool = False):
     the batch's.  The gradients are f32 ``[1, *shape]`` shards of
     ``RankShards`` leaves, the form the reducer takes: a replicated leaf's
     on the D leaders, an F-sliced leaf's on every rank (row-major); the
-    metrics are stacked on rank (0, 0)'s card."""
+    metrics are stacked on rank (0, 0)'s card.
+
+    With ``microbatches`` k > 1, microbatch i is the batch's i-th
+    contiguous slice (``launch.steps.train_step_fn``'s split) and row d
+    takes its d-th share of each, one microbatch after the other (the
+    batch above is then the microbatch); each row's gradients and loss
+    are summed in f32 over the microbatches in order and scaled by 1/k,
+    as the stacked step does, and its metrics are ``{"nll": loss, "aux":
+    0, "loss": loss}``."""
     from repro_torch import sharding
     from repro_torch.collectives.rank_shards import RankShards, \
         device_context
@@ -872,66 +893,103 @@ def make_row_grads(cfg, mesh, *, cast_params_bf16: bool = False):
     model_params = compute_params(cfg, cast_params_bf16)
     rules = sharding.merged_rules(cfg.sharding_overrides)
     batch_aux = D > 1 and cfg.moe is not None
+    k = microbatches
 
     def row_tree(params, d):
         return L.tree_map(lambda leaf: leaf.shards[d] if leaf.replica else
                           RankShards(leaf.shards[d * M:(d + 1) * M],
                                      dim=leaf.dim), params)
 
-    def grad_fn(params, batch):
-        tokens = batch["tokens"]
-        per = tokens.shape[0] // D
-        if batch_aux and not L.moe_rows_route_alike(cfg, tokens.numel(), D):
-            raise ValueError(row_groups_error(cfg, tokens.numel(), D))
+    def forwards(trees, batch, lo, per):
+        """Every row's forward on its share of the rows ``lo .. lo +
+        D*per`` of ``batch``: (loss, metrics) a row."""
         passes = []
         for d, (leader, row_mesh) in enumerate(zip(leaders, row_meshes)):
-            paths, leaves = zip(*L.tree_leaves(row_tree(params, d)))
-            tensors = [t for leaf in leaves for t in (
-                leaf.shards if isinstance(leaf, RankShards) else (leaf,))]
-            for t in tensors:
-                t.requires_grad_(True)
-            local = {k: v[d * per:(d + 1) * per].to(leader, non_blocking=True)
-                     for k, v in batch.items()}
+            paths, leaves, _ = trees[d]
+            local = {key: v[lo + d * per:lo + (d + 1) * per].to(
+                leader, non_blocking=True) for key, v in batch.items()}
             with device_context(leader), sharding.set_mesh(row_mesh), \
                     sharding.axis_rules(rules), L.moe_route_stats() as st:
                 loss, m = registry.loss_fn(
                     model_params(L.tree_from_leaves(zip(paths, leaves))),
                     cfg, local)
-            passes.append((paths, leaves, tensors, loss, m, st))
-        if batch_aux:
-            auxes = L.moe_rows_aux(cfg, [p[5] for p in passes], leaders)
-            passes = [(*p[:3], p[4]["nll"] + aux, dict(p[4], aux=aux), None)
-                      for p, aux in zip(passes, auxes)]
-        grads, mets = {}, []
-        for leader, (paths, leaves, tensors, loss, m, _) in zip(leaders,
-                                                                passes):
-            with device_context(leader):
-                it = iter(torch.autograd.grad(loss, tensors))
+            passes.append((loss, m, st))
+        if not batch_aux:
+            return [p[:2] for p in passes]
+        auxes = L.moe_rows_aux(cfg, [p[2] for p in passes], leaders)
+        return [(m["nll"] + aux, dict(m, aux=aux))
+                for (_, m, _), aux in zip(passes, auxes)]
+
+    def grad_fn(params, batch):
+        tokens = batch["tokens"]
+        mb = tokens.shape[0] // k
+        if batch_aux and not L.moe_rows_route_alike(cfg, tokens.numel() // k,
+                                                    D):
+            raise ValueError(row_groups_error(cfg, tokens.numel() // k, D,
+                                              microbatches=k))
+        trees = []
+        for d in range(D):
+            paths, leaves = zip(*L.tree_leaves(row_tree(params, d)))
+            tensors = [t for leaf in leaves for t in (
+                leaf.shards if isinstance(leaf, RankShards) else (leaf,))]
+            for t in tensors:
+                t.requires_grad_(True)
+            trees.append((paths, leaves, tensors))
+        sums, mets = [None] * D, [None] * D
+        for i in range(k):
+            for d, (loss, m) in enumerate(forwards(trees, batch, i * mb,
+                                                   mb // D)):
+                with device_context(leaders[d]):
+                    g = torch.autograd.grad(loss, trees[d][2])
+                    if k == 1:
+                        sums[d] = [x.to(torch.float32) for x in g]
+                        mets[d] = dict(m, loss=loss)
+                    elif sums[d] is None:
+                        sums[d] = [x.float() for x in g]
+                        mets[d] = torch.zeros((), dtype=torch.float32,
+                                              device=leaders[d]) \
+                            + loss.detach()
+                    else:
+                        sums[d] = [a + x.float() for a, x in zip(sums[d], g)]
+                        mets[d] = mets[d] + loss.detach()
+        if k > 1:
+            inv = 1.0 / k
+            for d in range(D):
+                with device_context(leaders[d]):
+                    sums[d] = [x * inv for x in sums[d]]
+                    loss = mets[d] * inv
+                    mets[d] = {"nll": loss, "aux": torch.zeros_like(loss),
+                               "loss": loss}
+        grads = {}
+        for (paths, leaves, _), row in zip(trees, sums):
+            it = iter(row)
             for path, leaf in zip(paths, leaves):
-                k = len(leaf.shards) if isinstance(leaf, RankShards) else 1
+                n = len(leaf.shards) if isinstance(leaf, RankShards) else 1
                 grads.setdefault(path, []).extend(
-                    next(it).to(torch.float32)[None] for _ in range(k))
-            mets.append({k: v.detach() for k, v in dict(m, loss=loss).items()})
+                    next(it)[None] for _ in range(n))
         first = mesh.devices[0]
         with device_context(first):
-            stacked = {k: torch.stack([m[k].to(first) for m in mets])
-                       for k in mets[0]}
+            stacked = {key: torch.stack([m[key].detach().to(first)
+                                         for m in mets])
+                       for key in mets[0]}
         return stacked, L.tree_from_leaves((path, RankShards(g))
                                            for path, g in grads.items())
 
     return grad_fn
 
 
-def row_groups_error(cfg, tokens: int, rows: int) -> str:
+def row_groups_error(cfg, tokens: int, rows: int, *,
+                     microbatches: int = 1) -> str:
     """Why ``rows`` data rows with a device per rank cannot route a batch
-    of ``tokens`` as the whole batch does (``layers.moe_rows_route_alike``
-    is false)."""
+    (or each of ``microbatches`` microbatches) of ``tokens`` as the whole
+    does (``layers.moe_rows_route_alike`` is false)."""
+    what = "batch" if microbatches == 1 else "microbatch"
     return (f"--rank-devices on a model axis: each of the {rows} data rows "
-            f"routes {tokens // rows} of the batch's {tokens} tokens, not a "
-            f"whole number of its MoE groups (group_size "
+            f"routes {tokens // rows} of the {what}'s {tokens} tokens, not "
+            f"a whole number of its MoE groups (group_size "
             f"{cfg.moe.group_size}); make --global-batch x --seq a multiple "
-            f"of {rows} groups (MoE groups across rows with a device per "
-            f"rank: ROADMAP queue 1, item 12c)")
+            f"of {rows * microbatches} groups (MoE groups across rows with "
+            f"a device per rank: ROADMAP queue 1, item 12c)")
 
 
 def _only_row(g):
@@ -1062,7 +1120,13 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
     bit; the checkpoint holds the replicas once and the F-slices glued
     along F, the stacked run's files.  With D > 1 the rows of an MoE
     model route as the whole batch does (``make_row_grads``); a row whose
-    share of the batch is not whole MoE groups exits (item 12c)."""
+    share of the batch is not whole MoE groups exits (item 12c).
+
+    ``--microbatches`` k > 1 splits the batch as the stacked step does:
+    each row takes its share of each microbatch in turn and accumulates
+    (``make_row_grads``); each leader launches k times the kernels of one
+    pass (``kernel_launches_per_step(cfg, k, M)``), the other ranks none.
+    An MoE model's rows must then hold whole groups of each microbatch."""
     from repro_torch.collectives.nonblocking import CollectiveSpec
     from repro_torch.collectives.rank_shards import device_context
     from repro_torch.launch.mesh import make_mesh
@@ -1073,10 +1137,15 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
     from repro_torch.train.train_loop import Trainer, UserCollectiveStep
 
     D, M = shape
-    tokens = args.global_batch * args.seq
+    k = args.microbatches
+    if args.global_batch % (D * k):
+        raise SystemExit(f"--global-batch {args.global_batch} does not "
+                         f"split into {k} microbatch(es) over {D} data "
+                         f"row(s)")
+    tokens = args.global_batch * args.seq // k
     if D > 1 and cfg.moe is not None and \
             not moe_rows_route_alike(cfg, tokens, D):
-        raise SystemExit(row_groups_error(cfg, tokens, D))
+        raise SystemExit(row_groups_error(cfg, tokens, D, microbatches=k))
     mesh = make_mesh(shape, ("data", "model"), devices=rank_devices)
     params = params_on_model_axis(params, cfg, mesh)
     opt_state = opt_mod.init(params)
@@ -1094,11 +1163,12 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
         return params, opt_state, dict(mets, **om)
 
     split = UserCollectiveStep(
-        make_row_grads(cfg, mesh, cast_params_bf16=args.cast_bf16),
+        make_row_grads(cfg, mesh, microbatches=k,
+                       cast_params_bf16=args.cast_bf16),
         apply_fn, reducer, spec=spec)
     print(f"model axis with a device per rank: data {D} x model {M} on "
           f"{[str(d) for d in mesh.devices]}; {len(dims)} leaf/leaves as "
-          f"F-slices; the data reduction "
+          f"F-slices; {k} microbatch(es) a step; the data reduction "
           + (f"over {M} model column(s) ({reducer.reducers[0].algorithm})"
              if D > 1 else "none (one row)"), flush=True)
     trainer = Trainer(None, params, opt_state, pipe,
@@ -1112,6 +1182,41 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
         reducer.close()
     return TrainReport(trainer, cfg, log, time.perf_counter() - t0,
                        args.global_batch * args.seq, reducer, dispatches)
+
+
+def fsdp_state(params, mesh, bucket_bytes: int, axis: str = "data",
+               moments=None, step=None):
+    """FSDP's resident state on ``mesh``: ``(layout, shards, opt_state)``,
+    the full ``params`` tree sharded over ``axis`` (``FsdpLayout``; copies
+    over a model axis with a device per rank), with fresh AdamW state, or
+    with the full ``moments`` (mu, nu) sharded alike beside ``step``."""
+    from repro_torch.collectives.overlap import FsdpLayout
+    from repro_torch.train import optimizer as opt_mod
+    layout = FsdpLayout(params, dict(mesh.shape)[axis], bucket_bytes)
+    shards = layout.shard_params(params, mesh, axis)
+    if moments is None:
+        return layout, shards, opt_mod.init_shards(shards)
+    return layout, shards, opt_mod.AdamWState(
+        step, *(layout.shard_params(m, mesh, axis) for m in moments))
+
+
+def fsdp_remesh(layout, shards, opt_state, old_mesh, new_mesh,
+                bucket_bytes: int, axis: str = "data"):
+    """FSDP's state moved onto the survivors' ``new_mesh`` (a remesh):
+    ``fsdp_state`` of the params and moments unsharded from the leaders'
+    blocks (glued on rank 0's device; shard widths depend on the data-axis
+    size), the step counter carried: with a device per rank new rank r,
+    on old rank r's device, keeps that rank's counter."""
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import axis_ranks
+    step = opt_state.step
+    if new_mesh.per_device:
+        kept = dict(zip(axis_ranks(old_mesh, axis), step.shards))
+        step = RankShards((kept[r] for r in axis_ranks(new_mesh, axis)),
+                          replica=True)
+    return fsdp_state(layout.unshard_params(shards), new_mesh, bucket_bytes,
+                      axis, (layout.unshard_params(opt_state.mu),
+                             layout.unshard_params(opt_state.nu)), step)
 
 
 def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
@@ -1128,16 +1233,21 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
     with ``ag_fn``/``rs_fn`` in the step.  The model axis replicates, so
     the same step runs unchanged on (4,1) and (2,2).
 
-    With ``rank_devices`` (user backend, model axis 1) rank ``r``'s
-    blocks, moments, step counter and pass live on ``rank_devices[r]``:
-    the reducer's rounds copy between the devices, and a remesh re-shards
-    onto the survivors' devices.  The losses, the shards and the
-    checkpoint equal the rank-stacked run's bit for bit."""
+    With ``rank_devices`` (user backend) data rank ``r``'s blocks,
+    moments, step counter and pass live on its device: the reducer's
+    rounds copy between the devices, and a remesh re-shards onto the
+    first of the survivors' devices.  On a model axis of M > 1 (rank (d,
+    m) on ``rank_devices[d*M + m]``) every rank of row d holds a copy of
+    its blocks, moments and a step counter, as JAX's ``NamedSharding(mesh,
+    P("data"))`` places them; the row's gather, pass and reduce-scatter
+    run once, on its leader's card over the leaders' column, and the
+    reduced blocks go to the rest of the row, where every copy takes its
+    own AdamW step.  The losses, the shards and the checkpoint equal the
+    rank-stacked run's bit for bit, and so the per-device ``Dx1`` run's;
+    a remesh keeps the model dim (JAX's ``prefer_model``)."""
     from repro_torch.collectives.nonblocking import MembershipEpoch
-    from repro_torch.collectives.overlap import FsdpLayout, FsdpReducer
-    from repro_torch.collectives.rank_shards import tree_keep
+    from repro_torch.collectives.overlap import FsdpReducer
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.train_loop import FsdpStep, Trainer
 
     axis = "data"
@@ -1147,23 +1257,15 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
     else:
         mesh = make_mesh(shape, ("data", "model"), device)
     epoch = MembershipEpoch(mesh=mesh) if _elastic_on(args) else None
-
-    def shard_state(mesh_, params_tree, mu_tree=None, nu_tree=None,
-                    step=None):
-        n = dict(mesh_.shape)[axis]
-        layout = FsdpLayout(params_tree, n, args.fsdp_bucket_bytes)
-        shards = layout.shard_params(params_tree, mesh_, axis)
-        if mu_tree is None:
-            return layout, shards, opt_mod.init_shards(shards)
-        return layout, shards, opt_mod.AdamWState(
-            step, layout.shard_params(mu_tree, mesh_, axis),
-            layout.shard_params(nu_tree, mesh_, axis))
-
-    layout, shards, opt_state = shard_state(mesh, params)
+    layout, shards, opt_state = fsdp_state(params, mesh,
+                                           args.fsdp_bucket_bytes, axis)
     del params
+    copies = (f", a copy on each of model={shape[1]} card(s) a row"
+              if mesh.per_device and shape[1] > 1 else "")
     print(f"fsdp: {layout.num_buckets} bucket(s), shard widths "
           f"{[w // layout.n for w in layout.widths]} over {axis}="
-          f"{layout.n} ({args.collective_backend} backend)", flush=True)
+          f"{layout.n} ({args.collective_backend} backend){copies}",
+          flush=True)
     grad_fn, apply_fn, ag_fn, rs_fn = build_fsdp_programs(
         cfg, ocfg, mesh, layout, axis=axis)
 
@@ -1192,14 +1294,13 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
 
         def remesh_fn(exc, shards_, opt_state_):
             nonlocal layout
-            step = opt_state_.step
-            if live["mesh"].per_device:
-                # the survivors' mesh on the first devices it takes; their
-                # step counters carry
+            old = live["mesh"]
+            # the survivors' mesh keeps the model dim where it divides; a
+            # device per rank: on the first devices it takes
+            if old.per_device:
                 new_mesh = elastic.remesh(
-                    exc.survivors, prefer_model=1,
-                    devices=live["mesh"].devices[:exc.survivors])
-                step = tree_keep(step, new_mesh.size)
+                    exc.survivors, prefer_model=model_dim,
+                    devices=old.devices[:exc.survivors])
             else:
                 new_mesh = elastic.remesh(exc.survivors,
                                           prefer_model=model_dim,
@@ -1207,16 +1308,10 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
             live["mesh"] = new_mesh
             print(f"remesh: {exc.survivors} survivor(s) -> mesh "
                   f"{dict(new_mesh.shape)}", flush=True)
-            # shard widths depend on the data-axis size: unshard (the
-            # per-device blocks glued on rank 0's device), rebuild the
-            # layout + programs for the new mesh, re-shard params AND
-            # moments (the step counter carries)
-            params_tree = layout.unshard_params(shards_)
-            mu_tree = layout.unshard_params(opt_state_.mu)
-            nu_tree = layout.unshard_params(opt_state_.nu)
             reducer.remesh(new_mesh, axis)
-            layout, new_shards, new_state = shard_state(
-                new_mesh, params_tree, mu_tree, nu_tree, step)
+            layout, new_shards, new_state = fsdp_remesh(
+                layout, shards_, opt_state_, old, new_mesh,
+                args.fsdp_bucket_bytes, axis)
             g2, a2, _, _ = build_fsdp_programs(cfg, ocfg, new_mesh, layout,
                                                axis=axis)
             return (FsdpStep(on_device(g2), a2, reducer, spec=spec),

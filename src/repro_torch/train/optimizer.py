@@ -27,7 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.collectives.rank_shards import RankShards, \
-    device_context, local
+    device_context
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -79,15 +79,16 @@ def init_shards(shards) -> AdamWState:
     """Optimizer state over FSDP flat shard stacks ``[n, W/n]``: mu/nu are
     lists shaped like the stacks, f32 (ZeRO — each rank holds moments
     only for the block it owns, row r).  Over ``RankShards`` blocks (a
-    device per rank) each rank's moments are blocks on its device and
-    its step counter a replica there."""
+    device per rank), or copies of them (a model axis beside the data
+    axis), each rank's moments are blocks on its device, laid out as the
+    shards, and its step counter a replica there."""
     zeros = lambda s: torch.zeros_like(s, dtype=torch.float32)  # noqa: E731
     if isinstance(shards[0], RankShards):
         return AdamWState(
             step=RankShards((torch.zeros((), dtype=torch.int32, device=d)
                              for d in shards[0].devices), replica=True),
-            mu=[local(zeros, s) for s in shards],
-            nu=[local(zeros, s) for s in shards],
+            mu=[s.map(zeros) for s in shards],
+            nu=[s.map(zeros) for s in shards],
         )
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=shards[0].device),
@@ -162,7 +163,8 @@ def apply_shards(cfg: AdamWConfig, state: AdamWState, shards, grad_shards,
     a replica.  Pipeline stages' leaves fit both forms: ``[S, ...]``
     stacks, or ``RankShards`` copies of the S blocks on a (data x stage)
     mesh, whose norm takes the first copy's blocks and whose every copy
-    steps on its device.  AdamW is elementwise, so flat math equals
+    steps on its device; so do FSDP's blocks on a (data x model) mesh,
+    copied over the model axis (each data rank's partial added once).  AdamW is elementwise, so flat math equals
     per-leaf math given the same clip scale and schedule; the one
     cross-rank quantity, the global grad norm, is each rank's sum of
     squares over its blocks (the JAX package's local sum) then the sum of

@@ -223,15 +223,11 @@ def port_run_devices(tmp_path, ref, extra):
     (["--fsdp", "--collective-backend", "native"],
      "needs --collective-backend user"),
     (["--pipeline", "gpipe", "--mesh", "2x2"], "data dim 1"),
-    (["--mesh", "2x2", "--fsdp"], "--fsdp yet .ROADMAP queue 1, item 12b"),
     (["--rank-devices", "cpu,cpu"], "names 2 device.s. for 4"),
     (["--collective-backend", "native"], "needs --collective-backend user"),
-    (["--mesh", "2x2", "--elastic"], "--elastic.* yet .ROADMAP queue 1, "
-                                     "item 12b"),
-    (["--mesh", "1x4", "--collective-backend", "native", "--microbatches",
-      "2"], "--microbatches above 1 yet .ROADMAP queue 1, item 12b"),
-], ids=["fsdp", "pipeline", "model-axis", "length", "native",
-        "model-axis-elastic", "model-axis-microbatches"])
+    (["--mesh", "2x2", "--elastic"], "--collective-backend user on a 2-D "
+                                     "mesh requires --fsdp"),
+], ids=["fsdp", "pipeline", "length", "native", "model-axis-elastic"])
 def test_rank_devices_refuses_what_waits_for_later_slices(tmp_path, extra,
                                                           what):
     from repro_torch.launch import train as launch

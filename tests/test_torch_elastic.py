@@ -410,11 +410,11 @@ def _loop_cfg(tmp_path, name, steps):
                            collective_spec=NB.CollectiveSpec(backend="user"))
 
 
-def _kill_hook(losses, epoch):
+def _kill_hook(losses, epoch, survivors=2):
     def hook(s, m):
         losses.append(m["loss"])
         if s == KILL - 1 and epoch is not None:
-            epoch.invalidate(survivors=2, reason="chaos")
+            epoch.invalidate(survivors=survivors, reason="chaos")
     return hook
 
 
@@ -598,6 +598,38 @@ def test_launcher_chaos_kill_remeshes_once(tmp_path, fsdp):
     assert report.reducer.remeshes == 1
 
 
+def test_launcher_chaos_kill_on_a_model_axis_per_device(tmp_path):
+    """``launch.train --mesh 2x2 --fsdp --collective-backend user
+    --rank-devices cpu,cpu,cpu,cpu --chaos-kill 1 --heartbeat-timeout
+    60``: one remesh onto 3 survivors, a (1, 2) mesh on the first two
+    devices (the model dim kept); the losses equal the rank-stacked
+    launcher's same run bit for bit, and the final blocks are copies on
+    the survivors' two devices, equal to the stacked run's."""
+    from repro_torch.launch import train as launch
+    runs = {}
+    for name, extra in (("stacked", []),
+                        ("dev", ["--rank-devices", "cpu,cpu,cpu,cpu"])):
+        args = launch.build_parser().parse_args(
+            ["--device", "cpu", "--scale", "tiny", "--steps", "3",
+             "--global-batch", "8", "--seq", "16", "--mesh", "2x2",
+             "--fsdp", "--collective-backend", "user", "--chaos-kill", "1",
+             "--chaos-kill-step", "1", "--heartbeat-timeout", "60",
+             "--ckpt-dir", str(tmp_path / name)] + extra)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            runs[name] = launch.run(args)
+        assert out.getvalue().count(
+            "remesh: 3 survivor(s) -> mesh {'data': 1, 'model': 2}") == 1
+    a, b = runs["stacked"], runs["dev"]
+    assert b.trainer.recoveries == 1 and b.reducer.remeshes == 1
+    assert [m["loss"] for m in b.log] == [m["loss"] for m in a.log]
+    assert len(b.log) == 3
+    for s, t in zip(b.trainer.params, a.trainer.params):
+        assert s.copies == 2 and len(s) == 2
+        assert torch.equal(s.shards[0], t) and torch.equal(s.shards[1], t)
+    assert [int(x) for x in b.trainer.opt_state.step] == [3, 3]
+
+
 # ---------------------------------------------------------------------------
 # FSDP with a device per rank: the chaos runs against a restart
 # ---------------------------------------------------------------------------
@@ -611,13 +643,42 @@ def test_chaos_fsdp_per_device_matches_restart_bitwise(tmp_path, when):
     params, moments and step counters onto the first 2 devices; the
     losses and parameters equal the rank-stacked restart's (KILL steps on
     4 ranks, the rest on 2) bit for bit."""
+    red, layout = _chaos_fsdp_per_device(tmp_path, when, (4, 1), 2)
+    assert red.mesh.devices == make_mesh(
+        (4, 1), ("data", "model"), devices=["cpu"] * 4).devices[:2]
+    assert layout.n == 2
+
+
+@pytest.mark.parametrize("when", ["after_step", "mid_reduce_scatter"])
+def test_chaos_fsdp_on_a_model_axis_per_device_matches_restart(tmp_path,
+                                                                when):
+    """FSDP on a 2x2 mesh with a device per rank (a copy of each data
+    rank's blocks on both cards of its row): 1 of 4 ranks killed after
+    step KILL-1 or mid reduce-scatter.  ``plan_mesh(3, prefer_model=2)``
+    gives (1, 2): the launcher's ``fsdp_remesh`` puts one data row on the
+    first two devices, the whole buckets on its leader and a copy on the
+    other, the step counters carried; the losses and parameters equal the
+    rank-stacked restart's (KILL steps on (2, 2), the rest on (1, 2)) bit
+    for bit, and every copy its leader's."""
+    red, layout = _chaos_fsdp_per_device(tmp_path, when, (2, 2), 3)
+    assert dict(red.mesh.shape) == {"data": 1, "model": 1}
+    assert layout.n == 1
+
+
+def _chaos_fsdp_per_device(tmp_path, when, shape, survivors):
+    """The chaos run on a per-device ``shape`` mesh against the stacked
+    restart (``test_chaos_fsdp_per_device_matches_restart_bitwise``), the
+    remesh as the launcher's (``fsdp_remesh``, ``prefer_model`` the model
+    dim): the reducer and the survivors' layout."""
     from repro_torch.collectives.overlap import FsdpReducer
-    from repro_torch.collectives.rank_shards import RankShards, tree_keep
-    from repro_torch.launch.train import build_fsdp_programs
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.train import build_fsdp_programs, fsdp_remesh, \
+        fsdp_state
     from repro_torch.train.train_loop import FsdpStep, Trainer
     cfg, ocfg, batches, params0 = _setup()
     spec = NB.CollectiveSpec(backend="user", chunks=2)
-    mesh = make_mesh((4, 1), ("data", "model"), devices=["cpu"] * 4)
+    D, M = shape
+    mesh = make_mesh(shape, ("data", "model"), devices=["cpu"] * (D * M))
 
     def step_for(layout, mesh_, red):
         g, a, _, _ = build_fsdp_programs(cfg, ocfg, mesh_, layout)
@@ -634,21 +695,20 @@ def test_chaos_fsdp_per_device_matches_restart_bitwise(tmp_path, when):
             calls.append(1)
             if len(calls) == KILL + 1:          # step KILL's first attempt
                 assert not reduction.is_complete
-                epoch.invalidate(survivors=2, reason="chaos")
+                epoch.invalidate(survivors=survivors, reason="chaos")
             return reduction
         red.ireduce_scatter = ireduce_scatter
-    layout, shards, state = _fsdp_state(params0, mesh)
-    assert isinstance(shards[0], RankShards)
+    layout, shards, state = fsdp_state(params0, mesh, 1 << 16)
+    assert isinstance(shards[0], RankShards) and shards[0].copies == M
     box = {"layout": layout}
 
     def remesh_fn(exc, shards_, st):
-        lay = box["layout"]
-        new_mesh = elastic.remesh(exc.survivors, prefer_model=1,
+        new_mesh = elastic.remesh(exc.survivors, prefer_model=M,
                                   devices=mesh.devices[:exc.survivors])
         red.remesh(new_mesh, "data")
-        box["layout"], sh2, st2 = _fsdp_state(
-            lay.unshard_params(shards_), new_mesh, lay.unshard_params(st.mu),
-            lay.unshard_params(st.nu), tree_keep(st.step, new_mesh.size))
+        box["layout"], sh2, st2 = fsdp_remesh(box["layout"], shards_, st,
+                                              mesh, new_mesh, 1 << 16)
+        box["mesh"] = new_mesh
         return step_for(box["layout"], new_mesh, red), sh2, st2
 
     losses = []
@@ -657,39 +717,62 @@ def test_chaos_fsdp_per_device_matches_restart_bitwise(tmp_path, when):
                  split_step=step_for(layout, mesh, red), epoch=epoch,
                  remesh_fn=remesh_fn,
                  hooks=[_kill_hook(losses, epoch if when == "after_step"
-                                   else None)])
+                                   else None, survivors)])
     tr.run()
     red.close()
     assert tr.recoveries == 1 and red.remeshes == 1 and len(losses) == STEPS
-    assert red.mesh.devices == mesh.devices[:2] and box["layout"].n == 2
     if when == "mid_reduce_scatter":
         assert red.coll.failed >= 1
 
+    ref, final = _stacked_restart(tmp_path, shape, survivors, step_for)
+    assert dict(box["mesh"].shape) == dict(elastic.remesh(
+        survivors, prefer_model=M, device="cpu").shape)
+    assert losses == ref
+    for a, b in zip(tr.params, final):
+        assert torch.equal(a.to_stacked("cpu"), b)
+        for i, t in enumerate(a.shards):
+            assert torch.equal(t, a.shards[i % len(a.blocks)])
+    assert [int(s) for s in tr.opt_state.step] == [STEPS] * box["mesh"].size
+    return red, box["layout"]
+
+
+_RESTARTS: dict = {}
+
+
+def _stacked_restart(tmp_path, shape, survivors, step_for):
+    """KILL steps on a rank-stacked ``shape`` mesh, then the rest on the
+    survivors' mesh (the model dim kept): the losses and final shard
+    stacks.  Deterministic, so each is computed once in this module."""
+    from repro_torch.collectives.overlap import FsdpReducer
+    from repro_torch.train.train_loop import Trainer
+    key = (shape, survivors)
+    if key in _RESTARTS:
+        return _RESTARTS[key]
+    _, _, batches, params0 = _setup()
+    spec = NB.CollectiveSpec(backend="user", chunks=2)
     ref = []
-    mesh4 = make_mesh((4, 1), ("data", "model"), "cpu")
+    meshA = make_mesh(shape, ("data", "model"), "cpu")
     engA = ProgressEngine()
-    redA = FsdpReducer(mesh4, "data", engine=engA, spec=spec)
-    layA, shA, stA = _fsdp_state(params0, mesh4)
+    redA = FsdpReducer(meshA, "data", engine=engA, spec=spec)
+    layA, shA, stA = _fsdp_state(params0, meshA)
     trA = Trainer(None, shA, stA, ListPipe(batches[:KILL]),
                   _loop_cfg(tmp_path, "b1", KILL), engine=engA,
-                  split_step=step_for(layA, mesh4, redA),
+                  split_step=step_for(layA, meshA, redA),
                   hooks=[_kill_hook(ref, None)])
     trA.run()
     redA.close()
-    mesh2 = elastic.remesh(2, prefer_model=1, device="cpu")
+    meshB = elastic.remesh(survivors, prefer_model=shape[1], device="cpu")
     engB = ProgressEngine()
-    redB = FsdpReducer(mesh2, "data", engine=engB, spec=spec)
+    redB = FsdpReducer(meshB, "data", engine=engB, spec=spec)
     layB, shB, stB = _fsdp_state(
-        layA.unshard_params(trA.params), mesh2,
+        layA.unshard_params(trA.params), meshB,
         layA.unshard_params(trA.opt_state.mu),
         layA.unshard_params(trA.opt_state.nu), trA.opt_state.step)
     trB = Trainer(None, shB, stB, ListPipe(batches[KILL:]),
                   _loop_cfg(tmp_path, "b2", STEPS - KILL), engine=engB,
-                  split_step=step_for(layB, mesh2, redB),
+                  split_step=step_for(layB, meshB, redB),
                   hooks=[_kill_hook(ref, None)])
     trB.run()
     redB.close()
-    assert losses == ref
-    for a, b in zip(tr.params, trB.params):
-        assert torch.equal(a.to_stacked("cpu"), b)
-    assert [int(s) for s in tr.opt_state.step] == [STEPS] * 2
+    _RESTARTS[key] = ref, trB.params
+    return _RESTARTS[key]

@@ -329,10 +329,21 @@ def test_reduce_scatter_and_gather_match_jax_int32(ref, n, algorithm):
 _TRAJECTORIES: dict = {}
 
 
+def assert_copies_equal(leaves):
+    """Each ``RankShards`` leaf's every copy equals its first copy (the
+    data axis's leaders) bit for bit."""
+    for leaf in leaves:
+        n = len(leaf.blocks)
+        for i, t in enumerate(leaf.shards):
+            assert torch.equal(t, leaf.shards[i % n]), (leaf, i)
+
+
 def _port_trajectory(ref, dd, mm, user, tmp_path, per_device=False):
     """10 FSDP steps of the port on a (dd, mm) mesh (``per_device``: a
-    device per rank, ``["cpu"] * dd``, user only): losses, final params,
-    the reducer (user) or None.  The runs are deterministic, so each
+    device per rank, ``["cpu"] * (dd * mm)``, user only): losses, final
+    params, the reducer (user) or None.  A per-device run checks after
+    every step that each copy of a block (a model axis) equals its
+    leader's, the shards' and the moments'.  The runs are deterministic, so each
     rank-stacked one runs once in this module and is kept."""
     key = (dd, mm, user)
     if not per_device and key in _TRAJECTORIES:
@@ -358,7 +369,8 @@ def _run_trajectory(ref, dd, mm, user, tmp_path, per_device):
     cfg = get_config("smollm-360m").with_overrides(**TINY)
     ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=STEPS)
     params = bridge.params_from_numpy(unflatten(ref, "init"), device="cpu")
-    mesh = make_mesh((dd, mm), ("data", "model"), devices=["cpu"] * dd) \
+    mesh = make_mesh((dd, mm), ("data", "model"),
+                     devices=["cpu"] * (dd * mm)) \
         if per_device else make_mesh((dd, mm), ("data", "model"), "cpu")
     layout = FsdpLayout(params, dd, BUCKET)
     np.testing.assert_array_equal(layout.widths,
@@ -390,12 +402,16 @@ def _run_trajectory(ref, dd, mm, user, tmp_path, per_device):
     reducer = FsdpReducer(mesh, "data", engine=eng, spec=spec,
                           bucket_bytes=BUCKET)
     losses = {}
+    hooks = [lambda s, m: losses.__setitem__(s, m["loss"])]
+    if per_device:
+        hooks.append(lambda s, m: assert_copies_equal(
+            [*tr.params, *tr.opt_state.mu, *tr.opt_state.nu]))
     tr = Trainer(None, shards, state, ListPipe(batches), TrainLoopConfig(
         total_steps=STEPS, checkpoint_every=10 ** 6,
         checkpoint_dir=str(tmp_path / f"{dd}x{mm}"), log_every=1,
         resume=False, collective_spec=spec), engine=eng,
         split_step=FsdpStep(grad_fn, apply_fn, reducer, spec=spec),
-        hooks=[lambda s, m: losses.__setitem__(s, m["loss"])])
+        hooks=hooks)
     tr.run()
     reducer.close()
     assert tr.cfg.collective_backend == "user"
@@ -579,6 +595,108 @@ def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path):
                                                       t.to_stacked("cpu"))
     assert got["opt_state"].step.replica
     assert [int(x) for x in got["opt_state"].step] == [3] * 4
+
+
+def test_user_trajectory_per_device_on_a_model_axis(ref, tmp_path):
+    """The ``Trainer``'s user FSDP trajectory on a 2x2 mesh with a device
+    per rank: every rank of data rank d holds a copy of its blocks and
+    moments, the reducer runs over the two leaders (a (2, 1) column), and
+    after every step each copy equals its leader's; the losses and final
+    parameters equal the rank-stacked (2, 2) trajectory's bit for bit, and
+    hold the JAX native FSDP reference on (2, 2) within ``LOSS_TOL``/
+    ``PARAM_TOL``."""
+    stacked, s_final, _ = _port_trajectory(ref, 2, 2, True, tmp_path)
+    losses, final, reducer = _port_trajectory(ref, 2, 2, True, tmp_path,
+                                              per_device=True)
+    assert dict(reducer.mesh.shape) == {"data": 2, "model": 1}
+    assert reducer.mesh.per_device and reducer.gathers == STEPS
+    assert losses == stacked
+    got, want = flat_numpy(final), flat_numpy(s_final)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(losses, ref["traj/2x2/losses"], **LOSS_TOL)
+    for k in want:
+        np.testing.assert_allclose(got[k], ref[f"traj/2x2/final/{k}"],
+                                   err_msg=k, **PARAM_TOL)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_launcher_fsdp_on_a_model_axis_per_device(tmp_path, mesh,
+                                                  monkeypatch):
+    """``launch.train --mesh DxM --fsdp --collective-backend user
+    --rank-devices cpu,...`` (D·M devices): every rank of data rank d
+    holds a copy of its blocks, moments and a step counter; after every
+    AdamW step each copy equals its leader's bit for bit, and the grad
+    norm adds D partials (one a data rank, not one a copy); the losses
+    and grad norms equal the stacked ``--mesh DxM --fsdp`` run's and the
+    per-device ``--mesh Dx1`` run's bit for bit, the shards the stacked
+    run's, and the last checkpoint's files the stacked run's byte for
+    byte; it restores into every copy."""
+    import contextlib
+    import io
+
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import axis_order, make_mesh
+    from repro_torch.train import optimizer as opt
+    D, M = (int(v) for v in mesh.split("x"))
+    partials, steps = [], []
+    real_sq, real_apply = opt._sum_squares, opt._apply_shards_per_device
+
+    def apply_and_check(cfg, state, shards, grads, scale):
+        out = real_apply(cfg, state, shards, grads, scale)
+        assert_copies_equal([*out[0], *out[1].mu, *out[1].nu])
+        steps.append(1)
+        return out
+
+    monkeypatch.setattr(opt, "_sum_squares",
+                        lambda *a: partials.append(1) or real_sq(*a))
+    monkeypatch.setattr(opt, "_apply_shards_per_device", apply_and_check)
+    runs = {}
+    for name, extra in (
+            ("stacked", ["--mesh", mesh]),
+            ("column", ["--mesh", f"{D}x1", "--rank-devices",
+                        ",".join(["cpu"] * D)]),
+            ("dev", ["--mesh", mesh, "--rank-devices",
+                     ",".join(["cpu"] * (D * M))])):
+        args = launch.build_parser().parse_args([
+            "--device", "cpu", "--scale", "tiny", "--steps", "2",
+            "--global-batch", "8", "--seq", "16", "--fsdp",
+            "--collective-backend", "user",
+            "--ckpt-dir", str(tmp_path / name)] + extra)
+        partials.clear()
+        steps.clear()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            runs[name] = launch.run(args, log_every=1)
+    assert f"a copy on each of model={M} card(s) a row" in out.getvalue()
+    assert len(steps) == 2 and len(partials) == 2 * D
+    a, c, b = runs["stacked"], runs["column"], runs["dev"]
+    for key in ("loss", "grad_norm"):
+        want = [m[key] for m in a.log]
+        assert [m[key] for m in b.log] == want == [m[key] for m in c.log]
+    tr = b.trainer
+    devices = axis_order(make_mesh((D, M), ("data", "model"),
+                                   devices=["cpu"] * (D * M)), "data")
+    for s, t in zip(tr.params, a.trainer.params):
+        assert isinstance(s, RankShards) and s.copies == M
+        assert len(s) == D * M and list(s.devices) == devices
+        assert torch.equal(s.to_stacked("cpu"), t)
+    assert tr.opt_state.step.replica and len(tr.opt_state.step) == D * M
+    assert b.reducer.axis_size == D
+    da = tmp_path / "stacked" / "smollm-360m-fsdp" / "step_1"
+    db = tmp_path / "dev" / "smollm-360m-fsdp" / "step_1"
+    names = sorted(p.name for p in da.iterdir())
+    assert names == sorted(p.name for p in db.iterdir())
+    for name in names:
+        assert (da / name).read_bytes() == (db / name).read_bytes(), name
+    got = tr.ckpt.restore(1, {"params": tr.params,
+                              "opt_state": tr.opt_state})
+    for s, t in zip(got["params"], tr.params):
+        assert s.copies == M
+        for x, y in zip(s.shards, t.shards):
+            assert torch.equal(x, y)
+    assert [int(x) for x in got["opt_state"].step] == [2] * (D * M)
 
 
 def test_reshard_restore_onto_a_per_device_mesh(ref, tmp_path):

@@ -1356,3 +1356,67 @@ def test_launcher_model_axis_rank_devices_equals_the_stacked_run(cuda,
             args, config=cfg, log_every=1).log]
     assert len(losses["devices"]) == 3
     assert losses["devices"] == losses["stacked"]
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_launcher_fsdp_on_a_model_axis_equals_the_stacked_run(
+        cuda, tmp_path, mesh, distinct):
+    """``launch.train --mesh DxM --fsdp --collective-backend user
+    --rank-devices ...`` (smollm-360m at its tiny scale, 3 steps on the
+    card): every step's loss and grad norm bit for bit the stacked
+    ``--mesh DxM --fsdp`` run's, the leaders' blocks its shards, and
+    every copy of a block and of its moments its leader's."""
+    from repro_torch.launch import train as launch
+    D, M = (int(v) for v in mesh.split("x"))
+    devices = _rank_devices(D * M, distinct)
+    runs = {}
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices", ",".join(devices)])):
+        args = launch.build_parser().parse_args(
+            ["--scale", "tiny", "--steps", "3", "--global-batch", "8",
+             "--seq", "64", "--mesh", mesh, "--fsdp",
+             "--collective-backend", "user", "--ckpt-dir",
+             str(tmp_path / name)] + extra)
+        runs[name] = launch.run(args, log_every=1)
+    a, b = runs["stacked"], runs["devices"]
+    for key in ("loss", "grad_norm"):
+        assert [m[key] for m in b.log] == [m[key] for m in a.log]
+    assert len(b.log) == 3
+    tr = b.trainer
+    for s, t in zip(tr.params, a.trainer.params):
+        assert s.copies == M and torch.equal(s.to_stacked("cuda:0"), t)
+    for leaf in [*tr.params, *tr.opt_state.mu, *tr.opt_state.nu]:
+        for i, t in enumerate(leaf.shards):
+            assert torch.equal(t.to("cuda:0"),
+                               leaf.shards[i % len(leaf.blocks)].to("cuda:0"))
+
+
+@pytest.mark.parametrize("mesh", ["1x4", "2x2"])
+def test_launcher_model_axis_microbatches_equal_the_stacked_run(
+        cuda, tmp_path, mesh):
+    """``launch.train --mesh DxM --microbatches 2 --rank-devices cuda:0
+    x4`` (smollm-360m at its tiny scale, "ring", 3 steps on the card)
+    against the stacked ``--mesh DxM --microbatches 2`` run: every step's
+    loss bit for bit with one data row, within 1e-5 with two."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    losses = {}
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices",
+                                     "cuda:0,cuda:0,cuda:0,cuda:0"])):
+        args = launch.build_parser().parse_args(
+            ["--scale", "tiny", "--steps", "3", "--global-batch", "8",
+             "--seq", "64", "--mesh", mesh, "--microbatches", "2",
+             "--ckpt-dir", str(tmp_path / name)] + extra)
+        cfg = make_config(args.arch, args.scale).with_overrides(
+            attention_impl="ring", dtype="float32")
+        losses[name] = [m["loss"] for m in launch.run(
+            args, config=cfg, log_every=1).log]
+    assert len(losses["devices"]) == 3
+    if mesh.startswith("1x"):
+        assert losses["devices"] == losses["stacked"]
+    else:
+        for a, b in zip(losses["devices"], losses["stacked"]):
+            assert abs(a - b) <= 1e-5 * abs(b)

@@ -193,7 +193,7 @@ def test_adamw_over_placed_leaves_equals_the_stacked_step():
                 assert torch.equal(s, got.to_stacked("cpu")), path
 
 
-def grok_run(tmp_path, extra):
+def grok_run(tmp_path, extra, **moe):
     from repro_torch.launch import train as launch
     from repro_torch.launch.serve import make_config
     args = launch.build_parser().parse_args(
@@ -201,7 +201,7 @@ def grok_run(tmp_path, extra):
     cfg = make_config(args.arch, args.scale)
     cfg = cfg.with_overrides(dtype="float32", attention_impl="ring",
                              vocab_size=1024, moe=dataclasses.replace(
-                                 cfg.moe, expert_d_ff=2048))
+                                 cfg.moe, **{"expert_d_ff": 2048, **moe}))
     report = launch.run(args, config=cfg, log_every=1)
     return report, [m["loss"] for m in report.log]
 
@@ -310,4 +310,42 @@ def test_launcher_refuses_rows_that_split_a_moe_group(tmp_path):
     naming ROADMAP item 12c before it trains."""
     with pytest.raises(SystemExit, match="item 12c"):
         grok_run(tmp_path, ["--global-batch", "4", "--mesh", "2x2",
+                            "--rank-devices", "cpu,cpu,cpu,cpu"])
+
+
+def test_launcher_grok_2x2_microbatches(tmp_path, monkeypatch):
+    """Tiny grok-1 with 1024-wide experts (F-slices of 512 on 2 model
+    ranks) in MoE groups of 16 on ``--mesh 2x2 --microbatches 2
+    --rank-devices cpu,cpu,cpu,cpu`` over 4 x 16 tokens, 2 steps: each
+    row's share of each microbatch is one whole group, the rows take each
+    microbatch's routed shares into their aux losses (``moe_rows_aux``
+    once a microbatch), and the losses hold the stacked ``--mesh 2x2
+    --microbatches 2`` run's within 1e-5."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.layers import tree_leaves
+    extra = ["--steps", "2", "--global-batch", "4", "--mesh", "2x2",
+             "--microbatches", "2"]
+    moe = dict(group_size=16, expert_d_ff=1024)
+    _, stacked = grok_run(tmp_path / "stacked", extra, **moe)
+    rows = []
+    real = L.moe_rows_aux
+    monkeypatch.setattr(L, "moe_rows_aux",
+                        lambda *a: rows.append(1) or real(*a))
+    report, losses = grok_run(tmp_path / "devices", extra + [
+        "--rank-devices", "cpu,cpu,cpu,cpu"], **moe)
+    sliced = [path for path, t in tree_leaves(report.trainer.params)
+              if not t.replica]
+    assert len(sliced) == 3             # wi_gate, wi_up, wo: F-slices
+    assert len(rows) == 2 * 2 and len(losses) == 2
+    assert report.reducer.axis_size == 2
+    np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+
+
+def test_launcher_refuses_rows_that_split_a_microbatch_group(tmp_path):
+    """``--mesh 2x2 --microbatches 2 --rank-devices`` with tiny grok-1 on
+    8 x 16 tokens: the batch's 128 tokens are two groups, but each
+    microbatch's 64 are one, which its two rows would split; the launcher
+    exits naming ROADMAP item 12c before it trains."""
+    with pytest.raises(SystemExit, match="microbatch's 64 tokens.*item 12c"):
+        grok_run(tmp_path, ["--mesh", "2x2", "--microbatches", "2",
                             "--rank-devices", "cpu,cpu,cpu,cpu"])

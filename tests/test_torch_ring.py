@@ -163,13 +163,19 @@ for path, leaf in jax.tree_util.tree_flatten_with_path(init)[0]:
     flat["init/" + key] = np.asarray(leaf)
 flat["losses"] = np.asarray([m["loss"] for m in tr.metrics_log])
 flat["steps"] = np.asarray([m["step"] for m in tr.metrics_log])
+# the same run in 2 microbatches a step (build_cell's accumulation)
+sys.argv = ["train"] + {argv!r} + [
+    "--devices", "4", "--mesh", "1x4", "--microbatches", "2",
+    "--ckpt-dir", {ckpt!r} + "-mb"]
+assert launch.main() == 0
+flat["mb_losses"] = np.asarray([m["loss"] for m in runs[1].metrics_log])
 # grok-1 at 2x2 with experts 2048 wide (the scale's d_ff halved): each
 # model rank's F-slice is 1024 wide, so the MoE block splits F
 SCALES["tiny"] = dict(SCALES["tiny"], d_ff=4096)
 sys.argv = ["train"] + {grok_argv!r} + [
     "--devices", "4", "--mesh", "2x2", "--ckpt-dir", {ckpt!r}]
 assert launch.main() == 0
-tr = runs[1]
+tr = runs[2]
 for path, leaf in jax.tree_util.tree_flatten_with_path(tr.init_params)[0]:
     key = "/".join(str(getattr(p, "key", p)) for p in path)
     flat["grok_init/" + key] = np.asarray(leaf)
@@ -877,3 +883,39 @@ def test_launcher_grok_2x2_matches_the_jax_launcher(jax_launcher, tmp_path,
         np.testing.assert_allclose(got, jax_launcher["grok_losses"],
                                    rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_launcher_rank_devices_microbatches(jax_launcher, tmp_path, mesh,
+                                            monkeypatch):
+    """``--mesh DxM --microbatches 2 --rank-devices cpu,...`` (native
+    backend, "ring"): each row's share of each microbatch runs on its
+    leader through the per-device ring, the stacked ring never; with one
+    data row the losses and every checkpoint file equal the rank-stacked
+    ``--mesh 1xM --microbatches 2`` run's bit for bit, at 2x2 within 1e-5;
+    the stacked and per-device runs hold the JAX launcher's ``--devices 4
+    --mesh 1x4 --microbatches 2`` losses within 1e-5."""
+    D, M = (int(v) for v in mesh.split("x"))
+    extra = ["--mesh", mesh, "--microbatches", "2"]
+    _, stacked, stacked_dir = port_launch_report(tmp_path / "stacked",
+                                                 jax_launcher, extra)
+    spy = RingSpy(monkeypatch)
+    report, losses, dev_dir = port_launch_report(
+        tmp_path / "devices", jax_launcher,
+        extra + ["--rank-devices", ",".join(["cpu"] * (D * M))])
+    assert spy.calls["stacked"] == 0
+    # a forward a layer, 2 layers, 2 microbatches, D rows
+    assert spy.calls["devices"] == 2 * 2 * D * STEPS
+    assert set(report.log[0]) >= {"nll", "aux", "loss"}
+    assert report.log[0]["aux"] == 0
+    for got in (stacked, losses):
+        np.testing.assert_allclose(got, jax_launcher["mb_losses"],
+                                   rtol=1e-5, atol=1e-5)
+    if D > 1:
+        np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+        return
+    assert losses == stacked
+    names = sorted(f.name for f in stacked_dir.iterdir())
+    assert names == sorted(f.name for f in dev_dir.iterdir())
+    for f in names:
+        assert (stacked_dir / f).read_bytes() == (dev_dir / f).read_bytes(), f
