@@ -14,8 +14,8 @@ Phases; any failure raises and the script exits non-zero:
              where one exists, one PyTorch library call (a yardstick
              only);
 3. serve   — the port's serving launcher (``repro_torch.launch.serve``)
-             at full qwen2-0.5b width (16 requests through 8 lanes,
-             caller-driven, and then with two progress workers at 2 of
+             at full qwen2-0.5b width (16 requests of 16 to 96 prompt
+             tokens through 8 lanes, caller-driven, and then with two progress workers at 2 of
              its 24 layers), at full mamba2-1.3b width (16 requests
              through 8 lanes, caller-driven, at 12 of its 48 layers) and
              at full qwen2.5-3b width with int8 K/V (as qwen2-0.5b,
@@ -34,7 +34,7 @@ Phases; any failure raises and the script exits non-zero:
              checkpoint directory;
              the final async checkpoint must restore to the same
              tensors) and at full mamba2-1.3b width (caller-driven, at
-             12 of its 48 layers, checked alike): 6 steps of batch
+             6 of its 48 layers, checked alike): 4 steps of batch
              8 x 1024 tokens.  The launch
              counters must show every step went through its kernels as
              many times as ``kernel_launches_per_step`` derives; after
@@ -65,14 +65,14 @@ Phases; any failure raises and the script exits non-zero:
              stream's busy time and their overlap (printed);
 9. train_dp — the train launcher data-parallel at full smollm-360m
              width: 4 ranks on the card (``--devices 4 --collective-backend
-             user``, ring, 4 chunks, 32 MiB buckets), 6 steps of 8 x 1024
+             user``, ring, 4 chunks, 32 MiB buckets), 4 steps of 8 x 1024
              tokens under the Trainer, launch counts, the checkpoint
              restored equal, the losses within a stated tolerance of the
              single-card run's; one step's time, the reducer's device
              time and its overlap; step 0's reduced gradient against the
              single-card gradient (full width bf16, and two layers f32);
 10. parallel — FSDP at full smollm-360m width (``--devices 4 --fsdp``,
-             4 MiB buckets, ring, 4 chunks, 6 steps of 8 x 1024 tokens) on
+             4 MiB buckets, ring, 4 chunks, 4 steps of 8 x 1024 tokens) on
              the user backend (``FsdpStep`` on the ``FsdpReducer``) and the
              native one: launch counts, the checkpoint restored equal, the
              losses against native FSDP, data-parallel and the single
@@ -103,12 +103,12 @@ Phases; any failure raises and the script exits non-zero:
              ``--chaos-kill 2`` (at 2 layers); a lane
              checkpointed after 40 tokens restored into a shifted pool
              decodes on bit for bit.
-12. moe    — granite-moe-3b-a800m at full width served at 16 of its 32
+12. moe    — granite-moe-3b-a800m at full width served at 8 of its 32
              layers (16 short
              requests through 8 lanes over phase 3's 1024-position view,
              caller-driven; its launches, one fused call timed, the slot
              cache against the paged pool) and trained through the train
-             launcher at 4 of its 32 layers (6 steps of 8 x 1024 tokens,
+             launcher at 4 of its 32 layers (4 steps of 8 x 1024 tokens,
              "full" remat, the aux loss of each step finite, the ~6 GB
              checkpoint restored equal); grok-1-314b served at full widths at 2
              of its 64 layers, every flash_decode launch with its logit
@@ -119,12 +119,12 @@ Phases; any failure raises and the script exits non-zero:
              (cap 0: the uncapped kernel's bits) and the norms and
              attention at granite's shapes; phase 7 holds granite's loss,
              gradients and paged decode at 2 layers, card against CPU.
-13. families — zamba2-1.2b at full width and 19 of its 38 layers served
+13. families — zamba2-1.2b at full width and 13 of its 38 layers served
              (16 short requests through 8 lanes over phase 3's
-             1024-position view, caller-driven; 26 rmsnorm_fwd and 3
+             1024-position view, caller-driven; 18 rmsnorm_fwd and 2
              flash_decode a fused call, one call timed, the slot cache against the
              paged pool bit for bit) and trained through the train
-             launcher at 13 of its layers (6 steps of 8 x 1024 tokens,
+             launcher at 7 of its layers (4 steps of 8 x 1024 tokens,
              "full" remat, the launches as derived, the checkpoint
              restored equal);
              whisper-tiny trained so (encoder embeddings of ones, as the
@@ -145,7 +145,7 @@ Phases; any failure raises and the script exits non-zero:
 
 14. context — the model axis in training: smollm-360m at full width and
              all 32 layers trained through the train launcher with
-             ``attention_impl="ring"`` on ``--mesh 1x4`` (5 steps of 8 x
+             ``attention_impl="ring"`` on ``--mesh 1x4`` (3 steps of 8 x
              1024 tokens, "full" remat; no flash_attention launch, the
              norms of the single-card run, the checkpoint restored
              equal), one step's time; the ring's device time at that
@@ -205,7 +205,7 @@ Phases; any failure raises and the script exits non-zero:
              under the card current at its launch: its ranks' share of a
              single-card step's; the profiler's events beside it), busy
              ms and idle share (profiler) and peak memory; a chaos kill
-             of 1 of 4 ranks at step 3, at 2 layers, rank-stacked and
+             of 1 of 4 ranks at step 2, at 2 layers, rank-stacked and
              per device, the losses equal bit for bit.  Then FSDP with a
              device per rank: phase 10's user run, 4 steps, with
              rank r's ZeRO blocks, moments, step counter and pass on its
@@ -227,7 +227,15 @@ Phases; any failure raises and the script exits non-zero:
              partial logits gathered to cuda:0 against the stacked
              ``unembed_ranks`` of rank 0's hidden state, its host wall,
              each card's busy time and idle share and the gather's
-             device time.  Its model-axis part runs after phase 14, whose
+             device time.  Then the non-dense families at full width
+             (mamba2 at 2 layers, zamba2 at 7, whisper-tiny whole,
+             granite-moe at 2; pixtral at 1, its data-parallel pair
+             only and only on cards of their own), data-parallel and
+             FSDP on 2 ranks with ``--rank-devices``, each bit for bit
+             its stacked run, each card's launches of ``rmsnorm_fwd``,
+             ``rmsnorm_bwd``, ``flash_attention`` and ``ssd_chunk`` its
+             ranks' single-card passes.  Its model-axis part runs after
+             phase 14, whose
              losses it takes: phase 14's run (smollm-360m, full width, 32
              layers, "ring" on --mesh 1x4) with ``--rank-devices`` (the
              ring's blocks on the model ranks' cards, the replicated
@@ -246,7 +254,7 @@ Phases; any failure raises and the script exits non-zero:
              its card, bit for bit the stacked tensor-parallel block in
              f32 (TF32 off), both timed in bf16, each card's peak memory.
              Then FSDP on ``--mesh 2x2 --rank-devices`` at full
-             width and 4 layers (each data row's blocks copied on both
+             width and 2 layers (each data row's blocks copied on both
              cards of its row, the pass and the collectives on the
              leaders), its losses and grad norms bit for bit the stacked
              2x2 run's, every copy its leader's, each card's launches
@@ -254,9 +262,17 @@ Phases; any failure raises and the script exits non-zero:
              a step, peak memory, a profiled step; its chaos kill of 1 of
              4 ranks at 2 layers (a remesh to (1, 2)) bit for bit the
              stacked chaos run; ``--microbatches 2`` on the model axis:
-             smollm-360m "ring" on --mesh 1x4 at 4 layers bit for bit
+             smollm-360m "ring" on --mesh 1x4 at 2 layers bit for bit
              the stacked run (launches, sends, peaks, a profiled step),
-             tiny grok-1 on --mesh 2x2 within 1e-5 of it.
+             tiny grok-1 on --mesh 2x2 within 1e-5 of it.  Last, MoE
+             groups that span the data rows on --mesh 2x2
+             --rank-devices (the rows in lockstep, each group routed on
+             the row holding its first token): granite-moe at full width
+             and 2 layers over 8 x 192 tokens (three groups of 512, the
+             middle one split), tiny grok-1 over 4 x 16 tokens and in 2
+             microbatches over 8 x 16, each within 1e-5 of its stacked
+             run with PyTorch's stream-mismatch warning made an error,
+             each leader's card its single-card norms, the sends a step.
 
 ``python3 chip_smoke.py --only parallel`` runs the build, the single-card
 and data-parallel train runs and phase 10 alone, and prints no result;
@@ -269,7 +285,8 @@ the kernels at the assigned shapes and phase 15; ``--only devices`` the
 build, phase 9's data-parallel run, phase 10's user FSDP run, phase 11's
 stacked caller-driven run at 2 layers and phase 16 (on a call with four
 cards, across them); ``--only model-devices`` the build, phase 14's
-stacked ring run and phase 16's model-axis part.
+stacked ring run and phase 16's model-axis part; ``--only
+families-devices`` the build and phase 16's non-dense families.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -290,6 +307,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -305,10 +323,16 @@ TOLS = {torch.float32: dict(atol=2e-5, rtol=2e-5),     # tests/test_kernels.py
 ARCH = "qwen2-0.5b"
 LANES, MAX_SEQ, BLOCK = 8, 1024, 16
 MIN_PROMPT, MAX_PROMPT, MAX_NEW, REQUESTS = 16, 256, 32, 16
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 6
+# the longest prompt of the qwen serve runs (phases 3, 11 and 16; 256,
+# MAX_PROMPT, before it was cut for the script's time limit when phase
+# 16 gained the non-dense families and the MoE rows: prefill goes one
+# token a fused call, so a prompt's length is its calls).  TRAIN_STEPS
+# was 6 before that cut too
+SERVE_MAX_PROMPT = 96
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 4
 # the mamba2 paths: serve 16 requests through 8 lanes (each lane serves
 # two, so recycled lanes are zeroed on the card); train as the dense path
-# (8 x 1024 tokens, 6 steps)
+# (8 x 1024 tokens, 4 steps)
 MAMBA = "mamba2-1.3b"
 M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW, M_REQUESTS, M_MAX_SEQ = 16, 64, 16, 16, 128
 MAMBA_D = 2048                      # mamba2-1.3b's d_model: its norms' width
@@ -326,9 +350,10 @@ MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
 # cut so that the whole run stays well inside its time limit with the MoE
 # phase: qwen2.5-3b's int8 K/V serve run (of 36 layers), mamba2-1.3b's
 # serve and train runs (of 48; the train run's from 24 to 12, with its
-# checkpoint, for phase 15); the serve runs' depths pay for phase 16
-Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 6, 12, 12
-# the MoE family: granite-moe-3b-a800m trained as smollm-360m is (6 steps
+# checkpoint, for phase 15, and to 6 for phase 16's families and MoE
+# rows); the serve runs' depths pay for phase 16
+Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 6, 12, 6
+# the MoE family: granite-moe-3b-a800m trained as smollm-360m is (4 steps
 # of 8 x 1024 tokens) and served with the mamba2 path's short requests
 # over phase 3's 1024-position view; grok-1-314b served at full widths at
 # the depth one card holds (its f32 weights beside the bf16 ones while
@@ -351,15 +376,17 @@ PIXTRAL, PIXTRAL_D, PIXTRAL_LAYERS, PIXTRAL_STEPS = "pixtral-12b", 5120, 4, 4
 PIXTRAL_BATCH, PIXTRAL_PATCHES = 2, 1024
 # granite-moe's train run (of 32 layers): its 40 GB checkpoint was the
 # script's largest item; at 16 layers it was ~21 GB, at 8 (for phase 15)
-# ~11 GB, at 4 (for phase 16) ~6 GB.  zamba2-1.2b's train run: 13 of its
-# 38 layers (2 groups of 6 and the tail), for phases 15 and 16
+# ~11 GB, at 4 (for phase 16) ~6 GB.  zamba2-1.2b's train run: 7 of its
+# 38 layers (a group of 6 and the tail; 13 before phase 16's families)
 GRANITE_TRAIN_LAYERS = 4
-ZAMBA_TRAIN_LAYERS = 13
+ZAMBA_TRAIN_LAYERS = 7
 # granite-moe's and zamba2-1.2b's serve runs (of 32 and 38 layers; zamba2
-# 3 groups of 6 and the tail), cut for phase 16
-GRANITE_SERVE_LAYERS, ZAMBA_SERVE_LAYERS = 16, 19
+# 2 groups of 6 and the tail), cut for phase 16 (16 and 19 before the
+# non-dense families' runs there)
+GRANITE_SERVE_LAYERS, ZAMBA_SERVE_LAYERS = 8, 13
 # phase 14: smollm-360m trained with "ring" on a model axis of 4 ranks
-RING_MESH, RING_STEPS = "1x4", 5
+# (3 steps since phase 16's families and MoE rows, 5 before)
+RING_MESH, RING_STEPS = "1x4", 3
 SSD_TOLS = {torch.float32: dict(states=3e-5, decay=1e-5),   # test_kernels.py
             torch.bfloat16: dict(states=3e-2, decay=1e-5)}
 L2_BYTES = 50 * 2**20
@@ -1148,8 +1175,10 @@ def kernel_ssd_chunk(gen, shapes=SSD_SHAPES) -> dict:
 
 # per arch: (requests, min prompt, max prompt, new tokens, max_seq) and the
 # full width its config must have
-SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
-              QWEN3B: (REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW, MAX_SEQ),
+SERVE_RUNS = {ARCH: (REQUESTS, MIN_PROMPT, SERVE_MAX_PROMPT, MAX_NEW,
+                     MAX_SEQ),
+              QWEN3B: (REQUESTS, MIN_PROMPT, SERVE_MAX_PROMPT, MAX_NEW,
+                       MAX_SEQ),
               MAMBA: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
                       M_MAX_SEQ),
               GRANITE: (M_REQUESTS, M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW,
@@ -2429,7 +2458,7 @@ DP_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}   # relative L2
 def train_dp(single_losses: list | None):
     """``launch.train`` data-parallel at full smollm-360m width: 4 ranks
     on the card, 8 x 1024 tokens (2 sequences a rank), ring, 4 chunks,
-    32 MiB buckets, 6 steps under the Trainer, the last step checkpointed
+    32 MiB buckets, 4 steps under the Trainer, the last step checkpointed
     and restored equal; every loss finite and the trajectory within
     ``DP_LOSS_ATOL`` of the single-card run's (not compared when
     ``single_losses`` is None: ``--only devices`` runs no single card)."""
@@ -3233,7 +3262,7 @@ def parallel_phase(single_losses: list, dp_losses: list) -> tuple:
 DEV_COLL_NS = (2, 4)
 DEV_BIG_BYTES = 256 << 20       # each rank's buffer in the timed allreduce
 DEV_RESTARTS = 20
-DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 2, 3
+DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 2, 2
 DEV_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "flash_attention")
 
 
@@ -3253,6 +3282,20 @@ def distinct(devices) -> list:
 def sync_all(devices) -> None:
     for d in distinct(devices):
         torch.cuda.synchronize(d)
+
+
+# PyTorch's warning when a gradient reaches a leaf's AccumulateGrad from a
+# node on another card's stream
+STREAM_MISMATCH = ".*AccumulateGrad node's stream does not match"
+
+
+@contextlib.contextmanager
+def stream_mismatch_errors():
+    """PyTorch's stream-mismatch warning made an error for the block."""
+    torch.autograd.graph.set_warn_on_accumulate_grad_stream_mismatch(True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=STREAM_MISMATCH)
+        yield
 
 
 class sync_errors:
@@ -3424,7 +3467,7 @@ def devices_big_allreduce(devices) -> None:
 
 def train_devices(dp_losses: list, devices):
     """``launch.train --rank-devices`` at full smollm-360m width: the run
-    of phase 9 (4 ranks, ring, 4 chunks, 6 steps of 8 x 1024 tokens) with
+    of phase 9 (4 ranks, ring, 4 chunks, 4 steps of 8 x 1024 tokens) with
     each rank's replica, gradients and AdamW state on its own device.
     Its losses equal phase 9's bit for bit; the launches are 4 ranks'
     passes; the final replicas equal bit for bit on every device; the
@@ -3673,7 +3716,7 @@ def devices_chaos(devices) -> None:
         f"run's; step ms {[round(v, 3) for v in ms]}")
 
 
-DEV_FSDP_STEPS = 4          # the per-device FSDP run (phase 10's has 6)
+DEV_FSDP_STEPS = 4          # the per-device FSDP run (phase 10's has 4)
 DEV_SERVE_LAYERS = 2        # the per-device serve runs' depth (of 24)
 
 
@@ -4431,6 +4474,96 @@ def stages_experts_phase(devices) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# the non-dense families under data parallelism and FSDP with a device
+# per rank, each against its rank-stacked run: full width at these depths
+# (mamba2 of 48; zamba2 of 38: one group of 6 and its shared site, and a
+# tail layer; whisper-tiny whole; granite of 32; pixtral of 40), on
+# DEV_FAMILY_RANKS ranks, batch x seq tokens (text only: shorter than
+# pixtral's 1024-patch image, as the train launchers feed it), these
+# steps.  Pixtral runs only its data-parallel pair, and only where the
+# ranks have cards of their own: its 1.6 billion f32 parameters even at
+# one layer (the 131072-row embedding and head) make each replica with
+# its AdamW moments, gradients and reduced gradients ~32 GB (47.7 GiB a
+# card at peak), so two ranks do not fit on one 80 GB card, and the
+# stacked FSDP run, whose gathered parameters, gradients and
+# reduce-scatter buffers for both ranks sit on one card, does not fit
+# either
+DEV_FAMILIES = ((MAMBA, 2), (ZAMBA, 7), (WHISPER, 4), (GRANITE, 2),
+                (PIXTRAL, 1))
+DEV_FAMILY_OWN_CARDS = (PIXTRAL,)
+DEV_FAMILY_RANKS, DEV_FAMILY_STEPS = 2, 2
+DEV_FAMILY_TOKENS = (4, 256)
+DEV_FAMILY_KERNELS = DEV_KERNELS + ("ssd_chunk",)
+
+
+def families_devices() -> dict:
+    """Data-parallel (``--devices 2 --collective-backend user``) and FSDP
+    (``--fsdp`` on the same) training of mamba2, zamba2, whisper,
+    granite-moe and pixtral at full width (``DEV_FAMILIES``' depths),
+    each with ``--rank-devices`` against its rank-stacked run: the losses
+    bit for bit; each card's launches of ``DEV_FAMILY_KERNELS`` its ranks'
+    single-card passes (``kernel_launches_per_step``), filed by current
+    card; no checkpoint written (phase 16's smollm runs check it).
+    Pixtral's data-parallel pair only, where the ranks have cards of
+    their own (``DEV_FAMILY_OWN_CARDS``).
+    Returns the per-device runs' launches, summed."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    devices = rank_devices(DEV_FAMILY_RANKS)
+    n = DEV_FAMILY_RANKS
+    batch, seq = DEV_FAMILY_TOKENS
+    total: dict = {}
+    for arch, layers in DEV_FAMILIES:
+        config = make_config(arch, "full").with_overrides(num_layers=layers)
+        for mode, flags in (("data-parallel", []), ("FSDP", ["--fsdp"])):
+            if arch in DEV_FAMILY_OWN_CARDS and (
+                    flags or len(distinct(devices)) < n):
+                log(f"devices: {arch} {mode} not run on {devices}: its "
+                    f"stacked or per-device state does not fit one card")
+                continue
+            argv = ["--arch", arch, "--scale", "full", "--global-batch",
+                    str(batch), "--seq", str(seq), "--steps",
+                    str(DEV_FAMILY_STEPS), "--devices", str(n),
+                    "--collective-backend", "user"] + flags
+            t0 = time.perf_counter()
+            stacked = train_counted(argv, config, devices, saves=False)[0]
+            want = [m["loss"] for m in stacked.log]
+            del stacked
+            free()
+            report, launches, counter, peaks, _ = train_counted(
+                argv + ["--rank-devices", ",".join(devices)], config,
+                devices, saves=False)
+            cfg = report.cfg
+            if full_width(cfg)[1:] != FULL_WIDTH[arch][1:]:
+                raise AssertionError(f"not the full {arch} width: {cfg}")
+            got = [m["loss"] for m in report.log]
+            if got != want or len(got) != DEV_FAMILY_STEPS:
+                raise AssertionError(f"{arch} {mode} --rank-devices losses "
+                                     f"{got}, the stacked run's {want}")
+            single = train_mod.kernel_launches_per_step(cfg)
+            if launches != {k: v * n * DEV_FAMILY_STEPS
+                            for k, v in single.items()}:
+                raise AssertionError(f"{arch} {mode} launches {launches}, "
+                                     f"want {single} x {n} ranks x "
+                                     f"{DEV_FAMILY_STEPS}")
+            cards = per_card_launches(
+                counter, devices, DEV_FAMILY_STEPS,
+                {k: single[k] for k in DEV_FAMILY_KERNELS}, "step")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            log(f"devices: {arch} {mode}, full width at {cfg.num_layers} "
+                f"layers, {n} ranks on {devices}, {batch}x{seq} tokens "
+                f"({card_and_limit()}): "
+                f"losses {[round(v, 6) for v in got]}, bit for bit the "
+                f"stacked run's; a step on each card: {cards}; "
+                f"{step_ms(report)}; peak memory "
+                + per_card(distinct(devices), peaks, " GiB", ".2f")
+                + f"; both runs {time.perf_counter() - t0:.1f} s")
+            del report
+            free()
+    return total
+
+
 def devices_phase(dp_losses: list, fsdp_losses: list,
                   sharded: list) -> dict:
     """Phase 16: the mesh with one device per rank (distinct cards where
@@ -4442,8 +4575,10 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
     ``DEV_SERVE_LAYERS`` layers (``sharded``), its recovery and a
     full-depth fused call's breakdown; 1F1B with a stage per card, the
     pipeline launcher with a device per rank and granite's MoE layer with
-    each rank's experts on its card (``stages_experts_phase``).  Returns
-    the three main paths' launches."""
+    each rank's experts on its card (``stages_experts_phase``); the
+    non-dense families under data parallelism and FSDP with a device per
+    rank (``families_devices``).  Returns the four main paths'
+    launches."""
     t0 = time.perf_counter()
     count = torch.cuda.device_count()
     devices = rank_devices()
@@ -4486,9 +4621,14 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
     log(f"devices: sharded serving parts done in "
         f"{time.perf_counter() - t2:.1f} s")
     stages_experts_phase(devices)
+    t3 = time.perf_counter()
+    families = families_devices()
+    log(f"devices: the non-dense families' parts done in "
+        f"{time.perf_counter() - t3:.1f} s")
     log(f"devices phase: {time.perf_counter() - t0:.1f} s")
     return {"train_devices": launches, "train_fsdp_devices": fsdp_launches,
-            "serve_devices": serve_launches}
+            "serve_devices": serve_launches,
+            "train_families_devices": families}
 
 
 # ---------------------------------------------------------------------------
@@ -5889,9 +6029,9 @@ def model_devices_2d(devices) -> None:
 # grok-1 (experts DEV_MODEL_GROK_F wide) on --mesh 2x2 over these tokens
 # (a row's share of a microbatch one whole group of 64), these steps.
 # The depths are cut for the script's time limit (at 8 layers these runs
-# took ~58 s on one card)
-DEV_FSDP_2D, DEV_FSDP_2D_LAYERS, DEV_FSDP_2D_STEPS = "2x2", 4, 3
-DEV_MB, DEV_MB_LAYERS, DEV_MB_STEPS = 2, 4, 3
+# took ~58 s on one card, at 4 ~42 s; 2 since the MoE rows' runs)
+DEV_FSDP_2D, DEV_FSDP_2D_LAYERS, DEV_FSDP_2D_STEPS = "2x2", 2, 3
+DEV_MB, DEV_MB_LAYERS, DEV_MB_STEPS = 2, 2, 3
 DEV_MB_GROK_TOKENS, DEV_MB_GROK_STEPS = (16, 16), 2
 
 
@@ -5903,17 +6043,21 @@ def card_and_limit() -> str:
         text=True).stdout.strip().splitlines()[0]
 
 
-def train_counted(argv: list, config, devices):
+def train_counted(argv: list, config, devices, saves: bool = True):
     """``launch.train.run`` of ``argv`` with the launch counts set to 0
     just before and read just after, each launch filed under its card
     (``DeviceLaunches``), the peak memory of each of ``devices``' cards
     and what ``rank_shards.send`` moved: (report, launches, counter,
     peaks GiB, transfers).  The checkpoint directory is a fresh one,
-    removed after."""
+    removed after.  Without ``saves`` the Trainer's checkpoint of the last
+    step is not written (for runs that check no checkpoint: a full-width
+    model's is gigabytes of disk)."""
     from repro_torch.collectives import rank_shards
     from repro_torch.kernels import _lib
     from repro_torch.launch import train as train_mod
+    from repro_torch.train.checkpoint import AsyncCheckpointer
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_model_axis_")
+    save = AsyncCheckpointer.save_async
     try:
         args = train_mod.build_parser().parse_args(
             argv + ["--device", "cuda", "--ckpt-dir", ckpt_dir])
@@ -5921,12 +6065,15 @@ def train_counted(argv: list, config, devices):
             torch.cuda.reset_peak_memory_stats(d)
         rank_shards.reset_transfers()
         base, counter = counting_by_device()
+        if not saves:
+            AsyncCheckpointer.save_async = lambda self, step, tree: None
         try:
             _lib.reset_launches()
             counter.by_device.clear()
             report = train_mod.run(args, config=config, log_every=1)
             launches = dict(_lib.launches)
         finally:
+            AsyncCheckpointer.save_async = save
             restore_counts(base, counter)
         peaks = [torch.cuda.max_memory_allocated(d) / 2**30
                  for d in distinct(devices)]
@@ -6163,6 +6310,125 @@ def microbatch_model_axis_devices(devices) -> dict:
     return launches
 
 
+# MoE groups that span data rows with a device per rank, each held
+# against its stacked run within DEV_MODEL_REL: granite-moe at full
+# width, this depth (of 32), f32, "ring", --mesh 2x2 over these tokens
+# (three groups of 512, the middle one split between the rows), these
+# steps; tiny grok-1 (experts DEV_MODEL_GROK_F wide) over these tokens
+# (one group of 64, half on each row), and in DEV_MB microbatches over
+# these (each microbatch's group split)
+DEV_ROWS_GRANITE_LAYERS, DEV_ROWS_GRANITE_TOKENS = 2, (8, 192)
+DEV_ROWS_STEPS = 3
+DEV_ROWS_GROK_TOKENS, DEV_ROWS_GROK_MB_TOKENS = (4, 16), (8, 16)
+
+
+def moe_rows_devices(devices) -> dict:
+    """``--mesh 2x2 --rank-devices`` where an MoE group spans the data
+    rows: the rows run in lockstep, a group routed whole on the row that
+    holds its first token (``layers.moe_apply_rows``), its outputs sent
+    back.  granite-moe-3b-a800m at full width and
+    ``DEV_ROWS_GRANITE_LAYERS`` layers on ``DEV_ROWS_GRANITE_TOKENS``
+    (its experts keep the einsum branch: F/2 = 256), then tiny grok-1
+    (experts ``DEV_MODEL_GROK_F`` wide: F-slices on the model ranks) on
+    ``DEV_ROWS_GROK_TOKENS`` and in ``DEV_MB`` microbatches on
+    ``DEV_ROWS_GROK_MB_TOKENS``; f32, "ring", ``DEV_ROWS_STEPS`` steps,
+    no checkpoint written.  Each run's losses hold its stacked ``--mesh
+    2x2`` run's within ``DEV_MODEL_REL``, the per-device run with
+    PyTorch's stream-mismatch warning made an error; each leader's card
+    launches its rows' single-card norms (``kernel_launches_per_step``)
+    and no flash_attention, the other ranks' none; logged: the sends a
+    step (the ring's hops and the MoE layer's among them), the bytes
+    across cards, the step ms.  Returns the granite run's launches."""
+    import dataclasses
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import layers as L
+    M = 2
+    granite = make_config(GRANITE, "full").with_overrides(
+        attention_impl="ring", dtype="float32",
+        num_layers=DEV_ROWS_GRANITE_LAYERS)
+    grok = make_config(GROK, "tiny").with_overrides(
+        attention_impl="ring", dtype="float32", d_ff=2 * DEV_MODEL_GROK_F)
+    grok = grok.with_overrides(moe=dataclasses.replace(
+        grok.moe, expert_d_ff=DEV_MODEL_GROK_F))
+    out = None
+    for arch, scale, config, (batch, seq), k in (
+            (GRANITE, "full", granite, DEV_ROWS_GRANITE_TOKENS, 1),
+            (GROK, "tiny", grok, DEV_ROWS_GROK_TOKENS, 1),
+            (GROK, "tiny", grok, DEV_ROWS_GROK_MB_TOKENS, DEV_MB)):
+        argv = ["--arch", arch, "--scale", scale, "--global-batch",
+                str(batch), "--seq", str(seq), "--steps",
+                str(DEV_ROWS_STEPS), "--mesh", "2x2", "--microbatches",
+                str(k)]
+        stacked = train_counted(argv, config, devices, saves=False)[0]
+        want = [m["loss"] for m in stacked.log]
+        want_ms = step_ms(stacked)
+        del stacked
+        free()
+        moe_sent = {"sends": 0, "bytes": 0}
+        real_send = L.send
+
+        def moe_send(t, device, **kw):
+            moe_sent["sends"] += 1
+            moe_sent["bytes"] += t.numel() * t.element_size()
+            return real_send(t, device, **kw)
+
+        L.send = moe_send
+        try:
+            with stream_mismatch_errors():
+                report, launches, counter, peaks, moved = train_counted(
+                    argv + ["--rank-devices", ",".join(devices)], config,
+                    devices, saves=False)
+        finally:
+            L.send = real_send
+        cfg = report.cfg
+        if arch == GRANITE and full_width(cfg)[1:] != \
+                FULL_WIDTH[GRANITE][1:]:
+            raise AssertionError(f"not the full {GRANITE} width: {cfg}")
+        got = [m["loss"] for m in report.log]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+        if len(rel) != DEV_ROWS_STEPS or not max(rel) <= DEV_MODEL_REL:
+            raise AssertionError(f"{arch} --mesh 2x2 --rank-devices on "
+                                 f"{batch}x{seq} tokens in {k} "
+                                 f"microbatch(es): losses {got} vs stacked "
+                                 f"{want}")
+        per_step = train_mod.kernel_launches_per_step(cfg, k, M, seq)
+        if launches != {n: v * 2 * DEV_ROWS_STEPS
+                        for n, v in per_step.items()} \
+                or per_step["flash_attention"]:
+            raise AssertionError(f"{arch} lockstep launches {launches}, "
+                                 f"want {per_step} x 2 rows x "
+                                 f"{DEV_ROWS_STEPS}")
+        cards = leader_launches(counter, devices, M, DEV_ROWS_STEPS,
+                                {n: per_step[n] for n in DEV_KERNELS})
+        groups = batch * seq // k // cfg.moe.group_size
+        log(f"devices: MoE groups across data rows, --mesh 2x2 "
+            f"--rank-devices {','.join(devices)} ({arch} {scale}, "
+            f"{cfg.num_layers} layers, f32, \"ring\", {batch}x{seq} tokens "
+            f"in {k} microbatch(es), {max(groups, 1)} group(s) of "
+            f"{cfg.moe.group_size} a microbatch; {card_and_limit()}): losses "
+            f"{[round(v, 7) for v in got]} against the stacked run's "
+            f"{[round(v, 7) for v in want]}, worst rel err {max(rel):.3e} "
+            f"(limit {DEV_MODEL_REL:g}); launches {launches}; a step on "
+            f"each card: {cards}; sent between ranks a step: "
+            f"{moved['sends'] / DEV_ROWS_STEPS:g} tensors, "
+            f"{moved['bytes'] / DEV_ROWS_STEPS / 1e9:.4f} GB, of them "
+            f"{moved['hops'] / DEV_ROWS_STEPS:g} ring hops "
+            f"({moved['hop_bytes'] / DEV_ROWS_STEPS / 1e9:.4f} GB) and "
+            f"{moe_sent['sends'] / DEV_ROWS_STEPS:g} the MoE layer's "
+            f"({moe_sent['bytes'] / DEV_ROWS_STEPS / 1e9:.4f} GB: a group's "
+            f"tokens and outputs between rows, and F-slice traffic), across "
+            f"cards {moved['cross_bytes'] / DEV_ROWS_STEPS / 1e9:.4f} GB; "
+            f"{step_ms(report)} (stacked: {want_ms}); peak memory "
+            + per_card(distinct(devices), peaks, " GiB", ".2f"))
+        if out is None:
+            out = launches
+        del report
+        free()
+    return out
+
+
 def ring_devices_check(devices) -> None:
     """The ring with a device per rank alone, at smollm-360m's train shape
     (q [8, 1024, 15, 64], k/v [8, 1024, 5, 64], bf16, causal) on a ``(1,
@@ -6218,7 +6484,8 @@ def moe_devices_check(devices, groups: int = 2) -> None:
     In f32 with TF32 off, ``y`` and the gradients of the tokens, the
     combine weights and every slice equal the stacked tensor-parallel
     block's bit for bit (each slice's gradient on its rank's card), the
-    per-device run under ``set_sync_debug_mode("error")``; each card's
+    per-device run under ``set_sync_debug_mode("error")`` and with
+    PyTorch's stream-mismatch warning made an error; each card's
     peak memory in that run.  Then both timed in bf16, forward and forward
     + backward."""
     from repro_torch import sharding
@@ -6275,7 +6542,7 @@ def moe_devices_check(devices, groups: int = 2) -> None:
     sync_all(devices)
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
-    with sync_errors():
+    with sync_errors(), stream_mismatch_errors():
         got_y, got_g = block(dmesh, ins, slices)
     sync_all(devices)
     peaks = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
@@ -6321,9 +6588,10 @@ def model_devices_phase(devices, ring_losses: list) -> dict:
     phase 14's run with ``--rank-devices``, its profiled step, the ring
     alone, ``--mesh 2x2 --rank-devices`` against the stacked run, grok-1's
     MoE block with each rank's F-slices on its card, FSDP on ``--mesh
-    2x2 --rank-devices`` and its chaos kill, and ``--microbatches`` on
-    the model axis.  Returns the paths' launches: each run's counts set
-    to 0 just before it and read just after."""
+    2x2 --rank-devices`` and its chaos kill, ``--microbatches`` on the
+    model axis, and MoE groups that span the data rows.  Returns the
+    paths' launches: each run's counts set to 0 just before it and read
+    just after."""
     t0 = time.perf_counter()
     log(f"devices: model axis on {devices}"
         + ("" if len(distinct(devices)) > 1 else
@@ -6350,11 +6618,13 @@ def model_devices_phase(devices, ring_losses: list) -> dict:
     timed("fsdp chaos", fsdp_model_axis_chaos, devices)
     microbatched = timed("microbatches", microbatch_model_axis_devices,
                          devices)
+    rows = timed("moe rows", moe_rows_devices, devices)
     log(f"devices: model-axis part done in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in spans.items()) + " s)")
     return {"train_model_devices": launches,
             "train_fsdp_model_devices": fsdp,
-            "train_mb_model_devices": microbatched}
+            "train_mb_model_devices": microbatched,
+            "train_moe_rows_devices": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -6811,7 +7081,8 @@ def main(argv: list) -> int:
                     ["--only", "moe"], ["--only", "families"],
                     ["--only", "context"], ["--only", "cells"],
                     ["--only", "devices"], ["--only", "stages"],
-                    ["--only", "model-devices"]):
+                    ["--only", "model-devices"],
+                    ["--only", "families-devices"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
@@ -6823,7 +7094,8 @@ def main(argv: list) -> int:
               f"FSDP and sharded runs it compares with and phase 16; "
               f"--only stages phase 16's pipeline and expert parts; "
               f"--only model-devices phase 14's stacked ring run and "
-              f"phase 16's model-axis part)",
+              f"phase 16's model-axis part; --only families-devices phase "
+              f"16's non-dense families)",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
@@ -6853,6 +7125,14 @@ def main(argv: list) -> int:
         launches = model_devices_phase(rank_devices(), ring_losses)
         log(f"partial run: launches of the model-axis run {launches}; "
             f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
+    if argv == ["--only", "families-devices"]:
+        # a partial run (phase 16's non-dense families); it prints no
+        # result line
+        launches = families_devices()
+        log(f"partial run: launches of the families' per-device runs "
+            f"{launches}; total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         return 0
     if argv == ["--only", "stages"]:
@@ -7085,6 +7365,8 @@ def main(argv: list) -> int:
         row["launches_train_fsdp_model_devices"] = \
             n["train_fsdp_model_devices"]
         row["launches_train_mb_model_devices"] = n["train_mb_model_devices"]
+        row["launches_train_moe_rows_devices"] = n["train_moe_rows_devices"]
+        row["launches_train_families_devices"] = n["train_families_devices"]
         row["launches_serve_sharded"] = n["serve_sharded"]
         row["launches_serve_devices"] = n["serve_devices"]
         for name, *_ in CELLS:
@@ -7095,7 +7377,9 @@ def main(argv: list) -> int:
                            + n["train_fsdp_devices"]
                            + n["train_model_devices"]
                            + n["train_fsdp_model_devices"]
-                           + n["train_mb_model_devices"] + n["serve_sharded"]
+                           + n["train_mb_model_devices"]
+                           + n["train_moe_rows_devices"]
+                           + n["train_families_devices"] + n["serve_sharded"]
                            + n["serve_devices"]
                            + sum(n[f"cell_{name}"] for name, *_ in CELLS))
     log(f"launches: {runs}")
@@ -7122,7 +7406,9 @@ def main(argv: list) -> int:
             "launches_train_fsdp", "launches_train_devices",
             "launches_train_fsdp_devices", "launches_train_model_devices",
             "launches_train_fsdp_model_devices",
-            "launches_train_mb_model_devices", "launches_serve_sharded",
+            "launches_train_mb_model_devices",
+            "launches_train_moe_rows_devices",
+            "launches_train_families_devices", "launches_serve_sharded",
             "launches_serve_devices",
             *(f"launches_cell_{name}" for name, *_ in CELLS),
             "shape", "grid", "launch_split_ms",

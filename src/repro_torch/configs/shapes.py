@@ -65,10 +65,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict[str, torch.Tensor]:
     if shape.kind in ("train", "prefill"):
         S_text = S
         batch: dict[str, torch.Tensor] = {}
-        if cfg.frontend_stub == "vision":
+        from repro_torch.models.transformer import VISION_PATCHES
+        if cfg.frontend_stub == "vision" and S >= VISION_PATCHES:
             # one image (precomputed patch embeddings) per sequence; total
-            # sequence length stays at the assigned S
-            from repro_torch.models.transformer import VISION_PATCHES
+            # sequence length stays at the assigned S.  A shorter sequence
+            # holds no image: text only, as the train launchers feed it
+            # (the JAX stand-in's text length would be negative there)
             S_text = S - VISION_PATCHES
             batch["vision_embeds"] = meta((B, VISION_PATCHES, cfg.d_model),
                                           torch.bfloat16)

@@ -56,6 +56,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--cache-mode", default="paged",
+                    choices=["slots", "paged"],
+                    help="KV cache layout: 'paged' (the only mode) is a "
+                         "paged block pool with continuous batching; "
+                         "'slots' is retired and exits with a migration "
+                         "hint, as in the JAX launcher")
     ap.add_argument("--min-prompt", type=int, default=2,
                     help="shortest prompt, in tokens")
     ap.add_argument("--max-prompt", type=int, default=7,
@@ -189,6 +195,12 @@ def run(args, **cfg_overrides) -> ServeReport:
     from repro_torch.models import registry
     from repro_torch.serve.engine import GenRequest, ServeEngine
 
+    if args.cache_mode == "slots":
+        raise SystemExit(
+            "--cache-mode slots was retired: the paged pool serves the "
+            "same bytes at block granularity.  Drop the flag, or mimic "
+            "fixed lanes with --kv-block-size B --kv-blocks "
+            "(slots*max_seq//B + 1).")
     rank_devices = None
     if args.rank_devices:
         rank_devices = [d.strip() for d in args.rank_devices.split(",")]

@@ -859,13 +859,14 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
     contiguous slice of the batch copied there from the host, inside the
     row's ``(1, M)`` mesh (``sharding.set_mesh``): the replicated layers
     once on the leader, the ring's sequence blocks and the MoE block's
-    F-slices on the row's ranks' cards.  Every row's forward runs before
-    any row's backward.  So with D > 1 an MoE model routes as the whole
-    batch does: each row's share must be whole groups of the batch's
-    routing (``layers.moe_rows_route_alike``, else ValueError), and each
-    row's aux loss takes the batch's routed shares (``layers.moe_rows_aux``,
-    added on rank (0, 0)'s card), so the rows' mean loss and gradients are
-    the batch's.  The gradients are f32 ``[1, *shape]`` shards of
+    F-slices on the row's ranks' cards.  With D > 1 an MoE model's rows
+    run in lockstep, layer by layer (``registry.loss_fn_rows``): each MoE
+    layer routes the whole batch's groups, each on the row that holds its
+    first token, whatever rows it spans, and each row's aux loss takes
+    the batch's routed shares, so the rows' mean loss and gradients are
+    the batch's; one backward runs over every row's loss.  Every other
+    model's rows run one after the other, each forward before any
+    backward.  The gradients are f32 ``[1, *shape]`` shards of
     ``RankShards`` leaves, the form the reducer takes: a replicated leaf's
     on the D leaders, an F-sliced leaf's on every rank (row-major); the
     metrics are stacked on rank (0, 0)'s card.
@@ -877,6 +878,8 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
     are summed in f32 over the microbatches in order and scaled by 1/k,
     as the stacked step does, and its metrics are ``{"nll": loss, "aux":
     0, "loss": loss}``."""
+    import contextlib
+
     from repro_torch import sharding
     from repro_torch.collectives.rank_shards import RankShards, \
         device_context
@@ -892,7 +895,7 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
                   for row in rows]
     model_params = compute_params(cfg, cast_params_bf16)
     rules = sharding.merged_rules(cfg.sharding_overrides)
-    batch_aux = D > 1 and cfg.moe is not None
+    lockstep = D > 1 and cfg.moe is not None
     k = microbatches
 
     def row_tree(params, d):
@@ -900,33 +903,48 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
                           RankShards(leaf.shards[d * M:(d + 1) * M],
                                      dim=leaf.dim), params)
 
-    def forwards(trees, batch, lo, per):
-        """Every row's forward on its share of the rows ``lo .. lo +
-        D*per`` of ``batch``: (loss, metrics) a row."""
-        passes = []
-        for d, (leader, row_mesh) in enumerate(zip(leaders, row_meshes)):
-            paths, leaves, _ = trees[d]
-            local = {key: v[lo + d * per:lo + (d + 1) * per].to(
-                leader, non_blocking=True) for key, v in batch.items()}
-            with device_context(leader), sharding.set_mesh(row_mesh), \
-                    sharding.axis_rules(rules), L.moe_route_stats() as st:
-                loss, m = registry.loss_fn(
-                    model_params(L.tree_from_leaves(zip(paths, leaves))),
-                    cfg, local)
-            passes.append((loss, m, st))
-        if not batch_aux:
-            return [p[:2] for p in passes]
-        auxes = L.moe_rows_aux(cfg, [p[2] for p in passes], leaders)
-        return [(m["nll"] + aux, dict(m, aux=aux))
-                for (_, m, _), aux in zip(passes, auxes)]
+    @contextlib.contextmanager
+    def row_context(d):
+        with device_context(leaders[d]), sharding.set_mesh(row_meshes[d]), \
+                sharding.axis_rules(rules):
+            yield
+
+    contexts = [lambda d=d: row_context(d) for d in range(D)]
+
+    def passes(trees, batch, lo, per):
+        """Every row's ``(loss, metrics, gradients)`` on its share of the
+        rows ``lo .. lo + D*per`` of ``batch``."""
+        locals_, params = [], []
+        for d, (paths, leaves, _) in enumerate(trees):
+            with contexts[d]():
+                locals_.append({key: v[lo + d * per:lo + (d + 1) * per].to(
+                    leaders[d], non_blocking=True)
+                    for key, v in batch.items()})
+                params.append(model_params(
+                    L.tree_from_leaves(zip(paths, leaves))))
+        if lockstep:
+            outs = registry.loss_fn_rows(params, cfg, locals_, contexts)
+            wrt = [t for tree in trees for t in tree[2]]
+            with device_context(leaders[0]):
+                flat = torch.autograd.grad([loss for loss, _ in outs], wrt,
+                                           allow_unused=True)
+            # a row that serves no group gets no gradient of its MoE copy
+            flat = iter(torch.zeros_like(t) if g is None else g
+                        for t, g in zip(wrt, flat))
+            return [(loss, m, [next(flat) for _ in tree[2]])
+                    for (loss, m), tree in zip(outs, trees)]
+        outs = []
+        for d in range(D):
+            with contexts[d]():
+                outs.append(registry.loss_fn(params[d], cfg, locals_[d]))
+        grads = []
+        for d, (loss, _) in enumerate(outs):
+            with device_context(leaders[d]):
+                grads.append(torch.autograd.grad(loss, trees[d][2]))
+        return [(loss, m, g) for (loss, m), g in zip(outs, grads)]
 
     def grad_fn(params, batch):
-        tokens = batch["tokens"]
-        mb = tokens.shape[0] // k
-        if batch_aux and not L.moe_rows_route_alike(cfg, tokens.numel() // k,
-                                                    D):
-            raise ValueError(row_groups_error(cfg, tokens.numel() // k, D,
-                                              microbatches=k))
+        mb = batch["tokens"].shape[0] // k
         trees = []
         for d in range(D):
             paths, leaves = zip(*L.tree_leaves(row_tree(params, d)))
@@ -937,10 +955,9 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
             trees.append((paths, leaves, tensors))
         sums, mets = [None] * D, [None] * D
         for i in range(k):
-            for d, (loss, m) in enumerate(forwards(trees, batch, i * mb,
-                                                   mb // D)):
+            for d, (loss, m, g) in enumerate(passes(trees, batch, i * mb,
+                                                    mb // D)):
                 with device_context(leaders[d]):
-                    g = torch.autograd.grad(loss, trees[d][2])
                     if k == 1:
                         sums[d] = [x.to(torch.float32) for x in g]
                         mets[d] = dict(m, loss=loss)
@@ -976,20 +993,6 @@ def make_row_grads(cfg, mesh, *, microbatches: int = 1,
                                            for path, g in grads.items())
 
     return grad_fn
-
-
-def row_groups_error(cfg, tokens: int, rows: int, *,
-                     microbatches: int = 1) -> str:
-    """Why ``rows`` data rows with a device per rank cannot route a batch
-    (or each of ``microbatches`` microbatches) of ``tokens`` as the whole
-    does (``layers.moe_rows_route_alike`` is false)."""
-    what = "batch" if microbatches == 1 else "microbatch"
-    return (f"--rank-devices on a model axis: each of the {rows} data rows "
-            f"routes {tokens // rows} of the {what}'s {tokens} tokens, not "
-            f"a whole number of its MoE groups (group_size "
-            f"{cfg.moe.group_size}); make --global-batch x --seq a multiple "
-            f"of {rows * microbatches} groups (MoE groups across rows with "
-            f"a device per rank: ROADMAP queue 1, item 12c)")
 
 
 def _only_row(g):
@@ -1114,25 +1117,26 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
     norm from each leaf's square sums, a sliced leaf's slices in rank
     order, added on rank (0, 0)'s card).  Data moved between cards a
     step: the ring's blocks and hops and the MoE block's tokens and
-    partials (``rank_shards.transfers`` counts them), and for D > 1 the
-    column reductions.  With one data row the losses, parameters and
-    checkpoint files equal the rank-stacked ``--mesh 1xM`` run's bit for
-    bit; the checkpoint holds the replicas once and the F-slices glued
-    along F, the stacked run's files.  With D > 1 the rows of an MoE
-    model route as the whole batch does (``make_row_grads``); a row whose
-    share of the batch is not whole MoE groups exits (item 12c).
+    partials, with D > 1 an MoE group's tokens and outputs where the
+    group spans rows (``rank_shards.transfers`` counts them), and for
+    D > 1 the column reductions.  With one data row the losses,
+    parameters and checkpoint files equal the rank-stacked ``--mesh
+    1xM`` run's bit for bit; the checkpoint holds the replicas once and
+    the F-slices glued along F, the stacked run's files.  With D > 1 the
+    rows of an MoE model run in lockstep and route the whole batch's
+    groups, as the stacked run does (``make_row_grads``), so any batch
+    that splits over the rows trains.
 
     ``--microbatches`` k > 1 splits the batch as the stacked step does:
     each row takes its share of each microbatch in turn and accumulates
     (``make_row_grads``); each leader launches k times the kernels of one
     pass (``kernel_launches_per_step(cfg, k, M)``), the other ranks none.
-    An MoE model's rows must then hold whole groups of each microbatch."""
+    An MoE model's rows then route each microbatch's groups."""
     from repro_torch.collectives.nonblocking import CollectiveSpec
     from repro_torch.collectives.rank_shards import device_context
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.bridge import params_on_model_axis
-    from repro_torch.models.layers import expert_width_dims, \
-        moe_rows_route_alike
+    from repro_torch.models.layers import expert_width_dims
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train.train_loop import Trainer, UserCollectiveStep
 
@@ -1142,10 +1146,6 @@ def _run_model_devices(args, cfg, ocfg, params, shape, rank_devices, eng,
         raise SystemExit(f"--global-batch {args.global_batch} does not "
                          f"split into {k} microbatch(es) over {D} data "
                          f"row(s)")
-    tokens = args.global_batch * args.seq // k
-    if D > 1 and cfg.moe is not None and \
-            not moe_rows_route_alike(cfg, tokens, D):
-        raise SystemExit(row_groups_error(cfg, tokens, D, microbatches=k))
     mesh = make_mesh(shape, ("data", "model"), devices=rank_devices)
     params = params_on_model_axis(params, cfg, mesh)
     opt_state = opt_mod.init(params)

@@ -22,8 +22,9 @@ Conventions, as in the JAX package:
   (``_MoEBlockTP``); on a mesh with a device per rank each rank's
   F-slices and their expert FFN live on its device
   (``_MoEBlockPerDevice``), the weights then ``RankShards`` blocks split
-  on F (``expert_width_dims`` names them).  Data rows that each route
-  their share of one batch on a device of their own take the batch's
+  on F (``expert_width_dims`` names them).  Data rows on devices of
+  their own route the batch's groups between them, a group on the row
+  that holds its first token (``moe_apply_rows``), and take the batch's
   routed shares into their aux losses (``moe_rows_aux``).
 * ``attention_impl="ring"`` splits the sequence over the mesh's model
   axis (``collectives/ring_attention.py``).  The model axis replicates
@@ -524,9 +525,6 @@ def _moe_route(p, x, cfg):
     # load-balance aux loss (Switch): E * sum_e mean prob * routed share
     me = torch.mean(probs, dim=(0, 1))
     fe = torch.mean(sel_all, dim=(0, 1)) / cfg.moe.top_k
-    stats = getattr(_route_stats, "stats", None)
-    if stats is not None:
-        stats.append((me, fe))
     return xg, dispatch, combine, _moe_aux(me, fe, cfg)
 
 
@@ -537,54 +535,128 @@ def _moe_aux(me, fe, cfg):
     return mc.num_experts * torch.sum(me * fe) * mc.aux_loss_weight
 
 
-_route_stats = threading.local()
+def moe_group_plan(cfg, tokens: int, rows: int) -> list:
+    """The MoE groups of a batch of ``tokens`` (``_moe_groups``) over
+    ``rows`` equal contiguous shares of it: for each group in order,
+    ``(owner, pieces)``, ``pieces`` the ``(row, lo, hi)`` ranges of the
+    rows' own token indices that make up the group, in token order.  The
+    owner is the row that holds the group's first token, so a group that
+    lies within one row stays there, and each row owns a contiguous run
+    of groups (none when every group that touches it starts in an
+    earlier row)."""
+    _, Gt = _moe_groups(cfg, tokens)
+    per = tokens // rows
+    plan = []
+    for start in range(0, tokens, Gt):
+        pieces, lo = [], start
+        while lo < start + Gt:
+            r = lo // per
+            hi = min(start + Gt, (r + 1) * per)
+            pieces.append((r, lo - r * per, hi - r * per))
+            lo = hi
+        plan.append((pieces[0][0], pieces))
+    return plan
 
 
-@contextlib.contextmanager
-def moe_route_stats():
-    """Collect the ``(me, fe)`` of every MoE layer the body routes, in
-    call order: each expert's mean probability (it carries the router's
-    gradient) and its routed share (it carries none).  A recompute in the
-    backward runs outside the body and adds nothing."""
-    prev = getattr(_route_stats, "stats", None)
-    _route_stats.stats = stats = []
-    try:
-        yield stats
-    finally:
-        _route_stats.stats = prev
+def _owned_pieces(plan, owner: int) -> list:
+    """The ``(row, lo, hi)`` ranges of ``owner``'s groups, adjacent ranges
+    of one row merged: its groups' tokens in order."""
+    out = []
+    for o, pieces in plan:
+        for r, lo, hi in pieces if o == owner else ():
+            if out and out[-1][0] == r and out[-1][2] == lo:
+                out[-1] = (r, out[-1][1], hi)
+            else:
+                out.append((r, lo, hi))
+    return out
 
 
-def moe_rows_route_alike(cfg, tokens: int, rows: int) -> bool:
-    """Whether ``rows`` equal contiguous shares of a batch of ``tokens``
-    route as the whole batch does: each share a whole number of the
-    batch's groups, so that every group, its capacity and its places are
-    the batch's."""
-    return _moe_groups(cfg, tokens // rows)[1] == _moe_groups(cfg, tokens)[1]
+def moe_apply_rows(ps: list, hs: list, cfg, contexts: list):
+    """The MoE layer over D data rows in lockstep, each row on a device
+    of its own: ``hs[d]`` [b, S, d_model] is row d's share (its
+    contiguous rows of the batch) of the normed tokens, ``ps[d]`` row d's
+    copy of the layer's MoE weights, ``contexts[d]()`` the context row d
+    computes in (its device and its mesh).
+
+    The groups are the whole batch's (``moe_group_plan``).  Each row
+    gathers the tokens of the groups it owns from the rows that hold them
+    (a ``send`` for each range on another row), routes them whole and
+    runs its expert block on them (``_moe_expert_block``: the F-slices
+    on its row's cards where its mesh splits F); each output range goes
+    back to its own row.  So every group, its capacity and its places
+    are the batch's, whichever row serves it.
+
+    Returns ``(ys, stats)``: ``ys[d]`` like ``hs[d]``, and ``stats[d] =
+    (me, fe, n)``, row d's mean router probability and routed share over
+    the ``n`` tokens it routed (zeros and 0 for a row that owns no
+    group), for ``moe_rows_aux``."""
+    D = len(hs)
+    b, S, dm = hs[0].shape
+    per = b * S
+    plan = moe_group_plan(cfg, D * per, D)
+    flat = [h.reshape(per, dm) for h in hs]
+    back = [[] for _ in range(D)]
+    stats = []
+    for o, (p, ctx) in enumerate(zip(ps, contexts)):
+        dev = hs[o].device
+        pieces = _owned_pieces(plan, o)
+        with ctx():
+            if not pieces:
+                zero = torch.zeros(cfg.moe.num_experts, dtype=torch.float32,
+                                   device=dev)
+                stats.append((zero, zero, 0))
+                continue
+            x = torch.cat([flat[r][lo:hi] if r == o else
+                           send(flat[r][lo:hi], dev)
+                           for r, lo, hi in pieces])
+            xg, dispatch, combine, probs, sel_all = _moe_route_parts(
+                p, x[None], cfg)
+            stats.append((torch.mean(probs, dim=(0, 1)),
+                          torch.mean(sel_all, dim=(0, 1)) / cfg.moe.top_k,
+                          x.shape[0]))
+            y = _moe_experts(p, xg, dispatch, combine).reshape(-1, dm)
+        at = 0
+        for r, lo, hi in pieces:
+            part = y[at:at + hi - lo]
+            back[r].append((lo, part if r == o else
+                            send(part, hs[r].device)))
+            at += hi - lo
+    ys = []
+    for d, (h, parts) in enumerate(zip(hs, back)):
+        with contexts[d]():
+            ys.append(torch.cat([t for _, t in sorted(
+                parts, key=lambda q: q[0])]).reshape(h.shape))
+    return ys, stats
 
 
 def moe_rows_aux(cfg, row_stats: list, devices: list) -> list:
-    """The aux losses of D rows that each hold an equal share of one
-    batch (``moe_rows_route_alike``), as the batch's Switch loss splits
-    over them.  ``row_stats[d]`` is row d's ``moe_route_stats``, on
-    ``devices[d]``.  Each layer's routed share over the batch is the rows'
-    shares added in row order on ``devices[0]``, over D, copied back to
-    each row's device; row d's aux is its layers' ``_moe_aux(me_d, fe)``
-    added from an f32 zero, as ``forward_hidden`` adds them.  The rows'
-    aux losses average to the batch's, and their gradients add up to its
-    gradient over D."""
-    first = devices[0]
-    fes = []
+    """The aux losses of D rows that route the groups of one batch
+    between them (``moe_apply_rows``), as the batch's Switch loss splits
+    over them.  ``row_stats[d]`` is row d's ``(me, fe, n)`` a layer, on
+    ``devices[d]``: its mean router probability and routed share over the
+    ``n`` tokens it routed, of the layer's ``T`` (the rows' n added).
+    Each layer's routed share over the batch is the rows' shares weighted
+    by ``n / T`` and added in row order on ``devices[0]``, copied back to
+    each row's device; row d's aux is its layers' ``_moe_aux(me_d · n_d
+    D / T, fe)`` added from an f32 zero, as ``forward_hidden`` adds them.
+    The batch's mean probability is the sum of the rows' ``me_d n_d /
+    T``, so the rows' aux losses average to the batch's, and their
+    gradients add up to D times its gradient."""
+    first, D = devices[0], len(row_stats)
+    layers = []
     for layer in zip(*row_stats):
+        T = sum(n for _, _, n in layer)
         total = None
-        for _, fe in layer:
-            total = fe.to(first) if total is None else total + fe.to(first)
-        fes.append(total / len(row_stats))
+        for _, fe, n in layer:
+            part = fe.to(first) * (n / T)
+            total = part if total is None else total + part
+        layers.append((total, [n * D / T for _, _, n in layer]))
     out = []
-    for stats, dev in zip(row_stats, devices):
+    for d, (stats, dev) in enumerate(zip(row_stats, devices)):
         with device_context(dev):
             aux = torch.zeros((), dtype=torch.float32, device=dev)
-            for (me, _), fe in zip(stats, fes):
-                aux = aux + _moe_aux(me, fe.to(dev), cfg)
+            for (me, _, _), (fe, weights) in zip(stats, layers):
+                aux = aux + _moe_aux(me * weights[d], fe.to(dev), cfg)
         out.append(aux)
     return out
 
@@ -832,9 +904,20 @@ def _moe_block_per_device(xg, dispatch, combine, wi_gate, wi_up, wo, tp,
                          f"training on a mesh with a device per rank whose "
                          f"model axis splits F into them (tp {tp}, mesh "
                          f"{mesh!r})")
-    return _MoEBlockPerDevice.apply(xg, dispatch, combine, wi_gate.devices,
-                                    *wi_gate.shards, *wi_up.shards,
-                                    *wo.shards)
+    # Each slice goes in as a view made on its own card.  The block's
+    # backward node runs on the leader's stream (its output, y, is the
+    # leader's), and it hands each slice's gradient, computed on the
+    # slice's card, to the view's node on that card, not to the leaf's
+    # AccumulateGrad, whose stream is the card's own.  No wait is missing
+    # without the view: the gradient is made on the card's current stream
+    # (the backward enters the card with ``device_context``, on autograd's
+    # thread, where that is the default stream), and AccumulateGrad reads
+    # it there.  But autograd would take the leader's stream for its
+    # producer and warn of the mismatch; the view's node, on the card's
+    # stream, is the producer AccumulateGrad sees.
+    return _MoEBlockPerDevice.apply(
+        xg, dispatch, combine, wi_gate.devices,
+        *(t.view_as(t) for w in (wi_gate, wi_up, wo) for t in w.shards))
 
 
 def _to_rank(r: int, device):
@@ -903,17 +986,22 @@ def _cast(w, dt):
         else w.to(dt)
 
 
+def _moe_experts(p, xg, dispatch, combine):
+    """The routed tokens ``xg`` through the experts of ``p`` in their
+    dtype (``_moe_expert_block``; the dispatch mask takes no gradient)."""
+    dt = xg.dtype
+    return _moe_expert_block(xg, dispatch.detach(), combine,
+                             _cast(p["wi_gate"], dt), _cast(p["wi_up"], dt),
+                             _cast(p["wo"], dt))
+
+
 def moe_apply(p, x, cfg):
     """GShard-style grouped capacity dispatch (einsum formulation):
     x [B,S,D] -> (y [B,S,D], aux loss).  For the explicitly placed
     expert-parallel variant see :func:`moe_apply_expert_parallel`."""
     B, S, D = x.shape
     xg, dispatch, combine, aux = _moe_route(p, x, cfg)
-    dt = x.dtype
-    y = _moe_expert_block(xg, dispatch.detach(), combine,
-                          _cast(p["wi_gate"], dt), _cast(p["wi_up"], dt),
-                          _cast(p["wo"], dt))
-    return y.reshape(B, S, D), aux
+    return _moe_experts(p, xg, dispatch, combine).reshape(B, S, D), aux
 
 
 def moe_dispatch_alltoall(xe, mesh, axis: str, *, reverse: bool = False,

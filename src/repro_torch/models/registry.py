@@ -37,6 +37,15 @@ def loss_fn(params, cfg, batch):
         return module_for(cfg).loss_fn(params, cfg, batch)
 
 
+def loss_fn_rows(params_rows, cfg, batches, contexts):
+    """``loss_fn`` over D data rows in lockstep, each row on a device of
+    its own (``transformer.loss_fn_rows``: the moe family, whose groups
+    may span rows): each row's ``(loss, metrics)``."""
+    from repro_torch.models.layers import training_mode
+    with training_mode():
+        return transformer.loss_fn_rows(params_rows, cfg, batches, contexts)
+
+
 def forward(params, cfg, batch):
     m = module_for(cfg)
     if cfg.is_encoder_decoder:

@@ -169,10 +169,9 @@ def _ffn(cfg: ModelConfig, lp, h):
     return L.mlp_apply(lp["mlp"], h), None
 
 
-def _layer_fwd(cfg: ModelConfig, x, lp, positions):
-    """One layer: (x, aux), aux None for a dense layer."""
-    if cfg.remat_policy == "subblock":
-        return _layer_fwd_subblock(cfg, x, lp, positions)
+def _attn_half(cfg: ModelConfig, x, lp, positions):
+    """The layer before its feed-forward block: (x + attention, the
+    normed input of the feed-forward block)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
     q, k, v = L.attn_qkv(lp["attn"], h, positions, cfg)
     if cfg.remat_policy == "attn_only":
@@ -182,8 +181,25 @@ def _layer_fwd(cfg: ModelConfig, x, lp, positions):
             cfg, q_, k_, v_, causal=True), q, k, v)
     else:
         o = L.attention_dispatch(cfg, q, k, v, causal=True)
+    return _out_half(cfg, x, o, lp)
+
+
+def _out_half(cfg: ModelConfig, x, o, lp):
+    """The attention's out-projection added to ``x``, and its norm."""
     x = x + L.attn_out(lp["attn"], o)
-    h = L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
+    return x, L.rmsnorm(x, lp["ln2"], cfg.rms_norm_eps)
+
+
+def _qkv(cfg: ModelConfig, x, lp, positions):
+    h = L.rmsnorm(x, lp["ln1"], cfg.rms_norm_eps)
+    return L.attn_qkv(lp["attn"], h, positions, cfg)
+
+
+def _layer_fwd(cfg: ModelConfig, x, lp, positions):
+    """One layer: (x, aux), aux None for a dense layer."""
+    if cfg.remat_policy == "subblock":
+        return _layer_fwd_subblock(cfg, x, lp, positions)
+    x, h = _attn_half(cfg, x, lp, positions)
     y, aux = _ffn(cfg, lp, h)
     return x + y, aux
 
@@ -191,16 +207,12 @@ def _layer_fwd(cfg: ModelConfig, x, lp, positions):
 def _layer_fwd_subblock(cfg: ModelConfig, x, lp, positions):
     """Checkpoint the projection and MLP sub-blocks but not the attention,
     which keeps its residuals and is not run again in the backward."""
-    def qkv_fn(x_, lp_):
-        h = L.rmsnorm(x_, lp_["ln1"], cfg.rms_norm_eps)
-        return L.attn_qkv(lp_["attn"], h, positions, cfg)
-
-    q, k, v = L.checkpoint(qkv_fn, x, lp)
+    q, k, v = L.checkpoint(lambda x_, lp_: _qkv(cfg, x_, lp_, positions),
+                           x, lp)
     o = L.attention_dispatch(cfg, q, k, v, causal=True)
 
     def rest_fn(x_, o_, lp_):
-        x_ = x_ + L.attn_out(lp_["attn"], o_)
-        h = L.rmsnorm(x_, lp_["ln2"], cfg.rms_norm_eps)
+        x_, h = _out_half(cfg, x_, o_, lp_)
         y, aux = _ffn(cfg, lp_, h)
         return x_ + y, aux
 
@@ -230,33 +242,133 @@ def forward(params, cfg: ModelConfig, tokens, vision_embeds=None):
     return unembed(params, cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
-    """Mean next-token cross entropy; returns (loss, {"nll", "aux"}).
+def _nll(params, cfg: ModelConfig, x, labels):
+    """The mean next-token cross entropy of the final normed hidden
+    ``x``, over its last ``labels.shape[1]`` positions (vlm: the text).
     ``cfg.loss_impl="chunked_vocab"`` without a logit softcap goes through
     ``chunked_vocab_xent`` over the unembedding table (``embed`` when
     tied, ``lm_head`` read transposed when not) and never builds the
     [B, S, V] logits; every other case is the plain f32 logits path, as
-    in the JAX ``loss_fn``.  With ``batch["vision_embeds"]`` (vlm) the
-    loss is over the text positions, the last ``labels.shape[1]``."""
+    in the JAX ``loss_fn``."""
     from repro_torch.train.losses import chunked_vocab_xent, plain_xent
-    labels = batch["labels"]
-    vision = batch.get("vision_embeds")
     if cfg.loss_impl == "chunked_vocab" and not cfg.logit_softcap:
-        x, aux = forward_hidden(params, cfg, batch["tokens"], vision)
         if x.shape[1] != labels.shape[1]:       # vlm: the text positions
             x = x[:, -labels.shape[1]:]
         if cfg.tie_embeddings:
-            nll = chunked_vocab_xent(x, params["embed"], labels,
-                                     cfg.loss_vocab_chunk, False)
-        else:
-            nll = chunked_vocab_xent(x, params["lm_head"], labels,
-                                     cfg.loss_vocab_chunk, True)
-        return nll + aux, {"nll": nll, "aux": aux}
-    logits, aux = forward(params, cfg, batch["tokens"], vision)
+            return chunked_vocab_xent(x, params["embed"], labels,
+                                      cfg.loss_vocab_chunk, False)
+        return chunked_vocab_xent(x, params["lm_head"], labels,
+                                  cfg.loss_vocab_chunk, True)
+    logits = unembed(params, cfg, x)
     if logits.shape[1] != labels.shape[1]:      # vlm: the text positions
         logits = logits[:, -labels.shape[1]:]
-    nll = plain_xent(logits, labels)
+    return plain_xent(logits, labels)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Mean next-token cross entropy (``_nll``) plus the MoE aux loss;
+    returns (loss, {"nll", "aux"}).  With ``batch["vision_embeds"]``
+    (vlm) the loss is over the text positions."""
+    x, aux = forward_hidden(params, cfg, batch["tokens"],
+                            batch.get("vision_embeds"))
+    nll = _nll(params, cfg, x, batch["labels"])
     return nll + aux, {"nll": nll, "aux": aux}
+
+
+def loss_fn_rows(params_rows: list, cfg: ModelConfig, batches: list,
+                 contexts: list) -> list:
+    """``loss_fn`` of the MoE family over D data rows in lockstep, each
+    row on a device of its own: ``batches[d]`` is row d's contiguous
+    share of one batch, ``params_rows[d]`` its copy of the weights, and
+    ``contexts[d]()`` the context it computes in (its device and its
+    mesh).  Returns each row's ``(loss, {"nll", "aux"})``.
+
+    Layer by layer, every row's attention half runs in its own context
+    (the ring, if any, on its own row's ranks); then the MoE step takes
+    the whole batch's groups (``layers.moe_apply_rows``): each group is
+    routed whole and served by the row that holds its first token, on
+    that row's cards and with that row's copy of the MoE weights, and
+    its outputs go back to their rows.  So every group routes as the
+    batch's does, whatever rows it spans.  Row d's aux loss takes the
+    batch's routed shares (``layers.moe_rows_aux``), so the rows' mean
+    loss is the batch's.
+
+    The gradients are sound by linearity.  Row d's copy of a weight
+    collects the gradient of every row's loss through the work it did:
+    its own tokens' attention halves and the groups it served.  So the
+    copies' gradients add up to the gradient of the rows' summed loss,
+    D times the batch's, whichever row served a group, and their mean
+    over the D rows (``launch.train.model_columns``) is the batch's.
+
+    A checkpointed layer ("full", "dots") is the layer over all the
+    rows, and "subblock"'s second sub-block is the rows' out-projections
+    and norms with the MoE step; each recompute re-enters the rows'
+    contexts, so each row's norms run on its own device only, as in its
+    own forward."""
+    _check_ported(cfg)
+    if cfg.moe is None:
+        raise ValueError(f"{cfg.name}: loss_fn_rows takes the moe family")
+    D = len(batches)
+    xs = []
+    for d in range(D):
+        with contexts[d]():
+            xs.append(embed_tokens(params_rows[d], cfg, batches[d]["tokens"],
+                                   batches[d].get("vision_embeds")))
+    positions = [torch.arange(x.shape[1], device=x.device)[None, :]
+                 for x in xs]
+
+    def moe_step(xs_, hs, lps):
+        ys, stats = L.moe_apply_rows([lp["moe"] for lp in lps], hs, cfg,
+                                     contexts)
+        out = []
+        for d in range(D):
+            with contexts[d]():
+                out.append(xs_[d] + ys[d])
+        return out, stats
+
+    def layer(xs_, lps):
+        halves = []
+        for d in range(D):
+            with contexts[d]():
+                halves.append(_attn_half(cfg, xs_[d], lps[d], positions[d]))
+        return moe_step([x for x, _ in halves], [h for _, h in halves], lps)
+
+    def layer_subblock(xs_, lps):
+        os = []
+        for d in range(D):
+            with contexts[d]():
+                q, k, v = L.checkpoint(
+                    lambda x_, lp_, pos=positions[d]: _qkv(cfg, x_, lp_,
+                                                           pos),
+                    xs_[d], lps[d])
+                os.append(L.attention_dispatch(cfg, q, k, v, causal=True))
+
+        def rest(xs2, os2, lps2):
+            halves = []
+            for d in range(D):
+                with contexts[d]():
+                    halves.append(_out_half(cfg, xs2[d], os2[d], lps2[d]))
+            return moe_step([x for x, _ in halves], [h for _, h in halves],
+                            lps2)
+
+        return L.checkpoint(rest, xs_, os, lps)
+
+    body = layer_subblock if cfg.remat_policy == "subblock" else \
+        _remat(layer, cfg)
+    row_stats = [[] for _ in range(D)]
+    for lps in zip(*(L.unstack_layers(p["layers"]) for p in params_rows)):
+        xs, stats = body(xs, list(lps))
+        for d in range(D):
+            row_stats[d].append(stats[d])
+    auxes = L.moe_rows_aux(cfg, row_stats, [x.device for x in xs])
+    out = []
+    for d in range(D):
+        with contexts[d]():
+            x = L.rmsnorm(xs[d], params_rows[d]["final_norm"],
+                          cfg.rms_norm_eps)
+            nll = _nll(params_rows[d], cfg, x, batches[d]["labels"])
+            out.append((nll + auxes[d], {"nll": nll, "aux": auxes[d]}))
+    return out
 
 
 # ---------------------------------------------------------------------------

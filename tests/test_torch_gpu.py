@@ -9,6 +9,7 @@ reason elsewhere.  On a machine with the card:
 none.)
 """
 import dataclasses
+import warnings
 
 import pytest
 import torch
@@ -1420,3 +1421,76 @@ def test_launcher_model_axis_microbatches_equal_the_stacked_run(
     else:
         for a, b in zip(losses["devices"], losses["stacked"]):
             assert abs(a - b) <= 1e-5 * abs(b)
+
+
+# PyTorch's warning when a gradient reaches a leaf's AccumulateGrad from a
+# node on another stream (``set_warn_on_accumulate_grad_stream_mismatch``)
+STREAM_MISMATCH = ".*AccumulateGrad node's stream does not match"
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_per_device_moe_block_backward_has_no_stream_mismatch(cuda, n):
+    """The MoE block with rank r's F-slices on card r of n distinct cards,
+    forward and backward with PyTorch's stream-mismatch warning made an
+    error: each slice's gradient reaches its AccumulateGrad from a node
+    on its own card's stream."""
+    from repro_torch import sharding
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    devices = _rank_devices(n, True)
+    g, t, E, C, d, F_ = 2, 128, 4, 64, 128, 512 * n
+    xg = torch.randn(g, t, d, generator=cuda, device="cuda",
+                     requires_grad=True)
+    pick = torch.randint(0, E * C, (g, t), generator=cuda, device="cuda")
+    disp = torch.zeros(g, t, E * C, device="cuda").scatter_(
+        2, pick[..., None], 1.0).view(g, t, E, C)
+    comb = (disp * torch.rand(g, t, 1, 1, generator=cuda,
+                              device="cuda")).requires_grad_()
+    mesh = make_mesh((1, n), ("data", "model"), devices=devices)
+    w = [RankShards.from_stacked(
+        torch.randn(*s, generator=cuda, device="cuda") / 16, mesh, dim=dim)
+         for s, dim in (((E, d, F_), 2), ((E, d, F_), 2), ((E, F_, d), 1))]
+    wrt = [s.requires_grad_() for x in w for s in x.shards]
+    torch.autograd.graph.set_warn_on_accumulate_grad_stream_mismatch(True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=STREAM_MISMATCH)
+        with sharding.set_mesh(mesh), L.training_mode():
+            y = L._moe_expert_block(xg, disp, comb, *w)
+        grads = torch.autograd.grad(y.sum(), [xg, comb, *wrt])
+        torch.cuda.synchronize()
+    assert [str(x.device) for x in grads[2:2 + n]] == devices
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+def test_launcher_moe_group_across_rows_on_the_card(cuda, tmp_path,
+                                                    distinct):
+    """``launch.train --mesh 2x2 --rank-devices`` with tiny grok-1 (experts
+    2048 wide: F-slices on the model ranks) on 4 x 16 tokens, one MoE
+    group split between the data rows, 3 steps in f32 on the card(s),
+    with PyTorch's stream-mismatch warning made an error: the rows run in
+    lockstep and every step's loss holds the stacked ``--mesh 2x2``
+    run's within 1e-5."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    devices = _rank_devices(4, distinct)
+    losses = {}
+    torch.autograd.graph.set_warn_on_accumulate_grad_stream_mismatch(True)
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices", ",".join(devices)])):
+        args = launch.build_parser().parse_args(
+            ["--arch", "grok-1-314b", "--scale", "tiny", "--steps", "3",
+             "--global-batch", "4", "--seq", "16", "--mesh", "2x2",
+             "--ckpt-dir", str(tmp_path / name)] + extra)
+        cfg = make_config(args.arch, args.scale)
+        cfg = cfg.with_overrides(dtype="float32", attention_impl="ring",
+                                 d_ff=4096, moe=dataclasses.replace(
+                                     cfg.moe, expert_d_ff=2048))
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=STREAM_MISMATCH)
+            losses[name] = [m["loss"] for m in launch.run(
+                args, config=cfg, log_every=1).log]
+    assert len(losses["devices"]) == 3
+    for a, b in zip(losses["devices"], losses["stacked"]):
+        assert abs(a - b) <= 1e-5 * abs(b)

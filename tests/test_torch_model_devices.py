@@ -3,9 +3,11 @@ on the CPU (each rank's "device" is ``cpu``, listed once a rank): the MoE
 block's tensor-parallel schedule over F-slices on the ranks' devices
 (``layers._MoEBlockPerDevice``) against ``_MoEBlockTP``, the F-slices'
 layout (``RankShards.dim``) and checkpoint, the optimizer over placed
-leaves, the data rows' aux losses from the batch's routed shares, and
-the train launcher's ``--mesh DxM --rank-devices`` with tiny grok-1 whose
-experts are 2048 wide, so that the MoE block splits them into F-slices.
+leaves, the plan of a batch's MoE groups over data rows and the rows'
+aux losses from the batch's routed shares, the rows in lockstep against
+the whole batch's gradients, and the train launcher's ``--mesh DxM
+--rank-devices`` with tiny grok-1 whose experts are 2048 wide, so that
+the MoE block splits them into F-slices, also where a group spans rows.
 Everything is held bit for bit, but the rows' aux losses (within 1e-6 of
 the batch's) and the 2x2 run (within 1e-5 of the stacked run: its rows'
 gradients meet in a mean).  The ring and the JAX comparisons are in
@@ -263,10 +265,12 @@ def test_launcher_grok_f_slices_on_the_ranks(tmp_path, mesh, monkeypatch):
 
 
 def test_rows_aux_is_the_batch_aux():
-    """Two rows of one batch, each a whole group of the batch's routing
-    (``moe_rows_route_alike``), routed apart under ``moe_route_stats``:
-    their dispatch and combine equal the batch's group by group, the mean
-    of ``moe_rows_aux`` holds the batch's aux loss within 1e-6, and the
+    """Three groups of 32 tokens over two rows of 48 (``moe_group_plan``:
+    the middle group split between the rows, owned by row 0, which holds
+    its first token): each row routes the groups it owns, whole; their
+    dispatch and combine equal the batch's group by group, the mean of the
+    generalised ``moe_rows_aux`` (each row's mean probability weighted by
+    its owned tokens) holds the batch's aux loss within 1e-6, and the
     router's gradient of the rows' aux losses over 2 holds the batch's
     within 1e-6."""
     from repro_torch.configs.base import MoEConfig
@@ -275,22 +279,28 @@ def test_rows_aux_is_the_batch_aux():
     cfg = make_config("grok-1-314b", "tiny").with_overrides(
         dtype="float32", moe=MoEConfig(num_experts=4, top_k=2,
                                        expert_d_ff=64, group_size=32))
-    assert L.moe_rows_route_alike(cfg, 4 * 16, 2)
-    assert not L.moe_rows_route_alike(cfg, 2 * 16, 2)
+    plan = L.moe_group_plan(cfg, 96, 2)
+    assert plan == [(0, [(0, 0, 32)]), (0, [(0, 32, 48), (1, 0, 16)]),
+                    (1, [(1, 16, 48)])]
+    assert L.moe_group_plan(cfg, 64, 2) == [(0, [(0, 0, 32)]),
+                                            (1, [(1, 0, 32)])]
     rs = np.random.RandomState(6)
-    x = torch.from_numpy(rs.randn(4, 16, cfg.d_model).astype(np.float32))
+    x = torch.from_numpy(rs.randn(6, 16, cfg.d_model).astype(np.float32))
     router = torch.from_numpy(rs.randn(cfg.d_model, 4).astype(np.float32))
     router.requires_grad_(True)
     _, disp, comb, aux = L._moe_route({"router": router}, x, cfg)
     (want,) = torch.autograd.grad(aux, router)
+    flat = x.reshape(96, cfg.d_model)
     stats, parts = [], []
-    for half in (x[:2], x[2:]):
-        with L.moe_route_stats() as st:
-            parts.append(L._moe_route({"router": router}, half, cfg))
-        stats.append(st)
-    assert all(len(st) == 1 for st in stats)
-    assert torch.equal(torch.cat([p[1] for p in parts]), disp)
-    assert torch.equal(torch.cat([p[2] for p in parts]), comb)
+    for owned in (flat[:64], flat[64:]):          # rows 0 and 1's groups
+        _, d_, c_, probs, sel = L._moe_route_parts({"router": router},
+                                                   owned[None], cfg)
+        parts.append((d_, c_))
+        stats.append([(torch.mean(probs, dim=(0, 1)),
+                       torch.mean(sel, dim=(0, 1)) / cfg.moe.top_k,
+                       owned.shape[0])])
+    assert torch.equal(torch.cat([p[0] for p in parts]), disp)
+    assert torch.equal(torch.cat([p[1] for p in parts]), comb)
     rows = L.moe_rows_aux(cfg, stats, ["cpu", "cpu"])
     mean = (rows[0] + rows[1]) / 2
     np.testing.assert_allclose(float(mean.detach()), float(aux.detach()),
@@ -298,19 +308,36 @@ def test_rows_aux_is_the_batch_aux():
     (got,) = torch.autograd.grad(mean, router)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                atol=1e-6 * float(want.abs().max()))
-    # the rows' own aux losses are another function of the router
-    own = (parts[0][3] + parts[1][3]) / 2
-    assert abs(float((own - aux).detach())) > 1e-6 * abs(float(aux.detach()))
+    # unweighted, the rows' losses average to another function
+    plain = L.moe_rows_aux(cfg, [[(me, fe, 48)] for [(me, fe, _)] in stats],
+                           ["cpu", "cpu"])
+    assert abs(float(((plain[0] + plain[1]) / 2 - aux).detach())) \
+        > 1e-6 * abs(float(aux.detach()))
 
 
-def test_launcher_refuses_rows_that_split_a_moe_group(tmp_path):
-    """``--mesh 2x2 --rank-devices`` with tiny grok-1 on 4 x 16 tokens:
-    each row's 32 tokens are half of the batch's one group of 64, which
-    the rows cannot route apart as the batch does, so the launcher exits
-    naming ROADMAP item 12c before it trains."""
-    with pytest.raises(SystemExit, match="item 12c"):
-        grok_run(tmp_path, ["--global-batch", "4", "--mesh", "2x2",
-                            "--rank-devices", "cpu,cpu,cpu,cpu"])
+def test_launcher_refuses_rows_that_split_a_moe_group(tmp_path, monkeypatch):
+    """``--mesh 2x2 --rank-devices`` with tiny grok-1 (1024-wide experts:
+    F-slices of 512 on the model ranks) on 4 x 16 tokens, 2 steps: each
+    row's 32 tokens are half of the batch's one group of 64, which row 0
+    owns; the rows run in lockstep (``moe_apply_rows`` once a layer, row
+    1's half sent to row 0's leader and its outputs back), and the losses
+    hold the stacked ``--mesh 2x2`` run's, which routes the whole batch,
+    within 1e-5."""
+    from repro_torch.models import layers as L
+    extra = ["--global-batch", "4", "--mesh", "2x2", "--steps", "2"]
+    _, stacked = grok_run(tmp_path / "stacked", extra, expert_d_ff=1024)
+    calls, sent = [], []
+    real, real_send = L.moe_apply_rows, L.send
+    monkeypatch.setattr(L, "moe_apply_rows",
+                        lambda *a: calls.append(len(a[1])) or real(*a))
+    monkeypatch.setattr(L, "send", lambda t, d, **kw: sent.append(
+        t.shape) or real_send(t, d, **kw))
+    report, losses = grok_run(tmp_path / "devices", extra + [
+        "--rank-devices", "cpu,cpu,cpu,cpu"], expert_d_ff=1024)
+    assert calls == [2] * (2 * 2)            # 2 layers, 2 steps, 2 rows
+    assert report.reducer.axis_size == 2 and len(losses) == 2
+    assert (32, 64) in sent                  # row 1's half of the group
+    np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
 
 
 def test_launcher_grok_2x2_microbatches(tmp_path, monkeypatch):
@@ -342,10 +369,62 @@ def test_launcher_grok_2x2_microbatches(tmp_path, monkeypatch):
 
 
 def test_launcher_refuses_rows_that_split_a_microbatch_group(tmp_path):
-    """``--mesh 2x2 --microbatches 2 --rank-devices`` with tiny grok-1 on
-    8 x 16 tokens: the batch's 128 tokens are two groups, but each
-    microbatch's 64 are one, which its two rows would split; the launcher
-    exits naming ROADMAP item 12c before it trains."""
-    with pytest.raises(SystemExit, match="microbatch's 64 tokens.*item 12c"):
-        grok_run(tmp_path, ["--mesh", "2x2", "--microbatches", "2",
-                            "--rank-devices", "cpu,cpu,cpu,cpu"])
+    """``--mesh 2x2 --microbatches 2 --rank-devices`` with tiny grok-1
+    (1024-wide experts) on 8 x 16 tokens, 2 steps: the batch's 128 tokens
+    are two groups, but each microbatch's 64 are one, which its two rows
+    split; the rows route each microbatch's group in lockstep, and the
+    losses hold the stacked ``--mesh 2x2 --microbatches 2`` run's within
+    1e-5."""
+    extra = ["--mesh", "2x2", "--microbatches", "2", "--steps", "2"]
+    _, stacked = grok_run(tmp_path / "stacked", extra, expert_d_ff=1024)
+    report, losses = grok_run(tmp_path / "devices", extra + [
+        "--rank-devices", "cpu,cpu,cpu,cpu"], expert_d_ff=1024)
+    assert report.reducer.axis_size == 2 and len(losses) == 2
+    np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["none", "full", "dots", "subblock",
+                                    "attn_only"])
+def test_row_grads_in_lockstep_are_the_batch_grads(policy):
+    """``make_row_grads`` on a per-device 2x2 mesh, tiny grok-1 with
+    2048-wide experts (F-slices on the rows' ranks) in groups of 32 over
+    6 x 16 tokens: three groups, the middle one split between the rows.
+    Under every checkpoint policy the rows' mean loss holds the whole
+    batch's ``registry.loss_fn`` within 1e-6, and each leaf's gradient,
+    averaged over the rows (the F-slices glued along F), holds the
+    batch's within 1e-5 of its largest value."""
+    from repro_torch.launch.train import make_row_grads
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import bridge, registry
+    from repro_torch.models import layers as L
+    cfg = make_config("grok-1-314b", "tiny")
+    cfg = cfg.with_overrides(dtype="float32", vocab_size=1024,
+                             remat_policy=policy, moe=dataclasses.replace(
+                                 cfg.moe, expert_d_ff=2048, group_size=32))
+    params = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (6, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    paths, leaves = zip(*L.tree_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = registry.loss_fn(params, cfg, batch)
+    want = torch.autograd.grad(loss, leaves)
+    mesh = device_mesh(2, 2)
+    placed = bridge.params_on_model_axis(
+        L.tree_map(lambda t: t.detach().clone(), params), cfg, mesh)
+    mets, grads = make_row_grads(cfg, mesh)(placed, batch)
+    np.testing.assert_allclose(float(mets["loss"].mean()),
+                               float(loss.detach()), rtol=1e-6)
+    got = dict(L.tree_leaves(grads))
+    assert sorted(len(g.shards) for g in got.values())[-3:] == [4] * 3
+    for path, w in zip(paths, want):
+        g = got[path]
+        if len(g.shards) == 2:                   # a replica on the leaders
+            mean = (g.shards[0][0] + g.shards[1][0]) / 2
+        else:                                    # F-slices, row-major
+            dim = L.expert_width_dims(cfg, 2)[path]
+            mean = (torch.cat([g.shards[0][0], g.shards[1][0]], dim)
+                    + torch.cat([g.shards[2][0], g.shards[3][0]], dim)) / 2
+        top = float(w.abs().max())
+        assert float((mean - w).abs().max()) <= 1e-5 * top, (path, top)

@@ -180,6 +180,12 @@ for path, leaf in jax.tree_util.tree_flatten_with_path(tr.init_params)[0]:
     key = "/".join(str(getattr(p, "key", p)) for p in path)
     flat["grok_init/" + key] = np.asarray(leaf)
 flat["grok_losses"] = np.asarray([m["loss"] for m in tr.metrics_log])
+# the same at 4 x 16 tokens: one MoE group of 64, half on each data row
+sys.argv = ["train"] + {grok_argv!r} + [
+    "--global-batch", "4", "--devices", "4", "--mesh", "2x2",
+    "--ckpt-dir", {ckpt!r} + "-b4"]
+assert launch.main() == 0
+flat["grok_b4_losses"] = np.asarray([m["loss"] for m in runs[3].metrics_log])
 np.savez({out!r}, **flat)
 print("SAVED")
 """
@@ -883,6 +889,30 @@ def test_launcher_grok_2x2_matches_the_jax_launcher(jax_launcher, tmp_path,
         np.testing.assert_allclose(got, jax_launcher["grok_losses"],
                                    rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(losses, stacked, rtol=1e-5, atol=1e-5)
+
+
+def test_launcher_grok_2x2_group_across_rows_matches_the_jax_launcher(
+        jax_launcher, tmp_path, monkeypatch):
+    """Tiny grok-1 with 2048-wide experts on ``--mesh 2x2 --global-batch
+    4`` from the JAX child's weights: the batch's 64 tokens are one MoE
+    group, half on each data row.  ``--rank-devices cpu,cpu,cpu,cpu``
+    runs the rows in lockstep, row 0 routing the group whole
+    (``moe_apply_rows`` once a layer), and holds the JAX launcher's
+    ``--devices 4 --mesh 2x2`` losses within 1e-5 (the stacked run is
+    held in ``test_torch_model_devices.py``)."""
+    from repro_torch.models import layers as L
+    extra = ["--mesh", "2x2", "--global-batch", "4"]
+    rows = []
+    real = L.moe_apply_rows
+    monkeypatch.setattr(L, "moe_apply_rows",
+                        lambda *a: rows.append(1) or real(*a))
+    report, losses, _ = port_launch_report(
+        tmp_path / "devices", jax_launcher,
+        extra + ["--rank-devices", "cpu,cpu,cpu,cpu"], grok=True)
+    assert len(rows) == 2 * STEPS and report.reducer.axis_size == 2
+    assert len(jax_launcher["grok_b4_losses"]) == STEPS
+    np.testing.assert_allclose(losses, jax_launcher["grok_b4_losses"],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])

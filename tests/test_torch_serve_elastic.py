@@ -447,3 +447,23 @@ def test_launcher_refuses_what_jax_refuses():
         args = serve.build_parser().parse_args(["--device", "cpu"] + argv)
         with pytest.raises(SystemExit, match=match):
             serve.run(args)
+
+
+def test_launcher_cache_mode_as_jax(monkeypatch):
+    """``--cache-mode``: ``paged`` (the default) serves as without the
+    flag; ``slots`` exits with the JAX launcher's own message."""
+    from repro.launch import serve as jax_serve
+    from repro_torch.launch import serve
+    text = launch(["--device", "cpu", "--scale", "tiny", "--requests", "2",
+                   "--max-new", "2", "--cache-mode", "paged"])
+    assert "served 2 requests, 4 tokens" in text
+    assert serve.build_parser().parse_args([]).cache_mode == "paged"
+    monkeypatch.setattr("sys.argv", ["serve", "--cache-mode", "slots"])
+    with pytest.raises(SystemExit) as want:
+        jax_serve.main()
+    args = serve.build_parser().parse_args(["--device", "cpu",
+                                            "--cache-mode", "slots"])
+    with pytest.raises(SystemExit) as got:
+        serve.run(args)
+    assert "--cache-mode slots was retired" in str(got.value)
+    assert str(got.value) == str(want.value)
