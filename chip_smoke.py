@@ -34,7 +34,7 @@ Phases; any failure raises and the script exits non-zero:
              checkpoint directory;
              the final async checkpoint must restore to the same
              tensors) and at full mamba2-1.3b width (caller-driven, at
-             6 of its 48 layers, checked alike): 4 steps of batch
+             6 of its 48 layers, checked alike): 3 steps of batch
              8 x 1024 tokens.  The launch
              counters must show every step went through its kernels as
              many times as ``kernel_launches_per_step`` derives; after
@@ -65,14 +65,14 @@ Phases; any failure raises and the script exits non-zero:
              stream's busy time and their overlap (printed);
 9. train_dp — the train launcher data-parallel at full smollm-360m
              width: 4 ranks on the card (``--devices 4 --collective-backend
-             user``, ring, 4 chunks, 32 MiB buckets), 4 steps of 8 x 1024
+             user``, ring, 4 chunks, 32 MiB buckets), 3 steps of 8 x 1024
              tokens under the Trainer, launch counts, the checkpoint
              restored equal, the losses within a stated tolerance of the
              single-card run's; one step's time, the reducer's device
              time and its overlap; step 0's reduced gradient against the
              single-card gradient (full width bf16, and two layers f32);
 10. parallel — FSDP at full smollm-360m width (``--devices 4 --fsdp``,
-             4 MiB buckets, ring, 4 chunks, 4 steps of 8 x 1024 tokens) on
+             4 MiB buckets, ring, 4 chunks, 3 steps of 8 x 1024 tokens) on
              the user backend (``FsdpStep`` on the ``FsdpReducer``) and the
              native one: launch counts, the checkpoint restored equal, the
              losses against native FSDP, data-parallel and the single
@@ -108,7 +108,7 @@ Phases; any failure raises and the script exits non-zero:
              requests through 8 lanes over phase 3's 1024-position view,
              caller-driven; its launches, one fused call timed, the slot
              cache against the paged pool) and trained through the train
-             launcher at 4 of its 32 layers (4 steps of 8 x 1024 tokens,
+             launcher at 4 of its 32 layers (3 steps of 8 x 1024 tokens,
              "full" remat, the aux loss of each step finite, the ~6 GB
              checkpoint restored equal); grok-1-314b served at full widths at 2
              of its 64 layers, every flash_decode launch with its logit
@@ -124,7 +124,7 @@ Phases; any failure raises and the script exits non-zero:
              1024-position view, caller-driven; 18 rmsnorm_fwd and 2
              flash_decode a fused call, one call timed, the slot cache against the
              paged pool bit for bit) and trained through the train
-             launcher at 7 of its layers (4 steps of 8 x 1024 tokens,
+             launcher at 7 of its layers (3 steps of 8 x 1024 tokens,
              "full" remat, the launches as derived, the checkpoint
              restored equal);
              whisper-tiny trained so (encoder embeddings of ones, as the
@@ -196,7 +196,11 @@ Phases; any failure raises and the script exits non-zero:
              persistent ring allreduce of 256 MiB a rank restarted 20
              times (``memory_allocated`` of every device unchanged, ms an
              allreduce, and on distinct cards the bus bandwidth as
-             nccl-tests define it); phase 9's data-parallel smollm-360m
+             nccl-tests define it), and beside it the native one
+             (``collectives.native_devices``: NCCL on distinct cards,
+             its version logged, else the sum in rank order on cuda:0;
+             the same checks, the route logged); phase 9's
+             data-parallel smollm-360m
              run with ``--rank-devices`` (a replica of the weights and
              AdamW state on each rank's device): its losses equal phase
              9's bit for bit, the replicas equal on every device, the
@@ -205,9 +209,18 @@ Phases; any failure raises and the script exits non-zero:
              under the card current at its launch: its ranks' share of a
              single-card step's; the profiler's events beside it), busy
              ms and idle share (profiler) and peak memory; a chaos kill
-             of 1 of 4 ranks at step 2, at 2 layers, rank-stacked and
-             per device, the losses equal bit for bit.  Then FSDP with a
-             device per rank: phase 10's user run, 4 steps, with
+             of 1 of 4 ranks at step 1 of 3, at 2 layers, rank-stacked and
+             per device, the losses equal bit for bit; the same run on
+             the native backend (the mean through
+             ``native_allreduce`` in the step): losses within
+             ``DP_LOSS_ATOL`` of phase 9's, the replicas equal, each
+             card's launches its ranks' single-card passes, the route,
+             step ms beside the user run's and a profiled step's busy
+             and idle a card; and FSDP on the native backend with a
+             device per rank against phase 10's native run (within
+             ``FSDP_NATIVE_ATOL``, bit for bit logged), the same
+             figures.  Then FSDP with a
+             device per rank: phase 10's user run, 3 steps, with
              rank r's ZeRO blocks, moments, step counter and pass on its
              card, under ``no_sync`` (its losses equal phase 10's bit for
              bit; each card's launches its ranks' share of a single-card
@@ -284,9 +297,13 @@ the build, the kernels at the new shapes and phase 13 with its checks;
 the kernels at the assigned shapes and phase 15; ``--only devices`` the
 build, phase 9's data-parallel run, phase 10's user FSDP run, phase 11's
 stacked caller-driven run at 2 layers and phase 16 (on a call with four
-cards, across them); ``--only model-devices`` the build, phase 14's
-stacked ring run and phase 16's model-axis part; ``--only
-families-devices`` the build and phase 16's non-dense families.
+cards, across them; phase 10's native FSDP run too); ``--only
+model-devices`` the build, phase 14's stacked ring run and phase 16's
+model-axis part; ``--only families-devices`` the build and phase 16's
+non-dense families; ``--only native-devices`` the build, phase 9's
+data-parallel run, phase 10's native FSDP run and phase 16's 256 MiB
+allreduces (user and native), its data-parallel run and the native
+backend's runs with a device per rank.
 
 Prints the versions of torch, CUDA and Python first, and at the end the
 card's name and power limit, then one JSON line of kernel figures, then
@@ -327,12 +344,13 @@ MIN_PROMPT, MAX_PROMPT, MAX_NEW, REQUESTS = 16, 256, 32, 16
 # MAX_PROMPT, before it was cut for the script's time limit when phase
 # 16 gained the non-dense families and the MoE rows: prefill goes one
 # token a fused call, so a prompt's length is its calls).  TRAIN_STEPS
-# was 6 before that cut too
+# was 6 before that cut too, and 4 before phase 16 gained the native
+# backend's runs with a device per rank
 SERVE_MAX_PROMPT = 96
-TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 4
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 3
 # the mamba2 paths: serve 16 requests through 8 lanes (each lane serves
 # two, so recycled lanes are zeroed on the card); train as the dense path
-# (8 x 1024 tokens, 4 steps)
+# (8 x 1024 tokens, 3 steps)
 MAMBA = "mamba2-1.3b"
 M_MIN_PROMPT, M_MAX_PROMPT, M_MAX_NEW, M_REQUESTS, M_MAX_SEQ = 16, 64, 16, 16, 128
 MAMBA_D = 2048                      # mamba2-1.3b's d_model: its norms' width
@@ -353,7 +371,7 @@ MAMBA_DOTS_LAYERS = 8               # the mamba2 "dots" check's depth
 # checkpoint, for phase 15, and to 6 for phase 16's families and MoE
 # rows); the serve runs' depths pay for phase 16
 Q3_SERVE_LAYERS, MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS = 6, 12, 6
-# the MoE family: granite-moe-3b-a800m trained as smollm-360m is (4 steps
+# the MoE family: granite-moe-3b-a800m trained as smollm-360m is (3 steps
 # of 8 x 1024 tokens) and served with the mamba2 path's short requests
 # over phase 3's 1024-position view; grok-1-314b served at full widths at
 # the depth one card holds (its f32 weights beside the bf16 ones while
@@ -2458,7 +2476,7 @@ DP_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-5}   # relative L2
 def train_dp(single_losses: list | None):
     """``launch.train`` data-parallel at full smollm-360m width: 4 ranks
     on the card, 8 x 1024 tokens (2 sequences a rank), ring, 4 chunks,
-    32 MiB buckets, 4 steps under the Trainer, the last step checkpointed
+    32 MiB buckets, 3 steps under the Trainer, the last step checkpointed
     and restored equal; every loss finite and the trajectory within
     ``DP_LOSS_ATOL`` of the single-card run's (not compared when
     ``single_losses`` is None: ``--only devices`` runs no single card)."""
@@ -2660,9 +2678,10 @@ PIPE_S, PIPE_M, PIPE_MB, PIPE_STEPS = 4, 8, 8, 5
 
 def train_fsdp(backend: str):
     """``launch.train --devices 4 --fsdp`` at full smollm-360m width: 4
-    ranks on the card, 8 x 1024 tokens, 4 MiB buckets, ring, 4 chunks, 6
-    steps under the Trainer (``FsdpStep`` on the ``FsdpReducer`` for the
-    user backend; the native pair in the step otherwise), launch counts;
+    ranks on the card, 8 x 1024 tokens, 4 MiB buckets, ring, 4 chunks,
+    ``TRAIN_STEPS`` steps under the Trainer (``FsdpStep`` on the
+    ``FsdpReducer`` for the user backend; the native pair in the step
+    otherwise), launch counts;
     the user run's last checkpoint restored equal."""
     from repro_torch.kernels import _lib
     from repro_torch.launch import train as train_mod
@@ -3233,7 +3252,8 @@ def pipeline_phase() -> None:
 def parallel_phase(single_losses: list, dp_losses: list) -> tuple:
     """Phase 10: FSDP (user and native), the step-0 gather, the elastic
     recovery and the pipeline; returns the FSDP user run's launches and
-    losses."""
+    losses, and the native run's losses (phase 16's native FSDP run with
+    a device per rank is held against them)."""
     launches, report, losses = train_fsdp("user")
     hold_losses("train_fsdp vs the single card", losses, single_losses,
                 DP_LOSS_ATOL)
@@ -3252,7 +3272,7 @@ def parallel_phase(single_losses: list, dp_losses: list) -> tuple:
     free()
     pipeline_phase()
     free()
-    return launches, losses
+    return launches, losses, native
 
 
 # ---------------------------------------------------------------------------
@@ -3262,7 +3282,7 @@ def parallel_phase(single_losses: list, dp_losses: list) -> tuple:
 DEV_COLL_NS = (2, 4)
 DEV_BIG_BYTES = 256 << 20       # each rank's buffer in the timed allreduce
 DEV_RESTARTS = 20
-DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 2, 2
+DEV_CHAOS_LAYERS, DEV_CHAOS_KILL = 2, 1     # killed after step 1 of 3
 DEV_KERNELS = ("rmsnorm_fwd", "rmsnorm_bwd", "flash_attention")
 
 
@@ -3402,7 +3422,8 @@ def devices_big_allreduce(devices) -> None:
     plain sum, the time per allreduce (host clock over the restarts,
     every card synchronized at both ends) and, on distinct cards, the
     bus bandwidth as nccl-tests define it, 2(n-1)/n x bytes / time (no
-    NCCL or torch.distributed call is made)."""
+    NCCL or torch.distributed call is made: ``devices_native_allreduce``
+    is the native row beside it).  Returns the ms an allreduce."""
     from repro_torch.collectives import nonblocking as NB
     from repro_torch.collectives.rank_shards import RankShards
     from repro_torch.core import ProgressEngine
@@ -3463,11 +3484,79 @@ def devices_big_allreduce(devices) -> None:
         f"allreduce; {bw_text}; memory_allocated after every start "
         + ", ".join(f"{d} {m} B" for d, m in zip(cards, mem[0]))
         + f"; the result the plain sum on every rank; {trace_text}")
+    return ms
+
+
+def devices_native_allreduce(devices, user_ms: float) -> None:
+    """The native row beside ``devices_big_allreduce``'s: the same
+    ``DEV_BIG_BYTES`` of int32 a rank through
+    ``native_devices.native_allreduce`` (NCCL where every rank has a card
+    of its own, else the sum in rank order on rank 0's card), warmed up
+    (the communicator built), then called ``DEV_RESTARTS`` times: ms an
+    allreduce (host clock, every card synchronized at both ends), the bus
+    bandwidth on distinct cards, ``memory_allocated`` of every card after
+    each call unchanged, the result the plain sum on every rank; which
+    route ran, NCCL's version and ``torch.cuda.nccl.is_available`` for
+    the ranks' tensors."""
+    from repro_torch.collectives import native_devices
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    n = len(devices)
+    mesh = make_mesh((n,), ("x",), devices=devices)
+    gen = torch.Generator(device="cuda:0").manual_seed(17)
+    x = torch.randint(-8, 8, (n, DEV_BIG_BYTES // 4), generator=gen,
+                      device="cuda:0", dtype=torch.int32)
+    want = x.sum(0, dtype=torch.int32)
+    xs = RankShards.from_stacked(x.view(n, -1), mesh).map(lambda t: t[0])
+    del x
+    cards = distinct(devices)
+    route = native_devices.route(mesh.devices)
+    available = native_devices.nccl_available(cards)
+    version = native_devices.nccl_version() if available else "(none)"
+    native_devices.reset_routes()
+    native_devices.warm(mesh.devices)
+    out = native_devices.native_allreduce(xs)
+    sync_all(devices)
+    mem, t0 = [], time.perf_counter()
+    for _ in range(DEV_RESTARTS):
+        out = native_devices.native_allreduce(xs)
+        mem.append(tuple(torch.cuda.memory_allocated(d) for d in cards))
+    sync_all(devices)
+    ms = (time.perf_counter() - t0) * 1e3 / DEV_RESTARTS
+    for s in out.shards:
+        if not torch.equal(s.to("cuda:0"), want):
+            raise AssertionError("native 256 MiB allreduce: not the sum")
+    if len(set(mem)) != 1:
+        raise AssertionError(f"native allreduce calls allocated: {mem}")
+    calls = dict(native_devices.routes)
+    if calls[route] != DEV_RESTARTS + 1 or sum(calls.values()) != \
+            DEV_RESTARTS + 1:
+        raise AssertionError(f"native allreduce routes {calls}, want "
+                             f"{DEV_RESTARTS + 1} on {route}")
+    del out, xs
+    if len(cards) == n:
+        bus = 2 * (n - 1) / n * DEV_BIG_BYTES / (ms / 1e3) / 1e9
+        bw_text = (f"bus bandwidth {bus:.3f} GB/s (2(n-1)/n x "
+                   f"{DEV_BIG_BYTES >> 20} MiB / time)")
+    else:
+        bw_text = "no bus bandwidth: the ranks share one card"
+    path = (f"NCCL {version} (torch.cuda.nccl.all_reduce over the {n} "
+            f"cards)" if route == "nccl" else
+            "the sum in rank order on rank 0's card (the ranks share it)")
+    log(f"devices: native allreduce of {DEV_BIG_BYTES >> 20} MiB int32 a "
+        f"rank over {n} ranks on {devices}, route {route}: {path}; "
+        f"torch.cuda.nccl.is_available(a tensor on each of {cards}) "
+        f"{available}, NCCL {version}; {DEV_RESTARTS} calls after a "
+        f"warm-up: {ms:.3f} "
+        f"ms an allreduce (the user ring beside it: {user_ms:.3f} ms); "
+        f"{bw_text}; memory_allocated after every call "
+        + ", ".join(f"{d} {m} B" for d, m in zip(cards, mem[0]))
+        + "; the result the plain sum on every rank")
 
 
 def train_devices(dp_losses: list, devices):
     """``launch.train --rank-devices`` at full smollm-360m width: the run
-    of phase 9 (4 ranks, ring, 4 chunks, 4 steps of 8 x 1024 tokens) with
+    of phase 9 (4 ranks, ring, 4 chunks, 3 steps of 8 x 1024 tokens) with
     each rank's replica, gradients and AdamW state on its own device.
     Its losses equal phase 9's bit for bit; the launches are 4 ranks'
     passes; the final replicas equal bit for bit on every device; the
@@ -3716,7 +3805,123 @@ def devices_chaos(devices) -> None:
         f"run's; step ms {[round(v, 3) for v in ms]}")
 
 
-DEV_FSDP_STEPS = 4          # the per-device FSDP run (phase 10's has 4)
+def native_step_breakdown(report, devices, what: str) -> str:
+    """One more step of a native run with a device per rank (the
+    Trainer's own ``step_fn`` on its trained state and one fixed batch)
+    under the profiler: its host wall and each card's busy ms and idle
+    share; the text that says so."""
+    from repro_torch.data.pipeline import SyntheticLM
+    tr, cfg = report.trainer, report.cfg
+    batch = {k: torch.from_numpy(v.copy()).pin_memory() for k, v in
+             SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=9)
+             .sample().items()}
+
+    def run() -> float:
+        sync_all(devices)
+        t0 = time.perf_counter()
+        tr.params, tr.opt_state, _ = tr.step_fn(tr.params, tr.opt_state,
+                                                batch)
+        sync_all(devices)
+        return (time.perf_counter() - t0) * 1e3
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall_prof = run()
+    busy = busy_by_device(prof)
+    if not busy:
+        return (f"{what} step under the profiler {wall_prof:.3f} ms; busy "
+                f"and idle a card not measured (no profiler events)")
+    return (f"{what} step under the profiler {wall_prof:.3f} ms; "
+            + "; ".join(
+                f"cuda:{d} busy {v:.3f} ms, idle share "
+                f"{1 - v / wall_prof:.3f}" for d, v in sorted(busy.items())))
+
+
+def mean_step_ms(report) -> float:
+    steps = [m["step_time_s"] for m in report.log[1:]]
+    return sum(steps) * 1e3 / len(steps)
+
+
+def native_route_text(devices, calls: dict, want: int) -> str:
+    """The route the native collectives of ``devices`` took, held to
+    ``want`` calls on it and none on the other; the text that says so."""
+    from repro_torch.collectives import native_devices
+    route = native_devices.route(devices)
+    if calls[route] != want or sum(calls.values()) != want:
+        raise AssertionError(f"native collectives' routes {calls}, want "
+                             f"{want} on {route}")
+    return (f"every reduction through NCCL {native_devices.nccl_version()} "
+            f"({want} calls)" if route == "nccl" else
+            f"every reduction the sum in rank order on rank 0's card ({want} "
+            f"calls; the ranks share it)")
+
+
+def train_native_devices(dp_losses: list, user_ms: float, devices):
+    """``launch.train --collective-backend native --rank-devices`` at full
+    smollm-360m width: phase 9's run (4 ranks, ``TRAIN_STEPS`` steps of 8 x
+    1024 tokens) with each rank's replica, gradients and AdamW state on
+    its device and the gradients' mean through
+    ``native_devices.native_allreduce`` inside the step (NCCL on distinct
+    cards, the sum in rank order on cuda:0 where the ranks share it).  Its
+    losses within ``DP_LOSS_ATOL`` of phase 9's; every card's replica equal
+    bit for bit; each card launches its ranks' single-card passes; the
+    route logged; step ms and idle a card beside the user run's
+    (``user_ms``, ``train_devices``).  Returns the launches."""
+    from repro_torch.collectives import native_devices
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.layers import tree_leaves
+    native_devices.reset_routes()
+    report, launches, counter, peaks, _ = train_counted([
+        "--arch", TRAIN_ARCH, "--scale", "full", "--global-batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+        str(TRAIN_STEPS), "--devices", str(DP_RANKS), "--mesh",
+        f"{DP_RANKS}x1", "--collective-backend", "native",
+        "--rank-devices", ",".join(devices)], None, devices, saves=False)
+    calls = dict(native_devices.routes)
+    cfg, tr = report.cfg, report.trainer
+    if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+        raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+    single = train_mod.kernel_launches_per_step(cfg)
+    want = {k: v * DP_RANKS * TRAIN_STEPS for k, v in single.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    card_text = per_card_launches(counter, devices, TRAIN_STEPS,
+                                  {k: single[k] for k in DEV_KERNELS},
+                                  "step")
+    losses = [m["loss"] for m in report.log]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad loss trajectory {losses}")
+    hold_losses("train_native_devices vs train_dp (phase 9)", losses,
+                dp_losses, DP_LOSS_ATOL)
+    leaves = [t for _, t in [*tree_leaves(tr.params),
+                             *tree_leaves(tr.opt_state.mu),
+                             *tree_leaves(tr.opt_state.nu)]]
+    for t in leaves:
+        if not isinstance(t, RankShards) or [
+                str(d) for d in t.devices] != list(devices):
+            raise AssertionError(f"a replica off its rank's device: {t}")
+        for s in t.shards[1:]:
+            if not torch.equal(s.to(t.shards[0].device), t.shards[0]):
+                raise AssertionError("the native replicas differ")
+    route_text = native_route_text(
+        devices, calls, TRAIN_STEPS * len(leaves) // 3)
+    ms = mean_step_ms(report)
+    breakdown = native_step_breakdown(report, devices, "one more native")
+    log(f"train_native_devices {TRAIN_ARCH} ({DP_RANKS} ranks on "
+        f"{devices}, native backend): {route_text}; launches {launches}; "
+        f"a step on each card: {card_text}; losses "
+        f"{[round(v, 6) for v in losses]}; the {len(leaves)} replicated "
+        f"leaves equal on every device; mean step {ms:.3f} ms (the user "
+        f"run's {user_ms:.3f}), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} "
+        f"tokens/s; {breakdown}; peak device memory "
+        + per_card(distinct(devices), peaks, " GiB", ".2f"))
+    del report
+    free()
+    return launches
+
+
+DEV_FSDP_STEPS = TRAIN_STEPS   # the per-device FSDP runs (as phase 10's)
 DEV_SERVE_LAYERS = 2        # the per-device serve runs' depth (of 24)
 
 
@@ -3853,6 +4058,69 @@ def train_fsdp_devices(fsdp_losses: list, devices):
         return launches, report
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_fsdp_native_devices(fsdp_native: list, devices):
+    """``launch.train --fsdp --collective-backend native --rank-devices``
+    at full smollm-360m width: phase 10's native run (4 ranks, 4 MiB
+    buckets, 8 x 1024 tokens) for ``DEV_FSDP_STEPS`` steps with rank r's
+    blocks, moments, step counter and pass on ``devices[r]``, the pair of
+    ``native_devices`` (all-gather, reduce-scatter) inside the step.  Its
+    losses within ``FSDP_NATIVE_ATOL`` of phase 10's native ones
+    (``fsdp_native``; whether bit for bit is logged: the ordered route's
+    sum is the stacked ``rs_fn``'s sum when every rank is on one card);
+    the blocks on their ranks' devices; each card launches its ranks'
+    share of a single-card step; the route logged; step ms and idle a
+    card.  Returns the launches."""
+    from repro_torch.collectives import native_devices
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch import train as train_mod
+    native_devices.reset_routes()
+    report, launches, counter, peaks, _ = train_counted([
+        "--arch", TRAIN_ARCH, "--scale", "full", "--global-batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+        str(DEV_FSDP_STEPS), "--devices", str(DP_RANKS), "--mesh",
+        f"{DP_RANKS}x1", "--fsdp", "--fsdp-bucket-bytes", str(FSDP_BUCKET),
+        "--collective-backend", "native", "--rank-devices",
+        ",".join(devices)], None, devices, saves=False)
+    calls = dict(native_devices.routes)
+    cfg, tr = report.cfg, report.trainer
+    if full_width(cfg) != FULL_WIDTH[TRAIN_ARCH]:
+        raise AssertionError(f"not the full {TRAIN_ARCH} width: {cfg}")
+    single = train_mod.kernel_launches_per_step(cfg)
+    want = {k: v * DP_RANKS * DEV_FSDP_STEPS for k, v in single.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    card_text = per_card_launches(counter, devices, DEV_FSDP_STEPS,
+                                  {k: single[k] for k in DEV_KERNELS},
+                                  "step")
+    losses = [m["loss"] for m in report.log]
+    want_losses = fsdp_native[:DEV_FSDP_STEPS]
+    if len(losses) != DEV_FSDP_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"bad loss trajectory {losses}")
+    hold_losses("train_fsdp_native_devices vs train_fsdp native (phase 10)",
+                losses, want_losses, FSDP_NATIVE_ATOL)
+    for t in [*tr.params, *tr.opt_state.mu, *tr.opt_state.nu]:
+        if not isinstance(t, RankShards) or t.replica or [
+                str(d) for d in t.devices] != list(devices):
+            raise AssertionError(f"a block off its rank's device: {t}")
+    route_text = native_route_text(
+        devices, calls, 2 * DEV_FSDP_STEPS * report.layout.num_buckets)
+    ms = mean_step_ms(report)
+    breakdown = native_step_breakdown(report, devices, "one more native")
+    log(f"train_fsdp_native_devices {TRAIN_ARCH} ({DP_RANKS} ranks on "
+        f"{devices}, {report.layout.num_buckets} buckets of "
+        f"{FSDP_BUCKET >> 20} MiB, native backend): {route_text}; launches "
+        f"{launches}; a step on each card: {card_text}; losses "
+        f"{[round(v, 6) for v in losses]} (phase 10's native "
+        f"{[round(v, 6) for v in want_losses]}: bit for bit "
+        f"{losses == want_losses}); mean step {ms:.3f} ms, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f} tokens/s; {breakdown}; "
+        f"peak device memory "
+        + per_card(distinct(devices), peaks, " GiB", ".2f"))
+    del report
+    free()
+    return launches
 
 
 def fsdp_devices_breakdown(report, devices, steps: int = 1,
@@ -4564,14 +4832,16 @@ def families_devices() -> dict:
     return total
 
 
-def devices_phase(dp_losses: list, fsdp_losses: list,
-                  sharded: list) -> dict:
+def devices_phase(dp_losses: list, fsdp_losses: list, sharded: list,
+                  fsdp_native: list) -> dict:
     """Phase 16: the mesh with one device per rank (distinct cards where
     the machine has 4, else cuda:0 four times): the collectives, the
-    timed 256 MiB allreduce, data-parallel smollm-360m at full width
-    against phase 9 (``dp_losses``), its per-device breakdown, a chaos
-    kill; FSDP against phase 10's user run (``fsdp_losses``), its
-    breakdown and chaos; sharded serving against phase 11's streams at
+    timed 256 MiB allreduce, user and native, data-parallel smollm-360m
+    at full width against phase 9 (``dp_losses``), its per-device
+    breakdown, a chaos kill, and its native run; FSDP against phase 10's
+    user run (``fsdp_losses``), its breakdown and chaos, and its native
+    run against phase 10's native run (``fsdp_native``); sharded serving
+    against phase 11's streams at
     ``DEV_SERVE_LAYERS`` layers (``sharded``), its recovery and a
     full-depth fused call's breakdown; 1F1B with a stage per card, the
     pipeline launcher with a device per rank and granite's MoE layer with
@@ -4596,14 +4866,7 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
             "the host)")
     devices_collectives(devices)
     free()
-    devices_big_allreduce(devices)
-    free()
-    launches, report = train_devices(dp_losses, devices)
-    devices_time_breakdown(report, devices)
-    del report
-    free()
-    devices_chaos(devices)
-    free()
+    native = native_devices_part(devices, dp_losses, fsdp_native)
     t1 = time.perf_counter()
     log(f"devices: data-parallel parts done in {t1 - t0:.1f} s")
     fsdp_launches, report = train_fsdp_devices(fsdp_losses, devices)
@@ -4626,9 +4889,40 @@ def devices_phase(dp_losses: list, fsdp_losses: list,
     log(f"devices: the non-dense families' parts done in "
         f"{time.perf_counter() - t3:.1f} s")
     log(f"devices phase: {time.perf_counter() - t0:.1f} s")
-    return {"train_devices": launches, "train_fsdp_devices": fsdp_launches,
+    return {"train_fsdp_devices": fsdp_launches,
             "serve_devices": serve_launches,
-            "train_families_devices": families}
+            "train_families_devices": families, **native}
+
+
+def native_devices_part(devices, dp_losses: list, fsdp_native: list,
+                        chaos: bool = True) -> dict:
+    """Phase 16's data-parallel part and the native backend with a device
+    per rank: the 256 MiB allreduce, user then native; data-parallel
+    smollm-360m on the user backend (``train_devices``, its breakdown
+    and, with ``chaos``, its chaos kill), then on the native backend
+    (``train_native_devices``); FSDP on the native backend
+    (``train_fsdp_native_devices``).  Returns the three runs' launches."""
+    t0 = time.perf_counter()
+    user_ms = devices_big_allreduce(devices)
+    free()
+    devices_native_allreduce(devices, user_ms)
+    free()
+    launches, report = train_devices(dp_losses, devices)
+    user_step = mean_step_ms(report)
+    devices_time_breakdown(report, devices)
+    del report
+    free()
+    if chaos:
+        devices_chaos(devices)
+        free()
+    t1 = time.perf_counter()
+    native = train_native_devices(dp_losses, user_step, devices)
+    fsdp_native_launches = train_fsdp_native_devices(fsdp_native, devices)
+    log(f"devices: the native backend's runs a device per rank done in "
+        f"{time.perf_counter() - t1:.1f} s (the part "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return {"train_devices": launches, "train_native_devices": native,
+            "train_fsdp_native_devices": fsdp_native_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -7082,7 +7376,8 @@ def main(argv: list) -> int:
                     ["--only", "context"], ["--only", "cells"],
                     ["--only", "devices"], ["--only", "stages"],
                     ["--only", "model-devices"],
-                    ["--only", "families-devices"]):
+                    ["--only", "families-devices"],
+                    ["--only", "native-devices"]):
         print(f"chip_smoke: unknown arguments {argv} (none runs every phase; "
               f"--only parallel the single-card and data-parallel train "
               f"runs and phase 10; --only serve-sharded phase 3's "
@@ -7095,7 +7390,10 @@ def main(argv: list) -> int:
               f"--only stages phase 16's pipeline and expert parts; "
               f"--only model-devices phase 14's stacked ring run and "
               f"phase 16's model-axis part; --only families-devices phase "
-              f"16's non-dense families)",
+              f"16's non-dense families; --only native-devices phase 9's "
+              f"data-parallel run, phase 10's native FSDP run and phase "
+              f"16's 256 MiB allreduces and data-parallel and native "
+              f"runs)",
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _lib
@@ -7135,6 +7433,25 @@ def main(argv: list) -> int:
             f"{launches}; total {time.perf_counter() - t_start:.1f} s")
         print(smi)
         return 0
+    if argv == ["--only", "native-devices"]:
+        # a partial run (the runs phase 16's native part compares with,
+        # then that part without the chaos kill); it prints no result line
+        _, report = train_dp(None)
+        dp_losses = [m["loss"] for m in report.log]
+        del report
+        free()
+        _, report, fsdp_native = train_fsdp("native")
+        del report
+        free()
+        devices = rank_devices()
+        log(f"devices: torch.cuda.device_count() = "
+            f"{torch.cuda.device_count()}; the mesh's devices {devices}")
+        launches = native_devices_part(devices, dp_losses, fsdp_native,
+                                       chaos=False)
+        log(f"partial run: launches of the per-device runs {launches}; "
+            f"total {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        return 0
     if argv == ["--only", "stages"]:
         # a partial run (phase 16's stage-per-card and expert-per-card
         # parts); it prints no result line
@@ -7156,6 +7473,9 @@ def main(argv: list) -> int:
         _, report, fsdp_losses = train_fsdp("user")
         del report
         free()
+        _, report, fsdp_native = train_fsdp("native")
+        del report
+        free()
         with no_sync():
             _, srv, report = serve(workers=0,
                                    extra=sharded_flags(SHARDS, "user"),
@@ -7165,7 +7485,8 @@ def main(argv: list) -> int:
         free()
         log(f"the runs phase 16 compares with done at "
             f"{time.perf_counter() - t_start:.1f} s")
-        launches = devices_phase(dp_losses, fsdp_losses, sharded)
+        launches = devices_phase(dp_losses, fsdp_losses, sharded,
+                                 fsdp_native)
         log(f"partial run: launches of the per-device runs {launches}; "
             f"total {time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -7244,7 +7565,7 @@ def main(argv: list) -> int:
         dp_losses = [m["loss"] for m in report.log]
         del report
         free()
-        launches, _ = parallel_phase(single_losses, dp_losses)
+        launches, _, _ = parallel_phase(single_losses, dp_losses)
         log(f"partial run: launches of the FSDP run {launches}; total "
             f"{time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -7312,13 +7633,13 @@ def main(argv: list) -> int:
     dp_gradient_check(layers=2)
     free()
     log(f"train_dp phase done at {time.perf_counter() - t_start:.1f} s")
-    runs["train_fsdp"], fsdp_losses = parallel_phase(single_losses,
-                                                     dp_losses)
+    runs["train_fsdp"], fsdp_losses, fsdp_native = parallel_phase(
+        single_losses, dp_losses)
     log(f"parallel phase done at {time.perf_counter() - t_start:.1f} s")
     runs["serve_sharded"], sharded = serve_sharded_phase(unsharded)
     free()
     log(f"sharded serve phase done at {time.perf_counter() - t_start:.1f} s")
-    runs.update(devices_phase(dp_losses, fsdp_losses, sharded))
+    runs.update(devices_phase(dp_losses, fsdp_losses, sharded, fsdp_native))
     log(f"devices phase done at {time.perf_counter() - t_start:.1f} s")
     remat = [remat_check(), remat_check(MAMBA, ("full", "dots"),
                                         layers=MAMBA_DOTS_LAYERS)]
@@ -7361,6 +7682,9 @@ def main(argv: list) -> int:
         row["launches_train_fsdp"] = n["train_fsdp"]
         row["launches_train_devices"] = n["train_devices"]
         row["launches_train_fsdp_devices"] = n["train_fsdp_devices"]
+        row["launches_train_native_devices"] = n["train_native_devices"]
+        row["launches_train_fsdp_native_devices"] = \
+            n["train_fsdp_native_devices"]
         row["launches_train_model_devices"] = n["train_model_devices"]
         row["launches_train_fsdp_model_devices"] = \
             n["train_fsdp_model_devices"]
@@ -7375,6 +7699,8 @@ def main(argv: list) -> int:
                            + row["launches_remat"] + n["train_dp"]
                            + n["train_fsdp"] + n["train_devices"]
                            + n["train_fsdp_devices"]
+                           + n["train_native_devices"]
+                           + n["train_fsdp_native_devices"]
                            + n["train_model_devices"]
                            + n["train_fsdp_model_devices"]
                            + n["train_mb_model_devices"]
@@ -7404,7 +7730,9 @@ def main(argv: list) -> int:
             "launches_train_whisper", "launches_train_pixtral",
             "launches_train_ring", "launches_remat", "launches_train_dp",
             "launches_train_fsdp", "launches_train_devices",
-            "launches_train_fsdp_devices", "launches_train_model_devices",
+            "launches_train_fsdp_devices", "launches_train_native_devices",
+            "launches_train_fsdp_native_devices",
+            "launches_train_model_devices",
             "launches_train_fsdp_model_devices",
             "launches_train_mb_model_devices",
             "launches_train_moe_rows_devices",

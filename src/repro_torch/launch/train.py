@@ -16,6 +16,9 @@ elastic, or a 1F1B pipeline.
     PYTHONPATH=src python -m repro_torch.launch.train --devices 4 --fsdp \
         --collective-backend user --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 \
         --scale full --global-batch 8 --seq 1024 --steps 6  # a card a rank
+    PYTHONPATH=src python -m repro_torch.launch.train --devices 4 \
+        [--fsdp] --rank-devices cuda:0,cuda:1,cuda:2,cuda:3 --scale full \
+        --global-batch 8 --seq 1024 --steps 6   # native: NCCL between cards
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --scale tiny --steps 6 [--devices 4 --collective-backend user \
         [--fsdp] [--elastic --chaos-kill 2 --chaos-kill-step 2]]
@@ -53,7 +56,13 @@ state on its device, computes its gradients there on its slice of the
 batch (copied from pinned host memory), the reducer's rounds copy
 between the devices, and every rank applies AdamW to its own replica —
 the losses and parameters of the rank-stacked run, bit for bit.  The
-checkpoint holds rank 0's replica.
+checkpoint holds rank 0's replica.  On the native backend
+(``_run_native_devices``) the same replicas and passes meet in the step
+through ``collectives.native_devices.native_allreduce``: NCCL where every
+rank has a card of its own (the launcher exits where NCCL is not
+available for them), else the sum in rank order on rank 0's device;
+``--microbatches`` and ``--cast-bf16`` compose with it, as with the JAX
+launcher's native backend.
 
 ``--mesh DxM`` on the native backend trains on a (data, model) mesh of
 ranks on the one device, entered (``sharding.set_mesh``) around each
@@ -80,12 +89,14 @@ moves both through an ``FsdpReducer``'s persistent handles, the next
 step's gathers chained off the optimizer's compute futures; the native
 backend stacks and sums over the rank dim in the step.  A model axis
 (``--mesh DxM``) replicates: each data rank's work is computed once.
-With ``--rank-devices`` (user backend) rank r's blocks, moments, step
-counter and pass live on its own device, the reducer's rounds copy
-between the devices, and the checkpoint holds the blocks glued in rank
-order: the stacked run's losses, shards and checkpoint files, bit for
-bit.  On a model axis every device of data row d holds a copy of its
-blocks; the row's work runs on its leader, and every copy steps.
+With ``--rank-devices`` rank r's blocks, moments, step counter and pass
+live on its own device, the user reducer's rounds copy between the
+devices (the native backend's pair is ``collectives.native_devices``'
+NCCL calls or its sum in rank order), and the checkpoint holds the
+blocks glued in rank order: the stacked run's losses, shards and
+checkpoint files, bit for bit (on NCCL within its sum order).  On a
+model axis every device of data row d holds a copy of its blocks; the
+row's work runs on its leader, and every copy steps.
 
 ``--elastic`` (user backend) shares a ``MembershipEpoch`` between the
 watchdog, an optional heartbeat monitor (``--heartbeat-timeout``) and
@@ -143,12 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rank-devices", default="",
                     help="a device per data-parallel rank, comma-separated "
                          "(e.g. cuda:0,cuda:1,cuda:2,cuda:3; a device may "
-                         "repeat); as many as --devices, user backend "
-                         "only; composes with --fsdp; with --pipeline a "
-                         "device per (data, stage) rank, row-major; with "
-                         "a model axis above 1 a device per (data, model) "
-                         "rank, row-major (native backend, or --fsdp on "
-                         "the user backend)")
+                         "repeat); as many as --devices, either backend "
+                         "(native: NCCL between distinct cards); composes "
+                         "with --fsdp; with --pipeline a device per (data, "
+                         "stage) rank, row-major; with a model axis above "
+                         "1 a device per (data, model) rank, row-major "
+                         "(native backend, or --fsdp)")
     ap.add_argument("--collective-backend", default="native",
                     choices=["native", "user"],
                     help="native: the gradient mean inside the step; user: "
@@ -418,8 +429,12 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
     and ``apply_fn`` sends each reduced block to the rest of its row
     (``rank_shards.spread``) before every copy steps on its card, the
     grad norm adding each data rank's partial once.  The native pair
-    exists only in the stacked form (the per-device form moves its bytes
-    through the ``FsdpReducer``)."""
+    there runs over the leaders (``collectives.native_devices``): ``ag_fn``
+    gives each leader its ``[1, W]`` flats, the leaders' blocks glued in
+    rank order; ``rs_fn`` gives leader r block r ``[1, W/n]`` of the sum
+    of the leaders' gradient buckets (NCCL where every leader has a card
+    of its own, else the sum in rank order on leader 0's device, which
+    is the stacked ``rs_fn``'s sum)."""
     from repro_torch.collectives.overlap import tree_flatten
     from repro_torch.models import registry
     from repro_torch.train import optimizer as opt_mod
@@ -448,8 +463,7 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
         return {k: v.detach() for k, v in dict(m, loss=loss).items()}
 
     if mesh.per_device:
-        return (*_fsdp_per_device(mesh, layout, rank_pass, ocfg, axis),
-                None, None)
+        return _fsdp_per_device(mesh, layout, rank_pass, ocfg, axis)
 
     def grad_fn(flats, batch):
         per = batch["tokens"].shape[0] // n
@@ -483,9 +497,10 @@ def build_fsdp_programs(cfg, ocfg, mesh, layout, *, axis: str = "data"):
 
 
 def _fsdp_per_device(mesh, layout, rank_pass, ocfg, axis: str):
-    """``build_fsdp_programs``' ``grad_fn`` and ``apply_fn`` on a mesh with
-    a device per rank: the passes on ``axis``'s leaders, the AdamW step on
-    every copy."""
+    """``build_fsdp_programs``' four programs on a mesh with a device per
+    rank: the passes and the native pair on ``axis``'s leaders, the AdamW
+    step on every copy."""
+    from repro_torch.collectives import native_devices
     from repro_torch.collectives.rank_shards import RankShards, \
         device_context, spread
     from repro_torch.launch.mesh import axis_column
@@ -526,7 +541,16 @@ def _fsdp_per_device(mesh, layout, rank_pass, ocfg, axis: str):
             mets = {k: v.mean() for k, v in stacked_mets.items()}
         return shards, opt_state, dict(mets, **om)
 
-    return grad_fn, apply_fn
+    def ag_fn(shards):
+        # the first copy of each bucket's blocks: the leaders'
+        return [native_devices.native_all_gather(RankShards(s.blocks))
+                .map(lambda t: t.view(1, -1)) for s in shards]
+
+    def rs_fn(flat_grads):
+        return [native_devices.native_reduce_scatter(g)
+                .map(lambda t: t.view(1, -1)) for g in flat_grads]
+
+    return grad_fn, apply_fn, ag_fn, rs_fn
 
 
 @dataclasses.dataclass
@@ -554,25 +578,25 @@ class TrainReport:
 
 
 def _rank_devices(args):
-    """``--rank-devices`` as a list of devices (None when not given).  A
-    pipeline's mesh is (data x stage): its second dim is no model axis,
-    and its reductions run on the user backend whatever
-    ``--collective-backend`` says.  A model axis above 1 without
-    ``--fsdp`` is the native backend's (``_run_model_devices``; the user
-    backend there exits in ``mesh_shape``, as the JAX launcher does);
-    every other form (data-parallel, FSDP) needs the user backend."""
+    """``--rank-devices`` as a list of devices (None when not given).
+    Every form takes it on either backend; the refusals are the JAX
+    launcher's (``run``)."""
     if not args.rank_devices:
         return None
-    pipeline = args.pipeline != "none"
-    dims = args.mesh.split("x") if args.mesh else []
-    model = int(dims[1]) if len(dims) == 2 and not pipeline else 1
-    native_model_axis = model > 1 and not args.fsdp
-    if not pipeline and not native_model_axis \
-            and args.collective_backend != "user":
-        raise SystemExit("--rank-devices needs --collective-backend user "
-                         "(the ranks' gradients meet in the user-space "
-                         "collectives)")
     return [torch.device(d.strip()) for d in args.rank_devices.split(",")]
+
+
+def _native_route(devices) -> str:
+    """The route of the native collectives over ``devices``
+    (``collectives.native_devices.route``); exits where the ranks are on
+    distinct cards and NCCL is not available for them."""
+    from repro_torch.collectives import native_devices
+    try:
+        native_devices.require_nccl(devices)
+    except RuntimeError as exc:
+        raise SystemExit(f"--collective-backend native --rank-devices: "
+                         f"{exc}") from None
+    return native_devices.route(devices)
 
 
 def _replicate_state(params, mesh):
@@ -607,6 +631,59 @@ def _apply_per_device(ocfg):
                 dict(mets, **outs[0][2]))
 
     return apply_fn
+
+
+def _run_native_devices(args, cfg, ocfg, params, data: int, rank_devices,
+                        spec, eng, pipe, loop_overrides) -> TrainReport:
+    """``--collective-backend native --rank-devices`` for data-parallel
+    training on ``Dx1``: a replica of the parameters and AdamW state on
+    each rank's device (``_replicate_state``), each rank's pass on its
+    device over its slice of the batch (``make_row_grads`` on the ``(D,
+    1)`` mesh: with ``--microbatches`` k each rank takes its share of each
+    microbatch, and an MoE model's ranks run in lockstep, routing the
+    whole batch's groups as the stacked native step does), the
+    gradients' mean through
+    ``collectives.native_devices.native_allreduce`` inside the step (NCCL
+    where every rank has a card of its own, the sum in rank order on rank
+    0's device otherwise), then AdamW on every replica.  The Trainer's
+    step future covers every device's work (it watches the replicas)."""
+    from repro_torch.collectives import native_devices
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.train_loop import Trainer
+    k = args.microbatches
+    if args.global_batch % (data * k):
+        raise SystemExit(f"--global-batch {args.global_batch} does not "
+                         f"split into {k} microbatch(es) over {data} "
+                         f"rank(s)")
+    mesh = make_mesh((data, 1), ("data", "model"), devices=rank_devices)
+    route = _native_route(mesh.devices)
+    native_devices.warm(mesh.devices)
+    params, opt_state = _replicate_state(params, mesh)
+    grad_fn = make_row_grads(cfg, mesh, microbatches=k,
+                             cast_params_bf16=args.cast_bf16)
+    apply_fn = _apply_per_device(ocfg)
+
+    def mean(g):
+        return native_devices.native_allreduce(g.map(lambda t: t[0]),
+                                               mean=True)
+
+    def step_fn(params, opt_state, batch):
+        stacked_mets, grads = grad_fn(params, batch)
+        return apply_fn(params, opt_state, tree_map(mean, grads),
+                        stacked_mets)
+
+    print(f"collective backend: native ({route}"
+          + (f", NCCL {native_devices.nccl_version()}" if route == "nccl"
+             else ", the sum in rank order on rank 0's device")
+          + f"; {k} microbatch(es) a step) over {mesh}", flush=True)
+    trainer = Trainer(step_fn, params, opt_state, pipe,
+                      _loop_config(args, spec, args.arch, loop_overrides),
+                      engine=eng, hooks=[_print_hook()])
+    t0 = time.perf_counter()
+    log = trainer.run()
+    return TrainReport(trainer, cfg, log, time.perf_counter() - t0,
+                       args.global_batch * args.seq)
 
 
 def _elastic_on(args) -> bool:
@@ -741,6 +818,13 @@ def run(args, *, config=None, params=None, **loop_overrides) -> TrainReport:
             return _run_model_devices(args, cfg, ocfg, params, (data, model),
                                       rank_devices, eng, pipe,
                                       loop_overrides)
+        finally:
+            pipe.close()
+    if rank_devices is not None and not user_backend:
+        try:
+            return _run_native_devices(args, cfg, ocfg, params, data,
+                                       rank_devices, spec, eng, pipe,
+                                       loop_overrides)
         finally:
             pipe.close()
 
@@ -1233,10 +1317,11 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
     with ``ag_fn``/``rs_fn`` in the step.  The model axis replicates, so
     the same step runs unchanged on (4,1) and (2,2).
 
-    With ``rank_devices`` (user backend) data rank ``r``'s blocks,
-    moments, step counter and pass live on its device: the reducer's
-    rounds copy between the devices, and a remesh re-shards onto the
-    first of the survivors' devices.  On a model axis of M > 1 (rank (d,
+    With ``rank_devices`` data rank ``r``'s blocks, moments, step counter
+    and pass live on its device: the user reducer's rounds copy between
+    the devices (the native backend runs the per-device ``ag_fn``/
+    ``rs_fn`` of ``build_fsdp_programs`` in the step, over the leaders),
+    and a remesh re-shards onto the first of the survivors' devices.  On a model axis of M > 1 (rank (d,
     m) on ``rank_devices[d*M + m]``) every rank of row d holds a copy of
     its blocks, moments and a step counter, as JAX's ``NamedSharding(mesh,
     P("data"))`` places them; the row's gather, pass and reduce-scatter
@@ -1262,6 +1347,12 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
     del params
     copies = (f", a copy on each of model={shape[1]} card(s) a row"
               if mesh.per_device and shape[1] > 1 else "")
+    if mesh.per_device and not user_backend:
+        from repro_torch.collectives import native_devices
+        from repro_torch.launch.mesh import axis_column
+        leaders = axis_column(mesh, axis).devices
+        copies += f", the native pair on the {_native_route(leaders)} route"
+        native_devices.warm(leaders)
     print(f"fsdp: {layout.num_buckets} bucket(s), shard widths "
           f"{[w // layout.n for w in layout.widths]} over {axis}="
           f"{layout.n} ({args.collective_backend} backend){copies}",
@@ -1282,8 +1373,10 @@ def _run_fsdp(args, cfg, ocfg, params, device, shape, spec, eng, pipe,
                               epoch=epoch)
         split = FsdpStep(on_device(grad_fn), apply_fn, reducer, spec=spec)
     else:
+        grad_step = on_device(grad_fn)
+
         def step_fn(shards, opt_state, batch):
-            smets, flat_grads = grad_fn(ag_fn(shards), to_device(batch))
+            smets, flat_grads = grad_step(ag_fn(shards), batch)
             return apply_fn(shards, opt_state, rs_fn(flat_grads), smets)
 
     if epoch is not None:

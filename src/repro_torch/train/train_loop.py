@@ -336,12 +336,11 @@ class Trainer:
                 # dispatch: returns once the step's kernels are queued
                 self.params, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state, batch)
-            # the step is done when the metrics are and, for a split
-            # step, the optimizer's update on every device the parameters
-            # live on (one polled event per device)
-            loss_req = torch_future(
-                self.engine, (metrics, self.params)
-                if self.split_step is not None else metrics)
+            # the step is done when the metrics are and the optimizer's
+            # update on every device the parameters live on (one polled
+            # event per device: a step over replicas or blocks on several
+            # cards is not done when rank 0's card is)
+            loss_req = torch_future(self.engine, (metrics, self.params))
 
             # overlap window: drive collated progress until the card is
             # done (with progress workers attached, wait yields to them)

@@ -17,12 +17,21 @@ With ``--rank-devices cpu,cpu,cpu,cpu`` each rank holds its own replica
 of the weights and AdamW state (a mesh with one device per rank): its
 losses and every replica's final parameters equal the rank-stacked run's
 bit for bit (a chaos kill's too), and hold the JAX launcher within the
-same limits."""
+same limits.  On the native backend the ranks' gradients meet in
+``collectives.native_devices`` (ranks on the CPU: the sum in rank order
+on rank 0's device): every replica equals a plain composition (the
+stacked ``make_rank_grads`` gradients summed over the rank dim, times
+1/4, then AdamW) bit for bit, and the losses hold the port's stacked
+native run (also in 2 microbatches) and the JAX launcher.
+
+The port's runs that several tests compare with run once a module
+(fixtures)."""
 import argparse
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tests._multidevice import run_with_devices
 
@@ -122,6 +131,37 @@ def jax_run(tmp_path_factory):
     return dict(np.load(out))
 
 
+@pytest.fixture(scope="module")
+def user_run(jax_run, tmp_path_factory):
+    """The rank-stacked ``--devices 4 --mesh 4x1 --collective-backend
+    user`` run: (report, losses, final)."""
+    return port_run(tmp_path_factory.mktemp("user"), jax_run, USER4)
+
+
+@pytest.fixture(scope="module")
+def native_run(jax_run, tmp_path_factory):
+    """The port's native run of the whole batch on one rank."""
+    return port_run(tmp_path_factory.mktemp("native"), jax_run, [])
+
+
+@pytest.fixture(scope="module")
+def user_devices_run(jax_run, tmp_path_factory):
+    """``USER4 --rank-devices cpu,cpu,cpu,cpu``: (report, losses)."""
+    return port_run_devices(tmp_path_factory.mktemp("user_dev"), jax_run,
+                            USER4 + RANK_DEVICES)
+
+
+@pytest.fixture(scope="module")
+def native_devices_run(jax_run, tmp_path_factory):
+    """``--devices 4 --collective-backend native --rank-devices
+    cpu,cpu,cpu,cpu``: (report, losses, routes taken)."""
+    from repro_torch.collectives import native_devices
+    native_devices.reset_routes()
+    report, losses = port_run_devices(tmp_path_factory.mktemp("native_dev"),
+                                      jax_run, NATIVE4 + RANK_DEVICES)
+    return report, losses, dict(native_devices.routes)
+
+
 def port_run(tmp_path, ref, extra):
     from repro_torch.launch import train as launch
     from repro_torch.launch.serve import make_config
@@ -152,14 +192,16 @@ def replicas(report):
 
 RANK_DEVICES = ["--rank-devices", "cpu,cpu,cpu,cpu"]
 USER4 = ["--devices", "4", "--mesh", "4x1", "--collective-backend", "user"]
+NATIVE4 = ["--devices", "4", "--mesh", "4x1", "--collective-backend",
+           "native"]
 
 
-def test_rank_devices_equal_the_stacked_run_bit_for_bit(jax_run, tmp_path):
+def test_rank_devices_equal_the_stacked_run_bit_for_bit(user_run,
+                                                        user_devices_run):
     """A replica on each rank's device: the losses, and every replica's
     final parameters, equal the rank-stacked run's bit for bit."""
-    _, losses, final = port_run(tmp_path / "stacked", jax_run, USER4)
-    report, dev_losses = port_run_devices(tmp_path / "dev", jax_run,
-                                          USER4 + RANK_DEVICES)
+    _, losses, final = user_run
+    report, dev_losses = user_devices_run
     assert dev_losses == losses
     got = replicas(report)
     assert got.keys() == final.keys()
@@ -171,12 +213,11 @@ def test_rank_devices_equal_the_stacked_run_bit_for_bit(jax_run, tmp_path):
     assert len(report.trainer.reduce_issue_s) == STEPS
 
 
-def test_rank_devices_match_the_jax_launcher(jax_run, tmp_path):
+def test_rank_devices_match_the_jax_launcher(jax_run, user_devices_run):
     """The ``--rank-devices`` run against the JAX launcher's
     ``--devices 4 --collective-backend user``: losses within 1e-5, every
     replica's parameters within ``PARAM_TOL``."""
-    report, losses = port_run_devices(tmp_path, jax_run,
-                                      USER4 + RANK_DEVICES)
+    report, losses = user_devices_run
     np.testing.assert_allclose(losses, jax_run["losses"], **TOL)
     want = {k[len("final/"):]: v for k, v in jax_run.items()
             if k.startswith("final/")}
@@ -220,16 +261,23 @@ def port_run_devices(tmp_path, ref, extra):
 
 
 @pytest.mark.parametrize("extra,what", [
-    (["--fsdp", "--collective-backend", "native"],
-     "needs --collective-backend user"),
     (["--pipeline", "gpipe", "--mesh", "2x2"], "data dim 1"),
     (["--rank-devices", "cpu,cpu"], "names 2 device.s. for 4"),
-    (["--collective-backend", "native"], "needs --collective-backend user"),
     (["--mesh", "2x2", "--elastic"], "--collective-backend user on a 2-D "
                                      "mesh requires --fsdp"),
-], ids=["fsdp", "pipeline", "length", "native", "model-axis-elastic"])
-def test_rank_devices_refuses_what_waits_for_later_slices(tmp_path, extra,
-                                                          what):
+    (["--collective-backend", "native", "--chaos-kill", "1"],
+     "require --collective-backend user"),
+    (["--collective-backend", "native", "--fsdp", "--microbatches", "2"],
+     "does not compose"),
+    (["--collective-backend", "native", "--fsdp", "--cast-bf16"],
+     "does not compose"),
+    (["--collective-backend", "native", "--microbatches", "4"],
+     "does not split into 4 microbatch"),
+], ids=["pipeline", "length", "model-axis-elastic", "native-elastic",
+        "native-fsdp-microbatches", "native-fsdp-cast-bf16",
+        "native-microbatches-split"])
+def test_rank_devices_refuses_what_the_jax_launcher_refuses(tmp_path, extra,
+                                                            what):
     from repro_torch.launch import train as launch
     argv = ARGV + ["--device", "cpu", "--ckpt-dir", str(tmp_path),
                    "--devices", "4", "--collective-backend", "user",
@@ -238,13 +286,101 @@ def test_rank_devices_refuses_what_waits_for_later_slices(tmp_path, extra,
         launch.run(launch.build_parser().parse_args(argv))
 
 
-def test_user_backend_matches_the_jax_launcher(jax_run, tmp_path):
+def plain_native_run(ref):
+    """The native per-device step as a plain composition on the CPU, the
+    launcher's batches, schedule and weights: each step the stacked
+    ``make_rank_grads`` gradients ``[4, ...]`` summed over the rank dim
+    and multiplied by 1/4, then ``optimizer.apply``; (losses, final)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models import bridge
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import optimizer as opt
+    args = launch.build_parser().parse_args(ARGV)
+    cfg = make_config(args.arch, args.scale).with_overrides(dtype="float32")
+    params = bridge.params_from_numpy(unflatten(ref, "init"), device="cpu")
+    state = opt.init(params)
+    ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=10)
+    grad_fn = launch.make_rank_grads(cfg, 4)
+    it = iter(SyntheticLM(cfg.vocab_size, args.seq, args.global_batch,
+                          seed=5))
+    losses = []
+    for _ in range(STEPS):
+        batch = {k: torch.from_numpy(v.copy()) for k, v in next(it).items()}
+        mets, grads = grad_fn(params, batch)
+        mean = tree_map(lambda g: g.sum(0) * (1.0 / 4), grads)
+        params, state, _ = opt.apply(ocfg, state, params, mean)
+        losses.append(mets["loss"].mean().item())
+    return losses, {"/".join(p): t.detach().numpy()
+                    for p, t in tree_leaves(params)}
+
+
+def test_native_rank_devices_equal_the_plain_composition(jax_run,
+                                                         native_devices_run):
+    """``--collective-backend native --rank-devices cpu,cpu,cpu,cpu``: the
+    losses and every replica's final parameters equal the plain
+    composition's bit for bit (the ranks' sum in rank order on rank 0's
+    device is the stacked sum over dim 0), the replicas equal to each
+    other; every reduction took the ordered route."""
+    report, losses, routes = native_devices_run
+    want_losses, want = plain_native_run(jax_run)
+    assert losses == want_losses and len(losses) == STEPS
+    got = replicas(report)
+    assert got.keys() == want.keys()
+    for k, reps in got.items():
+        assert len(reps) == 4
+        for r, v in enumerate(reps):
+            np.testing.assert_array_equal(v, want[k], err_msg=f"{k} {r}")
+    assert routes["nccl"] == 0 and routes["ordered"] == STEPS * len(got)
+    assert report.reducer is None
+    assert report.trainer.cfg.collective_backend == "native"
+
+
+def test_native_rank_devices_match_the_jax_launcher(jax_run,
+                                                    native_devices_run):
+    """The native per-device run against the JAX launcher's: losses
+    within 1e-5, every replica's parameters within ``PARAM_TOL``."""
+    report, losses, _ = native_devices_run
+    np.testing.assert_allclose(losses, jax_run["losses"], **TOL)
+    want = {k[len("final/"):]: v for k, v in jax_run.items()
+            if k.startswith("final/")}
+    for k, reps in replicas(report).items():
+        for v in reps:
+            np.testing.assert_allclose(v, want[k], err_msg=k, **PARAM_TOL)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_native_rank_devices_hold_the_stacked_native_run(
+        jax_run, native_devices_run, tmp_path, microbatches):
+    """The native per-device run (with ``--microbatches 2``: each rank its
+    share of each microbatch, ``make_row_grads``) against the port's
+    stacked native run with the same flags: losses within 1e-5, the
+    replicas equal to each other bit for bit and within 1e-5 of the
+    stacked run's parameters."""
+    mb = ["--microbatches", str(microbatches)]
+    _, want_losses, want = port_run(tmp_path / "stacked", jax_run,
+                                    NATIVE4 + mb)
+    if microbatches == 1:
+        report, losses, _ = native_devices_run
+    else:
+        report, losses = port_run_devices(tmp_path / "dev", jax_run,
+                                          NATIVE4 + mb + RANK_DEVICES)
+    assert len(losses) == STEPS
+    np.testing.assert_allclose(losses, want_losses, **TOL)
+    got = replicas(report)
+    assert got.keys() == want.keys()
+    for k, reps in got.items():
+        for v in reps:
+            np.testing.assert_array_equal(v, reps[0], err_msg=k)
+        np.testing.assert_allclose(reps[0], want[k], err_msg=k, **TOL)
+
+
+def test_user_backend_matches_the_jax_launcher(jax_run, user_run):
     """``--devices 4 --collective-backend user``: the JAX launcher's
     per-step losses within 1e-5, its final parameters within
     ``PARAM_TOL``."""
-    report, losses, final = port_run(
-        tmp_path, jax_run, ["--devices", "4", "--mesh", "4x1",
-                            "--collective-backend", "user"])
+    report, losses, final = user_run
     assert jax_run["steps"].tolist() == list(range(STEPS))
     np.testing.assert_allclose(losses, jax_run["losses"], **TOL)
     want = {k[len("final/"):]: v for k, v in jax_run.items()
@@ -257,14 +393,13 @@ def test_user_backend_matches_the_jax_launcher(jax_run, tmp_path):
     assert len(report.trainer.reduce_issue_s) == STEPS
 
 
-def test_user_backend_matches_the_native_single_rank_run(jax_run, tmp_path):
+def test_user_backend_matches_the_native_single_rank_run(user_run,
+                                                        native_run):
     """The port's 4-rank user-backend run against its own native run of
     the whole batch on one rank: the same losses and parameters within
     1e-5 (the mean of four per-rank gradients is the batch gradient)."""
-    _, losses, final = port_run(tmp_path / "user", jax_run, [
-        "--devices", "4", "--collective-backend", "user"])
-    report, native_losses, native = port_run(tmp_path / "native", jax_run,
-                                             [])
+    _, losses, final = user_run
+    report, native_losses, native = native_run
     assert report.reducer is None
     assert report.trainer.cfg.collective_backend == "native"
     np.testing.assert_allclose(losses, native_losses, **TOL)

@@ -21,9 +21,12 @@ ranks, and a two-term sum is the same in any order; the all-gather only
 copies).
 
 With a device per rank (``devices=["cpu"] * n``, n in {2, 4}; the child
-also runs the (4,1) trajectory) the shards, the user trajectory, the
-launcher's run and its checkpoint files equal the rank-stacked form's bit
-for bit, and so hold the JAX reference within the same limits; the child
+also runs the (4,1) trajectory) the shards, the user and native
+trajectories, the launcher's runs on both backends and their checkpoint
+files equal the rank-stacked form's bit for bit, and so hold the JAX
+reference within the same limits (the native pair there is
+``collectives.native_devices``, held against JAX's ``psum_scatter`` /
+``all_gather`` on int32 too); the child
 also gives JAX's ``NamedSharding.devices_indices_map`` on a 2x2 mesh,
 which ``reshard_restore`` onto a per-device 2x2 mesh must place."""
 import json
@@ -340,10 +343,10 @@ def assert_copies_equal(leaves):
 
 def _port_trajectory(ref, dd, mm, user, tmp_path, per_device=False):
     """10 FSDP steps of the port on a (dd, mm) mesh (``per_device``: a
-    device per rank, ``["cpu"] * (dd * mm)``, user only): losses, final
-    params, the reducer (user) or None.  A per-device run checks after
-    every step that each copy of a block (a model axis) equals its
-    leader's, the shards' and the moments'.  The runs are deterministic, so each
+    device per rank, ``["cpu"] * (dd * mm)``): losses, final params, the
+    reducer (user) or None.  A per-device run checks after every step
+    that each copy of a block (a model axis) equals its leader's, the
+    shards' and the moments'.  The runs are deterministic, so each
     rank-stacked one runs once in this module and is kept."""
     key = (dd, mm, user)
     if not per_device and key in _TRAJECTORIES:
@@ -388,6 +391,8 @@ def _run_trajectory(ref, dd, mm, user, tmp_path, per_device):
             smets, fg = grad_fn(ag_fn(shards), b)
             shards, state, m = apply_fn(shards, state, rs_fn(fg), smets)
             losses.append(m["loss"].item())
+            if per_device:
+                assert_copies_equal([*shards, *state.mu, *state.nu])
         return losses, layout.unshard_params(shards), None
 
     class ListPipe:
@@ -553,15 +558,20 @@ def test_user_trajectory_per_device_equals_the_stacked_one(ref, dd,
                                    err_msg=k, **PARAM_TOL)
 
 
-def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path):
-    """``launch.train --devices 4 --fsdp --collective-backend user
-    --rank-devices cpu,cpu,cpu,cpu``: the stacked run's losses bit for
-    bit, the shards ``RankShards`` blocks with a replica step counter on
-    every rank's device, and the last checkpoint's files equal the
-    stacked run's byte for byte; it restores equal."""
+@pytest.mark.parametrize("backend", ["user", "native"])
+def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path,
+                                                           backend):
+    """``launch.train --devices 4 --fsdp --collective-backend {user,native}
+    --rank-devices cpu,cpu,cpu,cpu``: the stacked run's losses on the same
+    backend bit for bit, the shards ``RankShards`` blocks with a replica
+    step counter on every rank's device, and the last checkpoint's files
+    equal the stacked run's byte for byte; it restores equal.  The native
+    pair took the ordered route (ranks on the CPU): four ranks' sums in
+    rank order are the stacked sums over the rank dim."""
     import contextlib
     import io
 
+    from repro_torch.collectives import native_devices
     from repro_torch.collectives.rank_shards import RankShards
     from repro_torch.launch import train as launch
     runs = {}
@@ -570,10 +580,16 @@ def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path):
         args = launch.build_parser().parse_args([
             "--device", "cpu", "--scale", "tiny", "--steps", "3",
             "--global-batch", "8", "--seq", "16", "--devices", "4",
-            "--fsdp", "--collective-backend", "user",
+            "--fsdp", "--collective-backend", backend,
             "--ckpt-dir", str(tmp_path / name)] + extra)
+        native_devices.reset_routes()
         with contextlib.redirect_stdout(io.StringIO()):
             runs[name] = launch.run(args, log_every=1)
+    layout = runs["dev"].layout
+    assert native_devices.routes == {
+        "nccl": 0, "ordered": 3 * 2 * layout.num_buckets
+        if backend == "native" else 0}
+    assert (runs["dev"].reducer is None) == (backend == "native")
     a, b = runs["stacked"], runs["dev"]
     assert [m["loss"] for m in b.log] == [m["loss"] for m in a.log]
     tr = b.trainer
@@ -595,6 +611,76 @@ def test_launcher_rank_devices_fsdp_equals_the_stacked_run(tmp_path):
                                                       t.to_stacked("cpu"))
     assert got["opt_state"].step.replica
     assert [int(x) for x in got["opt_state"].step] == [3] * 4
+
+
+def test_native_trajectory_per_device_on_a_model_axis(ref, tmp_path):
+    """The native FSDP step on a 2x2 mesh with a device per rank
+    (``["cpu"] * 4``: the pair of ``collectives.native_devices`` over the
+    two leaders, the ordered route): the losses and final parameters of
+    the rank-stacked native (2, 2) trajectory bit for bit (a two-term sum
+    is the same in any order), every copy its leader's after every step,
+    and so the JAX native FSDP reference on (2, 2) within
+    ``LOSS_TOL``/``PARAM_TOL``.  Four ranks' sums in rank order are held
+    bit for bit by the launcher's native run below."""
+    stacked, s_final, _ = _port_trajectory(ref, 2, 2, False, tmp_path)
+    losses, final, _ = _port_trajectory(ref, 2, 2, False, tmp_path,
+                                        per_device=True)
+    assert losses == stacked
+    got, want = flat_numpy(final), flat_numpy(s_final)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(losses, ref["traj/2x2/losses"], **LOSS_TOL)
+    for k in want:
+        np.testing.assert_allclose(got[k], ref[f"traj/2x2/final/{k}"],
+                                   err_msg=k, **PARAM_TOL)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_native_pair_per_device_matches_jax_int32(ref, n):
+    """``native_reduce_scatter`` / ``native_all_gather`` /
+    ``native_allreduce`` over ``RankShards`` on ``["cpu"] * n`` against
+    JAX's ``psum_scatter`` / ``all_gather`` on int32, bit for bit (the
+    allreduce's every rank the whole sum), each result on its rank's
+    device, the inputs unchanged; and the per-device ``ag_fn``/``rs_fn``
+    of ``build_fsdp_programs`` likewise."""
+    from repro_torch.collectives import native_devices as ND
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_fsdp_programs
+    g = torch.from_numpy(ref[f"coll/{n}/g"])
+    sh = torch.from_numpy(ref[f"coll/{n}/sh"])
+    mesh = make_mesh((n, 1), ("data", "model"), devices=["cpu"] * n)
+    gs, shs = RankShards.from_stacked(g, mesh), RankShards.from_stacked(sh,
+                                                                        mesh)
+    ND.reset_routes()
+    rs = ND.native_reduce_scatter(gs)
+    ag = ND.native_all_gather(shs)
+    ar = ND.native_allreduce(gs)
+    assert ND.routes == {"nccl": 0, "ordered": 3}
+    np.testing.assert_array_equal(torch.stack(rs.shards).numpy(),
+                                  ref[f"coll/{n}/rs"])
+    np.testing.assert_array_equal(torch.stack(ag.shards).numpy(),
+                                  ref[f"coll/{n}/ag"])
+    for s in ar.shards:
+        np.testing.assert_array_equal(s[0].numpy(),
+                                      ref[f"coll/{n}/rs"].reshape(-1))
+    assert ar.replica and ag.replica and not rs.replica
+    assert torch.equal(gs.to_stacked("cpu"), g)
+    assert torch.equal(shs.to_stacked("cpu"), sh)
+
+    class Layout:
+        widths = [8 * n]
+    Layout.n = n
+    _, _, ag_fn, rs_fn = build_fsdp_programs(None, None, mesh, Layout)
+    got = rs_fn([gs])[0]
+    assert got.devices == mesh.devices and got[0].shape == (1, 8)
+    np.testing.assert_array_equal(got.to_stacked("cpu").numpy(),
+                                  ref[f"coll/{n}/rs"])
+    full = ag_fn([shs])[0]
+    assert full[0].shape == (1, 6 * n)
+    np.testing.assert_array_equal(full.to_stacked("cpu").numpy(),
+                                  ref[f"coll/{n}/ag"])
 
 
 def test_user_trajectory_per_device_on_a_model_axis(ref, tmp_path):

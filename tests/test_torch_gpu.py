@@ -1494,3 +1494,125 @@ def test_launcher_moe_group_across_rows_on_the_card(cuda, tmp_path,
     assert len(losses["devices"]) == 3
     for a, b in zip(losses["devices"], losses["stacked"]):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+# ---------------------------------------------------------------------------
+# the native backend with a device per rank: NCCL on distinct cards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_nccl_collectives_equal_the_plain_sum(cuda, n):
+    """``native_devices``' allreduce, reduce-scatter and all-gather of
+    int32 shards on n distinct cards take the NCCL route and equal the
+    plain sum, its blocks and the concatenation exactly, each result on
+    its rank's card; the ordered route on the same shards gives the same
+    values; the f32 mean is the sum times 1/n."""
+    from repro_torch.collectives import native_devices as ND
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch.mesh import make_mesh
+    devices = _rank_devices(n, True)
+    mesh = make_mesh((n,), ("x",), devices=devices)
+    gen = torch.Generator().manual_seed(20 + n)
+    x = torch.randint(-1000, 1000, (n, 24 * n), generator=gen,
+                      dtype=torch.int32)
+    xs = RankShards.from_stacked(x, mesh).map(lambda t: t[0])
+    ND.warm(devices)
+    ND.reset_routes()
+    ar = ND.native_allreduce(xs)
+    rs = ND.native_reduce_scatter(xs)
+    ag = ND.native_all_gather(xs)
+    assert ND.routes == {"nccl": 3, "ordered": 0}
+    total = x.sum(0, dtype=torch.int32)
+    for r, d in enumerate(devices):
+        for got in (ar, rs, ag):
+            assert got[r].device == torch.device(d)
+        assert torch.equal(ar[r].cpu(), total)
+        assert torch.equal(rs[r].cpu(), total.view(n, -1)[r])
+        assert torch.equal(ag[r].cpu(), x.reshape(-1))
+    assert torch.equal(ND.plain_allreduce(xs)[n - 1].cpu(), total)
+    assert torch.equal(ND.plain_reduce_scatter(xs).to_stacked("cpu"),
+                       total.view(n, -1).reshape(-1))
+    assert torch.equal(xs.to_stacked("cpu"), x.reshape(-1))
+    f = RankShards.from_stacked(torch.randn(n, 1000, generator=gen),
+                                mesh).map(lambda t: t[0])
+    mean = ND.native_allreduce(f, mean=True)
+    want = f.to_stacked("cpu").view(n, -1).sum(0) * (1.0 / n)
+    for s in mean.shards:
+        torch.testing.assert_close(s.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
+def test_native_rank_devices_without_nccl_exit(cuda, tmp_path, monkeypatch,
+                                               fsdp):
+    """``launch.train --collective-backend native --rank-devices
+    cuda:0,cuda:1`` (DP, and ``--fsdp``) with NCCL reported unavailable:
+    the launcher exits naming the cards, before any step; nothing was
+    summed by copies (no native call, no send)."""
+    import torch.cuda.nccl as nccl
+
+    from repro_torch.collectives import native_devices as ND
+    from repro_torch.collectives import rank_shards
+    from repro_torch.launch import train as launch
+    _rank_devices(2, True)
+    monkeypatch.setattr(nccl, "is_available", lambda tensors: False)
+    ND.reset_routes()
+    rank_shards.reset_transfers()
+    args = launch.build_parser().parse_args(
+        ["--scale", "tiny", "--steps", "2", "--global-batch", "8", "--seq",
+         "64", "--devices", "2", "--collective-backend", "native",
+         "--rank-devices", "cuda:0,cuda:1", "--ckpt-dir", str(tmp_path)]
+        + (["--fsdp"] if fsdp else []))
+    with pytest.raises(SystemExit,
+                       match="NCCL is not available for cuda:0, cuda:1"):
+        launch.run(args)
+    assert ND.routes == {"nccl": 0, "ordered": 0}
+    assert rank_shards.transfers["sends"] == 0
+
+
+@pytest.mark.parametrize("distinct", [False, True],
+                         ids=["cuda0-repeated", "distinct-cards"])
+@pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
+def test_native_rank_devices_short_run(cuda, tmp_path, distinct, fsdp):
+    """``launch.train --devices 4 --collective-backend native
+    --rank-devices ...`` (smollm-360m at its tiny scale in f32, 3 steps):
+    every card's replica (DP) or block (FSDP) where it belongs, the DP
+    replicas equal bit for bit; the route NCCL on distinct cards, the
+    ordered sum on cuda:0 repeated; every step's loss within 1e-5 of the
+    stacked native run's (FSDP on cuda:0 repeated: bit for bit)."""
+    from repro_torch.collectives import native_devices as ND
+    from repro_torch.collectives.rank_shards import RankShards
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.serve import make_config
+    from repro_torch.models.layers import tree_leaves
+    devices = _rank_devices(4, distinct)
+    runs, calls = {}, None
+    for name, extra in (("stacked", []),
+                        ("devices", ["--rank-devices", ",".join(devices)])):
+        args = launch.build_parser().parse_args(
+            ["--scale", "tiny", "--steps", "3", "--global-batch", "8",
+             "--seq", "64", "--devices", "4", "--collective-backend",
+             "native", "--ckpt-dir", str(tmp_path / name)]
+            + (["--fsdp"] if fsdp else []) + extra)
+        cfg = make_config(args.arch, args.scale).with_overrides(
+            dtype="float32")
+        ND.reset_routes()
+        runs[name] = launch.run(args, config=cfg, log_every=1)
+        calls = dict(ND.routes)
+    route = "nccl" if distinct else "ordered"
+    assert calls[route] > 0 and sum(calls.values()) == calls[route]
+    a, b = runs["stacked"], runs["devices"]
+    got, want = [m["loss"] for m in b.log], [m["loss"] for m in a.log]
+    assert len(got) == 3
+    if fsdp and not distinct:
+        assert got == want
+    for x, y in zip(got, want):
+        assert abs(x - y) <= 1e-5 * abs(y)
+    tr = b.trainer
+    leaves = list(tr.params) if fsdp else \
+        [t for _, t in tree_leaves(tr.params)]
+    for leaf in leaves:
+        assert isinstance(leaf, RankShards)
+        assert [str(d) for d in leaf.devices] == devices
+        if not fsdp:
+            for s in leaf.shards[1:]:
+                assert torch.equal(s.to("cuda:0"), leaf.shards[0].to("cuda:0"))
